@@ -1,0 +1,488 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py [--out results.json]
+
+Run from the repository root on a machine with one card, ``nvcc`` (under
+``$CUDA_HOME`` or ``/usr/local/cuda``) and ``g++``.  Every phase must pass
+or the script exits non-zero:
+
+1. device: the card's name and its ``nvidia-smi`` name and power limit;
+2. build: the Hopper paged-attention kernel (nvcc, sm_90a) and the C++
+   batcher core, from the sources in this checkout, timed;
+3. kernel: ``paged_attention`` on the card against its plain PyTorch
+   version at the Llama-3-8B decode shapes (B=8, Hq=32, Hkv=8, hd=128,
+   page 32, 64 pages per slot), bf16 and int8 pools, K = 1 and 5, ragged
+   lengths with an idle slot, partial last pages and a full 2048-token slot;
+   times of the kernel, the plain version, ``scaled_dot_product_attention``
+   over the already-gathered cache (a yardstick the port never calls) and
+   the device-memory bound;
+4. decode: one full-width Llama-3-8B ``decode_step`` with ``paged=True``
+   against ``paged=False`` (the gather path) on the same pool state;
+5. main path: ``model.init(llama3_8b)`` -> ``Engine`` -> ``JetStreamModel``
+   -> ``ModelServer`` on 127.0.0.1 answering 4 concurrent
+   ``/v2/models/llama3-8b/generate`` requests (two long enough for the
+   chunked prefill), checked for 32 tokens each, for the paged kernel's
+   launches (counted from zero for this run), for leaked KV pages and
+   against the ``forward_full`` oracle; TTFT and tokens/s;
+6. profile: one main-path decode step (8 slots, the served lengths), paged
+   and gather in turns on the host clock, and a torch.profiler window for
+   device busy time by kernel family and the device's idle share.
+
+The last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
+line and ``{"ok": true, "device": {...}}``.  Weights are random (seed 0) at
+full width and depth.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+import traceback
+import urllib.request
+
+import numpy as np
+import torch
+
+from kubeflow_tpu_torch.serving.engine import model as M
+from kubeflow_tpu_torch.serving.engine import paged_attention as PA
+from kubeflow_tpu_torch.serving.engine.engine import Engine, EngineConfig
+from kubeflow_tpu_torch.serving.engine.native import load_library
+from kubeflow_tpu_torch.serving.engine.serve import JetStreamModel
+from kubeflow_tpu_torch.serving.server import ModelServer
+
+# NVIDIA's H100 SXM data sheet: HBM3 bandwidth and dense bf16 tensor rate
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+
+# Llama-3-8B decode shapes on the engine's default geometry
+B, HQ, HKV, HD, PS, MAX_PAGES, POOL_PAGES = 8, 32, 8, 128, 32, 64, 512
+# a full 2048-token slot, an idle slot, one token, partial last pages and an
+# exact page boundary
+SEQ_LENS = [2048, 0, 1, 31, 32, 33, 700, 1500]
+# kernel vs plain: both compute in f32 and round the output to bf16, so they
+# differ by at most one bf16 ulp of the output (2**-7 relative, 2**-8 in the
+# best case); atol covers outputs near zero
+KERNEL_RTOL, KERNEL_ATOL = 2.0 ** -7, 1e-3
+# decode_step paged vs gather, rtol = atol = decode_tol(depth).  The gather
+# path rounds the softmax probabilities to bf16 before the PV product (as the
+# JAX package does); the kernel keeps them in f32.  Each layer adds one such
+# rounding difference to the residual stream, so the logits drift apart with
+# depth like a random walk: the reference's 5e-2 (tests/test_engine.py:231;
+# :375 holds its two paths at 2e-2 over 2 layers) at 2 layers, scaled by
+# sqrt(depth / 2).  The phase checks depths 2, 8 and 32 of the same weights,
+# so the growth is on record beside the verdict.
+DECODE_DEPTHS = (2, 8, 32)
+
+
+def decode_tol(depth: int) -> float:
+    return 5e-2 * (depth / 2) ** 0.5
+
+
+# the served tokens against forward_full: a token passes when its oracle
+# logit is within this of the oracle max (tie-aware greedy: the engine's
+# bucketed/chunked prefill and paged decode round bf16 elsewhere than the
+# full forward, and a near-tie may legally flip); the same depth-32 drift
+ORACLE_TIE_EPS = decode_tol(32)
+MAX_TOKENS = 32
+N_WARM, N_TIMED = 3, 20
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True, text=True,
+                       timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, flush: torch.Tensor) -> float:
+    """Mean device time of ``fn`` over N_TIMED launches, each timed with CUDA
+    events after writing a buffer larger than the L2 cache, so every launch
+    finds its inputs in device memory as a decode step over 32 layers does."""
+    for _ in range(N_WARM):
+        fn()
+    total = 0.0
+    for _ in range(N_TIMED):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / N_TIMED
+
+
+# ----------------------------------------------------------------- phase 3
+
+
+def kernel_case(quant, K, rng, dev, flush) -> dict:
+    P = POOL_PAGES
+    q = torch.from_numpy(rng.standard_normal((B, K, HQ, HD), dtype=np.float32)).to(
+        dev, torch.bfloat16)
+
+    def pool():
+        x = torch.from_numpy(rng.standard_normal((P, HKV, PS, HD), dtype=np.float32)).to(
+            dev, torch.bfloat16)
+        if quant is None:
+            return x
+        qv, s = M._quantize_kv(x)
+        return {"q": qv, "s": s}
+
+    k_pool, v_pool = pool(), pool()
+    table = torch.from_numpy(rng.integers(1, P, (B, MAX_PAGES)).astype(np.int32)).to(dev)
+    lens = torch.tensor(SEQ_LENS, dtype=torch.int32, device=dev)
+    args = (q, k_pool, v_pool, table, lens, PS)
+
+    out = PA.paged_attention(*args)
+    ref = PA.paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    ok = bool(torch.all(err <= KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()))
+    idle_zero = bool(torch.all(out[1] == 0)) if K == 1 else True
+
+    # the yardstick: one library call over the already-gathered cache
+    kc = M.pool_get(k_pool, table.long()).permute(0, 2, 1, 3, 4).reshape(B, HKV, -1, HD)
+    vc = M.pool_get(v_pool, table.long()).permute(0, 2, 1, 3, 4).reshape(B, HKV, -1, HD)
+    T = kc.shape[2]
+    pos = torch.arange(T, device=dev)
+    draft = torch.arange(K, device=dev)
+    mask = (pos[None, None, :] < lens.long()[:, None, None] + draft[None, :, None])[:, None]
+    qs = q.transpose(1, 2)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qs, kc, vc, attn_mask=mask, enable_gqa=True)
+
+    try:
+        library()
+    except TypeError:  # a PyTorch without enable_gqa: expand the kv heads
+        kc = kc.repeat_interleave(HQ // HKV, dim=1)
+        vc = vc.repeat_interleave(HQ // HKV, dim=1)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qs, kc, vc, attn_mask=mask)
+
+    kernel_ms = time_ms(lambda: PA.paged_attention(*args), flush)
+    plain_ms = time_ms(lambda: PA.paged_attention_plain(*args), flush)
+    library_ms = time_ms(library, flush)
+
+    # the bound: each input read once, each output written once, with only
+    # the pages this run's lengths visit; operations of QK^T and PV
+    pages = [min(MAX_PAGES, max(0, -(-(s + K - 1) // PS))) for s in SEQ_LENS]
+    tok_bytes = HD * (1 if quant else 2) + (2 if quant else 0)  # + bf16 scale
+    kv_bytes = 2 * sum(pages) * HKV * PS * tok_bytes
+    io_bytes = 2 * q.numel() * 2 + table.numel() * 4 + lens.numel() * 4
+    flops = sum(pages) * PS * 4 * HD * K * HQ
+    bound_ms = max((kv_bytes + io_bytes) / HBM_BYTES_PER_S,
+                   flops / BF16_FLOPS_PER_S) * 1e3
+    return {"pool": quant or "bf16", "K": K, "max_abs_err": float(err.max()),
+            "ok": ok and idle_zero, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": ("bytes" if (kv_bytes + io_bytes) / HBM_BYTES_PER_S
+                         >= flops / BF16_FLOPS_PER_S else "operations"),
+            "visited_kv_bytes": kv_bytes}
+
+
+# ----------------------------------------------------------------- phase 4
+
+
+def decode_parity(params, cfg, dev) -> dict:
+    """decode_step paged vs gather on one pool state, at the first 2, 8 and
+    all 32 layers of the same full-width weights."""
+    mp, P = 8, B * 8 + 1
+    rng = np.random.default_rng(1)
+    table = torch.arange(1, P, dtype=torch.int32, device=dev).reshape(B, mp)
+    lens = torch.tensor([256, 0, 1, 33, 100, 200, 255, 17], dtype=torch.int32, device=dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, B).astype(np.int32)).to(dev)
+    live = lens > 0
+    out = {"ok": True, "depths": {}}
+    for depth in DECODE_DEPTHS:
+        c = dataclasses.replace(cfg, n_layers=depth)
+        p = {k: (v[:depth] if v.dim() >= 2 and v.shape[0] == cfg.n_layers
+                 and k not in ("embed", "unembed") else v) for k, v in params.items()}
+        shape = (depth, P, cfg.n_kv_heads, PS, cfg.head_dim)
+        g = torch.Generator(device=dev).manual_seed(1)
+        k0 = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        v0 = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        lg, _, _ = M.decode_step(p, c, toks, lens, table, k0.clone(), v0.clone())
+        lp, _, _ = M.decode_step(p, c, toks, lens, table, k0, v0, paged=True)
+        a, b = lp[live], lg[live]
+        err = (a - b).abs()
+        tol = decode_tol(depth)
+        ok = bool(torch.isfinite(a).all()) and bool(torch.all(err <= tol + tol * b.abs()))
+        out["depths"][depth] = {
+            "ok": ok, "tol": tol, "max_abs_err": float(err.max()),
+            "logit_std": float(b.std()),
+            "argmax_agree": f"{int((a.argmax(-1) == b.argmax(-1)).sum())}/{int(live.sum())}"}
+        out["ok"] = out["ok"] and ok
+    return out
+
+
+# ----------------------------------------------------------------- phase 5
+
+TEXT = ("Kubeflow serves Llama-3-8B on one H100: requests enter through the "
+        "model server, queue in the C++ batcher, prefill in buckets or chunks, "
+        "and decode over the paged KV pool. ")
+PROMPTS = [TEXT[:60], TEXT[:150], (TEXT * 3)[:300], (TEXT * 5)[:600]]
+
+
+def post(port: int, body: dict) -> tuple:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v2/models/llama3-8b/generate",
+        data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, json.loads(r.read())
+
+
+def main_path(params, cfg, dev) -> dict:
+    ec = EngineConfig()
+    engine = Engine(params, cfg, ec, device=dev)
+    model = JetStreamModel("llama3-8b", engine=engine)
+    server = ModelServer([model], port=0, host="127.0.0.1")
+    server.start()
+    try:
+        # one warm-up request (first cuBLAS handles, allocator growth) before
+        # the counted run
+        status, _ = post(server.port, {"text_input": "warm up",
+                                       "parameters": {"max_tokens": 4}})
+        assert status == 200
+        base_steps = engine.stats["decode_steps"]
+        PA.paged_attention.launches = 0
+        results: list = [None] * len(PROMPTS)
+
+        def run(i):
+            results[i] = post(server.port, {"text_input": PROMPTS[i],
+                                            "parameters": {"max_tokens": MAX_TOKENS}})
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(PROMPTS))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = PA.paged_attention.launches
+        steps = engine.stats["decode_steps"] - base_steps
+        deadline = time.monotonic() + 30
+        while engine.stats["active_slots"] and time.monotonic() < deadline:
+            time.sleep(0.01)
+        stats = engine.stats
+        ok = all(r is not None and r[0] == 200 and r[1]["tokens"] == MAX_TOKENS
+                 for r in results)
+        leaked = ec.num_pages - 1 - stats["free_pages"] - stats["cached_pages"]
+        out = {"ok": ok and leaked == 0 and launches >= cfg.n_layers * steps > 0,
+               "statuses": [r[0] if r else None for r in results],
+               "tokens": [r[1]["tokens"] if r else None for r in results],
+               "prompt_bytes": [len(p) for p in PROMPTS],
+               "launches": launches, "decode_steps": steps,
+               "leaked_pages": leaked,
+               "prefill_dispatches": stats["prefill_dispatches"],
+               "ttft_s": [r[1]["ttft_s"] if r else None for r in results],
+               "wall_s": wall,
+               "tokens_per_s": sum(MAX_TOKENS for r in results if r) / wall}
+        if not ok:
+            return out
+        # the served tokens against the repo's oracle, forward_full on the
+        # prompt + generation of the shortest request
+        ids = list(PROMPTS[0].encode())
+        got = results[0][1]["token_ids"]
+        with torch.inference_mode():
+            logits = M.forward_full(params, cfg, torch.tensor(
+                [ids + got[:-1]], device=dev))[0, len(ids) - 1:]
+        row_max = logits.max(-1).values
+        picked = logits[torch.arange(len(got), device=dev),
+                        torch.tensor(got, device=dev)]
+        lag = (row_max - picked).max().item()
+        out["oracle_max_logit_lag"] = lag
+        out["ok"] = out["ok"] and lag <= ORACLE_TIE_EPS
+        return out
+    finally:
+        server.stop()
+        engine.stop()
+
+
+# ----------------------------------------------------------------- phase 6
+
+
+def profile_decode(params, cfg, dev) -> dict:
+    """Where a main-path decode step's time goes: the engine's default pool
+    and 8 slots, the four served requests at their final lengths, paged and
+    gather steps timed on the host clock, then one torch.profiler window
+    over paged steps for device busy time by kernel family."""
+    ec = EngineConfig()
+    shape = (cfg.n_layers, ec.num_pages, cfg.n_kv_heads, ec.page_size, cfg.head_dim)
+    k_pool, v_pool = M.make_kv_pool(shape, device=dev), M.make_kv_pool(shape, device=dev)
+    lens = [len(p) + MAX_TOKENS for p in PROMPTS] + [0] * (ec.max_slots - len(PROMPTS))
+    table = torch.zeros((ec.max_slots, ec.max_pages_per_slot), dtype=torch.int32)
+    nxt = 1
+    for b, n in enumerate(lens):
+        pages = -(-n // ec.page_size)
+        table[b, :pages] = torch.arange(nxt, nxt + pages)
+        nxt += pages
+    table = table.to(dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    toks = torch.zeros(ec.max_slots, dtype=torch.int32, device=dev)
+
+    def steps(paged, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            M.decode_step(params, cfg, toks, lens_t, table, k_pool, v_pool, paged=paged)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    out = {"ok": True, "lens": lens}
+    for paged in (True, False, False, True):  # in turns on one card
+        steps(paged, 2)
+        out.setdefault("paged_step_ms" if paged else "gather_step_ms", []).append(
+            steps(paged, 10))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    n = 5
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        wall_ms = steps(True, n)
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        out["device_time"] = "not measured (the profiler recorded no device events)"
+        return out
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    fam: dict = {}
+    for e in kern:
+        name = e.name.lower()
+        key = ("paged_attention" if "paged_attention" in name else
+               "gemm" if any(t in name for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass")) else
+               "other")
+        fam[key] = fam.get(key, 0.0) + e.time_range.end - e.time_range.start
+    out.update({
+        "profiled_step_ms": wall_ms, "device_busy_ms_per_step": busy / n / 1e3,
+        "device_idle_share": max(0.0, 1 - busy / 1e3 / (wall_ms * n)),
+        "kernels_per_step": len(kern) / n,
+        "device_ms_per_step": {k: v / n / 1e3 for k, v in sorted(fam.items())}})
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None,
+                    help="also write every measured number to this JSON file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is False — this smoke run needs "
+              "an NVIDIA GPU", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    report: dict = {"phases": {}}
+    failed: list = []
+
+    def phase(name, fn):
+        log(f"== phase {name}")
+        t0 = time.perf_counter()
+        try:
+            res = fn()
+        except Exception:  # noqa: BLE001 — report the phase and go on
+            traceback.print_exc()
+            res = {"ok": False, "error": traceback.format_exc(limit=3)}
+        res["seconds"] = time.perf_counter() - t0
+        report["phases"][name] = res
+        log(json.dumps({name: res}, default=str))
+        if not res.get("ok", False):
+            failed.append(name)
+        return res
+
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    report["device"] = {"name": kind, "nvidia_smi": smi,
+                        "torch": torch.__version__, "cuda": torch.version.cuda}
+    log(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+
+    def build():
+        t0 = time.perf_counter()
+        PA.load_kernel()
+        t1 = time.perf_counter()
+        load_library()
+        return {"ok": True, "paged_attention_s": t1 - t0,
+                "core_s": time.perf_counter() - t1}
+
+    phase("build", build)
+
+    def kernels():
+        rng = np.random.default_rng(0)
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        cases = [kernel_case(quant, K, rng, dev, flush)
+                 for quant in (None, "int8") for K in (1, 5)]
+        return {"ok": all(c["ok"] for c in cases), "cases": cases}
+
+    kres = phase("kernel", kernels)
+
+    cfg = M.DecoderConfig.llama3_8b()
+    t0 = time.perf_counter()
+    params = M.init(cfg, dev, seed=0)
+    torch.cuda.synchronize()
+    log(f"init llama3_8b: {cfg.param_count() / 1e9:.2f}B params in "
+        f"{time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+
+    def decode():
+        with torch.inference_mode():
+            return decode_parity(params, cfg, dev)
+
+    phase("decode", decode)
+    mres = phase("main_path", lambda: main_path(params, cfg, dev))
+
+    def profile():
+        with torch.inference_mode():
+            return profile_decode(params, cfg, dev)
+
+    phase("profile", profile)
+
+    cases = kres.get("cases") or []
+    head = next((c for c in cases if c["pool"] == "bf16" and c["K"] == 1), {})
+    record = {"name": "paged_attention", "route": "cuda",
+              "source": "kubeflow_tpu_torch/serving/engine/csrc/paged_attention.cu",
+              "replaces": "kubeflow_tpu/serving/engine/paged_attention.py:58",
+              "tpu_kernel": "kubeflow_tpu/serving/engine/paged_attention.py:_kernel",
+              "launches": mres.get("launches", 0),
+              "max_abs_err": max((c["max_abs_err"] for c in cases), default=None),
+              "ms": head.get("kernel_ms"), "kernel_ms": head.get("kernel_ms"),
+              "plain_ms": head.get("plain_ms"), "bound_ms": head.get("bound_ms"),
+              "bound_by": head.get("bound_by"), "library_ms": head.get("library_ms")}
+    report["kernels"] = [record]
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1, default=str)
+    print(json.dumps({"kernels": [record]}), flush=True)
+    print(smi, flush=True)
+    if failed:
+        print(f"FAIL: phases {failed}", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,184 @@
+"""Paged attention over the KV page pool: a hand-written Hopper kernel.
+
+Counterpart of ``kubeflow_tpu/serving/engine/paged_attention.py``, whose
+Pallas TPU kernel ``_kernel`` this replaces.  The decode-step attention of
+the engine reads each slot's pages straight out of the pool instead of
+gathering them into a contiguous ``[B, T, Hkv, hd]`` cache first (the gather
+writes a full KV copy to device memory before attention reads it back).
+
+* ``paged_attention`` keeps the JAX signature and layout.  On CUDA tensors
+  it launches the CUDA C++ kernel in ``csrc/paged_attention.cu`` (built with
+  nvcc for sm_90a at first use, bound with ctypes, launched on PyTorch's
+  current stream) and counts the launch in ``paged_attention.launches``.  On
+  CPU tensors it runs ``paged_attention_plain``.  There is no fallback: a
+  CUDA call that cannot build or launch the kernel raises.
+* ``paged_attention_plain`` is the plain PyTorch version of the same
+  function (gather the pages, dense masked softmax with the same finite
+  ``NEG_INF``), the reference the kernel is held against on the card.
+
+Semantics shared by both (and by the TPU kernel): q ``[B, K, Hq, hd]``; query
+row r of K sees positions ``< seq_len + r``; pages at or past every row's
+horizon ``seq_len + K - 1`` are skipped; an idle K=1 slot (``seq_len == 0``)
+visits no page and returns zeros; a K>1 row that sees no position of the
+pages its slot visits averages V uniformly over those positions.  int8 pools
+(``{"q": int8, "s": bf16 [P, Hkv, ps, 1]}``) are dequantized per
+(page, head, token).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+from ...utils.native_build import load_cuda
+
+NEG_INF = -1e9
+
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                    "paged_attention.cu")
+# the card's shared memory a block may use (H100: 227 KB)
+_MAX_SMEM = 232448
+_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def load_kernel() -> ctypes.CDLL:
+    """Build (first use, keyed on the source hash) and bind the kernel."""
+    lib = load_cuda(_SRC, "paged_attention")
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.paged_attention_launch.restype = i32
+    lib.paged_attention_launch.argtypes = (
+        [p, i32, p, p, i32, p, p, p, p, p] + [i32] * 7 + [ctypes.c_float, p])
+    lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
+    lib.paged_attention_smem_bytes.argtypes = [i32, i32, i32]
+    lib.paged_attention_error_string.restype = ctypes.c_char_p
+    lib.paged_attention_error_string.argtypes = [i32]
+    return lib
+
+
+def _pool_parts(pool):
+    """(values, scales or None) of one layer's pool."""
+    if isinstance(pool, dict):
+        return pool["q"], pool["s"]
+    return pool, None
+
+
+def paged_attention_plain(q, k_pool, v_pool, page_table, seq_lens,
+                          page_size: int):
+    """Plain PyTorch version of ``paged_attention`` (any device).
+
+    Gathers every page of each slot's table row, masks positions a row
+    cannot see with ``NEG_INF`` and pages past the slot's furthest horizon
+    out entirely, then normalises exactly as the kernel's online softmax
+    does (max floored at ``NEG_INF``, sum floored at 1e-30), all in f32.
+    Returns ``[B, K, Hq, hd]`` in q's dtype."""
+    B, K, Hq, hd = q.shape
+    kq, _ = _pool_parts(k_pool)
+    Hkv = kq.shape[1]
+    group = Hq // Hkv
+    rows = K * group
+    MP = page_table.shape[1]
+    T = MP * page_size
+    dev = q.device
+    pt = page_table.long()
+
+    def gather(pool):
+        vals, scales = _pool_parts(pool)
+        x = vals[pt].float()                        # [B, MP, Hkv, ps, hd]
+        if scales is not None:
+            x = x * scales[pt].float()
+        return x.permute(0, 2, 1, 3, 4).reshape(B, Hkv, T, hd)
+
+    k = gather(k_pool)
+    v = gather(v_pool)
+    qg = ((q.float() * hd ** -0.5)
+          .reshape(B, K, Hkv, group, hd).permute(0, 2, 1, 3, 4)
+          .reshape(B, Hkv, rows, hd))
+    logits = qg @ k.transpose(-1, -2)               # [B, Hkv, rows, T]
+    pos = torch.arange(T, device=dev)
+    sl = seq_lens.to(dev).long()
+    qi = torch.arange(rows, device=dev) // group
+    visible = pos[None, None, :] < (sl[:, None, None] + qi[None, :, None])
+    visited = (pos // page_size * page_size)[None, :] < (sl + K - 1)[:, None]
+    logits = torch.where(visible[:, None], logits, NEG_INF)
+    m = (torch.where(visited[:, None, None], logits, float("-inf"))
+         .amax(-1, keepdim=True).clamp(min=NEG_INF))
+    p = torch.exp(logits - m) * visited[:, None, None]
+    out = (p @ v) / p.sum(-1, keepdim=True).clamp(min=1e-30)
+    return (out.reshape(B, Hkv, K, group, hd).permute(0, 2, 1, 3, 4)
+            .reshape(B, K, Hq, hd).to(q.dtype))
+
+
+def paged_attention(q, k_pool, v_pool, page_table, seq_lens, page_size: int):
+    """Attention for K query tokens per slot directly over the page pool.
+
+    q: [B, K, Hq, hd] bf16 or f32 — query 0 is the slot's current committed
+    token and rows 1..K-1 are draft tokens at the following positions.
+    seq_lens: [B] int32 counting committed tokens INCLUDING query 0's
+    position.  k_pool/v_pool: ONE layer's pool — [P, Hkv, page_size, hd]
+    (bf16 or f32) or the int8 ``{"q", "s"}`` dict.  page_table:
+    [B, max_pages] int32.  Returns [B, K, Hq, hd] in q's dtype.
+
+    CPU tensors run the plain version; CUDA tensors launch the Hopper
+    kernel (and count it in ``paged_attention.launches``) or raise."""
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pool, v_pool, page_table, seq_lens,
+                                     page_size)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    kq, ks = _pool_parts(k_pool)
+    vq, vs = _pool_parts(v_pool)
+    B, K, Hq, hd = q.shape
+    P, Hkv, ps, hd_kv = kq.shape
+    MP = page_table.shape[1]
+    if q.dtype not in _Q_DTYPES or kq.dtype not in _KV_DTYPES:
+        raise TypeError(f"paged_attention: q {q.dtype} / pool {kq.dtype} not "
+                        "supported (q f32|bf16; pool f32|bf16|int8)")
+    if (ks is None) != (kq.dtype != torch.int8) or vq.dtype != kq.dtype:
+        raise TypeError("paged_attention: int8 pools need bf16 scales, and "
+                        "K and V pools must share a dtype")
+    if (ps != page_size or hd_kv != hd or Hq % Hkv or vq.shape != kq.shape
+            or page_table.shape[0] != B or seq_lens.shape != (B,)):
+        raise ValueError(
+            f"paged_attention: shapes disagree (q {tuple(q.shape)}, pool "
+            f"{tuple(kq.shape)}, page_size {page_size}, table "
+            f"{tuple(page_table.shape)}, seq_lens {tuple(seq_lens.shape)})")
+    tensors = [q, kq, vq, page_table, seq_lens] + ([ks, vs] if ks is not None else [])
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("paged_attention: all tensors must be on one device")
+    if page_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise TypeError("paged_attention: page_table and seq_lens must be int32")
+    if not all(t.is_contiguous() for t in tensors[1:]):
+        raise ValueError("paged_attention: pools, page_table and seq_lens "
+                         "must be contiguous")
+    if ks is not None and (ks.dtype != torch.bfloat16 or vs.dtype != torch.bfloat16
+                           or ks.shape != (P, Hkv, ps, 1) or vs.shape != ks.shape):
+        raise ValueError("paged_attention: int8 scales must be bf16 [P, Hkv, ps, 1]")
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    lib = load_kernel()
+    smem = lib.paged_attention_smem_bytes(K * (Hq // Hkv), hd, ps)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"paged_attention: {smem} B of shared memory per "
+                         f"block exceeds the card's {_MAX_SMEM} B")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.paged_attention_launch(
+            q.data_ptr(), _Q_DTYPES[q.dtype], kq.data_ptr(), vq.data_ptr(),
+            _KV_DTYPES[kq.dtype],
+            ks.data_ptr() if ks is not None else None,
+            vs.data_ptr() if vs is not None else None,
+            page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            B, K, Hq, Hkv, hd, ps, MP, float(hd ** -0.5), stream)
+    if err != 0:
+        raise RuntimeError("paged_attention kernel launch failed: "
+                           f"{lib.paged_attention_error_string(err).decode()}")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

@@ -1,0 +1,107 @@
+"""Build-on-first-use for the port's native code (C ABI via ctypes).
+
+Two builders, both keyed on a hash of the source and the flags so an edit
+never reuses a stale binary, and both racing safely between concurrent
+builders through an atomic rename:
+
+* ``build_native`` — g++ for host C++ cores (the serving engine's batcher,
+  ``serving/engine/core.cc``); the ``.so`` lands next to its source.
+* ``build_cuda`` — nvcc for hand-written Hopper kernels
+  (``serving/engine/csrc/*.cu``), compiled for ``sm_90a`` into a shared
+  library with a plain C interface.  The ``.so`` lands in
+  ``kubeflow_tpu_torch/_build/``.  No PyTorch headers are included, so a
+  build takes seconds, and nothing needs ``ninja``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_LOCK = threading.Lock()
+_CACHE: dict[str, ctypes.CDLL] = {}
+
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "_build")
+CUDA_ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+
+def _tag(src_path: str, flags: list[str]) -> str:
+    with open(src_path, "rb") as f:
+        # flags are part of the key: a flag change must not silently reuse a
+        # binary built without them
+        return hashlib.md5(f.read() + repr(flags).encode()).hexdigest()[:10]
+
+
+def _compile(cmd: list[str], tmp: str, so_path: str, src_path: str) -> str:
+    try:
+        subprocess.run(cmd, check=True, capture_output=True)
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(
+            f"native build failed for {src_path}:\n{e.stderr.decode(errors='replace')}"
+        ) from e
+    os.replace(tmp, so_path)  # atomic under concurrent builders
+    return so_path
+
+
+def build_native(src_path: str, prefix: str, extra_flags: list[str] | None = None) -> str:
+    """Compile ``src_path`` with g++ to ``<dir>/_<prefix>_<srchash>.so``."""
+    src_dir = os.path.dirname(os.path.abspath(src_path))
+    so_path = os.path.join(src_dir, f"_{prefix}_{_tag(src_path, extra_flags or [])}.so")
+    if os.path.exists(so_path):
+        return so_path
+    tmp = so_path + f".tmp{os.getpid()}"
+    cmd = ["g++", "-O2", "-fPIC", "-shared", "-std=c++17", "-Wall",
+           *(extra_flags or []), src_path, "-o", tmp]
+    return _compile(cmd, tmp, so_path, src_path)
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda``,
+    else ``nvcc`` on PATH.  Raises when there is none."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the Hopper kernels "
+                           "are built from source on the machine with the card")
+    return found
+
+
+def build_cuda(src_path: str, prefix: str, extra_flags: list[str] | None = None) -> str:
+    """Compile a ``.cu`` file for sm_90a into ``_build/_<prefix>_<hash>.so``.
+
+    Raises RuntimeError carrying nvcc's stderr when the build fails."""
+    flags = CUDA_ARCH_FLAGS + ["-std=c++17", "-O3"] + (extra_flags or [])
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so_path = os.path.join(BUILD_DIR, f"_{prefix}_{_tag(src_path, flags)}.so")
+    if os.path.exists(so_path):
+        return so_path
+    tmp = so_path + f".tmp{os.getpid()}"
+    cmd = [nvcc_path(), *flags, "-shared", "-Xcompiler", "-fPIC",
+           src_path, "-o", tmp]
+    return _compile(cmd, tmp, so_path, src_path)
+
+
+def _load(key: str, build) -> ctypes.CDLL:
+    with _LOCK:
+        if key not in _CACHE:
+            _CACHE[key] = ctypes.CDLL(build())
+        return _CACHE[key]
+
+
+def load_native(src_path: str, prefix: str, extra_flags: list[str] | None = None) -> ctypes.CDLL:
+    """Build (if needed) and dlopen a host C++ core; one CDLL per source."""
+    return _load(os.path.abspath(src_path),
+                 lambda: build_native(src_path, prefix, extra_flags))
+
+
+def load_cuda(src_path: str, prefix: str, extra_flags: list[str] | None = None) -> ctypes.CDLL:
+    """Build (if needed) and dlopen a CUDA kernel library; one CDLL per source."""
+    return _load(os.path.abspath(src_path),
+                 lambda: build_cuda(src_path, prefix, extra_flags))

@@ -1,0 +1,102 @@
+"""The port stands alone: kubeflow_tpu_torch (and chip_smoke.py) import
+neither JAX, nor ml_dtypes, nor anything of the JAX package.
+
+A subprocess installs a meta-path finder that refuses ``jax``, ``jaxlib``,
+``ml_dtypes`` and ``kubeflow_tpu`` (and their submodules — but not
+``kubeflow_tpu_torch``, whose name shares the prefix), then imports every
+module of the port; a source scan backs it up for imports a runtime path
+might not reach."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "kubeflow_tpu_torch")
+BLOCKED = ("jax", "jaxlib", "ml_dtypes", "kubeflow_tpu")
+
+_BLOCKER = """
+import importlib.abc, sys
+BLOCKED = {blocked!r}
+
+def _blocked(name):
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if _blocked(name):
+            raise ImportError(f"blocked import of {{name}}")
+        return None
+
+for name in list(sys.modules):
+    if _blocked(name):
+        del sys.modules[name]
+sys.meta_path.insert(0, Blocker())
+"""
+
+
+def _port_modules():
+    """Every Python module of the port (built ``.so`` files are not)."""
+    names = []
+    for path in _sources():
+        rel = os.path.relpath(path, REPO)
+        if rel.startswith("kubeflow_tpu_torch"):
+            parts = rel[:-len(".py")].split(os.sep)
+            names.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return sorted(names)
+
+
+def test_every_port_module_imports_with_jax_blocked():
+    modules = _port_modules()
+    assert "kubeflow_tpu_torch.serving.engine.paged_attention" in modules
+    code = _BLOCKER.format(blocked=BLOCKED) + f"""
+import importlib
+for name in {modules!r}:
+    importlib.import_module(name)
+import runpy
+sys.argv = ["chip_smoke.py"]
+mod = runpy.run_path({os.path.join(REPO, "chip_smoke.py")!r}, run_name="not_main")
+bad = sorted(n for n in sys.modules if _blocked(n) and sys.modules[n] is not None)
+assert not bad, bad
+try:
+    import kubeflow_tpu
+except ImportError:
+    pass
+else:
+    raise AssertionError("the blocker let kubeflow_tpu through")
+print("IMPORTED", len({modules!r}))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert f"IMPORTED {len(modules)}" in r.stdout
+
+
+def _sources():
+    for root, dirs, files in os.walk(PORT):
+        # skip build outputs (_build/) and caches: only the package's sources
+        dirs[:] = sorted(d for d in dirs if not d.startswith(("_", ".")))
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+@pytest.mark.parametrize("path", sorted(_sources()), ids=lambda p: os.path.relpath(p, REPO))
+def test_source_imports_nothing_of_jax(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert not any(name == b or name.startswith(b + ".") for b in BLOCKED), (
+                f"{path}:{node.lineno} imports {name}")
