@@ -1,0 +1,300 @@
+"""BERT encoder with an MLM head: the training workload of the port.
+
+Counterpart of ``kubeflow_tpu/models/bert.py``.  The parameters keep the JAX
+tree's names and its layer-stacked ``[L, ...]`` layout (``embeddings.word``,
+``layers.attn_qkv_kernel [L, h, 3, nh, hd]``, ``mlm.output_bias``) inside an
+``nn.Module`` (``BertMLM``), so optimizers and ``state_dict`` work and the
+JAX package's weights carry over name for name.  ``model["layers"]["..."]``
+reads like the JAX dict, so the functions below take either the module or a
+nested dict of tensors.
+
+Numerics follow the JAX package: f32 master weights cast to ``config.dtype``
+(bf16) per use, the embedding sum in f32 then cast before its LayerNorm, the
+bias adds in bf16, LayerNorm in f32 with population variance, tanh GELU, and
+the MLM logits in bf16 upcast for the log-softmax.  The layer stack runs as a
+Python loop over the stacked weights (``lax.scan`` has no counterpart here).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import multihead_attention, padding_mask
+from ..ops.flash_attention import flash_attention
+from ..utils.device import resolve_device
+
+
+@dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+    dtype: torch.dtype = torch.bfloat16
+    # rematerialization (torch.utils.checkpoint) is not ported yet: ROADMAP
+    # Queue 1 item 3.1.  Only the defaults are accepted.
+    remat: bool = False
+    remat_policy: str = "nothing"
+    # encoder attention: "dense" materializes [B,H,S,T] logits; "flash" runs
+    # the Hopper kernel (ops/flash_attention.py) whose backward recomputes P
+    # blockwise.  Both honor the key-side padding mask.
+    attention: str = "dense"
+    # pipeline parallelism is not ported yet: ROADMAP Queue 1 item 3.2
+    pipeline_stages: int = 1
+    pipeline_microbatches: int = 4
+
+    def __post_init__(self):
+        if self.remat or self.remat_policy != "nothing":
+            raise NotImplementedError(
+                "BertConfig.remat is not ported yet (ROADMAP Queue 1 item 3.1: "
+                "BERT remat via torch.utils.checkpoint)")
+        if self.pipeline_stages > 1:
+            raise NotImplementedError(
+                "BertConfig.pipeline_stages > 1 is not ported yet (ROADMAP "
+                "Queue 1 item 3.2: pipeline parallelism)")
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def num_params(self) -> int:
+        h, f, v = self.hidden_size, self.intermediate_size, self.vocab_size
+        per_layer = 4 * h * h + 2 * h * f + 9 * h + f  # qkv/o + ffn kernels, biases, 2 lns
+        embed = (v + self.max_position + self.type_vocab_size) * h + 2 * h
+        head = h * h + h + 2 * h + v  # transform + ln + bias (embedding tied)
+        return self.num_layers * per_layer + embed + head
+
+    def flops_per_token(self, seq_len: int) -> float:
+        """Fwd+bwd matmul FLOPs per token (6ND + attention term), full head."""
+        h, f, l = self.hidden_size, self.intermediate_size, self.num_layers
+        matmul_params = l * (4 * h * h + 2 * h * f) + self.hidden_size * self.vocab_size
+        attn = l * 2 * 2 * seq_len * h  # QK^T + PV per token
+        return 6 * (matmul_params + attn / 2)
+
+    def train_flops(self, batch: int, seq_len: int, num_predictions: Optional[int] = None) -> float:
+        """Fwd+bwd matmul FLOPs for one batch; MLM head on P positions only."""
+        h, f, l, v = self.hidden_size, self.intermediate_size, self.num_layers, self.vocab_size
+        p = seq_len if num_predictions is None else num_predictions
+        encoder = l * (4 * h * h + 2 * h * f) * seq_len
+        attn = l * 2 * seq_len * seq_len * h
+        head = (h * h + h * v) * p
+        return 6 * batch * (encoder + attn + head)
+
+
+# --------------------------------------------------------------------- init
+
+
+class _Group(nn.Module):
+    """One group of leaves, read as ``group["name"]``.  The leaves go into
+    ``_parameters`` directly: ``embeddings.type`` shares its name with
+    ``nn.Module.type``, which ``register_parameter`` (and so
+    ``nn.ParameterDict``) refuses."""
+
+    def __init__(self, leaves: dict):
+        super().__init__()
+        for name, t in leaves.items():
+            self._parameters[name] = nn.Parameter(t)
+
+    def __getitem__(self, name: str) -> nn.Parameter:
+        return self._parameters[name]
+
+
+class BertMLM(nn.Module):
+    """The parameter tree as a module: one group per JAX subtree
+    (``embeddings``, ``layers``, ``mlm``), leaves under the JAX names, so
+    ``state_dict`` keys read ``embeddings.word``, ``layers.ln1_scale``..."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for group, leaves in tree.items():
+            self.add_module(group, _Group(leaves))
+
+    def __getitem__(self, group: str) -> _Group:
+        return getattr(self, group)
+
+
+def init(config: BertConfig, device=None, seed: int = 0) -> BertMLM:
+    """Random weights from an explicit ``torch.Generator``: N(0, 0.02²) for
+    dense weights, ones for LayerNorm scales, zeros for biases, all f32.  The
+    draws are made on the CPU, so a seed gives the same weights on any
+    device (not the JAX package's numbers: use ``params_from_jax`` for
+    those)."""
+    dev = resolve_device(device)
+    h, f = config.hidden_size, config.intermediate_size
+    l, nh, hd = config.num_layers, config.num_heads, config.head_dim
+    g = torch.Generator().manual_seed(seed)
+
+    def dense(*shape, scale=0.02):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    def ones(*shape):
+        return torch.ones(shape, device=dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=dev)
+
+    return BertMLM({
+        "embeddings": {
+            "word": dense(config.vocab_size, h),
+            "position": dense(config.max_position, h),
+            "type": dense(config.type_vocab_size, h),
+            "ln_scale": ones(h),
+            "ln_bias": zeros(h),
+        },
+        # layer-stacked params: leading dim = num_layers
+        "layers": {
+            "attn_qkv_kernel": dense(l, h, 3, nh, hd),
+            "attn_qkv_bias": zeros(l, 3, nh, hd),
+            "attn_out_kernel": dense(l, nh, hd, h),
+            "attn_out_bias": zeros(l, h),
+            "ln1_scale": ones(l, h),
+            "ln1_bias": zeros(l, h),
+            "mlp_in_kernel": dense(l, h, f),
+            "mlp_in_bias": zeros(l, f),
+            "mlp_out_kernel": dense(l, f, h),
+            "mlp_out_bias": zeros(l, h),
+            "ln2_scale": ones(l, h),
+            "ln2_bias": zeros(l, h),
+        },
+        "mlm": {
+            "transform_kernel": dense(h, h),
+            "transform_bias": zeros(h),
+            "ln_scale": ones(h),
+            "ln_bias": zeros(h),
+            "output_bias": zeros(config.vocab_size),
+        },
+    })
+
+
+def _tensor_from_numpy(arr) -> torch.Tensor:
+    """numpy array -> CPU tensor.  bf16 arrays (JAX hands out
+    ml_dtypes.bfloat16) travel bit-exactly through an int16 view,
+    recognised by dtype name so nothing imports ml_dtypes."""
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:  # e.g. a view of a JAX buffer: never alias it
+        arr = arr.copy()
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def params_from_jax(np_tree: dict, device=None) -> BertMLM:
+    """The weight carrier: the JAX package's nested param dict as numpy
+    arrays -> ``BertMLM`` on ``device`` (default ``"cuda"``), name for name
+    and bit for bit."""
+    dev = resolve_device(device)
+    return BertMLM({group: {name: _tensor_from_numpy(arr).to(dev)
+                            for name, arr in leaves.items()}
+                    for group, leaves in np_tree.items()})
+
+
+# ------------------------------------------------------------------ forward
+
+
+def _layer_norm(x, scale, bias, eps):
+    """LayerNorm in f32 with population variance, f32 scale and bias, the
+    result cast back to x's dtype."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps) * scale + bias
+    return out.to(x.dtype)
+
+
+def _gelu(x):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def encode(params, config: BertConfig, input_ids: torch.Tensor,
+           attention_mask: Optional[torch.Tensor] = None,
+           token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, S] ids → [B, S, H] hidden states in ``config.dtype``."""
+    dt = config.dtype
+    emb = params["embeddings"]
+    b, s = input_ids.shape
+    h, nh, hd = config.hidden_size, config.num_heads, config.head_dim
+    # the embedding sum in f32, cast to the compute dtype before the LN
+    x = emb["word"][input_ids.long()]
+    x = x + emb["position"][None, :s]
+    if token_type_ids is not None:
+        x = x + emb["type"][token_type_ids.long()]
+    else:
+        x = x + emb["type"][0]
+    x = _layer_norm(x.to(dt), emb["ln_scale"], emb["ln_bias"], config.layer_norm_eps)
+
+    mask = padding_mask(attention_mask) if attention_mask is not None else None
+    lp = params["layers"]
+    for i in range(config.num_layers):
+        qkv = x @ lp["attn_qkv_kernel"][i].to(dt).reshape(h, 3 * nh * hd)
+        qkv = qkv.reshape(b, s, 3, nh, hd) + lp["attn_qkv_bias"][i].to(dt)
+        q, k_, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if config.attention == "flash":
+            # kv_mask: key-side padding exclusion inside the kernel
+            attn = flash_attention(q, k_, v, causal=False, kv_mask=attention_mask)
+        else:
+            attn = multihead_attention(q, k_, v, mask=mask)
+        attn = attn.reshape(b, s, nh * hd) @ lp["attn_out_kernel"][i].to(dt).reshape(nh * hd, h)
+        attn = attn + lp["attn_out_bias"][i].to(dt)
+        x = _layer_norm(x + attn, lp["ln1_scale"][i], lp["ln1_bias"][i], config.layer_norm_eps)
+
+        hmid = x @ lp["mlp_in_kernel"][i].to(dt)
+        hmid = _gelu(hmid + lp["mlp_in_bias"][i].to(dt))
+        hout = hmid @ lp["mlp_out_kernel"][i].to(dt)
+        hout = hout + lp["mlp_out_bias"][i].to(dt)
+        x = _layer_norm(x + hout, lp["ln2_scale"][i], lp["ln2_bias"][i], config.layer_norm_eps)
+    return x
+
+
+def mlm_logits(params, config: BertConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """MLM head with tied embeddings: [B, S, H] → [B, S, V] in ``config.dtype``."""
+    dt = config.dtype
+    mlm = params["mlm"]
+    h = hidden @ mlm["transform_kernel"].to(dt)
+    h = _gelu(h + mlm["transform_bias"].to(dt))
+    h = _layer_norm(h, mlm["ln_scale"], mlm["ln_bias"], config.layer_norm_eps)
+    logits = h @ params["embeddings"]["word"].to(dt).t()
+    return logits + mlm["output_bias"].to(dt)
+
+
+def forward(params, config: BertConfig, input_ids: torch.Tensor,
+            attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return mlm_logits(params, config, encode(params, config, input_ids, attention_mask))
+
+
+def mlm_loss(params, config: BertConfig, input_ids: torch.Tensor,
+             labels: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
+             max_predictions: Optional[int] = None) -> torch.Tensor:
+    """Masked-LM cross entropy; positions with label == -100 are ignored.
+
+    ``max_predictions``: gather only (up to) P masked positions per sequence
+    before the vocab projection, so the [B, S, V] logits become [B, P, V].
+    """
+    hidden = encode(params, config, input_ids, attention_mask)
+    valid = labels != -100
+    if max_predictions is not None:
+        # indices of masked positions, padded with unmasked (weight-0) slots.
+        # lax.top_k breaks ties to the lowest index; torch.topk promises no
+        # order, a stable descending sort does what top_k does
+        weights, idx = torch.sort(valid.int(), dim=1, descending=True, stable=True)
+        weights, idx = weights[:, :max_predictions], idx[:, :max_predictions]
+        hidden = torch.take_along_dim(hidden, idx[..., None], dim=1)
+        labels = torch.take_along_dim(labels, idx, dim=1)
+        valid = weights.bool()
+    logits = mlm_logits(params, config, hidden).float()
+    safe_labels = torch.where(valid, labels, 0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    token_loss = -torch.take_along_dim(logp, safe_labels[..., None], dim=-1)[..., 0]
+    denom = torch.clamp(valid.sum(), min=1)
+    return (token_loss * valid).sum() / denom

@@ -7,7 +7,7 @@ builders through an atomic rename:
 * ``build_native`` — g++ for host C++ cores (the serving engine's batcher,
   ``serving/engine/core.cc``); the ``.so`` lands next to its source.
 * ``build_cuda`` — nvcc for hand-written Hopper kernels
-  (``serving/engine/csrc/*.cu``), compiled for ``sm_90a`` into a shared
+  (``serving/engine/csrc/*.cu``, ``ops/csrc/*.cu``), compiled for ``sm_90a`` into a shared
   library with a plain C interface.  The ``.so`` lands in
   ``kubeflow_tpu_torch/_build/``.  No PyTorch headers are included, so a
   build takes seconds, and nothing needs ``ninja``.
@@ -23,6 +23,7 @@ import subprocess
 import threading
 
 _LOCK = threading.Lock()
+_KEY_LOCKS: dict[str, threading.Lock] = {}
 _CACHE: dict[str, ctypes.CDLL] = {}
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -89,7 +90,10 @@ def build_cuda(src_path: str, prefix: str, extra_flags: list[str] | None = None)
 
 
 def _load(key: str, build) -> ctypes.CDLL:
+    # one lock per source: two sources build at once, one source once
     with _LOCK:
+        lock = _KEY_LOCKS.setdefault(key, threading.Lock())
+    with lock:
         if key not in _CACHE:
             _CACHE[key] = ctypes.CDLL(build())
         return _CACHE[key]

@@ -1,8 +1,8 @@
 """The port stands alone: kubeflow_tpu_torch (and chip_smoke.py) import
-neither JAX, nor ml_dtypes, nor anything of the JAX package.
+neither JAX, nor ml_dtypes, optax or orbax, nor anything of the JAX package.
 
 A subprocess installs a meta-path finder that refuses ``jax``, ``jaxlib``,
-``ml_dtypes`` and ``kubeflow_tpu`` (and their submodules — but not
+``ml_dtypes``, ``optax``, ``orbax`` and ``kubeflow_tpu`` (and their submodules — but not
 ``kubeflow_tpu_torch``, whose name shares the prefix), then imports every
 module of the port; a source scan backs it up for imports a runtime path
 might not reach."""
@@ -16,7 +16,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "kubeflow_tpu_torch")
-BLOCKED = ("jax", "jaxlib", "ml_dtypes", "kubeflow_tpu")
+BLOCKED = ("jax", "jaxlib", "ml_dtypes", "optax", "orbax", "kubeflow_tpu")
 
 _BLOCKER = """
 import importlib.abc, sys
@@ -51,7 +51,10 @@ def _port_modules():
 
 def test_every_port_module_imports_with_jax_blocked():
     modules = _port_modules()
-    assert "kubeflow_tpu_torch.serving.engine.paged_attention" in modules
+    for name in ("serving.engine.paged_attention", "ops.attention", "ops.flash_attention",
+                 "models.bert", "train.data", "train.trainer", "train.checkpoint",
+                 "examples.bert_worker"):
+        assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = _BLOCKER.format(blocked=BLOCKED) + f"""
 import importlib
 for name in {modules!r}:
