@@ -14,9 +14,11 @@ or the script exits non-zero:
    version at the Llama-3-8B decode shapes (B=8, Hq=32, Hkv=8, hd=128,
    page 32, 64 pages per slot), bf16 and int8 pools, K = 1 and 5, ragged
    lengths with an idle slot, partial last pages and a full 2048-token slot;
-   times of the kernel, the plain version, ``scaled_dot_product_attention``
-   over the already-gathered cache (a yardstick the port never calls) and
-   the device-memory bound;
+   times of the kernel (CUDA events around the call, and the device time of
+   its split and merge kernels in a torch.profiler window), the plain
+   version, ``scaled_dot_product_attention`` over the already-gathered
+   cache (a yardstick the port never calls) and the device-memory bound;
+   at K = 1 also the kernel at 2, 4, 8 and 16 pages per split;
 4. decode: one full-width Llama-3-8B ``decode_step`` with ``paged=True``
    against ``paged=False`` (the gather path) on the same pool state;
 5. main path: ``model.init(llama3_8b)`` -> ``Engine`` -> ``JetStreamModel``
@@ -32,7 +34,8 @@ or the script exits non-zero:
    ``flash_attention_plain`` at the BERT-base shapes (B=32, H=12, S=T=512,
    d=64, bf16; blocks 128): non-causal with a ragged key mask, causal, and
    causal with a left-padded row that sees no key, plus one f32 case at
-   S=128; out and lse compared; times of the kernel, the plain version and
+   S=128; out and lse compared; times of the kernel (CUDA events and a
+   torch.profiler window), the plain version and
    ``scaled_dot_product_attention`` with the same boolean mask (a yardstick
    the port never calls) beside the bound, and the time of the blockwise
    f32 backward that the training path pairs with the kernel;
@@ -140,15 +143,25 @@ def nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+# device cycles the card spins between the L2 flush and the timed window
+# (~0.1 ms at the H100's 1.98 GHz boost clock, more at lower clocks)
+SPIN_CYCLES = 200_000
+
+
 def time_ms(fn, flush: torch.Tensor) -> float:
     """Mean device time of ``fn`` over N_TIMED launches, each timed with CUDA
     events after writing a buffer larger than the L2 cache, so every launch
-    finds its inputs in device memory as a decode step over 32 layers does."""
+    finds its inputs in device memory as a decode step over 32 layers does.
+    The card spins ``SPIN_CYCLES`` before the start event, so the host has
+    queued ``fn``'s kernels by the time the window opens: the window holds
+    the device's work and the gaps between its kernels, not the host time a
+    short kernel's wrapper takes (which the L2 flush alone does not cover)."""
     for _ in range(N_WARM):
         fn()
     total = 0.0
     for _ in range(N_TIMED):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -157,6 +170,40 @@ def time_ms(fn, flush: torch.Tensor) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / N_TIMED
+
+
+def profiled_ms(fn, flush: torch.Tensor, markers: tuple, n: int = 10) -> dict:
+    """Device time of ``fn`` per call from a torch.profiler window of ``n``
+    calls (each after the same L2 flush as ``time_ms``): ``total`` sums the
+    kernels whose name holds one of ``markers``, and each marker has its
+    own share.  The profiler reads each kernel's own duration, where the
+    CUDA-event window of ``time_ms`` also holds the gaps between a call's
+    kernels.  ``total`` is None when the profiler records no matching
+    device event."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=PROFILE_ACTIVITIES, acc_events=True) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = {m: 0.0 for m in markers}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for m in markers:
+                if m in e.name:
+                    us[m] += e.time_range.end - e.time_range.start
+                    break
+    total = sum(us.values())
+    return {"total": total / n / 1e3 if total > 0 else None,
+            **{m: v / n / 1e3 for m, v in us.items()}}
+
+
+# the device kernels of one paged_attention call, and of the flash forward
+PAGED_MARKERS = ("paged_split", "paged_merge")
+FLASH_MARKERS = ("flash_fwd",)
+# the pages_per_split values phase 3 compares on the bf16 and int8 K=1 cases
+SPLIT_SWEEP = (2, 4, 8, 16)
 
 
 # ----------------------------------------------------------------- phase 3
@@ -211,8 +258,17 @@ def kernel_case(quant, K, rng, dev, flush) -> dict:
                 qs, kc, vc, attn_mask=mask)
 
     kernel_ms = time_ms(lambda: PA.paged_attention(*args), flush)
+    device = profiled_ms(lambda: PA.paged_attention(*args), flush, PAGED_MARKERS)
     plain_ms = time_ms(lambda: PA.paged_attention_plain(*args), flush)
     library_ms = time_ms(library, flush)
+    sweep = {}
+    if K == 1:
+        for pps in SPLIT_SWEEP:
+            def call(pps=pps):
+                return PA.paged_attention(*args, _pages_per_split=pps)
+            dev_pps = profiled_ms(call, flush, PAGED_MARKERS)
+            sweep[pps] = {"kernel_ms": time_ms(call, flush), "device_ms": dev_pps["total"],
+                          "merge_ms": dev_pps["paged_merge"]}
 
     # the bound: each input read once, each output written once, with only
     # the pages this run's lengths visit; operations of QK^T and PV
@@ -224,8 +280,12 @@ def kernel_case(quant, K, rng, dev, flush) -> dict:
     bound_ms = max((kv_bytes + io_bytes) / HBM_BYTES_PER_S,
                    flops / BF16_FLOPS_PER_S) * 1e3
     return {"pool": quant or "bf16", "K": K, "max_abs_err": float(err.max()),
-            "ok": ok and idle_zero, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
+            "ok": ok and idle_zero, "kernel_ms": kernel_ms, "device_ms": device["total"],
+            "device_ms_by_kernel": device,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms,
+            "pages_per_split": PA._split_plan(MAX_PAGES, B, HKV, K * HQ // HKV),
+            "split_sweep": sweep,
             "bound_by": ("bytes" if (kv_bytes + io_bytes) / HBM_BYTES_PER_S
                          >= flops / BF16_FLOPS_PER_S else "operations"),
             "visited_kv_bytes": kv_bytes}
@@ -387,7 +447,7 @@ def profile_decode(params, cfg, dev) -> dict:
     n = 5
     with torch.profiler.profile(activities=PROFILE_ACTIVITIES, acc_events=True) as prof:
         wall_ms = steps(True, n)
-    out.update(device_breakdown(prof, n, wall_ms, "paged_attention", "paged_attention"))
+    out.update(device_breakdown(prof, n, wall_ms, "paged_attention", PAGED_MARKERS))
     return out
 
 
@@ -395,10 +455,11 @@ PROFILE_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
                       torch.profiler.ProfilerActivity.CUDA]
 
 
-def device_breakdown(prof, n: int, wall_ms: float, family: str, marker: str) -> dict:
+def device_breakdown(prof, n: int, wall_ms: float, family: str, markers: tuple) -> dict:
     """Device busy time, idle share and device ms per step by kernel family
-    (``family`` = kernels whose name holds ``marker``, then GEMMs, then the
-    rest) from a profiler window of ``n`` steps of ``wall_ms`` each."""
+    (``family`` = kernels whose name holds one of ``markers``, then GEMMs,
+    then the rest) from a profiler window of ``n`` steps of ``wall_ms``
+    each."""
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kern:
@@ -416,7 +477,7 @@ def device_breakdown(prof, n: int, wall_ms: float, family: str, marker: str) -> 
     by_name: dict = {}
     for e in kern:
         name = e.name.lower()
-        key = (family if marker in name else
+        key = (family if any(m in name for m in markers) else
                "gemm" if any(t in name for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass")) else
                "other")
         dt = e.time_range.end - e.time_range.start
@@ -484,6 +545,7 @@ def flash_case(name, dtype, S, causal, key_mask, rng, dev, flush) -> dict:
         return torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=bm)
 
     kernel_ms = time_ms(lambda: FA._flash_fwd(*args, FH), flush)
+    device_ms = profiled_ms(lambda: FA._flash_fwd(*args, FH), flush, FLASH_MARKERS)["total"]
     plain_ms = time_ms(lambda: FA.flash_attention_plain(*args), flush)
     library_ms = time_ms(library, flush)
     # the backward the training path pairs with the kernel: the JAX
@@ -503,7 +565,8 @@ def flash_case(name, dtype, S, causal, key_mask, rng, dev, flush) -> dict:
     return {"case": name, "dtype": str(dtype).removeprefix("torch."), "S": S,
             "causal": causal, "key_mask": key_mask, "max_abs_err": float(err.max()),
             "max_lse_err": float(lse_err.max()), "ok": ok, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "backward_ms": backward_ms,
+            "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "kernel_over_library": kernel_ms / library_ms, "backward_ms": backward_ms,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "io_bytes": io_bytes, "flops": flops}
@@ -629,7 +692,7 @@ def train(dev) -> dict:
         trainer.block_until_ready()
         wall_ms = (time.perf_counter() - t0) / TRAIN_PROFILED * 1e3
     out["profile"] = device_breakdown(prof, TRAIN_PROFILED, wall_ms, "flash_attention",
-                                      "flash_fwd_kernel")
+                                      FLASH_MARKERS)
 
     # the same steps on the dense path (same trainer, another loss), for
     # the end-to-end comparison
@@ -784,7 +847,8 @@ def main() -> int:
               "launches": mres.get("launches", 0),
               "max_abs_err": max((c["max_abs_err"] for c in cases), default=None),
               "ms": head.get("kernel_ms"), "kernel_ms": head.get("kernel_ms"),
-              "plain_ms": head.get("plain_ms"), "bound_ms": head.get("bound_ms"),
+              "device_ms": head.get("device_ms"), "plain_ms": head.get("plain_ms"),
+              "bound_ms": head.get("bound_ms"),
               "bound_by": head.get("bound_by"), "library_ms": head.get("library_ms")}
     fcases = fres.get("cases") or []
     fhead = next((c for c in fcases if c["case"] == "ragged"), {})  # the training path's case
@@ -795,7 +859,8 @@ def main() -> int:
                "launches": tres.get("launches", 0),
                "max_abs_err": max((c["max_abs_err"] for c in fcases), default=None),
                "ms": fhead.get("kernel_ms"), "kernel_ms": fhead.get("kernel_ms"),
-               "plain_ms": fhead.get("plain_ms"), "bound_ms": fhead.get("bound_ms"),
+               "device_ms": fhead.get("device_ms"), "plain_ms": fhead.get("plain_ms"),
+               "bound_ms": fhead.get("bound_ms"),
                "bound_by": fhead.get("bound_by"), "library_ms": fhead.get("library_ms")}
     report["kernels"] = [record, frecord]
     if args.out:

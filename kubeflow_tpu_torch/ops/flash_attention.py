@@ -12,7 +12,13 @@ probabilities one key block at a time from the saved log-sum-exp.
   sm_90a at first use, bound with ctypes, launched on PyTorch's current
   stream) and counts the launch in ``flash_attention.launches``; on CPU
   tensors it runs ``flash_attention_plain``.  There is no fallback: a CUDA
-  call that cannot build or launch the kernel raises.
+  call that cannot build or launch the kernel raises.  In bf16 the kernel
+  keeps S, P and the output accumulator in registers (``mma.sync`` tensor
+  cores, P fed as two bf16 terms so the output stays within one bf16 ulp of
+  the f32 plain version) and streams 64-key tiles of K and V through a
+  two-stage ``cp.async`` ring; f32 inputs (tests only) run on the CUDA
+  cores.  Both load rows in 16-byte chunks, so an input that is not
+  16-byte aligned is copied to a fresh allocation first.
 * ``flash_attention_plain`` is the plain PyTorch version of the forward, the
   reference the kernel is held against on the card.
 * The backward is ``_flash_bwd`` of the JAX package ported line for line:

@@ -7,11 +7,19 @@ gathering them into a contiguous ``[B, T, Hkv, hd]`` cache first (the gather
 writes a full KV copy to device memory before attention reads it back).
 
 * ``paged_attention`` keeps the JAX signature and layout.  On CUDA tensors
-  it launches the CUDA C++ kernel in ``csrc/paged_attention.cu`` (built with
-  nvcc for sm_90a at first use, bound with ctypes, launched on PyTorch's
-  current stream) and counts the launch in ``paged_attention.launches``.  On
+  it launches the CUDA C++ kernels in ``csrc/paged_attention.cu`` (built
+  with nvcc for sm_90a at first use, bound with ctypes, launched on
+  PyTorch's current stream) and counts the call as ONE launch in
+  ``paged_attention.launches``, although a call is two device kernels:
+  a split kernel, where each block walks a chunk of ``pages_per_split`` of
+  one slot's pages and writes a partial ``(m, l, acc)`` in f32 to scratch
+  from ``torch.empty``, then a merge kernel that folds each slot's live
+  chunks into the output.  ``_split_plan`` picks the chunk size from the
+  shapes alone, so no call reads ``seq_lens`` back to the host.  The pools
+  and scales must be 16-byte aligned (the kernel fills its shared-memory
+  ring with 16-byte ``cp.async`` copies); the wrapper raises otherwise.  On
   CPU tensors it runs ``paged_attention_plain``.  There is no fallback: a
-  CUDA call that cannot build or launch the kernel raises.
+  CUDA call that cannot build or launch the kernels raises.
 * ``paged_attention_plain`` is the plain PyTorch version of the same
   function (gather the pages, dense masked softmax with the same finite
   ``NEG_INF``), the reference the kernel is held against on the card.
@@ -42,20 +50,48 @@ _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
 _MAX_SMEM = 232448
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# the card's streaming multiprocessors (H100 SXM: 132), and the waves of
+# split blocks _split_plan aims for
+_SMS = 132
+_TARGET_WAVES = 4
 
 
 def load_kernel() -> ctypes.CDLL:
-    """Build (first use, keyed on the source hash) and bind the kernel."""
+    """Build (first use, keyed on the source hash) and bind the kernels."""
     lib = load_cuda(_SRC, "paged_attention")
     p, i32 = ctypes.c_void_p, ctypes.c_int
     lib.paged_attention_launch.restype = i32
     lib.paged_attention_launch.argtypes = (
-        [p, i32, p, p, i32, p, p, p, p, p] + [i32] * 7 + [ctypes.c_float, p])
+        [p, i32, p, p, i32, p, p, p, p, p, p, p, p] + [i32] * 8 + [ctypes.c_float, p])
     lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
-    lib.paged_attention_smem_bytes.argtypes = [i32, i32, i32]
+    lib.paged_attention_smem_bytes.argtypes = [i32] * 6
     lib.paged_attention_error_string.restype = ctypes.c_char_p
     lib.paged_attention_error_string.argtypes = [i32]
     return lib
+
+
+def _row_tiles(rows: int) -> int:
+    """Blocks per (chunk, kv head, slot) for ``rows`` query rows, as the
+    tensor-core kernel's launch (``launch_tc_rows``) tiles them: 16 rows in
+    one m16 tile, else 32 in two."""
+    return 1 if rows <= 16 else -(-rows // 32)
+
+
+def _split_plan(max_pages: int, batch: int, kv_heads: int, rows: int) -> int:
+    """Pages per split block, from the shapes only (never ``seq_lens``,
+    which lives on the card: reading it would sync the host per layer).
+
+    The largest power of two that still launches ``_TARGET_WAVES`` waves of
+    blocks over the card's SMs, counting every (chunk, kv head, row tile,
+    slot); 1 when even one page per block launches fewer.  Long chunks keep
+    each block's load ring full and the partials few; enough blocks keep
+    the longest slot's walk spread over the SMs."""
+    blocks = batch * kv_heads * _row_tiles(rows)
+    pps = 1
+    while (pps * 2 <= max_pages
+           and -(-max_pages // (pps * 2)) * blocks >= _TARGET_WAVES * _SMS):
+        pps *= 2
+    return pps
 
 
 def _pool_parts(pool):
@@ -111,7 +147,8 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, seq_lens,
             .reshape(B, K, Hq, hd).to(q.dtype))
 
 
-def paged_attention(q, k_pool, v_pool, page_table, seq_lens, page_size: int):
+def paged_attention(q, k_pool, v_pool, page_table, seq_lens, page_size: int,
+                    *, _pages_per_split: int | None = None):
     """Attention for K query tokens per slot directly over the page pool.
 
     q: [B, K, Hq, hd] bf16 or f32 — query 0 is the slot's current committed
@@ -122,7 +159,9 @@ def paged_attention(q, k_pool, v_pool, page_table, seq_lens, page_size: int):
     [B, max_pages] int32.  Returns [B, K, Hq, hd] in q's dtype.
 
     CPU tensors run the plain version; CUDA tensors launch the Hopper
-    kernel (and count it in ``paged_attention.launches``) or raise."""
+    split and merge kernels (counted as one launch in
+    ``paged_attention.launches``) or raise.  ``_pages_per_split`` overrides
+    ``_split_plan`` (tests only)."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, page_table, seq_lens,
                                      page_size)
@@ -158,22 +197,38 @@ def paged_attention(q, k_pool, v_pool, page_table, seq_lens, page_size: int):
         raise ValueError("paged_attention: int8 scales must be bf16 [P, Hkv, ps, 1]")
     q = q.contiguous()
     out = torch.empty_like(q)
-    if B == 0:
-        return out
+    if B == 0 or MP == 0:
+        return out.zero_()
+    # the tensor-core kernel copies every (page, head) tile and scale row
+    # in 16-byte cp.async chunks: their bases must be 16-byte aligned (the
+    # tile strides are multiples of 16 at the shapes it takes)
+    bad = [name for name, t in (("k_pool", kq), ("v_pool", vq), ("k_scale", ks),
+                                ("v_scale", vs))
+           if t is not None and t.data_ptr() % 16]
+    if bad:
+        raise ValueError(f"paged_attention: {', '.join(bad)} not 16-byte "
+                         "aligned (the kernel loads pages with 16-byte cp.async)")
     lib = load_kernel()
-    smem = lib.paged_attention_smem_bytes(K * (Hq // Hkv), hd, ps)
+    q_code, kv_code = _Q_DTYPES[q.dtype], _KV_DTYPES[kq.dtype]
+    rows = K * (Hq // Hkv)
+    pps = _pages_per_split or _split_plan(MP, B, Hkv, rows)
+    splits = -(-MP // pps)
+    smem = lib.paged_attention_smem_bytes(q_code, kv_code, rows, hd, ps, pps)
     if smem > _MAX_SMEM:
         raise ValueError(f"paged_attention: {smem} B of shared memory per "
                          f"block exceeds the card's {_MAX_SMEM} B")
+    # partials (m, l, acc) of every (slot, kv head, chunk, row), f32
+    n = B * Hkv * splits * rows
+    part = torch.empty(n * (hd + 2), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.paged_attention_launch(
-            q.data_ptr(), _Q_DTYPES[q.dtype], kq.data_ptr(), vq.data_ptr(),
-            _KV_DTYPES[kq.dtype],
+            q.data_ptr(), q_code, kq.data_ptr(), vq.data_ptr(), kv_code,
             ks.data_ptr() if ks is not None else None,
             vs.data_ptr() if vs is not None else None,
             page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            B, K, Hq, Hkv, hd, ps, MP, float(hd ** -0.5), stream)
+            part.data_ptr(), part[n:].data_ptr(), part[2 * n:].data_ptr(),
+            B, K, Hq, Hkv, hd, ps, MP, pps, float(hd ** -0.5), stream)
     if err != 0:
         raise RuntimeError("paged_attention kernel launch failed: "
                            f"{lib.paged_attention_error_string(err).decode()}")

@@ -65,6 +65,95 @@ def test_paged_attention_kernel_matches_plain(card, kind, q_dtype, rtol, atol, K
         assert torch.all(out[1] == 0)  # the idle slot visits no page
 
 
+# Many splits: a 2048-token slot over 64 pages, lengths that end exactly on
+# a page and on a chunk boundary (pps 4 at ps 32 = 128 tokens) or one token
+# past it, an idle slot, and seq_len 64: at K=5 its furthest row sees up to
+# position 67, so it visits page 2, which its row 0 (positions < 64) cannot
+# see.
+SPLIT_MP, SPLIT_P = 64, 200
+SPLIT_LENS = [2048, 128, 129, 0, 64, 256, 1, 1000]
+
+
+def _split_inputs(kind, q_dtype, K, card):
+    g = torch.Generator().manual_seed(K)
+    q = torch.randn((len(SPLIT_LENS), K, Hq, hd), generator=g).to(card, q_dtype)
+
+    def pool():
+        x = torch.randn((SPLIT_P, Hkv, ps, hd), generator=g)
+        if kind == "int8":
+            qv, s = M._quantize_kv(x.to(torch.bfloat16))
+            return {"q": qv.to(card), "s": s.to(card)}
+        return x.to(card, torch.float32 if kind == "f32" else torch.bfloat16)
+
+    k_pool, v_pool = pool(), pool()
+    table = torch.randint(1, SPLIT_P, (len(SPLIT_LENS), SPLIT_MP), generator=g,
+                          dtype=torch.int32).to(card)
+    lens = torch.tensor(SPLIT_LENS, dtype=torch.int32, device=card)
+    return q, k_pool, v_pool, table, lens
+
+
+# every pages_per_split _split_plan can return at max_pages 64: a power of two
+SPLIT_PPS = [1, 2, 4, 8, 16, 32, 64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pps", SPLIT_PPS)
+@pytest.mark.parametrize("K", [1, 5])
+@pytest.mark.parametrize("kind,q_dtype,rtol,atol", CASES, ids=[c[0] for c in CASES])
+def test_paged_attention_kernel_every_split(card, kind, q_dtype, rtol, atol, K, pps):
+    q, k_pool, v_pool, table, lens = _split_inputs(kind, q_dtype, K, card)
+    out = PA.paged_attention(q, k_pool, v_pool, table, lens, ps, _pages_per_split=pps)
+    ref = PA.paged_attention_plain(q, k_pool, v_pool, table, lens, ps)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+    if K == 1:
+        assert torch.all(out[3] == 0)  # the idle slot: no chunk writes a partial
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 5])
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("head_dim,page", [(64, 32), (128, 16), (64, 16), (32, 32), (128, 8)])
+def test_paged_attention_kernel_other_tiles(card, head_dim, page, kind, K):
+    """The tensor-core kernel's other (hd, page size) instantiations, and
+    shapes outside them (hd 32, page 8) that take the CUDA-core kernel."""
+    g = torch.Generator().manual_seed(head_dim + page)
+    lens = [page * 5, 0, page + 1, 7]
+    q = torch.randn((len(lens), K, Hq, head_dim), generator=g).to(card, torch.bfloat16)
+
+    def pool():
+        x = torch.randn((P, Hkv, page, head_dim), generator=g).to(torch.bfloat16)
+        if kind == "int8":
+            qv, s = M._quantize_kv(x)
+            return {"q": qv.to(card), "s": s.to(card)}
+        return x.to(card)
+
+    k_pool, v_pool = pool(), pool()
+    table = torch.randint(1, P, (len(lens), MP), generator=g, dtype=torch.int32).to(card)
+    seq = torch.tensor(lens, dtype=torch.int32, device=card)
+    out = PA.paged_attention(q, k_pool, v_pool, table, seq, page, _pages_per_split=2)
+    ref = PA.paged_attention_plain(q, k_pool, v_pool, table, seq, page)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_paged_attention_plan_is_one_of_the_tested_splits(card):
+    for rows in (4, 20):
+        assert PA._split_plan(SPLIT_MP, len(SPLIT_LENS), Hkv, rows) in SPLIT_PPS
+
+
+@pytest.mark.cuda
+def test_paged_attention_rejects_unaligned_pools(card):
+    q = torch.zeros((1, 1, Hq, hd), dtype=torch.bfloat16, device=card)
+    flat = torch.zeros(P * Hkv * ps * hd + 1, dtype=torch.bfloat16, device=card)
+    pool = flat[1:].view(P, Hkv, ps, hd)  # 2 bytes past a 16-byte boundary
+    table = torch.zeros((1, MP), dtype=torch.int32, device=card)
+    lens = torch.ones((1,), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        PA.paged_attention(q, pool, pool, table, lens, ps)
+
+
 # ------------------------------------------------------------ flash attention
 
 FA = importlib.import_module("kubeflow_tpu_torch.ops.flash_attention")
@@ -105,6 +194,38 @@ def test_flash_attention_kernel_matches_plain(card, dtype, rtol, atol, D, causal
     assert out.dtype == dtype and out.shape == q.shape and lse.dtype == torch.float32
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [200, 512])
+@pytest.mark.parametrize("block_q,block_k", [(32, 64), (64, 32)])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_attention_kernel_partial_tiles_and_caller_blocks(card, D, block_q, block_k, S):
+    """bf16 at S = 200 (the kernel's last 128- or 64-row query tile and its
+    last 64-key tile are partial) and S = 512, with the caller's block_q !=
+    block_k, so the causal horizon of a row differs from the kernel's
+    tiles; causal with batch 1's first 40 keys padded (its first rows see
+    no key) and non-causal with batch 0 keeping 150 keys."""
+    g = torch.Generator().manual_seed(S + D)
+    q, k, v = (torch.randn((FB * FH, S, D), generator=g).to(card, torch.bfloat16)
+               for _ in range(3))
+    am = torch.ones((FB, S), device=card)
+    am[0, 150:] = 0
+    am[1, :40] = 0
+    mask = am.reshape(FB, 1, S)
+    for causal in (False, True):
+        out, lse = FA._flash_fwd(q, k, v, mask, D ** -0.5, causal, block_q, block_k, FH)
+        ref, ref_lse = FA.flash_attention_plain(q, k, v, mask, D ** -0.5, causal, block_q,
+                                                block_k)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7, atol=1e-3)
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+        if causal:
+            # batch 1, head 0, row 5 sees no key: the V average over the
+            # keys its query block visits (below 64 for 32/64 and 64/32)
+            hz = (((5 // block_q) + 1) * block_q - 1) // block_k * block_k + block_k
+            want = v[FH, :hz].float().mean(0)
+            torch.testing.assert_close(out[FH, 5].float(), want, rtol=2.0 ** -7, atol=1e-3)
 
 
 @pytest.mark.cuda
