@@ -24,12 +24,25 @@ or the script exits non-zero:
 5. main path: ``model.init(llama3_8b)`` -> ``Engine`` -> ``JetStreamModel``
    -> ``ModelServer`` on 127.0.0.1 answering 4 concurrent
    ``/v2/models/llama3-8b/generate`` requests (two long enough for the
-   chunked prefill), checked for 32 tokens each, for the paged kernel's
-   launches (counted from zero for this run), for leaked KV pages and
-   against the ``forward_full`` oracle; TTFT and tokens/s;
+   chunked prefill) with ``EngineConfig()`` defaults (the pipelined loop and
+   the prefix cache) and on the sync loop (``pipeline_depth=0``), in turns
+   (pipelined, sync, sync, pipelined); each run checked for 32 tokens per
+   request, for the paged kernel's launches (counted from zero for the run:
+   one per layer and decode step; its plain version never called), for
+   leaked KV pages and, request by request, against the ``forward_full``
+   oracle; TTFT, tokens/s and the leading tokens the first two runs share;
+5b. speculative: the same requests with ``speculative="prompt_lookup"``
+   (pipelined), the same checks, plus drafts proposed and the paged kernel
+   launched at K = 5 query rows per slot; the accept rate;
+5c. prefix cache: one 1000-byte prompt twice in a row, the second
+   admission adopting the first's cached pages; both TTFTs;
 6. profile: one main-path decode step (8 slots, the served lengths), paged
    and gather in turns on the host clock, and a torch.profiler window for
-   device busy time by kernel family and the device's idle share;
+   device busy time by kernel family and the device's idle share; then the
+   engine's own loop at ``pipeline_depth`` 1 and 0 with the four prompts
+   decoding: host ms per tick, the device idle share (the step's device
+   time over the tick), and the host calls that wait on the device per
+   tick (the pipelined loop must block on no copy and no stream);
 7. flash kernel: ``flash_attention``'s forward kernel on the card against
    ``flash_attention_plain`` at the BERT-base shapes (B=32, H=12, S=T=512,
    d=64, bf16; blocks 128): non-causal with a ragged key mask, causal, and
@@ -63,6 +76,7 @@ import argparse
 import dataclasses
 import gc
 import importlib
+import itertools
 import json
 import math
 import os
@@ -134,6 +148,16 @@ N_WARM, N_TIMED = 3, 20
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def brief(res):
+    """A phase result for the log: the served token ids (kept in ``--out``)
+    left out."""
+    if isinstance(res, dict):
+        return {k: brief(v) for k, v in res.items() if k != "token_ids"}
+    if isinstance(res, list):
+        return [brief(v) for v in res]
+    return res
 
 
 def nvidia_smi() -> str:
@@ -332,6 +356,8 @@ TEXT = ("Kubeflow serves Llama-3-8B on one H100: requests enter through the "
         "model server, queue in the C++ batcher, prefill in buckets or chunks, "
         "and decode over the paged KV pool. ")
 PROMPTS = [TEXT[:60], TEXT[:150], (TEXT * 3)[:300], (TEXT * 5)[:600]]
+# the prefix-cache phase's prompt: 31 full pages of 32 tokens, chunked
+LONG_PROMPT = (TEXT * 8)[:1000]
 
 
 def post(port: int, body: dict) -> tuple:
@@ -342,71 +368,142 @@ def post(port: int, body: dict) -> tuple:
         return r.status, json.loads(r.read())
 
 
-def main_path(params, cfg, dev) -> dict:
-    ec = EngineConfig()
+def oracle_lag(params, cfg, dev, prompt: str, got: list) -> float:
+    """How far the served tokens fall below the ``forward_full`` max logit
+    along their own trajectory (prompt + generation), at the worst step."""
+    ids = list(prompt.encode())
+    with torch.inference_mode():
+        logits = M.forward_full(params, cfg, torch.tensor(
+            [ids + got[:-1]], device=dev))[0, len(ids) - 1:]
+    picked = logits[torch.arange(len(got), device=dev), torch.tensor(got, device=dev)]
+    return (logits.max(-1).values - picked).max().item()
+
+
+def serve(params, cfg, dev, ec: EngineConfig, prompts: list, sequential=False) -> dict:
+    """``Engine(ec)`` -> ``JetStreamModel`` -> ``ModelServer`` on 127.0.0.1:
+    a warm-up, then ``prompts`` (concurrently, or one after another
+    with the cache counters read after each), with the paged kernel's
+    launches counted from zero for this run; every served request checked
+    against the ``forward_full`` oracle."""
     engine = Engine(params, cfg, ec, device=dev)
     model = JetStreamModel("llama3-8b", engine=engine)
     server = ModelServer([model], port=0, host="127.0.0.1")
     server.start()
     try:
-        # one warm-up request (first cuBLAS handles, allocator growth) before
-        # the counted run
-        status, _ = post(server.port, {"text_input": "warm up",
-                                       "parameters": {"max_tokens": 4}})
-        assert status == 200
-        base_steps = engine.stats["decode_steps"]
+        # warm-up: prompts of the served lengths with other bytes (the same
+        # prefill shapes, no prefix shared with the counted run), so neither
+        # run of a phase pays first-use costs the other does not
+        with ThreadPoolExecutor(len(prompts)) as pool:
+            warm = list(pool.map(lambda p: post(server.port, {
+                "text_input": p[::-1].swapcase(), "parameters": {"max_tokens": 2}}),
+                prompts))
+        assert all(code == 200 for code, _ in warm)
+        before = engine.stats
         PA.paged_attention.launches = 0
-        results: list = [None] * len(PROMPTS)
+        PA.paged_attention.launches_by_k = {}
+        # the plain version, watched: a CUDA engine must never run it
+        plain_calls = [0]
+        plain = PA.paged_attention_plain
+
+        def counting_plain(*a, **kw):
+            plain_calls[0] += 1
+            return plain(*a, **kw)
+
+        PA.paged_attention_plain = counting_plain
+        results: list = [None] * len(prompts)
+        after_each: list = []
 
         def run(i):
-            results[i] = post(server.port, {"text_input": PROMPTS[i],
+            results[i] = post(server.port, {"text_input": prompts[i],
                                             "parameters": {"max_tokens": MAX_TOKENS}})
 
         t0 = time.perf_counter()
-        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(PROMPTS))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
+        if sequential:
+            for i in range(len(prompts)):
+                run(i)
+                after_each.append({k: engine.stats[k] for k in ("page_hits", "cached_pages")})
+        else:
+            threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
         wall = time.perf_counter() - t0
         launches = PA.paged_attention.launches
-        steps = engine.stats["decode_steps"] - base_steps
+        by_k = dict(PA.paged_attention.launches_by_k)
         deadline = time.monotonic() + 30
         while engine.stats["active_slots"] and time.monotonic() < deadline:
             time.sleep(0.01)
         stats = engine.stats
-        ok = all(r is not None and r[0] == 200 and r[1]["tokens"] == MAX_TOKENS
-                 for r in results)
-        leaked = ec.num_pages - 1 - stats["free_pages"] - stats["cached_pages"]
-        out = {"ok": ok and leaked == 0 and launches >= cfg.n_layers * steps > 0,
-               "statuses": [r[0] if r else None for r in results],
-               "tokens": [r[1]["tokens"] if r else None for r in results],
-               "prompt_bytes": [len(p) for p in PROMPTS],
-               "launches": launches, "decode_steps": steps,
-               "leaked_pages": leaked,
-               "prefill_dispatches": stats["prefill_dispatches"],
-               "ttft_s": [r[1]["ttft_s"] if r else None for r in results],
-               "wall_s": wall,
-               "tokens_per_s": sum(MAX_TOKENS for r in results if r) / wall}
-        if not ok:
-            return out
-        # the served tokens against the repo's oracle, forward_full on the
-        # prompt + generation of the shortest request
-        ids = list(PROMPTS[0].encode())
-        got = results[0][1]["token_ids"]
-        with torch.inference_mode():
-            logits = M.forward_full(params, cfg, torch.tensor(
-                [ids + got[:-1]], device=dev))[0, len(ids) - 1:]
-        row_max = logits.max(-1).values
-        picked = logits[torch.arange(len(got), device=dev),
-                        torch.tensor(got, device=dev)]
-        lag = (row_max - picked).max().item()
-        out["oracle_max_logit_lag"] = lag
-        out["ok"] = out["ok"] and lag <= ORACLE_TIE_EPS
-        return out
     finally:
+        PA.paged_attention_plain = plain
         server.stop()
         engine.stop()
+    served = all(r is not None and r[0] == 200 and r[1]["tokens"] == MAX_TOKENS
+                 for r in results)
+    leaked = ec.num_pages - 1 - stats["free_pages"] - stats["cached_pages"]
+    steps = stats["decode_steps"] - before["decode_steps"]
+    out = {"statuses": [r[0] if r else None for r in results],
+           "tokens": [r[1]["tokens"] if r else None for r in results],
+           "token_ids": [r[1]["token_ids"] if r else None for r in results],
+           "prompt_bytes": [len(p) for p in prompts],
+           "launches": launches, "launches_by_k": by_k, "plain_calls": plain_calls[0],
+           "decode_steps": steps,
+           "leaked_pages": leaked,
+           "prefill_dispatches": stats["prefill_dispatches"] - before["prefill_dispatches"],
+           "pipeline_fences": stats["pipeline_fences"],
+           "spec_proposed": stats["spec_proposed"], "spec_accepted": stats["spec_accepted"],
+           "page_hits": stats["page_hits"] - before["page_hits"], "after_each": after_each,
+           "ttft_s": [r[1]["ttft_s"] if r else None for r in results],
+           "wall_s": wall, "tokens_per_s": sum(MAX_TOKENS for r in results if r) / wall}
+    out["oracle_max_logit_lag"] = ([oracle_lag(params, cfg, dev, p, r[1]["token_ids"])
+                                    for p, r in zip(prompts, results)] if served else None)
+    # every decode or verify call runs the kernel once per layer
+    out["ok"] = (served and leaked == 0 and launches == cfg.n_layers * steps > 0
+                 and plain_calls[0] == 0
+                 and max(out["oracle_max_logit_lag"]) <= ORACLE_TIE_EPS)
+    return out
+
+
+def main_path(params, cfg, dev) -> dict:
+    """The engine defaults (the pipelined loop, the prefix cache) and the
+    same requests on the sync loop (``pipeline_depth=0``), in turns:
+    pipelined, sync, sync, pipelined."""
+    runs = []
+    for depth in (1, 0, 0, 1):
+        runs.append(serve(params, cfg, dev, EngineConfig(pipeline_depth=depth), PROMPTS))
+        runs[-1]["pipeline_depth"] = depth
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = runs[0]["token_ids"], runs[1]["token_ids"]
+    identical = [sum(1 for _ in itertools.takewhile(lambda t: t[0] == t[1], zip(x, y)))
+                 if x and y else None for x, y in zip(a, b)]
+    return {"ok": all(r["ok"] for r in runs), "runs": runs,
+            "identical_leading_tokens": identical,
+            "launches": sum(r["launches"] for r in runs)}
+
+
+def speculative(params, cfg, dev) -> dict:
+    """The same requests with prompt-lookup speculative decoding (pipelined,
+    K = spec_max_draft + 1 = 5 query rows per slot in a verify pass)."""
+    ec = EngineConfig(speculative="prompt_lookup")
+    res = serve(params, cfg, dev, ec, PROMPTS)
+    k = 1 + ec.spec_max_draft
+    res["accept_rate"] = (res["spec_accepted"] / res["spec_proposed"]
+                          if res["spec_proposed"] else None)
+    res["ok"] = (res["ok"] and res["spec_proposed"] > 0
+                 and res["launches_by_k"].get(k, 0) > 0)
+    return res
+
+
+def prefix_cache(params, cfg, dev) -> dict:
+    """One long prompt twice in a row on the default engine: the second
+    admission adopts the first's cached pages."""
+    res = serve(params, cfg, dev, EngineConfig(), [LONG_PROMPT, LONG_PROMPT], sequential=True)
+    hits = [e["page_hits"] for e in res["after_each"]]
+    res["second_admission_cached_pages"] = hits[1] - hits[0] if len(hits) == 2 else None
+    res["ok"] = res["ok"] and (res["second_admission_cached_pages"] or 0) > 0
+    return res
 
 
 # ----------------------------------------------------------------- phase 6
@@ -448,7 +545,73 @@ def profile_decode(params, cfg, dev) -> dict:
     with torch.profiler.profile(activities=PROFILE_ACTIVITIES, acc_events=True) as prof:
         wall_ms = steps(True, n)
     out.update(device_breakdown(prof, n, wall_ms, "paged_attention", PAGED_MARKERS))
+    # the engine's loop at both depths on one card; a tick's device work is
+    # the decode step profiled above
+    out["engine"] = [profile_engine(params, cfg, dev, depth) for depth in (1, 0)]
+    busy = out.get("device_busy_ms_per_step")
+    for e in out["engine"]:
+        if busy and e["host_ms_per_tick"]:
+            e["device_idle_share"] = max(0.0, 1 - busy / e["host_ms_per_tick"])
+    out["ok"] = all(e["ok"] for e in out["engine"])
     return out
+
+
+# host calls that wait on the device, as the profiler names CUDA runtime calls
+WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+         "cudaMemcpy")
+ENGINE_TICKS, ENGINE_PROFILED_TICKS = 12, 6
+
+
+def profile_engine(params, cfg, dev, depth: int) -> dict:
+    """The engine's own decode loop at ``pipeline_depth`` ``depth``, with the
+    four served prompts decoding together: host ms per tick on the wall
+    clock over ``ENGINE_TICKS`` ticks, then a torch.profiler window of
+    ``ENGINE_PROFILED_TICKS`` ticks counting the host calls that wait on the
+    device per tick (``WAITS``; ``cudaMemcpy`` is the blocking copy, not
+    ``cudaMemcpyAsync``; the window's closing ``cudaDeviceSynchronize`` is
+    the profile's own).  The pipelined loop should wait once per tick (its
+    commit-behind's event), the sync loop at every upload and readback.
+    (The window's kernel records are not used: on the H100 the profiler has
+    dropped every kernel of one of the two engine windows in some runs,
+    never the runtime calls.)"""
+    engine = Engine(params, cfg, EngineConfig(pipeline_depth=depth), device=dev)
+    futs = [engine.generate_async(list(p.encode()), 40) for p in PROMPTS]
+    engine.start()
+
+    def ticks_after(n, deadline):
+        # a plain counter polled every 2 ms: reading ``stats`` (a lock and
+        # C calls) in a tight loop would take the interpreter lock from the
+        # engine's thread and slow the very ticks being timed
+        s0, t0 = engine._decode_steps, time.perf_counter()
+        while engine._decode_steps < s0 + n and time.monotonic() < deadline:
+            time.sleep(0.002)
+        return engine._decode_steps - s0, time.perf_counter() - t0
+
+    try:
+        deadline = time.monotonic() + 120
+        # every prompt prefilled and decoding
+        while ((engine._prefilling or engine._decode_steps < 2)
+               and time.monotonic() < deadline):
+            time.sleep(0.002)
+        n, wall = ticks_after(ENGINE_TICKS, deadline)
+        with torch.profiler.profile(activities=PROFILE_ACTIVITIES) as prof:
+            n_prof, _ = ticks_after(ENGINE_PROFILED_TICKS, deadline)
+            torch.cuda.synchronize()
+        results = [f.result(timeout=300) for f in futs]
+    finally:
+        engine.stop()
+    waits = {w: 0 for w in WAITS}
+    for e in prof.events():
+        if e.name in waits:
+            waits[e.name] += 1
+    per_tick = {k: v / n_prof for k, v in waits.items()} if n_prof else {}
+    return {"pipeline_depth": depth, "ticks": n, "profiled_ticks": n_prof,
+            "host_ms_per_tick": wall / n * 1e3 if n else None,
+            "waits_per_tick": per_tick,
+            # the pipelined loop never blocks on a copy or a stream
+            "ok": (n > 0 and n_prof > 0 and all(r["num_tokens"] == 40 for r in results)
+                   and (depth == 0 or (per_tick["cudaStreamSynchronize"] == 0
+                                       and per_tick["cudaMemcpy"] == 0)))}
 
 
 PROFILE_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
@@ -761,7 +924,7 @@ def main() -> int:
             res = {"ok": False, "error": traceback.format_exc(limit=3)}
         res["seconds"] = time.perf_counter() - t0
         report["phases"][name] = res
-        log(json.dumps({name: res}, default=str))
+        log(json.dumps({name: brief(res)}, default=str))
         if not res.get("ok", False):
             failed.append(name)
         return res
@@ -810,7 +973,9 @@ def main() -> int:
             return decode_parity(params, cfg, dev)
 
     phase("decode", decode)
-    mres = phase("main_path", lambda: main_path(params, cfg, dev))
+    served = [phase("main_path", lambda: main_path(params, cfg, dev)),
+              phase("speculative", lambda: speculative(params, cfg, dev)),
+              phase("prefix_cache", lambda: prefix_cache(params, cfg, dev))]
 
     def profile():
         with torch.inference_mode():
@@ -844,7 +1009,8 @@ def main() -> int:
               "source": "kubeflow_tpu_torch/serving/engine/csrc/paged_attention.cu",
               "replaces": "kubeflow_tpu/serving/engine/paged_attention.py:58",
               "tpu_kernel": "kubeflow_tpu/serving/engine/paged_attention.py:_kernel",
-              "launches": mres.get("launches", 0),
+              # every served path: phase 5's two loops, speculative, prefix cache
+              "launches": sum(r.get("launches", 0) for r in served),
               "max_abs_err": max((c["max_abs_err"] for c in cases), default=None),
               "ms": head.get("kernel_ms"), "kernel_ms": head.get("kernel_ms"),
               "device_ms": head.get("device_ms"), "plain_ms": head.get("plain_ms"),

@@ -19,7 +19,13 @@ function, so each entry point can be held against its JAX twin:
   * decode attention goes through ``paged_attention`` (a hand-written Hopper
     kernel on the card) with ``paged=True``, or through the gather path that
     matches the JAX engine's default with ``paged=False``.  Prefill attention
-    is plain tensor code, as it is XLA code in the JAX package.
+    is plain tensor code, as it is XLA code in the JAX package;
+  * the pipelined loop's fused steps (``decode_step_sample``, and for
+    speculative decoding ``decode_step_k``, ``decode_step_verify_sample``
+    and ``decode_step_sample_packed``) sample and guard on the device and
+    return one small int32 output per slot, so a tick copies back only
+    tokens.  The verify steps run K query rows per slot, through the paged
+    kernel at K > 1 with ``paged=True``.
 
 Every function takes the device from its inputs; ``init`` and
 ``load_params`` take an explicit ``device`` (default ``"cuda"``, which
@@ -579,6 +585,178 @@ def decode_step(params, config: DecoderConfig, tokens, seq_lens, page_table,
     natively."""
     return _decode_core(params, config, tokens, seq_lens, page_table,
                         k_pool, v_pool, paged=paged)
+
+
+def decode_step_sample(params, config: DecoderConfig, tokens, seq_lens,
+                       page_table, k_pool, v_pool, generator=None, poison=None,
+                       temperature: float = 0.0, guard: bool = True,
+                       paged: bool = False):
+    """Decode step with sampling and the NaN guard in one call: the
+    pipelined engine loop's tick body.
+
+    Same decode as ``decode_step`` (shared ``_decode_core``), then
+    ``poison`` ([B] bool or None) overwrites selected rows' logits with
+    NaN, and the token is sampled by ``sample_tokens``.  Returns (guarded
+    [B] int32, k_pool, v_pool): ``guarded[b]`` is the sampled token when
+    row b's logits are all finite and ``-token - 1`` (always negative) when
+    the guard tripped, so the caller reads ``ok = guarded >= 0`` from the
+    one small output it copies back.  ``guard=False`` returns the raw
+    sample.
+
+    ``tokens`` may hold a negative id (the previous tick's guard-tripped
+    row, fed back on the device): it is clamped to 0 before the embedding
+    gather, where an out-of-range index would be a device-side assert on
+    the card.  That row stays garbage in, garbage out; the engine fails it
+    at the next commit."""
+    logits, k_pool, v_pool = _decode_core(
+        params, config, tokens.clamp(min=0), seq_lens, page_table,
+        k_pool, v_pool, paged=paged)
+    if poison is not None:
+        logits = torch.where(poison[:, None], float("nan"), logits)
+    sampled = sample_tokens(logits, generator, temperature)
+    if guard:
+        ok = torch.isfinite(logits).all(dim=-1)
+        sampled = torch.where(ok, sampled, -sampled - 1)
+    return sampled, k_pool, v_pool
+
+
+def _last_accepted(prev_packed):
+    """The last non-sentinel entry of each packed ``[B, K]`` row (packed
+    rows are leading-accepted); an all-``-1`` row yields -1."""
+    n_prev = (prev_packed >= 0).sum(dim=1)
+    return prev_packed.gather(1, (n_prev - 1).clamp(min=0)[:, None])[:, 0]
+
+
+def decode_step_sample_packed(params, config: DecoderConfig, prev_packed,
+                              seq_lens, page_table, k_pool, v_pool,
+                              generator=None, poison=None,
+                              temperature: float = 0.0, guard: bool = True,
+                              paged: bool = False):
+    """No-draft tick of the pipelined speculative loop: the single-token
+    step of ``decode_step_sample`` wearing ``decode_step_verify_sample``'s
+    packed ``[B, K]`` edge on both sides.  The input token is the last
+    accepted entry of the previous tick's packed row (an all-``-1`` row
+    gives -1, which ``decode_step_sample`` clamps); the output is
+    ``[tok, -1, ...]``, so a guard-tripped (negative) sample leaves no
+    leading non-negative entry, the verify path's NaN encoding."""
+    B, K = prev_packed.shape
+    sampled, k_pool, v_pool = decode_step_sample(
+        params, config, _last_accepted(prev_packed), seq_lens, page_table,
+        k_pool, v_pool, generator, poison, temperature, guard, paged)
+    pad = torch.full((B, K - 1), -1, dtype=torch.int32, device=sampled.device)
+    return torch.cat([sampled[:, None], pad], dim=1), k_pool, v_pool
+
+
+def decode_step_k(params, config: DecoderConfig, tokens, seq_lens, page_table,
+                  k_pool, v_pool, paged: bool = False):
+    """Speculative verify step: 1 committed + (K-1) draft tokens per slot in
+    one pass.
+
+    tokens: [B, K] int — tokens[b, 0] is the slot's last committed token
+    (position seq_lens[b]-1), tokens[b, 1:] drafts at the following
+    positions; seq_lens counts committed tokens only.  Returns (logits
+    [B, K, vocab] f32, k_pool, v_pool): logits[b, j] predicts the token at
+    position seq_lens[b]+j.
+
+    KV is written for every draft position; a rejected position holds
+    garbage that stays masked (row j sees positions < seq_len + j) until a
+    real token overwrites it.  The caller keeps draft positions inside the
+    slot's owned pages.  ``paged=True`` runs attention through
+    ``paged_attention`` with ``q [B, K, Hq, hd]``, whose per-row horizon is
+    the same causal mask."""
+    c = config
+    B, K = tokens.shape
+    dev = tokens.device
+    page_size = pool_page_size(k_pool)
+    max_pages = page_table.shape[1]
+    T = max_pages * page_size
+    seq_lens = seq_lens.to(torch.int32)
+    page_table = page_table.to(torch.int32)
+    pos0 = (seq_lens.long() - 1).clamp(min=0)
+    positions = pos0[:, None] + torch.arange(K, device=dev)[None, :]  # [B, K]
+
+    x = _embed(params, c, tokens.long())  # [B, K, D]
+    t_range = torch.arange(T, device=dev)
+    # causal over the history and this call's own K tokens (their KV is
+    # written below before attention reads it)
+    mask = t_range[None, None, :] <= positions[:, :, None]  # [B, K, T]
+
+    page_of = positions // page_size  # [B, K]
+    # draft rows near the slot's capacity can step past the table: route
+    # them to the trash page 0 (a clipped index would alias the slot's last
+    # owned page and corrupt committed KV)
+    page_ids = torch.where(
+        page_of < max_pages,
+        page_table.long().gather(1, page_of.clamp(max=max_pages - 1)), 0)
+    offsets = positions % page_size
+
+    for l in range(c.n_layers):
+        h = _rms_norm(x, params["ln_attn"][l], c.norm_eps)
+        k_new, v_new = _kv_proj(params, l, c, h, positions)  # [B, K, Hkv, hd]
+        # [B, K] page ids and offsets around the head slice: the broadcast
+        # [B, K] axes lead, matching k_new's [B, K, Hkv, hd]
+        pool_set(k_pool, (l, page_ids, slice(None), offsets), k_new)
+        pool_set(v_pool, (l, page_ids, slice(None), offsets), v_new)
+        if paged:
+            kl, vl = pool_layer(k_pool, l), pool_layer(v_pool, l)
+            x = _block_with(
+                params, l, c, x, positions,
+                lambda q: paged_attention(q, kl, vl, page_table, seq_lens, page_size))
+        else:
+            k_cache = (pool_get(k_pool, (l, page_table.long()))
+                       .permute(0, 1, 3, 2, 4).reshape(B, T, c.n_kv_heads, c.head_dim))
+            v_cache = (pool_get(v_pool, (l, page_table.long()))
+                       .permute(0, 1, 3, 2, 4).reshape(B, T, c.n_kv_heads, c.head_dim))
+            x = _block(params, l, c, x, k_cache, v_cache, positions, mask)
+    x = _rms_norm(x, params["ln_out"], c.norm_eps)
+    logits = (x @ params["unembed"]).float()
+    return logits, k_pool, v_pool
+
+
+def decode_step_verify_sample(params, config: DecoderConfig, prev_packed,
+                              drafts, draft_len, seq_lens, page_table,
+                              k_pool, v_pool, generator=None, poison=None,
+                              temperature: float = 0.0, guard: bool = True,
+                              paged: bool = False):
+    """Speculative verify with longest-prefix accept, sampling and the NaN
+    guard in one call: the pipelined speculative tick body.
+
+    ``prev_packed``: [B, K] int32, the previous verify tick's output, kept
+    on the device; row b's input token 0 is its last accepted entry (after
+    a fence the engine seeds ``[last_committed, -1, ...]``).  ``drafts``:
+    [B, K-1] int32 prompt-lookup drafts; ``draft_len``: [B] int32 valid
+    drafts per row (padding never matches).  ``seq_lens``: committed length
+    per slot including the current token.
+
+    Returns (packed [B, K] int32, k_pool, v_pool): ``packed[b, :m]`` are
+    the m = accepted + 1 tokens greedy decoding would have committed (the
+    accepted draft prefix, then the bonus or correction token), later
+    entries are ``-1``.  A row whose K verify rows are not all finite is
+    all ``-1``: no healthy row can be, since every live row emits at least
+    one token."""
+    B, K = prev_packed.shape
+    tok0 = _last_accepted(prev_packed).clamp(min=0)
+    drafts = drafts.to(torch.int32)
+    tokens = torch.cat([tok0[:, None], drafts], dim=1)
+    logits, k_pool, v_pool = decode_step_k(
+        params, config, tokens, seq_lens, page_table, k_pool, v_pool, paged=paged)
+    if poison is not None:
+        logits = torch.where(poison[:, None, None], float("nan"), logits)
+    V = logits.shape[-1]
+    sampled = sample_tokens(logits.reshape(B * K, V), generator,
+                            temperature).reshape(B, K)
+    # longest-prefix accept: draft j is committable iff every earlier draft
+    # matched greedy at its position (the sync walk's "break on mismatch"
+    # as a cumulative product); padding past draft_len never matches
+    j = torch.arange(K - 1, device=logits.device)
+    match = (drafts == sampled[:, :K - 1]) & (j[None, :] < draft_len[:, None])
+    n_acc = match.to(torch.int32).cumprod(dim=1).sum(dim=1)
+    j_tok = torch.arange(K, device=logits.device)
+    packed = torch.where(j_tok[None, :] <= n_acc[:, None], sampled, -1)
+    if guard:
+        ok = torch.isfinite(logits).reshape(B, -1).all(dim=1)
+        packed = torch.where(ok[:, None], packed, -1)
+    return packed.to(torch.int32), k_pool, v_pool
 
 
 # ------------------------------------------------------------------ reference

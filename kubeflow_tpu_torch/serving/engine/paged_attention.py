@@ -10,7 +10,8 @@ writes a full KV copy to device memory before attention reads it back).
   it launches the CUDA C++ kernels in ``csrc/paged_attention.cu`` (built
   with nvcc for sm_90a at first use, bound with ctypes, launched on
   PyTorch's current stream) and counts the call as ONE launch in
-  ``paged_attention.launches``, although a call is two device kernels:
+  ``paged_attention.launches`` (and by K in ``launches_by_k``), although a
+  call is two device kernels:
   a split kernel, where each block walks a chunk of ``pages_per_split`` of
   one slot's pages and writes a partial ``(m, l, acc)`` in f32 to scratch
   from ``torch.empty``, then a merge kernel that folds each slot's live
@@ -233,7 +234,10 @@ def paged_attention(q, k_pool, v_pool, page_table, seq_lens, page_size: int,
         raise RuntimeError("paged_attention kernel launch failed: "
                            f"{lib.paged_attention_error_string(err).decode()}")
     paged_attention.launches += 1
+    paged_attention.launches_by_k[K] = paged_attention.launches_by_k.get(K, 0) + 1
     return out
 
 
 paged_attention.launches = 0
+# the same launches by query rows per slot: K = 1 decode, K > 1 verify
+paged_attention.launches_by_k = {}

@@ -251,3 +251,62 @@ def test_flash_attention_backward_on_card_matches_cpu(card):
     assert FA.flash_attention.launches == before + 1
     for a, b in zip(got, run("cpu")):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------- the engine on the card
+#
+# The serving engine's loops on the card at a tiny config: the pipelined loop
+# uploads from pinned buffers and reads back without blocking, and the
+# speculative loops run the paged kernel at K = 5.  Same dispatch shapes, same
+# kernels: pipelined and sync give the same bytes on the card too.
+
+ENGINE_CFG = M.DecoderConfig(vocab_size=13, d_model=256, n_layers=2, n_heads=4,
+                             n_kv_heads=1, d_ff=512)
+ENGINE_PROMPTS = [list(range(1, 13)), [1, 2, 3, 4] * 4, [5, 9, 2], [7] * 20]
+
+
+def _engine_run(card, **kw):
+    from kubeflow_tpu_torch.serving.engine.engine import Engine, EngineConfig
+
+    params = M.init(ENGINE_CFG, card, seed=0)
+    ec = EngineConfig(max_slots=4, num_pages=64, page_size=16, max_pages_per_slot=8, **kw)
+    eng = Engine(params, ENGINE_CFG, ec, device=card)
+    futs = [eng.generate_async(p, 40) for p in ENGINE_PROMPTS]
+    before = dict(PA.paged_attention.launches_by_k)
+    eng.start()
+    try:
+        out = [f.result(timeout=300)["tokens"] for f in futs]
+        stats = eng.stats
+    finally:
+        eng.stop()
+    launched = {k: v - before.get(k, 0) for k, v in PA.paged_attention.launches_by_k.items()}
+    assert stats["free_pages"] + stats["cached_pages"] == ec.num_pages - 1
+    return out, stats, launched, params
+
+
+@pytest.mark.cuda
+def test_engine_pipelined_matches_sync_on_card(card):
+    sync, _, _, _ = _engine_run(card, pipeline_depth=0)
+    pipe, stats, launched, _ = _engine_run(card, pipeline_depth=1)
+    assert pipe == sync
+    assert stats["pipeline_depth"] == 1 and launched.get(1, 0) > 0
+
+
+@pytest.mark.cuda
+def test_engine_speculative_on_card(card):
+    """Sync and pipelined speculative give the same bytes, the verify passes
+    launch the kernel at K = 5, and every token passes the tie-aware greedy
+    oracle (``forward_full`` on the card; the K-row verify runs its GEMMs at
+    another M than the plain step, so a near tie may flip against it)."""
+    kw = dict(speculative="prompt_lookup", spec_ngram=1, spec_max_draft=4)
+    sync, s0, _, _ = _engine_run(card, pipeline_depth=0, **kw)
+    pipe, s1, launched, params = _engine_run(card, pipeline_depth=1, **kw)
+    assert pipe == sync
+    assert s1["spec_accepted"] == s0["spec_accepted"] > 0
+    assert launched.get(5, 0) > 0
+    for p, got in zip(ENGINE_PROMPTS, pipe):
+        with torch.inference_mode():
+            logits = M.forward_full(params, ENGINE_CFG, torch.tensor(
+                [p + got[:-1]], device=card))[0, len(p) - 1:]
+        picked = logits[torch.arange(len(got), device=card), torch.tensor(got, device=card)]
+        assert float((logits.max(-1).values - picked).max()) <= 5e-2
