@@ -36,6 +36,22 @@ or the script exits non-zero:
    launched at K = 5 query rows per slot; the accept rate;
 5c. prefix cache: one 1000-byte prompt twice in a row, the second
    admission adopting the first's cached pages; both TTFTs;
+5d. QoS: on ``EngineConfig(max_slots=2)`` two batch-class requests (700-byte
+   prompts, 160 new tokens) fill both slots and an interactive one (200
+   bytes, 32 tokens) arrives once the first has committed 32 tokens, under
+   priority scheduling with swap preemption, with recompute preemption,
+   with swap on the int8 KV pool, and under the fifo baseline without
+   preemption; the interactive request's TTFT under each, the victim's
+   preemption mode, swapped bytes and swap-out/in ms, its tokens against
+   its run alone (all identical under swap), every token's oracle lag, no
+   page or store byte left at drain, and a ``deadline_s=0.05`` request
+   queued behind both slots answered 504;
+5e. sessions: a three-turn session over HTTP (16 new tokens a turn,
+   contexts of about 600, 900 and 1200 bytes) on the host tier, on the disk
+   tier, and turns 2-3 on a fresh engine restoring from the disk run's
+   manifest, each turn against its context run cold on a fresh engine:
+   restore tier, pages and bytes restored, warm vs cold TTFT, identical
+   leading tokens, oracle lag;
 6. profile: one main-path decode step (8 slots, the served lengths), paged
    and gather in turns on the host clock, and a torch.profiler window for
    device busy time by kernel family and the device's idle share; then the
@@ -86,6 +102,7 @@ import tempfile
 import threading
 import time
 import traceback
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
@@ -95,7 +112,9 @@ import torch
 from kubeflow_tpu_torch.serving.engine import model as M
 from kubeflow_tpu_torch.serving.engine import paged_attention as PA
 from kubeflow_tpu_torch.serving.engine.engine import Engine, EngineConfig
+from kubeflow_tpu_torch.serving.engine.kvstore import KVStoreConfig
 from kubeflow_tpu_torch.serving.engine.native import load_library
+from kubeflow_tpu_torch.serving.engine.scheduler import SchedulerConfig
 from kubeflow_tpu_torch.serving.engine.serve import JetStreamModel
 from kubeflow_tpu_torch.serving.server import ModelServer
 from kubeflow_tpu_torch.models import bert
@@ -364,8 +383,11 @@ def post(port: int, body: dict) -> tuple:
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/v2/models/llama3-8b/generate",
         data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=600) as r:
-        return r.status, json.loads(r.read())
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:  # 4xx/5xx: the status and its body
+        return e.code, json.loads(e.read())
 
 
 def oracle_lag(params, cfg, dev, prompt: str, got: list) -> float:
@@ -379,75 +401,110 @@ def oracle_lag(params, cfg, dev, prompt: str, got: list) -> float:
     return (logits.max(-1).values - picked).max().item()
 
 
-def serve(params, cfg, dev, ec: EngineConfig, prompts: list, sequential=False) -> dict:
-    """``Engine(ec)`` -> ``JetStreamModel`` -> ``ModelServer`` on 127.0.0.1:
-    a warm-up, then ``prompts`` (concurrently, or one after another
-    with the cache counters read after each), with the paged kernel's
-    launches counted from zero for this run; every served request checked
-    against the ``forward_full`` oracle."""
-    engine = Engine(params, cfg, ec, device=dev)
-    model = JetStreamModel("llama3-8b", engine=engine)
-    server = ModelServer([model], port=0, host="127.0.0.1")
-    server.start()
-    try:
-        # warm-up: prompts of the served lengths with other bytes (the same
-        # prefill shapes, no prefix shared with the counted run), so neither
-        # run of a phase pays first-use costs the other does not
-        with ThreadPoolExecutor(len(prompts)) as pool:
-            warm = list(pool.map(lambda p: post(server.port, {
-                "text_input": p[::-1].swapcase(), "parameters": {"max_tokens": 2}}),
-                prompts))
-        assert all(code == 200 for code, _ in warm)
-        before = engine.stats
+class KernelWatch:
+    """The paged kernel's launches counted from zero inside the ``with``
+    block, and its plain version watched: a CUDA engine must never run it.
+    Read ``launches``, ``by_k`` and ``plain_calls`` after the block."""
+
+    def __enter__(self):
         PA.paged_attention.launches = 0
         PA.paged_attention.launches_by_k = {}
-        # the plain version, watched: a CUDA engine must never run it
-        plain_calls = [0]
-        plain = PA.paged_attention_plain
+        self.plain_calls = 0
+        self._plain = plain = PA.paged_attention_plain
 
         def counting_plain(*a, **kw):
-            plain_calls[0] += 1
+            self.plain_calls += 1
             return plain(*a, **kw)
 
         PA.paged_attention_plain = counting_plain
+        return self
+
+    def __exit__(self, *exc):
+        self.launches = PA.paged_attention.launches
+        self.by_k = dict(PA.paged_attention.launches_by_k)
+        PA.paged_attention_plain = self._plain
+
+
+class Served:
+    """``Engine(ec)`` -> ``JetStreamModel`` -> ``ModelServer`` on 127.0.0.1,
+    stopped (server, then engine) when the ``with`` block ends."""
+
+    def __init__(self, params, cfg, dev, ec: EngineConfig):
+        self.engine = Engine(params, cfg, ec, device=dev)
+        self.server = ModelServer([JetStreamModel("llama3-8b", engine=self.engine)],
+                                  port=0, host="127.0.0.1")
+
+    def __enter__(self):
+        self.server.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.server.stop()
+        self.engine.stop()
+
+    def post(self, prompt: str, max_tokens: int, **params) -> tuple:
+        return post(self.server.port, {"text_input": prompt,
+                                       "parameters": {"max_tokens": max_tokens, **params}})
+
+    def warm(self, prompts: list) -> None:
+        """Prompts of the served lengths with other bytes (the same prefill
+        shapes, no prefix shared with the counted run), so no counted run
+        pays first-use costs another does not."""
+        with ThreadPoolExecutor(len(prompts)) as pool:
+            codes = list(pool.map(lambda p: self.post(p[::-1].swapcase(), 2)[0], prompts))
+        assert all(code == 200 for code in codes), codes
+
+    def idle(self, timeout: float = 30.0) -> dict:
+        """Wait for every slot to free; the engine's stats then."""
+        deadline = time.monotonic() + timeout
+        while self.engine.stats["active_slots"] and time.monotonic() < deadline:
+            time.sleep(0.01)
+        return self.engine.stats
+
+
+def leaked_pages(stats: dict, ec: EngineConfig) -> int:
+    return ec.num_pages - 1 - stats["free_pages"] - stats["cached_pages"]
+
+
+def serve(params, cfg, dev, ec: EngineConfig, prompts: list, sequential=False) -> dict:
+    """A warm-up, then ``prompts`` over HTTP (concurrently, or one after
+    another with the cache counters read after each), with the paged
+    kernel's launches counted from zero for this run; every served request
+    checked against the ``forward_full`` oracle."""
+    with Served(params, cfg, dev, ec) as srv:
+        srv.warm(prompts)
+        engine = srv.engine
+        before = engine.stats
         results: list = [None] * len(prompts)
         after_each: list = []
 
         def run(i):
-            results[i] = post(server.port, {"text_input": prompts[i],
-                                            "parameters": {"max_tokens": MAX_TOKENS}})
+            results[i] = srv.post(prompts[i], MAX_TOKENS)
 
-        t0 = time.perf_counter()
-        if sequential:
-            for i in range(len(prompts)):
-                run(i)
-                after_each.append({k: engine.stats[k] for k in ("page_hits", "cached_pages")})
-        else:
-            threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=600)
-        wall = time.perf_counter() - t0
-        launches = PA.paged_attention.launches
-        by_k = dict(PA.paged_attention.launches_by_k)
-        deadline = time.monotonic() + 30
-        while engine.stats["active_slots"] and time.monotonic() < deadline:
-            time.sleep(0.01)
-        stats = engine.stats
-    finally:
-        PA.paged_attention_plain = plain
-        server.stop()
-        engine.stop()
+        with KernelWatch() as watch:
+            t0 = time.perf_counter()
+            if sequential:
+                for i in range(len(prompts)):
+                    run(i)
+                    after_each.append({k: engine.stats[k] for k in ("page_hits", "cached_pages")})
+            else:
+                threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+            wall = time.perf_counter() - t0
+        stats = srv.idle()
     served = all(r is not None and r[0] == 200 and r[1]["tokens"] == MAX_TOKENS
                  for r in results)
-    leaked = ec.num_pages - 1 - stats["free_pages"] - stats["cached_pages"]
+    leaked = leaked_pages(stats, ec)
     steps = stats["decode_steps"] - before["decode_steps"]
+    launches, plain_calls = watch.launches, watch.plain_calls
     out = {"statuses": [r[0] if r else None for r in results],
            "tokens": [r[1]["tokens"] if r else None for r in results],
            "token_ids": [r[1]["token_ids"] if r else None for r in results],
            "prompt_bytes": [len(p) for p in prompts],
-           "launches": launches, "launches_by_k": by_k, "plain_calls": plain_calls[0],
+           "launches": launches, "launches_by_k": watch.by_k, "plain_calls": plain_calls,
            "decode_steps": steps,
            "leaked_pages": leaked,
            "prefill_dispatches": stats["prefill_dispatches"] - before["prefill_dispatches"],
@@ -460,7 +517,7 @@ def serve(params, cfg, dev, ec: EngineConfig, prompts: list, sequential=False) -
                                     for p, r in zip(prompts, results)] if served else None)
     # every decode or verify call runs the kernel once per layer
     out["ok"] = (served and leaked == 0 and launches == cfg.n_layers * steps > 0
-                 and plain_calls[0] == 0
+                 and plain_calls == 0
                  and max(out["oracle_max_logit_lag"]) <= ORACLE_TIE_EPS)
     return out
 
@@ -504,6 +561,282 @@ def prefix_cache(params, cfg, dev) -> dict:
     res["second_admission_cached_pages"] = hits[1] - hits[0] if len(hits) == 2 else None
     res["ok"] = res["ok"] and (res["second_admission_cached_pages"] or 0) > 0
     return res
+
+
+# ---------------------------------------------------------------- phase 5d
+
+# two batch-class requests fill both slots; after the first has committed
+# QOS_AT tokens an interactive one arrives
+QOS_BATCH = [(TEXT * 5)[:700], (TEXT * 5)[40:740]]
+QOS_INTERACTIVE = (TEXT * 2)[20:220]
+QOS_BATCH_TOKENS, QOS_INTERACTIVE_TOKENS, QOS_AT = 160, 32, 32
+QOS_SLOTS = 2
+
+
+def leading_identical(a: list, b: list) -> int:
+    return sum(1 for _ in itertools.takewhile(lambda t: t[0] == t[1], zip(a, b)))
+
+
+def _wait_for(pred, what: str, timeout: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def qos_run(params, cfg, dev, sched: SchedulerConfig, kv_quant=None,
+            deadline_probe: bool = False) -> dict:
+    """One 5d run over HTTP: batch request A, then batch request B once A
+    decodes (so B prefills alone, as its oracle does), then, when A has
+    committed QOS_AT tokens and B decodes, the interactive request.  With
+    ``deadline_probe`` a batch request with ``deadline_s=0.05`` is posted
+    while both slots are held: it must come back 504."""
+    ec = EngineConfig(max_slots=QOS_SLOTS, scheduler=sched, kv_quant=kv_quant)
+    with Served(params, cfg, dev, ec) as srv:
+        eng = srv.engine
+        srv.warm(QOS_BATCH + [QOS_INTERACTIVE])
+        out: dict = {}
+
+        def run(name, prompt, n, prio):
+            t0 = time.perf_counter()
+            out[name] = srv.post(prompt, n, priority=prio)
+            out[name + "_wall_s"] = time.perf_counter() - t0
+
+        def decoding(n_slots):
+            return eng.stats["active_slots"] == n_slots and not eng._prefilling
+
+        # which batch request each preemption evicts (the HTTP result does
+        # not carry the preemption count): the victim's prompt bytes
+        victims: list = []
+        preempt = eng._preempt_slot
+
+        def spy(slot, reason):
+            p = eng._requests.get(eng._slot_req.get(slot))
+            if p is not None:
+                victims.append("AB"[bytes(p.tokens[:64]) != QOS_BATCH[0][:64].encode()])
+            return preempt(slot, reason)
+
+        eng._preempt_slot = spy
+        threads = []
+        with KernelWatch() as watch:
+            s0 = eng.stats["decode_steps"]
+            for name, prompt in zip("AB", QOS_BATCH):
+                threads.append(threading.Thread(target=run, args=(
+                    name, prompt, QOS_BATCH_TOKENS, "batch")))
+                threads[-1].start()
+                _wait_for(lambda: decoding(len(threads)), f"{name} decoding")
+                if name == "A":
+                    a_steps = eng.stats["decode_steps"]
+            _wait_for(lambda: eng.stats["decode_steps"] >= a_steps + QOS_AT, "A's tokens")
+            threads.append(threading.Thread(target=run, args=(
+                "I", QOS_INTERACTIVE, QOS_INTERACTIVE_TOKENS, "interactive")))
+            threads[-1].start()
+            if deadline_probe:
+                out["deadline_probe"] = srv.post(QOS_INTERACTIVE, 4, priority="batch",
+                                                 deadline_s=0.05)
+            for t in threads:
+                t.join(timeout=600)
+        stats = srv.idle()
+        steps = stats["decode_steps"] - s0
+    res = {name: out.get(name) for name in "ABI"}
+    served = all(r is not None and r[0] == 200 for r in res.values())
+    rec = {"policy": sched.policy, "swap_policy": sched.swap_policy,
+           "preemption": sched.preemption, "kv_quant": kv_quant,
+           "statuses": {n: r[0] if r else None for n, r in res.items()},
+           "token_ids": {n: r[1].get("token_ids") if r else None for n, r in res.items()},
+           "ttft_s": {n: r[1].get("ttft_s") if r else None for n, r in res.items()},
+           "latency_s": {n: r[1].get("latency_s") if r else None for n, r in res.items()},
+           "victims": victims,
+           "preemptions": stats["preemptions"],
+           "preemption_modes": stats["preemption_modes"],
+           "preemption_reasons": stats["preemption_reasons"],
+           "swapped_bytes": stats["swap_bytes_out"], "swap_out_ms": stats["swap_out_ms"],
+           "swap_in_ms": stats["swap_in_ms"],
+           "store_host_bytes_at_drain": stats["kv_host_used_bytes"],
+           "swap_bytes_at_drain": stats["swap_used_bytes"],
+           "leaked_pages": leaked_pages(stats, ec),
+           "launches": watch.launches, "launches_by_k": watch.by_k,
+           "plain_calls": watch.plain_calls, "decode_steps": steps}
+    if deadline_probe:
+        code, body = out["deadline_probe"]
+        rec["deadline_probe"] = {"status": code, "reason": body.get("reason")}
+    rec["ok"] = (served and rec["leaked_pages"] == 0
+                 and rec["store_host_bytes_at_drain"] == 0 and rec["swap_bytes_at_drain"] == 0
+                 and watch.plain_calls == 0 and watch.launches == cfg.n_layers * steps > 0
+                 and all(res[n][1]["tokens"] == QOS_BATCH_TOKENS for n in "AB")
+                 and res["I"][1]["tokens"] == QOS_INTERACTIVE_TOKENS
+                 and (not deadline_probe or rec["deadline_probe"]["status"] == 504))
+    return rec
+
+
+def oracle_tokens(params, cfg, dev, prompt: str, kv_quant=None) -> list:
+    """The batch request alone on a fresh engine of the 5d geometry."""
+    with Served(params, cfg, dev, EngineConfig(max_slots=QOS_SLOTS, kv_quant=kv_quant)) as srv:
+        srv.warm([prompt])
+        code, body = srv.post(prompt, QOS_BATCH_TOKENS, priority="batch")
+    assert code == 200, body
+    return body["token_ids"]
+
+
+def qos(params, cfg, dev) -> dict:
+    """Phase 5d: the interactive request's TTFT under priority scheduling
+    with swap and with recompute preemption (and swap on the int8 pool)
+    against the fifo baseline without preemption; the victim's tokens
+    against its run alone (all identical under swap: the same KV bytes come
+    back; recompute re-derives the KV by prefill, so it is held to the
+    oracle bound); every served token's oracle lag; no page or store byte
+    left at drain; a doomed request shed with 504."""
+    victim_prompt = QOS_BATCH[1]  # B: the later-submitted batch slot
+    oracles = {q: oracle_tokens(params, cfg, dev, victim_prompt, q) for q in (None, "int8")}
+    runs = {}
+    for name, sched, kw in (
+            ("swap", SchedulerConfig(swap_policy="swap"), {}),
+            ("recompute", SchedulerConfig(swap_policy="recompute"), {}),
+            ("fifo", SchedulerConfig(policy="fifo", preemption=False), {"deadline_probe": True}),
+            ("int8_swap", SchedulerConfig(swap_policy="swap"), {"kv_quant": "int8"})):
+        runs[name] = qos_run(params, cfg, dev, sched, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+    prompts = {"A": QOS_BATCH[0], "B": QOS_BATCH[1], "I": QOS_INTERACTIVE}
+    for name, run in runs.items():
+        ids = run["token_ids"]
+        if all(ids.values()):
+            run["oracle_max_logit_lag"] = {n: oracle_lag(params, cfg, dev, prompts[n], ids[n])
+                                           for n in "ABI"}
+            run["victim_identical_leading_tokens"] = leading_identical(
+                ids["B"], oracles[run["kv_quant"]])
+        preempting = run["preemption"]
+        mode = run["swap_policy"]
+        run["ok"] = run["ok"] and "oracle_max_logit_lag" in run and (
+            run["victims"] == ["B"] and run["preemptions"] == 1
+            and run["preemption_modes"][mode] == 1 if preempting
+            else run["victims"] == [] and run["preemptions"] == 0)
+        if run["kv_quant"] is None:
+            # int8 KV rounds the pool: the bf16 oracle bound does not apply
+            run["ok"] = run["ok"] and max(run["oracle_max_logit_lag"].values()) <= ORACLE_TIE_EPS
+        if mode == "swap" and preempting:
+            run["ok"] = (run["ok"] and run["swapped_bytes"] > 0
+                         and run["victim_identical_leading_tokens"] == QOS_BATCH_TOKENS)
+    fifo_ttft = runs["fifo"]["ttft_s"]["I"] or 0.0
+    ok = all(r["ok"] for r in runs.values()) and all(
+        (runs[n]["ttft_s"]["I"] or 1e9) < fifo_ttft for n in ("swap", "recompute"))
+    return {"ok": ok, "runs": runs,
+            "interactive_ttft_s": {n: r["ttft_s"]["I"] for n, r in runs.items()},
+            "launches": sum(r["launches"] for r in runs.values())}
+
+
+# ---------------------------------------------------------------- phase 5e
+
+SESSION_TOKENS = 16
+SESSION_TURN_BYTES = (600, 900, 1200)
+
+
+def session_turns(replies: list) -> list:
+    """The three turns' contexts: turn 1 a 600-byte prompt; each later turn
+    the previous context, the reply's text and new bytes, about 900 and
+    1200 bytes in all."""
+    ctx = [(TEXT * 8)[:SESSION_TURN_BYTES[0]]]
+    for i, reply in enumerate(replies[:2]):
+        base = ctx[-1] + reply
+        extra = (TEXT * 8)[100:100 + max(8, SESSION_TURN_BYTES[i + 1] - len(base.encode()))]
+        ctx.append(base + extra)
+    return ctx
+
+
+def session_run(params, cfg, dev, kv: KVStoreConfig, contexts: list = None,
+                drop: bool = True) -> dict:
+    """Session turns over HTTP under one session id on one engine, counting
+    the paged kernel's launches.  ``contexts=None`` builds each turn's
+    context from the replies as it goes (session_turns).  Per turn: the
+    response and the pages and bytes the engine restored from the store.
+    ``drop``: unpin the session at the end, so every tier reads zero."""
+    ec = EngineConfig(kv_store=kv)
+    turns, restored, replies = [], [], []
+    with Served(params, cfg, dev, ec) as srv:
+        eng = srv.engine
+        before_sessions = sorted(eng.sessions())
+        with KernelWatch() as watch:
+            s0 = eng.stats["decode_steps"]
+            for i in range(len(contexts) if contexts else 3):
+                ctx = contexts[i] if contexts else session_turns(replies)[i]
+                r0 = eng.stats
+                code, body = srv.post(ctx, SESSION_TOKENS, session_id="chat")
+                r1 = eng.stats
+                turns.append((ctx, code, body))
+                replies.append(body.get("text_output", ""))
+                restored.append({k: r1[k] - r0[k] for k in ("session_restored_pages",
+                                                            "session_restored_bytes")})
+        stats = srv.idle()
+        steps = stats["decode_steps"] - s0
+        if drop:
+            eng.drop_session("chat")
+        drained = eng.stats
+    return {"turns": turns, "restored": restored, "sessions_at_boot": before_sessions,
+            "launches": watch.launches, "plain_calls": watch.plain_calls,
+            "kernel_ok": watch.plain_calls == 0 and watch.launches == cfg.n_layers * steps > 0,
+            "leaked_pages": leaked_pages(drained, ec),
+            "host_bytes_at_drain": drained["kv_host_used_bytes"],
+            "store_bytes_at_drain": drained["kv_host_used_bytes"] + drained["kv_disk_used_bytes"]}
+
+
+def sessions(params, cfg, dev) -> dict:
+    """Phase 5e: a three-turn session over HTTP on the host tier; the same
+    conversation on the disk tier (host budget 1 byte); then turns 2-3
+    again on a fresh engine booted on the disk run's directory, which
+    restores them from its manifest; each turn's context also run cold on a
+    fresh engine, the reference.  Per turn: the restore tier, the pages and
+    bytes restored, warm vs cold TTFT, identical leading tokens against the
+    cold run and the oracle lag."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        host = session_run(params, cfg, dev, KVStoreConfig(disk_dir=os.path.join(tmp, "h")))
+        contexts = [ctx for ctx, _, _ in host["turns"]]
+        disk_kv = KVStoreConfig(host_max_bytes=1, disk_dir=os.path.join(tmp, "d"))
+        disk = session_run(params, cfg, dev, disk_kv, contexts, drop=False)
+        manifest = session_run(params, cfg, dev, disk_kv, contexts[1:])
+    cold = []
+    for ctx in contexts:
+        with Served(params, cfg, dev, EngineConfig()) as srv:
+            cold.append(srv.post(ctx, SESSION_TOKENS)[1])
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {"host": host, "disk": disk, "manifest": manifest}
+    want = {"host": ["cold", "host", "host"], "disk": ["cold", "disk", "disk"],
+            "manifest": ["disk", "disk"]}
+    ok = manifest["sessions_at_boot"] == ["chat"]
+    report = {}
+    for name, run in runs.items():
+        rows = []
+        for (ctx, code, body), rest, cbody in zip(run["turns"], run["restored"],
+                                                  cold[3 - len(run["turns"]):]):
+            ids = body.get("token_ids") or []
+            sess = body.get("session", {})
+            rows.append({
+                "context_bytes": len(ctx.encode()), "status": code,
+                "restore": sess.get("restore"), "pinned": sess.get("pinned"),
+                "restored_pages": rest["session_restored_pages"],
+                "restored_bytes": rest["session_restored_bytes"],
+                "ttft_s": body.get("ttft_s"), "cold_ttft_s": cbody.get("ttft_s"),
+                "identical_leading_tokens": leading_identical(ids, cbody.get("token_ids") or []),
+                "oracle_max_logit_lag": (oracle_lag(params, cfg, dev, ctx, ids)
+                                         if len(ids) == SESSION_TOKENS else None)})
+        report[name] = {"turns": rows, "launches": run["launches"],
+                        "leaked_pages": run["leaked_pages"],
+                        "host_bytes_at_drain": run["host_bytes_at_drain"],
+                        "store_bytes_at_drain": run["store_bytes_at_drain"],
+                        "kernel_ok": run["kernel_ok"]}
+        ok = (ok and run["kernel_ok"] and run["leaked_pages"] == 0
+              and run["host_bytes_at_drain"] == 0
+              and (name == "disk" or run["store_bytes_at_drain"] == 0)
+              and [r["restore"] for r in rows] == want[name]
+              and all(r["status"] == 200 and r["pinned"] for r in rows)
+              and all(r["restored_pages"] > 0 for r in rows if r["restore"] != "cold")
+              and all(r["oracle_max_logit_lag"] is not None
+                      and r["oracle_max_logit_lag"] <= ORACLE_TIE_EPS for r in rows))
+    return {"ok": ok, "runs": report, "context_bytes": [len(c.encode()) for c in contexts],
+            "manifest_sessions_at_boot": manifest["sessions_at_boot"],
+            "launches": sum(r["launches"] for r in runs.values())}
 
 
 # ----------------------------------------------------------------- phase 6
@@ -975,7 +1308,9 @@ def main() -> int:
     phase("decode", decode)
     served = [phase("main_path", lambda: main_path(params, cfg, dev)),
               phase("speculative", lambda: speculative(params, cfg, dev)),
-              phase("prefix_cache", lambda: prefix_cache(params, cfg, dev))]
+              phase("prefix_cache", lambda: prefix_cache(params, cfg, dev)),
+              phase("qos", lambda: qos(params, cfg, dev)),
+              phase("sessions", lambda: sessions(params, cfg, dev))]
 
     def profile():
         with torch.inference_mode():
@@ -1009,7 +1344,8 @@ def main() -> int:
               "source": "kubeflow_tpu_torch/serving/engine/csrc/paged_attention.cu",
               "replaces": "kubeflow_tpu/serving/engine/paged_attention.py:58",
               "tpu_kernel": "kubeflow_tpu/serving/engine/paged_attention.py:_kernel",
-              # every served path: phase 5's two loops, speculative, prefix cache
+              # every served path: phase 5's two loops, speculative, prefix
+              # cache, QoS preemption and session restores
               "launches": sum(r.get("launches", 0) for r in served),
               "max_abs_err": max((c["max_abs_err"] for c in cases), default=None),
               "ms": head.get("kernel_ms"), "kernel_ms": head.get("kernel_ms"),

@@ -1,15 +1,24 @@
 """The inference engine: C++ batcher + PyTorch paged prefill/decode loop.
 
 Counterpart of ``kubeflow_tpu/serving/engine/engine.py`` at the JAX
-engine's defaults: the pipelined decode loop and the prefix cache, with
-prompt-lookup speculative decoding on request.  Request admission, slot
-lifecycle and KV page accounting live in the C++ core (core.cc via
-native.py); this module runs the loop on the device:
+engine's defaults: the pipelined decode loop, the prefix cache and the QoS
+scheduler, with prompt-lookup speculative decoding, sessions and an int8
+KV pool on request.  Slot lifecycle and KV page accounting live in the C++
+core (core.cc via native.py); this module runs the loop on the device:
 
     loop:
-      admit queued requests into free slots, FIFO through the core's queue
-        (the core decides whether the prompt's pages fit, all-or-nothing,
-        and adopts the longest cached chain of full prompt pages)
+      reap deadline-expired queued requests (DeadlineExceeded)
+      relieve pool pressure below SchedulerConfig.min_free_pages by
+        preempting a lower-class decode slot
+      admit from the host QosScheduler in policy order (class, then EDF,
+        then fair share; or FIFO), submit-then-admit one request at a time
+        through the core (which decides whether the prompt's pages fit,
+        all-or-nothing, and adopts the longest cached chain of full prompt
+        pages); when the head is blocked, preempt a strictly lower-class
+        decode slot by swap (its KV pages to the tiered store) or
+        recompute (its pages to the prefix cache); an admitted request
+        resumes from its swap blob, restores its session's pinned pages,
+        or prefills past the cached prefix
       group prefilling slots (short prompts by bucket, long or cache-resumed
         ones by chunk offset) -> ONE prefill per group -> one KV-page
         scatter -> one batched first-token sample per group
@@ -41,14 +50,23 @@ accepted tokens are what token-by-token argmax would have produced.
 
 With ``paged_kernel=True`` (the default here) decode and verify attention
 run through ``paged_attention``: the hand-written Hopper kernel on a CUDA
-pool (K = 1 plain, K = ``spec_max_draft`` + 1 verify), its plain version
-on a CPU pool.  ``paged_kernel=False`` keeps the gather path that the JAX
-engine runs by default.
+pool (K = 1 plain, K = ``spec_max_draft`` + 1 verify; bf16 or, with
+``kv_quant="int8"``, the int8 pool), its plain version on a CPU pool.
+``paged_kernel=False`` keeps the gather path that the JAX engine runs by
+default.
 
-Not ported yet (later slices): QoS scheduling and preemption, sessions and
-the tiered KV store, disaggregation and the fabric, constrained decoding,
-telemetry, faults and incidents, int8 weights, LoRA and tensor
-parallelism.
+Sessions: a request with a ``session_id`` pins its finished turn's
+complete KV pages in the tiered store (kvstore.py: host RAM, written
+through to checksummed page files), and the session's next turn scatters
+them back into its fresh page row instead of re-prefilling.  The pools are
+written in place, so every snapshot (device -> host) and scatter (host ->
+device) runs on the loop thread at admission, preemption or finish, after
+the pipeline fence where one is due; stream order keeps a scatter behind
+any dispatched tick.
+
+Not ported yet (later slices): disaggregation and the fabric, constrained
+decoding, telemetry, the watchdog, the dispatch fault families and
+incidents, int8 weights, LoRA and tensor parallelism.
 """
 
 from __future__ import annotations
@@ -58,19 +76,25 @@ import hashlib
 import threading
 import time
 from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FutureTimeoutError
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ...utils.device import resolve_device
-from ..errors import (EngineShutdown, NonFiniteLogits, RequestError,
+from ..errors import (DeadlineExceeded, EngineOverloaded, EngineShutdown,
+                      NonFiniteLogits, RequestError, SessionBusy,
                       TickFailure)
+from .kvstore import (BF16Bits, KVStoreConfig, TieredKVStore, bf16_bits,
+                      normalize_session_id)
 from .model import (DecoderConfig, decode_step, decode_step_k,
                     decode_step_sample, decode_step_sample_packed,
                     decode_step_verify_sample, make_kv_pool, prefill,
                     prefill_chunk, sample_tokens, write_pages)
 from .native import NativeBatcher
+from .scheduler import (PRIORITY_RANK, QosScheduler, QueueEntry,
+                        SchedulerConfig, normalize_priority)
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024)
 
@@ -116,6 +140,24 @@ class EngineConfig:
     speculative: Optional[str] = None
     spec_max_draft: int = 4
     spec_ngram: int = 2
+    # KV-cache quantization: "int8" stores pool entries as int8 + per-token
+    # bf16 scales (the paged kernel dequantizes in registers); None = bf16
+    kv_quant: Optional[str] = None
+    # admission control: submissions past this many queued-unadmitted
+    # requests fail fast with EngineOverloaded (0 = unbounded)
+    max_queue_depth: int = 0
+    # deadline for requests that pass none (seconds from submit; None =
+    # none).  Expired requests are shed before their first token with
+    # DeadlineExceeded.
+    default_deadline_s: Optional[float] = None
+    # per-tick admission policy + preemption knobs (scheduler.py).  None =
+    # SchedulerConfig(): priority classes / EDF / fair share, preemption on
+    scheduler: Optional[SchedulerConfig] = None
+    # host-RAM + disk tier budgets and placement for preemption swap and
+    # pinned session KV (kvstore.py).  None = KVStoreConfig with the
+    # scheduler's swap_max_bytes as the host budget and a private temporary
+    # disk dir, deleted at stop()
+    kv_store: Optional[KVStoreConfig] = None
 
 
 @dataclasses.dataclass
@@ -137,6 +179,30 @@ class _Pending:
     context: list = dataclasses.field(default_factory=list)
     ngram_index: dict = dataclasses.field(default_factory=dict)
     ngram_p: int = 0
+    # own request id (set at submit; the session-busy release key)
+    rid: int = -1
+    # absolute perf_counter deadline (None = none); an expired request is
+    # shed with DeadlineExceeded before its first token
+    deadline: Optional[float] = None
+    # priority class + its admission rank (interactive=0 < batch <
+    # best_effort); preemption only evicts strictly larger ranks
+    priority: str = "interactive"
+    rank: int = 0
+    # set by Engine.cancel(); the loop finishes the request at its next tick
+    cancelled: bool = False
+    # times this request was preempted out of its decode slot
+    preemptions: int = 0
+    # swap-preempted: KV pages live in the tiered store under this rid;
+    # resume_len is the committed context length to restore
+    swapped: bool = False
+    resume_len: int = 0
+    # conversation pin: the finished turn's KV pages park in the tiered
+    # store under this id, and the next turn restores them
+    session_id: Optional[str] = None
+    # how this turn's prefix was recovered — None until the first
+    # admission, then host|disk|cache|cold|degraded (degraded = the store
+    # had the session but verification failed; fell back to re-prefill)
+    session_restore: Optional[str] = None
 
 
 def _page_hashes(tokens: list, page_size: int) -> np.ndarray:
@@ -154,6 +220,42 @@ def _page_hashes(tokens: list, page_size: int) -> np.ndarray:
         out[i] = max(1, int.from_bytes(digest, "little"))
         prev = digest
     return out
+
+
+def _pool_map(fn, pool, *blobs):
+    """``fn`` over a pool's leaves (one tensor, or the int8 pool's
+    ``{"q", "s"}``) and the matching leaves of ``blobs``."""
+    if isinstance(pool, dict):
+        return {k: fn(pool[k], *(b[k] for b in blobs)) for k in sorted(pool)}
+    return fn(pool, *blobs)
+
+
+def _blob_leaves(blob) -> list:
+    """The numpy leaves of a ``(k, v)`` KV blob."""
+    return [a for part in blob
+            for a in (part.values() if isinstance(part, dict) else (part,))]
+
+
+def _leaf_to_host(t: torch.Tensor) -> np.ndarray:
+    """One device slab as a KV blob leaf on the host (a blocking copy): bf16
+    as its raw bits (kvstore.BF16Bits), other dtypes as they are."""
+    t = t.cpu()
+    if t.dtype == torch.bfloat16:
+        return bf16_bits(t.view(torch.int16).numpy())
+    return t.numpy()
+
+
+def _leaf_to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A KV blob leaf as a tensor on ``device``; bf16 bits (BF16Bits, or an
+    ml_dtypes bfloat16 array) come back by a view, bit for bit."""
+    bf16 = isinstance(arr, BF16Bits) or arr.dtype.name == "bfloat16"
+    a = np.asarray(arr)
+    if bf16:
+        a = a.view(np.int16)
+    if not (a.flags.writeable and a.flags.c_contiguous):
+        a = np.array(a, order="C")  # e.g. read back from a page file
+    t = torch.from_numpy(a)
+    return (t.view(torch.bfloat16) if bf16 else t).to(device)
 
 
 class _Staging:
@@ -235,14 +337,33 @@ class Engine:
         # full stop set: primary eos_id (if any) plus the multi-EOS extras
         self._stop_ids = frozenset(
             i for i in (ec.eos_id,) + tuple(ec.eos_ids) if i >= 0)
+        self._scfg = ec.scheduler if ec.scheduler is not None else SchedulerConfig()
+        for name, _ in self._scfg.adapter_weights:
+            # the port serves the base model only: every request is adapter 0
+            raise ValueError(f"adapter_weights names unknown adapter {name!r} "
+                             "(loaded: [])")
+        self._sched = QosScheduler(self._scfg)
         self.batcher = NativeBatcher(ec.max_slots, ec.num_pages, ec.page_size,
                                      ec.max_pages_per_slot)
         c = config
         shape = (c.n_layers, ec.num_pages, c.n_kv_heads, ec.page_size, c.head_dim)
         self._paged = ec.paged_kernel
-        self.k_pool = make_kv_pool(shape, device=self.device)
-        self.v_pool = make_kv_pool(shape, device=self.device)
+        self.k_pool = make_kv_pool(shape, ec.kv_quant, device=self.device)
+        self.v_pool = make_kv_pool(shape, ec.kv_quant, device=self.device)
+        # tiered KV backing store: preemption swap blobs + pinned session
+        # KV over host RAM aging to checksummed page files; a stable
+        # disk_dir makes pinned sessions survive a full engine restart (the
+        # store replays its manifest here)
+        self._kv = TieredKVStore(
+            ec.kv_store if ec.kv_store is not None
+            else KVStoreConfig(host_max_bytes=self._scfg.swap_max_bytes))
         self._requests: dict[int, _Pending] = {}  # guarded-by: _lock
+        # O(1) cancel: future -> rid, maintained at submit and at every
+        # terminal path
+        self._future_rid: dict[Future, int] = {}  # guarded-by: _lock
+        # session id -> rid of its one queued/in-flight turn: a session's KV
+        # timeline is serial, so a concurrent turn raises SessionBusy
+        self._session_active: dict[str, int] = {}  # guarded-by: _lock
         self._slot_req: dict[int, int] = {}
         self._prefilling: dict[int, int] = {}  # slot -> next prompt offset
         # Host-side mirrors of the C++ slot state, grown incrementally
@@ -303,7 +424,19 @@ class Engine:
         self._ticks = 0
         self._ticks_failed = 0
         self._requests_failed = 0
+        self._requests_shed = 0      # deadline expiry before first token
+        self._requests_rejected = 0  # EngineOverloaded at submit
         self._nan_rows = 0
+        # preemptions by mode, and the host wall time of swap-outs
+        # (snapshot + put) and swap-ins (pop + scatter)
+        self._preemptions = 0
+        self._preempt_modes = {"swap": 0, "recompute": 0}
+        self._preempt_reasons: dict[str, int] = {}
+        self._swap_out_s = 0.0
+        self._swap_in_s = 0.0
+        # pages (and their bytes) that session restores scattered back
+        self._restored_pages = 0
+        self._restored_bytes = 0
 
     # ---------------------------------------------------------------- public
 
@@ -339,6 +472,9 @@ class Engine:
             self._fail_slot(slot, EngineShutdown("engine stopped"))
         self._fail_unassigned(EngineShutdown("engine stopped"))
         self.batcher.close()
+        # an ephemeral (auto-tempdir) store deletes its page files; an
+        # explicit disk_dir keeps the session manifest for the next engine
+        self._kv.close()
         self._stopped = True
         self._draining = False
 
@@ -354,20 +490,42 @@ class Engine:
         return {"state": state, "ticks": self._ticks,
                 "ticks_failed": self._ticks_failed}
 
-    def generate_async(self, tokens: list[int], max_new_tokens: int = 32) -> Future:
+    def generate_async(self, tokens: list[int], max_new_tokens: int = 32,
+                       deadline: Optional[float] = None,
+                       priority: Optional[str] = None,
+                       session_id: Optional[str] = None) -> Future:
         """Submit a prompt; the Future resolves to a result dict (``rid``,
-        ``tokens``, ``num_tokens``, ``truncated``, ``cancelled``, ``ttft_s``,
-        ``latency_s``).  Raises RequestError for an empty prompt, a token id
-        outside the vocabulary (an out-of-range embedding index would
-        device-assert on the card) or a request beyond the slot capacity,
-        and EngineShutdown once stop() has begun."""
+        ``tokens``, ``num_tokens``, ``truncated``, ``cancelled``,
+        ``preemptions``, ``ttft_s``, ``latency_s``, and a ``session`` block
+        with a session id).
+
+        ``deadline``: seconds from now (default ``default_deadline_s``); a
+        request without its first token by then is shed with
+        DeadlineExceeded.  ``priority``: QoS class — "interactive" (default)
+        | "batch" | "best_effort" — deciding admission order and preemption
+        standing.  ``session_id``: conversation pin — the finished turn's KV
+        pages park in the tiered store under this id and the NEXT turn with
+        the same id, whose prompt extends this turn's context, restores
+        them instead of re-prefilling.
+
+        Raises RequestError for an empty prompt, a token id outside the
+        vocabulary (an out-of-range embedding index would device-assert on
+        the card), a bad priority or session id, or a request beyond the
+        slot capacity; EngineOverloaded when the queue is at
+        ``max_queue_depth``; SessionBusy while the session has a turn in
+        flight; EngineShutdown once stop() has begun."""
         if not tokens:
             raise RequestError("empty prompt")
         V = self.config.vocab_size
         if any(not 0 <= int(t) < V for t in tokens):
             raise RequestError(f"token ids must lie in [0, {V})")
+        prio = normalize_priority(priority)
+        if session_id is not None:
+            session_id = normalize_session_id(session_id)
         if self._draining or self._stopped:
             raise EngineShutdown("engine is stopping")
+        # a request that can never fit must fail HERE, not head-of-line-
+        # block the scheduler
         if (self._pages_for(len(tokens) + max_new_tokens)
                 > self.ec.max_pages_per_slot
                 or self._pages_for(len(tokens)) >= self.ec.num_pages):
@@ -375,47 +533,164 @@ class Engine:
                 f"prompt+generation ({len(tokens)}+{max_new_tokens}) exceeds engine capacity "
                 f"({self.ec.max_pages_per_slot * self.ec.page_size} tokens/slot)"
             )
+        depth = len(self._sched) + self.batcher.queue_depth
+        if self.ec.max_queue_depth > 0 and depth >= self.ec.max_queue_depth:
+            self._requests_rejected += 1
+            exc = EngineOverloaded(f"queue depth {depth} >= "
+                                   f"max_queue_depth {self.ec.max_queue_depth}")
+            # load-proportional retry hint, surfaced as Retry-After
+            exc.retry_after_s = round(min(
+                10.0, 0.25 + 0.1 * depth / max(1, self.ec.max_slots)), 3)
+            raise exc
+        if deadline is None:
+            deadline = self.ec.default_deadline_s
         toks = [int(t) for t in tokens]
         hashes = _page_hashes(toks, self.ec.page_size)
-        # lookup eligibility stops one page short of the prompt end: prefill
-        # must compute at least the final token to produce the logits the
-        # first sampled token comes from
-        lookup = hashes[:(len(toks) - 1) // self.ec.page_size]
         fut: Future = Future()
+        now = time.perf_counter()
         with self._lock:
             # shutdown check is atomic with registration: stop() flips
             # _draining under this lock BEFORE failing unassigned work
             if self._draining or self._stopped:
                 raise EngineShutdown("engine is stopping")
+            if session_id is not None and session_id in self._session_active:
+                raise SessionBusy(
+                    f"session {session_id!r} already has request "
+                    f"{self._session_active[session_id]} in flight")
             rid = self._next_id
             self._next_id += 1
-            self._requests[rid] = _Pending(
+            pending = self._requests[rid] = _Pending(
                 tokens=toks, max_new_tokens=max_new_tokens, future=fut,
-                submitted_at=time.perf_counter(), page_hashes=hashes,
-                context=list(toks))
-            # FIFO admission through the C++ core's own queue; registered
-            # first so the loop's admit always finds the pending record
-            ok = self.batcher.submit(rid, len(toks), max(1, max_new_tokens), lookup)
-            if not ok:
-                del self._requests[rid]
-        if not ok:
-            raise RequestError(
-                f"prompt+generation ({len(tokens)}+{max_new_tokens}) exceeds "
-                "engine capacity")
+                submitted_at=now, page_hashes=hashes, context=list(toks),
+                rid=rid, deadline=now + deadline if deadline is not None else None,
+                priority=prio, rank=PRIORITY_RANK[prio], session_id=session_id)
+            if session_id is not None:
+                self._session_active[session_id] = rid
+            self._future_rid[fut] = rid
+        # the request waits in the HOST scheduler queue; the loop submits it
+        # to the C++ core only when the policy admits it
+        self._sched.push(self._entry_for(rid, pending))
         self._wake.set()
         return fut
 
+    def _entry_for(self, rid: int, pending: _Pending) -> QueueEntry:
+        return QueueEntry(rid=rid, rank=pending.rank, deadline=pending.deadline,
+                          submitted_at=pending.submitted_at, adapter_id=0,
+                          pages=self._pages_for(len(pending.tokens)))
+
     def generate(self, tokens: list[int], max_new_tokens: int = 32,
-                 timeout: float = 300.0) -> dict:
-        return self.generate_async(tokens, max_new_tokens).result(timeout=timeout)
+                 timeout: float = 300.0, deadline: Optional[float] = None,
+                 priority: Optional[str] = None,
+                 session_id: Optional[str] = None) -> dict:
+        fut = self.generate_async(tokens, max_new_tokens, deadline=deadline,
+                                  priority=priority, session_id=session_id)
+        try:
+            return fut.result(timeout=timeout)
+        except FutureTimeoutError:
+            # the caller is gone: cancel so the engine frees the slot and
+            # pages at its next tick instead of decoding to the budget
+            self.cancel(fut)
+            raise
+
+    def cancel(self, future: Future) -> bool:
+        """Cancel the request behind a generate_async future.  A request
+        still queued (or preempted and re-queued) resolves IMMEDIATELY
+        (``cancelled: True``, keeping any tokens it committed before an
+        eviction); one in a slot is finished by the loop at its next tick.
+        False if the request already finished."""
+        with self._lock:
+            rid = self._future_rid.get(future)
+            pending = self._requests.get(rid) if rid is not None else None
+            if pending is None:
+                return False
+            pending.cancelled = True
+            queued = rid not in self._slot_req.values()
+            if queued:
+                self._requests.pop(rid)
+        if queued:
+            # resolve OUTSIDE the lock: a done-callback may re-enter
+            self._sched.remove(rid)
+            self._kv.discard_swap(rid)
+            self._retire(pending)
+            pending.future.set_result(self._result(rid, pending, cancelled=True))
+            return True
+        self._wake.set()
+        return True
+
+    @staticmethod
+    def _result(rid: int, pending: _Pending, truncated: bool = False,
+                cancelled: bool = False) -> dict:
+        """A request's result dict (a request cancelled while preempted keeps
+        its committed tokens and first TTFT)."""
+        return {
+            "rid": rid,
+            "tokens": pending.generated,
+            "num_tokens": len(pending.generated),
+            "truncated": truncated,
+            "cancelled": cancelled,
+            "preemptions": pending.preemptions,
+            "ttft_s": (pending.first_token_at - pending.submitted_at
+                       if pending.first_token_at else 0.0),
+            "latency_s": time.perf_counter() - pending.submitted_at,
+        }
+
+    def _resolve_queued_cancel(self, rid: int, pending: _Pending) -> bool:
+        """Loop-side twin of cancel()'s queued branch.  False when cancel()
+        itself won the race and already resolved it."""
+        with self._lock:
+            if self._requests.get(rid) is not pending:
+                return False
+            self._requests.pop(rid, None)
+        self._sched.remove(rid)
+        self._kv.discard_swap(rid)
+        self._retire(pending)
+        try:
+            pending.future.set_result(self._result(rid, pending, cancelled=True))
+        except Exception:  # already resolved (lost a race with cancel)
+            pass
+        return True
+
+    def _retire(self, pending: _Pending) -> None:
+        """Every terminal path (finish, fail, shed, cancel, reap, stop)
+        funnels here exactly once per request: the future index and the
+        session-busy entry are released, so a session is never left "in
+        flight" by a missed edge."""
+        with self._lock:
+            self._future_rid.pop(pending.future, None)
+            sid = pending.session_id
+            if sid is not None and self._session_active.get(sid) == pending.rid:
+                del self._session_active[sid]
+
+    def sessions(self) -> dict:
+        """Pinned sessions in the tiered KV store: id -> {nbytes, version,
+        tiers, context_len, pages}.  Entries a previous engine left on the
+        same ``disk_dir`` appear here before first touch."""
+        return self._kv.session_list()
+
+    def drop_session(self, session_id: str) -> bool:
+        """Unpin a session: its KV leaves both tiers and the manifest.
+        False if no such session."""
+        return self._kv.drop_session(session_id)
 
     @property
     def stats(self) -> dict:
         with self._lock:
             return {
                 "active_slots": self.batcher.num_active,
-                "queue_depth": self.batcher.queue_depth,
+                # host scheduler queue + the (normally empty) C++ queue
+                "queue_depth": len(self._sched) + self.batcher.queue_depth,
                 "free_pages": self.batcher.free_pages,
+                "preemptions": self._preemptions,
+                "preemption_modes": dict(self._preempt_modes),
+                "preemption_reasons": dict(self._preempt_reasons),
+                "swap_out_ms": self._swap_out_s * 1e3,
+                "swap_in_ms": self._swap_in_s * 1e3,
+                "session_restored_pages": self._restored_pages,
+                "session_restored_bytes": self._restored_bytes,
+                "scheduler": self._sched.snapshot(),
+                **self._kv.stats(),
+                "requests_shed": self._requests_shed,
+                "requests_rejected": self._requests_rejected,
                 "spec_proposed": self._spec_proposed,
                 "spec_accepted": self._spec_accepted,
                 "prefill_dispatches": self._prefill_dispatches,
@@ -473,15 +748,37 @@ class Engine:
                     self._wake.clear()
 
     def _tick(self) -> bool:
-        """One engine tick: admit, prefill groups, decode.  Each compute
-        phase runs inside its own isolation boundary (_isolated)."""
-        did_work = False
+        """One engine tick: reap expired, admit (policy order, preempting
+        when a higher class is blocked), prefill groups, decode.  Each
+        compute phase runs inside its own isolation boundary (_isolated)."""
+        # eager queue reaping: deadline-expired queued requests shed NOW,
+        # not when they reach the admission head
+        did_work = self._reap_expired_queue(time.perf_counter())
+        # C++-queued leftovers (an admit that failed after its submit last
+        # tick — rare; the scheduler queue is the real queue)
         while True:
             admitted = self.batcher.admit()
             if admitted is None:
                 break
             did_work = True
             self._install_admitted(admitted)
+
+        # pool-pressure relief: below the free-page watermark, evict a
+        # strictly lower-priority decode slot before decode growth
+        # OOM-truncates a higher-priority one (off unless min_free_pages)
+        if self._scfg.preemption and self._scfg.min_free_pages > 0:
+            free = self.batcher.free_pages + self.batcher.reclaimable()
+            if free < self._scfg.min_free_pages:
+                ranks = [self._requests[r].rank
+                         for s, r in self._slot_req.items()
+                         if s not in self._prefilling and r in self._requests]
+                if len(ranks) > 1:
+                    victim = self._pick_victim(max_rank=min(ranks))
+                    if victim is not None:
+                        did_work = True
+                        self._preempt_slot(victim, "pool")
+
+        did_work |= self._admit_from_scheduler()
 
         shorts: dict[int, list] = {}
         chunked: dict[int, list] = {}
@@ -490,6 +787,20 @@ class Engine:
             pending = self._requests.get(self._slot_req.get(slot))
             if pending is None:  # failed out from under us: reclaim
                 self._fail_slot(slot, TickFailure("orphaned prefill slot"))
+                continue
+            if pending.cancelled:
+                # mid-prefill cancel: pool pages are partially written —
+                # free them WITHOUT caching
+                del self._prefilling[slot]
+                self._finish(slot, self._slot_req[slot], truncated=False,
+                             cancelled=True, cache_ok=False)
+                continue
+            if (pending.deadline is not None and not pending.first_token_at
+                    and time.perf_counter() > pending.deadline):
+                # also covers a chunked prefill whose deadline lapsed
+                # mid-prompt; past the first token a request runs to the end
+                self._fail_slot(slot, DeadlineExceeded(
+                    "deadline expired before first token"), shed=True)
                 continue
             off = self._prefilling[slot]
             plen = len(pending.tokens)
@@ -506,10 +817,17 @@ class Engine:
 
         decode_ready = [s for s in self._slot_req if s not in self._prefilling]
         for slot in list(decode_ready):
-            if self._requests.get(self._slot_req.get(slot)) is None:
+            pending = self._requests.get(self._slot_req.get(slot))
+            if pending is None:
                 did_work = True
                 decode_ready.remove(slot)
                 self._fail_slot(slot, TickFailure("orphaned decode slot"))
+            elif pending.cancelled:
+                did_work = True
+                decode_ready.remove(slot)
+                # prompt KV is complete: its pages are safe to cache
+                self._finish(slot, self._slot_req[slot], truncated=False,
+                             cancelled=True)
         if decode_ready:
             did_work = True
             if self._pipe_depth > 0:
@@ -535,21 +853,313 @@ class Engine:
             self._drain_pipeline("idle")
         return did_work
 
+    # ------------------------------------------- QoS admission / preemption
+
     def _install_admitted(self, admitted) -> None:
-        """Bind one C++ admission to its request and queue it for prefill;
-        cache-hit pages already hold the prefix KV, so prefill resumes at
-        the first uncovered position."""
+        """Bind one C++ admission to its request, then route it to
+        swap-resume (restore KV, straight to decode) or to prefill past the
+        cached prefix, extended by the session's pinned pages on a
+        session's first admission."""
         slot, rid, plen, _, cached = admitted
+        # fetch + slot binding are one atomic step vs cancel(): once
+        # _slot_req holds rid, cancel defers to this loop
         with self._lock:
             pending = self._requests.get(rid)
             if pending is not None:
                 self._slot_req[slot] = rid
         if pending is None:
-            # failed while queued (stop): release the slot untouched
+            # resolved while queued (cancel, stop): release the slot untouched
             self.batcher.release(slot)
+            self._kv.discard_swap(rid)
             return
-        self._prefilling[slot] = cached * self.ec.page_size
+        if pending.cancelled:  # cancelled between submit and admit
+            self._kv.discard_swap(rid)
+            self._finish(slot, rid, truncated=False, cancelled=True,
+                         cache_ok=False)
+            return
+        if (pending.deadline is not None and not pending.first_token_at
+                and time.perf_counter() > pending.deadline):
+            # expired while queued: shed before spending any prefill (never
+            # after the first token — a preempted request always resumes)
+            self._fail_slot(slot, DeadlineExceeded(
+                "deadline expired after "
+                f"{time.perf_counter() - pending.submitted_at:.3f}s in queue"),
+                shed=True)
+            return
+        if pending.swapped:
+            item = self._kv.pop_swap(rid)
+            if item is not None:
+                try:
+                    self._resume_swapped(slot, pending, item)
+                    return
+                except Exception as exc:  # noqa: BLE001 — fail this slot only
+                    # never leave the slot half-installed for decode
+                    err = TickFailure(f"swap-in failed: {type(exc).__name__}: {exc}")
+                    err.__cause__ = exc
+                    self._fail_slot(slot, err)
+                    return
+            # blob lost (failed verification after a spill): recompute —
+            # tokens already hold the full context, a cold re-prefill
+            pending.swapped = False
+        off = cached * self.ec.page_size
+        if pending.session_id is not None and pending.session_restore is None:
+            off = self._restore_session(slot, pending, cached)
+        self._prefilling[slot] = off
         self._prefill_rows[slot] = self.batcher.slot_pages(slot)
+
+    def _snapshot_pages(self, pages: np.ndarray) -> tuple:
+        """Host snapshot of the pools' ``pages`` -> ``(blob, nbytes)``, the
+        one device -> host primitive behind swap and session pin: a ``(k,
+        v)`` tuple whose parts are numpy ``[layers, n, Hkv, page, hd]``
+        slabs (bf16 as raw bits) or the int8 pool's ``{"q", "s"}`` dicts —
+        the JAX engine's blob layout.  A blocking copy; the callers run
+        after the pipeline fence."""
+        idx = torch.from_numpy(np.asarray(pages, np.int64)).to(self.device)
+        fetch = lambda leaf: _leaf_to_host(leaf[:, idx])  # noqa: E731
+        blob = (_pool_map(fetch, self.k_pool), _pool_map(fetch, self.v_pool))
+        return blob, sum(a.nbytes for a in _blob_leaves(blob))
+
+    def _scatter_pages(self, pages: np.ndarray, blob, lo: int, hi: int) -> None:
+        """Write a host KV blob's page range ``[lo, hi)`` into the pools at
+        device ``pages``, in place — the one host -> device primitive
+        behind every restore.  Enqueued on the loop's stream, so it lands
+        after any tick already dispatched."""
+        idx = torch.from_numpy(np.asarray(pages, np.int64)).to(self.device)
+
+        def put(leaf, host):
+            leaf[:, idx] = _leaf_to_tensor(host[:, lo:hi], self.device)
+
+        _pool_map(put, self.k_pool, blob[0])
+        _pool_map(put, self.v_pool, blob[1])
+
+    def _restore_session(self, slot: int, pending: _Pending, cached: int) -> int:
+        """Session-turn prefix restore: fetch the session's pinned KV pages
+        from the tiered store (verified there), match the stored chain
+        hashes against this prompt's, and scatter the pages the device
+        prefix cache did NOT already cover into the slot's freshly
+        allocated row.  Returns the prefill offset (tokens covered).
+
+        Degrades, never fails: a miss, a verification failure, a prompt
+        that does not extend the pinned context, or any error here falls
+        back to the plain prefix-cache offset.  ``pending.session_restore``
+        records the outcome for the result dict."""
+        ps = self.ec.page_size
+        try:
+            outcome, payload = self._kv.restore_session(pending.session_id)
+            if payload is None:
+                pending.session_restore = "degraded" if outcome == "corrupt" else "cold"
+                return cached * ps
+            blob, _, meta = payload
+            stored = np.asarray(meta.get("hashes", ()), np.uint64)
+            own = pending.page_hashes
+            # full pages only, and at least ONE prompt position uncovered so
+            # prefill computes the logits of the first sampled token
+            limit = min(len(stored), len(own), max(0, (len(pending.tokens) - 1) // ps))
+            usable = 0
+            while usable < limit and own[usable] == stored[usable]:
+                usable += 1
+            if usable <= cached:
+                # the device cache covers everything the store could offer
+                # (or the prompt diverged from the pinned context before it)
+                pending.session_restore = "cache" if cached > 0 else "cold"
+                return cached * ps
+            row = self.batcher.slot_pages(slot)
+            self._scatter_pages(row[cached:usable], blob, cached, usable)
+            pending.session_restore = outcome  # "host" | "disk"
+            self._restored_pages += usable - cached
+            self._restored_bytes += sum(a[:, cached:usable].nbytes for a in _blob_leaves(blob))
+            return usable * ps
+        except Exception:  # noqa: BLE001 — restore must degrade
+            pending.session_restore = "degraded"
+            return cached * ps
+
+    def _resume_swapped(self, slot: int, pending: _Pending, item) -> None:
+        """Swap-in: scatter the evicted KV pages from the store into the
+        slot's freshly allocated pages and rebind the host mirrors — the
+        slot rejoins decode exactly where it left off (seq_len, page row,
+        last committed token), byte-identical under greedy."""
+        t0 = time.perf_counter()
+        blob, _ = item
+        L = pending.resume_len
+        owned = self._pages_for(L)
+        # swap submits carry no prefix hashes, so every page here is freshly
+        # owned by this slot: the scatter never writes a shared cache page
+        row = self.batcher.slot_pages(slot)
+        self._scatter_pages(row[:owned], blob, 0, owned)
+        pending.swapped = False
+        self._activate_decode(slot, L, owned, row)
+        self._tok_host[slot] = pending.generated[-1]
+        self._swap_in_s += time.perf_counter() - t0
+
+    def _reap_expired_queue(self, now: float) -> bool:
+        """Shed every queued request whose deadline lapsed — every tick,
+        not at the admission head.  Preempted requests (first token already
+        out) are never shed; they resume."""
+        did = False
+        for entry in self._sched.expired(now):
+            with self._lock:
+                pending = self._requests.get(entry.rid)
+                if pending is None:
+                    self._sched.remove(entry.rid)
+                    continue
+                if pending.first_token_at or pending.cancelled:
+                    continue  # resumes / resolves via its own path
+                self._requests.pop(entry.rid)
+            self._sched.remove(entry.rid)
+            self._kv.discard_swap(entry.rid)
+            self._sched.reaped += 1
+            self._requests_shed += 1
+            did = True
+            self._retire(pending)
+            self._resolve_exception(pending, DeadlineExceeded(
+                "deadline expired after "
+                f"{now - pending.submitted_at:.3f}s in queue (reaped)"))
+        return did
+
+    def _admit_from_scheduler(self) -> bool:
+        """Drain the host scheduler queue in policy order: submit-then-admit
+        one request at a time while slots and pages allow; when the head is
+        blocked, preempt a strictly lower-priority decode slot (at most
+        max_preemptions_per_tick) and retry — otherwise stop (strict
+        priority: never bypass a blocked head for a lower class)."""
+        did = False
+        budget = self._scfg.max_preemptions_per_tick if self._scfg.preemption else 0
+        while True:
+            entry = self._sched.peek()
+            if entry is None:
+                break
+            rid = entry.rid
+            pending = self._requests.get(rid)
+            if pending is None:
+                self._sched.remove(rid)  # resolved out from under the queue
+                continue
+            if pending.cancelled:
+                # a queued cancel that landed after a preempt re-queue
+                if self._resolve_queued_cancel(rid, pending):
+                    did = True
+                else:
+                    self._sched.remove(rid)
+                continue
+            plen = len(pending.tokens)
+            need = self._pages_for(plen)
+            have_slot = self.batcher.free_slots > 0
+            # min_free_pages doubles as an ADMISSION reserve: a slot evicted
+            # for pool pressure is not readmitted while the pool is still
+            # below the watermark (that would thrash a swap every tick)
+            have_pages = (self.batcher.free_pages + self.batcher.reclaimable()
+                          >= need + self._scfg.min_free_pages)
+            if not (have_slot and have_pages):
+                if budget > 0:
+                    victim = self._pick_victim(max_rank=entry.rank)
+                    if victim is not None:
+                        budget -= 1
+                        did = True
+                        self._preempt_slot(victim, "pages" if have_slot else "priority")
+                        continue  # re-evaluate the head with freed capacity
+                break
+            self._sched.pop(entry)
+            did = True
+            mnew = max(1, pending.max_new_tokens - len(pending.generated))
+            lookup = None
+            if not pending.swapped:
+                # lookup eligibility stops one page short of the prompt
+                # end: prefill must compute at least the final token
+                lookup = pending.page_hashes[:(plen - 1) // self.ec.page_size]
+            if not self.batcher.submit(rid, plen, mnew, lookup):
+                # defensive: capacity was validated at generate_async
+                with self._lock:
+                    self._requests.pop(rid, None)
+                self._kv.discard_swap(rid)
+                self._requests_failed += 1
+                self._retire(pending)
+                self._resolve_exception(pending, RequestError(
+                    f"prompt+generation ({plen}+{mnew}) exceeds engine capacity"))
+                continue
+            admitted = self.batcher.admit()
+            if admitted is None:
+                break  # stays at the C++ queue head; drained next tick
+            self._install_admitted(admitted)
+        return did
+
+    def _pick_victim(self, max_rank: int) -> Optional[int]:
+        """The decode-ready slot to preempt: rank strictly greater than
+        ``max_rank`` (-1 = any), preferring the lowest class, then the
+        latest deadline (none = latest), then the most recent submission.
+        None when no eligible victim exists — equals never preempt
+        equals."""
+        best, best_key = None, None
+        for slot, rid in self._slot_req.items():
+            if slot in self._prefilling:
+                continue  # mid-prefill KV is incomplete; not preemptible
+            p = self._requests.get(rid)
+            if p is None or p.cancelled or p.rank <= max_rank:
+                continue
+            key = (p.rank, p.deadline if p.deadline is not None else float("inf"),
+                   p.submitted_at)
+            if best_key is None or key > best_key:
+                best, best_key = slot, key
+        return best
+
+    def _preempt_slot(self, slot: int, reason: str) -> None:
+        """Evict one decoding slot: its KV pages are swapped to the store
+        (restored byte-identically on resume) or dropped into the prefix
+        cache (the re-prefill usually re-adopts the very same pages); the
+        slot and pages free, and the request re-queues with its class,
+        deadline and original submit time.  ``reason`` is what made room
+        necessary (priority | pages | pool)."""
+        # pipeline fence BEFORE reading the victim's mirrors: the in-flight
+        # tick's commit lands first, so the snapshot captures every
+        # committed token, and no dispatched tick still writes the pages.
+        # The drain may finish or fail the victim — re-validate below.
+        self._drain_pipeline("preempt")
+        rid = self._slot_req.get(slot)
+        pending = self._requests.get(rid) if rid is not None else None
+        if pending is None:
+            return
+        if pending.cancelled:  # cancel raced the eviction: just finish it
+            self._finish(slot, rid, truncated=False, cancelled=True)
+            return
+        ps = self.ec.page_size
+        L = int(self._len_host[slot])
+        # committed KV covers positions [0, L-2] (the last token's KV is
+        # written by its NEXT decode step); pages_for(L) bounds the pages
+        # that hold it — a lookahead page past that frees with the slot
+        owned = self._pages_for(L)
+        mode = self._scfg.swap_policy
+        if mode == "auto":
+            mode = "swap" if L >= self._scfg.swap_min_tokens else "recompute"
+        if mode == "swap" and owned > 0:
+            t0 = time.perf_counter()
+            blob, nbytes = self._snapshot_pages(self._pt_host[slot, :owned])
+            if self._kv.put_swap(rid, blob, nbytes):
+                self._swap_out_s += time.perf_counter() - t0
+            else:
+                mode = "recompute"  # over budget: drop instead
+        release_hashes = None
+        pending.tokens = list(pending.context)
+        if mode == "swap":
+            pending.swapped = True
+            pending.resume_len = L
+        else:
+            # drop-and-recompute: the resume prompt is the full committed
+            # context; its completed full pages go to the prefix cache
+            pending.swapped = False
+            pending.page_hashes = _page_hashes(pending.context, ps)
+            release_hashes = pending.page_hashes[:max(0, (L - 1) // ps)]
+        pending.preemptions += 1
+        self._preemptions += 1
+        self._preempt_modes[mode] += 1
+        self._preempt_reasons[reason] = self._preempt_reasons.get(reason, 0) + 1
+        self._reset_failures(pending)
+        with self._lock:
+            self._slot_req.pop(slot, None)
+        self._release_slot_state(slot)
+        self.batcher.release(slot, release_hashes)
+        self._sched.push(self._entry_for(rid, pending))
+        if pending.cancelled:
+            # cancel() landed during the swap-out window (it saw the slot
+            # still bound and deferred to us): resolve NOW
+            self._resolve_queued_cancel(rid, pending)
 
     def _isolated(self, phase: str, slots: list, fn, *args) -> bool:
         """Isolation boundary around one tick phase: an exception fails only
@@ -1222,28 +1832,71 @@ class Engine:
         self._prefill_rows.pop(slot, None)
         self._mark_roster_change("finish")
 
-    def _finish(self, slot: int, rid: int, truncated: bool) -> None:
+    def _finish(self, slot: int, rid: int, truncated: bool,
+                cancelled: bool = False, cache_ok: bool = True) -> None:
+        """Resolve a slot's request and free the slot.  ``cache_ok=False``
+        (cancelled mid-prefill): the pages hold partial KV and are neither
+        cached nor pinned."""
         with self._lock:
             pending = self._requests.pop(rid, None)
             self._slot_req.pop(slot, None)
-        self._release_slot_state(slot)
-        # the prompt's full pages enter the prefix cache on the way out: a
-        # slot finishes only from a commit, after its prefill completed, so
-        # their KV is whole (a failed slot releases without hashes)
-        self.batcher.release(slot, pending.page_hashes if pending is not None else None)
         if pending is None:
+            self._release_slot_state(slot)
+            self.batcher.release(slot)
             return
-        now = time.perf_counter()
-        pending.future.set_result({
-            "rid": rid,
-            "tokens": pending.generated,
-            "num_tokens": len(pending.generated),
-            "truncated": truncated,
-            "cancelled": False,
-            "ttft_s": (pending.first_token_at - pending.submitted_at
-                       if pending.first_token_at else 0.0),
-            "latency_s": now - pending.submitted_at,
-        })
+        # session pin BEFORE the mirrors zero: the slot's page row and
+        # committed length are what the snapshot reads
+        session = None
+        if pending.session_id is not None:
+            session = self._pin_session(slot, pending, cache_ok)
+        self._release_slot_state(slot)
+        # the prompt's full pages enter the prefix cache on the way out,
+        # unless the prefill never finished (their KV is partial) or the
+        # session pinned them: then they live in the tiered store instead
+        release_hashes = pending.page_hashes if cache_ok else None
+        if session is not None and session.get("pinned"):
+            release_hashes = None
+        self.batcher.release(slot, release_hashes)
+        self._retire(pending)
+        result = self._result(rid, pending, truncated, cancelled)
+        if pending.session_id is not None:
+            # "evicted" is a COUNT: session ids are bearer capabilities, so
+            # another client's id never appears in this client's response
+            result["session"] = {
+                "id": pending.session_id,
+                "restore": pending.session_restore or "cold",
+                "pinned": bool(session.get("pinned")),
+                "durable": bool(session.get("durable")),
+                "evicted": len(session.get("evicted") or ()),
+            }
+            err = session.get("error") or session.get("reason")
+            if err:
+                result["session"]["error"] = err
+        pending.future.set_result(result)
+
+    def _pin_session(self, slot: int, pending: _Pending, cache_ok: bool) -> dict:
+        """Park a finishing session turn's KV pages in the tiered store:
+        every COMPLETE page of committed KV (positions [0, L-2] — the final
+        token's KV is only written by a decode step that never runs) plus
+        the context's chain hashes, so the next turn can verify byte-exact
+        prefix identity before re-adopting.  Degrades, never raises."""
+        if not cache_ok:
+            return {"pinned": False, "reason": "incomplete prefill"}
+        ps = self.ec.page_size
+        L = int(self._len_host[slot])
+        covered = min(max(0, (L - 1) // ps), int(np.count_nonzero(self._pt_host[slot])))
+        if covered == 0:
+            return {"pinned": False,
+                    "reason": "committed context shorter than one page"}
+        try:
+            blob, nbytes = self._snapshot_pages(self._pt_host[slot, :covered])
+            hashes = _page_hashes(pending.context, ps)[:covered]
+            meta = {"hashes": [int(h) for h in hashes],
+                    "context_len": len(pending.context),
+                    "adapter_id": 0, "pages": covered}
+            return self._kv.pin_session(pending.session_id, blob, nbytes, meta)
+        except Exception as exc:  # noqa: BLE001 — a pin must not fail the turn
+            return {"pinned": False, "reason": f"{type(exc).__name__}: {exc}"}
 
     def _reset_failures(self, pending: _Pending) -> None:
         pending.failures = 0
@@ -1269,10 +1922,11 @@ class Engine:
         self._mark_roster_change("nan")  # before the release's "finish"
         self._fail_slot(slot, NonFiniteLogits(f"non-finite logits in {where}"))
 
-    def _fail_slot(self, slot: int, exc: Exception) -> None:
+    def _fail_slot(self, slot: int, exc: Exception, shed: bool = False) -> None:
         """Fail ONE slot's request with a typed error and free its
         slot/pages (never into the prefix cache: failed state is suspect);
-        the rest of the engine is untouched."""
+        the rest of the engine is untouched.  ``shed``: a deadline shed,
+        counted apart from failures."""
         with self._lock:
             rid = self._slot_req.pop(slot, None)
             pending = self._requests.pop(rid, None) if rid is not None else None
@@ -1281,21 +1935,29 @@ class Engine:
         self.batcher.release(slot)
         if pending is None:
             return
-        self._requests_failed += 1
+        self._kv.discard_swap(rid)
+        if shed:
+            self._requests_shed += 1
+        else:
+            self._requests_failed += 1
+        self._retire(pending)
         self._resolve_exception(pending, exc)
 
     def _fail_unassigned(self, exc: Exception) -> None:
-        """Fail every request NOT holding a slot (still queued).  Their C++
-        queue entries are reaped at admission: pending gone -> slot
-        released untouched."""
+        """Fail every request NOT holding a slot (queued or preempted).
+        A C++ queue entry left behind is reaped at admission: pending gone
+        -> slot released untouched."""
         with self._lock:
             held = set(self._slot_req.values())
             victims = [(rid, p) for rid, p in self._requests.items()
                        if rid not in held]
             for rid, _ in victims:
                 del self._requests[rid]
-        for _, p in victims:
+        for rid, p in victims:
+            self._sched.remove(rid)
+            self._kv.discard_swap(rid)
             self._requests_failed += 1
+            self._retire(p)
             self._resolve_exception(p, exc)
 
     @staticmethod

@@ -9,11 +9,17 @@ response shapes.
     V1 predict:  {"instances": [{"prompt": "...", "max_tokens": 32} | "str"]}
       -> {"predictions": [{"text": ..., "tokens": N, "latency_s": ...}]}
 
+QoS and sessions ride the generate parameters as in the JAX package:
+``deadline_s``, ``priority`` (or an ``X-Priority`` header) and
+``session_id`` (or an ``X-Session-Id`` header); bad values are refused with
+a 400 before anything is submitted, and a session turn's response carries a
+``session`` block.
+
 Tokenization: a flat ``{token: id}`` ``tokenizer.json`` in the model dir
 (greedy longest-match), else byte-level (ids 0..255).  The HF tokenizers
-format, streaming, sessions, QoS, disaggregation, the fabric and
-constrained decoding come in later slices; their request parameters are
-refused with a 400 rather than silently ignored.
+format, streaming, failover resume, adapters, disaggregation, the fabric,
+brownout and constrained decoding come in later slices; their request
+parameters are refused with a 400 rather than silently ignored.
 """
 
 from __future__ import annotations
@@ -27,13 +33,31 @@ from ...utils.device import resolve_device
 from ..errors import EngineError, RequestError
 from ..server import Model
 from .engine import Engine, EngineConfig
+from .kvstore import normalize_session_id
 from .model import DecoderConfig, load_params
+from .scheduler import normalize_priority
 
-# parameters of the JAX package's generate surface that this slice does not
+# parameters of the JAX package's generate surface that this port does not
 # implement yet
-_UNSUPPORTED_PARAMS = ("deadline_s", "priority", "resume_token_ids",
-                       "session_id", "adapter", "kv_handoff", "handoff",
+_UNSUPPORTED_PARAMS = ("resume_token_ids", "adapter", "kv_handoff", "handoff",
                        "fabric", "brownout", "constrain")
+
+
+def _header(headers: Optional[dict], name: str):
+    """A request header's value by case-insensitive name, else None."""
+    for k, v in (headers or {}).items():
+        if k.lower() == name:
+            return v
+    return None
+
+
+def _deadline(value) -> Optional[float]:
+    if value is None:
+        return None
+    try:
+        return float(value)
+    except (TypeError, ValueError):
+        raise RequestError(f"deadline_s must be a number, got {value!r}") from None
 
 
 class ByteTokenizer:
@@ -157,7 +181,11 @@ class JetStreamModel(Model):
         except Exception as e:  # noqa: BLE001 — a probe must answer
             return {"state": "DEAD", "reason": f"{type(e).__name__}: {e}"}
 
-    def _parse_generate(self, payload: Any):
+    def _parse_generate(self, payload: Any, headers: Optional[dict] = None):
+        """-> (ids, max_tokens, deadline_s, priority, session_id); every
+        value validated here, before anything is submitted (RequestError ->
+        400).  The ``priority`` and ``session_id`` parameters win over the
+        ``X-Priority`` and ``X-Session-Id`` headers."""
         prompt = payload.get("text_input", "") if isinstance(payload, dict) else str(payload)
         params = (payload.get("parameters") or {}) if isinstance(payload, dict) else {}
         if not isinstance(params, dict):
@@ -171,41 +199,63 @@ class JetStreamModel(Model):
         except (TypeError, ValueError):
             raise RequestError("max_tokens must be an integer, got "
                                f"{params.get('max_tokens')!r}") from None
-        return self.tokenizer.encode(prompt) or [0], max_tokens
+        priority = params.get("priority")
+        if priority is None:
+            priority = _header(headers, "x-priority")
+        if priority is not None:
+            priority = normalize_priority(priority)
+        session = params.get("session_id")
+        if session is None:
+            session = _header(headers, "x-session-id")
+        if session is not None:
+            session = normalize_session_id(session)
+        return (self.tokenizer.encode(prompt) or [0], max_tokens,
+                _deadline(params.get("deadline_s")), priority, session)
 
     def generate(self, payload: Any, headers: Optional[dict] = None) -> Any:
         """V2 generate extension (unary): {"text_input": str, "parameters":
-        {"max_tokens": N}} -> {"text_output": str, "token_ids", "tokens",
-        "prompt_tokens", "max_tokens", "ttft_s", "latency_s"}."""
-        ids, max_tokens = self._parse_generate(payload)
-        r = self.engine.generate(ids, max_tokens)
-        return {"text_output": self.tokenizer.decode(r["tokens"]),
-                "token_ids": r["tokens"],
-                "tokens": r["num_tokens"],
-                "prompt_tokens": len(ids), "max_tokens": max_tokens,
-                "ttft_s": round(r["ttft_s"], 4),
-                "latency_s": round(r["latency_s"], 4)}
+        {"max_tokens": N, "deadline_s": S, "priority": "interactive" |
+        "batch" | "best_effort", "session_id": id}} -> {"text_output": str,
+        "token_ids", "tokens", "prompt_tokens", "max_tokens", "ttft_s",
+        "latency_s"}, plus a ``session`` block (restore tier, pinned/durable
+        flags, evictions) for a session turn."""
+        ids, max_tokens, deadline, priority, session = self._parse_generate(payload, headers)
+        r = self.engine.generate(ids, max_tokens, deadline=deadline,
+                                 priority=priority, session_id=session)
+        out = {"text_output": self.tokenizer.decode(r["tokens"]),
+               "token_ids": r["tokens"],
+               "tokens": r["num_tokens"],
+               "prompt_tokens": len(ids), "max_tokens": max_tokens,
+               "ttft_s": round(r["ttft_s"], 4),
+               "latency_s": round(r["latency_s"], 4)}
+        if "session" in r:
+            out["session"] = r["session"]
+        return out
 
     def predict(self, payload: Any, headers: Optional[dict] = None) -> Any:
         instances = payload.get("instances", []) if isinstance(payload, dict) else payload
+        header_prio = _header(headers, "x-priority")
         # validate every instance BEFORE submitting anything: a bad value
         # mid-loop would 500 the request while earlier submissions burn slots
         parsed = []
         for inst in instances:
             if isinstance(inst, str):
-                parsed.append((inst, 32))
-                continue
+                inst = {"prompt": inst}
             unsupported = sorted(k for k in _UNSUPPORTED_PARAMS if k in inst)
             if unsupported:
                 raise RequestError(f"instance fields {unsupported} are not "
                                    "supported by this engine yet")
             try:
-                parsed.append((inst.get("prompt", ""), int(inst.get("max_tokens", 32))))
+                n = int(inst.get("max_tokens", 32))
             except (TypeError, ValueError):
                 raise RequestError("max_tokens must be an integer, got "
                                    f"{inst.get('max_tokens')!r}") from None
-        futures = [self.engine.generate_async(self.tokenizer.encode(p) or [0], n)
-                   for p, n in parsed]
+            prio = inst.get("priority")
+            prio = normalize_priority(prio if prio is not None else header_prio)
+            parsed.append((inst.get("prompt", ""), n, _deadline(inst.get("deadline_s")), prio))
+        futures = [self.engine.generate_async(self.tokenizer.encode(p) or [0], n,
+                                              deadline=d, priority=pr)
+                   for p, n, d, pr in parsed]
         out = []
         for fut in futures:
             try:

@@ -227,9 +227,26 @@ class ModelServer:
         out = verb(body, headers)
         out = dict(out) if isinstance(out, dict) else {"text_output": out}
         out.setdefault("model_name", name)
-        extra = {}
+        extra = _session_headers(out)
         if isinstance(out.get("ttft_s"), (int, float)):
             extra["X-TTFT-S"] = f"{out['ttft_s']:.4f}"
         if isinstance(out.get("latency_s"), (int, float)):
             extra["X-Engine-Wall-S"] = f"{out['latency_s']:.6f}"
         h._send(200, out, extra_headers=extra or None)
+
+
+def _session_headers(out: dict) -> dict:
+    """Session response headers for a unary generate: the restore tier, the
+    pin outcome, and HOW MANY sessions the tiered store evicted to make room
+    for this pin (a count, never the evicted ids: session ids are bearer
+    capabilities of other clients).  The id itself is safe to echo: it was
+    validated to visible ASCII at parse time, so it cannot split headers."""
+    sess = out.get("session")
+    if not isinstance(sess, dict):
+        return {}
+    hdrs = {"X-Session-Id": sess.get("id", ""),
+            "X-Session-Restore": sess.get("restore", "cold"),
+            "X-Session-Pinned": "true" if sess.get("pinned") else "false"}
+    if sess.get("evicted"):
+        hdrs["X-Session-Evicted"] = str(sess["evicted"])
+    return hdrs

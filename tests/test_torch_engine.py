@@ -211,7 +211,7 @@ def test_http_generate_and_predict_match_jax_jetstream(params256):
         assert all(set(r) <= set(p) for p, r in zip(preds, ref))
 
         code, out = _post(server.port, "/v2/models/llm/generate",
-                          {"text_input": "x", "parameters": {"session_id": "s1"}})
+                          {"text_input": "x", "parameters": {"adapter": "a1"}})
         assert code == 400 and "not supported" in out["error"]
         code, out = _post(server.port, "/v2/models/llm/generate",
                           {"text_input": "x", "parameters": {"max_tokens": "many"}})

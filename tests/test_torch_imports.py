@@ -51,7 +51,9 @@ def _port_modules():
 
 def test_every_port_module_imports_with_jax_blocked():
     modules = _port_modules()
-    for name in ("serving.engine.paged_attention", "ops.attention", "ops.flash_attention",
+    for name in ("serving.engine.paged_attention", "serving.engine.scheduler",
+                 "serving.engine.kvstore", "serving.engine.faults",
+                 "ops.attention", "ops.flash_attention",
                  "models.bert", "train.data", "train.trainer", "train.checkpoint",
                  "examples.bert_worker"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name

@@ -13,6 +13,7 @@ tests/test_torch_paged_attention.py's and tests/test_torch_flash_attention.py's
 job."""
 
 import importlib
+import time
 
 import pytest
 import torch
@@ -310,3 +311,73 @@ def test_engine_speculative_on_card(card):
                 [p + got[:-1]], device=card))[0, len(p) - 1:]
         picked = logits[torch.arange(len(got), device=card), torch.tensor(got, device=card)]
         assert float((logits.max(-1).values - picked).max()) <= 5e-2
+
+
+# Swap and sessions on the card: the page snapshot and scatter behind swap preemption
+# and sessions move the pools' exact bytes, and a swap-resumed slot decodes
+# through the kernel.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_swap_round_trip_on_card_is_bit_exact(card, quant):
+    """Device pages -> host blob -> KVPG frame -> host blob -> other device
+    pages: the destination pages hold the source pages' bytes exactly."""
+    from kubeflow_tpu_torch.serving.engine import kvstore as K
+    from kubeflow_tpu_torch.serving.engine.engine import Engine, EngineConfig
+
+    eng = Engine(M.init(ENGINE_CFG, card, seed=0), ENGINE_CFG, EngineConfig(
+        max_slots=2, num_pages=16, page_size=16, max_pages_per_slot=8, kv_quant=quant),
+        device=card)
+    g = torch.Generator(device=card).manual_seed(0)
+    for pool in (eng.k_pool, eng.v_pool):
+        for leaf in (pool.values() if isinstance(pool, dict) else (pool,)):
+            if leaf.dtype == torch.int8:
+                leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=g, device=card))
+            else:
+                leaf.copy_(torch.randn(leaf.shape, generator=g, device=card))
+    src, dst = [3, 1, 7], [9, 12, 4]
+    blob, nbytes = eng._snapshot_pages(src)
+    frame, n, _ = K.pack_frame("swap/0", blob, {})
+    eng._scatter_pages(dst, K.unpack_frame(frame)[0], 0, len(dst))
+    torch.cuda.synchronize()
+    assert n == nbytes > 0
+    for pool in (eng.k_pool, eng.v_pool):
+        for leaf in (pool.values() if isinstance(pool, dict) else (pool,)):
+            assert torch.equal(leaf[:, dst].view(torch.uint8), leaf[:, src].view(torch.uint8))
+    eng.stop()
+
+
+@pytest.mark.cuda
+def test_swap_resumed_slot_decodes_through_the_kernel(card):
+    """A batch request swapped out for an interactive one resumes to its
+    uncontended bytes, and its resumed decode steps launch the kernel."""
+    from kubeflow_tpu_torch.serving.engine.engine import Engine, EngineConfig
+    from kubeflow_tpu_torch.serving.engine.scheduler import SchedulerConfig
+
+    params = M.init(ENGINE_CFG, card, seed=0)
+    ec = EngineConfig(max_slots=1, num_pages=64, page_size=16, max_pages_per_slot=8,
+                      scheduler=SchedulerConfig(swap_policy="swap"))
+    eng = Engine(params, ENGINE_CFG, ec, device=card)
+    eng.start()
+    try:
+        base = eng.generate(ENGINE_PROMPTS[0], 80)["tokens"]
+    finally:
+        eng.stop()
+    eng = Engine(params, ENGINE_CFG, ec, device=card)
+    eng.start()
+    try:
+        hog = eng.generate_async(ENGINE_PROMPTS[0], 80, priority="batch")
+        deadline = time.monotonic() + 120
+        while eng.stats["decode_steps"] < 10 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        inter = eng.generate(ENGINE_PROMPTS[2], 8, priority="interactive")
+        resumed_at = PA.paged_attention.launches
+        rh = hog.result(timeout=300)
+        stats = eng.stats
+    finally:
+        eng.stop()
+    assert inter["num_tokens"] == 8 and rh["preemptions"] == 1
+    assert rh["tokens"] == base
+    assert stats["swapped_in"] == 1 and stats["swap_used_bytes"] == 0
+    assert PA.paged_attention.launches > resumed_at
