@@ -52,6 +52,20 @@ or the script exits non-zero:
    manifest, each turn against its context run cold on a fresh engine:
    restore tier, pages and bytes restored, warm vs cold TTFT, identical
    leading tokens, oracle lag;
+5f. streaming: the surfaces the ingress calls, over HTTP on ``EngineConfig()``:
+   the four prompts as concurrent ``generate_stream`` requests with
+   ``X-Stream-Resume: 1`` (each stream's text equal to the decoding of its
+   own token ids, ``tokens`` equal to 32, every token within the oracle
+   bound, the identical leading tokens against the same prompts' unary
+   run; client time to the first event against the engine's ``ttft_s``,
+   p50/p99 gaps between events against the engine's ms per decode step),
+   the same streams on ``speculative="prompt_lookup"`` (the kernel at K =
+   5 inside a stream), a client that hangs up after 8 events and
+   re-submits with ``resume_token_ids`` (the whole within the oracle bound,
+   the re-prefill's page hits, its TTFT; no page leaked), one OpenAI chat
+   stream (``delta.role`` first, ``data: [DONE]`` last), ``/metrics``
+   parsed to its load gauges, and ``/engine/health`` through SERVING,
+   DRAINING (503, while ``stop()`` drains a stream) and DEAD;
 6. profile: one main-path decode step (8 slots, the served lengths), paged
    and gather in turns on the host clock, and a torch.profiler window for
    device busy time by kernel family and the device's idle share; then the
@@ -59,6 +73,13 @@ or the script exits non-zero:
    decoding: host ms per tick, the device idle share (the step's device
    time over the tick), and the host calls that wait on the device per
    tick (the pipelined loop must block on no copy and no stream);
+6b. runtime: with Llama-3-8B freed, ``python -m
+   kubeflow_tpu_torch.serving.runtime_main --loader jetstream`` as a
+   subprocess on a model dir holding Llama-3-8B's ``config.json`` (random
+   init on the card) and an ``engine.json`` with ``scheduler`` and
+   ``kv_store`` blocks: time to ``/v2/health/ready``, one unary generate,
+   one stream and ``/engine/health``, all 200, no traceback, and an exit
+   after the terminate (its kernel launches are not readable from here);
 7. flash kernel: ``flash_attention``'s forward kernel on the card against
    ``flash_attention_plain`` at the BERT-base shapes (B=32, H=12, S=T=512,
    d=64, bf16; blocks 128): non-causal with a ragged key mask, causal, and
@@ -80,7 +101,7 @@ or the script exits non-zero:
    at its tiny defaults, killed at step 3 (exit 137) and rerun: it resumes
    from the step-2 checkpoint and finishes step 4.
 
-The Llama-3-8B weights are freed before phase 7.  The last lines are the
+The Llama-3-8B weights are freed before phase 6b.  The last lines are the
 ``{"kernels": [...]}`` record, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Weights are random (seed 0) at full
 width (and, for the phases that serve, full depth).
@@ -91,11 +112,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import http.client
 import importlib
 import itertools
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -839,6 +862,258 @@ def sessions(params, cfg, dev) -> dict:
             "launches": sum(r["launches"] for r in runs.values())}
 
 
+# ---------------------------------------------------------------- phase 5f
+
+STREAM_PATH = "/v2/models/llama3-8b/generate_stream"
+# the failover client: closes after this many events, then resumes
+RESUME_AFTER = 8
+# the stream stop() drains while /engine/health is polled
+DRAIN_TOKENS = 48
+
+
+def sse(port: int, path: str, body: dict, headers: dict = None, stop_after: int = None):
+    """One SSE request over its own connection: (status, events, seconds
+    from the request to each event).  ``data: [DONE]`` is kept as the string
+    "[DONE]"; a non-200 answer gives its JSON body as ``events``.
+    ``stop_after``: close the connection after that many events."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", path, json.dumps(body),
+                 {"Content-Type": "application/json", **(headers or {})})
+    resp = conn.getresponse()
+    try:
+        if resp.status != 200:
+            return resp.status, json.loads(resp.read()), []
+        events, times = [], []
+        while stop_after is None or len(events) < stop_after:
+            line = resp.readline()
+            if not line:
+                break
+            if not line.startswith(b"data: "):
+                continue
+            data = line[len(b"data: "):].strip()
+            times.append(time.perf_counter() - t0)
+            events.append("[DONE]" if data == b"[DONE]" else json.loads(data))
+        return resp.status, events, times
+    finally:
+        resp.close()
+        conn.close()
+
+
+def get_json(port: int, path: str) -> tuple:
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def parse_metrics(text: str) -> dict:
+    """Prometheus text exposition -> {series: value} (the script cannot use
+    the JAX package's scraper)."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("#") or not line.strip():
+            continue
+        name, _, value = line.rpartition(" ")
+        out[name] = float(value)
+    return out
+
+
+def quantile(xs: list, q: float):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
+
+
+def stream_run(srv, prompts: list) -> dict:
+    """``prompts`` as concurrent generate_stream requests with
+    ``X-Stream-Resume: 1``; per stream the token ids, text, final record,
+    client time to the first event and gaps between token events."""
+    results: list = [None] * len(prompts)
+
+    def run(i):
+        body = {"text_input": prompts[i], "parameters": {"max_tokens": MAX_TOKENS}}
+        results[i] = sse(srv.server.port, STREAM_PATH, body, {"X-Stream-Resume": "1"})
+
+    s0 = srv.engine.stats["decode_steps"]
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    steps = srv.engine.stats["decode_steps"] - s0
+    decode = srv.model.tokenizer.decode
+    out = []
+    for code, events, times in results:
+        tok = [(e, t) for e, t in zip(events, times) if not e.get("done")]
+        ids = [i for e, _ in tok for i in e.get("token_ids", ())]
+        text = "".join(e["text_output"] for e in events)
+        final = events[-1] if events and events[-1].get("done") else {}
+        out.append({"status": code, "token_ids": ids, "events": len(events),
+                     "text_ok": text == decode(ids), "tokens": final.get("tokens"),
+                     "engine_ttft_s": final.get("ttft_s"),
+                     "client_first_event_s": tok[0][1] if tok else None,
+                     "gaps_s": [b[1] - a[1] for a, b in zip(tok, tok[1:])]})
+    gaps = [g for r in out for g in r.pop("gaps_s")]
+    return {"streams": out, "wall_s": wall, "decode_steps": steps,
+            "engine_ms_per_step": wall / steps * 1e3 if steps else None,
+            "event_gap_p50_ms": quantile(gaps, 0.5) * 1e3 if gaps else None,
+            "event_gap_p99_ms": quantile(gaps, 0.99) * 1e3 if gaps else None}
+
+
+def streaming_checks(params, cfg, dev, run: dict, prompts: list, unary: list = None) -> bool:
+    """The stream gates: 200, text == decode(ids), ``tokens`` ==
+    MAX_TOKENS, every token within the oracle bound; with ``unary``, the
+    identical leading tokens against those ids (reported)."""
+    ok = True
+    for i, (p, r) in enumerate(zip(prompts, run["streams"])):
+        r["oracle_max_logit_lag"] = (oracle_lag(params, cfg, dev, p, r["token_ids"])
+                                     if len(r["token_ids"]) == MAX_TOKENS else None)
+        if unary is not None:
+            r["identical_leading_vs_unary"] = leading_identical(r["token_ids"], unary[i])
+        ok = (ok and r["status"] == 200 and r["text_ok"] and r["tokens"] == MAX_TOKENS
+              and r["oracle_max_logit_lag"] is not None
+              and r["oracle_max_logit_lag"] <= ORACLE_TIE_EPS)
+    return ok
+
+
+class Replica(Served):
+    """``Served`` whose engine this phase stops itself (the drain probe)."""
+
+    def __init__(self, params, cfg, dev, ec: EngineConfig):
+        super().__init__(params, cfg, dev, ec)
+        self.model = self.server.models["llama3-8b"]
+
+    def __exit__(self, *exc):
+        self.server.stop()
+        if not self.engine._stopped:
+            self.engine.stop()
+
+
+def streaming(params, cfg, dev) -> dict:
+    """Phase 5f: the serving surfaces the ingress calls, at full Llama-3-8B
+    on ``EngineConfig()`` over HTTP: 4 concurrent SSE streams (against the
+    same prompts' unary run), the same speculative (K = 5 inside a stream), a
+    client that disconnects after RESUME_AFTER events and re-submits with
+    ``resume_token_ids``, one OpenAI chat stream, ``/metrics``, and
+    ``/engine/health`` through SERVING, DRAINING (while ``stop()`` drains a
+    stream) and DEAD."""
+    out: dict = {}
+    with Replica(params, cfg, dev, EngineConfig()) as srv:
+        srv.warm(PROMPTS)
+        eng, port = srv.engine, srv.server.port
+        unary: list = [None] * len(PROMPTS)
+        with ThreadPoolExecutor(len(PROMPTS)) as pool:
+            for i, (code, body) in enumerate(pool.map(lambda p: srv.post(p, MAX_TOKENS),
+                                                      PROMPTS)):
+                unary[i] = body.get("token_ids") if code == 200 else None
+        with KernelWatch() as watch:
+            run = stream_run(srv, PROMPTS)
+        run.update(launches=watch.launches, launches_by_k=watch.by_k,
+                   plain_calls=watch.plain_calls)
+        ok = (streaming_checks(params, cfg, dev, run, PROMPTS, unary) and all(unary)
+              and watch.plain_calls == 0
+              and watch.launches == cfg.n_layers * run["decode_steps"] > 0)
+        out["streams"] = run
+        # failover: the client goes away after RESUME_AFTER events, then
+        # re-submits with the ids it received
+        victim = PROMPTS[3]
+        body = {"text_input": victim, "parameters": {"max_tokens": MAX_TOKENS}}
+        with KernelWatch() as watch:
+            code, events, _ = sse(port, STREAM_PATH, body, {"X-Stream-Resume": "1"},
+                                  stop_after=RESUME_AFTER)
+            got = [i for e in events for i in e.get("token_ids", ())]
+            _wait_for(lambda: not eng._slot_req, "the cancel")
+            h0 = eng.stats["page_hits"]
+            rbody = {"text_input": victim,
+                     "parameters": {"max_tokens": MAX_TOKENS, "resume_token_ids": got}}
+            rcode, revents, rtimes = sse(port, STREAM_PATH, rbody, {"X-Stream-Resume": "1"})
+            hits = eng.stats["page_hits"] - h0
+        cont = [i for e in revents if isinstance(e, dict) for i in e.get("token_ids", ())]
+        final = revents[-1] if revents and isinstance(revents[-1], dict) else {}
+        whole = got + cont
+        resume = {"status": [code, rcode], "received": len(got), "continued": len(cont),
+                  "final_tokens": final.get("tokens"), "resumed_ttft_s": final.get("ttft_s"),
+                  "client_first_event_s": rtimes[0] if rtimes else None,
+                  "page_hits": hits, "launches": watch.launches,
+                  "plain_calls": watch.plain_calls,
+                  "identical_leading_vs_unbroken": leading_identical(whole, unary[3] or []),
+                  "oracle_max_logit_lag": (oracle_lag(params, cfg, dev, victim, whole)
+                                           if len(whole) == MAX_TOKENS else None)}
+        ok = (ok and code == rcode == 200 and len(got) == RESUME_AFTER
+              and final.get("tokens") == MAX_TOKENS and len(whole) == MAX_TOKENS
+              and resume["oracle_max_logit_lag"] is not None
+              and resume["oracle_max_logit_lag"] <= ORACLE_TIE_EPS
+              and watch.plain_calls == 0 and watch.launches > 0)
+        out["resume"] = resume
+        # the OpenAI surface, streamed
+        code, chunks, _ = sse(port, "/openai/v1/chat/completions", {
+            "model": "llama3-8b", "messages": [{"role": "user", "content": PROMPTS[1]}],
+            "max_tokens": 8, "stream": True})
+        first = chunks[0] if chunks and isinstance(chunks[0], dict) else {}
+        out["openai"] = {"status": code, "chunks": len(chunks),
+                         "first_delta": (first.get("choices") or [{}])[0].get("delta"),
+                         "done": bool(chunks) and chunks[-1] == "[DONE]"}
+        ok = (ok and code == 200 and out["openai"]["done"]
+              and (out["openai"]["first_delta"] or {}).get("role") == "assistant")
+        # /metrics and /engine/health, then a drain
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=60) as r:
+            metrics = parse_metrics(r.read().decode())
+        gauges = ("engine_queue_depth", "engine_active_slots", "inflight_requests")
+        out["metrics"] = {k: metrics.get(k) for k in gauges}
+        ok = ok and all(isinstance(metrics.get(k), float) for k in gauges)
+        stats = srv.idle()
+        out["leaked_pages"] = leaked_pages(stats, eng.ec)
+        ok = ok and out["leaked_pages"] == 0
+        code, hb = get_json(port, "/engine/health")
+        health = [(code, hb["state"])]
+        held: dict = {}
+        body = {"text_input": PROMPTS[2], "parameters": {"max_tokens": DRAIN_TOKENS}}
+        t = threading.Thread(target=lambda: held.update(r=sse(port, STREAM_PATH, body)))
+        t.start()
+        _wait_for(lambda: eng._slot_req and not eng._prefilling, "the drained stream")
+        stopper = threading.Thread(target=eng.stop)
+        stopper.start()
+        while stopper.is_alive():
+            code, hb = get_json(port, "/engine/health")
+            if (code, hb["state"]) != health[-1]:
+                health.append((code, hb["state"]))
+            time.sleep(0.02)
+        stopper.join()
+        t.join(timeout=600)
+        code, hb = get_json(port, "/engine/health")
+        health.append((code, hb["state"]))
+        drained = held["r"][1]
+        out["health"] = health
+        out["drained_stream_tokens"] = drained[-1].get("tokens") if drained else None
+        ok = (ok and health[0] == (200, "SERVING") and (503, "DRAINING") in health
+              and health[-1] == (503, "DEAD")
+              and out["drained_stream_tokens"] == DRAIN_TOKENS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same streams, speculative: the K = 5 kernel inside a stream
+    with Replica(params, cfg, dev, EngineConfig(speculative="prompt_lookup")) as srv:
+        srv.warm(PROMPTS)
+        with KernelWatch() as watch:
+            run = stream_run(srv, PROMPTS)
+        stats = srv.idle()
+        run.update(launches=watch.launches, launches_by_k=watch.by_k,
+                   plain_calls=watch.plain_calls, leaked_pages=leaked_pages(stats, srv.engine.ec),
+                   spec_proposed=stats["spec_proposed"], spec_accepted=stats["spec_accepted"])
+        ok = (ok and streaming_checks(params, cfg, dev, run, PROMPTS)
+              and watch.plain_calls == 0 and watch.by_k.get(5, 0) > 0
+              and run["leaked_pages"] == 0)
+        out["speculative"] = run
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = (out["streams"]["launches"] + out["resume"]["launches"]
+                       + out["speculative"]["launches"])
+    out["ok"] = ok
+    return out
+
+
 # ----------------------------------------------------------------- phase 6
 
 
@@ -1207,6 +1482,88 @@ def train(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 6b
+
+RUNTIME_READY_S = 600
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def runtime(cfg) -> dict:
+    """Phase 6b: the pod entry point, ``python -m
+    kubeflow_tpu_torch.serving.runtime_main --loader jetstream``, on a
+    model dir holding Llama-3-8B's ``config.json`` (no weights: random init
+    on the card) and an ``engine.json`` with ``scheduler`` and ``kv_store``
+    blocks; time to ``/v2/health/ready``, one unary generate, one stream
+    and ``/engine/health``, then terminate.  The subprocess's kernel
+    launches cannot be read from here."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f)
+        with open(os.path.join(tmp, "engine.json"), "w") as f:
+            json.dump({"scheduler": {"policy": "priority", "swap_policy": "swap",
+                                     "adapter_weights": []},
+                       "kv_store": {"host_max_bytes": 1 << 30,
+                                    "disk_dir": os.path.join(tmp, "kv")}}, f)
+        port = free_port()
+        env = dict(os.environ, PYTHONPATH=REPO)
+        env.pop("TORCH_DEVICE", None)  # the entry point's default: the card
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "kubeflow_tpu_torch.serving.runtime_main",
+             "--loader", "jetstream", "--model-name", "llama3-8b", "--model-dir", tmp,
+             "--port", str(port)], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        out: dict = {}
+        try:
+            ready = None
+            while time.perf_counter() - t0 < RUNTIME_READY_S and proc.poll() is None:
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{port}/v2/health/ready",
+                                                timeout=5) as r:
+                        if r.status == 200:
+                            ready = time.perf_counter() - t0
+                            break
+                except OSError:
+                    pass
+                time.sleep(0.2)
+            out["ready_s"] = ready
+            if ready is not None:
+                code, body = post(port, {"text_input": PROMPTS[1],
+                                         "parameters": {"max_tokens": MAX_TOKENS}})
+                out["generate"] = {"status": code, "tokens": body.get("tokens"),
+                                   "ttft_s": body.get("ttft_s")}
+                code, events, times = sse(port, STREAM_PATH,
+                                          {"text_input": PROMPTS[2],
+                                           "parameters": {"max_tokens": MAX_TOKENS}})
+                final = events[-1] if events and isinstance(events[-1], dict) else {}
+                out["stream"] = {"status": code, "tokens": final.get("tokens"),
+                                 "ttft_s": final.get("ttft_s"),
+                                 "client_first_event_s": times[0] if times else None}
+                code, health = get_json(port, "/engine/health")
+                out["health"] = {"status": code, "state": health.get("state")}
+        finally:
+            proc.terminate()
+            try:
+                stdout, stderr = proc.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+        out.update(exit_code=proc.returncode, stdout=stdout.strip().splitlines()[-3:],
+                   stderr_tail=stderr[-1500:], traceback="Traceback" in stderr)
+    out["ok"] = (out["ready_s"] is not None and not out["traceback"]
+                 and out["exit_code"] is not None
+                 and out["generate"]["status"] == 200 and out["generate"]["tokens"] == MAX_TOKENS
+                 and out["stream"]["status"] == 200 and out["stream"]["tokens"] == MAX_TOKENS
+                 and out["health"] == {"status": 200, "state": "SERVING"})
+    return out
+
+
 # ----------------------------------------------------------------- phase 9
 
 
@@ -1310,7 +1667,8 @@ def main() -> int:
               phase("speculative", lambda: speculative(params, cfg, dev)),
               phase("prefix_cache", lambda: prefix_cache(params, cfg, dev)),
               phase("qos", lambda: qos(params, cfg, dev)),
-              phase("sessions", lambda: sessions(params, cfg, dev))]
+              phase("sessions", lambda: sessions(params, cfg, dev)),
+              phase("streaming", lambda: streaming(params, cfg, dev))]
 
     def profile():
         with torch.inference_mode():
@@ -1318,10 +1676,12 @@ def main() -> int:
 
     phase("profile", profile)
 
-    # the serving phases are done: free Llama-3-8B before training
+    # the serving phases are done: free Llama-3-8B before the pod entry
+    # point loads its own, and before training
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    phase("runtime", lambda: runtime(cfg))
 
     def flash_kernel():
         rng = np.random.default_rng(0)
@@ -1344,8 +1704,10 @@ def main() -> int:
               "source": "kubeflow_tpu_torch/serving/engine/csrc/paged_attention.cu",
               "replaces": "kubeflow_tpu/serving/engine/paged_attention.py:58",
               "tpu_kernel": "kubeflow_tpu/serving/engine/paged_attention.py:_kernel",
-              # every served path: phase 5's two loops, speculative, prefix
-              # cache, QoS preemption and session restores
+              # every served path in this process: phase 5's two loops,
+              # speculative, prefix cache, QoS preemption, session restores
+              # and the streaming surfaces (the runtime phase's subprocess
+              # launches the kernel too, but its counter is not readable here)
               "launches": sum(r.get("launches", 0) for r in served),
               "max_abs_err": max((c["max_abs_err"] for c in cases), default=None),
               "ms": head.get("kernel_ms"), "kernel_ms": head.get("kernel_ms"),

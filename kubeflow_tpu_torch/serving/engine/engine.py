@@ -64,20 +64,30 @@ device) runs on the loop thread at admission, preemption or finish, after
 the pipeline fence where one is due; stream order keeps a scatter behind
 any dispatched tick.
 
+Streaming: ``generate_stream`` yields each token as the loop commits it.
+Every committed token passes through the one funnel ``_commit``, which
+pushes it onto the request's stream queue; every terminal path (finish,
+cancel, failure, shed) resolves the future and pushes the final result or
+the typed exception through ``_resolve``.  Tokens a preemption's recompute
+re-prefills, rows the pipelined commit-behind drops and speculative tokens
+staged but never committed never reach a stream, and a swapped-out request
+continues its stream where it stopped.
+
 Not ported yet (later slices): disaggregation and the fabric, constrained
-decoding, telemetry, the watchdog, the dispatch fault families and
-incidents, int8 weights, LoRA and tensor parallelism.
+decoding, telemetry, the watchdog and hang detection, the dispatch fault
+families and incidents, int8 weights, LoRA and tensor parallelism.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import queue
 import threading
 import time
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FutureTimeoutError
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -203,6 +213,9 @@ class _Pending:
     # admission, then host|disk|cache|cold|degraded (degraded = the store
     # had the session but verification failed; fell back to re-prefill)
     session_restore: Optional[str] = None
+    # streaming: every committed token is also pushed here, then a final
+    # (None, result) or (None, exception) sentinel (generate_stream reads it)
+    stream: Optional[queue.Queue] = None
 
 
 def _page_hashes(tokens: list, page_size: int) -> np.ndarray:
@@ -302,6 +315,21 @@ class _Staging:
         self.event.record()
         self.armed = True
         return host
+
+
+class _StreamHandle:
+    """Iterator over streamed tokens + the request's ``future`` (the handle
+    ``Engine.cancel`` takes when a streaming client disconnects)."""
+
+    def __init__(self, it, future: Future):
+        self._it = it
+        self.future = future
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self._it)
 
 
 class Engine:
@@ -413,6 +441,11 @@ class Engine:
         self._running = False
         self._draining = False
         self._stopped = False
+        # stamped at every loop tick (health's last_tick_age_s)
+        self._last_tick_ts = time.monotonic()
+        # in-flight requests with failures > 0, so health() reads DEGRADED
+        # without scanning the requests
+        self._retrying = 0  # guarded-by: _lock
         self._thread: Optional[threading.Thread] = None
         self._wake = threading.Event()
         self._gen = torch.Generator(device=self.device)
@@ -479,21 +512,32 @@ class Engine:
         self._draining = False
 
     def health(self) -> dict:
-        """SERVING (loop alive) / DRAINING (stop in progress) / DEAD."""
+        """Engine health state machine, as the JAX engine reports it:
+
+        SERVING   — loop thread alive, no distress signal
+        DEGRADED  — alive, but a request is mid-retry after tick failures
+        DRAINING  — stop() in progress
+        DEAD      — loop thread not running (never started, or stopped)
+
+        ``role`` is always "unified" (disaggregation is not ported) and
+        ``restarts`` always 0 (no watchdog yet, so no hang detection)."""
         if self._draining:
             state = "DRAINING"
         elif (not self._running or self._thread is None
               or not self._thread.is_alive()):
             state = "DEAD"
         else:
-            state = "SERVING"
-        return {"state": state, "ticks": self._ticks,
-                "ticks_failed": self._ticks_failed}
+            state = "DEGRADED" if self._retrying > 0 else "SERVING"
+        return {"state": state, "role": "unified",
+                "last_tick_age_s": round(time.monotonic() - self._last_tick_ts, 4),
+                "ticks": self._ticks, "ticks_failed": self._ticks_failed,
+                "restarts": 0}
 
     def generate_async(self, tokens: list[int], max_new_tokens: int = 32,
                        deadline: Optional[float] = None,
                        priority: Optional[str] = None,
-                       session_id: Optional[str] = None) -> Future:
+                       session_id: Optional[str] = None,
+                       stream: Optional[queue.Queue] = None) -> Future:
         """Submit a prompt; the Future resolves to a result dict (``rid``,
         ``tokens``, ``num_tokens``, ``truncated``, ``cancelled``,
         ``preemptions``, ``ttft_s``, ``latency_s``, and a ``session`` block
@@ -506,7 +550,9 @@ class Engine:
         standing.  ``session_id``: conversation pin — the finished turn's KV
         pages park in the tiered store under this id and the NEXT turn with
         the same id, whose prompt extends this turn's context, restores
-        them instead of re-prefilling.
+        them instead of re-prefilling.  ``stream``: a queue that receives
+        each token id as it is committed, then ``(None, result)`` or
+        ``(None, exception)`` (``generate_stream`` reads it).
 
         Raises RequestError for an empty prompt, a token id outside the
         vocabulary (an out-of-range embedding index would device-assert on
@@ -563,7 +609,8 @@ class Engine:
                 tokens=toks, max_new_tokens=max_new_tokens, future=fut,
                 submitted_at=now, page_hashes=hashes, context=list(toks),
                 rid=rid, deadline=now + deadline if deadline is not None else None,
-                priority=prio, rank=PRIORITY_RANK[prio], session_id=session_id)
+                priority=prio, rank=PRIORITY_RANK[prio], session_id=session_id,
+                stream=stream)
             if session_id is not None:
                 self._session_active[session_id] = rid
             self._future_rid[fut] = rid
@@ -592,6 +639,39 @@ class Engine:
             self.cancel(fut)
             raise
 
+    def generate_stream(self, tokens: list[int], max_new_tokens: int = 32,
+                        timeout: float = 300.0, deadline: Optional[float] = None,
+                        priority: Optional[str] = None,
+                        session_id: Optional[str] = None) -> Iterator:
+        """Yield token ids as they are committed, then the result dict that
+        ``generate`` returns.  The prompt is submitted NOW (a plain method
+        returning an iterator), so it runs even if the caller delays
+        iteration.  ``timeout`` bounds the wait for EACH next item (a
+        stall raises TimeoutError), not the whole generation.  A typed
+        engine fault (shed, failure, shutdown) is raised from the
+        iterator.  The iterator's ``.future`` is what ``cancel`` takes when
+        a streaming client disconnects."""
+        q: queue.Queue = queue.Queue()
+        fut = self.generate_async(tokens, max_new_tokens, deadline=deadline,
+                                  priority=priority, session_id=session_id,
+                                  stream=q)
+
+        def _iter():
+            while True:
+                try:
+                    item = q.get(timeout=timeout)
+                except queue.Empty:
+                    raise TimeoutError(
+                        f"generation stalled past {timeout}s") from None
+                if isinstance(item, tuple) and item[0] is None:
+                    if isinstance(item[1], BaseException):
+                        raise item[1]
+                    yield item[1]
+                    return
+                yield item
+
+        return _StreamHandle(_iter(), fut)
+
     def cancel(self, future: Future) -> bool:
         """Cancel the request behind a generate_async future.  A request
         still queued (or preempted and re-queued) resolves IMMEDIATELY
@@ -612,7 +692,7 @@ class Engine:
             self._sched.remove(rid)
             self._kv.discard_swap(rid)
             self._retire(pending)
-            pending.future.set_result(self._result(rid, pending, cancelled=True))
+            self._resolve(pending, self._result(rid, pending, cancelled=True))
             return True
         self._wake.set()
         return True
@@ -644,10 +724,7 @@ class Engine:
         self._sched.remove(rid)
         self._kv.discard_swap(rid)
         self._retire(pending)
-        try:
-            pending.future.set_result(self._result(rid, pending, cancelled=True))
-        except Exception:  # already resolved (lost a race with cancel)
-            pass
+        self._resolve(pending, self._result(rid, pending, cancelled=True))
         return True
 
     def _retire(self, pending: _Pending) -> None:
@@ -660,6 +737,9 @@ class Engine:
             sid = pending.session_id
             if sid is not None and self._session_active.get(sid) == pending.rid:
                 del self._session_active[sid]
+            if pending.failures:  # no longer mid-retry: it is terminal now
+                pending.failures = 0
+                self._retrying -= 1
 
     def sessions(self) -> dict:
         """Pinned sessions in the tiered KV store: id -> {nbytes, version,
@@ -702,6 +782,7 @@ class Engine:
                 "decode_steps": self._decode_steps,
                 "ticks": self._ticks,
                 "ticks_failed": self._ticks_failed,
+                "restarts": 0,  # no watchdog yet
                 "requests_failed": self._requests_failed,
                 "nan_rows": self._nan_rows,
                 **self.batcher.cache_stats(),
@@ -737,6 +818,7 @@ class Engine:
         with torch.inference_mode():
             while self._running:
                 self._ticks += 1
+                self._last_tick_ts = time.monotonic()
                 try:
                     did_work = self._tick()
                 except Exception as exc:  # noqa: BLE001 — loop must survive
@@ -1810,6 +1892,8 @@ class Engine:
         pending.generated.append(token)
         if ctx:
             pending.context.append(token)
+        if pending.stream is not None:
+            pending.stream.put(token)
         rc, new_page = self.batcher.commit_token_ex(slot, token in self._stop_ids)
         if rc == 1:
             self._len_host[slot] += 1
@@ -1872,7 +1956,7 @@ class Engine:
             err = session.get("error") or session.get("reason")
             if err:
                 result["session"]["error"] = err
-        pending.future.set_result(result)
+        self._resolve(pending, result)
 
     def _pin_session(self, slot: int, pending: _Pending, cache_ok: bool) -> dict:
         """Park a finishing session turn's KV pages in the tiered store:
@@ -1899,7 +1983,13 @@ class Engine:
             return {"pinned": False, "reason": f"{type(exc).__name__}: {exc}"}
 
     def _reset_failures(self, pending: _Pending) -> None:
-        pending.failures = 0
+        """A commit or an advanced prefill chunk is progress: the failure
+        cap counts consecutive failures again from zero."""
+        if pending.failures:
+            with self._lock:
+                if pending.failures:
+                    pending.failures = 0
+                    self._retrying -= 1
 
     def _note_group_failure(self, slots: list, phase: str, exc: Exception) -> None:
         self._ticks_failed += 1
@@ -1908,7 +1998,10 @@ class Engine:
             pending = self._requests.get(rid) if rid is not None else None
             if pending is None:
                 continue
-            pending.failures += 1
+            with self._lock:
+                pending.failures += 1
+                if pending.failures == 1:
+                    self._retrying += 1
             if pending.failures >= MAX_CONSECUTIVE_FAILURES:
                 err = TickFailure(
                     f"rejected after {pending.failures} consecutive "
@@ -1961,8 +2054,23 @@ class Engine:
             self._resolve_exception(p, exc)
 
     @staticmethod
+    def _resolve(pending: _Pending, result: dict) -> None:
+        """Resolve a request's future with its result and close its stream
+        with the same result — once: a path that lost a race with another
+        (cancel against the loop) is a no-op."""
+        try:
+            pending.future.set_result(result)
+        except Exception:  # already resolved
+            return
+        if pending.stream is not None:
+            pending.stream.put((None, result))
+
+    @staticmethod
     def _resolve_exception(pending: _Pending, exc: Exception) -> None:
+        """``_resolve`` for a typed failure: the stream raises it."""
         try:
             pending.future.set_exception(exc)
         except Exception:  # already resolved
-            pass
+            return
+        if pending.stream is not None:
+            pending.stream.put((None, exc))

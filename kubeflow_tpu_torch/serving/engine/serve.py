@@ -9,17 +9,33 @@ response shapes.
     V1 predict:  {"instances": [{"prompt": "...", "max_tokens": 32} | "str"]}
       -> {"predictions": [{"text": ..., "tokens": N, "latency_s": ...}]}
 
+    V2 generate_stream: the same body -> Server-Sent Events
+      {"text_output": piece}..., then {"text_output": "", "done": true,
+      "tokens": N, ...}
+
 QoS and sessions ride the generate parameters as in the JAX package:
 ``deadline_s``, ``priority`` (or an ``X-Priority`` header) and
 ``session_id`` (or an ``X-Session-Id`` header); bad values are refused with
 a 400 before anything is submitted, and a session turn's response carries a
-``session`` block.
+``session`` block.  ``resume_token_ids`` re-admits a request that failed
+over from another replica: the ids fold into the prompt and only the
+continuation is generated and returned.  A truthy ``X-Stream-Resume``
+header makes every stream event carry the ``token_ids`` it covers, which is
+what the ingress's failover relay reads.
+
+The tracing headers (``X-Request-Trace``, ``traceparent`` and
+``X-Resume-From``) only add a trace or a span link in the JAX package; the
+ingress stamps ``traceparent`` on every relay and ``X-Resume-From`` on every
+failover, so they are accepted and ignored until tracing is ported.
 
 Tokenization: a flat ``{token: id}`` ``tokenizer.json`` in the model dir
 (greedy longest-match), else byte-level (ids 0..255).  The HF tokenizers
-format, streaming, failover resume, adapters, disaggregation, the fabric,
-brownout and constrained decoding come in later slices; their request
-parameters are refused with a 400 rather than silently ignored.
+format, adapters, disaggregation, the fabric, brownout and constrained
+decoding come in later slices; their request parameters are refused with a
+400 rather than silently ignored (a parameter whose value is null counts as
+absent: the OpenAI surface always passes ``adapter``, ``brownout`` and
+``constrain``).  An ``engine.json`` key whose feature is not ported is
+refused the same way unless it holds the JAX package's default.
 """
 
 from __future__ import annotations
@@ -33,14 +49,58 @@ from ...utils.device import resolve_device
 from ..errors import EngineError, RequestError
 from ..server import Model
 from .engine import Engine, EngineConfig
-from .kvstore import normalize_session_id
+from .faults import StorageFaultConfig
+from .kvstore import KVStoreConfig, normalize_session_id
 from .model import DecoderConfig, load_params
-from .scheduler import normalize_priority
+from .scheduler import SchedulerConfig, normalize_priority
 
 # parameters of the JAX package's generate surface that this port does not
-# implement yet
-_UNSUPPORTED_PARAMS = ("resume_token_ids", "adapter", "kv_handoff", "handoff",
-                       "fabric", "brownout", "constrain")
+# implement yet (null values count as absent)
+_UNSUPPORTED_PARAMS = ("adapter", "kv_handoff", "handoff", "fabric",
+                       "brownout", "constrain")
+
+# engine.json keys of the JAX package's EngineConfig whose feature this port
+# does not have yet -> (the JAX package's default, the ROADMAP item that
+# brings it).  A file may name one at its default; any other value is
+# refused, never dropped.
+_UNPORTED_ENGINE_KEYS = {
+    "tensor_parallel": (1, "1.8"),
+    "weight_quant": (None, "1.6"),
+    "max_consecutive_failures": (3, "1.5"),
+    "watchdog_interval_s": (0.5, "1.5"),
+    "hang_timeout_s": (300.0, "1.5"),
+    "watchdog_restart": (True, "1.5"),
+    "drain_timeout_s": (10.0, "1.5"),
+    "telemetry": (True, "1.5"),
+    "flight_recorder_capacity": (256, "1.5"),
+    "flight_dir": (None, "1.5"),
+    "trace_history": (512, "1.5"),
+    "trace_history_bytes": (1_000_000, "1.5"),
+    "slo": (None, "1.5"),
+    "perf": (None, "1.5"),
+    "perf_window_s": (60.0, "1.5"),
+    "perf_timeline_capacity": (256, "1.5"),
+    "profile_dir": (None, "1.5"),
+    "profile_max_runs": (8, "1.5"),
+    "profile_max_bytes": (256 << 20, "1.5"),
+    "chaos": (None, "1.5"),
+    "incidents": (False, "1.5"),
+    "incident_dir": (None, "1.5"),
+    "incident_debounce_s": (5.0, "1.5"),
+    "incident_resolve_s": (15.0, "1.5"),
+    "incident_poll_s": (0.25, "1.5"),
+    "incident_tick_overrun_s": (0.0, "1.5"),
+    "role": ("unified", "1.3"),
+    "handoff_ttl_s": (60.0, "1.3"),
+    "handoff_max_bytes": (256 << 20, "1.3"),
+    "handoff_chaos": (None, "1.3"),
+    "fabric": (False, "1.3"),
+    "fabric_ttl_s": (120.0, "1.3"),
+    "fabric_max_bytes": (256 << 20, "1.3"),
+    "fabric_min_pages": (1, "1.3"),
+    "fabric_chaos": (None, "1.3"),
+    "constrain_chaos": (None, "1.4"),
+}
 
 
 def _header(headers: Optional[dict], name: str):
@@ -49,6 +109,11 @@ def _header(headers: Optional[dict], name: str):
         if k.lower() == name:
             return v
     return None
+
+
+def _truthy_header(headers: Optional[dict], name: str) -> bool:
+    v = _header(headers, name)
+    return v is not None and str(v).strip().lower() not in ("", "0", "false", "no")
 
 
 def _deadline(value) -> Optional[float]:
@@ -130,6 +195,64 @@ def _checkout_eos_ids(model_dir: str) -> list:
     return []
 
 
+def _engine_config(path: str) -> tuple:
+    """An ``engine.json`` -> ``(EngineConfig, raw dict)``, its blocks built into
+    their config classes and its keys validated as the JAX package's
+    ``JetStreamModel.load`` does, every message naming the file.  A key of
+    neither package's EngineConfig is dropped, as the JAX package drops it;
+    an unported key off its default raises ValueError."""
+    with open(path) as f:
+        raw = json.load(f)
+    fields = {f.name for f in dataclasses.fields(EngineConfig)}
+    kw = {k: v for k, v in raw.items() if k in fields}
+    if isinstance(kw.get("eos_ids"), list):  # keep config hashable
+        kw["eos_ids"] = tuple(kw["eos_ids"])
+    if isinstance(kw.get("scheduler"), dict):
+        # adapter_weights arrives as a JSON list of [name, weight] pairs
+        skw = dict(kw["scheduler"])
+        if isinstance(skw.get("adapter_weights"), list):
+            skw["adapter_weights"] = tuple((str(n), float(w))
+                                           for n, w in skw["adapter_weights"])
+        kw["scheduler"] = SchedulerConfig(**skw)
+    if isinstance(kw.get("kv_store"), dict):
+        # disk_dir on a persistent volume keeps pinned sessions across
+        # restarts
+        kkw = dict(kw["kv_store"])
+        if isinstance(kkw.get("chaos"), dict):
+            kkw["chaos"] = StorageFaultConfig(**kkw["chaos"])
+        kw["kv_store"] = KVStoreConfig(**kkw)
+    ec = EngineConfig(**kw)
+    role = raw.get("role", "unified")
+    if role not in ("prefill", "decode", "unified"):
+        raise ValueError(f"{path}: role={role!r} must be one of "
+                         "\"prefill\" | \"decode\" | \"unified\"")
+    if ec.speculative is not None:
+        if ec.speculative != "prompt_lookup":
+            raise ValueError(f"{path}: speculative={ec.speculative!r} is not "
+                             "supported (only \"prompt_lookup\")")
+        if ec.temperature > 0:
+            raise ValueError(
+                f"{path}: speculative=\"prompt_lookup\" requires "
+                f"temperature 0, got {ec.temperature} — greedy acceptance is "
+                "what makes speculative decoding lossless")
+        if ec.spec_max_draft < 1 or ec.spec_ngram < 1:
+            raise ValueError(f"{path}: spec_max_draft and spec_ngram must be "
+                             f">= 1 (got {ec.spec_max_draft}, {ec.spec_ngram})")
+    tp = raw.get("tensor_parallel", 1)
+    if not isinstance(tp, int) or tp < 1:
+        raise ValueError(f"{path}: tensor_parallel={tp!r} must be an integer >= 1")
+    for key in sorted(raw):
+        if key not in _UNPORTED_ENGINE_KEYS:
+            continue
+        default, item = _UNPORTED_ENGINE_KEYS[key]
+        if raw[key] != default:
+            raise ValueError(
+                f"{path}: {key}={raw[key]!r} is not supported by this port yet "
+                f"(only the default {default!r}; ROADMAP item {item} brings it)"
+                " — refusing to silently serve without it")
+    return ec, raw
+
+
 class JetStreamModel(Model):
     """kserve-style Model serving generate() from the engine.  ``device``
     (default ``"cuda"``) is where ``load`` builds the engine when none is
@@ -149,18 +272,12 @@ class JetStreamModel(Model):
         optional ``engine.json``), unless one was handed in; start it."""
         if self.engine is None:
             config = DecoderConfig.from_dir(self.model_dir) or DecoderConfig()
-            params = load_params(self.model_dir, config, self.device)
             ec = EngineConfig()
             eos_explicit = False
             path = os.path.join(self.model_dir, "engine.json")
             if self.model_dir and os.path.exists(path):
-                with open(path) as f:
-                    raw = json.load(f)
-                fields = {f.name for f in dataclasses.fields(EngineConfig)}
-                kw = {k: v for k, v in raw.items() if k in fields}
-                if isinstance(kw.get("eos_ids"), list):  # keep config hashable
-                    kw["eos_ids"] = tuple(kw["eos_ids"])
-                ec = EngineConfig(**kw)
+                # validated before the weights load: a bad file fails fast
+                ec, raw = _engine_config(path)
                 # an operator's explicit eos_id — INCLUDING -1 "never stop
                 # early" — wins over the checkout's declaration
                 eos_explicit = "eos_id" in raw or "eos_ids" in raw
@@ -169,9 +286,16 @@ class JetStreamModel(Model):
                 if eos:
                     ec = dataclasses.replace(ec, eos_id=eos[0],
                                              eos_ids=tuple(eos[1:]))
+            params = load_params(self.model_dir, config, self.device)
             self.engine = Engine(params, config, ec, device=self.device)
         self.engine.start()
         self.ready = True
+
+    @property
+    def adapters(self) -> dict:
+        """Loaded LoRA adapters: none until LoRA is ported (ROADMAP item
+        1.7)."""
+        return {}
 
     def health(self) -> dict:
         if self.engine is None:
@@ -181,16 +305,49 @@ class JetStreamModel(Model):
         except Exception as e:  # noqa: BLE001 — a probe must answer
             return {"state": "DEAD", "reason": f"{type(e).__name__}: {e}"}
 
+    def extra_metrics(self) -> dict:
+        """Per-replica engine state, under the JAX package's gauge names:
+        the ingress's least-loaded pick reads ``engine_queue_depth`` +
+        ``engine_active_slots``, the autoscaler the backlog."""
+        if self.engine is None:
+            return {}
+        try:
+            s = self.engine.stats
+        except RuntimeError:  # engine stopped
+            return {}
+        health = self.engine.health()
+        return {
+            "engine_active_slots": s["active_slots"],
+            "engine_queue_depth": s["queue_depth"],
+            "engine_free_pages": s["free_pages"],
+            "engine_cached_pages": s["cached_pages"],
+            "engine_page_hits": s["page_hits"],
+            # /metrics renders floats: health is a 1/0 gauge here
+            "engine_serving": 1.0 if health["state"] == "SERVING" else 0.0,
+            "engine_ticks_failed": s["ticks_failed"],
+            "engine_requests_shed": s["requests_shed"],
+            "engine_requests_rejected": s["requests_rejected"],
+            "engine_restarts": s["restarts"],
+            "engine_preemptions": s["preemptions"],
+            "engine_swap_used_bytes": s["swap_used_bytes"],
+            "engine_kv_host_used_bytes": s["kv_host_used_bytes"],
+            "engine_kv_disk_used_bytes": s["kv_disk_used_bytes"],
+            "engine_kv_verify_failures": s["kv_verify_failures"],
+            "engine_sessions_pinned": s["sessions_pinned"],
+            "engine_session_evictions": s["session_evictions"],
+        }
+
     def _parse_generate(self, payload: Any, headers: Optional[dict] = None):
-        """-> (ids, max_tokens, deadline_s, priority, session_id); every
-        value validated here, before anything is submitted (RequestError ->
-        400).  The ``priority`` and ``session_id`` parameters win over the
-        ``X-Priority`` and ``X-Session-Id`` headers."""
+        """-> (ids, max_tokens, deadline_s, priority, resume_token_ids,
+        session_id); every value validated here, before anything is
+        submitted (RequestError -> 400).  The ``priority`` and
+        ``session_id`` parameters win over the ``X-Priority`` and
+        ``X-Session-Id`` headers."""
         prompt = payload.get("text_input", "") if isinstance(payload, dict) else str(payload)
         params = (payload.get("parameters") or {}) if isinstance(payload, dict) else {}
         if not isinstance(params, dict):
             raise RequestError(f"parameters must be an object, got {params!r}")
-        unsupported = sorted(k for k in _UNSUPPORTED_PARAMS if k in params)
+        unsupported = sorted(k for k in _UNSUPPORTED_PARAMS if params.get(k) is not None)
         if unsupported:
             raise RequestError(f"parameters {unsupported} are not supported "
                                "by this engine yet")
@@ -204,33 +361,154 @@ class JetStreamModel(Model):
             priority = _header(headers, "x-priority")
         if priority is not None:
             priority = normalize_priority(priority)
+        # failover re-admission: token ids an earlier replica already
+        # generated fold into the prompt, so generation resumes after them
+        resume = params.get("resume_token_ids")
+        if resume is not None:
+            if (not isinstance(resume, list)
+                    or not all(isinstance(i, int) and i >= 0 for i in resume)):
+                raise RequestError("resume_token_ids must be a list of "
+                                   "non-negative token ids, got "
+                                   f"{resume!r}")
+            resume = list(resume)
         session = params.get("session_id")
         if session is None:
             session = _header(headers, "x-session-id")
         if session is not None:
             session = normalize_session_id(session)
         return (self.tokenizer.encode(prompt) or [0], max_tokens,
-                _deadline(params.get("deadline_s")), priority, session)
+                _deadline(params.get("deadline_s")), priority, resume or [], session)
 
     def generate(self, payload: Any, headers: Optional[dict] = None) -> Any:
         """V2 generate extension (unary): {"text_input": str, "parameters":
         {"max_tokens": N, "deadline_s": S, "priority": "interactive" |
-        "batch" | "best_effort", "session_id": id}} -> {"text_output": str,
-        "token_ids", "tokens", "prompt_tokens", "max_tokens", "ttft_s",
-        "latency_s"}, plus a ``session`` block (restore tier, pinned/durable
-        flags, evictions) for a session turn."""
-        ids, max_tokens, deadline, priority, session = self._parse_generate(payload, headers)
-        r = self.engine.generate(ids, max_tokens, deadline=deadline,
+        "batch" | "best_effort", "session_id": id, "resume_token_ids":
+        [...]}} -> {"text_output": str, "token_ids", "tokens",
+        "prompt_tokens", "max_tokens", "ttft_s", "latency_s"}, plus a
+        ``session`` block (restore tier, pinned/durable flags, evictions) for
+        a session turn.  A resumed request returns the continuation only;
+        its ``tokens`` counts the resumed ids too."""
+        ids, max_tokens, deadline, priority, resume, session = \
+            self._parse_generate(payload, headers)
+        max_new = max_tokens - len(resume)
+        if resume and max_new <= 0:
+            # the run was already complete when the failover happened
+            return {"text_output": "", "token_ids": [],
+                    "tokens": len(resume), "prompt_tokens": len(ids),
+                    "max_tokens": max_tokens, "ttft_s": 0.0, "latency_s": 0.0}
+        r = self.engine.generate(ids + resume, max_new, deadline=deadline,
                                  priority=priority, session_id=session)
-        out = {"text_output": self.tokenizer.decode(r["tokens"]),
+        if resume:
+            # the seam slices at the STABLE prefix of the resumed text: the
+            # resumed ids may end mid-UTF-8 sequence, whose completed
+            # decoding spans another char count than its U+FFFD
+            # placeholders (the stream's rule, _stable_len)
+            text = self.tokenizer.decode(resume + r["tokens"])[
+                self._stable_len(self.tokenizer.decode(resume)):]
+        else:
+            text = self.tokenizer.decode(r["tokens"])
+        out = {"text_output": text,
                "token_ids": r["tokens"],
-               "tokens": r["num_tokens"],
+               "tokens": r["num_tokens"] + len(resume),
                "prompt_tokens": len(ids), "max_tokens": max_tokens,
                "ttft_s": round(r["ttft_s"], 4),
                "latency_s": round(r["latency_s"], 4)}
         if "session" in r:
             out["session"] = r["session"]
         return out
+
+    def generate_stream(self, payload: Any, headers: Optional[dict] = None):
+        """V2 generate_stream: yields {"text_output": piece} per token, then
+        a final record with the run stats.
+
+        Parsing and submission happen EAGERLY (a plain method returning a
+        generator), so client faults raise HERE, before the server commits
+        to SSE headers, and take the unary 400 path.
+
+        Pieces come from decoding the WHOLE generated-id prefix and emitting
+        the delta, holding back trailing replacement chars (a multi-byte
+        UTF-8 char split across byte tokens decodes to U+FFFD until its tail
+        arrives), so the concatenated stream equals the unary text_output.
+        A truthy ``X-Stream-Resume`` header makes every event carry the
+        ``token_ids`` it covers, including empty-text events whose piece is
+        held back; ``resume_token_ids`` folds earlier ids into the prompt so
+        the stream emits only the continuation."""
+        ids, max_tokens, deadline, priority, resume, session = \
+            self._parse_generate(payload, headers)
+        max_new = max_tokens - len(resume)
+        if resume and max_new <= 0:
+            return self._resume_complete(resume, ids, max_tokens)
+        stream = self.engine.generate_stream(ids + resume, max_new,
+                                             deadline=deadline, priority=priority,
+                                             session_id=session)
+        return self._stream_pieces(stream, ids, max_tokens,
+                                   emit_ids=_truthy_header(headers, "x-stream-resume"),
+                                   prior_ids=resume)
+
+    @staticmethod
+    def _stable_len(full: str, floor: int = 0) -> int:
+        """Length of the stable (client-safe) prefix of ``full``: up to 3
+        trailing U+FFFD chars may be an incomplete UTF-8 sequence still
+        waiting for its tail bytes and are held back."""
+        stable = len(full)
+        while (stable > floor and full[stable - 1] == "\ufffd"
+               and len(full) - stable < 3):
+            stable -= 1
+        return stable
+
+    def _resume_complete(self, resume: list, ids: list, max_tokens: int):
+        """Degenerate resume: every token was already generated before the
+        failover — emit any held-back text tail, then the final record."""
+        full = self.tokenizer.decode(resume)
+        emitted = self._stable_len(full)
+        if full[emitted:]:
+            yield {"text_output": full[emitted:]}
+        yield {"text_output": "", "done": True, "tokens": len(resume),
+               "prompt_tokens": len(ids), "max_tokens": max_tokens,
+               "ttft_s": 0.0, "latency_s": 0.0}
+
+    def _stream_pieces(self, stream, ids: list, max_tokens: int,
+                       emit_ids: bool = False, prior_ids: Optional[list] = None):
+        out_ids: list[int] = list(prior_ids or [])
+        base = len(out_ids)
+        # text already delivered by the previous replica: the stable prefix
+        # of the resumed ids (the ingress relayed exactly the stable pieces)
+        emitted = self._stable_len(self.tokenizer.decode(out_ids)) if out_ids else 0
+        reported = base
+        try:
+            for item in stream:
+                if isinstance(item, dict):
+                    full = self.tokenizer.decode(out_ids)
+                    if len(full) > emitted:  # flush held-back tail
+                        yield {"text_output": full[emitted:]}
+                    final = {"text_output": "", "done": True,
+                             "tokens": item["num_tokens"] + base,
+                             "prompt_tokens": len(ids), "max_tokens": max_tokens,
+                             "ttft_s": round(item["ttft_s"], 4),
+                             "latency_s": round(item["latency_s"], 4)}
+                    if "session" in item:
+                        final["session"] = item["session"]
+                    yield final
+                    return
+                out_ids.append(item)
+                full = self.tokenizer.decode(out_ids)
+                stable = self._stable_len(full, emitted)
+                if emit_ids:
+                    # one event per token so every id reaches the failover
+                    # relay promptly, even when its text is held back
+                    ev = {"text_output": full[emitted:stable],
+                          "token_ids": out_ids[reported:]}
+                    reported = len(out_ids)
+                    emitted = max(emitted, stable)
+                    yield ev
+                elif stable > emitted:
+                    yield {"text_output": full[emitted:stable]}
+                    emitted = stable
+        finally:
+            # disconnected client (GeneratorExit) or any early close: free
+            # the slot instead of generating to the budget for nobody — a
+            # no-op when the request already finished
+            self.engine.cancel(stream.future)
 
     def predict(self, payload: Any, headers: Optional[dict] = None) -> Any:
         instances = payload.get("instances", []) if isinstance(payload, dict) else payload
@@ -241,7 +519,7 @@ class JetStreamModel(Model):
         for inst in instances:
             if isinstance(inst, str):
                 inst = {"prompt": inst}
-            unsupported = sorted(k for k in _UNSUPPORTED_PARAMS if k in inst)
+            unsupported = sorted(k for k in _UNSUPPORTED_PARAMS if inst.get(k) is not None)
             if unsupported:
                 raise RequestError(f"instance fields {unsupported} are not "
                                    "supported by this engine yet")

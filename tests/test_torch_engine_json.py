@@ -1,0 +1,132 @@
+"""Port parity: ``engine.json`` in a model dir, read by ``JetStreamModel.load``.
+
+The same files go through both packages' loaders: the ``scheduler`` block
+(``adapter_weights`` as a JSON list of pairs), the ``kv_store`` block with
+its storage ``chaos``, a bad ``role``, bad ``speculative`` compositions and
+``tensor_parallel: 0``.  Both build the same config values, or both raise
+the same ValueError (naming the file where the JAX package names it).  A
+key whose feature the port lacks is accepted at the JAX package's default
+and refused otherwise, naming the file, the key and the ROADMAP item; the
+port's literal map of those keys equals the JAX EngineConfig's fields and
+defaults minus the port's own."""
+
+import dataclasses
+import json
+
+import pytest
+
+from kubeflow_tpu.serving.engine.engine import EngineConfig as JEngineConfig
+from kubeflow_tpu.serving.engine.serve import JetStreamModel as JJetStreamModel
+from kubeflow_tpu_torch.serving.engine import serve as S
+from kubeflow_tpu_torch.serving.engine.engine import EngineConfig
+
+CONFIG = {"vocab_size": 64, "d_model": 32, "n_layers": 1, "n_heads": 2,
+          "n_kv_heads": 1, "d_ff": 64}
+GEO = {"max_slots": 2, "num_pages": 16, "page_size": 8, "max_pages_per_slot": 4}
+SCHED = {"policy": "fifo", "preemption": False, "swap_policy": "recompute",
+         "swap_min_tokens": 64, "min_free_pages": 2, "adapter_weights": []}
+
+# name -> engine.json body; "{dir}" is the model dir
+SAME = {
+    "scheduler": {"scheduler": SCHED},
+    "kv_store_chaos": {"kv_store": {"host_max_bytes": 4096, "disk_dir": "{dir}/kv",
+                                    "chaos": {"bit_flip_every": 1, "seed": 7}}},
+    "defaults_of_unported_keys": {"role": "unified", "tensor_parallel": 1,
+                                  "weight_quant": None, "max_consecutive_failures": 3,
+                                  "drain_timeout_s": 10, "chaos": None, "fabric": False},
+    "unknown_key_dropped": {"not_a_field": 1, "eos_ids": [3, 4]},
+    "speculative": {"speculative": "prompt_lookup", "spec_max_draft": 2, "spec_ngram": 1},
+}
+BOTH_RAISE = {
+    "adapter_weights": {"scheduler": {"adapter_weights": [["a1", 2.0]]}},
+    "bad_role": {"role": "bogus"},
+    "bad_speculative": {"speculative": "medusa"},
+    "speculative_temperature": {"speculative": "prompt_lookup", "temperature": 0.5},
+    "speculative_draft": {"speculative": "prompt_lookup", "spec_max_draft": 0},
+    "tensor_parallel_zero": {"tensor_parallel": 0},
+}
+# unported features off their default: refused by the port
+PORT_REFUSES = {
+    "tensor_parallel": ({"tensor_parallel": 4}, "1.8"),
+    "weight_quant": ({"weight_quant": "int8"}, "1.6"),
+    "role": ({"role": "decode"}, "1.3"),
+    "chaos": ({"chaos": {"dispatch_error_rate": 0.5}}, "1.5"),
+    "hang_timeout_s": ({"hang_timeout_s": 5.0}, "1.5"),
+    "constrain_chaos": ({"constrain_chaos": {"stall_on": 1}}, "1.4"),
+}
+
+
+def _model_dir(tmp_path, body) -> str:
+    d = tmp_path / "m"
+    d.mkdir()
+    (d / "config.json").write_text(json.dumps(CONFIG))
+    text = json.dumps({**GEO, **body}).replace("{dir}", str(d))
+    (d / "engine.json").write_text(text)
+    return str(d)
+
+
+def _load(model_cls, d, **kw):
+    m = model_cls("m", d, **kw)
+    m.load()
+    m.engine.stop()
+    return m.engine.ec
+
+
+def _port(d):
+    return _load(S.JetStreamModel, d, device="cpu")
+
+
+def _jax(d):
+    return _load(JJetStreamModel, d)
+
+
+@pytest.mark.parametrize("case", sorted(SAME))
+def test_both_packages_build_the_same_config(tmp_path, case):
+    d = _model_dir(tmp_path, SAME[case])
+    port, ref = _port(d), _jax(d)
+    for f in dataclasses.fields(EngineConfig):
+        a, b = getattr(port, f.name), getattr(ref, f.name)
+        if f.name == "paged_kernel":
+            continue  # the port's kernel switch defaults on; the JAX one auto
+        if dataclasses.is_dataclass(a):
+            assert dataclasses.asdict(a) == dataclasses.asdict(b), f.name
+        else:
+            assert a == b, f.name
+    if case == "scheduler":
+        assert port.scheduler.policy == "fifo" and port.scheduler.adapter_weights == ()
+    if case == "kv_store_chaos":
+        assert port.kv_store.chaos.bit_flip_every == 1
+
+
+@pytest.mark.parametrize("case", sorted(BOTH_RAISE))
+def test_both_packages_refuse_the_same_file(tmp_path, case):
+    d = _model_dir(tmp_path, BOTH_RAISE[case])
+    with pytest.raises(ValueError) as ref:
+        _jax(d)
+    with pytest.raises(ValueError) as port:
+        _port(d)
+    assert str(port.value) == str(ref.value)
+    if case != "adapter_weights":  # the engine's own check names no file
+        assert str(port.value).startswith(f"{d}/engine.json: ")
+
+
+@pytest.mark.parametrize("key", sorted(PORT_REFUSES))
+def test_port_refuses_an_unported_key_off_its_default(tmp_path, key):
+    body, item = PORT_REFUSES[key]
+    d = _model_dir(tmp_path, body)
+    with pytest.raises(ValueError) as e:
+        _port(d)
+    msg = str(e.value)
+    assert msg.startswith(f"{d}/engine.json: {key}=") and f"ROADMAP item {item}" in msg
+
+
+def test_unported_key_map_is_the_jax_fields_minus_the_ports():
+    ours = {f.name for f in dataclasses.fields(EngineConfig)}
+    want = {}
+    for f in dataclasses.fields(JEngineConfig):
+        if f.name not in ours:
+            assert f.default_factory is dataclasses.MISSING, f.name
+            want[f.name] = f.default
+    assert {k: v[0] for k, v in S._UNPORTED_ENGINE_KEYS.items()} == want
+    assert len(want) == 36
+    assert {v[1] for v in S._UNPORTED_ENGINE_KEYS.values()} <= {"1.3", "1.4", "1.5", "1.6", "1.8"}

@@ -381,3 +381,35 @@ def test_swap_resumed_slot_decodes_through_the_kernel(card):
     assert rh["tokens"] == base
     assert stats["swapped_in"] == 1 and stats["swap_used_bytes"] == 0
     assert PA.paged_attention.launches > resumed_at
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "speculative"])
+def test_streamed_request_matches_unary_on_card(card, spec):
+    """A streamed request on a CUDA engine yields, token by token, the ids
+    of its unary run on the same engine config, and its decode steps
+    launch the kernel (at K = 5 under speculation)."""
+    from kubeflow_tpu_torch.serving.engine.engine import Engine, EngineConfig
+
+    params = M.init(ENGINE_CFG, card, seed=0)
+    kw = dict(speculative="prompt_lookup", spec_ngram=1) if spec else {}
+    ec = EngineConfig(max_slots=4, num_pages=64, page_size=16, max_pages_per_slot=8, **kw)
+    runs = []
+    for stream in (False, True):
+        eng = Engine(params, ENGINE_CFG, ec, device=card)
+        eng.start()
+        before = dict(PA.paged_attention.launches_by_k)
+        try:
+            if stream:
+                items = list(eng.generate_stream(ENGINE_PROMPTS[1], 40))
+                final = items.pop()
+                assert items == final["tokens"]
+            else:
+                items = eng.generate(ENGINE_PROMPTS[1], 40)["tokens"]
+        finally:
+            eng.stop()
+        launched = {k: v - before.get(k, 0) for k, v in PA.paged_attention.launches_by_k.items()}
+        runs.append((items, launched))
+    (unary, _), (streamed, launched) = runs
+    assert streamed == unary and len(streamed) == 40
+    assert launched.get(5 if spec else 1, 0) > 0
