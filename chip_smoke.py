@@ -66,6 +66,30 @@ or the script exits non-zero:
    stream (``delta.role`` first, ``data: [DONE]`` last), ``/metrics``
    parsed to its load gauges, and ``/engine/health`` through SERVING,
    DRAINING (503, while ``stop()`` drains a stream) and DEAD;
+5g. observability and supervision, at full Llama-3-8B: (a) the four
+   prompts over HTTP with ``X-Request-Trace: 1`` and a minted
+   ``traceparent`` each: the span's phases queued -> admitted -> prefill ->
+   first_token -> done, the trace id adopted, ``/engine/trace/<id>`` holding
+   the span, ``/engine/waterfall/<rid>`` segments summing to its wall
+   within 1 ms, ``/engine/latency`` naming the class, ``/metrics`` counting
+   every served request's TTFT; (b) ``/engine/perf``: the platform label and
+   peak of the card's kind, MFU > 0, goodput in (0, 1], and the median host
+   ms per tick of each timeline phase; (c) ``POST /engine/profile {"ticks":
+   8}`` while the four decode: no error, and the Chrome trace holding
+   exactly 2 paged kernel records (split + merge) per layer per decode tick
+   of the window; (d) the four prompts with telemetry off and on, in turns:
+   identical tokens, host ms per tick and tokens/s of each (not gated); (e)
+   ``die_on_tick`` mid-decode: the requests fail with TickFailure, the
+   watchdog restarts the loop (time from the dead loop's last tick to the
+   new loop's first), a ``watchdog_restart`` flight dump, then a request
+   within the oracle bound through the kernel and no page leaked; a tick
+   stalled past ``hang_timeout_s`` reads DEGRADED, is restarted, and its
+   superseded thread exits; (f) a NaN aimed at one request's decode rows
+   fails only it (NonFiniteLogits; an HTTP probe 500) while the others give
+   their unpoisoned tokens, and a dispatch error on every tick escalates
+   to TickFailure after ``max_consecutive_failures`` with a
+   ``tick_failure_escalation`` dump; (g) the die-on-tick run's one
+   ``replica_death`` incident on ``/engine/incidents``, its bundle on disk;
 6. profile: one main-path decode step (8 slots, the served lengths), paged
    and gather in turns on the host clock, and a torch.profiler window for
    device busy time by kernel family and the device's idle share; then the
@@ -112,6 +136,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import glob
 import http.client
 import importlib
 import itertools
@@ -132,9 +157,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.core import tracing
 from kubeflow_tpu_torch.serving.engine import model as M
 from kubeflow_tpu_torch.serving.engine import paged_attention as PA
 from kubeflow_tpu_torch.serving.engine.engine import Engine, EngineConfig
+from kubeflow_tpu_torch.serving.engine.faults import FaultConfig
+from kubeflow_tpu_torch.serving.engine.perf import CUDA_PEAKS
 from kubeflow_tpu_torch.serving.engine.kvstore import KVStoreConfig
 from kubeflow_tpu_torch.serving.engine.native import load_library
 from kubeflow_tpu_torch.serving.engine.scheduler import SchedulerConfig
@@ -402,10 +430,11 @@ PROMPTS = [TEXT[:60], TEXT[:150], (TEXT * 3)[:300], (TEXT * 5)[:600]]
 LONG_PROMPT = (TEXT * 8)[:1000]
 
 
-def post(port: int, body: dict) -> tuple:
+def post(port: int, body: dict, headers: dict = None) -> tuple:
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/v2/models/llama3-8b/generate",
-        data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=600) as r:
             return r.status, json.loads(r.read())
@@ -1114,6 +1143,448 @@ def streaming(params, cfg, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 5g
+
+# the on-demand profile: work ticks captured, and a decode budget that keeps
+# all four requests decoding through the window
+PROFILE_TICKS, PROFILE_TOKENS = 8, 64
+# the watchdog drive: the tick the loop dies at (every prompt is admitted
+# at tick 1 and the longest one's chunked prefill ends at tick 3, so this
+# lands mid-decode), and the stalled tick of the hang drive
+DIE_TICK, HANG_TICK, HANG_TIMEOUT_S, HANG_S = 8, 6, 2.0, 4.0
+# the request id the NaN drive poisons, and the HTTP probe after the four
+NAN_VICTIM, NAN_PROBE = 1, 4
+PHASE_ORDER = ["queued", "admitted", "prefill", "first_token", "done"]
+
+
+def wait_for(pred, timeout: float = 60.0, step: float = 0.005) -> bool:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(step)
+    return False
+
+
+def phase_order(trace: dict) -> list:
+    """A span's phases with repeats (one ``prefill`` per chunk) folded."""
+    out = []
+    for e in trace["events"]:
+        if not out or out[-1] != e["phase"]:
+            out.append(e["phase"])
+    return out
+
+
+def paged_records(trace_path: str) -> int:
+    """Device records of the paged kernels (split + merge) in a Chrome trace."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events
+               if e.get("cat") == "kernel" and e.get("ph") == "X"
+               and any(m in e.get("name", "") for m in PAGED_MARKERS))
+
+
+def timeline_medians(engine) -> dict:
+    """Median host ms per tick of each timeline phase, over the ticks that
+    ran it."""
+    per: dict = {}
+    for r in engine.timeline.snapshot(last=256):
+        for ph, dur in r["segments"].items():
+            per.setdefault(ph, []).append(dur * 1e3)
+    return {ph: float(np.median(v)) for ph, v in sorted(per.items())}
+
+
+def direct_run(params, cfg, dev, ec: EngineConfig, prompts=PROMPTS,
+               max_tokens: int = MAX_TOKENS) -> dict:
+    """``prompts`` submitted before the loop starts (so every run ticks the
+    same schedule and gives the same tokens), after a warm-up on the same
+    engine; results or exception names, wall, decode steps, host ms per
+    tick and tokens/s of the timed run."""
+    engine = Engine(params, cfg, ec, device=dev)
+    warm = [engine.generate_async(list(p[::-1].swapcase().encode()), 2) for p in prompts]
+    engine.start()
+    try:
+        for f in warm:
+            f.result(timeout=600)
+        assert wait_for(lambda: engine.stats["active_slots"] == 0)
+        engine.stop()
+        engine = Engine(params, cfg, ec, device=dev)
+        futs = [engine.generate_async(list(p.encode()), max_tokens) for p in prompts]
+        t0 = time.perf_counter()
+        engine.start()
+        out = []
+        for f in futs:
+            try:
+                out.append(f.result(timeout=600)["tokens"])
+            except Exception as e:  # noqa: BLE001 — the typed failure is the result
+                out.append(f"{type(e).__name__}: {e}")
+        wall = time.perf_counter() - t0
+        stats = engine.stats
+    finally:
+        engine.stop()
+    n_tok = sum(len(t) for t in out if isinstance(t, list))
+    return {"tokens": out, "wall_s": wall, "decode_steps": stats["decode_steps"],
+            "ticks": stats["ticks"],
+            "host_ms_per_tick": wall / stats["ticks"] * 1e3 if stats["ticks"] else None,
+            "tokens_per_s": n_tok / wall, "leaked_pages": leaked_pages(stats, ec)}
+
+
+def obs_traced(params, cfg, dev, kind: str) -> dict:
+    """5g (a) traced requests, (b) the perf plane and (c) an on-demand
+    profile, on one ``EngineConfig()`` server."""
+    out: dict = {}
+    with Served(params, cfg, dev, EngineConfig()) as srv:
+        srv.warm(PROMPTS)
+        port, engine = srv.server.port, srv.engine
+        ctxs = [tracing.TraceContext.mint() for _ in PROMPTS]
+        results: list = [None] * len(PROMPTS)
+
+        def run(i):
+            results[i] = post(port, {"text_input": PROMPTS[i],
+                                     "parameters": {"max_tokens": MAX_TOKENS}},
+                              {"X-Request-Trace": "1", "traceparent": ctxs[i].traceparent()})
+
+        with KernelWatch() as watch:
+            with ThreadPoolExecutor(len(PROMPTS)) as pool:
+                list(pool.map(run, range(len(PROMPTS))))
+        # (a) spans, the trace route, waterfalls, latency, /metrics
+        reqs, ok_a = [], True
+        for ctx, (code, body), p in zip(ctxs, results, PROMPTS):
+            tr = body.get("trace") or {}
+            st, spans = get_json(port, f"/engine/trace/{ctx.trace_id}")
+            ws, wf = get_json(port, f"/engine/waterfall/{tr.get('rid')}")
+            seg_sum = sum(sg["dur_s"] for sg in wf.get("segments", ())) if ws == 200 else None
+            r = {"status": code, "tokens": body.get("tokens"), "phases": phase_order(tr) if tr else None,
+                 "trace_id_adopted": tr.get("trace_id") == ctx.trace_id
+                 and tr.get("parent_id") == ctx.span_id,
+                 "trace_route": st == 200 and tr.get("span_id") in
+                 {sp["span_id"] for sp in spans.get("spans", ())},
+                 "waterfall_wall_s": wf.get("wall_s") if ws == 200 else None,
+                 "waterfall_gap_s": abs(seg_sum - wf["wall_s"]) if ws == 200 else None,
+                 "oracle_max_logit_lag": (oracle_lag(params, cfg, dev, p, body["token_ids"])
+                                          if code == 200 else None)}
+            ok_a = (ok_a and code == 200 and r["tokens"] == MAX_TOKENS
+                    and r["phases"] == PHASE_ORDER and r["trace_id_adopted"]
+                    and r["trace_route"] and r["waterfall_gap_s"] is not None
+                    and r["waterfall_gap_s"] <= 1e-3
+                    and r["oracle_max_logit_lag"] <= ORACLE_TIE_EPS)
+            reqs.append(r)
+        ls, lat = get_json(port, "/engine/latency")
+        classes = sorted(lat["models"]["llama3-8b"]["classes"]) if ls == 200 else []
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=60) as r:
+            metrics = parse_metrics(r.read().decode())
+        ttft_count = sum(v for k, v in metrics.items() if k.startswith("engine_ttft_seconds_count"))
+        served = 2 * len(PROMPTS)  # the warm-up and the traced requests
+        ok_a = (ok_a and "interactive" in classes and ttft_count == served
+                and watch.launches > 0 and watch.plain_calls == 0)
+        out["a_traced"] = {"ok": ok_a, "requests": reqs, "latency_classes": classes,
+                           "ttft_count": ttft_count, "served": served,
+                           "launches": watch.launches, "plain_calls": watch.plain_calls}
+        # (b) the perf plane
+        _, perf = get_json(port, "/engine/perf")
+        snap = perf["models"]["llama3-8b"]
+        want = next(((name, flops) for needle, name, flops in CUDA_PEAKS if needle in kind),
+                    (CUDA_PEAKS[-1][1] + "?", CUDA_PEAKS[-1][2]))
+        ok_b = (snap["platform"] == want[0] and "h100" in snap["platform"]
+                and snap["peak_flops"] == want[1] and snap["mfu"] > 0
+                and 0 < snap["goodput_ratio"] <= 1)
+        out["b_perf"] = {"ok": ok_b, "platform": snap["platform"], "peak_flops": snap["peak_flops"],
+                         "mfu": snap["mfu"], "goodput_ratio": snap["goodput_ratio"],
+                         "waste_flops": snap["waste_flops"],
+                         "timeline_median_ms": timeline_medians(engine)}
+        log(f"5g perf: platform {snap['platform']} peak {snap['peak_flops']:.4g} "
+            f"MFU {snap['mfu']} goodput {snap['goodput_ratio']}; median host ms per "
+            f"tick by phase {out['b_perf']['timeline_median_ms']}")
+        # (c) an on-demand profile while the four requests decode
+        presults: list = [None] * len(PROMPTS)
+
+        def prun(i):
+            presults[i] = post(port, {"text_input": PROMPTS[i],
+                                      "parameters": {"max_tokens": PROFILE_TOKENS}})
+
+        with KernelWatch() as pwatch:
+            steps0 = engine.stats["decode_steps"]
+            threads = [threading.Thread(target=prun, args=(i,)) for i in range(len(PROMPTS))]
+            for t in threads:
+                t.start()
+            decoding = wait_for(lambda: engine.stats["active_slots"] == len(PROMPTS)
+                                and not engine._prefilling
+                                and engine.stats["decode_steps"] >= steps0 + 3)
+            code, armed = post_json(port, "/engine/profile", {"ticks": PROFILE_TICKS})
+            done = wait_for(lambda: not get_json(port, "/engine/perf")[1]["models"][
+                "llama3-8b"]["profiler"]["active"], timeout=120, step=0.05)
+            prof = get_json(port, "/engine/perf")[1]["models"]["llama3-8b"]["profiler"]
+            window = engine._profiler.window
+            decode_ticks = (sum(1 for r in engine.timeline.snapshot(last=256)
+                                if window[0] <= r["tick"] <= window[1]
+                                and "decode_dispatch" in r["segments"]) if window else 0)
+            for t in threads:
+                t.join(timeout=600)
+        traces = sorted(glob.glob(os.path.join(prof["runs"][-1]["dir"], "*.json"))) \
+            if prof["runs"] else []
+        found = paged_records(traces[-1]) if traces else 0
+        expected = 2 * cfg.n_layers * decode_ticks
+        ok_c = (decoding and code == 200 and done and prof["last_error"] is None
+                and prof["captures"] == 1 and decode_ticks > 0 and found == expected
+                and all(r is not None and r[0] == 200 for r in presults)
+                and pwatch.launches > 0 and pwatch.plain_calls == 0)
+        out["c_profile"] = {"ok": ok_c, "armed": armed, "last_error": prof["last_error"],
+                            "window": window, "decode_ticks": decode_ticks,
+                            "paged_records": found, "expected_records": expected,
+                            "trace_mb": os.path.getsize(traces[-1]) / 2**20 if traces else None,
+                            "launches": pwatch.launches, "plain_calls": pwatch.plain_calls}
+        log(f"5g profile: {found} paged kernel records for {decode_ticks} decode ticks "
+            f"(expected {expected} = 2 x {cfg.n_layers} layers x ticks), last_error "
+            f"{prof['last_error']}")
+        out["leaked_pages"] = leaked_pages(srv.idle(), engine.ec)
+    out["launches"] = out["a_traced"]["launches"] + out["c_profile"]["launches"]
+    return out
+
+
+def post_json(port: int, path: str, body: dict) -> tuple:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def obs_telemetry_cost(params, cfg, dev) -> dict:
+    """5g (d): the four prompts with telemetry off and on, in turns (off,
+    on, on, off), each submitted before its loop starts: identical tokens;
+    host ms per tick and tokens/s beside each other (measured, not gated)."""
+    runs = []
+    with KernelWatch() as watch:
+        for on in (False, True, True, False):
+            r = direct_run(params, cfg, dev, EngineConfig(telemetry=on))
+            r["telemetry"] = on
+            runs.append(r)
+            gc.collect()
+            torch.cuda.empty_cache()
+    identical = all(r["tokens"] == runs[0]["tokens"] for r in runs)
+    mean = lambda key, on: float(np.mean([r[key] for r in runs if r["telemetry"] == on]))  # noqa: E731
+    out = {"runs": [{k: v for k, v in r.items() if k != "tokens"} for r in runs],
+           "tokens": runs[1]["tokens"], "identical_tokens": identical,
+           "host_ms_per_tick_off": mean("host_ms_per_tick", False),
+           "host_ms_per_tick_on": mean("host_ms_per_tick", True),
+           "tokens_per_s_off": mean("tokens_per_s", False),
+           "tokens_per_s_on": mean("tokens_per_s", True),
+           "launches": watch.launches, "plain_calls": watch.plain_calls}
+    out["cost_pct"] = (out["host_ms_per_tick_on"] / out["host_ms_per_tick_off"] - 1) * 100
+    out["ok"] = (identical and all(r["leaked_pages"] == 0 for r in runs)
+                 and all(len(t) == MAX_TOKENS for t in runs[0]["tokens"])
+                 and watch.launches > 0 and watch.plain_calls == 0)
+    log(f"5g telemetry cost: host ms/tick off {out['host_ms_per_tick_off']:.3f} on "
+        f"{out['host_ms_per_tick_on']:.3f} ({out['cost_pct']:+.2f}%), tokens/s off "
+        f"{out['tokens_per_s_off']:.2f} on {out['tokens_per_s_on']:.2f}")
+    return out
+
+
+def supervised(srv) -> list:
+    """Wrap the engine's watchdog action: each call records the health the
+    watchdog found, the dead loop's last tick time and its own time."""
+    seen = []
+    engine = srv.engine
+    real = engine._supervise
+
+    def supervise(reason):
+        seen.append({"state": engine.health()["state"], "reason": reason,
+                     "last_tick_ts": engine._last_tick_ts, "ticks": engine._ticks,
+                     "at": time.monotonic()})
+        real(reason)
+
+    engine._supervise = supervise
+    return seen
+
+
+def after_restart(params, cfg, dev, srv, seen) -> dict:
+    """The revived loop: the time from the dead loop's last tick to the new
+    loop's first, then one request over HTTP through the kernel."""
+    engine = srv.engine
+    # the revived loop's first tick advances the tick counter
+    revived = wait_for(lambda: seen and engine._ticks > seen[0]["ticks"], timeout=60,
+                       step=0.001)
+    first_tick = time.monotonic()
+    health_ok = wait_for(lambda: engine.health()["state"] == "SERVING"
+                         and engine.health()["restarts"] == 1, timeout=60)
+    before = PA.paged_attention.launches
+    code, body = srv.post(PROMPTS[0], MAX_TOKENS)
+    lag = oracle_lag(params, cfg, dev, PROMPTS[0], body["token_ids"]) if code == 200 else None
+    return {"revived": revived, "health_ok": health_ok, "health": engine.health(),
+            "restart_s": (first_tick - seen[0]["last_tick_ts"]) if seen else None,
+            "detect_s": (seen[0]["at"] - seen[0]["last_tick_ts"]) if seen else None,
+            "status": code, "tokens": body.get("tokens"), "oracle_max_logit_lag": lag,
+            "launches_after": PA.paged_attention.launches - before,
+            "ok": (revived and health_ok and code == 200 and body.get("tokens") == MAX_TOKENS
+                   and lag <= ORACLE_TIE_EPS and PA.paged_attention.launches > before)}
+
+
+def obs_watchdog(params, cfg, dev, scratch: str) -> dict:
+    """5g (e) die-on-tick and hang restarts, (g) the incident they open."""
+    out = {}
+    flight, incidents = os.path.join(scratch, "flight"), os.path.join(scratch, "incidents")
+    ec = EngineConfig(chaos=FaultConfig(die_on_tick=DIE_TICK), incidents=True,
+                      flight_dir=flight, incident_dir=incidents)
+    with KernelWatch() as watch:
+        srv = Served(params, cfg, dev, ec)
+        seen = supervised(srv)
+        futs = [srv.engine.generate_async(list(p.encode()), MAX_TOKENS) for p in PROMPTS]
+        with srv:
+            errors = []
+            for f in futs:
+                try:
+                    f.result(timeout=600)
+                    errors.append(None)
+                except Exception as e:  # noqa: BLE001 — the typed failure
+                    errors.append(type(e).__name__)
+            rec = after_restart(params, cfg, dev, srv, seen)
+            dumps = sorted(glob.glob(os.path.join(flight, "*.jsonl")))
+            header = json.loads(open(dumps[-1]).readline()) if dumps else {}
+            inc_ok = wait_for(lambda: any(i.get("bundle_path") for i in get_json(
+                srv.server.port, "/engine/incidents")[1]["incidents"]), timeout=30, step=0.05)
+            incs = get_json(srv.server.port, "/engine/incidents")[1]["incidents"]
+            leaked = leaked_pages(srv.idle(), ec)
+    rec.update(errors=errors, supervised=[s["state"] for s in seen],
+               dump_reason=header.get("reason"), leaked_pages=leaked,
+               launches=watch.launches, plain_calls=watch.plain_calls)
+    rec["ok"] = (rec["ok"] and errors == ["TickFailure"] * len(PROMPTS)
+                 and header.get("reason") == "watchdog_restart" and leaked == 0
+                 and watch.plain_calls == 0)
+    out["e_die_on_tick"] = rec
+    out["g_incidents"] = {
+        "ok": inc_ok and len(incs) == 1 and incs[0]["cause"] == "replica_death"
+        and os.path.exists(incs[0]["bundle_path"]),
+        "incidents": [{k: i.get(k) for k in ("id", "cause", "detector", "bundle_path")}
+                      for i in incs]}
+    log(f"5g watchdog: died at tick {DIE_TICK}, detected {rec['detect_s']:.3f} s after "
+        f"the last tick, next tick {rec['restart_s']:.3f} s after it; incidents "
+        f"{out['g_incidents']['incidents']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the hang: one stalled tick past hang_timeout_s
+    ec = EngineConfig(hang_timeout_s=HANG_TIMEOUT_S,
+                      chaos=FaultConfig(slow_tick_on=HANG_TICK, slow_tick_s=HANG_S))
+    with KernelWatch() as watch:
+        srv = Served(params, cfg, dev, ec)
+        seen = supervised(srv)
+        fut = srv.engine.generate_async(list(PROMPTS[1].encode()), MAX_TOKENS)
+        with srv:
+            old = srv.engine._thread
+            degraded = wait_for(lambda: srv.engine.health()["state"] == "DEGRADED", timeout=60)
+            try:
+                fut.result(timeout=600)
+                error = None
+            except Exception as e:  # noqa: BLE001
+                error = type(e).__name__
+            rec = after_restart(params, cfg, dev, srv, seen)
+            stale_exited = wait_for(lambda: not old.is_alive(), timeout=30)
+            leaked = leaked_pages(srv.idle(), ec)
+    rec.update(error=error, polled_degraded=degraded, supervised=[s["state"] for s in seen],
+               stale_thread_exited=stale_exited, leaked_pages=leaked,
+               launches=watch.launches, plain_calls=watch.plain_calls)
+    rec["ok"] = (rec["ok"] and error == "TickFailure" and degraded
+                 and rec["supervised"] == ["DEGRADED"] and stale_exited and leaked == 0
+                 and watch.plain_calls == 0)
+    out["e_hang"] = rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = out["e_die_on_tick"]["launches"] + out["e_hang"]["launches"]
+    return out
+
+
+def obs_dispatch_faults(params, cfg, dev, clean_tokens: list, scratch: str) -> dict:
+    """5g (f): a NaN aimed at one request's decode rows fails only it (the
+    others give their unpoisoned run's tokens), and an HTTP probe it also
+    poisons answers 500; a dispatch error on every tick escalates to
+    TickFailure after max_consecutive_failures with a flight dump."""
+    out = {}
+    flight = os.path.join(scratch, "nan_flight")
+    ec = EngineConfig(chaos=FaultConfig(nan_logit_rate=1.0, target_rids=(NAN_VICTIM, NAN_PROBE),
+                                        nan_phase="decode"), flight_dir=flight)
+    with KernelWatch() as watch:
+        srv = Served(params, cfg, dev, ec)
+        futs = [srv.engine.generate_async(list(p.encode()), MAX_TOKENS) for p in PROMPTS]
+        with srv:
+            got = []
+            for f in futs:
+                try:
+                    got.append(f.result(timeout=600)["tokens"])
+                except Exception as e:  # noqa: BLE001
+                    got.append(type(e).__name__)
+            code, body = srv.post(PROMPTS[0], MAX_TOKENS)  # rid NAN_PROBE
+            leaked = leaked_pages(srv.idle(), ec)
+    others = [i for i in range(len(PROMPTS)) if i != NAN_VICTIM]
+    out["nan"] = {"victim_result": got[NAN_VICTIM],
+                  "others_identical": all(got[i] == clean_tokens[i] for i in others),
+                  "probe_status": code, "probe_error": body.get("error"),
+                  "dumps": len(glob.glob(os.path.join(flight, "*.jsonl"))),
+                  "leaked_pages": leaked, "launches": watch.launches,
+                  "plain_calls": watch.plain_calls}
+    out["nan"]["ok"] = (got[NAN_VICTIM] == "NonFiniteLogits" and out["nan"]["others_identical"]
+                        and code == 500 and "NonFiniteLogits" in (body.get("error") or "")
+                        and out["nan"]["dumps"] >= 1 and leaked == 0
+                        and watch.launches > 0 and watch.plain_calls == 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flight = os.path.join(scratch, "escalation_flight")
+    ec = EngineConfig(chaos=FaultConfig(dispatch_error_rate=1.0), flight_dir=flight)
+    engine = Engine(params, cfg, ec, device=dev)
+    futs = [engine.generate_async(list(PROMPTS[0].encode()), MAX_TOKENS)]
+    engine.start()
+    try:
+        errors = []
+        for f in futs:
+            try:
+                f.result(timeout=600)
+                errors.append(None)
+            except Exception as e:  # noqa: BLE001
+                errors.append(f"{type(e).__name__}: {e}")
+        stats = engine.stats
+    finally:
+        engine.stop()
+    dumps = sorted(glob.glob(os.path.join(flight, "*.jsonl")))
+    header = json.loads(open(dumps[-1]).readline()) if dumps else {}
+    out["escalation"] = {
+        "errors": errors, "ticks_failed": stats["ticks_failed"],
+        "dump_reason": header.get("reason"),
+        # every dispatch fails before it reaches the device: no kernel runs
+        "ok": (all(e and e.startswith("TickFailure: rejected after 3 consecutive")
+                   for e in errors)
+               and stats["ticks_failed"] == ec.max_consecutive_failures
+               and header.get("reason") == "tick_failure_escalation")}
+    out["launches"] = out["nan"]["launches"]
+    return out
+
+
+def observability(params, cfg, dev, kind: str) -> dict:
+    """Phase 5g: the observability and supervision planes at full
+    Llama-3-8B: (a) traced requests, (b) the perf plane, (c) an on-demand
+    profile, (d) telemetry's cost, (e) the watchdog, (f) dispatch faults,
+    (g) incidents."""
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    out = {"traced": obs_traced(params, cfg, dev, kind)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["telemetry_cost"] = obs_telemetry_cost(params, cfg, dev)
+    out["telemetry_cost"]["oracle_max_logit_lag"] = max(
+        oracle_lag(params, cfg, dev, p, t)
+        for p, t in zip(PROMPTS, out["telemetry_cost"]["tokens"]))
+    out["watchdog"] = obs_watchdog(params, cfg, dev, scratch)
+    out["dispatch_faults"] = obs_dispatch_faults(
+        params, cfg, dev, out["telemetry_cost"]["tokens"], scratch)
+    parts = (out["traced"]["a_traced"], out["traced"]["b_perf"], out["traced"]["c_profile"],
+             out["telemetry_cost"], out["watchdog"]["e_die_on_tick"], out["watchdog"]["e_hang"],
+             out["watchdog"]["g_incidents"], out["dispatch_faults"]["nan"],
+             out["dispatch_faults"]["escalation"])
+    out["ok"] = (all(p["ok"] for p in parts) and out["traced"]["leaked_pages"] == 0
+                 and out["telemetry_cost"]["oracle_max_logit_lag"] <= ORACLE_TIE_EPS)
+    out["launches"] = sum(out[k]["launches"] for k in
+                          ("traced", "telemetry_cost", "watchdog", "dispatch_faults"))
+    return out
+
+
 # ----------------------------------------------------------------- phase 6
 
 
@@ -1668,7 +2139,8 @@ def main() -> int:
               phase("prefix_cache", lambda: prefix_cache(params, cfg, dev)),
               phase("qos", lambda: qos(params, cfg, dev)),
               phase("sessions", lambda: sessions(params, cfg, dev)),
-              phase("streaming", lambda: streaming(params, cfg, dev))]
+              phase("streaming", lambda: streaming(params, cfg, dev)),
+              phase("observability", lambda: observability(params, cfg, dev, kind))]
 
     def profile():
         with torch.inference_mode():

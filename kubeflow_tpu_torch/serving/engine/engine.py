@@ -73,9 +73,22 @@ re-prefills, rows the pipelined commit-behind drops and speculative tokens
 staged but never committed never reach a stream, and a swapped-out request
 continues its stream where it stopped.
 
+Observability and supervision, as the JAX engine has them: a lifecycle
+``RequestSpan`` per request (``trace``, ``trace_by_id``, ``waterfall``,
+``latency_budget``), the TTFT/TPOT/queue-wait/tick histograms of
+``EngineTelemetry``, the perf plane (FLOPs charged per row with waste
+attributed, the per-tick phase timeline, cache analytics, on-demand
+``torch.profiler`` captures: ``perf_snapshot``, ``trace_n_ticks``), the
+flight recorder, seeded dispatch chaos (``EngineConfig.chaos``), the
+incident plane (``incidents=True``) and the watchdog: a loop that dies or
+hangs past ``hang_timeout_s`` has its requests failed with TickFailure and
+is restarted behind an epoch fence, so a superseded thread that wakes up
+exits (``_StaleThread``) before it mutates anything.  A thread blocked
+inside a CUDA call cannot be killed; it stays blocked until the call
+returns, as a thread blocked in a device call does in the JAX package.
+
 Not ported yet (later slices): disaggregation and the fabric, constrained
-decoding, telemetry, the watchdog and hang detection, the dispatch fault
-families and incidents, int8 weights, LoRA and tensor parallelism.
+decoding, int8 weights, LoRA and tensor parallelism.
 """
 
 from __future__ import annotations
@@ -93,11 +106,17 @@ import numpy as np
 import torch
 
 from ...utils.device import resolve_device
+from .. import waterfall as waterfall_mod
 from ..errors import (DeadlineExceeded, EngineOverloaded, EngineShutdown,
                       NonFiniteLogits, RequestError, SessionBusy,
                       TickFailure)
+from ..incidents import IncidentConfig, IncidentManager, engine_detectors
+from ..slo import SloConfig, SloTracker
+from .faults import ChaosInjector, FaultConfig
 from .kvstore import (BF16Bits, KVStoreConfig, TieredKVStore, bf16_bits,
                       normalize_session_id)
+from .perf import (CacheStats, FlopsModel, PerfLedger, ProfileStore,
+                   TickTimeline, WASTE_REASONS, platform_peak_flops)
 from .model import (DecoderConfig, decode_step, decode_step_k,
                     decode_step_sample, decode_step_sample_packed,
                     decode_step_verify_sample, make_kv_pool, prefill,
@@ -105,15 +124,10 @@ from .model import (DecoderConfig, decode_step, decode_step_k,
 from .native import NativeBatcher
 from .scheduler import (PRIORITY_RANK, QosScheduler, QueueEntry,
                         SchedulerConfig, normalize_priority)
+from .telemetry import (EngineTelemetry, FlightRecorder, RequestSpan,
+                        TickProfiler)
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024)
-
-# a request whose tick phase (prefill group / decode step) raises is retried
-# in place; after this many CONSECUTIVE failures it is failed with
-# TickFailure (the JAX engine's default max_consecutive_failures)
-MAX_CONSECUTIVE_FAILURES = 3
-# stop(): how long the graceful drain waits for in-flight slots
-DRAIN_TIMEOUT_S = 10.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +182,69 @@ class EngineConfig:
     # scheduler's swap_max_bytes as the host budget and a private temporary
     # disk dir, deleted at stop()
     kv_store: Optional[KVStoreConfig] = None
+    # ---- fault tolerance ------------------------------------------------
+    # a request whose tick phase (prefill group / decode step) raises is
+    # retried in place; after this many CONSECUTIVE failures it is failed
+    # with TickFailure (a successful commit resets the count)
+    max_consecutive_failures: int = 3
+    # watchdog supervisor: checks the loop thread every interval; a loop
+    # that died (escaped exception) has its in-flight futures failed and —
+    # when watchdog_restart — is restarted with a fresh decode state.  A
+    # loop stuck inside one tick longer than hang_timeout_s is DEGRADED,
+    # then epoch-fenced and restarted the same way.  hang_timeout_s must
+    # dwarf the slowest legitimate tick (a first call that builds a kernel)
+    watchdog_interval_s: float = 0.5
+    hang_timeout_s: float = 300.0
+    watchdog_restart: bool = True
+    # stop(): how long the graceful drain waits for in-flight slots to
+    # finish before failing them with EngineShutdown
+    drain_timeout_s: float = 10.0
+    # ---- observability --------------------------------------------------
+    # master switch for lifecycle spans, latency histograms and the flight
+    # recorder.  Off = the loop pays one boolean check per hook
+    telemetry: bool = True
+    # flight recorder: ring capacity and where JSONL dumps land (None:
+    # ENGINE_FLIGHT_DIR env, else <tmpdir>/engine_flightrec)
+    flight_recorder_capacity: int = 256
+    flight_dir: Optional[str] = None
+    # completed request spans kept for trace(rid), budgeted in entries and
+    # approximate bytes (evictions count in engine_trace_evictions_total)
+    trace_history: int = 512
+    trace_history_bytes: int = 1_000_000
+    # per-class SLO targets/windows (serving/slo.py; engine.json "slo"
+    # block).  None = SloConfig() defaults; tracked whenever telemetry is on
+    slo: Optional[SloConfig] = None
+    # ---- performance introspection (perf.py) -----------------------------
+    # FLOPs/MFU accounting, goodput attribution, tick-phase timeline and
+    # cache analytics.  None = follows ``telemetry``
+    perf: Optional[bool] = None
+    # rolling window the MFU / goodput gauges derive over
+    perf_window_s: float = 60.0
+    # per-tick phase-timeline ring capacity
+    perf_timeline_capacity: int = 256
+    # managed torch.profiler artifact store (POST /engine/profile): capture
+    # dirs live under profile_dir (None: ENGINE_PROFILE_DIR env, else a
+    # per-pid tempdir), capped in count AND bytes, removed on stop()
+    profile_dir: Optional[str] = None
+    profile_max_runs: int = 8
+    profile_max_bytes: int = 256 << 20
+    # deterministic dispatch chaos (faults.FaultConfig)
+    chaos: Optional[FaultConfig] = None
+    # ---- incident plane (serving/incidents.py) ---------------------------
+    # background fault detection + evidence correlation, served as GET
+    # /engine/incidents.  Off by default: the manager runs a polling thread
+    incidents: bool = False
+    # where postmortem bundles land (None: <tmpdir>/engine_incidents)
+    incident_dir: Optional[str] = None
+    # symptoms within this window of an open incident's LAST symptom
+    # coalesce into its causal chain
+    incident_debounce_s: float = 5.0
+    # this much symptom-free quiet resolves an open incident
+    incident_resolve_s: float = 15.0
+    # incident-manager processing/polling cadence
+    incident_poll_s: float = 0.25
+    # a WORK tick slower than this feeds a tick_overrun signal (0 = off)
+    incident_tick_overrun_s: float = 0.0
 
 
 @dataclasses.dataclass
@@ -216,6 +293,14 @@ class _Pending:
     # streaming: every committed token is also pushed here, then a final
     # (None, result) or (None, exception) sentinel (generate_stream reads it)
     stream: Optional[queue.Queue] = None
+    # lifecycle span (telemetry.RequestSpan; None when telemetry is off)
+    span: Optional[RequestSpan] = None
+    # perf_counter of the most recent committed token (TPOT numerator)
+    last_token_at: float = 0.0
+    # when set, this request's NEXT prefill recomputes work already done
+    # (preempt_recompute / failover_reprefill): the perf ledger charges
+    # those prefill FLOPs as waste under this reason instead of goodput
+    waste_reason: Optional[str] = None
 
 
 def _page_hashes(tokens: list, page_size: int) -> np.ndarray:
@@ -317,6 +402,14 @@ class _Staging:
         return host
 
 
+class _StaleThread(BaseException):
+    """Raised inside a superseded loop thread at its first state-mutation
+    attempt after an epoch-fenced restart.  BaseException so the isolation
+    boundaries (which catch Exception) can't contain it: the stale thread
+    exits instead of committing tokens into a slot the restarted loop may
+    have reassigned."""
+
+
 class _StreamHandle:
     """Iterator over streamed tokens + the request's ``future`` (the handle
     ``Engine.cancel`` takes when a streaming client disconnects)."""
@@ -378,13 +471,19 @@ class Engine:
         self._paged = ec.paged_kernel
         self.k_pool = make_kv_pool(shape, ec.kv_quant, device=self.device)
         self.v_pool = make_kv_pool(shape, ec.kv_quant, device=self.device)
+        # per-engine registry (TTFT/TPOT/queue-wait/tick histograms + KV
+        # gauges) and the SLO tracker it feeds
+        self.telemetry = EngineTelemetry(
+            enabled=ec.telemetry,
+            slo=SloTracker(ec.slo or SloConfig()) if ec.telemetry else None)
         # tiered KV backing store: preemption swap blobs + pinned session
         # KV over host RAM aging to checksummed page files; a stable
         # disk_dir makes pinned sessions survive a full engine restart (the
         # store replays its manifest here)
         self._kv = TieredKVStore(
             ec.kv_store if ec.kv_store is not None
-            else KVStoreConfig(host_max_bytes=self._scfg.swap_max_bytes))
+            else KVStoreConfig(host_max_bytes=self._scfg.swap_max_bytes),
+            on_event=self.telemetry.count_kv_event)
         self._requests: dict[int, _Pending] = {}  # guarded-by: _lock
         # O(1) cancel: future -> rid, maintained at submit and at every
         # terminal path
@@ -470,6 +569,78 @@ class Engine:
         # pages (and their bytes) that session restores scattered back
         self._restored_pages = 0
         self._restored_bytes = 0
+        # ---- fault tolerance: chaos, watchdog, epoch fence
+        self._chaos = ChaosInjector(ec.chaos) if ec.chaos is not None else None
+        # epoch fence: a restarted loop bumps this; a stale (previously
+        # hung) thread that wakes up sees the mismatch and exits without
+        # touching engine state
+        self._epoch = 0
+        self._restarts = 0
+        self._wd_stop = threading.Event()
+        self._wd_thread: Optional[threading.Thread] = None
+        # loop threads record their epoch here; state-mutation points check
+        # it so a stale (superseded) thread dies instead of writing
+        self._tls = threading.local()
+        # request id per decode row (-1 = inactive), cached between roster
+        # changes: the chaos injector's targeting key
+        self._row_rids_c: Optional[list] = None
+        # (tick, perf_counter) of the last decode dispatch: consecutive-tick
+        # gaps land in engine_dispatch_gap_seconds
+        self._dispatch_mark: Optional[tuple] = None
+        # ---- performance introspection plane (perf.py): analytical FLOPs
+        # model + goodput ledger (charged at dispatch, attributed at
+        # commit), per-tick phase timeline, prefix-cache analytics, and the
+        # managed profiler artifact store
+        self._perf_on = ec.perf if ec.perf is not None else ec.telemetry
+        dev_kind = (torch.cuda.get_device_name(self.device)
+                    if self.device.type == "cuda" else "")
+        plat, peak = platform_peak_flops(self.device.type, dev_kind)
+        self._fm = FlopsModel(config)
+        self.perf = PerfLedger(peak, plat, window_s=ec.perf_window_s,
+                               on_charge=(self.telemetry.count_flops
+                                          if self._perf_on else None))
+        self.timeline = TickTimeline(capacity=ec.perf_timeline_capacity)
+        self.cache_analytics = CacheStats()
+        self.profiles = ProfileStore(parent=ec.profile_dir,
+                                     max_runs=ec.profile_max_runs,
+                                     max_bytes=ec.profile_max_bytes)
+        self.flight = FlightRecorder(capacity=ec.flight_recorder_capacity,
+                                     dump_dir=ec.flight_dir)
+        self._trace_ring: dict[int, RequestSpan] = {}  # guarded-by: _lock
+        # retained-size accounting for the trace ring (trace_history_bytes)
+        self._trace_ring_bytes = 0
+        self._trace_sizes: dict[int, int] = {}  # guarded-by: _lock
+        # trace id -> flight-recorder dump paths referencing it (bounded)
+        self._trace_dumps: dict[str, list] = {}  # guarded-by: _lock
+        # session id -> (trace_id, span_id) of its most recent terminal
+        # turn, so turn N+1's span links turn N
+        self._session_spans: dict[str, tuple] = {}  # guarded-by: _lock
+        self._nan_dump_tick = -1  # last tick that produced a NaN dump
+        # ---- incident plane: hot paths only ever feed() it (an O(1)
+        # append); detection, evidence, classification and bundle writes
+        # run on ITS thread
+        self.incidents: Optional[IncidentManager] = None
+        self._burn_above: set = set()
+        if ec.incidents:
+            self.incidents = IncidentManager(
+                scope="engine",
+                config=IncidentConfig(
+                    debounce_s=ec.incident_debounce_s,
+                    resolve_s=ec.incident_resolve_s,
+                    poll_interval_s=ec.incident_poll_s,
+                    bundle_dir=ec.incident_dir),
+                detectors=engine_detectors(),
+                evidence=self._incident_evidence,
+                dump=self._incident_dump,
+                on_firing=self.telemetry.count_incident_firing,
+                on_resolve=self.telemetry.count_incident,
+                on_open_count=self.telemetry.set_incidents_open)
+            self.incidents.add_poller(self._incident_poll)
+        # on-demand torch.profiler capture, started and stopped on the loop
+        # thread; the device synchronizes before a capture stops, so the
+        # window's last kernels are in the trace
+        self._profiler = TickProfiler(sync=self._sync_device)
+        self._profiler.on_complete = self._profile_complete
 
     # ---------------------------------------------------------------- public
 
@@ -478,20 +649,35 @@ class Engine:
             return  # idempotent: a second loop on the same pools would race
         self._running = True
         self._draining = False
-        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._last_tick_ts = time.monotonic()
+        self._thread = threading.Thread(target=self._loop, args=(self._epoch,),
+                                        daemon=True)
         self._thread.start()
+        if self.ec.watchdog_interval_s > 0 and self._wd_thread is None:
+            self._wd_stop.clear()
+            self._wd_thread = threading.Thread(target=self._watchdog, daemon=True)
+            self._wd_thread.start()
+        if self.incidents is not None:
+            self.incidents.start()  # idempotent, like this method
 
     def stop(self, drain: bool = True) -> None:
         """Graceful drain then hard stop: new submissions are refused
         (EngineShutdown), queued requests are failed with EngineShutdown,
-        in-flight slots get up to DRAIN_TIMEOUT_S to finish, then are failed
-        too.  ``drain=False`` skips the wait."""
+        in-flight slots get up to ``drain_timeout_s`` to finish, then are
+        failed too.  ``drain=False`` skips the wait."""
         with self._lock:  # atomic with generate_async's shutdown check
             self._draining = True
+        # retire the watchdog FIRST: joining it fences any _supervise in
+        # flight, so self._thread cannot be swapped for a restarted loop
+        # between the join and batcher.close() below
+        self._wd_stop.set()
+        if self._wd_thread is not None:
+            self._wd_thread.join(timeout=5)
+            self._wd_thread = None
         self._fail_unassigned(EngineShutdown("engine stopping"))
         t = self._thread
         if drain and t is not None and t.is_alive():
-            deadline = time.monotonic() + DRAIN_TIMEOUT_S
+            deadline = time.monotonic() + self.ec.drain_timeout_s
             while self._slot_req and time.monotonic() < deadline:
                 time.sleep(0.01)
         self._running = False
@@ -500,14 +686,27 @@ class Engine:
             t.join(timeout=10)
         # the loop is joined: an uncommitted pipeline tick is dropped with
         # its requests, never committed into a closing batcher
-        self._discard_pipeline()
+        if self._inflight is not None:
+            self._charge_dropped(self._inflight, "tick_retry")
+        self._inflight = None
+        self._dec_state = None
+        self._roster_dirty = True
         for slot in list(self._slot_req):
             self._fail_slot(slot, EngineShutdown("engine stopped"))
         self._fail_unassigned(EngineShutdown("engine stopped"))
+        # a capture still open (armed on an engine that got no more work)
+        # must not keep the process's one profiler busy
+        self._profiler.abort()
+        # retire the incident manager BEFORE the batcher closes: its final
+        # processing pass may snapshot evidence through self.stats
+        if self.incidents is not None:
+            self.incidents.stop()
         self.batcher.close()
         # an ephemeral (auto-tempdir) store deletes its page files; an
         # explicit disk_dir keeps the session manifest for the next engine
         self._kv.close()
+        # managed profiler artifacts die with the engine
+        self.profiles.close()
         self._stopped = True
         self._draining = False
 
@@ -515,29 +714,37 @@ class Engine:
         """Engine health state machine, as the JAX engine reports it:
 
         SERVING   — loop thread alive, no distress signal
-        DEGRADED  — alive, but a request is mid-retry after tick failures
+        DEGRADED  — alive, but a request is mid-retry after tick failures,
+                    or the current tick has been stuck past hang_timeout_s
         DRAINING  — stop() in progress
-        DEAD      — loop thread not running (never started, or stopped)
+        DEAD      — loop thread not running (never started, stopped, or
+                    died with restart disabled)
 
-        ``role`` is always "unified" (disaggregation is not ported) and
-        ``restarts`` always 0 (no watchdog yet, so no hang detection)."""
+        ``role`` is always "unified" (disaggregation is not ported);
+        ``restarts`` counts the watchdog's loop restarts."""
         if self._draining:
             state = "DRAINING"
-        elif (not self._running or self._thread is None
-              or not self._thread.is_alive()):
-            state = "DEAD"
         else:
-            state = "DEGRADED" if self._retrying > 0 else "SERVING"
+            t = self._thread
+            age = time.monotonic() - self._last_tick_ts
+            if not self._running or t is None or not t.is_alive():
+                state = "DEAD"
+            elif (self._slot_req or self._requests) and age > self.ec.hang_timeout_s:
+                state = "DEGRADED"
+            else:
+                state = "DEGRADED" if self._retrying > 0 else "SERVING"
         return {"state": state, "role": "unified",
                 "last_tick_age_s": round(time.monotonic() - self._last_tick_ts, 4),
                 "ticks": self._ticks, "ticks_failed": self._ticks_failed,
-                "restarts": 0}
+                "restarts": self._restarts}
 
     def generate_async(self, tokens: list[int], max_new_tokens: int = 32,
                        deadline: Optional[float] = None,
                        priority: Optional[str] = None,
                        session_id: Optional[str] = None,
-                       stream: Optional[queue.Queue] = None) -> Future:
+                       stream: Optional[queue.Queue] = None,
+                       trace=None, links: Optional[list] = None,
+                       waste_hint: Optional[str] = None) -> Future:
         """Submit a prompt; the Future resolves to a result dict (``rid``,
         ``tokens``, ``num_tokens``, ``truncated``, ``cancelled``,
         ``preemptions``, ``ttft_s``, ``latency_s``, and a ``session`` block
@@ -552,7 +759,16 @@ class Engine:
         the same id, whose prompt extends this turn's context, restores
         them instead of re-prefilling.  ``stream``: a queue that receives
         each token id as it is committed, then ``(None, result)`` or
-        ``(None, exception)`` (``generate_stream`` reads it).
+        ``(None, exception)`` (``generate_stream`` reads it).  ``trace``: a
+        ``core.tracing.TraceContext`` to adopt — the request's span joins
+        that trace as a child (the ingress relay passes the hop context via
+        the ``traceparent`` header); a fresh trace is minted when absent.
+        ``links``: cross-trace span links (the failed relay hop a
+        re-admission resumes from); a ``session_prev`` link to the
+        session's previous turn is added automatically.  ``waste_hint``:
+        the caller knows this request's prefill recomputes work done
+        elsewhere (``failover_reprefill``); the perf ledger charges it as
+        waste under that reason.
 
         Raises RequestError for an empty prompt, a token id outside the
         vocabulary (an out-of-range embedding index would device-assert on
@@ -562,6 +778,9 @@ class Engine:
         flight; EngineShutdown once stop() has begun."""
         if not tokens:
             raise RequestError("empty prompt")
+        if waste_hint is not None and waste_hint not in WASTE_REASONS:
+            raise RequestError(f"unknown waste_hint {waste_hint!r} "
+                               f"(known: {WASTE_REASONS})")
         V = self.config.vocab_size
         if any(not 0 <= int(t) < V for t in tokens):
             raise RequestError(f"token ids must lie in [0, {V})")
@@ -582,6 +801,11 @@ class Engine:
         depth = len(self._sched) + self.batcher.queue_depth
         if self.ec.max_queue_depth > 0 and depth >= self.ec.max_queue_depth:
             self._requests_rejected += 1
+            if self.incidents is not None:
+                # capacity signal: admission-queue growth past the bound
+                self.incidents.feed("queue_growth", queue_depth=depth,
+                                    rejected=1,
+                                    trace_ids=self._live_trace_ids())
             exc = EngineOverloaded(f"queue depth {depth} >= "
                                    f"max_queue_depth {self.ec.max_queue_depth}")
             # load-proportional retry hint, surfaced as Retry-After
@@ -605,12 +829,22 @@ class Engine:
                     f"{self._session_active[session_id]} in flight")
             rid = self._next_id
             self._next_id += 1
+            span = None
+            if self.ec.telemetry:
+                span = RequestSpan(rid, trace=trace, links=links, cls=prio)
+                if session_id is not None:
+                    prev = self._session_spans.get(session_id)
+                    if prev is not None:
+                        # turn N+1 links turn N
+                        span.links.append({"type": "session_prev",
+                                           "trace_id": prev[0],
+                                           "span_id": prev[1]})
             pending = self._requests[rid] = _Pending(
                 tokens=toks, max_new_tokens=max_new_tokens, future=fut,
                 submitted_at=now, page_hashes=hashes, context=list(toks),
                 rid=rid, deadline=now + deadline if deadline is not None else None,
                 priority=prio, rank=PRIORITY_RANK[prio], session_id=session_id,
-                stream=stream)
+                stream=stream, span=span, waste_reason=waste_hint)
             if session_id is not None:
                 self._session_active[session_id] = rid
             self._future_rid[fut] = rid
@@ -628,9 +862,12 @@ class Engine:
     def generate(self, tokens: list[int], max_new_tokens: int = 32,
                  timeout: float = 300.0, deadline: Optional[float] = None,
                  priority: Optional[str] = None,
-                 session_id: Optional[str] = None) -> dict:
+                 session_id: Optional[str] = None, trace=None,
+                 links: Optional[list] = None,
+                 waste_hint: Optional[str] = None) -> dict:
         fut = self.generate_async(tokens, max_new_tokens, deadline=deadline,
-                                  priority=priority, session_id=session_id)
+                                  priority=priority, session_id=session_id,
+                                  trace=trace, links=links, waste_hint=waste_hint)
         try:
             return fut.result(timeout=timeout)
         except FutureTimeoutError:
@@ -642,7 +879,9 @@ class Engine:
     def generate_stream(self, tokens: list[int], max_new_tokens: int = 32,
                         timeout: float = 300.0, deadline: Optional[float] = None,
                         priority: Optional[str] = None,
-                        session_id: Optional[str] = None) -> Iterator:
+                        session_id: Optional[str] = None, trace=None,
+                        links: Optional[list] = None,
+                        waste_hint: Optional[str] = None) -> Iterator:
         """Yield token ids as they are committed, then the result dict that
         ``generate`` returns.  The prompt is submitted NOW (a plain method
         returning an iterator), so it runs even if the caller delays
@@ -654,7 +893,8 @@ class Engine:
         q: queue.Queue = queue.Queue()
         fut = self.generate_async(tokens, max_new_tokens, deadline=deadline,
                                   priority=priority, session_id=session_id,
-                                  stream=q)
+                                  stream=q, trace=trace, links=links,
+                                  waste_hint=waste_hint)
 
         def _iter():
             while True:
@@ -691,7 +931,7 @@ class Engine:
             # resolve OUTSIDE the lock: a done-callback may re-enter
             self._sched.remove(rid)
             self._kv.discard_swap(rid)
-            self._retire(pending)
+            self._retire(pending, "cancelled")
             self._resolve(pending, self._result(rid, pending, cancelled=True))
             return True
         self._wake.set()
@@ -723,23 +963,54 @@ class Engine:
             self._requests.pop(rid, None)
         self._sched.remove(rid)
         self._kv.discard_swap(rid)
-        self._retire(pending)
+        self._retire(pending, "cancelled")
         self._resolve(pending, self._result(rid, pending, cancelled=True))
         return True
 
-    def _retire(self, pending: _Pending) -> None:
+    def _retire(self, pending: _Pending, outcome: str) -> None:
         """Every terminal path (finish, fail, shed, cancel, reap, stop)
         funnels here exactly once per request: the future index and the
         session-busy entry are released, so a session is never left "in
-        flight" by a missed edge."""
+        flight" by a missed edge; the outcome is counted, and the span is
+        terminal-marked and retired into the bounded trace history (oldest
+        evicted first, by entries and by bytes)."""
+        sid = pending.session_id
         with self._lock:
             self._future_rid.pop(pending.future, None)
-            sid = pending.session_id
             if sid is not None and self._session_active.get(sid) == pending.rid:
                 del self._session_active[sid]
             if pending.failures:  # no longer mid-retry: it is terminal now
                 pending.failures = 0
                 self._retrying -= 1
+        self.telemetry.count_outcome(outcome)
+        span = pending.span
+        if span is None:
+            return
+        if span.outcome is None:
+            span.mark(outcome)
+        evicted = 0
+        with self._lock:
+            if sid is not None:
+                # the NEXT turn's span links this one (session_prev);
+                # pop-then-insert keeps active sessions at the LRU tail
+                self._session_spans.pop(sid, None)
+                self._session_spans[sid] = (span.trace_id, span.span_id)
+                while len(self._session_spans) > self._TRACE_REF_CAP:
+                    self._session_spans.pop(next(iter(self._session_spans)))
+            nb = span.nbytes()
+            self._trace_ring[span.rid] = span
+            self._trace_sizes[span.rid] = nb
+            self._trace_ring_bytes += nb
+            while (self._trace_ring
+                   and (len(self._trace_ring) > self.ec.trace_history
+                        or self._trace_ring_bytes > self.ec.trace_history_bytes)):
+                old_rid = next(iter(self._trace_ring))
+                if old_rid == span.rid:
+                    break  # never evict the span being archived
+                self._trace_ring.pop(old_rid)
+                self._trace_ring_bytes -= self._trace_sizes.pop(old_rid, 0)
+                evicted += 1
+        self.telemetry.count_trace_evictions(evicted)
 
     def sessions(self) -> dict:
         """Pinned sessions in the tiered KV store: id -> {nbytes, version,
@@ -782,11 +1053,339 @@ class Engine:
                 "decode_steps": self._decode_steps,
                 "ticks": self._ticks,
                 "ticks_failed": self._ticks_failed,
-                "restarts": 0,  # no watchdog yet
+                "restarts": self._restarts,
                 "requests_failed": self._requests_failed,
                 "nan_rows": self._nan_rows,
+                "trace_history_entries": len(self._trace_ring),
+                "trace_history_bytes": self._trace_ring_bytes,
+                **({"slo": self.telemetry.slo.snapshot()}
+                   if self.telemetry.slo is not None else {}),
+                **({"incidents": self.incidents.stats()}
+                   if self.incidents is not None else {}),
+                **({"chaos": self._chaos.stats()} if self._chaos else {}),
                 **self.batcher.cache_stats(),
             }
+
+    # ------------------------------------------------ incident plane API
+
+    def incident_list(self) -> list:
+        """Incidents this engine's manager holds (open first), served as
+        ``GET /engine/incidents``.  Empty when the plane is off."""
+        return self.incidents.list() if self.incidents is not None else []
+
+    def incident_get(self, incident_id: str) -> Optional[dict]:
+        return (self.incidents.get(incident_id)
+                if self.incidents is not None else None)
+
+    def incident_open_count(self) -> int:
+        return self.incidents.open_count() if self.incidents is not None else 0
+
+    def _incident_event(self, kind: str, **attrs) -> None:
+        """The ONE incident-plane call the hot paths make: O(1) append
+        into the manager's intake deque, no-op when the plane is off."""
+        if self.incidents is not None:
+            self.incidents.feed(kind, **attrs)
+
+    def _note_degradation(self, source: str, outcome: str,
+                          pending: Optional[_Pending] = None) -> None:
+        """Degradation-outcome signal: a storage-fault recompute completed
+        the request the slow way."""
+        if self.incidents is None:
+            return
+        tids = ([pending.span.trace_id]
+                if pending is not None and pending.span is not None else [])
+        self.incidents.feed("degradation", source=source, outcome=outcome,
+                            rid=getattr(pending, "rid", None), trace_ids=tids)
+
+    def _live_trace_ids(self, cap: int = 4) -> list:
+        """Trace ids of a few live requests (else of the most recent
+        archived spans): the correlation evidence for signals that concern
+        the ENGINE rather than one request.  Best-effort."""
+        if not self.ec.telemetry:
+            return []
+        out: list = []
+        try:
+            with self._lock:
+                for p in self._requests.values():
+                    if p.span is not None:
+                        out.append(p.span.trace_id)
+                        if len(out) >= cap:
+                            break
+                if not out:
+                    for sp in reversed(self._trace_ring.values()):
+                        out.append(sp.trace_id)
+                        if len(out) >= cap:
+                            break
+            return out
+        except Exception:  # noqa: BLE001 — evidence is best-effort
+            return out
+
+    def _incident_evidence(self) -> dict:
+        """Evidence snapshot for a newly opened incident (manager thread):
+        the metrics window, the health state, and the SLO burn series."""
+        out: dict = {}
+        try:
+            st = self.stats
+            out["metrics"] = {k: st.get(k) for k in (
+                "active_slots", "queue_depth", "free_pages", "ticks",
+                "ticks_failed", "requests_shed", "requests_rejected",
+                "requests_failed", "nan_rows", "restarts", "preemptions")}
+            if "slo" in st:
+                out["slo"] = st["slo"]
+        except Exception:  # noqa: BLE001 — engine may be stopping
+            pass
+        try:
+            out["health"] = self.health()
+        except Exception:  # noqa: BLE001
+            pass
+        return out
+
+    def _incident_dump(self, first_event: dict) -> Optional[str]:
+        """Flight-recorder dump for a new incident: reuse the dump the
+        triggering signal already produced, else force one now while the
+        ring still holds the faulting ticks."""
+        path = first_event.get("dump")
+        if path:
+            return path
+        return self.flight.dump(
+            "incident_open",
+            extra={"kind": first_event.get("kind"),
+                   "trace_ids": list(first_event.get("trace_ids") or ())})
+
+    def _incident_poll(self) -> None:
+        """SLO burn-threshold detector (manager thread): edge-triggered per
+        (class, metric) against the tracker's own snapshot; re-arms at half
+        the threshold so a rate hovering at the line doesn't flap."""
+        slo = self.telemetry.slo
+        if slo is None:
+            return
+        try:
+            snap = slo.snapshot()
+        except Exception:  # noqa: BLE001
+            return
+        seen: set = set()
+        for cls, metrics in snap.items():
+            for metric, rec in metrics.items():
+                thr = rec.get("burn_threshold")
+                burn = (rec.get("burn") or {}).get(rec.get("burn_window"))
+                key = (cls, metric)
+                seen.add(key)
+                if burn is None or (thr and burn < thr * 0.5):
+                    self._burn_above.discard(key)
+                    continue
+                if (rec.get("burn_samples") or 0) < (rec.get("burn_min_samples") or 0):
+                    continue
+                if thr and burn >= thr and key not in self._burn_above:
+                    self._burn_above.add(key)
+                    try:
+                        queue_depth = len(self._sched) + self.batcher.queue_depth
+                    except Exception:  # noqa: BLE001
+                        queue_depth = 0
+                    self._incident_event(
+                        "slo_burn", cls=cls, metric=metric,
+                        burn=round(burn, 3), threshold=thr,
+                        window=rec.get("burn_window"),
+                        queue_depth=queue_depth,
+                        prefill_active=len(self._prefilling),
+                        dominant_segment=self._dominant_segment(cls),
+                        trace_ids=self._live_trace_ids())
+        self._burn_above &= seen
+
+    # ------------------------------------------------ perf introspection API
+
+    def _kv_fragmentation(self) -> tuple:
+        """(owned_pages, committed_tokens, internal-fragmentation ratio)
+        over live decode slots: 1 - tokens / (pages * page_size)."""
+        owned = int(np.count_nonzero(self._pt_host))
+        toks = int(self._len_host.sum())
+        if owned <= 0:
+            return 0, toks, 0.0
+        frag = 1.0 - toks / (owned * self.ec.page_size)
+        return owned, toks, max(0.0, min(1.0, frag))
+
+    def perf_snapshot(self) -> dict:
+        """The performance-introspection snapshot (``GET /engine/perf``):
+        the FLOPs/goodput ledger with exact waste attribution, windowed
+        MFU/goodput ratios, cache analytics, the tick-phase timeline tail,
+        and the profiler run registry."""
+        snap = self.perf.snapshot()
+        snap["enabled"] = self._perf_on
+        owned, toks, frag = self._kv_fragmentation()
+        try:
+            cs = self.batcher.cache_stats()
+            free = self.batcher.free_pages
+        except RuntimeError:  # engine stopped
+            cs, free = {}, 0
+        total = max(1, self.ec.num_pages - 1)  # page 0 is the trash page
+        snap["cache"] = {
+            **self.cache_analytics.snapshot(),
+            **cs,
+            "free_pages": free,
+            "occupancy": round((total - free) / total, 6),
+            "owned_pages": owned,
+            "committed_tokens": toks,
+            "fragmentation": round(frag, 6),
+            # the fleet fabric's published prefixes (not ported: none)
+            "fabric": [],
+        }
+        snap["timeline"] = self.timeline.snapshot()
+        snap["profiler"] = {
+            "active": self._profiler.active,
+            "captures": self._profiler.captures,
+            "last_error": self._profiler.last_error,
+            "runs": self.profiles.snapshot(),
+        }
+        snap["spec"] = {"proposed": self._spec_proposed,
+                        "accepted": self._spec_accepted}
+        return snap
+
+    def refresh_perf_metrics(self) -> None:
+        """Scrape-time refresh of the derived perf gauges (MFU, goodput
+        ratio, KV fragmentation)."""
+        if not self._perf_on:
+            return
+        _, _, frag = self._kv_fragmentation()
+        self.telemetry.set_perf(self.perf.mfu(), self.perf.goodput_ratio(),
+                                frag, self.perf.platform)
+
+    # ---------------------------------------------------------- tracing API
+
+    def trace(self, rid: int) -> Optional[dict]:
+        """Lifecycle trace for a request id: live requests from their
+        in-flight span, resolved ones from the bounded trace history.  None
+        when telemetry is off or the rid fell out of the history ring."""
+        with self._lock:
+            pending = self._requests.get(rid)
+            span = pending.span if pending is not None else self._trace_ring.get(rid)
+        return span.to_dict() if span is not None else None
+
+    # bound on the auxiliary trace-reference maps (flight-dump refs,
+    # session last-span links)
+    _TRACE_REF_CAP = 256
+
+    def trace_by_id(self, trace_id: str) -> dict:
+        """Every span this engine holds for one distributed trace id —
+        live requests and the bounded history — plus the flight-recorder
+        dump paths that reference it (the ingress's ``GET
+        /debug/trace/<id>`` fans this out across replicas)."""
+        with self._lock:
+            spans = [p.span for p in self._requests.values()
+                     if p.span is not None and p.span.trace_id == trace_id]
+            seen = {id(sp) for sp in spans}
+            spans += [sp for sp in self._trace_ring.values()
+                      if sp.trace_id == trace_id and id(sp) not in seen]
+            dumps = list(self._trace_dumps.get(trace_id, ()))
+        return {"trace_id": trace_id,
+                "spans": [sp.to_dict() for sp in spans],
+                "flight_dumps": dumps}
+
+    def waterfall(self, rid: int) -> Optional[dict]:
+        """Engine-local latency waterfall for one request id (``GET
+        /engine/waterfall/<rid>``): the span's phase marks partitioned into
+        attributed segments whose sum equals the span wall by construction,
+        and the critical path against the pipelined loop's overlapped host
+        phases.  None when telemetry is off or the rid aged out."""
+        with self._lock:
+            pending = self._requests.get(rid)
+            span = pending.span if pending is not None else self._trace_ring.get(rid)
+        if span is None:
+            return None
+        t0 = span.events[0][1]
+        t_end = span.events[-1][1]
+        overlays = waterfall_mod.overlays_from_timeline(
+            self.timeline.snapshot(last=128), t0, t_end)
+        return waterfall_mod.build_engine_waterfall(span.to_dict(), overlays=overlays)
+
+    # recent archived spans per latency_budget() read
+    _BUDGET_SCAN_CAP = 512
+
+    def latency_budget(self) -> dict:
+        """Per-class latency-budget samples from the recent span history
+        (``GET /engine/latency``): ``{"classes": {...}, "samples": {cls:
+        [...]}}``; empty when telemetry is off."""
+        if not self.ec.telemetry:
+            return {"classes": {}, "samples": {}}
+        with self._lock:
+            spans = list(self._trace_ring.values())[-self._BUDGET_SCAN_CAP:]
+        by_cls: dict = {}
+        for span in spans:
+            sample = waterfall_mod.span_budget_sample(span.to_dict())
+            if sample is None:
+                continue
+            bucket = by_cls.setdefault(sample.pop("cls"), [])
+            bucket.append(sample)
+            if len(bucket) > waterfall_mod.BUDGET_SAMPLE_CAP:
+                bucket.pop(0)
+        return {"classes": waterfall_mod.class_budgets(by_cls), "samples": by_cls}
+
+    def _dominant_segment(self, cls: str) -> Optional[dict]:
+        """The segment dominating ``cls``'s recent TTFT budget (manager
+        thread, best-effort)."""
+        try:
+            samples = self.latency_budget()["samples"].get(cls)
+            return waterfall_mod.dominant_segment(samples) if samples else None
+        except Exception:  # noqa: BLE001 — evidence is best-effort
+            return None
+
+    def _note_dump(self, path: Optional[str], trace_ids) -> None:
+        """Remember which traces a flight dump concerns."""
+        if path is None:
+            return
+        with self._lock:
+            for tid in trace_ids:
+                if tid is None:
+                    continue
+                paths = self._trace_dumps.setdefault(tid, [])
+                if path not in paths:
+                    paths.append(path)
+            while len(self._trace_dumps) > self._TRACE_REF_CAP:
+                self._trace_dumps.pop(next(iter(self._trace_dumps)))
+
+    def _slot_trace_ids(self, slots: list) -> list:
+        """Trace id per slot (None for unbound rows).  Loop-thread only."""
+        out = []
+        for sl in slots:
+            p = self._requests.get(self._slot_req.get(sl))
+            out.append(p.span.trace_id if p is not None and p.span is not None else None)
+        return out
+
+    def trace_n_ticks(self, n: int, trace_dir: Optional[str] = None) -> str:
+        """Capture a torch.profiler trace (CPU and CUDA activities) of the
+        next ``n`` live engine work ticks into ``trace_dir``.  Start/stop run
+        on the loop thread at tick boundaries; returns immediately — poll
+        ``profiler_active`` for completion.  Raises RuntimeError if a
+        capture is already in flight.  ``trace_dir=None`` (the ``POST
+        /engine/profile`` path) captures into a MANAGED dir from the
+        ProfileStore, capped and removed on ``stop()``."""
+        if self._stopped or not self._running:
+            # a dead loop never reaches a tick boundary
+            raise RuntimeError("engine is not running")
+        managed = trace_dir is None
+        if managed:
+            trace_dir = self.profiles.new_dir()
+        rec = self.profiles.begin(trace_dir, n, managed)
+        try:
+            self._profiler.request(n, trace_dir, ctx=rec)
+        except BaseException:
+            self.profiles.discard(rec)  # refused: no orphan run record
+            raise
+        self._wake.set()
+        return trace_dir
+
+    def _profile_complete(self, error: Optional[str], rec) -> None:
+        """TickProfiler completion hook (loop thread): size the capture's
+        artifacts and apply the store's count/byte caps."""
+        if rec is not None:
+            self.profiles.complete(rec, error=error)
+
+    @property
+    def profiler_active(self) -> bool:
+        return self._profiler.active
+
+    def _sync_device(self) -> None:
+        """Wait for every kernel the loop queued on the engine's device."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------ loop
 
@@ -812,19 +1411,98 @@ class Engine:
         self._prefill_dispatches += 1
         self._prefill_rows_total += rows
         self._prefill_batch_hist[rows] = self._prefill_batch_hist.get(rows, 0) + 1
+        self.telemetry.observe_prefill_batch(rows)
 
-    def _loop(self) -> None:
-        # inference_mode is thread-local: it must be entered on this thread
+    # ------------------------------------------------ perf-ledger charging
+    # analytical FLOPs are charged where the dispatch OUTCOME is known,
+    # attributed goodput or waste in the same call: goodput + waste ==
+    # dispatched is the ledger's construction, not a reconciliation
+
+    def _charge_prefill_rows(self, slots: list, lens, off: int, ok,
+                             finishing=None) -> None:
+        """One fused prefill dispatch: each row charged at its REAL
+        position count this chunk (padding lanes are machine work, not
+        requested work).  A row whose request carries a waste_reason lands
+        under that reason; a NaN-guarded FINISHING row's work -> tick_retry."""
+        C = self.ec.prefill_chunk
+        for i, slot in enumerate(slots):
+            pending = self._requests.get(self._slot_req.get(slot))
+            if pending is None:
+                continue
+            toks = max(0, min(C, int(lens[i]) - off))
+            if toks <= 0:
+                continue
+            bad = (ok is not None and not ok[i]
+                   and (finishing is None or i in finishing))
+            self.perf.charge("prefill", self._fm.prefill_row(toks, off), toks,
+                             "tick_retry" if bad else pending.waste_reason)
+
+    def _charge_dropped(self, rec: dict, reason: str) -> None:
+        """A pipelined tick whose results are discarded wholesale (watchdog
+        restart / stop): its dispatched FLOPs were real device work that
+        produced nothing — waste under ``reason``."""
+        kind = "verify" if rec.get("kind") == "spec" else "decode"
+        for f in (rec.get("flops") or {}).values():
+            f, k = f if isinstance(f, tuple) else (f, 1)
+            self.perf.charge(kind, f, k, reason)
+
+    def _loop(self, epoch: int) -> None:
+        """The engine loop of epoch ``epoch``: the watchdog bumps
+        ``self._epoch`` before reviving a dead or hung loop, so a stale
+        thread that wakes up exits without touching engine state."""
+        self._tls.epoch = epoch
+        # inference_mode is thread-local: every loop thread (a restarted one
+        # too) enters it itself
         with torch.inference_mode():
-            while self._running:
+            while self._running and self._epoch == epoch:
+                if self._chaos is not None:
+                    # may sleep (slow tick) or raise ChaosThreadDeath — a
+                    # BaseException no isolation boundary below can swallow;
+                    # it ends this thread for the watchdog to find
+                    try:
+                        self._chaos.on_tick()
+                    except BaseException:
+                        return  # thread dies; state stays as-is, like a crash
+                    if self._epoch != epoch:
+                        return  # superseded while we were stalled
+                obs = self.ec.telemetry
+                overrun_s = (self.ec.incident_tick_overrun_s
+                             if self.incidents is not None else 0.0)
+                tick_t0 = time.perf_counter() if (obs or overrun_s > 0) else 0.0
                 self._ticks += 1
                 self._last_tick_ts = time.monotonic()
+                self._profiler.on_tick_start(self._ticks)
+                did_work = False
                 try:
                     did_work = self._tick()
+                except _StaleThread:
+                    return  # superseded after a hang: exit without a trace
                 except Exception as exc:  # noqa: BLE001 — loop must survive
-                    self._note_group_failure(list(self._slot_req), "tick", exc)
+                    # backstop for host-side faults escaping the per-phase
+                    # isolation boundaries
+                    try:
+                        self._note_group_failure(list(self._slot_req), "tick", exc)
+                    except _StaleThread:
+                        return
+                    if obs:
+                        self.telemetry.observe_tick(time.perf_counter() - tick_t0)
                     time.sleep(0.005)
                     continue
+                finally:
+                    # work ticks only: the capture window must not be
+                    # consumed by idle waits (a failed tick dispatched)
+                    self._profiler.on_tick_end(self._ticks,
+                                               did_work or bool(self._slot_req))
+                if obs and did_work:
+                    # work ticks only: idle 20ms waits would swamp it
+                    self.telemetry.observe_tick(time.perf_counter() - tick_t0)
+                if overrun_s > 0 and did_work:
+                    dur = time.perf_counter() - tick_t0
+                    if dur > overrun_s:
+                        self._incident_event(
+                            "tick_overrun", duration_s=round(dur, 4),
+                            threshold_s=overrun_s,
+                            trace_ids=self._slot_trace_ids(list(self._slot_req)))
                 if not did_work:
                     self._wake.wait(timeout=0.02)
                     self._wake.clear()
@@ -833,9 +1511,16 @@ class Engine:
         """One engine tick: reap expired, admit (policy order, preempting
         when a higher class is blocked), prefill groups, decode.  Each
         compute phase runs inside its own isolation boundary (_isolated)."""
+        self._check_epoch()
+        # per-tick phase timeline (perf.py): admit covers reap + leftover
+        # drain + chaos/pool preemption + scheduler admission; the dispatch
+        # segments cover the device calls (the pipelined paths add
+        # readback/commit_behind/drain sub-segments from inside)
+        tl = self.timeline if self._perf_on else None
+        tp = time.perf_counter()
         # eager queue reaping: deadline-expired queued requests shed NOW,
         # not when they reach the admission head
-        did_work = self._reap_expired_queue(time.perf_counter())
+        did_work = self._reap_expired_queue(tp)
         # C++-queued leftovers (an admit that failed after its submit last
         # tick — rare; the scheduler queue is the real queue)
         while True:
@@ -844,6 +1529,13 @@ class Engine:
                 break
             did_work = True
             self._install_admitted(admitted)
+
+        # chaos: forced preemption storms (faults.py)
+        if self._chaos is not None and self._chaos.should_preempt():
+            victim = self._pick_victim(max_rank=-1)
+            if victim is not None:
+                did_work = True
+                self._preempt_slot(victim, "chaos")
 
         # pool-pressure relief: below the free-page watermark, evict a
         # strictly lower-priority decode slot before decode growth
@@ -861,6 +1553,10 @@ class Engine:
                         self._preempt_slot(victim, "pool")
 
         did_work |= self._admit_from_scheduler()
+        if tl is not None and (did_work or self._prefilling):
+            t = time.perf_counter()
+            tl.note(self._ticks, "admit", t - tp)
+            tp = t
 
         shorts: dict[int, list] = {}
         chunked: dict[int, list] = {}
@@ -892,10 +1588,17 @@ class Engine:
                 chunked.setdefault(off, []).append(slot)
         for bucket in sorted(shorts):
             self._isolated("prefill", shorts[bucket],
-                           self._prefill_short_group, shorts[bucket], bucket)
+                           self._prefill_short_group, shorts[bucket], bucket,
+                           shape={"rows": len(shorts[bucket]), "bucket": bucket})
         for off in sorted(chunked):
             self._isolated("prefill_chunk", chunked[off],
-                           self._prefill_chunk_group, chunked[off], off)
+                           self._prefill_chunk_group, chunked[off], off,
+                           shape={"rows": len(chunked[off]), "offset": off,
+                                  "chunk": self.ec.prefill_chunk})
+        if tl is not None and (shorts or chunked):
+            t = time.perf_counter()
+            tl.note(self._ticks, "prefill_dispatch", t - tp)
+            tp = t
 
         decode_ready = [s for s in self._slot_req if s not in self._prefilling]
         for slot in list(decode_ready):
@@ -915,19 +1618,32 @@ class Engine:
             if self._pipe_depth > 0:
                 if self._spec is not None:
                     self._isolated("verify", decode_ready,
-                                   self._decode_tick_spec_pipelined, decode_ready)
+                                   self._decode_tick_spec_pipelined, decode_ready,
+                                   shape={"rows": len(decode_ready),
+                                          "speculative": True, "pipelined": True,
+                                          "k": self._k})
                 else:
                     self._isolated("decode", decode_ready,
-                                   self._decode_tick_pipelined, decode_ready)
-                return did_work
-            drafts = ({slot: self._draft_for(slot, int(self._len_host[slot]))
-                       for slot in decode_ready} if self._spec else {})
-            if any(drafts.values()):
-                self._isolated("decode", decode_ready,
-                               self._decode_tick_speculative, decode_ready, drafts)
+                                   self._decode_tick_pipelined, decode_ready,
+                                   shape={"rows": len(decode_ready),
+                                          "pipelined": True, "constrained": False})
             else:
-                self._isolated("decode", decode_ready, self._decode_tick_single,
-                               decode_ready)
+                drafts = ({slot: self._draft_for(slot, int(self._len_host[slot]))
+                           for slot in decode_ready} if self._spec else {})
+                if any(drafts.values()):
+                    self._isolated("decode", decode_ready,
+                                   self._decode_tick_speculative, decode_ready,
+                                   drafts,
+                                   shape={"rows": len(decode_ready),
+                                          "speculative": True,
+                                          "constrained": False, "k": self._k})
+                else:
+                    self._isolated("decode", decode_ready,
+                                   self._decode_tick_single, decode_ready,
+                                   shape={"rows": len(decode_ready),
+                                          "constrained": False})
+            if tl is not None:
+                tl.note(self._ticks, "decode_dispatch", time.perf_counter() - tp)
         elif self._inflight is not None:
             # every row finished at commit-behind: retire the in-flight
             # tick (its tokens belong to already-resolved requests)
@@ -954,6 +1670,12 @@ class Engine:
             self.batcher.release(slot)
             self._kv.discard_swap(rid)
             return
+        if pending.span is not None:
+            now = pending.span.mark(
+                "admitted" if not pending.preemptions else "readmitted")
+            if not pending.preemptions:
+                self.telemetry.observe_queue_wait(now - pending.submitted_at,
+                                                  pending.priority)
         if pending.cancelled:  # cancelled between submit and admit
             self._kv.discard_swap(rid)
             self._finish(slot, rid, truncated=False, cancelled=True,
@@ -968,12 +1690,24 @@ class Engine:
                 f"{time.perf_counter() - pending.submitted_at:.3f}s in queue"),
                 shed=True)
             return
+        if self._perf_on and not pending.swapped:
+            # cache analytics: admission is the one point where requested
+            # vs granted prefix-cache pages are both known; reuse keys on
+            # the deepest matched chain hash
+            n_lookup = min(max(0, (plen - 1) // self.ec.page_size),
+                           len(pending.page_hashes))
+            if n_lookup > 0:
+                key = int(pending.page_hashes[cached - 1]) if cached > 0 else None
+                self.cache_analytics.note_lookup(n_lookup, cached, key)
+                self.telemetry.count_cache_pages(n_lookup, min(cached, n_lookup))
         if pending.swapped:
             item = self._kv.pop_swap(rid)
             if item is not None:
                 try:
                     self._resume_swapped(slot, pending, item)
                     return
+                except _StaleThread:
+                    raise
                 except Exception as exc:  # noqa: BLE001 — fail this slot only
                     # never leave the slot half-installed for decode
                     err = TickFailure(f"swap-in failed: {type(exc).__name__}: {exc}")
@@ -981,8 +1715,10 @@ class Engine:
                     self._fail_slot(slot, err)
                     return
             # blob lost (failed verification after a spill): recompute —
-            # tokens already hold the full context, a cold re-prefill
+            # tokens already hold the full context, a cold re-prefill of
+            # positions this engine already computed once (waste)
             pending.swapped = False
+            pending.waste_reason = "preempt_recompute"
         off = cached * self.ec.page_size
         if pending.session_id is not None and pending.session_restore is None:
             off = self._restore_session(slot, pending, cached)
@@ -1026,12 +1762,18 @@ class Engine:
         back to the plain prefix-cache offset.  ``pending.session_restore``
         records the outcome for the result dict."""
         ps = self.ec.page_size
+        t0 = time.perf_counter()
         try:
             outcome, payload = self._kv.restore_session(pending.session_id)
             if payload is None:
                 pending.session_restore = "degraded" if outcome == "corrupt" else "cold"
+                self.telemetry.count_session_restore(pending.session_restore)
+                if pending.session_restore == "degraded":
+                    # the store HAD the session but verification failed:
+                    # the storage-fault signal; a plain miss is not one
+                    self._note_degradation("storage", outcome, pending)
                 return cached * ps
-            blob, _, meta = payload
+            blob, nbytes, meta = payload
             stored = np.asarray(meta.get("hashes", ()), np.uint64)
             own = pending.page_hashes
             # full pages only, and at least ONE prompt position uncovered so
@@ -1044,15 +1786,32 @@ class Engine:
                 # the device cache covers everything the store could offer
                 # (or the prompt diverged from the pinned context before it)
                 pending.session_restore = "cache" if cached > 0 else "cold"
+                self.telemetry.count_session_restore(pending.session_restore)
                 return cached * ps
             row = self.batcher.slot_pages(slot)
+            self._check_epoch()  # last fence before writing the pools
             self._scatter_pages(row[cached:usable], blob, cached, usable)
             pending.session_restore = outcome  # "host" | "disk"
+            self.telemetry.count_session_restore(outcome)
             self._restored_pages += usable - cached
             self._restored_bytes += sum(a[:, cached:usable].nbytes for a in _blob_leaves(blob))
+            if pending.span is not None:
+                pending.span.mark("session_restore")
+            if self.ec.telemetry:
+                self._flight_event(
+                    "session_restore", [slot],
+                    {"tier": outcome, "pages": int(usable - cached),
+                     "cached": cached, "bytes": nbytes}, t0, "ok")
             return usable * ps
-        except Exception:  # noqa: BLE001 — restore must degrade
+        except _StaleThread:
+            raise
+        except Exception as exc:  # noqa: BLE001 — restore must degrade
             pending.session_restore = "degraded"
+            self.telemetry.count_session_restore("degraded")
+            self._note_degradation("storage", "restore_error", pending)
+            if self.ec.telemetry:
+                self._flight_event("session_restore", [slot], None, t0, "error",
+                                   error=f"{type(exc).__name__}: {exc}")
             return cached * ps
 
     def _resume_swapped(self, slot: int, pending: _Pending, item) -> None:
@@ -1061,14 +1820,21 @@ class Engine:
         slot rejoins decode exactly where it left off (seq_len, page row,
         last committed token), byte-identical under greedy."""
         t0 = time.perf_counter()
-        blob, _ = item
+        blob, nbytes = item
         L = pending.resume_len
         owned = self._pages_for(L)
         # swap submits carry no prefix hashes, so every page here is freshly
         # owned by this slot: the scatter never writes a shared cache page
         row = self.batcher.slot_pages(slot)
+        self._check_epoch()  # last fence before writing the pools
         self._scatter_pages(row[:owned], blob, 0, owned)
         pending.swapped = False
+        self.telemetry.count_swap("in", nbytes)
+        if pending.span is not None:
+            pending.span.mark("resumed")
+        if self.ec.telemetry:
+            self._flight_event("swap_in", [slot], {"pages": owned, "bytes": nbytes},
+                               t0, "ok")
         self._activate_decode(slot, L, owned, row)
         self._tok_host[slot] = pending.generated[-1]
         self._swap_in_s += time.perf_counter() - t0
@@ -1092,7 +1858,7 @@ class Engine:
             self._sched.reaped += 1
             self._requests_shed += 1
             did = True
-            self._retire(pending)
+            self._retire(pending, "shed")
             self._resolve_exception(pending, DeadlineExceeded(
                 "deadline expired after "
                 f"{now - pending.submitted_at:.3f}s in queue (reaped)"))
@@ -1153,7 +1919,7 @@ class Engine:
                     self._requests.pop(rid, None)
                 self._kv.discard_swap(rid)
                 self._requests_failed += 1
-                self._retire(pending)
+                self._retire(pending, "failed")
                 self._resolve_exception(pending, RequestError(
                     f"prompt+generation ({plen}+{mnew}) exceeds engine capacity"))
                 continue
@@ -1193,6 +1959,7 @@ class Engine:
         # tick's commit lands first, so the snapshot captures every
         # committed token, and no dispatched tick still writes the pages.
         # The drain may finish or fail the victim — re-validate below.
+        self._check_epoch()
         self._drain_pipeline("preempt")
         rid = self._slot_req.get(slot)
         pending = self._requests.get(rid) if rid is not None else None
@@ -1210,13 +1977,15 @@ class Engine:
         mode = self._scfg.swap_policy
         if mode == "auto":
             mode = "swap" if L >= self._scfg.swap_min_tokens else "recompute"
+        t0 = time.perf_counter()
+        nbytes = 0
         if mode == "swap" and owned > 0:
-            t0 = time.perf_counter()
             blob, nbytes = self._snapshot_pages(self._pt_host[slot, :owned])
             if self._kv.put_swap(rid, blob, nbytes):
                 self._swap_out_s += time.perf_counter() - t0
+                self.telemetry.count_swap("out", nbytes)
             else:
-                mode = "recompute"  # over budget: drop instead
+                mode, nbytes = "recompute", 0  # over budget: drop instead
         release_hashes = None
         pending.tokens = list(pending.context)
         if mode == "swap":
@@ -1228,11 +1997,25 @@ class Engine:
             pending.swapped = False
             pending.page_hashes = _page_hashes(pending.context, ps)
             release_hashes = pending.page_hashes[:max(0, (L - 1) // ps)]
+            # the resume re-prefill recomputes positions this engine already
+            # computed once: waste, attributed (the cache-hit share is never
+            # dispatched, so only the recomputed positions are charged)
+            pending.waste_reason = "preempt_recompute"
         pending.preemptions += 1
         self._preemptions += 1
         self._preempt_modes[mode] += 1
         self._preempt_reasons[reason] = self._preempt_reasons.get(reason, 0) + 1
         self._reset_failures(pending)
+        # the requeue gap is queue wait, not decode speed: the first
+        # post-resume commit must not record the pause as one TPOT
+        pending.last_token_at = 0.0
+        if pending.span is not None:
+            pending.span.mark("preempted")
+        self.telemetry.count_preemption(reason, mode)
+        if self.ec.telemetry:
+            self._flight_event("preempt", [slot],
+                               {"reason": reason, "mode": mode, "pages": owned,
+                                "bytes": nbytes, "seq_len": L}, t0, "ok")
         with self._lock:
             self._slot_req.pop(slot, None)
         self._release_slot_state(slot)
@@ -1243,25 +2026,75 @@ class Engine:
             # still bound and deferred to us): resolve NOW
             self._resolve_queued_cancel(rid, pending)
 
-    def _isolated(self, phase: str, slots: list, fn, *args) -> bool:
+    def _isolated(self, phase: str, slots: list, fn, *args,
+                  shape: Optional[dict] = None) -> bool:
         """Isolation boundary around one tick phase: an exception fails only
-        ``slots``, and only after MAX_CONSECUTIVE_FAILURES in a row — a
+        ``slots``, and only after ``max_consecutive_failures`` in a row — a
         transient fault retries in place next tick (a failed dispatch
-        committed nothing, so greedy decode re-produces the same tokens)."""
+        committed nothing, so greedy decode re-produces the same tokens).
+        ChaosThreadDeath and _StaleThread (BaseExceptions) pass through.
+
+        Every guarded dispatch also leaves a flight-recorder event (tick,
+        phase, slot set, dispatch shape, duration, outcome), and its wall
+        accumulates onto each participant's span (the waterfall's carve)."""
+        obs = self.ec.telemetry
+        t0 = time.perf_counter() if obs else 0.0
         try:
+            if self._chaos is not None:
+                self._chaos.maybe_dispatch_error(phase)
             fn(*args)
+            if obs:
+                self._flight_event(phase, slots, shape, t0, "ok")
+                dur = time.perf_counter() - t0
+                for sl in slots:
+                    p = self._requests.get(self._slot_req.get(sl))
+                    if p is not None and p.span is not None:
+                        p.span.hint(phase, dur)
             return True
         except Exception as exc:  # noqa: BLE001 — the boundary's whole job
+            if obs:
+                self._flight_event(phase, slots, shape, t0, "error",
+                                   error=f"{type(exc).__name__}: {exc}")
             self._note_group_failure(slots, phase, exc)
             return False
 
-    def _guard_logits(self, logits):
-        """(logits, ok) where ok is a device [B]-bool — True iff every logit
-        of that row (all K verify rows of a [B, K, V] pass) is finite — or
-        None when the guard is disabled."""
+    def _flight_event(self, phase: str, slots: list, shape: Optional[dict],
+                      t0: float, outcome: str, **extra) -> None:
+        # tick events carry both correlation keys: request ids for
+        # engine-local digging, trace ids for fleet-wide trace assembly
+        self.flight.record(
+            tick=self._ticks, phase=phase, slots=list(slots),
+            rids=[self._slot_req.get(sl) for sl in slots],
+            trace_ids=self._slot_trace_ids(slots),
+            shape=shape, duration_s=round(time.perf_counter() - t0, 6),
+            outcome=outcome, **extra)
+
+    def _guard_logits(self, logits, row_rids, phase: str = "decode"):
+        """Chaos NaN injection + the sample-path logit guard.  ``row_rids``:
+        request id per leading logits row (-1 = inactive).  Returns
+        (logits, ok) where ok is a device [B]-bool — True iff every logit of
+        that row (all K verify rows of a [B, K, V] pass) is finite — or None
+        when the guard is disabled."""
+        if self._chaos is not None:
+            rows = self._chaos.nan_rows(row_rids, phase)
+            if rows:
+                logits = logits.clone()
+                logits[torch.tensor(rows, device=logits.device)] = float("nan")
         if not self.ec.logit_guard:
             return logits, None
         return logits, torch.isfinite(logits).reshape(logits.shape[0], -1).all(dim=1)
+
+    def _poison(self, phase: str = "decode"):
+        """The fused dispatches' chaos poison mask: a [max_slots] bool on the
+        device, or None when no row is poisoned this tick."""
+        if self._chaos is None:
+            return None
+        rows = self._chaos.nan_rows(self._row_rids(), phase)
+        if not rows:
+            return None
+        mask = np.zeros((self.ec.max_slots,), bool)
+        mask[rows] = True
+        return torch.from_numpy(mask).to(self.device)
 
     def _sample(self, logits, ok_dev):
         """One host transfer of the sampled tokens (and the guard)."""
@@ -1284,16 +2117,24 @@ class Engine:
         rows = np.zeros((B, n_pages), np.int32)
         for i, slot in enumerate(slots):
             pending = self._requests[self._slot_req[slot]]
+            if pending.span is not None:
+                pending.span.mark("prefill")
             plen = len(pending.tokens)
             toks[i, :plen] = pending.tokens
             lens[i] = plen
             owned = self._pages_for(plen)
             rows[i, :owned] = self._prefill_rows[slot][:owned]
+        self._check_epoch()  # last fence before writing the pools
         logits, pk, pv = prefill(self.params, self.config, self._host(toks),
                                  self._host(lens), ps)
         self._count_prefill(B)
         write_pages(self.k_pool, self.v_pool, pk, pv, self._host(rows))
-        sampled, ok = self._sample(*self._guard_logits(logits))
+        sampled, ok = self._sample(*self._guard_logits(
+            logits, [self._slot_req[sl] for sl in slots], phase="prefill"))
+        if self._perf_on:
+            # per ROW at the real prompt length; a recompute prefill lands
+            # under its waste reason, a NaN-tripped row -> tick_retry
+            self._charge_prefill_rows(slots, lens, 0, ok)
         now = time.perf_counter()
         for i, slot in enumerate(slots):
             if ok is not None and not ok[i]:
@@ -1308,8 +2149,14 @@ class Engine:
             self._commit(slot, int(sampled[i]))
 
     def _mark_first_token(self, pending: _Pending, now: float) -> None:
-        if not pending.first_token_at:
-            pending.first_token_at = now
+        if pending.first_token_at:
+            # resume prefill after a drop-preempt: the first token left long
+            # ago — TTFT and the span mark must not move
+            return
+        pending.first_token_at = now
+        if pending.span is not None:
+            pending.span.mark("first_token")
+        self.telemetry.observe_ttft(now - pending.submitted_at, pending.priority)
 
     def _prefill_chunk_group(self, slots: list, off: int) -> None:
         """ONE chunked-prefill dispatch for every long prompt at the same
@@ -1328,6 +2175,8 @@ class Engine:
         table_rows = {}
         for i, slot in enumerate(slots):
             pending = self._requests[self._slot_req[slot]]
+            if pending.span is not None:
+                pending.span.mark("prefill")
             plen = len(pending.tokens)
             chunk = pending.tokens[off:off + C]
             toks[i, :len(chunk)] = chunk
@@ -1340,6 +2189,7 @@ class Engine:
             chunk_ids[i, :real] = row[first_page:first_page + real]
             hreal = min(owned, n_hist)
             hist_ids[i, :hreal] = row[:hreal]
+        self._check_epoch()  # last fence before writing the pools
         logits, self.k_pool, self.v_pool = prefill_chunk(
             self.params, self.config, self._host(toks), off,
             self._host(lens), self._host(chunk_ids), self._host(hist_ids),
@@ -1350,8 +2200,13 @@ class Engine:
         if finishing:
             # rows mid-prompt get sampled too (their values are unused) —
             # still one transfer in total
-            sampled, ok = self._sample(*self._guard_logits(logits))
+            sampled, ok = self._sample(*self._guard_logits(
+                logits, [self._slot_req[sl] for sl in slots], phase="prefill"))
             now = time.perf_counter()
+        if self._perf_on:
+            # each row advances min(C, plen-off) real positions over `off`
+            # of history; only FINISHING rows can charge tick_retry
+            self._charge_prefill_rows(slots, lens, off, ok, finishing=set(finishing))
         for i, slot in enumerate(slots):
             if i not in finishing:
                 self._prefilling[slot] = off + C
@@ -1373,12 +2228,23 @@ class Engine:
         """One decode step over ALL slots (inactive and prefilling rows hold
         len 0 and the trash page), the NaN guard, one batched sample, and
         the commits."""
+        self._check_epoch()  # last fence before writing the pools
+        self._note_dispatch_gap(time.perf_counter())
         logits, self.k_pool, self.v_pool = decode_step(
             self.params, self.config, self._host(self._tok_host),
             self._host(self._len_host), self._host(self._pt_host),
             self.k_pool, self.v_pool, paged=self._paged)
+        self._dispatch_mark = (self._ticks, time.perf_counter())
         self._decode_steps += 1
-        sampled, ok = self._sample(*self._guard_logits(logits))
+        sampled, ok = self._sample(*self._guard_logits(logits, self._row_rids()))
+        if self._perf_on:
+            # charged before the commits below advance the lengths
+            for slot in decode_ready:
+                if self._slot_req.get(slot) not in self._requests:
+                    continue
+                bad = ok is not None and not ok[slot]
+                self.perf.charge("decode", self._fm.decode_row(int(self._len_host[slot])),
+                                 1, "tick_retry" if bad else None)
         for slot in decode_ready:
             if ok is not None and not ok[slot]:
                 self._fail_nan(slot, f"decode row (slot {slot})")
@@ -1386,6 +2252,27 @@ class Engine:
             self._commit(slot, int(sampled[slot]))
 
     # ------------------------------------------------- pipelined decode loop
+
+    def _row_rids(self) -> list:
+        """Request id per decode row (slot), -1 for inactive/prefilling
+        rows — the chaos injector's per-request targeting key.  Cached
+        between roster changes."""
+        rids = self._row_rids_c
+        if rids is None:
+            rids = [-1] * self.ec.max_slots
+            for slot, rid in self._slot_req.items():
+                if slot not in self._prefilling:
+                    rids[slot] = rid
+            self._row_rids_c = rids
+        return rids
+
+    def _note_dispatch_gap(self, t_issue: float) -> None:
+        """Observe the host-side gap since the previous decode dispatch
+        returned — only across consecutive decode ticks, so idle waits and
+        prefill-only ticks don't pollute the histogram."""
+        mark = self._dispatch_mark
+        if self.ec.telemetry and mark is not None and mark[0] >= self._ticks - 1:
+            self.telemetry.observe_dispatch_gap(t_issue - mark[1])
 
     def _mark_roster_change(self, reason: str) -> None:
         """A slot joined or left the decode roster: the next pipelined
@@ -1396,10 +2283,12 @@ class Engine:
         if self._dirty_reason is None or reason == "nan":
             self._dirty_reason = reason
         self._roster_dirty = True
+        self._row_rids_c = None
 
     def _count_fence(self, reason: str) -> None:
         self._fences += 1
         self._fence_reasons[reason] = self._fence_reasons.get(reason, 0) + 1
+        self.telemetry.count_fence(reason)
 
     def _drain_pipeline(self, reason: str) -> None:
         """Pipeline fence: wait for the in-flight tick's readback, commit
@@ -1411,22 +2300,47 @@ class Engine:
         if rec is None:
             return
         self._count_fence(reason)
+        t0 = time.perf_counter() if self._perf_on else 0.0
         self._commit_inflight(rec)
+        if self._perf_on:
+            self.timeline.note(self._ticks, "drain", time.perf_counter() - t0)
 
     def _discard_pipeline(self) -> None:
-        """Drop pipeline state WITHOUT committing: on stop() the in-flight
-        tick's requests are failed wholesale; after a failed tick the state
-        is suspect, and the retry rebuilds from committed host state (greedy
-        re-derives any dropped in-flight token byte-identically)."""
+        """Drop pipeline state WITHOUT committing (watchdog restart: the
+        in-flight tick's requests are being failed wholesale, and this runs
+        off the loop thread, where a readback could block on a hung
+        dispatch forever).  The dropped tick's staging set is not reused
+        until its event has fired (``_acquire_staging``), so no copy of it
+        can still be reading or writing a pinned buffer the revived loop
+        fills."""
+        if self._inflight is not None:
+            self._count_fence("restart")
+            # dispatched, never committed: real device work, discarded
+            self._charge_dropped(self._inflight, "tick_retry")
         self._inflight = None
         self._dec_state = None
         self._roster_dirty = True
+
+    def _reset_pipeline_after_failure(self) -> None:
+        """A failed pipelined tick leaves in-flight/device state suspect:
+        reset so the retry rebuilds from committed host state (greedy
+        re-derives any dropped in-flight token byte-identically).  A
+        SUPERSEDED thread must not touch the state: it now belongs to the
+        restarted loop, which reset it itself in _supervise."""
+        if getattr(self._tls, "epoch", None) in (None, self._epoch):
+            self._inflight = None
+            self._dec_state = None
+            self._roster_dirty = True
 
     def _fence(self, reason: str, st: _Staging) -> list:
         """Drain the pipeline at a fence labelled ``reason`` and rebuild the
         device state from the host mirrors.  Returns the slots still ready
         to decode (the drain's commits may finish or fail rows)."""
         self._drain_pipeline(reason)
+        # the drain's blocking readback is the hang window the watchdog
+        # fires on: a stale thread resuming here must die before
+        # rebuilding state the restarted loop now owns
+        self._check_epoch()
         decode_ready = self._ready_now()
         if decode_ready:
             self._rebuild_device_state(decode_ready, st)
@@ -1461,9 +2375,14 @@ class Engine:
 
     def _readback(self, rec: dict) -> np.ndarray:
         """The in-flight tick's tokens on the host: waits on its event (the
-        copy was started at dispatch)."""
+        copy was started at dispatch); the wait is the timeline's
+        ``readback`` segment."""
+        t0 = time.perf_counter() if self._perf_on else 0.0
         rec["staging"].wait()
-        return rec["out"].numpy().copy()
+        out = rec["out"].numpy().copy()
+        if self._perf_on:
+            self.timeline.note(self._ticks, "readback", time.perf_counter() - t0)
+        return out
 
     def _commit_inflight(self, rec: dict) -> None:
         """Commit-behind: land tick N's sampled tokens in the C++ batcher and
@@ -1475,15 +2394,29 @@ class Engine:
             self._commit_inflight_spec(rec)
             return
         sampled = self._readback(rec)
+        perf = self._perf_on
+        t0 = time.perf_counter() if perf else 0.0
+        fl = rec.get("flops") or {}
         for slot in rec["slots"]:
             rid = rec["rids"][slot]
+            f = fl.get(slot)
             if self._slot_req.get(slot) != rid or rid not in self._requests:
-                continue  # finished behind the dispatch
+                # finished/failed/preempted behind the dispatch: the row's
+                # device work is discarded by the rid guard
+                if f:
+                    self.perf.charge("decode", f, 1, "pipeline_drop")
+                continue
             tok = int(sampled[slot])
             if tok < 0:  # guard encoding: -token - 1 == non-finite row
+                if f:
+                    self.perf.charge("decode", f, 1, "tick_retry")
                 self._fail_nan(slot, f"pipelined decode row (slot {slot})")
                 continue
+            if f:
+                self.perf.charge("decode", f, 1, None)
             self._commit(slot, tok)
+        if perf:
+            self.timeline.note(self._ticks, "commit_behind", time.perf_counter() - t0)
 
     def _reserve_to(self, slot: int, need: int) -> int:
         """Reserve pages until the slot OWNS ``need`` (a later commit
@@ -1565,6 +2498,7 @@ class Engine:
         lookahead pages, dispatch the fused step (the device consumes its
         own previous output), start the token readback, then commit the
         PREVIOUS tick's tokens while this one runs."""
+        self._check_epoch()  # a superseded thread must not touch the pipeline
         try:
             st = self._acquire_staging()
             decode_ready = self._fence_if_dirty(decode_ready, st)
@@ -1573,16 +2507,26 @@ class Engine:
             if not self._reserve_lookahead(decode_ready):
                 self._sync_fallback()
                 return
+            poison = self._poison()
+            self._check_epoch()  # last fence before writing the pools
+            self._note_dispatch_gap(time.perf_counter())
             sampled, self.k_pool, self.v_pool = decode_step_sample(
                 self.params, self.config, self._dec_state,
                 st.upload("lens", self._dec_lens_shadow),
                 st.upload("table", self._pt_host), self.k_pool, self.v_pool,
-                self._gen, None, temperature=self.ec.temperature,
+                self._gen, poison, temperature=self.ec.temperature,
                 guard=self.ec.logit_guard, paged=self._paged)
+            self._dispatch_mark = (self._ticks, time.perf_counter())
             self._decode_steps += 1
             rec = {"staging": st, "out": st.read_back("sampled", sampled),
                    "slots": tuple(decode_ready),
                    "rids": {s: self._slot_req[s] for s in decode_ready}}
+            if self._perf_on:
+                # FLOPs priced at dispatch (the shadow lens this dispatch
+                # used), attributed at commit-behind when each row's outcome
+                # is known
+                rec["flops"] = {s: self._fm.decode_row(int(self._dec_lens_shadow[s]))
+                                for s in decode_ready}
             prev, self._inflight = self._inflight, rec
             self._dec_state = sampled
             shadow = self._dec_lens_shadow
@@ -1591,7 +2535,7 @@ class Engine:
                 # commit-behind: tick N lands while tick N+1 runs
                 self._commit_inflight(prev)
         except BaseException:
-            self._discard_pipeline()
+            self._reset_pipeline_after_failure()
             raise
 
     # -------------------------------------------- pipelined speculative loop
@@ -1645,20 +2589,30 @@ class Engine:
         packed = rec.get("packed_np")
         if packed is None:
             packed = self._readback(rec)
+        perf = self._perf_on
+        t0 = time.perf_counter() if perf else 0.0
+        fl = rec.get("flops") or {}
         for slot in rec["slots"]:
+            f_row, k_i = fl.get(slot, (0.0, 1))
             rid = rec["rids"][slot]
             if self._slot_req.get(slot) != rid or rid not in self._requests:
-                continue  # finished behind the dispatch
+                # finished behind the dispatch: the rid guard discards it
+                if f_row:
+                    self.perf.charge("verify", f_row, k_i, "pipeline_drop")
+                continue
             pending = self._requests[rid]
             toks = rec["staged"].get(slot)
             staged = toks is not None
             if not staged:
                 toks = self._accepted_row(pending, packed[slot])
             if not toks:
+                if f_row:
+                    self.perf.charge("verify", f_row, k_i, "tick_retry")
                 rec["staged"].pop(slot, None)
                 self._fail_nan(slot, f"fused verify row (slot {slot})")
                 continue
-            self._spec_proposed += len(rec["drafts"].get(slot) or ())
+            d = rec["drafts"].get(slot) or ()
+            self._spec_proposed += len(d)
             committed = 0
             for t in toks:
                 rc = self._commit(slot, t, ctx=not staged)
@@ -1675,8 +2629,21 @@ class Engine:
                     # the batcher finished earlier than staging predicted:
                     # context stays exactly prompt + generated
                     del pending.context[-len(rest):]
+            if f_row:
+                # committed positions' share is goodput; the remainder
+                # (rejected drafts / early-EOS tail) is spec_reject
+                good = f_row * min(committed, k_i) / k_i
+                self.perf.charge("verify", good, committed, None)
+                if k_i > committed:
+                    self.perf.charge("verify", f_row - good, k_i - committed,
+                                     "spec_reject")
             # accepted drafts = committed minus the bonus/correction token
-            self._spec_accepted += max(0, committed - 1)
+            acc = max(0, committed - 1)
+            self._spec_accepted += acc
+            if d:
+                self.telemetry.observe_spec(len(d), acc)
+        if perf:
+            self.timeline.note(self._ticks, "commit_behind", time.perf_counter() - t0)
 
     def _decode_tick_spec_pipelined(self, decode_ready) -> None:
         """One pipelined SPECULATIVE tick: fence if the roster changed, read
@@ -1685,6 +2652,7 @@ class Engine:
         dispatch the fused verify (the device derives its committed-token
         feedback from the previous packed output), then commit the PREVIOUS
         tick's 1..K tokens per slot while this one runs."""
+        self._check_epoch()  # a superseded thread must not touch the pipeline
         staged_rec = None  # staged-but-uncommitted record, for rollback
         try:
             st = self._acquire_staging()
@@ -1731,27 +2699,40 @@ class Engine:
                     by_slot[slot] = list(d)
             lens = st.upload("lens", shadow)
             table = st.upload("table", self._pt_host)
+            self._check_epoch()  # last fence before writing the pools
             if by_slot:
+                poison = self._poison("verify")
+                self._note_dispatch_gap(time.perf_counter())
                 packed, self.k_pool, self.v_pool = decode_step_verify_sample(
                     self.params, self.config, self._dec_state,
                     st.upload("drafts", drafts), st.upload("dlen", dlen), lens,
-                    table, self.k_pool, self.v_pool, self._gen, None,
+                    table, self.k_pool, self.v_pool, self._gen, poison,
                     temperature=self.ec.temperature, guard=self.ec.logit_guard,
                     paged=self._paged)
             else:
                 # no drafts anywhere: the single-token step (the sync loop's
                 # no-draft dispatch, same numerics) on the packed edge
+                poison = self._poison()
+                self._note_dispatch_gap(time.perf_counter())
                 packed, self.k_pool, self.v_pool = decode_step_sample_packed(
                     self.params, self.config, self._dec_state, lens, table,
-                    self.k_pool, self.v_pool, self._gen, None,
+                    self.k_pool, self.v_pool, self._gen, poison,
                     temperature=self.ec.temperature, guard=self.ec.logit_guard,
                     paged=self._paged)
+            self._dispatch_mark = (self._ticks, time.perf_counter())
             self._decode_steps += 1
             self._inflight = {
                 "kind": "spec", "staging": st, "out": st.read_back("packed", packed),
                 "slots": tuple(decode_ready),
                 "rids": {s: self._slot_req[s] for s in decode_ready},
                 "drafts": by_slot, "staged": {}}
+            if self._perf_on:
+                # (flops, k) per row priced at dispatch — k = 1 committed +
+                # real drafts (padding verify lanes are not requested work)
+                self._inflight["flops"] = {
+                    s: (self._fm.verify_row(int(shadow[s]), int(dlen[s]) + 1),
+                        int(dlen[s]) + 1)
+                    for s in decode_ready}
             self._dec_state = packed
             if prev is not None:
                 # commit-behind: tick N's 1..K tokens per slot land while
@@ -1759,13 +2740,15 @@ class Engine:
                 self._commit_inflight(prev)
         except BaseException:
             # un-stage context tokens the commit-behind never landed, so the
-            # retry re-derives them
-            if staged_rec is not None:
+            # retry re-derives them (a superseded thread leaves the state to
+            # the restarted loop)
+            if (staged_rec is not None
+                    and getattr(self._tls, "epoch", None) in (None, self._epoch)):
                 for slot, toks in staged_rec.get("staged", {}).items():
                     p = self._requests.get(staged_rec["rids"].get(slot))
                     if p is not None and toks:
                         del p.context[-len(toks):]
-            self._discard_pipeline()
+            self._reset_pipeline_after_failure()
             raise
 
     # ------------------------------------------------------- speculative
@@ -1837,12 +2820,15 @@ class Engine:
             tokens[slot, 0] = self._tok_host[slot]
             d = drafts.get(slot) or []
             tokens[slot, 1:1 + len(d)] = d
+        self._check_epoch()  # last fence before writing the pools
+        self._note_dispatch_gap(time.perf_counter())
         logits, self.k_pool, self.v_pool = decode_step_k(
             self.params, self.config, self._host(tokens),
             self._host(self._len_host), self._host(self._pt_host),
             self.k_pool, self.v_pool, paged=self._paged)
+        self._dispatch_mark = (self._ticks, time.perf_counter())
         self._decode_steps += 1
-        logits, ok_dev = self._guard_logits(logits)
+        logits, ok_dev = self._guard_logits(logits, self._row_rids(), phase="verify")
         B, _, V = logits.shape
         sampled = sample_tokens(logits.reshape(B * K, V), self._gen,
                                 self.ec.temperature).reshape(B, K)
@@ -1853,22 +2839,44 @@ class Engine:
             both = torch.cat([sampled, ok_dev[:, None].to(torch.int32)], dim=1).cpu().numpy()
             sampled, ok = both[:, :K], both[:, K].astype(bool)
         for slot in decode_ready:
+            k_i = 1 + len(drafts.get(slot) or [])
+            # priced before this slot's commits advance its length
+            f_row = (self._fm.verify_row(int(self._len_host[slot]), k_i)
+                     if self._perf_on else 0.0)
             if ok is not None and not ok[slot]:
+                if self._perf_on:
+                    # the whole poisoned pass is discarded work
+                    self.perf.charge("verify", f_row, k_i, "tick_retry")
                 # any of the slot's K verify rows non-finite: fail the slot
                 # before committing anything from the pass
                 self._fail_nan(slot, f"speculative verify (slot {slot})")
                 continue
             d = drafts.get(slot) or []
             self._spec_proposed += len(d)
+            acc = 0
+            committed = 0
             for j in range(len(d) + 1):
                 tok = int(sampled[slot, j])
-                if self._commit(slot, tok) != 1:
+                rc = self._commit(slot, tok)
+                committed += 1
+                if rc != 1:
                     break  # finished / truncated: the slot is released
                 # logits[j+1] is valid only if the input at that row (draft
                 # j) is what greedy produced
                 if j >= len(d) or d[j] != tok:
                     break
                 self._spec_accepted += 1
+                acc += 1
+            if self._perf_on and f_row > 0:
+                # committed positions' share is goodput; the remainder is
+                # the speculation tax, attributed spec_reject
+                good = f_row * committed / k_i
+                self.perf.charge("verify", good, committed, None)
+                if k_i > committed:
+                    self.perf.charge("verify", f_row - good, k_i - committed,
+                                     "spec_reject")
+            if d:
+                self.telemetry.observe_spec(len(d), acc)
 
     # --------------------------------------------------------- slot lifecycle
 
@@ -1876,6 +2884,7 @@ class Engine:
         """Prefill finished: install the slot's page row + length into the
         host mirrors, making it visible to the decode step — a roster
         change for the pipeline."""
+        self._check_epoch()
         self._pt_host[slot, :owned] = row[:owned]
         self._len_host[slot] = plen
         self._prefill_rows.pop(slot, None)
@@ -1886,9 +2895,17 @@ class Engine:
         decoding; anything else means the slot was finished+released).
         ``ctx=False``: the pipelined speculative readback already staged
         the token into ``pending.context``."""
+        self._check_epoch()
         rid = self._slot_req[slot]
         pending = self._requests[rid]
         self._reset_failures(pending)
+        if self.ec.telemetry:
+            now = time.perf_counter()
+            if pending.last_token_at:
+                # inter-token interval (TPOT) — the decode-speed histogram
+                self.telemetry.observe_tpot(now - pending.last_token_at,
+                                            pending.priority)
+            pending.last_token_at = now
         pending.generated.append(token)
         if ctx:
             pending.context.append(token)
@@ -1921,6 +2938,7 @@ class Engine:
         """Resolve a slot's request and free the slot.  ``cache_ok=False``
         (cancelled mid-prefill): the pages hold partial KV and are neither
         cached nor pinned."""
+        self._check_epoch()
         with self._lock:
             pending = self._requests.pop(rid, None)
             self._slot_req.pop(slot, None)
@@ -1941,7 +2959,7 @@ class Engine:
         if session is not None and session.get("pinned"):
             release_hashes = None
         self.batcher.release(slot, release_hashes)
-        self._retire(pending)
+        self._retire(pending, "cancelled" if cancelled else "done")
         result = self._result(rid, pending, truncated, cancelled)
         if pending.session_id is not None:
             # "evicted" is a COUNT: session ids are bearer capabilities, so
@@ -1970,17 +2988,34 @@ class Engine:
         L = int(self._len_host[slot])
         covered = min(max(0, (L - 1) // ps), int(np.count_nonzero(self._pt_host[slot])))
         if covered == 0:
+            self.telemetry.count_session_pin("rejected")
             return {"pinned": False,
                     "reason": "committed context shorter than one page"}
+        t0 = time.perf_counter()
         try:
             blob, nbytes = self._snapshot_pages(self._pt_host[slot, :covered])
             hashes = _page_hashes(pending.context, ps)[:covered]
             meta = {"hashes": [int(h) for h in hashes],
                     "context_len": len(pending.context),
                     "adapter_id": 0, "pages": covered}
-            return self._kv.pin_session(pending.session_id, blob, nbytes, meta)
+            res = self._kv.pin_session(pending.session_id, blob, nbytes, meta)
         except Exception as exc:  # noqa: BLE001 — a pin must not fail the turn
+            self.telemetry.count_session_pin("rejected")
+            if self.ec.telemetry:
+                self._flight_event("session_pin", [slot], None, t0, "error",
+                                   error=f"{type(exc).__name__}: {exc}")
             return {"pinned": False, "reason": f"{type(exc).__name__}: {exc}"}
+        self.telemetry.count_session_pin(
+            "durable" if res.get("durable")
+            else "pinned" if res.get("pinned") else "rejected")
+        if self.ec.telemetry:
+            self._flight_event(
+                "session_pin", [slot],
+                {"pages": covered, "bytes": res.get("nbytes"),
+                 "durable": res.get("durable"),
+                 "evicted": len(res.get("evicted") or ())},
+                t0, "ok" if res.get("pinned") else "rejected")
+        return res
 
     def _reset_failures(self, pending: _Pending) -> None:
         """A commit or an advanced prefill chunk is progress: the failure
@@ -1993,6 +3028,9 @@ class Engine:
 
     def _note_group_failure(self, slots: list, phase: str, exc: Exception) -> None:
         self._ticks_failed += 1
+        cap = self.ec.max_consecutive_failures
+        escalated = []
+        escalated_tids = []
         for slot in list(slots):
             rid = self._slot_req.get(slot)
             pending = self._requests.get(rid) if rid is not None else None
@@ -2002,24 +3040,68 @@ class Engine:
                 pending.failures += 1
                 if pending.failures == 1:
                     self._retrying += 1
-            if pending.failures >= MAX_CONSECUTIVE_FAILURES:
+            if pending.failures >= cap:
                 err = TickFailure(
                     f"rejected after {pending.failures} consecutive "
                     f"{phase} failures (last: {type(exc).__name__}: {exc})")
                 err.__cause__ = exc
+                escalated.append(rid)
+                if pending.span is not None:
+                    escalated_tids.append(pending.span.trace_id)
                 self._fail_slot(slot, err)
+        if escalated and self.ec.telemetry:
+            # a request crossed the consecutive-failure cap: persist the
+            # tick-event ring now, while the failing ticks are still in it
+            path = self.flight.dump(
+                "tick_failure_escalation",
+                extra={"phase": phase, "rids": escalated, "tick": self._ticks,
+                       "trace_ids": escalated_tids,
+                       "error": f"{type(exc).__name__}: {exc}"})
+            self._note_dump(path, escalated_tids)
 
     def _fail_nan(self, slot: int, where: str) -> None:
-        """NaN-guard trip: fail the poisoned slot with NonFiniteLogits."""
+        """NaN-guard trip: fail the poisoned slot with NonFiniteLogits and
+        dump the flight recorder — one dump per TICK, not per row: a whole
+        poisoned batch is one incident."""
         self._nan_rows += 1
         self._mark_roster_change("nan")  # before the release's "finish"
+        tids: list = []
+        path = None
+        if self.ec.telemetry:
+            tids = self._slot_trace_ids([slot])
+            self._flight_event("nan_guard", [slot], None, time.perf_counter(),
+                               "nan", error=f"non-finite logits in {where}")
+            if self._nan_dump_tick != self._ticks:
+                self._nan_dump_tick = self._ticks
+                path = self.flight.dump(
+                    "nan_guard_trip",
+                    extra={"slot": slot, "rid": self._slot_req.get(slot),
+                           "trace_ids": tids, "where": where,
+                           "tick": self._ticks})
+                self._note_dump(path, tids)
+        # incident signal: joins the causal chain of a bigger open incident
+        # and carries the dump so an incident it opens cites it
+        self._incident_event("nan_guard", where=where,
+                             rid=self._slot_req.get(slot), trace_ids=tids,
+                             dump=path)
         self._fail_slot(slot, NonFiniteLogits(f"non-finite logits in {where}"))
+
+    def _check_epoch(self) -> None:
+        """Die (via _StaleThread, uncatchable by the isolation boundaries)
+        if this loop thread was superseded by a watchdog restart — the
+        restarted loop may have reassigned our slots, so any further host
+        mutation would corrupt a fresh request.  Threads with no recorded
+        epoch (watchdog, stop(), callers' threads) always pass."""
+        e = getattr(self._tls, "epoch", None)
+        if e is not None and e != self._epoch:
+            raise _StaleThread(f"epoch {e} superseded by {self._epoch}")
 
     def _fail_slot(self, slot: int, exc: Exception, shed: bool = False) -> None:
         """Fail ONE slot's request with a typed error and free its
         slot/pages (never into the prefix cache: failed state is suspect);
         the rest of the engine is untouched.  ``shed``: a deadline shed,
         counted apart from failures."""
+        self._check_epoch()
         with self._lock:
             rid = self._slot_req.pop(slot, None)
             pending = self._requests.pop(rid, None) if rid is not None else None
@@ -2033,7 +3115,7 @@ class Engine:
             self._requests_shed += 1
         else:
             self._requests_failed += 1
-        self._retire(pending)
+        self._retire(pending, "shed" if shed else "failed")
         self._resolve_exception(pending, exc)
 
     def _fail_unassigned(self, exc: Exception) -> None:
@@ -2050,8 +3132,90 @@ class Engine:
             self._sched.remove(rid)
             self._kv.discard_swap(rid)
             self._requests_failed += 1
-            self._retire(p)
+            self._retire(p, "failed")
             self._resolve_exception(p, exc)
+
+    def _watchdog(self) -> None:
+        """Supervisor: detects a dead loop thread (escaped exception /
+        injected death) or one hung inside a single tick past
+        hang_timeout_s, fails the in-flight futures, and — when
+        watchdog_restart — revives the loop with a fresh decode state."""
+        while not self._wd_stop.wait(self.ec.watchdog_interval_s):
+            if not self._running or self._draining:
+                continue
+            t = self._thread
+            if t is None:
+                continue
+            if not t.is_alive():
+                self._supervise("loop thread died")
+            elif ((self._slot_req or self._requests)
+                  and time.monotonic() - self._last_tick_ts > self.ec.hang_timeout_s):
+                self._supervise(
+                    f"loop hung > {self.ec.hang_timeout_s}s inside one tick")
+
+    def _supervise(self, reason: str) -> None:
+        """Fence first: a hung-but-alive thread that wakes later sees the
+        epoch mismatch at the loop top, the _tick entry, the pre-dispatch
+        checks, or any _commit/_finish/_fail_slot and dies (_StaleThread)
+        before mutating host state.  RESIDUAL RISK: a thread blocked INSIDE
+        a CUDA call cannot be killed; it wakes past its pre-dispatch fence
+        and can still enqueue work on the pools before its next check —
+        restart-after-hang is best-effort, and a production deployment
+        escalates a repeat offender to a process restart.  Loop DEATH (the
+        common case) has no such window."""
+        self._epoch += 1
+        tids: list = []
+        dump_path = None
+        if self.ec.telemetry:
+            # the postmortem the flight recorder exists for: what the loop
+            # was doing when the watchdog had to step in (no lock: the loop
+            # may be hung holding state)
+            try:
+                tids = [p.span.trace_id for p in list(self._requests.values())
+                        if p.span is not None]
+            except RuntimeError:
+                tids = []  # the dict changed under the lock-free snapshot
+            self.flight.record(tick=self._ticks, phase="watchdog",
+                               slots=list(self._slot_req),
+                               rids=list(self._slot_req.values()),
+                               trace_ids=tids, shape=None, duration_s=0.0,
+                               outcome="supervise", error=reason)
+            dump_path = self.flight.dump(
+                "watchdog_" + ("restart" if self.ec.watchdog_restart else "halt"),
+                extra={"detail": reason, "tick": self._ticks, "trace_ids": tids,
+                       "epoch": self._epoch, "restarts": self._restarts})
+            self._note_dump(dump_path, tids)
+        # incident signal: a watchdog trip IS the engine-local replica death
+        self._incident_event("watchdog", detail=reason,
+                             restart=self.ec.watchdog_restart,
+                             trace_ids=tids, dump=dump_path)
+        err = TickFailure(f"engine {reason}; request abandoned by supervisor")
+        # drop (never commit) the in-flight pipeline tick: its requests are
+        # being failed wholesale, and a readback here — on the watchdog
+        # thread, against a possibly-hung dispatch — could block forever
+        self._discard_pipeline()
+        for slot in list(self._slot_req):
+            self._fail_slot(slot, err)
+        self._fail_unassigned(err)
+        self._sched.clear()
+        self._kv.clear_swap()
+        self._prefilling.clear()
+        self._prefill_rows.clear()
+        self._pt_host[:] = 0
+        self._len_host[:] = 0
+        self._tok_host[:] = 0
+        self._dec_lens_shadow[:] = 0
+        if self.ec.watchdog_restart:
+            self._restarts += 1
+            self._last_tick_ts = time.monotonic()
+            # the revived loop enters inference_mode on its own thread, and
+            # rebuilds its device state from the (now empty) committed host
+            # mirrors at its first pipelined dispatch
+            self._thread = threading.Thread(target=self._loop, args=(self._epoch,),
+                                            daemon=True)
+            self._thread.start()
+        else:
+            self._running = False
 
     @staticmethod
     def _resolve(pending: _Pending, result: dict) -> None:

@@ -1,10 +1,36 @@
-"""Deterministic storage-fault injection for the tiered KV store.
+"""Deterministic chaos injection for the serving engine.
 
-The storage scope of ``kubeflow_tpu/serving/engine/faults.py``: torn
-writes, bit flips, slow reads and writes, and ENOSPC, provoked
-deterministically on the disk tier's two byte streams (kvstore.py).  The
-dispatch, handoff, fabric, constrain, storm and fleet fault families come
-with the slices that port those subsystems.
+Counterpart of ``kubeflow_tpu/serving/engine/faults.py``, in two scopes:
+
+* Dispatch scope: a frozen, seeded ``FaultConfig`` rides inside
+  ``EngineConfig`` and a ``ChaosInjector`` built from it fires faults at
+  the engine loop's hook points, exactly as the JAX package's does (the
+  same seed draws the same numbers, so the same rows are poisoned and the
+  same requests fail in both packages):
+
+  * ``on_tick``          — slow ticks (watchdog/hang exercise) and loop
+                           thread death (supervisor/restart exercise)
+  * ``maybe_dispatch_error`` — raises inside an isolation boundary, as a
+                           failed prefill/decode dispatch would
+  * ``nan_rows``         — picks logits rows to poison with NaN, as a
+                           numerically-diverged model would (the engine
+                           poisons them: the sync paths set the rows to
+                           NaN, the fused pipelined dispatches take them
+                           as their poison mask)
+  * ``should_preempt``   — forced preemption storms
+
+  ``ChaosThreadDeath`` deliberately subclasses ``BaseException``: the tick
+  isolation boundaries catch ``Exception``, and simulated thread death must
+  sail through them and actually kill the loop thread, the way a real
+  un-catchable failure would.  ``EXPECTED_INCIDENT_CAUSES`` names the root
+  cause the incident plane must classify each chaos class as.
+
+* Storage scope: torn writes, bit flips, slow reads and writes, and ENOSPC,
+  provoked deterministically on the tiered KV store's disk tier
+  (kvstore.py).
+
+The handoff, fabric, constrain, storm and fleet fault families come with
+the slices that port those subsystems.
 """
 
 from __future__ import annotations
@@ -13,8 +39,240 @@ import dataclasses
 import errno
 import threading
 import time
+from typing import Tuple
 
 import numpy as np
+
+
+class ChaosDispatchError(RuntimeError):
+    """An injected dispatch failure (stands in for a thrown prefill/decode)."""
+
+
+# Chaos class -> the root cause the incident plane must name for it
+# (serving/incidents.py CAUSES).  Keys are "<scope>:<class>" so the fleet
+# "slow" replica and the storage "slow" disk stay distinct entries.
+EXPECTED_INCIDENT_CAUSES = {
+    # fleet scope (FleetFaultConfig): the ingress sees failover retries /
+    # breaker opens for every one of these
+    "fleet:kill": "replica_death",
+    "fleet:hang": "replica_death",
+    "fleet:slow": "replica_death",
+    "fleet:cut": "replica_death",
+    # engine scope: loop death / hang is the engine-local replica death
+    "engine:die_on_tick": "replica_death",
+    "engine:slow_tick": "replica_death",
+    # storage scope (StorageFaultConfig): every verification failure
+    # degrades a session restore to recompute
+    "storage:torn_write": "storage_degradation",
+    "storage:bit_flip": "storage_degradation",
+    "storage:enospc": "storage_degradation",
+    # handoff scope (HandoffFaultConfig): every pull/export fault
+    # degrades the disaggregated import to re-prefill
+    "handoff:torn_pull": "handoff_degradation",
+    "handoff:slow_pull": "handoff_degradation",
+    "handoff:dead_link": "handoff_degradation",
+    "handoff:expired_export": "handoff_degradation",
+    # sharded-frame chaos (README "Sharded serving"): ONE corrupted
+    # sub-frame of a tensor-parallel frame degrades the whole import —
+    # exactly like a torn unified frame, caught by the per-shard verifier
+    "handoff:shard_torn_pull": "handoff_degradation",
+    "handoff:shard_flip_pull": "handoff_degradation",
+    "handoff:shard_drop_pull": "handoff_degradation",
+    # fabric scope (FabricFaultConfig): every pull/publish fault degrades
+    # the prefix fault-in to plain re-prefill
+    "fabric:torn_pull": "fabric_degradation",
+    "fabric:flip_pull": "fabric_degradation",
+    "fabric:slow_pull": "fabric_degradation",
+    "fabric:dead_link": "fabric_degradation",
+    "fabric:expired_publish": "fabric_degradation",
+    "fabric:shard_torn_pull": "fabric_degradation",
+    "fabric:shard_flip_pull": "fabric_degradation",
+    "fabric:shard_drop_pull": "fabric_degradation",
+    # storm scope (StormFaultConfig): a traffic storm against the ingress
+    # overload controller surfaces as aggregated shed bursts + brownout
+    # stage transitions — ONE self-resolving capacity incident, not an
+    # alert storm (README "Overload control")
+    "storm:overload": "capacity",
+    # constrain scope (ConstrainFaultConfig): a constrained slot whose
+    # mask has ZERO legal tokens is an engine-side grammar-compile or
+    # token-map bug — NEVER the client's fault (their schema compiled;
+    # admission already validated it).  The corrupt-cache injection does
+    # NOT appear here: a corrupted token-map cache must degrade to a
+    # counted re-compile with no incident at all.
+    "constrain:stall": "constraint_stall",
+}
+
+# Root cause -> the remediation playbook the self-driving fleet runs for
+# it (the JAX package's serving/remediator.py CAUSE_PLAYBOOK, kept as a
+# literal here as it is there).
+_CAUSE_PLAYBOOK = {
+    "replica_death": "replace_replica",
+    "prefill_interference": "split_roles",
+    "capacity": "prescale",
+    "storage_degradation": "quarantine_tier",
+    "handoff_degradation": "quarantine_tier",
+    "fabric_degradation": "quarantine_tier",
+    # a grammar/token-map bug needs a code fix, not an actuator: the
+    # playbook observes (bundle + postmortem), it does not auto-heal
+    "constraint_stall": "observe",
+    "unknown": "observe",
+}
+
+# Chaos class -> {cause, playbook}: the full expected-remediation
+# contract (README "Self-driving fleet").  A new injector class must
+# declare not just what NAMES it (EXPECTED_INCIDENT_CAUSES) but what
+# FIXES it — the fleet's remediation contract, whose control plane is
+# the JAX package's (JAX-free) router and remediator.
+EXPECTED_REMEDIATIONS = {
+    key: {"cause": cause, "playbook": _CAUSE_PLAYBOOK[cause]}
+    for key, cause in EXPECTED_INCIDENT_CAUSES.items()
+}
+
+
+class ChaosThreadDeath(BaseException):
+    """Injected loop-thread death; BaseException so isolation boundaries
+    (which catch Exception) cannot contain it — only the watchdog can."""
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultConfig:
+    """Seeded fault plan. Frozen (rides in the frozen/hashable EngineConfig);
+    all-defaults == inject nothing."""
+
+    seed: int = 0
+    # probability that any single guarded dispatch (one prefill group / one
+    # decode tick) raises ChaosDispatchError
+    dispatch_error_rate: float = 0.0
+    # probability, per decode row per tick, that the row's logits are
+    # poisoned with NaN before sampling
+    nan_logit_rate: float = 0.0
+    # restrict NaN poisoning to these request ids (empty = any row)
+    target_rids: Tuple[int, ...] = ()
+    # restrict NaN poisoning to one sample phase: "" = any, "prefill" =
+    # only the fused first-token sample, "decode" = only plain decode
+    # ticks, "verify" = only speculative verify passes (sync AND the fused
+    # pipelined dispatch).  "decode" is how the pipelined-loop
+    # tests aim a NaN at a row that has already LEFT the synchronous
+    # prefill path — the poison then rides the fused decode dispatch and
+    # is detected at the commit-behind fence, one tick after injection
+    # (engine.py "Tick pipelining"); "verify" does the same for the
+    # speculative path, where the guard must also discard every
+    # not-yet-committed accepted token of the poisoned pass (no phantom
+    # multi-token commit from NaN logits)
+    nan_phase: str = ""
+    # sleep slow_tick_s at the top of every Nth tick (0 = off), or exactly
+    # once at tick slow_tick_on (1-based; -1 = off): makes the loop look
+    # hung to the watchdog without actually deadlocking pytest
+    slow_tick_every: int = 0
+    slow_tick_on: int = -1
+    slow_tick_s: float = 0.0
+    # raise ChaosThreadDeath at the top of this tick number (1-based;
+    # -1 = off): the loop thread dies and the supervisor must notice
+    die_on_tick: int = -1
+    # force-preempt the engine's lowest-priority decode slot every Nth tick
+    # (0 = off): the preemption-storm substrate for the QoS scheduler's
+    # swap/resume byte-identity and page-leak tests (engine/scheduler.py)
+    preempt_every: int = 0
+
+
+class ChaosInjector:
+    """Runtime half of FaultConfig: owns the RNG, the tick counter, and the
+    injected-fault counters the tests/bench assert against."""
+
+    def __init__(self, config: FaultConfig):
+        self.config = config
+        self.rng = np.random.default_rng(config.seed)
+        self.tick = 0
+        self.injected_dispatch_errors = 0
+        self.injected_nan_rows = 0
+        self.injected_slow_ticks = 0
+        self.injected_deaths = 0
+        self.injected_preempt_signals = 0
+        # externally-armed one-shot slow tick (fleet chaos "hang"): set by
+        # arm_slow from any thread, consumed by the loop at its next tick
+        self._armed_slow_s = 0.0
+
+    def arm_slow(self, duration_s: float) -> None:
+        """Arm ONE slow tick of ``duration_s`` from outside the loop — the
+        fleet harness's mid-decode hang: the replica keeps its sockets open
+        but its engine loop goes silent, exactly the failure the ingress
+        stall detector (relay timeout) exists for."""
+        self._armed_slow_s = float(duration_s)
+
+    def on_tick(self) -> None:
+        """Called once at the top of every engine tick (idle ticks too)."""
+        self.tick += 1
+        c = self.config
+        if c.die_on_tick > 0 and self.tick == c.die_on_tick:
+            self.injected_deaths += 1
+            raise ChaosThreadDeath(f"injected loop death at tick {self.tick}")
+        armed, self._armed_slow_s = self._armed_slow_s, 0.0
+        if armed > 0:
+            self.injected_slow_ticks += 1
+            time.sleep(armed)
+        if ((c.slow_tick_every > 0 and self.tick % c.slow_tick_every == 0)
+                or (c.slow_tick_on > 0 and self.tick == c.slow_tick_on)):
+            self.injected_slow_ticks += 1
+            time.sleep(c.slow_tick_s)
+
+    def should_preempt(self) -> bool:
+        """Called once per tick by the engine's preemption hook: True on
+        every ``preempt_every``-th tick.  Counts SIGNALS — the engine may
+        find no eligible decode slot to evict that tick."""
+        c = self.config
+        if c.preempt_every > 0 and self.tick % c.preempt_every == 0:
+            self.injected_preempt_signals += 1
+            return True
+        return False
+
+    def maybe_dispatch_error(self, phase: str) -> None:
+        """Called inside each isolation boundary, before the real dispatch."""
+        c = self.config
+        if c.dispatch_error_rate > 0 and self.rng.random() < c.dispatch_error_rate:
+            self.injected_dispatch_errors += 1
+            raise ChaosDispatchError(
+                f"injected {phase} dispatch fault (tick {self.tick})")
+
+    def nan_rows(self, row_rids, phase: str = "decode") -> list:
+        """Rows (indices into ``row_rids``) whose logits should be poisoned
+        this tick.  ``row_rids``: request id per logits row (-1 = inactive
+        row, never poisoned).  ``phase`` is the sample site asking
+        ("prefill" | "decode" | "verify"); draws happen only when the
+        config's ``nan_phase`` matches (empty matches all), so phase
+        filtering does not perturb the RNG stream of the phase under
+        test."""
+        c = self.config
+        if c.nan_logit_rate <= 0:
+            return []
+        if c.nan_phase and phase != c.nan_phase:
+            return []
+        rows = []
+        for i, rid in enumerate(row_rids):
+            if rid < 0:
+                continue
+            if c.target_rids and rid not in c.target_rids:
+                continue
+            if self.rng.random() < c.nan_logit_rate:
+                rows.append(i)
+        if rows:
+            self.injected_nan_rows += len(rows)
+        return rows
+
+    def stats(self) -> dict:
+        return {
+            "ticks_seen": self.tick,
+            "injected_dispatch_errors": self.injected_dispatch_errors,
+            "injected_nan_rows": self.injected_nan_rows,
+            "injected_slow_ticks": self.injected_slow_ticks,
+            "injected_deaths": self.injected_deaths,
+            "injected_preempt_signals": self.injected_preempt_signals,
+        }
+
+
+# ------------------------------------------------------------- storage scope
+
+
+# ------------------------------------------------------------- storage scope
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,10 +23,14 @@ continuation is generated and returned.  A truthy ``X-Stream-Resume``
 header makes every stream event carry the ``token_ids`` it covers, which is
 what the ingress's failover relay reads.
 
-The tracing headers (``X-Request-Trace``, ``traceparent`` and
-``X-Resume-From``) only add a trace or a span link in the JAX package; the
-ingress stamps ``traceparent`` on every relay and ``X-Resume-From`` on every
-failover, so they are accepted and ignored until tracing is ported.
+Tracing rides headers as in the JAX package: an inbound ``traceparent``
+(the ingress stamps one per relay) makes the engine span a child of the
+relay hop, ``X-Resume-From`` (stamped on a failover re-admission) links the
+failed hop, and a truthy ``X-Request-Trace`` adds the request's lifecycle
+span as a ``trace`` field to the unary response or to the stream's final
+event.  The engine's observability surfaces back the server's ``/metrics``
+registry text (``metrics_text``) and its ``/engine/{perf, profile, trace,
+incidents, waterfall, latency}`` routes.
 
 Tokenization: a flat ``{token: id}`` ``tokenizer.json`` in the model dir
 (greedy longest-match), else byte-level (ids 0..255).  The HF tokenizers
@@ -45,11 +49,14 @@ import json
 import os
 from typing import Any, Optional
 
+from ...core import tracing
+from ...core.metrics import add_const_labels
 from ...utils.device import resolve_device
 from ..errors import EngineError, RequestError
 from ..server import Model
+from ..slo import SloConfig
 from .engine import Engine, EngineConfig
-from .faults import StorageFaultConfig
+from .faults import FaultConfig, StorageFaultConfig
 from .kvstore import KVStoreConfig, normalize_session_id
 from .model import DecoderConfig, load_params
 from .scheduler import SchedulerConfig, normalize_priority
@@ -66,30 +73,6 @@ _UNSUPPORTED_PARAMS = ("adapter", "kv_handoff", "handoff", "fabric",
 _UNPORTED_ENGINE_KEYS = {
     "tensor_parallel": (1, "1.8"),
     "weight_quant": (None, "1.6"),
-    "max_consecutive_failures": (3, "1.5"),
-    "watchdog_interval_s": (0.5, "1.5"),
-    "hang_timeout_s": (300.0, "1.5"),
-    "watchdog_restart": (True, "1.5"),
-    "drain_timeout_s": (10.0, "1.5"),
-    "telemetry": (True, "1.5"),
-    "flight_recorder_capacity": (256, "1.5"),
-    "flight_dir": (None, "1.5"),
-    "trace_history": (512, "1.5"),
-    "trace_history_bytes": (1_000_000, "1.5"),
-    "slo": (None, "1.5"),
-    "perf": (None, "1.5"),
-    "perf_window_s": (60.0, "1.5"),
-    "perf_timeline_capacity": (256, "1.5"),
-    "profile_dir": (None, "1.5"),
-    "profile_max_runs": (8, "1.5"),
-    "profile_max_bytes": (256 << 20, "1.5"),
-    "chaos": (None, "1.5"),
-    "incidents": (False, "1.5"),
-    "incident_dir": (None, "1.5"),
-    "incident_debounce_s": (5.0, "1.5"),
-    "incident_resolve_s": (15.0, "1.5"),
-    "incident_poll_s": (0.25, "1.5"),
-    "incident_tick_overrun_s": (0.0, "1.5"),
     "role": ("unified", "1.3"),
     "handoff_ttl_s": (60.0, "1.3"),
     "handoff_max_bytes": (256 << 20, "1.3"),
@@ -114,6 +97,29 @@ def _header(headers: Optional[dict], name: str):
 def _truthy_header(headers: Optional[dict], name: str) -> bool:
     v = _header(headers, name)
     return v is not None and str(v).strip().lower() not in ("", "0", "false", "no")
+
+
+def _trace_ctx(headers: Optional[dict]):
+    """Inbound W3C ``traceparent`` (the ingress relay stamps one per
+    attempt): the engine span adopts its trace id and becomes a child of
+    the relay hop.  Malformed headers mint a fresh trace instead of failing
+    the request."""
+    v = _header(headers, tracing.TRACEPARENT_HEADER)
+    return tracing.parse_traceparent(v) if v is not None else None
+
+
+def _resume_link(headers: Optional[dict]) -> Optional[list]:
+    """``X-Resume-From`` (the failover relay's re-admission marker): the
+    span id of the relay hop whose backend died mid-stream, linked from the
+    engine span.  Anything that is not a bare span id is dropped: the header
+    is client-controlled and span budgets charge links at fixed size."""
+    v = _header(headers, "x-resume-from")
+    if not v:
+        return None
+    sid = str(v).strip().lower()
+    if tracing.SPAN_ID_RE.match(sid):
+        return [{"type": "resumed_from", "span_id": sid}]
+    return None
 
 
 def _deadline(value) -> Optional[float]:
@@ -221,6 +227,15 @@ def _engine_config(path: str) -> tuple:
         if isinstance(kkw.get("chaos"), dict):
             kkw["chaos"] = StorageFaultConfig(**kkw["chaos"])
         kw["kv_store"] = KVStoreConfig(**kkw)
+    if isinstance(kw.get("chaos"), dict):
+        # a chaos-under-load soak straight from an engine.json
+        ckw = dict(kw["chaos"])
+        if isinstance(ckw.get("target_rids"), list):
+            ckw["target_rids"] = tuple(ckw["target_rids"])
+        kw["chaos"] = FaultConfig(**ckw)
+    if isinstance(kw.get("slo"), dict):
+        # per-class SLO targets (the attainment/burn-rate gauges)
+        kw["slo"] = SloConfig.from_json(kw["slo"])
     ec = EngineConfig(**kw)
     role = raw.get("role", "unified")
     if role not in ("prefill", "decode", "unified"):
@@ -337,6 +352,104 @@ class JetStreamModel(Model):
             "engine_session_evictions": s["session_evictions"],
         }
 
+    def metrics_text(self) -> str:
+        """The engine's telemetry registry in Prometheus text format —
+        TTFT/TPOT/queue-wait/tick-duration histograms, prefill-batch-size,
+        KV-page gauges — appended to the server's /metrics after the load
+        gauges, every sample labelled ``model="<name>"`` so two engines in
+        one server render distinct series.  Occupancy, health, SLO,
+        incident and perf gauges are refreshed here, at scrape time."""
+        if self.engine is None:
+            return ""
+        eng = self.engine
+        try:
+            s = eng.stats
+            eng.telemetry.set_kv_pages(s["free_pages"], s.get("cached_pages", 0),
+                                       eng.ec.num_pages - 1)  # page 0 is trash
+            eng.telemetry.set_kv_store_bytes(s["kv_host_used_bytes"],
+                                             s["kv_disk_used_bytes"])
+            eng.telemetry.set_health(eng.health()["state"])
+            eng.telemetry.refresh_slo()
+            eng.telemetry.set_incidents_open(eng.incident_open_count())
+            eng.refresh_perf_metrics()
+        except RuntimeError:  # engine stopped
+            return ""
+        return add_const_labels(eng.telemetry.render(), {"model": self.name})
+
+    def perf_snapshot(self) -> dict:
+        """The engine's performance-introspection snapshot (``GET
+        /engine/perf``); ``{"enabled": False}`` once the engine is gone: a
+        perf read must never 500 a replica."""
+        if self.engine is None:
+            return {"enabled": False}
+        try:
+            return self.engine.perf_snapshot()
+        except Exception:  # noqa: BLE001 — introspection must answer
+            return {"enabled": False}
+
+    def start_profile(self, ticks: int, trace_dir: Optional[str] = None) -> dict:
+        """Arm an on-demand torch.profiler capture of the next ``ticks``
+        live engine work ticks (``POST /engine/profile``).  Raises
+        RuntimeError (-> 409) while a capture is in flight and RequestError
+        (-> 400) on a bad tick count."""
+        if self.engine is None:
+            raise RuntimeError("no engine to profile")
+        try:
+            d = self.engine.trace_n_ticks(int(ticks), trace_dir)
+        except ValueError as e:
+            raise RequestError(str(e)) from e
+        return {"dir": d, "ticks": int(ticks), "started": True}
+
+    def trace_spans(self, trace_id: str) -> dict:
+        """Engine spans + flight-dump references for one distributed trace
+        id — the replica-local half of ``GET /engine/trace/<id>``."""
+        if self.engine is None:
+            return {"trace_id": trace_id, "spans": [], "flight_dumps": []}
+        try:
+            return self.engine.trace_by_id(trace_id)
+        except Exception:  # noqa: BLE001 — a debug read must answer
+            return {"trace_id": trace_id, "spans": [], "flight_dumps": []}
+
+    def incident_list(self) -> list:
+        """Classified incidents of this engine's incident plane (``GET
+        /engine/incidents``); empty when the plane is off."""
+        if self.engine is None:
+            return []
+        try:
+            return self.engine.incident_list()
+        except Exception:  # noqa: BLE001 — a debug read must answer
+            return []
+
+    def incident_get(self, incident_id: str):
+        """One incident by id (``GET /engine/incidents/<id>``); None when
+        unknown here."""
+        if self.engine is None:
+            return None
+        try:
+            return self.engine.incident_get(incident_id)
+        except Exception:  # noqa: BLE001 — a debug read must answer
+            return None
+
+    def waterfall(self, rid):
+        """Latency waterfall for one engine request id (``GET
+        /engine/waterfall/<rid>``); None when unknown here."""
+        if self.engine is None:
+            return None
+        try:
+            return self.engine.waterfall(int(rid))
+        except Exception:  # noqa: BLE001 — a debug read must answer
+            return None
+
+    def latency_budget(self) -> dict:
+        """Per-SLO-class latency budget samples from this replica's trace
+        ring (``GET /engine/latency``)."""
+        if self.engine is None:
+            return {"classes": {}, "samples": {}}
+        try:
+            return self.engine.latency_budget()
+        except Exception:  # noqa: BLE001 — a debug read must answer
+            return {"classes": {}, "samples": {}}
+
     def _parse_generate(self, payload: Any, headers: Optional[dict] = None):
         """-> (ids, max_tokens, deadline_s, priority, resume_token_ids,
         session_id); every value validated here, before anything is
@@ -397,7 +510,12 @@ class JetStreamModel(Model):
                     "tokens": len(resume), "prompt_tokens": len(ids),
                     "max_tokens": max_tokens, "ttft_s": 0.0, "latency_s": 0.0}
         r = self.engine.generate(ids + resume, max_new, deadline=deadline,
-                                 priority=priority, session_id=session)
+                                 priority=priority, session_id=session,
+                                 trace=_trace_ctx(headers),
+                                 links=_resume_link(headers),
+                                 # a failover re-admission re-prefills tokens
+                                 # the dead replica already produced: waste
+                                 waste_hint="failover_reprefill" if resume else None)
         if resume:
             # the seam slices at the STABLE prefix of the resumed text: the
             # resumed ids may end mid-UTF-8 sequence, whose completed
@@ -415,6 +533,8 @@ class JetStreamModel(Model):
                "latency_s": round(r["latency_s"], 4)}
         if "session" in r:
             out["session"] = r["session"]
+        if _truthy_header(headers, "x-request-trace"):
+            out["trace"] = self.engine.trace(r["rid"])
         return out
 
     def generate_stream(self, payload: Any, headers: Optional[dict] = None):
@@ -438,10 +558,13 @@ class JetStreamModel(Model):
         max_new = max_tokens - len(resume)
         if resume and max_new <= 0:
             return self._resume_complete(resume, ids, max_tokens)
-        stream = self.engine.generate_stream(ids + resume, max_new,
-                                             deadline=deadline, priority=priority,
-                                             session_id=session)
+        stream = self.engine.generate_stream(
+            ids + resume, max_new, deadline=deadline, priority=priority,
+            session_id=session, trace=_trace_ctx(headers),
+            links=_resume_link(headers),
+            waste_hint="failover_reprefill" if resume else None)
         return self._stream_pieces(stream, ids, max_tokens,
+                                   with_trace=_truthy_header(headers, "x-request-trace"),
                                    emit_ids=_truthy_header(headers, "x-stream-resume"),
                                    prior_ids=resume)
 
@@ -468,7 +591,8 @@ class JetStreamModel(Model):
                "ttft_s": 0.0, "latency_s": 0.0}
 
     def _stream_pieces(self, stream, ids: list, max_tokens: int,
-                       emit_ids: bool = False, prior_ids: Optional[list] = None):
+                       with_trace: bool = False, emit_ids: bool = False,
+                       prior_ids: Optional[list] = None):
         out_ids: list[int] = list(prior_ids or [])
         base = len(out_ids)
         # text already delivered by the previous replica: the stable prefix
@@ -488,6 +612,8 @@ class JetStreamModel(Model):
                              "latency_s": round(item["latency_s"], 4)}
                     if "session" in item:
                         final["session"] = item["session"]
+                    if with_trace:
+                        final["trace"] = self.engine.trace(item["rid"])
                     yield final
                     return
                 out_ids.append(item)

@@ -7,8 +7,12 @@ nothing from the JAX package): ``Model`` is the kserve-style base class and
     GET  /, /healthz, /v2/health/live, /v2/health/ready
     GET  /v1/models, /v2, /v2/models, /openai/v1/models,
          /v1/models/<name>, /v2/models/<name>[/ready]
-    GET  /metrics            (inflight_requests + the models' gauges)
+    GET  /metrics            (inflight_requests + the models' gauges and
+                              telemetry registries)
     GET  /engine/health      (200 SERVING/DEGRADED, 503 DRAINING/DEAD)
+    GET  /engine/perf[?view=cache], /engine/trace/<trace_id>,
+         /engine/incidents[/<id>], /engine/waterfall/<rid>, /engine/latency
+    POST /engine/profile     ({"ticks": N}; 409 while a capture is in flight)
     POST /v1/models/<name>:predict|:explain, /v2/models/<name>/infer
     POST /v2/models/<name>/generate, /v2/models/<name>/generate_stream (SSE)
     POST /openai/v1/completions, /openai/v1/chat/completions (unary or SSE)
@@ -18,10 +22,9 @@ with the same request and response shapes and the same error mapping
 EngineOverloaded/EngineShutdown 503, anything else 500; the OpenAI routes
 answer in the OpenAI error schema).  ``/metrics`` carries ``inflight_requests``
 and each model's ``extra_metrics`` gauges, which is what the ingress's
-least-loaded pick and the autoscaler scrape.  The ``/engine/{perf, profile,
-trace, incidents, waterfall, latency}`` debug routes and the KV handoff and
-fabric routes come with telemetry and disaggregation (ROADMAP items 1.5 and
-1.3) and answer 404 until then.
+least-loaded pick and the autoscaler scrape, then each model's
+``metrics_text`` registry.  The KV handoff and fabric routes come with
+disaggregation (ROADMAP item 1.3) and answer 404 until then.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from typing import Any, Optional
 
 from .errors import (DeadlineExceeded, EngineOverloaded, EngineShutdown,
                      RequestError, SessionBusy)
+from .incidents import timeline as incident_timeline
 
 
 def openai_constrain_spec(body: dict) -> Optional[dict]:
@@ -279,8 +283,8 @@ class ModelServer:
         models' flat ``extra_metrics`` gauges (non-numeric values skipped —
         a bad model metric must not 500 the scrape — and ``# TYPE`` emitted
         once per metric name), then each model's telemetry registry
-        (``metrics_text``: TTFT/TPOT/queue-wait/tick histograms; no port
-        model has one until telemetry is ported), with duplicate HELP/TYPE
+        (``metrics_text``: TTFT/TPOT/queue-wait/tick histograms), with
+        duplicate HELP/TYPE
         headers dropped when several models share a registry metric name."""
         chunks = [self.metrics.render()]
         typed = {line.split(" ")[2] for line in chunks[0].splitlines()
@@ -362,6 +366,110 @@ class ModelServer:
         elif path == "/engine/health":
             code, body = self._engine_health()
             h._send(code, body)
+        elif path == "/engine/perf":
+            # per-model FLOPs/MFU/goodput ledger, cache analytics, tick-phase
+            # timeline, profiler runs.  Always 200; ``?view=cache`` answers
+            # the slim subset the ingress's fleet cache view polls
+            slim = "view=cache" in h.path.partition("?")[2].split("&")
+            out = {}
+            for name, m in self.models.items():
+                fn = getattr(m, "perf_snapshot", None)
+                if not callable(fn):
+                    continue
+                try:
+                    snap = fn()
+                except Exception:  # noqa: BLE001 — introspection answers
+                    snap = {"enabled": False}
+                if slim:
+                    snap = {k: snap.get(k) for k in
+                            ("enabled", "platform", "mfu", "goodput_ratio", "cache")}
+                out[name] = snap
+            h._send(200, {"models": out})
+        elif path.startswith("/engine/trace/"):
+            # replica-local spans for one distributed trace id (always 200:
+            # the ingress's fan-out merges empties); ids are lowercase
+            tid = path[len("/engine/trace/"):].strip().lower()
+            spans, dumps = [], []
+            for m in self.models.values():
+                fn = getattr(m, "trace_spans", None)
+                if not callable(fn):
+                    continue
+                try:
+                    rec = fn(tid) or {}
+                except Exception:  # noqa: BLE001 — debug read must answer
+                    continue
+                spans.extend(rec.get("spans") or ())
+                dumps.extend(rec.get("flight_dumps") or ())
+            h._send(200, {"trace_id": tid, "spans": spans, "flight_dumps": dumps})
+        elif path == "/engine/incidents":
+            # every model's classified incidents, open first (always 200)
+            out = []
+            for name, m in self.models.items():
+                fn = getattr(m, "incident_list", None)
+                if not callable(fn):
+                    continue
+                try:
+                    incs = fn() or []
+                except Exception:  # noqa: BLE001 — debug read answers
+                    continue
+                out.extend({**inc, "model": name} for inc in incs)
+            out.sort(key=lambda i: (i.get("state") != "open",
+                                    i.get("opened_wall") or 0.0))
+            h._send(200, {"incidents": out,
+                          "open": sum(1 for i in out if i.get("state") == "open")})
+        elif path.startswith("/engine/incidents/"):
+            # one incident's postmortem as the responder's timeline; 404
+            # when no model holds the id (it may live on another replica)
+            iid = path[len("/engine/incidents/"):]
+            found = None
+            for name, m in self.models.items():
+                fn = getattr(m, "incident_get", None)
+                if not callable(fn):
+                    continue
+                try:
+                    inc = fn(iid)
+                except Exception:  # noqa: BLE001 — debug read answers
+                    inc = None
+                if inc is not None:
+                    found = {**inc, "model": name}
+                    break
+            if found is None:
+                h._send(404, {"error": "unknown incident id"})
+            else:
+                h._send(200, {"incident": found, "timeline": incident_timeline(found)})
+        elif path.startswith("/engine/waterfall/"):
+            # one request's waterfall of non-overlapping segments; 404 when
+            # no model knows the rid
+            rid = path[len("/engine/waterfall/"):].strip()
+            found = None
+            if rid.isdigit():
+                for name, m in self.models.items():
+                    fn = getattr(m, "waterfall", None)
+                    if not callable(fn):
+                        continue
+                    try:
+                        wf = fn(rid)
+                    except Exception:  # noqa: BLE001 — debug read answers
+                        wf = None
+                    if wf is not None:
+                        found = {**wf, "model": name}
+                        break
+            if found is None:
+                h._send(404, {"error": "unknown request id"})
+            else:
+                h._send(200, found)
+        elif path == "/engine/latency":
+            # replica-local latency budget samples per SLO class (always 200)
+            out = {}
+            for name, m in self.models.items():
+                fn = getattr(m, "latency_budget", None)
+                if not callable(fn):
+                    continue
+                try:
+                    out[name] = fn() or {"classes": {}, "samples": {}}
+                except Exception:  # noqa: BLE001 — debug read answers
+                    continue
+            h._send(200, {"models": out})
         elif path == "/v2/health/ready":
             ready = all(m.ready for m in self.models.values())
             h._send(200 if ready else 503, {"ready": ready})
@@ -426,6 +534,8 @@ class ModelServer:
                 self._openai(h, chat=False)
             elif path == "/openai/v1/chat/completions":
                 self._openai(h, chat=True)
+            elif path.rstrip("/") == "/engine/profile":
+                self._engine_profile(h)
             else:
                 h._send(404, {"error": f"no route {path}"})
         except RequestError as e:
@@ -481,6 +591,39 @@ class ModelServer:
         finally:
             self.metrics.finish(t0)
 
+    def _engine_profile(self, h) -> None:
+        """POST /engine/profile: arm an on-demand torch.profiler capture —
+        ``{"ticks": N, "model": optional, "dir": optional}`` — wrapping
+        ``Engine.trace_n_ticks``.  409 while a capture is in flight."""
+        body = h._body() or {}
+        ticks = body.get("ticks", 8)
+        if not isinstance(ticks, int) or ticks < 1:
+            raise RequestError(f"ticks must be a positive integer, got {ticks!r}")
+        trace_dir = body.get("dir")
+        if trace_dir is not None and not isinstance(trace_dir, str):
+            raise RequestError(f"dir must be a string, got {trace_dir!r}")
+        name = body.get("model")
+        if name is None:
+            capable = [n for n, m in self.models.items()
+                       if callable(getattr(m, "start_profile", None))]
+            if len(capable) != 1:
+                raise RequestError("model required (profile-capable models: "
+                                   f"{sorted(capable)})")
+            name = capable[0]
+        m = self.models.get(name)
+        if m is None or not callable(getattr(m, "start_profile", None)):
+            h._send(404, {"error": f"model {name!r} not found or not "
+                                   "profile-capable"})
+            return
+        try:
+            out = m.start_profile(ticks, trace_dir)
+        except RuntimeError as e:
+            # a capture is already in flight: retry after it completes
+            h._send(409, {"error": f"{type(e).__name__}: {e}"})
+            return
+        out["model"] = name
+        h._send(200, out)
+
     def _v1(self, h, name: str, verb: str) -> None:
         m = self.models.get(name)
         if m is None:
@@ -514,6 +657,7 @@ class ModelServer:
         body = h._body()
         headers = dict(h.headers.items())
         if not stream:
+            t0 = time.perf_counter()
             out = verb(body, headers)
             out = dict(out) if isinstance(out, dict) else {"text_output": out}
             out.setdefault("model_name", name)
@@ -530,6 +674,12 @@ class ModelServer:
                 # subtracts this from its own hop wall to get
                 # per-request proxy overhead without a second scrape
                 extra["X-Engine-Wall-S"] = f"{out['latency_s']:.6f}"
+                tel = getattr(getattr(m, "engine", None), "telemetry", None)
+                if tel is not None:
+                    # model-server scope of ingress_proxy_overhead_seconds:
+                    # serve-layer wall minus the engine-reported wall
+                    tel.observe_proxy_overhead(max(
+                        0.0, time.perf_counter() - t0 - float(out["latency_s"])))
             h._send(200, out, extra_headers=extra or None)
             return
         gen = verb(body, headers)

@@ -2,13 +2,14 @@
 
 The same files go through both packages' loaders: the ``scheduler`` block
 (``adapter_weights`` as a JSON list of pairs), the ``kv_store`` block with
-its storage ``chaos``, a bad ``role``, bad ``speculative`` compositions and
-``tensor_parallel: 0``.  Both build the same config values, or both raise
-the same ValueError (naming the file where the JAX package names it).  A
-key whose feature the port lacks is accepted at the JAX package's default
-and refused otherwise, naming the file, the key and the ROADMAP item; the
-port's literal map of those keys equals the JAX EngineConfig's fields and
-defaults minus the port's own."""
+its storage ``chaos``, the dispatch ``chaos`` and ``slo`` blocks, the
+watchdog, telemetry, perf and incident keys off their defaults, a bad
+``role``, bad ``speculative`` compositions and ``tensor_parallel: 0``.  Both
+build the same config values, or both raise the same ValueError (naming the
+file where the JAX package names it).  A key whose feature the port lacks
+is accepted at the JAX package's default and refused otherwise, naming the
+file, the key and the ROADMAP item; the port's literal map of those keys
+equals the JAX EngineConfig's fields and defaults minus the port's own."""
 
 import dataclasses
 import json
@@ -36,6 +37,25 @@ SAME = {
                                   "drain_timeout_s": 10, "chaos": None, "fabric": False},
     "unknown_key_dropped": {"not_a_field": 1, "eos_ids": [3, 4]},
     "speculative": {"speculative": "prompt_lookup", "spec_max_draft": 2, "spec_ngram": 1},
+    # every key of the observability and supervision slice, off its default
+    "observability": {
+        "max_consecutive_failures": 5, "watchdog_interval_s": 0.1,
+        "hang_timeout_s": 30.0, "watchdog_restart": False, "drain_timeout_s": 2.0,
+        "telemetry": False, "flight_recorder_capacity": 64, "flight_dir": "{dir}/flight",
+        "trace_history": 10, "trace_history_bytes": 5000, "perf": True,
+        "perf_window_s": 10.0, "perf_timeline_capacity": 32, "profile_dir": "{dir}/prof",
+        "profile_max_runs": 2, "profile_max_bytes": 1000000, "incidents": True,
+        "incident_dir": "{dir}/inc", "incident_debounce_s": 1.0,
+        "incident_resolve_s": 2.0, "incident_poll_s": 0.5,
+        "incident_tick_overrun_s": 1.0},
+    "chaos": {"chaos": {"seed": 3, "nan_logit_rate": 0.5, "target_rids": [1, 2],
+                        "nan_phase": "decode", "slow_tick_on": 4, "slow_tick_s": 0.01,
+                        "preempt_every": 7}},
+    "slo": {"slo": {"targets": {"interactive": {"ttft": 0.5, "tpot": None},
+                                "batch": {"queue_wait": 5}},
+                    "objective": 0.95, "windows": [30, 300],
+                    "burn_threshold": {"interactive": 4.0},
+                    "burn_window": {"interactive": 30}}},
 }
 BOTH_RAISE = {
     "adapter_weights": {"scheduler": {"adapter_weights": [["a1", 2.0]]}},
@@ -50,8 +70,8 @@ PORT_REFUSES = {
     "tensor_parallel": ({"tensor_parallel": 4}, "1.8"),
     "weight_quant": ({"weight_quant": "int8"}, "1.6"),
     "role": ({"role": "decode"}, "1.3"),
-    "chaos": ({"chaos": {"dispatch_error_rate": 0.5}}, "1.5"),
-    "hang_timeout_s": ({"hang_timeout_s": 5.0}, "1.5"),
+    "fabric": ({"fabric": True}, "1.3"),
+    "handoff_ttl_s": ({"handoff_ttl_s": 5.0}, "1.3"),
     "constrain_chaos": ({"constrain_chaos": {"stall_on": 1}}, "1.4"),
 }
 
@@ -96,6 +116,13 @@ def test_both_packages_build_the_same_config(tmp_path, case):
         assert port.scheduler.policy == "fifo" and port.scheduler.adapter_weights == ()
     if case == "kv_store_chaos":
         assert port.kv_store.chaos.bit_flip_every == 1
+    if case == "chaos":
+        assert port.chaos.target_rids == (1, 2) and port.chaos.preempt_every == 7
+    if case == "slo":
+        assert port.slo.objective == 0.95 and port.slo.windows == (30.0, 300.0)
+        assert ("interactive", "ttft", 0.5) in port.slo.targets
+    if case == "observability":
+        assert port.incidents and not port.telemetry and port.hang_timeout_s == 30.0
 
 
 @pytest.mark.parametrize("case", sorted(BOTH_RAISE))
@@ -128,5 +155,5 @@ def test_unported_key_map_is_the_jax_fields_minus_the_ports():
             assert f.default_factory is dataclasses.MISSING, f.name
             want[f.name] = f.default
     assert {k: v[0] for k, v in S._UNPORTED_ENGINE_KEYS.items()} == want
-    assert len(want) == 36
-    assert {v[1] for v in S._UNPORTED_ENGINE_KEYS.values()} <= {"1.3", "1.4", "1.5", "1.6", "1.8"}
+    assert len(want) == 12
+    assert {v[1] for v in S._UNPORTED_ENGINE_KEYS.values()} <= {"1.3", "1.4", "1.6", "1.8"}

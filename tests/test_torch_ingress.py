@@ -10,7 +10,10 @@ behind the reference ingress, built as tests/test_fleet.py builds its fleet:
 - the ingress's least-loaded pick reads a numeric load from each port
   replica's ``/metrics``;
 - the active ``/engine/health`` probe sees a draining port replica and
-  stops routing to it.
+  stops routing to it;
+- a client's ``traceparent``, relayed by the ingress, makes the port
+  replica's engine span a child of the relay hop, and the ingress's
+  ``GET /debug/trace/<id>`` assembles a tree that holds it.
 The port has no chaos config: the decode step is slowed by a wrapper (as
 the port's other tests poison it), so "mid-decode" is deterministic."""
 
@@ -18,6 +21,8 @@ import json
 import threading
 import time
 import urllib.request
+
+from kubeflow_tpu.core import tracing as JTr
 
 import pytest
 
@@ -220,5 +225,45 @@ def test_active_probe_stops_routing_to_a_draining_replica(params, slow_decode):
         assert state.health[draining].state == "draining"
         stopper.join(timeout=30)
         held.join(timeout=30)
+    finally:
+        fleet.close()
+
+
+def test_relayed_traceparent_assembles_the_port_engine_span(params):
+    fleet = Fleet(params, 2)
+    try:
+        ctx = JTr.TraceContext.mint()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{fleet.port}/v2/models/fleet/generate",
+            data=json.dumps({"text_input": "trace this hop",
+                             "parameters": {"max_tokens": 4}}).encode(),
+            headers={"Content-Type": "application/json",
+                     "traceparent": ctx.traceparent(), "X-Request-Trace": "1"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert r.headers["X-Trace-Id"] == ctx.trace_id
+            out = json.loads(r.read())
+        engine_span = out["trace"]
+        assert engine_span["trace_id"] == ctx.trace_id
+        assert [e["phase"] for e in engine_span["events"]] == [
+            "queued", "admitted", "prefill", "first_token", "done"]
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{fleet.port}/debug/trace/{ctx.trace_id}",
+                timeout=60) as r:
+            tree = json.loads(r.read())
+        spans = {sp["span_id"]: sp for sp in tree["spans"]}
+        assert engine_span["span_id"] in spans
+        mine = spans[engine_span["span_id"]]
+        assert mine["component"] == "engine"
+        # the engine span hangs off the ingress hop that relayed it
+        hop = spans[mine["parent_id"]]
+        assert hop["component"] != "engine" and hop["trace_id"] == ctx.trace_id
+
+        def walk(nodes):
+            for n in nodes:
+                yield n
+                yield from walk(n.get("children") or ())
+
+        assert engine_span["span_id"] in {n["span_id"] for n in walk(tree["tree"])}
+        assert sorted(tree["replicas_queried"]) == ["fleet-0", "fleet-1"]
     finally:
         fleet.close()

@@ -413,3 +413,88 @@ def test_streamed_request_matches_unary_on_card(card, spec):
     (unary, _), (streamed, launched) = runs
     assert streamed == unary and len(streamed) == 40
     assert launched.get(5 if spec else 1, 0) > 0
+
+
+# Observability and supervision on the card: a TickProfiler capture of the
+# served loop holds both device kernels of every paged call (split + merge)
+# per layer per decode tick — no record lost at the window's edges — and a
+# loop killed mid-decode by chaos is restarted by the watchdog and serves
+# again through the kernel.
+
+
+def _paged_kernel_records(trace_path: str) -> int:
+    import json
+
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events
+               if e.get("cat") == "kernel" and e.get("ph") == "X"
+               and any(m in e.get("name", "") for m in ("paged_split", "paged_merge")))
+
+
+@pytest.mark.cuda
+def test_tick_profiler_captures_every_paged_kernel_record(card, tmp_path):
+    from kubeflow_tpu_torch.serving.engine.engine import Engine, EngineConfig
+
+    params = M.init(ENGINE_CFG, card, seed=0)
+    ec = EngineConfig(max_slots=4, num_pages=64, page_size=16, max_pages_per_slot=16)
+    eng = Engine(params, ENGINE_CFG, ec, device=card)
+    futs = [eng.generate_async(p, 200) for p in ENGINE_PROMPTS]
+    eng.start()
+    try:
+        deadline = time.monotonic() + 120
+        while ((eng._prefilling or eng._decode_steps < 3)
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+        d = eng.trace_n_ticks(8, str(tmp_path))
+        while eng.profiler_active and time.monotonic() < deadline:
+            time.sleep(0.005)
+        prof = eng.perf_snapshot()["profiler"]
+        first, last = eng._profiler.window
+        decode_ticks = sum(1 for r in eng.timeline.snapshot(last=256)
+                           if first <= r["tick"] <= last
+                           and "decode_dispatch" in r["segments"])
+        [f.result(timeout=300) for f in futs]
+    finally:
+        eng.stop()
+    assert prof["last_error"] is None and prof["captures"] == 1
+    assert d == str(tmp_path)
+    assert decode_ticks == 8
+    assert _paged_kernel_records(eng._profiler.last_trace) == 2 * ENGINE_CFG.n_layers * 8
+
+
+@pytest.mark.cuda
+def test_watchdog_restart_serves_again_through_the_kernel(card):
+    from kubeflow_tpu_torch.serving.engine.engine import Engine, EngineConfig
+    from kubeflow_tpu_torch.serving.engine.faults import FaultConfig
+    from kubeflow_tpu_torch.serving.errors import TickFailure
+
+    params = M.init(ENGINE_CFG, card, seed=0)
+    geo = dict(max_slots=4, num_pages=64, page_size=16, max_pages_per_slot=8,
+               watchdog_interval_s=0.05)
+    eng = Engine(params, ENGINE_CFG, EngineConfig(**geo), device=card)
+    eng.start()
+    try:
+        base = eng.generate(ENGINE_PROMPTS[2], 32)["tokens"]
+    finally:
+        eng.stop()
+    eng = Engine(params, ENGINE_CFG, EngineConfig(**geo, chaos=FaultConfig(die_on_tick=8)),
+                 device=card)
+    futs = [eng.generate_async(p, 100) for p in ENGINE_PROMPTS]
+    eng.start()
+    try:
+        for f in futs:
+            with pytest.raises(TickFailure):
+                f.result(timeout=300)
+        deadline = time.monotonic() + 60
+        while eng.health()["restarts"] < 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        before = PA.paged_attention.launches
+        after = eng.generate(ENGINE_PROMPTS[2], 32, timeout=300)["tokens"]
+        health, stats = eng.health(), eng.stats
+    finally:
+        eng.stop()
+    assert health["state"] == "SERVING" and health["restarts"] == 1
+    assert after == base
+    assert PA.paged_attention.launches > before
+    assert stats["free_pages"] + stats["cached_pages"] == geo["num_pages"] - 1

@@ -227,8 +227,12 @@ def test_metrics_scraped_by_the_jax_packages_scraper(servers):
     tm, jm = tsrv.models["llm"], jsrv.models["llm"]
     assert set(tm.extra_metrics()) == set(jm.extra_metrics())
     assert got["engine_serving"] == 1.0
-    # every gauge of the port's exposition is one the JAX package renders
-    assert set(got) <= set(ref)
+    # every gauge of the port's exposition is one the JAX package renders;
+    # the engine registry's labelled series appear as their events happen
+    # (a prefix-cache hit needs an identical prompt to have finished first),
+    # so those compare by metric family
+    assert {k for k in got if "{" not in k} <= {k for k in ref if "{" not in k}
+    assert {k.split("{")[0] for k in got} <= {k.split("{")[0] for k in ref}
 
 
 def test_engine_health_serving_draining_dead(servers, monkeypatch):
