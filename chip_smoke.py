@@ -90,6 +90,27 @@ or the script exits non-zero:
    to TickFailure after ``max_consecutive_failures`` with a
    ``tick_failure_escalation`` dump; (g) the die-on-tick run's one
    ``replica_death`` incident on ``/engine/incidents``, its bundle on disk;
+5h. disaggregation and the fleet KV fabric, at full Llama-3-8B: replica A
+   (``role="prefill"``, ``fabric=True``) and B (``role="decode"``,
+   ``fabric=True``) share one params dict, each behind its own
+   ``ModelServer``, and the script splits requests by hand as the reference
+   ingress does: (a) phase 5's four prompts as SSE streams on B (the
+   unified baseline), then each prefill phase on A (``kv_handoff``) and
+   each decode phase on B (``handoff``, SSE): every token within the oracle
+   bound, the count byte-identical to the baseline, B's
+   ``prefill_dispatches`` 0, 4 imports, one paged launch per layer and
+   decode step on B, none plain; export ms and frame bytes on A, pull ms
+   and scatter ms on B, the decode phase's first event against the
+   unified one; (b) a repull of a handle answers 404, and on the fault
+   replicas A2 and B2 a torn pull, a dead link, a slow pull (which, as in
+   the JAX package, completes as an import) and an expired export, each
+   completing within the bound, the degraded ones with
+   ``handoff_degraded`` waste; (c) A serves a 31-page prompt and
+   ``/engine/perf`` lists its key with 31 pages; B serves it with the
+   ``fabric`` hint (``restore: hit``) between two cold runs of the same
+   length, and B2's torn pull and a pull past the pull budget degrade with
+   ``fabric_degraded`` waste; (d) no page leaked, no handoff frame pending,
+   no parked fabric frame and no swap byte left on any of the four;
 6. profile: one main-path decode step (8 slots, the served lengths), paged
    and gather in turns on the host clock, and a torch.profiler window for
    device busy time by kernel family and the device's idle share; then the
@@ -160,13 +181,15 @@ import torch
 from kubeflow_tpu_torch.core import tracing
 from kubeflow_tpu_torch.serving.engine import model as M
 from kubeflow_tpu_torch.serving.engine import paged_attention as PA
-from kubeflow_tpu_torch.serving.engine.engine import Engine, EngineConfig
-from kubeflow_tpu_torch.serving.engine.faults import FaultConfig
+from kubeflow_tpu_torch.serving.engine.engine import Engine, EngineConfig, _page_hashes
+from kubeflow_tpu_torch.serving.engine.faults import (FabricFaultConfig, FaultConfig,
+                                                      HandoffFaultConfig)
 from kubeflow_tpu_torch.serving.engine.perf import CUDA_PEAKS
 from kubeflow_tpu_torch.serving.engine.kvstore import KVStoreConfig
 from kubeflow_tpu_torch.serving.engine.native import load_library
 from kubeflow_tpu_torch.serving.engine.scheduler import SchedulerConfig
 from kubeflow_tpu_torch.serving.engine.serve import JetStreamModel
+from kubeflow_tpu_torch.serving.kvfabric import fabric_key
 from kubeflow_tpu_torch.serving.server import ModelServer
 from kubeflow_tpu_torch.models import bert
 from kubeflow_tpu_torch.train.data import synthetic_mlm_batches, to_device
@@ -494,9 +517,10 @@ class Served:
         self.server.stop()
         self.engine.stop()
 
-    def post(self, prompt: str, max_tokens: int, **params) -> tuple:
+    def post(self, prompt: str, max_tokens: int, headers: dict = None, **params) -> tuple:
         return post(self.server.port, {"text_input": prompt,
-                                       "parameters": {"max_tokens": max_tokens, **params}})
+                                       "parameters": {"max_tokens": max_tokens, **params}},
+                    headers)
 
     def warm(self, prompts: list) -> None:
         """Prompts of the served lengths with other bytes (the same prefill
@@ -1585,6 +1609,265 @@ def observability(params, cfg, dev, kind: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 5h
+
+# 5h (b): the fault replicas.  A2 (prefill) pre-expires its 4th export; B2
+# (decode) tears its 1st handoff pull, drops the link on its 2nd and sleeps
+# through its 3rd.  The handoff pull has no budget past its socket timeout
+# (in the JAX package too), so the slow pull completes as an import.  B2's
+# fabric pulls: the 1st torn, the 2nd slower than the pull budget.
+HANDOFF_CHAOS = {"torn_pull_on": 1, "dead_link_on": 2, "slow_pull_s": 0.5,
+                 "slow_pull_every": 3}
+HANDOFF_FAULTS = ("torn", "dead_link", "slow", "expired")
+FAULT_TOKENS = 8
+FABRIC_CHAOS = {"torn_pull_on": 1, "slow_pull_s": 0.5, "slow_pull_every": 2}
+FABRIC_PULL_BUDGET_S = 0.2
+# 5h (c): 5c's 1000-byte prompt, case-swapped so that no page of it is in B's
+# prefix cache after (a) (phase 5's prompts share 5c's prefix); 16 tokens
+# leave 31 full pages of committed KV to publish (L - 1 = 1014 positions)
+FABRIC_PROMPT = LONG_PROMPT.swapcase()
+FABRIC_TOKENS = 16
+FABRIC_PAGES = 31
+# cold runs of the same length on B, sharing no page with anything B served
+FABRIC_COLD = (LONG_PROMPT[::-1], LONG_PROMPT[::-1].swapcase())
+
+
+def flight(engine, phase: str) -> list:
+    """The flight recorder's ``phase`` events: (seconds, shape)."""
+    return [(e["duration_s"], e.get("shape")) for e in engine.flight.snapshot()
+            if e.get("phase") == phase]
+
+
+def outcomes(counter) -> dict:
+    return {dict(k)["outcome"]: v for k, v in counter.series().items()}
+
+
+def parked_fabric_bytes(engine) -> int:
+    with engine._lock:
+        return sum(p.fabric_import[2] for p in engine._requests.values()
+                   if p.fabric_import is not None)
+
+
+def hand_params(pre: dict, port: int) -> dict:
+    """The decode phase's ``handoff`` block, as the reference ingress
+    (``ServiceProxy._disagg_prefill``) builds it from the prefill phase."""
+    return {"handoff": {"handle": (pre.get("handoff") or {}).get("handle"),
+                        "source_port": port, "token_ids": pre["token_ids"],
+                        "phase_ttft_s": pre["ttft_s"],
+                        "phase_latency_s": pre["latency_s"]}}
+
+
+def decode_stream(b, prompt: str, params: dict, max_tokens: int) -> dict:
+    """The decode phase as an SSE stream on B: its ids, final record, client
+    time to the first token event, and the span's pull wall."""
+    body = {"text_input": prompt, "parameters": {"max_tokens": max_tokens, **params}}
+    code, events, times = sse(b.server.port, STREAM_PATH, body,
+                              {"X-Stream-Resume": "1", "X-Request-Trace": "1"})
+    tok = [(e, t) for e, t in zip(events, times) if not e.get("done")]
+    final = events[-1] if code == 200 and events and events[-1].get("done") else {}
+    hints = (final.get("trace") or {}).get("hints") or {}
+    return {"status": code, "token_ids": [i for e, _ in tok for i in e.get("token_ids", ())],
+            "tokens": final.get("tokens"), "client_first_event_s": tok[0][1] if tok else None,
+            "pull_ms": hints.get("pre_handoff_import", 0.0) * 1e3}
+
+
+def disagg_handoff(params, cfg, dev, a, b) -> dict:
+    """5h (a): phase 5's four prompts unified on B (SSE, the baseline), then
+    split by hand: each prefill phase on A (``kv_handoff``, concurrent),
+    then each decode phase on B (``handoff``, concurrent SSE)."""
+    a.warm(PROMPTS)
+    b.warm(PROMPTS)
+    with KernelWatch() as uw:
+        unified = stream_run(b, PROMPTS)["streams"]
+    pres: list = [None] * len(PROMPTS)
+
+    def prefill(i):
+        pres[i] = a.post(PROMPTS[i], MAX_TOKENS, kv_handoff=True)
+
+    threads = [threading.Thread(target=prefill, args=(i,)) for i in range(len(PROMPTS))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert all(r is not None and r[0] == 200 for r in pres), pres
+    pres = [r[1] for r in pres]
+    before, imports0 = b.engine.stats, outcomes(b.engine.telemetry.kv_handoff).get("import", 0)
+    splits: list = [None] * len(PROMPTS)
+
+    def decode(i):
+        splits[i] = decode_stream(b, PROMPTS[i], hand_params(pres[i], a.server.port),
+                                  MAX_TOKENS)
+
+    with KernelWatch() as dw:
+        threads = [threading.Thread(target=decode, args=(i,)) for i in range(len(PROMPTS))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    after = b.idle()
+    steps = after["decode_steps"] - before["decode_steps"]
+    imports = outcomes(b.engine.telemetry.kv_handoff).get("import", 0) - imports0
+    lags = [oracle_lag(params, cfg, dev, p, s["token_ids"]) if s["token_ids"] else None
+            for p, s in zip(PROMPTS, splits)]
+    identical = [leading_identical(s["token_ids"], u["token_ids"])
+                 for s, u in zip(splits, unified)]
+    out = {"prompt_bytes": [len(p) for p in PROMPTS],
+           "frame_bytes": [(pr.get("handoff") or {}).get("nbytes") for pr in pres],
+           "frame_pages": [(pr.get("handoff") or {}).get("pages") for pr in pres],
+           "export_ms": [d * 1e3 for d, _ in flight(a.engine, "handoff_export")],
+           "pull_ms": [s["pull_ms"] for s in splits],
+           "import_scatter_ms": [d * 1e3 for d, _ in flight(b.engine, "handoff_import")],
+           "prefill_phase_ttft_s": [pr["ttft_s"] for pr in pres],
+           "decode_phase_first_event_s": [s["client_first_event_s"] for s in splits],
+           "unified_first_event_s": [u["client_first_event_s"] for u in unified],
+           "unified_engine_ttft_s": [u["engine_ttft_s"] for u in unified],
+           "tokens": [s["tokens"] for s in splits], "token_ids": [s["token_ids"] for s in splits],
+           "identical_leading_tokens": identical,
+           "byte_identical": sum(1 for s, u in zip(splits, unified)
+                                 if s["token_ids"] == u["token_ids"]),
+           "oracle_max_logit_lag": lags,
+           "b_prefill_dispatches": after["prefill_dispatches"] - before["prefill_dispatches"],
+           "b_imports": imports, "b_decode_steps": steps,
+           "launches": dw.launches, "plain_calls": dw.plain_calls + uw.plain_calls,
+           "unified_launches": uw.launches,
+           "handles": [(pr.get("handoff") or {}).get("handle") for pr in pres]}
+    out["ok"] = (all(s["status"] == 200 and s["tokens"] == MAX_TOKENS for s in splits)
+                 and all(lag is not None and lag <= ORACLE_TIE_EPS for lag in lags)
+                 and out["b_prefill_dispatches"] == 0 and imports == len(PROMPTS)
+                 and dw.launches == cfg.n_layers * steps > 0 and out["plain_calls"] == 0)
+    return out
+
+
+def disagg_faults(params, cfg, dev, a, a2, b2, handle: str) -> dict:
+    """5h (b): a repull of an (a) handle answers 404; then, one after
+    another, a prefill phase on A2 and a decode phase on B2 per handoff
+    fault class; each completes within the oracle bound."""
+    code, _ = get_json(a.server.port, f"/engine/kv_handoff/{handle}")
+    out = {"repull_status": code, "faults": {}}
+    ok = code == 404
+    for name in HANDOFF_FAULTS:
+        deg0 = outcomes(b2.engine.telemetry.kv_handoff).get("degraded", 0)
+        w0 = b2.engine.perf.snapshot()["waste_positions"].get("handoff_degraded", 0)
+        c1, pre = a2.post(PROMPTS[1], FAULT_TOKENS, kv_handoff=True)
+        c2, r = b2.post(PROMPTS[1], FAULT_TOKENS, **hand_params(pre, a2.server.port))
+        deg = outcomes(b2.engine.telemetry.kv_handoff).get("degraded", 0) - deg0
+        waste = b2.engine.perf.snapshot()["waste_positions"].get("handoff_degraded", 0) - w0
+        lag = oracle_lag(params, cfg, dev, PROMPTS[1], r["token_ids"]) if c2 == 200 else None
+        rec = {"status": [c1, c2], "tokens": r.get("tokens"), "degraded": deg,
+               "waste_handoff_degraded_positions": waste, "oracle_max_logit_lag": lag}
+        # the slow pull completes as an import; every other class re-prefills
+        want = 0 if name == "slow" else 1
+        rec["ok"] = (c1 == c2 == 200 and r["tokens"] == FAULT_TOKENS and deg == want
+                     and (waste > 0) == bool(want) and lag <= ORACLE_TIE_EPS)
+        out["faults"][name] = rec
+        ok = ok and rec["ok"]
+    out["b2_chaos"] = b2.engine.stats["handoff_chaos"]
+    out["a2_chaos"] = a2.engine.stats["handoff_chaos"]
+    out["ok"] = ok
+    return out
+
+
+def disagg_fabric(params, cfg, dev, a, b, b2) -> dict:
+    """5h (c): A serves a 31-page prompt and publishes it; B serves cold
+    prompts of the same length around the same prompt with the fabric hint
+    (cold, hit, cold); B2's torn and slow pulls degrade."""
+    c, first = a.post(FABRIC_PROMPT, FABRIC_TOKENS)
+    key = fabric_key(_page_hashes(list(FABRIC_PROMPT.encode()), 32)[FABRIC_PAGES - 1])
+    _, perf = get_json(a.server.port, "/engine/perf")
+    listed = [e for e in perf["models"]["llama3-8b"]["cache"]["fabric"] if e["key"] == key]
+    hint = {"fabric": {"key": key, "source_port": a.server.port, "pages": FABRIC_PAGES}}
+    runs = []
+    for prompt, params_ in ((FABRIC_COLD[0], {}), (FABRIC_PROMPT, hint), (FABRIC_COLD[1], {})):
+        code, r = b.post(prompt, FABRIC_TOKENS, **params_, headers={"X-Request-Trace": "1"})
+        hints = (r.get("trace") or {}).get("hints") or {}
+        runs.append({"status": code, "tokens": r.get("tokens"), "ttft_s": r.get("ttft_s"),
+                     "fabric": r.get("fabric"), "pull_ms": hints.get("pre_fabric_pull", 0.0) * 1e3,
+                     "oracle_max_logit_lag": oracle_lag(params, cfg, dev, prompt, r["token_ids"])})
+        if params_:  # read before later ticks push it out of the flight ring
+            restore = flight(b.engine, "fabric_restore")
+    faults = {}
+    for name in ("torn", "slow"):
+        if name == "slow":
+            b2.model._FABRIC_PULL_TIMEOUT_S = FABRIC_PULL_BUDGET_S
+        w0 = b2.engine.perf.snapshot()["waste_positions"].get("fabric_degraded", 0)
+        code, r = b2.post(FABRIC_PROMPT, FABRIC_TOKENS, **hint)
+        waste = b2.engine.perf.snapshot()["waste_positions"].get("fabric_degraded", 0) - w0
+        faults[name] = {"status": code, "fabric": r.get("fabric"), "tokens": r.get("tokens"),
+                        "waste_fabric_degraded_positions": waste,
+                        "oracle_max_logit_lag": oracle_lag(params, cfg, dev, FABRIC_PROMPT,
+                                                           r["token_ids"])}
+    publish = [(d, sh) for d, sh in flight(a.engine, "fabric_publish")
+               if (sh or {}).get("key") == key]
+    out = {"key": key, "listed": listed, "publish_ms": [d * 1e3 for d, _ in publish],
+           "publish_shape": [sh for _, sh in publish],
+           "restore_ms": [d * 1e3 for d, _ in restore], "restore_shape": [sh for _, sh in restore],
+           "cold_ttft_s": [runs[0]["ttft_s"], runs[2]["ttft_s"]], "hit_ttft_s": runs[1]["ttft_s"],
+           "runs": runs, "faults": faults, "b_fabric": outcomes(b.engine.telemetry.kv_fabric),
+           "b2_fabric": outcomes(b2.engine.telemetry.kv_fabric)}
+    out["ok"] = (c == 200 and first["tokens"] == FABRIC_TOKENS
+                 and len(listed) == 1 and listed[0]["pages"] == FABRIC_PAGES
+                 and all(r["status"] == 200 and r["tokens"] == FABRIC_TOKENS
+                         and r["oracle_max_logit_lag"] <= ORACLE_TIE_EPS for r in runs)
+                 and runs[1]["fabric"] == {"restore": "hit"}
+                 and all(f["status"] == 200 and f["tokens"] == FABRIC_TOKENS
+                         and f["fabric"] == {"restore": "degraded"}
+                         and f["waste_fabric_degraded_positions"] > 0
+                         and f["oracle_max_logit_lag"] <= ORACLE_TIE_EPS
+                         for f in faults.values()))
+    return out
+
+
+def disaggregation(params, cfg, dev) -> dict:
+    """Phase 5h: disaggregated prefill/decode and the fleet KV fabric at full
+    Llama-3-8B on ``EngineConfig()`` geometry: replica A (``role="prefill"``,
+    ``fabric=True``) and B (``role="decode"``, ``fabric=True``) share one
+    params dict, each behind its own ModelServer, split by hand as the
+    reference ingress splits them: (a) handoff, (b) refusals and faults on
+    the fault replicas A2 and B2, (c) the fabric, (d) leaks and stores."""
+    mk = lambda **kw: Replica(params, cfg, dev, EngineConfig(**kw))  # noqa: E731
+    with mk(role="prefill", fabric=True) as a, mk(role="decode", fabric=True) as b, \
+            mk(role="prefill", handoff_chaos=HandoffFaultConfig(expire_export_on=4)) as a2, \
+            mk(role="decode", fabric=True, handoff_chaos=HandoffFaultConfig(**HANDOFF_CHAOS),
+               fabric_chaos=FabricFaultConfig(**FABRIC_CHAOS)) as b2:
+        out = {"a_handoff": disagg_handoff(params, cfg, dev, a, b)}
+        with KernelWatch() as fw:
+            out["b_faults"] = disagg_faults(params, cfg, dev, a, a2, b2,
+                                            out["a_handoff"]["handles"][0])
+            out["c_fabric"] = disagg_fabric(params, cfg, dev, a, b, b2)
+        d = {}
+        for name, r in (("a", a), ("b", b), ("a2", a2), ("b2", b2)):
+            st = r.idle()
+            d[name] = {"leaked_pages": leaked_pages(st, r.engine.ec),
+                       "handoff_pending": r.engine._handoffs.sweep(),
+                       "parked_fabric_bytes": parked_fabric_bytes(r.engine),
+                       "swap_used_bytes": st["swap_used_bytes"],
+                       "handoff": outcomes(r.engine.telemetry.kv_handoff),
+                       "fabric": outcomes(r.engine.telemetry.kv_fabric)}
+        out["d_leaks"] = d
+    h, f = out["a_handoff"], out["c_fabric"]
+    log(f"5h handoff: frames {h['frame_bytes']} B, export ms {h['export_ms']}, pull ms "
+        f"{h['pull_ms']}, scatter ms {h['import_scatter_ms']}; decode-phase first event s "
+        f"{h['decode_phase_first_event_s']} vs unified {h['unified_first_event_s']}; "
+        f"byte-identical {h['byte_identical']}/{len(PROMPTS)}, B prefills "
+        f"{h['b_prefill_dispatches']}, imports {h['b_imports']}, launches {h['launches']}")
+    log(f"5h faults: repull {out['b_faults']['repull_status']}, " + ", ".join(
+        f"{k} degraded={v['degraded']}" for k, v in out["b_faults"]["faults"].items()))
+    log(f"5h fabric: listed {f['listed']}, publish ms {f['publish_ms']}, hit ttft "
+        f"{f['hit_ttft_s']} s (pull ms {f['runs'][1]['pull_ms']}, scatter ms "
+        f"{f['restore_ms']}) vs cold {f['cold_ttft_s']}; faults "
+        f"{ {k: v['fabric'] for k, v in f['faults'].items()} }")
+    log(f"5h leaks: {out['d_leaks']}")
+    out["launches"] = (out["a_handoff"]["launches"] + out["a_handoff"]["unified_launches"]
+                       + fw.launches)
+    out["plain_calls"] = out["a_handoff"]["plain_calls"] + fw.plain_calls
+    out["ok"] = (out["a_handoff"]["ok"] and out["b_faults"]["ok"] and out["c_fabric"]["ok"]
+                 and out["plain_calls"] == 0
+                 and all(v["leaked_pages"] == 0 and v["handoff_pending"] == 0
+                         and v["parked_fabric_bytes"] == 0 and v["swap_used_bytes"] == 0
+                         for v in d.values()))
+    return out
+
+
 # ----------------------------------------------------------------- phase 6
 
 
@@ -2140,7 +2423,8 @@ def main() -> int:
               phase("qos", lambda: qos(params, cfg, dev)),
               phase("sessions", lambda: sessions(params, cfg, dev)),
               phase("streaming", lambda: streaming(params, cfg, dev)),
-              phase("observability", lambda: observability(params, cfg, dev, kind))]
+              phase("observability", lambda: observability(params, cfg, dev, kind)),
+              phase("disagg", lambda: disaggregation(params, cfg, dev))]
 
     def profile():
         with torch.inference_mode():

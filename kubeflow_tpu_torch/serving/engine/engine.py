@@ -87,8 +87,22 @@ exits (``_StaleThread``) before it mutates anything.  A thread blocked
 inside a CUDA call cannot be killed; it stays blocked until the call
 returns, as a thread blocked in a device call does in the JAX package.
 
-Not ported yet (later slices): disaggregation and the fabric, constrained
-decoding, int8 weights, LoRA and tensor parallelism.
+Disaggregation and the fleet KV fabric, as the JAX engine has them: a
+``handoff`` request (the prefill phase) exports its committed KV pages at
+finish as one KVPG frame into a one-shot, TTL'd ``HandoffStore``
+(``pull_handoff``); a ``kv_import`` (the decode phase) parks the pulled
+frame in the tiered store and is admitted through the swap-resume scatter,
+straight to decode with no prefill of its own.  With ``fabric=True`` every
+finishing request publishes its committed full-page prefix into a
+multi-reader ``FabricStore`` (``pull_fabric``, ``fabric_view``), and a
+``fabric_import`` is matched by chain hash at admission and scattered past
+what the prefix cache and any session restore cover.  Every failure
+degrades to a re-prefill, attributed ``handoff_degraded`` or
+``fabric_degraded``.  The frames are the JAX package's bytes, so either
+package imports the other's.
+
+Not ported yet (later slices): sharded (version 2) frames, constrained
+decoding and brownout, int8 weights, LoRA and tensor parallelism.
 """
 
 from __future__ import annotations
@@ -112,9 +126,12 @@ from ..errors import (DeadlineExceeded, EngineOverloaded, EngineShutdown,
                       TickFailure)
 from ..incidents import IncidentConfig, IncidentManager, engine_detectors
 from ..slo import SloConfig, SloTracker
-from .faults import ChaosInjector, FaultConfig
+from ..disagg import HandoffStore, normalize_role
+from ..kvfabric import FabricStore, fabric_key
+from .faults import (ChaosInjector, FabricChaos, FabricFaultConfig,
+                     FaultConfig, HandoffChaos, HandoffFaultConfig)
 from .kvstore import (BF16Bits, KVStoreConfig, TieredKVStore, bf16_bits,
-                      normalize_session_id)
+                      normalize_session_id, pack_frame)
 from .perf import (CacheStats, FlopsModel, PerfLedger, ProfileStore,
                    TickTimeline, WASTE_REASONS, platform_peak_flops)
 from .model import (DecoderConfig, decode_step, decode_step_k,
@@ -182,6 +199,33 @@ class EngineConfig:
     # scheduler's swap_max_bytes as the host budget and a private temporary
     # disk dir, deleted at stop()
     kv_store: Optional[KVStoreConfig] = None
+    # ---- disaggregated serving (disagg.py) ------------------------------
+    # the replica's declared role: "prefill" | "decode" | "unified".
+    # Advisory at engine level (any engine can export or import handoffs);
+    # the service proxy reads the matching pod annotation for placement
+    role: str = "unified"
+    # exported-KV handle lifetime + byte budget (disagg.HandoffStore): an
+    # orphaned export expires instead of pinning pool-sized blobs in host
+    # RAM; budget overruns evict oldest-first and that export degrades
+    handoff_ttl_s: float = 60.0
+    handoff_max_bytes: int = 256 << 20
+    # deterministic handoff-fault injection (faults.HandoffFaultConfig):
+    # torn/slow/dead-link pulls, pre-expired exports
+    handoff_chaos: Optional[HandoffFaultConfig] = None
+    # ---- fleet KV fabric (kvfabric.py) ----------------------------------
+    # when on, every finishing request's committed full-page prefix is
+    # published (keyed by its context chain hashes) into a fleet-
+    # addressable FabricStore other replicas pull from.  Off by default:
+    # publishing snapshots device pages to host per finish.
+    # fabric_min_pages gates tiny prefixes out; fabric_max_bytes is also
+    # the budget of pulled frames parked on queued requests
+    fabric: bool = False
+    fabric_ttl_s: float = 120.0
+    fabric_max_bytes: int = 256 << 20
+    fabric_min_pages: int = 1
+    # deterministic fabric-fault injection (faults.FabricFaultConfig):
+    # torn/flipped/slow/dead-link pulls, pre-expired publishes
+    fabric_chaos: Optional[FabricFaultConfig] = None
     # ---- fault tolerance ------------------------------------------------
     # a request whose tick phase (prefill group / decode step) raises is
     # retried in place; after this many CONSECUTIVE failures it is failed
@@ -290,6 +334,21 @@ class _Pending:
     # admission, then host|disk|cache|cold|degraded (degraded = the store
     # had the session but verification failed; fell back to re-prefill)
     session_restore: Optional[str] = None
+    # disaggregated prefill phase: export this request's committed KV pages
+    # into the handoff store at finish (the decode replica pulls them)
+    handoff: bool = False
+    # disaggregated decode phase: the prompt's KV arrived as a verified
+    # handoff frame (parked in the tiered store under this rid, scattered
+    # at admission via the swap-resume path); any import failure degrades
+    # to a plain re-prefill instead of failing the slot
+    handoff_import: bool = False
+    # a verified remote prefix frame awaiting admission: (blob, frame chain
+    # hashes, nbytes), held on the record (freed with it) and scattered
+    # past the locally covered pages at admission
+    fabric_import: Optional[tuple] = None
+    # how the fabric import resolved: None (no import), then
+    # hit|local|degraded — the result dict's "fabric" block
+    fabric_restore: Optional[str] = None
     # streaming: every committed token is also pushed here, then a final
     # (None, result) or (None, exception) sentinel (generate_stream reads it)
     stream: Optional[queue.Queue] = None
@@ -484,6 +543,27 @@ class Engine:
             ec.kv_store if ec.kv_store is not None
             else KVStoreConfig(host_max_bytes=self._scfg.swap_max_bytes),
             on_event=self.telemetry.count_kv_event)
+        # exported-KV handle registry (prefill side) + the handoff chaos the
+        # decode side's pull path consults (serve.py)
+        normalize_role(ec.role)
+        self._handoffs = HandoffStore(ttl_s=ec.handoff_ttl_s,
+                                      max_bytes=ec.handoff_max_bytes)
+        self._handoff_chaos = (HandoffChaos(ec.handoff_chaos)
+                               if ec.handoff_chaos is not None else None)
+        # published-prefix registry (multi-reader, TTL'd, byte-budgeted;
+        # served as GET /engine/kv_fabric/<key>) + the fabric chaos the
+        # pulling side's serve layer consults
+        self._fabric = (FabricStore(ttl_s=ec.fabric_ttl_s,
+                                    max_bytes=ec.fabric_max_bytes)
+                        if ec.fabric else None)
+        self._fabric_chaos = (FabricChaos(ec.fabric_chaos)
+                              if ec.fabric_chaos is not None else None)
+        # wired by JetStreamModel (it owns the tokenizer): tokens -> the
+        # text fingerprint ladder the router's placement matches, and the
+        # model identity stamped into every published frame (same-shape
+        # models share chain hashes, so the puller must match the model too)
+        self.fabric_fingerprinter = None
+        self.fabric_model_id = None
         self._requests: dict[int, _Pending] = {}  # guarded-by: _lock
         # O(1) cancel: future -> rid, maintained at submit and at every
         # terminal path
@@ -707,6 +787,11 @@ class Engine:
         self._kv.close()
         # managed profiler artifacts die with the engine
         self.profiles.close()
+        # unpulled handoff frames and published fabric frames die with the
+        # engine: a pull would route to this process's port
+        self._handoffs.clear()
+        if self._fabric is not None:
+            self._fabric.clear()
         self._stopped = True
         self._draining = False
 
@@ -720,8 +805,8 @@ class Engine:
         DEAD      — loop thread not running (never started, stopped, or
                     died with restart disabled)
 
-        ``role`` is always "unified" (disaggregation is not ported);
-        ``restarts`` counts the watchdog's loop restarts."""
+        ``role`` is the configured ``EngineConfig.role``; ``restarts``
+        counts the watchdog's loop restarts."""
         if self._draining:
             state = "DRAINING"
         else:
@@ -733,7 +818,7 @@ class Engine:
                 state = "DEGRADED"
             else:
                 state = "DEGRADED" if self._retrying > 0 else "SERVING"
-        return {"state": state, "role": "unified",
+        return {"state": state, "role": self.ec.role,
                 "last_tick_age_s": round(time.monotonic() - self._last_tick_ts, 4),
                 "ticks": self._ticks, "ticks_failed": self._ticks_failed,
                 "restarts": self._restarts}
@@ -744,11 +829,15 @@ class Engine:
                        session_id: Optional[str] = None,
                        stream: Optional[queue.Queue] = None,
                        trace=None, links: Optional[list] = None,
-                       waste_hint: Optional[str] = None) -> Future:
+                       waste_hint: Optional[str] = None,
+                       handoff: bool = False, kv_import=None,
+                       fabric_import=None,
+                       pre_hints: Optional[dict] = None) -> Future:
         """Submit a prompt; the Future resolves to a result dict (``rid``,
         ``tokens``, ``num_tokens``, ``truncated``, ``cancelled``,
-        ``preemptions``, ``ttft_s``, ``latency_s``, and a ``session`` block
-        with a session id).
+        ``preemptions``, ``ttft_s``, ``latency_s``, a ``session`` block with
+        a session id, a ``handoff`` block for a prefill phase and a
+        ``fabric`` block after a fabric import).
 
         ``deadline``: seconds from now (default ``default_deadline_s``); a
         request without its first token by then is shed with
@@ -767,8 +856,22 @@ class Engine:
         re-admission resumes from); a ``session_prev`` link to the
         session's previous turn is added automatically.  ``waste_hint``:
         the caller knows this request's prefill recomputes work done
-        elsewhere (``failover_reprefill``); the perf ledger charges it as
-        waste under that reason.
+        elsewhere (``failover_reprefill``, or ``handoff_degraded`` /
+        ``fabric_degraded`` for an import that failed before submit); the
+        perf ledger charges it as waste under that reason.
+        ``handoff``: disaggregated PREFILL phase — at finish the committed
+        KV pages are exported into the handoff store and the result's
+        ``handoff`` block carries the one-shot pull handle.  ``kv_import``:
+        disaggregated DECODE phase — a verified ``(blob, nbytes,
+        resume_len)`` covering the prompt (which already ends with the
+        prefill phase's first token): admission scatters it into a fresh
+        slot row and decode starts without a prefill.  ``fabric_import``: a
+        verified ``(blob, hashes, nbytes)`` remote PREFIX frame, matched by
+        chain hash at admission and scattered past what the prefix cache
+        covers.  Any import problem degrades to a plain re-prefill.
+        ``pre_hints``: serve-layer walls spent on this request BEFORE submit
+        (``{"fabric_pull": s}`` / ``{"handoff_import": s}``), carried on the
+        span for the latency waterfall.
 
         Raises RequestError for an empty prompt, a token id outside the
         vocabulary (an out-of-range embedding index would device-assert on
@@ -832,6 +935,10 @@ class Engine:
             span = None
             if self.ec.telemetry:
                 span = RequestSpan(rid, trace=trace, links=links, cls=prio)
+                for k, v in (pre_hints or {}).items():
+                    # pulls the serve layer ran before the span's clock
+                    # started (waterfall.PRE_HINT_SEGMENTS)
+                    span.hint(f"pre_{k}", float(v))
                 if session_id is not None:
                     prev = self._session_spans.get(session_id)
                     if prev is not None:
@@ -844,15 +951,71 @@ class Engine:
                 submitted_at=now, page_hashes=hashes, context=list(toks),
                 rid=rid, deadline=now + deadline if deadline is not None else None,
                 priority=prio, rank=PRIORITY_RANK[prio], session_id=session_id,
-                stream=stream, span=span, waste_reason=waste_hint)
+                stream=stream, span=span, waste_reason=waste_hint,
+                handoff=handoff)
             if session_id is not None:
                 self._session_active[session_id] = rid
             self._future_rid[fut] = rid
+        if kv_import is not None:
+            self._park_handoff(pending, kv_import)
+        if fabric_import is not None and kv_import is None:
+            self._park_fabric(pending, fabric_import)
+        if waste_hint in ("handoff_degraded", "fabric_degraded"):
+            # the serve layer degraded the import BEFORE submit: the same
+            # incident signal as an engine-side degrade
+            self._note_degradation(waste_hint.split("_", 1)[0], "pre_submit",
+                                   pending)
         # the request waits in the HOST scheduler queue; the loop submits it
         # to the C++ core only when the policy admits it
         self._sched.push(self._entry_for(rid, pending))
         self._wake.set()
         return fut
+
+    def _park_handoff(self, pending: _Pending, kv_import) -> None:
+        """Park a decode phase's pulled frame in the tiered store under its
+        rid; admission then takes the swap-resume scatter.  ``resume_len``
+        must equal the submitted token count: the frame's KV covers
+        positions [0, len(tokens) - 2] and the first decode step writes
+        position len(tokens) - 1 (serve.py verified the frame; this is the
+        engine-side backstop).  A failure degrades to a re-prefill."""
+        blob, nbytes, resume_len = kv_import
+        ok = False
+        if int(resume_len) == len(pending.tokens):
+            try:
+                ok = self._kv.put_swap(pending.rid, blob, int(nbytes), count=False)
+            except Exception:  # noqa: BLE001 — an import must degrade
+                ok = False
+        if ok:
+            pending.swapped = True
+            pending.resume_len = int(resume_len)
+            pending.handoff_import = True
+            self.telemetry.count_handoff("import")
+            self.telemetry.count_handoff_bytes("in", int(nbytes))
+        else:
+            self._degrade_handoff(pending, "park_failed")
+
+    def _park_fabric(self, pending: _Pending, fabric_import) -> None:
+        """A verified remote prefix frame rides the pending record (freed
+        with it, so no reap path can leak it), budgeted: the frames parked
+        on queued requests stay within ``fabric_max_bytes``, or this import
+        degrades to a re-prefill."""
+        try:
+            blob, fhashes, fnbytes = fabric_import
+            fnbytes = int(fnbytes)
+            fh = np.asarray(fhashes, np.uint64)
+            with self._lock:
+                # check + reserve atomically against concurrent submits
+                parked = sum(p.fabric_import[2] for p in self._requests.values()
+                             if p.fabric_import is not None)
+                if parked + fnbytes > self.ec.fabric_max_bytes:
+                    raise MemoryError("fabric parking budget exhausted")
+                pending.fabric_import = (blob, fh, fnbytes)
+            self.telemetry.count_fabric("import")
+            self.telemetry.count_fabric_bytes("in", fnbytes)
+        except Exception:  # noqa: BLE001 — an import must degrade
+            pending.fabric_import = None
+            pending.waste_reason = "fabric_degraded"
+            self._degrade_fabric(pending, "park_failed")
 
     def _entry_for(self, rid: int, pending: _Pending) -> QueueEntry:
         return QueueEntry(rid=rid, rank=pending.rank, deadline=pending.deadline,
@@ -864,10 +1027,14 @@ class Engine:
                  priority: Optional[str] = None,
                  session_id: Optional[str] = None, trace=None,
                  links: Optional[list] = None,
-                 waste_hint: Optional[str] = None) -> dict:
+                 waste_hint: Optional[str] = None, handoff: bool = False,
+                 kv_import=None, fabric_import=None,
+                 pre_hints: Optional[dict] = None) -> dict:
         fut = self.generate_async(tokens, max_new_tokens, deadline=deadline,
                                   priority=priority, session_id=session_id,
-                                  trace=trace, links=links, waste_hint=waste_hint)
+                                  trace=trace, links=links, waste_hint=waste_hint,
+                                  handoff=handoff, kv_import=kv_import,
+                                  fabric_import=fabric_import, pre_hints=pre_hints)
         try:
             return fut.result(timeout=timeout)
         except FutureTimeoutError:
@@ -881,7 +1048,9 @@ class Engine:
                         priority: Optional[str] = None,
                         session_id: Optional[str] = None, trace=None,
                         links: Optional[list] = None,
-                        waste_hint: Optional[str] = None) -> Iterator:
+                        waste_hint: Optional[str] = None, kv_import=None,
+                        fabric_import=None,
+                        pre_hints: Optional[dict] = None) -> Iterator:
         """Yield token ids as they are committed, then the result dict that
         ``generate`` returns.  The prompt is submitted NOW (a plain method
         returning an iterator), so it runs even if the caller delays
@@ -894,7 +1063,8 @@ class Engine:
         fut = self.generate_async(tokens, max_new_tokens, deadline=deadline,
                                   priority=priority, session_id=session_id,
                                   stream=q, trace=trace, links=links,
-                                  waste_hint=waste_hint)
+                                  waste_hint=waste_hint, kv_import=kv_import,
+                                  fabric_import=fabric_import, pre_hints=pre_hints)
 
         def _iter():
             while True:
@@ -1058,6 +1228,14 @@ class Engine:
                 "nan_rows": self._nan_rows,
                 "trace_history_entries": len(self._trace_ring),
                 "trace_history_bytes": self._trace_ring_bytes,
+                "role": self.ec.role,
+                "handoff": self._handoffs.stats(),
+                **({"fabric": self._fabric.stats()}
+                   if self._fabric is not None else {}),
+                **({"handoff_chaos": self._handoff_chaos.stats()}
+                   if self._handoff_chaos is not None else {}),
+                **({"fabric_chaos": self._fabric_chaos.stats()}
+                   if self._fabric_chaos is not None else {}),
                 **({"slo": self.telemetry.slo.snapshot()}
                    if self.telemetry.slo is not None else {}),
                 **({"incidents": self.incidents.stats()}
@@ -1088,8 +1266,9 @@ class Engine:
 
     def _note_degradation(self, source: str, outcome: str,
                           pending: Optional[_Pending] = None) -> None:
-        """Degradation-outcome signal: a storage-fault recompute completed
-        the request the slow way."""
+        """Degradation-outcome signal: a storage-fault recompute, a handoff
+        re-prefill or a degraded fabric pull completed the request the slow
+        way.  One call per degraded request, where its outcome is counted."""
         if self.incidents is None:
             return
         tids = ([pending.span.trace_id]
@@ -1225,8 +1404,9 @@ class Engine:
             "owned_pages": owned,
             "committed_tokens": toks,
             "fragmentation": round(frag, 6),
-            # the fleet fabric's published prefixes (not ported: none)
-            "fabric": [],
+            # the fleet fabric's published prefixes: what the router's
+            # cache-aware placement scores (through /fleet/cache)
+            "fabric": self.fabric_view(),
         }
         snap["timeline"] = self.timeline.snapshot()
         snap["profiler"] = {
@@ -1701,7 +1881,7 @@ class Engine:
                 self.cache_analytics.note_lookup(n_lookup, cached, key)
                 self.telemetry.count_cache_pages(n_lookup, min(cached, n_lookup))
         if pending.swapped:
-            item = self._kv.pop_swap(rid)
+            item = self._kv.pop_swap(rid, count=not pending.handoff_import)
             if item is not None:
                 try:
                     self._resume_swapped(slot, pending, item)
@@ -1709,19 +1889,37 @@ class Engine:
                 except _StaleThread:
                     raise
                 except Exception as exc:  # noqa: BLE001 — fail this slot only
-                    # never leave the slot half-installed for decode
-                    err = TickFailure(f"swap-in failed: {type(exc).__name__}: {exc}")
-                    err.__cause__ = exc
-                    self._fail_slot(slot, err)
-                    return
-            # blob lost (failed verification after a spill): recompute —
-            # tokens already hold the full context, a cold re-prefill of
-            # positions this engine already computed once (waste)
-            pending.swapped = False
-            pending.waste_reason = "preempt_recompute"
+                    if not pending.handoff_import:
+                        # never leave the slot half-installed for decode
+                        err = TickFailure(f"swap-in failed: {type(exc).__name__}: {exc}")
+                        err.__cause__ = exc
+                        self._fail_slot(slot, err)
+                        return
+                    # a verified handoff frame that failed the scatter:
+                    # re-prefill below (the slot owns its pages, and the
+                    # prefill overwrites whatever the scatter touched)
+                    pending.swapped = False
+                    self._degrade_handoff(pending, "scatter_failed")
+                    if self.ec.telemetry:
+                        self._flight_event("handoff_import", [slot], None,
+                                           time.perf_counter(), "error",
+                                           error=f"{type(exc).__name__}: {exc}")
+            else:
+                # blob lost (failed verification after a spill): recompute —
+                # tokens already hold the full context, a cold re-prefill of
+                # positions this engine (or the prefill replica) computed
+                pending.swapped = False
+                if pending.handoff_import:
+                    self._degrade_handoff(pending, "blob_lost")
+                else:
+                    pending.waste_reason = "preempt_recompute"
         off = cached * self.ec.page_size
         if pending.session_id is not None and pending.session_restore is None:
             off = self._restore_session(slot, pending, cached)
+        if pending.fabric_import is not None:
+            # scatter the verified remote prefix pages that the device cache
+            # and the session restore did not already cover
+            off = max(off, self._restore_fabric(slot, pending, off // self.ec.page_size))
         self._prefilling[slot] = off
         self._prefill_rows[slot] = self.batcher.slot_pages(slot)
 
@@ -1774,14 +1972,7 @@ class Engine:
                     self._note_degradation("storage", outcome, pending)
                 return cached * ps
             blob, nbytes, meta = payload
-            stored = np.asarray(meta.get("hashes", ()), np.uint64)
-            own = pending.page_hashes
-            # full pages only, and at least ONE prompt position uncovered so
-            # prefill computes the logits of the first sampled token
-            limit = min(len(stored), len(own), max(0, (len(pending.tokens) - 1) // ps))
-            usable = 0
-            while usable < limit and own[usable] == stored[usable]:
-                usable += 1
+            usable = self._matched_pages(pending, np.asarray(meta.get("hashes", ()), np.uint64))
             if usable <= cached:
                 # the device cache covers everything the store could offer
                 # (or the prompt diverged from the pinned context before it)
@@ -1814,30 +2005,128 @@ class Engine:
                                    error=f"{type(exc).__name__}: {exc}")
             return cached * ps
 
+    def _matched_pages(self, pending: _Pending, hashes: np.ndarray) -> int:
+        """How many of the prompt's full pages, from page 0, carry the chain
+        hashes ``hashes`` lists: the pages a stored KV image may restore.
+        At least ONE prompt position stays uncovered, so prefill computes
+        the logits of the first sampled token."""
+        own = pending.page_hashes
+        limit = min(len(hashes), len(own),
+                    max(0, (len(pending.tokens) - 1) // self.ec.page_size))
+        usable = 0
+        while usable < limit and own[usable] == hashes[usable]:
+            usable += 1
+        return usable
+
+    def _restore_fabric(self, slot: int, pending: _Pending, covered: int) -> int:
+        """Fleet-fabric prefix fault-in: match the pulled frame's chain
+        hashes against this prompt's, scatter the verified pages past what
+        the device cache (and any session restore) already ``covered`` into
+        the slot's freshly owned pages, and return the prefill offset in
+        tokens.
+
+        Degrades, never fails: a hash mismatch from page 0 (the router's
+        text fingerprints are a heuristic; THIS check is the correctness
+        gate) or any scatter error falls back to the plain offset, the
+        recomputed prefix attributed ``fabric_degraded``; a frame the local
+        state already covers is a no-op ("local").
+        ``pending.fabric_restore`` records the outcome."""
+        ps = self.ec.page_size
+        blob, fhashes, nbytes = pending.fabric_import
+        pending.fabric_import = None  # freed either way: frames are MBs
+        t0 = time.perf_counter()
+        try:
+            usable = self._matched_pages(pending, fhashes)
+            if usable == 0:
+                # the frame shares nothing with this prompt: the pull was
+                # wasted and the whole prefix recomputes locally
+                self._degrade_fabric(pending, "hash_mismatch")
+                return covered * ps
+            if usable <= covered:
+                # local state reaches at least as deep: nothing to scatter,
+                # nothing recomputed — not a degrade
+                pending.fabric_restore = "local"
+                self.telemetry.count_fabric("local")
+                return covered * ps
+            row = self.batcher.slot_pages(slot)
+            self._check_epoch()  # last fence before writing the pools
+            self._scatter_pages(row[covered:usable], blob, covered, usable)
+            pending.fabric_restore = "hit"
+            self.telemetry.count_fabric("hit")
+            if pending.span is not None:
+                pending.span.mark("fabric_restore")
+            if self.ec.telemetry:
+                self._flight_event(
+                    "fabric_restore", [slot],
+                    {"pages": int(usable - covered), "covered": covered,
+                     "bytes": nbytes}, t0, "ok")
+            return usable * ps
+        except _StaleThread:
+            raise
+        except Exception as exc:  # noqa: BLE001 — a restore must degrade
+            self._degrade_fabric(pending, "restore_error")
+            if self.ec.telemetry:
+                self._flight_event("fabric_restore", [slot], None, t0, "error",
+                                   error=f"{type(exc).__name__}: {exc}")
+            return covered * ps
+
+    def _degrade_fabric(self, pending: _Pending, outcome: str) -> None:
+        """A fabric import failed: the prefix recomputes locally, attributed
+        ``fabric_degraded`` unless the prefill already carries a reason."""
+        pending.fabric_restore = "degraded"
+        pending.waste_reason = pending.waste_reason or "fabric_degraded"
+        self.telemetry.count_fabric("degraded")
+        self._note_degradation("fabric", outcome, pending)
+
+    def _degrade_handoff(self, pending: _Pending, outcome: str) -> None:
+        """A handoff import failed: the request re-prefills the prefill
+        replica's work, attributed as waste."""
+        pending.waste_reason = "handoff_degraded"
+        self.telemetry.count_handoff("degraded")
+        self._note_degradation("handoff", outcome, pending)
+
     def _resume_swapped(self, slot: int, pending: _Pending, item) -> None:
         """Swap-in: scatter the evicted KV pages from the store into the
         slot's freshly allocated pages and rebind the host mirrors — the
         slot rejoins decode exactly where it left off (seq_len, page row,
-        last committed token), byte-identical under greedy."""
+        last committed token), byte-identical under greedy.  A handoff
+        import (the decode phase) takes the same path with no generated
+        token yet: its feedback token is the prompt's last, which IS the
+        prefill phase's first sampled token."""
         t0 = time.perf_counter()
         blob, nbytes = item
         L = pending.resume_len
         owned = self._pages_for(L)
+        # a handoff frame may run ONE page short of owned: a prompt that
+        # ended exactly on a page boundary got no next page from its
+        # finishing commit, so the export could not include it.  Position
+        # L-1's KV is written by the first decode step before anything
+        # reads it.
+        cov = min(owned, int(_blob_leaves(blob)[0].shape[1]))
         # swap submits carry no prefix hashes, so every page here is freshly
         # owned by this slot: the scatter never writes a shared cache page
         row = self.batcher.slot_pages(slot)
         self._check_epoch()  # last fence before writing the pools
-        self._scatter_pages(row[:owned], blob, 0, owned)
+        self._scatter_pages(row[:cov], blob, 0, cov)
         pending.swapped = False
-        self.telemetry.count_swap("in", nbytes)
-        if pending.span is not None:
-            pending.span.mark("resumed")
-        if self.ec.telemetry:
-            self._flight_event("swap_in", [slot], {"pages": owned, "bytes": nbytes},
-                               t0, "ok")
+        if pending.handoff_import:
+            if pending.span is not None:
+                pending.span.mark("handoff_import")
+            if self.ec.telemetry:
+                self._flight_event("handoff_import", [slot],
+                                   {"pages": cov, "bytes": nbytes}, t0, "ok")
+        else:
+            self.telemetry.count_swap("in", nbytes)
+            if pending.span is not None:
+                pending.span.mark("resumed")
+            if self.ec.telemetry:
+                self._flight_event("swap_in", [slot], {"pages": cov, "bytes": nbytes},
+                                   t0, "ok")
         self._activate_decode(slot, L, owned, row)
-        self._tok_host[slot] = pending.generated[-1]
-        self._swap_in_s += time.perf_counter() - t0
+        self._tok_host[slot] = (pending.generated[-1] if pending.generated
+                                else pending.tokens[-1])
+        if not pending.handoff_import:
+            self._swap_in_s += time.perf_counter() - t0
 
     def _reap_expired_queue(self, now: float) -> bool:
         """Shed every queued request whose deadline lapsed — every tick,
@@ -2951,6 +3240,19 @@ class Engine:
         session = None
         if pending.session_id is not None:
             session = self._pin_session(slot, pending, cache_ok)
+        # the prefill phase's committed pages leave through the handoff
+        # store, same window (they ALSO release to the prefix cache below,
+        # so a degraded decode phase landing back here is a cache hit)
+        handoff_rec = None
+        if pending.handoff and not cancelled:
+            handoff_rec = self._export_handoff(slot, pending, cache_ok)
+        # the fleet-fabric publish, same window; a prefill phase skips it
+        # (its pages leave through the one-shot handoff store).  The JAX
+        # engine defers this publish under ingress brownout stage >= 3,
+        # which comes with brownout (ROADMAP item 1.4): here the stage is
+        # always 0.
+        if self._fabric is not None and not cancelled and not pending.handoff:
+            self._publish_fabric(slot, pending, cache_ok)
         self._release_slot_state(slot)
         # the prompt's full pages enter the prefix cache on the way out,
         # unless the prefill never finished (their KV is partial) or the
@@ -2961,6 +3263,10 @@ class Engine:
         self.batcher.release(slot, release_hashes)
         self._retire(pending, "cancelled" if cancelled else "done")
         result = self._result(rid, pending, truncated, cancelled)
+        if handoff_rec is not None:
+            result["handoff"] = handoff_rec
+        if pending.fabric_restore is not None:
+            result["fabric"] = {"restore": pending.fabric_restore}
         if pending.session_id is not None:
             # "evicted" is a COUNT: session ids are bearer capabilities, so
             # another client's id never appears in this client's response
@@ -2975,6 +3281,144 @@ class Engine:
             if err:
                 result["session"]["error"] = err
         self._resolve(pending, result)
+
+    def _export_handoff(self, slot: int, pending: _Pending, cache_ok: bool) -> dict:
+        """Disaggregated prefill phase, export half: snapshot every page the
+        finishing slot owns — positions [0, L-2] where L = len(context) =
+        prompt + first token (the last token's KV is written by the decode
+        step on the PULLING replica) — frame it KVPG/CRC, and register the
+        frame in the handoff store under a one-shot TTL'd handle.  A
+        blocking device -> host copy on the loop thread, as a swap-out is.
+
+        Degrades, never raises: any failure returns ``{"error": ...}`` and
+        the proxy falls back to the unified path."""
+        if not cache_ok:
+            self.telemetry.count_handoff("export_failed")
+            return {"error": "incomplete prefill"}
+        L = len(pending.context)
+        owned = min(self._pages_for(L), int(np.count_nonzero(self._pt_host[slot])))
+        if L < 2 or owned <= 0:
+            self.telemetry.count_handoff("export_failed")
+            return {"error": "nothing committed to hand off"}
+        t0 = time.perf_counter()
+        try:
+            blob, _ = self._snapshot_pages(self._pt_host[slot, :owned])
+            meta = {"resume_len": L, "page_size": self.ec.page_size,
+                    "pages": owned, "adapter_id": 0,
+                    "generated": list(pending.generated)}
+            data, nbytes, _ = pack_frame(f"handoff/{pending.rid}", blob, meta)
+            ttl = None
+            if self._handoff_chaos is not None and self._handoff_chaos.expire_export():
+                ttl = 0.0  # chaos: the puller must find it expired
+            handle = self._handoffs.put(data, meta, ttl_s=ttl)
+            if handle is None:
+                self.telemetry.count_handoff("export_failed")
+                return {"error": "handoff store budget exhausted"}
+            self.telemetry.count_handoff("export")
+            if self.ec.telemetry:
+                self._flight_event("handoff_export", [slot],
+                                   {"pages": owned, "bytes": nbytes, "resume_len": L},
+                                   t0, "ok")
+            return {"handle": handle, "pages": owned, "nbytes": nbytes,
+                    "resume_len": L,
+                    "ttl_s": self.ec.handoff_ttl_s if ttl is None else ttl}
+        except Exception as exc:  # noqa: BLE001 — an export must degrade
+            self.telemetry.count_handoff("export_failed")
+            if self.ec.telemetry:
+                self._flight_event("handoff_export", [slot], None, t0, "error",
+                                   error=f"{type(exc).__name__}: {exc}")
+            return {"error": f"{type(exc).__name__}: {exc}"}
+
+    def _publish_fabric(self, slot: int, pending: _Pending, cache_ok: bool) -> None:
+        """Fleet-fabric publish: snapshot the finishing request's committed
+        FULL pages (the session-pin geometry: positions [0, L-2]), frame
+        them KVPG/CRC keyed by the prefix's deepest chain hash, and register
+        the frame in the multi-reader FabricStore.  The meta carries the
+        per-page chain hashes (the puller's correctness gate) and the text
+        fingerprint ladder (the router's placement key).  Degrades, never
+        raises: a failed publish costs the FLEET a share, not this
+        request."""
+        if not cache_ok:
+            return
+        ps = self.ec.page_size
+        L = int(self._len_host[slot])
+        covered = min(max(0, (L - 1) // ps), int(np.count_nonzero(self._pt_host[slot])))
+        if covered < max(1, self.ec.fabric_min_pages):
+            return
+        t0 = time.perf_counter()
+        try:
+            hashes = _page_hashes(pending.context, ps)[:covered]
+            key = fabric_key(hashes[-1])
+            if self._fabric.covers(key, covered):
+                # the same prefix is already published and live: skip the
+                # expensive device -> host snapshot
+                self.telemetry.count_fabric("publish_skipped")
+                return
+            fps = []
+            if self.fabric_fingerprinter is not None:
+                fps = self.fabric_fingerprinter(pending.context[:covered * ps]) or []
+            blob, _ = self._snapshot_pages(self._pt_host[slot, :covered])
+            meta = {"hashes": [int(h) for h in hashes], "pages": covered,
+                    "page_size": ps, "adapter_id": 0,
+                    "model": self.fabric_model_id, "fps": fps}
+            data, nbytes, _ = pack_frame(f"fabric/{key}", blob, meta)
+            ttl = None
+            if self._fabric_chaos is not None and self._fabric_chaos.expire_publish():
+                ttl = 0.0  # chaos: every later pull must find it expired
+            ok = self._fabric.publish(key, data, meta, ttl_s=ttl)
+            self.telemetry.count_fabric("publish" if ok else "publish_failed")
+            if self.ec.telemetry:
+                self._flight_event("fabric_publish", [slot],
+                                   {"key": key, "pages": covered, "bytes": nbytes},
+                                   t0, "ok" if ok else "rejected")
+        except Exception as exc:  # noqa: BLE001 — a publish must degrade
+            self.telemetry.count_fabric("publish_failed")
+            if self.ec.telemetry:
+                self._flight_event("fabric_publish", [slot], None, t0, "error",
+                                   error=f"{type(exc).__name__}: {exc}")
+
+    def pull_fabric(self, key: str, count_miss: bool = True) -> Optional[bytes]:
+        """Serve one published prefix frame (``GET /engine/kv_fabric/<key>``).
+        MULTI-READER: a key is pulled as many times as the fleet wants.
+        None on expired or unknown keys (the puller degrades).
+        ``count_miss=False``: a multi-model server probing every engine for
+        the owner must not charge a miss to the ones that never published
+        it."""
+        if self._fabric is None:
+            return None
+        outcome, data = self._fabric.pull(key, count_miss=count_miss)
+        if outcome != "miss" or count_miss:
+            self.telemetry.count_fabric(
+                {"ok": "pull", "expired": "expired", "miss": "miss"}[outcome])
+        if data is not None:
+            self.telemetry.count_fabric_bytes("out", len(data))
+        return data
+
+    def fabric_view(self) -> list:
+        """This replica's live published prefixes (FabricStore.view): the
+        ``cache.fabric`` block of ``GET /engine/perf``, which the proxy's
+        ``/fleet/cache`` view and cache-aware placement read."""
+        return self._fabric.view() if self._fabric is not None else []
+
+    def pull_handoff(self, handle: str, count_miss: bool = True) -> Optional[bytes]:
+        """Serve one exported KV frame (``GET /engine/kv_handoff/<handle>``).
+        One-shot: a second pull of the same handle is refused (two slots
+        must not decode from one frame).  None on refused, expired or
+        unknown handles (the puller degrades).  ``count_miss``: as in
+        ``pull_fabric``."""
+        outcome, data = self._handoffs.pull(handle, count_miss=count_miss)
+        if outcome != "miss" or count_miss:
+            self.telemetry.count_handoff(
+                {"ok": "pull", "refused": "pull_refused",
+                 "expired": "expired", "miss": "miss"}[outcome])
+        if data is not None:
+            self.telemetry.count_handoff_bytes("out", len(data))
+        return data
+
+    def drop_handoff(self, handle: str) -> bool:
+        """Discard an exported frame that will never be pulled (the prefill
+        phase's only token completed the generation)."""
+        return self._handoffs.drop(handle)
 
     def _pin_session(self, slot: int, pending: _Pending, cache_ok: bool) -> dict:
         """Park a finishing session turn's KV pages in the tiered store:

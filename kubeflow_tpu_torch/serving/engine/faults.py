@@ -29,8 +29,15 @@ Counterpart of ``kubeflow_tpu/serving/engine/faults.py``, in two scopes:
   provoked deterministically on the tiered KV store's disk tier
   (kvstore.py).
 
-The handoff, fabric, constrain, storm and fleet fault families come with
-the slices that port those subsystems.
+* Handoff and fabric scopes: torn, flipped, slow and dead-link pulls of a
+  KVPG frame, and pre-expired exports and publishes, on the disaggregated
+  handoff (disagg.py) and the fleet KV fabric (kvfabric.py), counted as
+  the JAX package counts them.  Their ``shard_*`` fields corrupt one
+  sub-frame of a sharded (version 2) frame, which this port does not read
+  (ROADMAP item 1.8): a config that sets one off its default is refused.
+
+The constrain, storm and fleet fault families come with the slices that
+port those subsystems.
 """
 
 from __future__ import annotations
@@ -272,9 +279,6 @@ class ChaosInjector:
 # ------------------------------------------------------------- storage scope
 
 
-# ------------------------------------------------------------- storage scope
-
-
 @dataclasses.dataclass(frozen=True)
 class StorageFaultConfig:
     """Seeded storage-fault plan for the tiered KV store's disk tier.
@@ -382,4 +386,249 @@ class StorageChaos:
                 "injected_enospc": self.injected_enospc,
                 "injected_slow_reads": self.injected_slow_reads,
                 "injected_slow_writes": self.injected_slow_writes,
+            }
+
+
+# ----------------------------------------------------- handoff, fabric scopes
+
+_SHARD_FIELDS = ("shard_torn_pull_on", "shard_torn_pull_every",
+                 "shard_flip_pull_on", "shard_flip_pull_every",
+                 "shard_drop_pull_on", "shard_drop_pull_every")
+
+
+def _refuse_shard_faults(config) -> None:
+    """The ``shard_*`` injectors corrupt one sub-frame of a sharded
+    (version 2) KVPG frame; this port reads no such frame, so a plan that
+    arms one would inject nothing.  Refused, never dropped."""
+    armed = [f for f in _SHARD_FIELDS
+             if getattr(config, f) != (-1 if f.endswith("_on") else 0)]
+    if armed:
+        raise ValueError(
+            f"{type(config).__name__}: {armed} corrupt sharded (format "
+            "version 2) KVPG frames, which this port does not support yet "
+            "(ROADMAP item 1.8 brings them)")
+
+
+@dataclasses.dataclass(frozen=True)
+class HandoffFaultConfig:
+    """Seeded fault plan for the disaggregated prefill/decode KV handoff
+    (serving/disagg.py).  Frozen (rides in the frozen EngineConfig as
+    ``handoff_chaos``); all-defaults == inject nothing.  ``*_on`` are
+    1-based pull/export ordinals (-1 = off); ``*_every`` fire on every Nth
+    (0 = off).  Every injection must leave the request COMPLETED via the
+    degraded re-prefill path with zero leaked KV pages on both replicas."""
+
+    seed: int = 0
+    # truncate the Nth pulled frame to half (a transfer the socket closed
+    # mid-body); the KVPG magic/length/CRC verifier must catch it
+    torn_pull_on: int = -1
+    torn_pull_every: int = 0
+    # chronically slow handoff link: sleep this long on matching pulls
+    slow_pull_s: float = 0.0
+    slow_pull_every: int = 0
+    # raise ConnectionError on the Nth pull — the decode replica's link
+    # (or the prefill replica) dying mid-pull
+    dead_link_on: int = -1
+    dead_link_every: int = 0
+    # the Nth EXPORT registers with an already-lapsed TTL, so the decode
+    # replica's pull finds the handle expired
+    expire_export_on: int = -1
+    expire_export_every: int = 0
+    # sharded frames: refused off their defaults (_refuse_shard_faults)
+    shard_torn_pull_on: int = -1
+    shard_torn_pull_every: int = 0
+    shard_flip_pull_on: int = -1
+    shard_flip_pull_every: int = 0
+    shard_drop_pull_on: int = -1
+    shard_drop_pull_every: int = 0
+
+    def __post_init__(self):
+        _refuse_shard_faults(self)
+
+
+class HandoffChaos:
+    """Runtime half of HandoffFaultConfig: ``on_pull(data) -> data`` wraps
+    the decode replica's pulled bytes (may truncate, sleep, or raise);
+    ``expire_export()`` is consulted by the exporting engine per export
+    (True = register the handle pre-expired).  Thread-safe: HTTP handler
+    threads pull while the engine loop exports."""
+
+    def __init__(self, config: HandoffFaultConfig):
+        self.config = config
+        self._lock = threading.Lock()
+        self.pulls = 0
+        self.exports = 0
+        self.injected_torn_pulls = 0
+        self.injected_slow_pulls = 0
+        self.injected_dead_links = 0
+        self.injected_expired_exports = 0
+
+    @staticmethod
+    def _hit(n: int, on: int, every: int) -> bool:
+        return (on > 0 and n == on) or (every > 0 and n % every == 0)
+
+    def on_pull(self, data: bytes) -> bytes:
+        c = self.config
+        with self._lock:
+            self.pulls += 1
+            n = self.pulls
+            if self._hit(n, c.dead_link_on, c.dead_link_every):
+                self.injected_dead_links += 1
+                raise ConnectionError(
+                    f"injected dead handoff link (chaos, pull {n})")
+            slow = (c.slow_pull_s > 0 and c.slow_pull_every > 0
+                    and n % c.slow_pull_every == 0)
+            if slow:
+                self.injected_slow_pulls += 1
+            torn = self._hit(n, c.torn_pull_on, c.torn_pull_every)
+            if torn:
+                self.injected_torn_pulls += 1
+        if slow:
+            time.sleep(c.slow_pull_s)
+        if torn:
+            return data[:max(8, len(data) // 2)]
+        return data
+
+    def expire_export(self) -> bool:
+        c = self.config
+        with self._lock:
+            self.exports += 1
+            hit = self._hit(self.exports, c.expire_export_on,
+                            c.expire_export_every)
+            if hit:
+                self.injected_expired_exports += 1
+            return hit
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "handoff_pulls": self.pulls,
+                "handoff_exports": self.exports,
+                "injected_torn_pulls": self.injected_torn_pulls,
+                "injected_slow_pulls": self.injected_slow_pulls,
+                "injected_dead_links": self.injected_dead_links,
+                "injected_expired_exports": self.injected_expired_exports,
+                # sharded frames are refused at config time
+                "injected_shard_faults": 0,
+            }
+
+
+@dataclasses.dataclass(frozen=True)
+class FabricFaultConfig:
+    """Seeded fault plan for the fleet KV fabric (serving/kvfabric.py).
+    Frozen (rides in the frozen EngineConfig as ``fabric_chaos``);
+    all-defaults == inject nothing.  ``*_on`` are 1-based pull/publish
+    ordinals (-1 = off); ``*_every`` fire on every Nth (0 = off).  Every
+    injection must leave the request COMPLETED via the degraded re-prefill
+    path with zero leaked KV pages on both replicas."""
+
+    seed: int = 0
+    # truncate the Nth pulled frame to half (socket closed mid-body); the
+    # KVPG magic/length verifier must catch it
+    torn_pull_on: int = -1
+    torn_pull_every: int = 0
+    # flip one payload bit in the Nth pulled frame; the CRC32 must catch it
+    flip_pull_on: int = -1
+    flip_pull_every: int = 0
+    # chronically slow fabric link: sleep this long on matching pulls (a
+    # sleep past the serve layer's pull timeout degrades to re-prefill)
+    slow_pull_s: float = 0.0
+    slow_pull_every: int = 0
+    # raise ConnectionError on the Nth pull — the owner replica (or the
+    # link) dying mid-pull
+    dead_link_on: int = -1
+    dead_link_every: int = 0
+    # the Nth PUBLISH registers with an already-lapsed TTL, so a later
+    # pull finds the entry expired
+    expire_publish_on: int = -1
+    expire_publish_every: int = 0
+    # sharded frames: refused off their defaults (_refuse_shard_faults)
+    shard_torn_pull_on: int = -1
+    shard_torn_pull_every: int = 0
+    shard_flip_pull_on: int = -1
+    shard_flip_pull_every: int = 0
+    shard_drop_pull_on: int = -1
+    shard_drop_pull_every: int = 0
+
+    def __post_init__(self):
+        _refuse_shard_faults(self)
+
+
+class FabricChaos:
+    """Runtime half of FabricFaultConfig: ``on_pull(data) -> data`` wraps
+    a pulling replica's fetched bytes (may truncate, flip a bit, sleep,
+    or raise); ``expire_publish()`` is consulted by the publishing engine
+    per publish (True = register the entry pre-expired).  Thread-safe:
+    HTTP handler threads pull while the engine loop publishes."""
+
+    def __init__(self, config: FabricFaultConfig):
+        self.config = config
+        self._lock = threading.Lock()
+        self.pulls = 0
+        self.publishes = 0
+        self.injected_torn_pulls = 0
+        self.injected_flipped_pulls = 0
+        self.injected_slow_pulls = 0
+        self.injected_dead_links = 0
+        self.injected_expired_publishes = 0
+
+    @staticmethod
+    def _hit(n: int, on: int, every: int) -> bool:
+        return (on > 0 and n == on) or (every > 0 and n % every == 0)
+
+    def on_pull(self, data: bytes) -> bytes:
+        c = self.config
+        with self._lock:
+            self.pulls += 1
+            n = self.pulls
+            if self._hit(n, c.dead_link_on, c.dead_link_every):
+                self.injected_dead_links += 1
+                raise ConnectionError(
+                    f"injected dead fabric link (chaos, pull {n})")
+            slow = (c.slow_pull_s > 0 and c.slow_pull_every > 0
+                    and n % c.slow_pull_every == 0)
+            if slow:
+                self.injected_slow_pulls += 1
+            torn = self._hit(n, c.torn_pull_on, c.torn_pull_every)
+            if torn:
+                self.injected_torn_pulls += 1
+            flip = self._hit(n, c.flip_pull_on, c.flip_pull_every)
+            if flip:
+                self.injected_flipped_pulls += 1
+        if slow:
+            time.sleep(c.slow_pull_s)
+        if torn:
+            return data[:max(8, len(data) // 2)]
+        if flip and len(data) > 16:
+            # flip a PAYLOAD bit (past magic + lengths + a header margin)
+            # so the CRC verifier — not the JSON parser — is what catches
+            # it, the bit-rot case the checksum exists for
+            out = bytearray(data)
+            out[-3] ^= 0x20
+            return bytes(out)
+        return data
+
+    def expire_publish(self) -> bool:
+        c = self.config
+        with self._lock:
+            self.publishes += 1
+            hit = self._hit(self.publishes, c.expire_publish_on,
+                            c.expire_publish_every)
+            if hit:
+                self.injected_expired_publishes += 1
+            return hit
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "fabric_pulls": self.pulls,
+                "fabric_publishes": self.publishes,
+                "injected_torn_pulls": self.injected_torn_pulls,
+                "injected_flipped_pulls": self.injected_flipped_pulls,
+                "injected_slow_pulls": self.injected_slow_pulls,
+                "injected_dead_links": self.injected_dead_links,
+                "injected_expired_publishes":
+                    self.injected_expired_publishes,
+                # sharded frames are refused at config time
+                "injected_shard_faults": 0,
             }

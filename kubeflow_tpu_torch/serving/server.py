@@ -12,6 +12,8 @@ nothing from the JAX package): ``Model`` is the kserve-style base class and
     GET  /engine/health      (200 SERVING/DEGRADED, 503 DRAINING/DEAD)
     GET  /engine/perf[?view=cache], /engine/trace/<trace_id>,
          /engine/incidents[/<id>], /engine/waterfall/<rid>, /engine/latency
+    GET  /engine/kv_handoff/<handle>, /engine/kv_fabric/<key>
+                             (raw KVPG frame bytes, or 404)
     POST /engine/profile     ({"ticks": N}; 409 while a capture is in flight)
     POST /v1/models/<name>:predict|:explain, /v2/models/<name>/infer
     POST /v2/models/<name>/generate, /v2/models/<name>/generate_stream (SSE)
@@ -23,8 +25,7 @@ EngineOverloaded/EngineShutdown 503, anything else 500; the OpenAI routes
 answer in the OpenAI error schema).  ``/metrics`` carries ``inflight_requests``
 and each model's ``extra_metrics`` gauges, which is what the ingress's
 least-loaded pick and the autoscaler scrape, then each model's
-``metrics_text`` registry.  The KV handoff and fabric routes come with
-disaggregation (ROADMAP item 1.3) and answer 404 until then.
+``metrics_text`` registry.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from typing import Any, Optional
 from .errors import (DeadlineExceeded, EngineOverloaded, EngineShutdown,
                      RequestError, SessionBusy)
 from .incidents import timeline as incident_timeline
+from .kvfabric import KEY_RE
 
 
 def openai_constrain_spec(body: dict) -> Optional[dict]:
@@ -470,6 +472,22 @@ class ModelServer:
                 except Exception:  # noqa: BLE001 — debug read answers
                     continue
             h._send(200, {"models": out})
+        elif path.startswith("/engine/kv_handoff/"):
+            # a decode replica pulls a prefill replica's exported KV frame
+            # by its one-shot handle; a 404 (unknown, expired or already
+            # pulled) makes it degrade to re-prefill
+            self._send_frame(h, "pull_handoff", path[len("/engine/kv_handoff/"):],
+                             "unknown, expired or already-pulled handoff handle")
+        elif path.startswith("/engine/kv_fabric/"):
+            # any replica pulls another's published prefix frame by its
+            # chain-hash key (multi-reader: the entry survives the pull)
+            key = path[len("/engine/kv_fabric/"):]
+            if not KEY_RE.fullmatch(key):
+                # keys are 16-hex chain hashes; anything else is forged
+                h._send(404, {"error": "malformed fabric key"})
+                return
+            self._send_frame(h, "pull_fabric", key,
+                             "unknown, expired or evicted fabric key")
         elif path == "/v2/health/ready":
             ready = all(m.ready for m in self.models.values())
             h._send(200 if ready else 503, {"ready": ready})
@@ -513,6 +531,30 @@ class ModelServer:
                 h._send(200, {"name": name, "platform": "pytorch", "versions": ["1"]})
         else:
             h._send(404, {"error": f"no route {path}"})
+
+    def _send_frame(self, h, method: str, ident: str, missing: str) -> None:
+        """Answer a KVPG frame pull: the first model whose ``method``
+        (``pull_handoff`` / ``pull_fabric``) returns bytes serves them raw
+        with a Content-Length, else 404.  Probing several models for the
+        owner charges a miss only when the server holds a single one."""
+        capable = [m for m in self.models.values()
+                   if callable(getattr(m, method, None))]
+        data = None
+        for m in capable:
+            try:
+                data = getattr(m, method)(ident, count_miss=len(capable) == 1)
+            except Exception:  # noqa: BLE001 — a pull must answer
+                data = None
+            if data is not None:
+                break
+        if data is None:
+            h._send(404, {"error": missing})
+            return
+        h.send_response(200)
+        h.send_header("Content-Type", "application/octet-stream")
+        h.send_header("Content-Length", str(len(data)))
+        h.end_headers()
+        h.wfile.write(data)
 
     def _handle_post(self, h) -> None:
         path = h.path.split("?")[0]

@@ -3,13 +3,17 @@
 The same files go through both packages' loaders: the ``scheduler`` block
 (``adapter_weights`` as a JSON list of pairs), the ``kv_store`` block with
 its storage ``chaos``, the dispatch ``chaos`` and ``slo`` blocks, the
-watchdog, telemetry, perf and incident keys off their defaults, a bad
-``role``, bad ``speculative`` compositions and ``tensor_parallel: 0``.  Both
+watchdog, telemetry, perf and incident keys off their defaults, the
+disaggregation and fabric keys (``role``, ``fabric``, ``handoff_ttl_s``,
+the ``handoff_chaos`` and ``fabric_chaos`` blocks), a bad ``role``, bad
+``speculative`` compositions and ``tensor_parallel: 0``.  Both
 build the same config values, or both raise the same ValueError (naming the
 file where the JAX package names it).  A key whose feature the port lacks
 is accepted at the JAX package's default and refused otherwise, naming the
 file, the key and the ROADMAP item; the port's literal map of those keys
-equals the JAX EngineConfig's fields and defaults minus the port's own."""
+equals the JAX EngineConfig's fields and defaults minus the port's own.  A
+chaos block that arms a sharded-frame (``shard_*``) injector is refused
+the same way, naming item 1.8."""
 
 import dataclasses
 import json
@@ -56,6 +60,18 @@ SAME = {
                     "objective": 0.95, "windows": [30, 300],
                     "burn_threshold": {"interactive": 4.0},
                     "burn_window": {"interactive": 30}}},
+    # the disaggregation and fabric keys
+    "role": {"role": "decode"},
+    "fabric": {"fabric": True, "fabric_ttl_s": 30.0, "fabric_max_bytes": 1 << 20,
+               "fabric_min_pages": 2},
+    "handoff_ttl_s": {"handoff_ttl_s": 5.0, "handoff_max_bytes": 1 << 20},
+    "handoff_chaos": {"role": "prefill",
+                      "handoff_chaos": {"seed": 2, "torn_pull_on": 1, "slow_pull_s": 0.1,
+                                        "slow_pull_every": 3, "dead_link_every": 5,
+                                        "expire_export_on": 2}},
+    "fabric_chaos": {"fabric": True,
+                     "fabric_chaos": {"flip_pull_every": 2, "dead_link_on": 3,
+                                      "expire_publish_every": 4}},
 }
 BOTH_RAISE = {
     "adapter_weights": {"scheduler": {"adapter_weights": [["a1", 2.0]]}},
@@ -69,10 +85,10 @@ BOTH_RAISE = {
 PORT_REFUSES = {
     "tensor_parallel": ({"tensor_parallel": 4}, "1.8"),
     "weight_quant": ({"weight_quant": "int8"}, "1.6"),
-    "role": ({"role": "decode"}, "1.3"),
-    "fabric": ({"fabric": True}, "1.3"),
-    "handoff_ttl_s": ({"handoff_ttl_s": 5.0}, "1.3"),
     "constrain_chaos": ({"constrain_chaos": {"stall_on": 1}}, "1.4"),
+    # a sharded-frame injector: the port reads no version 2 frame
+    "handoff_chaos": ({"handoff_chaos": {"shard_torn_pull_on": 1}}, "1.8"),
+    "fabric_chaos": ({"fabric_chaos": {"shard_flip_pull_every": 2}}, "1.8"),
 }
 
 
@@ -123,6 +139,10 @@ def test_both_packages_build_the_same_config(tmp_path, case):
         assert ("interactive", "ttft", 0.5) in port.slo.targets
     if case == "observability":
         assert port.incidents and not port.telemetry and port.hang_timeout_s == 30.0
+    if case == "handoff_chaos":
+        assert port.role == "prefill" and port.handoff_chaos.expire_export_on == 2
+    if case == "fabric_chaos":
+        assert port.fabric and port.fabric_chaos.flip_pull_every == 2
 
 
 @pytest.mark.parametrize("case", sorted(BOTH_RAISE))
@@ -155,5 +175,5 @@ def test_unported_key_map_is_the_jax_fields_minus_the_ports():
             assert f.default_factory is dataclasses.MISSING, f.name
             want[f.name] = f.default
     assert {k: v[0] for k, v in S._UNPORTED_ENGINE_KEYS.items()} == want
-    assert len(want) == 12
+    assert len(want) == 3
     assert {v[1] for v in S._UNPORTED_ENGINE_KEYS.values()} <= {"1.3", "1.4", "1.6", "1.8"}

@@ -498,3 +498,48 @@ def test_watchdog_restart_serves_again_through_the_kernel(card):
     assert after == base
     assert PA.paged_attention.launches > before
     assert stats["free_pages"] + stats["cached_pages"] == geo["num_pages"] - 1
+
+
+@pytest.mark.cuda
+def test_handoff_decode_replica_decodes_through_the_kernel(card, monkeypatch):
+    """Disaggregated on the card: engine A prefills and exports each prompt's
+    KV frame (one token), engine B imports it and decodes with no prefill of
+    its own, through the kernel (its plain version never called), to the
+    unified engine's bytes; a page-boundary prompt included."""
+    from kubeflow_tpu_torch.serving.engine.engine import Engine, EngineConfig
+    from kubeflow_tpu_torch.serving.engine.kvstore import unpack_frame
+
+    plain_calls = []
+    plain = PA.paged_attention_plain
+    monkeypatch.setattr(PA, "paged_attention_plain",
+                        lambda *a, **kw: plain_calls.append(1) or plain(*a, **kw))
+    params = M.init(ENGINE_CFG, card, seed=0)
+    geo = dict(max_slots=4, num_pages=64, page_size=16, max_pages_per_slot=8)
+    prompts = ENGINE_PROMPTS + [list(range(1, 13)) + [3, 5, 7, 9]]  # 16 = one page
+    engines = {role: Engine(params, ENGINE_CFG, EngineConfig(**geo, role=role), device=card)
+               for role in ("unified", "prefill", "decode")}
+    for eng in engines.values():
+        eng.start()
+    try:
+        a, b = engines["prefill"], engines["decode"]
+        for p in prompts:
+            ref = engines["unified"].generate(p, 24)["tokens"]
+            pre = a.generate(p, 1, handoff=True)
+            assert pre["tokens"] == ref[:1]
+            blob, header = unpack_frame(a.pull_handoff(pre["handoff"]["handle"]))
+            before = PA.paged_attention.launches
+            out = b.generate(p + pre["tokens"], 23,
+                             kv_import=(blob, header["nbytes"], header["meta"]["resume_len"]))
+            assert PA.paged_attention.launches > before
+            assert pre["tokens"] + out["tokens"] == ref
+        stats = {role: eng.stats for role, eng in engines.items()}
+        outcomes = b.telemetry.kv_handoff.series()
+    finally:
+        for eng in engines.values():
+            eng.stop()
+    assert stats["decode"]["prefill_dispatches"] == 0
+    assert outcomes == {(("outcome", "import"),): len(prompts)}
+    assert not plain_calls
+    for s in stats.values():
+        assert s["free_pages"] + s["cached_pages"] == geo["num_pages"] - 1
+        assert s["swap_used_bytes"] == 0
