@@ -101,8 +101,23 @@ degrades to a re-prefill, attributed ``handoff_degraded`` or
 ``fabric_degraded``.  The frames are the JAX package's bytes, so either
 package imports the other's.
 
-Not ported yet (later slices): sharded (version 2) frames, constrained
-decoding and brownout, int8 weights, LoRA and tensor parallelism.
+Structured output, brownout, int8 weights and multi-LoRA, as the JAX
+engine has them: a ``constrain`` request (a ``serving.constrain``
+automaton) gates every token it samples through a ``[max_slots, V]``
+grammar mask built on the host after the "constrain" pipeline fence (a
+mask is valid only against the automaton state after the last committed
+token) and applied inside the fused step at the finite -1e30; its
+automaton advances once per committed token in ``_commit``, rides a
+preemption as a snapshot, truncates prompt-lookup drafts at the first
+illegal token, and a zero-legal mask fails only its slot with
+ConstraintStall.  A request's ingress ``brownout`` stage >= 2 drops its
+drafts and >= 3 defers its fabric publish.  ``weight_quant="int8"``
+quantizes the weights at construction on their device; ``lora`` (from
+lora.load_adapters) gives every slot its adapter id, which rides every
+prefill and decode call and seeds the prefix-cache chain hashes.
+
+Not ported yet (later slices): sharded (version 2) frames and tensor
+parallelism.
 """
 
 from __future__ import annotations
@@ -128,16 +143,19 @@ from ..incidents import IncidentConfig, IncidentManager, engine_detectors
 from ..slo import SloConfig, SloTracker
 from ..disagg import HandoffStore, normalize_role
 from ..kvfabric import FabricStore, fabric_key
-from .faults import (ChaosInjector, FabricChaos, FabricFaultConfig,
-                     FaultConfig, HandoffChaos, HandoffFaultConfig)
+from ..constrain import ConstraintStall
+from .faults import (ChaosInjector, ConstrainChaos, ConstrainFaultConfig,
+                     FabricChaos, FabricFaultConfig, FaultConfig, HandoffChaos,
+                     HandoffFaultConfig)
 from .kvstore import (BF16Bits, KVStoreConfig, TieredKVStore, bf16_bits,
                       normalize_session_id, pack_frame)
 from .perf import (CacheStats, FlopsModel, PerfLedger, ProfileStore,
                    TickTimeline, WASTE_REASONS, platform_peak_flops)
 from .model import (DecoderConfig, decode_step, decode_step_k,
                     decode_step_sample, decode_step_sample_packed,
-                    decode_step_verify_sample, make_kv_pool, prefill,
-                    prefill_chunk, sample_tokens, write_pages)
+                    decode_step_verify_sample, make_kv_pool, param_leaves,
+                    prefill, prefill_chunk, quantize_weights_int8,
+                    sample_tokens, write_pages)
 from .native import NativeBatcher
 from .scheduler import (PRIORITY_RANK, QosScheduler, QueueEntry,
                         SchedulerConfig, normalize_priority)
@@ -184,6 +202,9 @@ class EngineConfig:
     # KV-cache quantization: "int8" stores pool entries as int8 + per-token
     # bf16 scales (the paged kernel dequantizes in registers); None = bf16
     kv_quant: Optional[str] = None
+    # weight-only quantization: "int8" halves the weights' bytes on the
+    # card (per-output-channel scales; each use dequantizes); None = bf16
+    weight_quant: Optional[str] = None
     # admission control: submissions past this many queued-unadmitted
     # requests fail fast with EngineOverloaded (0 = unbounded)
     max_queue_depth: int = 0
@@ -226,6 +247,12 @@ class EngineConfig:
     # deterministic fabric-fault injection (faults.FabricFaultConfig):
     # torn/flipped/slow/dead-link pulls, pre-expired publishes
     fabric_chaos: Optional[FabricFaultConfig] = None
+    # ---- structured output (serving/constrain.py) -----------------------
+    # deterministic constrained-decoding fault injection
+    # (faults.ConstrainFaultConfig): corrupted token-map cache reads must
+    # degrade to a counted re-compile; forced zero-legal-token masks must
+    # fail ONLY the stalled slot and feed the constraint_stall detector
+    constrain_chaos: Optional[ConstrainFaultConfig] = None
     # ---- fault tolerance ------------------------------------------------
     # a request whose tick phase (prefill group / decode step) raises is
     # retried in place; after this many CONSECUTIVE failures it is failed
@@ -360,17 +387,31 @@ class _Pending:
     # (preempt_recompute / failover_reprefill): the perf ledger charges
     # those prefill FLOPs as waste under this reason instead of goodput
     waste_reason: Optional[str] = None
+    # LoRA adapter id (0 = base model), resolved from the name at submit
+    adapter_id: int = 0
+    # ingress brownout stage this request was admitted under: >= 2 drops
+    # its speculation drafts, >= 3 also defers its fabric publish
+    brownout: int = 0
+    # grammar constraint (serving.constrain.GrammarConstraint) gating every
+    # token this request samples; None = unconstrained.  It advances once
+    # per committed token (in _commit); a preemption snapshots it
+    constrain: Optional[object] = None
+    # the automaton snapshot taken at preemption, restored and cleared at
+    # re-admission
+    constrain_snap: Optional[dict] = None
 
 
-def _page_hashes(tokens: list, page_size: int) -> np.ndarray:
+def _page_hashes(tokens: list, page_size: int, adapter_id: int = 0) -> np.ndarray:
     """Chain hashes for each FULL prompt page, byte for byte the JAX
-    engine's ``Engine._page_hashes`` with no adapter: hash(page i) is the
-    8-byte blake2b of hash(page i-1) + the page's int32 tokens, so a match
-    means an identical token prefix at identical positions; 0 is reserved
-    as the no-parent sentinel."""
+    engine's ``Engine._page_hashes``: hash(page i) is the 8-byte blake2b of
+    hash(page i-1) + the page's int32 tokens, so a match means an identical
+    token prefix at identical positions; 0 is reserved as the no-parent
+    sentinel.  A nonzero LoRA ``adapter_id`` seeds the chain (its 4
+    little-endian bytes): an adapter changes the KV a prompt produces, so
+    identical prompts under different adapters never share a page."""
     n = len(tokens) // page_size
     out = np.zeros((n,), np.uint64)
-    prev = b""
+    prev = adapter_id.to_bytes(4, "little") if adapter_id else b""
     for i in range(n):
         page = np.asarray(tokens[i * page_size:(i + 1) * page_size], np.int32).tobytes()
         digest = hashlib.blake2b(prev + page, digest_size=8).digest()
@@ -438,11 +479,18 @@ class _Staging:
             self.armed = False
 
     def upload(self, name: str, arr: np.ndarray) -> torch.Tensor:
-        """``arr`` as an int32 tensor on the device, copied without blocking
-        the host."""
+        """``arr`` as a tensor on the device (int32, or bool for a bool
+        array: the grammar mask), copied without blocking the host.  A
+        buffer not set up front (the mask, the adapter ids) is pinned at its
+        first use."""
+        dtype = np.bool_ if arr.dtype == np.bool_ else np.int32
         if not self.cuda:
-            return torch.from_numpy(np.array(arr, dtype=np.int32))
-        host = self.buf[name]
+            return torch.from_numpy(np.array(arr, dtype=dtype))
+        host = self.buf.get(name)
+        if host is None:
+            host = self.buf[name] = torch.zeros(
+                arr.shape, dtype=torch.from_numpy(np.zeros(0, dtype)).dtype,
+                pin_memory=True)
         host.numpy()[...] = arr
         out = host.to(self.device, non_blocking=True)
         self.event.record()
@@ -486,15 +534,19 @@ class _StreamHandle:
 
 class Engine:
     """Continuous-batching generation engine over one model, on ``device``
-    (default ``"cuda"``; raises without a card — pass ``device="cpu"``)."""
+    (default ``"cuda"``; raises without a card — pass ``device="cpu"``).
+    ``lora``: ``(adapter table, {name: id})`` from ``lora.load_adapters``,
+    or None."""
 
     def __init__(self, params, config: DecoderConfig,
-                 engine_config: EngineConfig = EngineConfig(), device=None):
+                 engine_config: EngineConfig = EngineConfig(), device=None,
+                 lora=None):
         self.device = resolve_device(device)
-        for name, t in params.items():
-            if t.device != self.device:
-                raise ValueError(f"param {name!r} is on {t.device}, the engine "
-                                 f"runs on {self.device}")
+        for name, v in params.items():
+            for t in param_leaves({name: v}):
+                if t.device != self.device:
+                    raise ValueError(f"param {name!r} is on {t.device}, the "
+                                     f"engine runs on {self.device}")
         ec = engine_config
         if ec.prefill_chunk % ec.page_size != 0:
             raise ValueError("prefill_chunk must be a multiple of page_size")
@@ -507,6 +559,18 @@ class Engine:
                              "(greedy acceptance is what makes it lossless)")
         if ec.speculative and (ec.spec_max_draft < 1 or ec.spec_ngram < 1):
             raise ValueError("spec_max_draft and spec_ngram must be >= 1")
+        if ec.weight_quant not in (None, "int8"):
+            raise ValueError(f"unsupported weight_quant {ec.weight_quant!r}")
+        if ec.weight_quant == "int8":
+            # on the weights' own device, in column blocks: no dense f32
+            # copy of the model ever exists
+            params = quantize_weights_int8(params)
+        # multi-LoRA: id 0 is the reserved zero adapter, so the per-slot id
+        # table below lets every decode row pick its own adapter with no
+        # branching (lora.py)
+        self._lora = lora[0] if lora else None
+        self.adapters = dict(lora[1]) if lora else {}
+        self._aid_host = np.zeros((ec.max_slots,), np.int32)
         self.params = params
         self.config = config
         self.ec = ec
@@ -518,11 +582,13 @@ class Engine:
         self._stop_ids = frozenset(
             i for i in (ec.eos_id,) + tuple(ec.eos_ids) if i >= 0)
         self._scfg = ec.scheduler if ec.scheduler is not None else SchedulerConfig()
-        for name, _ in self._scfg.adapter_weights:
-            # the port serves the base model only: every request is adapter 0
-            raise ValueError(f"adapter_weights names unknown adapter {name!r} "
-                             "(loaded: [])")
-        self._sched = QosScheduler(self._scfg)
+        weights: dict = {}
+        for name, w in self._scfg.adapter_weights:
+            if name not in self.adapters:
+                raise ValueError(f"adapter_weights names unknown adapter "
+                                 f"{name!r} (loaded: {sorted(self.adapters)})")
+            weights[self.adapters[name]] = float(w)
+        self._sched = QosScheduler(self._scfg, weights)
         self.batcher = NativeBatcher(ec.max_slots, ec.num_pages, ec.page_size,
                                      ec.max_pages_per_slot)
         c = config
@@ -558,6 +624,13 @@ class Engine:
                         if ec.fabric else None)
         self._fabric_chaos = (FabricChaos(ec.fabric_chaos)
                               if ec.fabric_chaos is not None else None)
+        # constrained-decoding chaos (zero-legal masks forced in the mask
+        # builders; serve.py hands it to its ConstrainRegistry for the
+        # cache-read corruption) and the subsystem's loop-side counters
+        self._constrain_chaos = (ConstrainChaos(ec.constrain_chaos)
+                                 if ec.constrain_chaos is not None else None)
+        self._constrained_requests = 0
+        self._constraint_stalls = 0
         # wired by JetStreamModel (it owns the tokenizer): tokens -> the
         # text fingerprint ladder the router's placement matches, and the
         # model identity stamped into every published frame (same-shape
@@ -675,7 +748,7 @@ class Engine:
         dev_kind = (torch.cuda.get_device_name(self.device)
                     if self.device.type == "cuda" else "")
         plat, peak = platform_peak_flops(self.device.type, dev_kind)
-        self._fm = FlopsModel(config)
+        self._fm = FlopsModel(config, lora=self._lora)
         self.perf = PerfLedger(peak, plat, window_s=ec.perf_window_s,
                                on_charge=(self.telemetry.count_flops
                                           if self._perf_on else None))
@@ -832,7 +905,9 @@ class Engine:
                        waste_hint: Optional[str] = None,
                        handoff: bool = False, kv_import=None,
                        fabric_import=None,
-                       pre_hints: Optional[dict] = None) -> Future:
+                       pre_hints: Optional[dict] = None,
+                       adapter: Optional[str] = None, brownout: int = 0,
+                       constrain=None) -> Future:
         """Submit a prompt; the Future resolves to a result dict (``rid``,
         ``tokens``, ``num_tokens``, ``truncated``, ``cancelled``,
         ``preemptions``, ``ttft_s``, ``latency_s``, a ``session`` block with
@@ -872,10 +947,19 @@ class Engine:
         ``pre_hints``: serve-layer walls spent on this request BEFORE submit
         (``{"fabric_pull": s}`` / ``{"handoff_import": s}``), carried on the
         span for the latency waterfall.
+        ``adapter``: name of a loaded LoRA adapter to decode this request
+        with (None = the base model).  ``brownout``: the ingress
+        degradation stage, clamped to [0, 3]: >= 2 drops this request's
+        speculation drafts, >= 3 also defers its fabric publish at finish
+        (quality degrades, never correctness).  ``constrain``: a
+        ``serving.constrain.GrammarConstraint`` gating every token this
+        request samples (compiled by the serve layer, off the tick loop);
+        its token table must map THIS model's vocabulary.
 
         Raises RequestError for an empty prompt, a token id outside the
         vocabulary (an out-of-range embedding index would device-assert on
-        the card), a bad priority or session id, or a request beyond the
+        the card), a bad priority or session id, an unknown adapter, a
+        constraint mapped for another vocabulary, or a request beyond the
         slot capacity; EngineOverloaded when the queue is at
         ``max_queue_depth``; SessionBusy while the session has a turn in
         flight; EngineShutdown once stop() has begun."""
@@ -890,6 +974,15 @@ class Engine:
         prio = normalize_priority(priority)
         if session_id is not None:
             session_id = normalize_session_id(session_id)
+        if constrain is not None:
+            tv = getattr(getattr(constrain, "table", None), "vocab_size", None)
+            if tv != self.config.vocab_size:
+                # a mask sized for another vocab would silently mis-gate
+                # every token: the one constraint shape bug admission can
+                # catch cheaply
+                raise RequestError(
+                    f"constraint token table maps vocab {tv}, model vocab "
+                    f"is {self.config.vocab_size}")
         if self._draining or self._stopped:
             raise EngineShutdown("engine is stopping")
         # a request that can never fit must fail HERE, not head-of-line-
@@ -917,8 +1010,14 @@ class Engine:
             raise exc
         if deadline is None:
             deadline = self.ec.default_deadline_s
+        aid = 0
+        if adapter is not None:
+            if adapter not in self.adapters:
+                raise RequestError(f"unknown adapter {adapter!r} "
+                                   f"(loaded: {sorted(self.adapters)})")
+            aid = self.adapters[adapter]
         toks = [int(t) for t in tokens]
-        hashes = _page_hashes(toks, self.ec.page_size)
+        hashes = _page_hashes(toks, self.ec.page_size, aid)
         fut: Future = Future()
         now = time.perf_counter()
         with self._lock:
@@ -952,7 +1051,10 @@ class Engine:
                 rid=rid, deadline=now + deadline if deadline is not None else None,
                 priority=prio, rank=PRIORITY_RANK[prio], session_id=session_id,
                 stream=stream, span=span, waste_reason=waste_hint,
-                handoff=handoff)
+                handoff=handoff, adapter_id=aid,
+                brownout=max(0, min(3, int(brownout))), constrain=constrain)
+            if constrain is not None:
+                self._constrained_requests += 1
             if session_id is not None:
                 self._session_active[session_id] = rid
             self._future_rid[fut] = rid
@@ -1019,7 +1121,8 @@ class Engine:
 
     def _entry_for(self, rid: int, pending: _Pending) -> QueueEntry:
         return QueueEntry(rid=rid, rank=pending.rank, deadline=pending.deadline,
-                          submitted_at=pending.submitted_at, adapter_id=0,
+                          submitted_at=pending.submitted_at,
+                          adapter_id=pending.adapter_id,
                           pages=self._pages_for(len(pending.tokens)))
 
     def generate(self, tokens: list[int], max_new_tokens: int = 32,
@@ -1029,12 +1132,16 @@ class Engine:
                  links: Optional[list] = None,
                  waste_hint: Optional[str] = None, handoff: bool = False,
                  kv_import=None, fabric_import=None,
-                 pre_hints: Optional[dict] = None) -> dict:
+                 pre_hints: Optional[dict] = None,
+                 adapter: Optional[str] = None, brownout: int = 0,
+                 constrain=None) -> dict:
         fut = self.generate_async(tokens, max_new_tokens, deadline=deadline,
                                   priority=priority, session_id=session_id,
                                   trace=trace, links=links, waste_hint=waste_hint,
                                   handoff=handoff, kv_import=kv_import,
-                                  fabric_import=fabric_import, pre_hints=pre_hints)
+                                  fabric_import=fabric_import, pre_hints=pre_hints,
+                                  adapter=adapter, brownout=brownout,
+                                  constrain=constrain)
         try:
             return fut.result(timeout=timeout)
         except FutureTimeoutError:
@@ -1050,7 +1157,9 @@ class Engine:
                         links: Optional[list] = None,
                         waste_hint: Optional[str] = None, kv_import=None,
                         fabric_import=None,
-                        pre_hints: Optional[dict] = None) -> Iterator:
+                        pre_hints: Optional[dict] = None,
+                        adapter: Optional[str] = None, brownout: int = 0,
+                        constrain=None) -> Iterator:
         """Yield token ids as they are committed, then the result dict that
         ``generate`` returns.  The prompt is submitted NOW (a plain method
         returning an iterator), so it runs even if the caller delays
@@ -1064,7 +1173,9 @@ class Engine:
                                   priority=priority, session_id=session_id,
                                   stream=q, trace=trace, links=links,
                                   waste_hint=waste_hint, kv_import=kv_import,
-                                  fabric_import=fabric_import, pre_hints=pre_hints)
+                                  fabric_import=fabric_import, pre_hints=pre_hints,
+                                  adapter=adapter, brownout=brownout,
+                                  constrain=constrain)
 
         def _iter():
             while True:
@@ -1212,6 +1323,8 @@ class Engine:
                 **self._kv.stats(),
                 "requests_shed": self._requests_shed,
                 "requests_rejected": self._requests_rejected,
+                "constrained_requests": self._constrained_requests,
+                "constraint_stalls": self._constraint_stalls,
                 "spec_proposed": self._spec_proposed,
                 "spec_accepted": self._spec_accepted,
                 "prefill_dispatches": self._prefill_dispatches,
@@ -1236,6 +1349,8 @@ class Engine:
                    if self._handoff_chaos is not None else {}),
                 **({"fabric_chaos": self._fabric_chaos.stats()}
                    if self._fabric_chaos is not None else {}),
+                **({"constrain_chaos": self._constrain_chaos.stats()}
+                   if self._constrain_chaos is not None else {}),
                 **({"slo": self.telemetry.slo.snapshot()}
                    if self.telemetry.slo is not None else {}),
                 **({"incidents": self.incidents.stats()}
@@ -1795,7 +1910,23 @@ class Engine:
                              cancelled=True)
         if decode_ready:
             did_work = True
-            if self._pipe_depth > 0:
+            # structured output: a grammar mask is valid only against the
+            # automaton state AFTER the last committed token, so a
+            # constrained tick never dispatches over an uncommitted
+            # in-flight token.  Fence first (the "constrain" fence), then
+            # build this tick's mask; the drain's commits may finish or fail
+            # rows, and a detected stall fails its slot here
+            gmask = None
+            if any(self._constraint_for(s) is not None for s in decode_ready):
+                if self._inflight is not None:
+                    self._drain_pipeline("constrain")
+                    decode_ready = self._ready_now()
+                if decode_ready:
+                    decode_ready, gmask = self._build_grammar_masks(decode_ready)
+                if not decode_ready:
+                    return did_work
+            constrained = gmask is not None
+            if self._pipe_depth > 0 and not (constrained and self._spec is not None):
                 if self._spec is not None:
                     self._isolated("verify", decode_ready,
                                    self._decode_tick_spec_pipelined, decode_ready,
@@ -1804,24 +1935,28 @@ class Engine:
                                           "k": self._k})
                 else:
                     self._isolated("decode", decode_ready,
-                                   self._decode_tick_pipelined, decode_ready,
+                                   self._decode_tick_pipelined, decode_ready, gmask,
                                    shape={"rows": len(decode_ready),
-                                          "pipelined": True, "constrained": False})
+                                          "pipelined": True, "constrained": constrained})
             else:
+                # the sync loop; and a constrained speculative tick at EVERY
+                # depth: its verify mask composes with this tick's drafts
+                # (position j assumes drafts 0..j-1 accepted), which only
+                # the sync draft walk has in hand before the dispatch
                 drafts = ({slot: self._draft_for(slot, int(self._len_host[slot]))
                            for slot in decode_ready} if self._spec else {})
                 if any(drafts.values()):
                     self._isolated("decode", decode_ready,
                                    self._decode_tick_speculative, decode_ready,
-                                   drafts,
+                                   drafts, gmask,
                                    shape={"rows": len(decode_ready),
                                           "speculative": True,
-                                          "constrained": False, "k": self._k})
+                                          "constrained": constrained, "k": self._k})
                 else:
                     self._isolated("decode", decode_ready,
-                                   self._decode_tick_single, decode_ready,
+                                   self._decode_tick_single, decode_ready, gmask,
                                    shape={"rows": len(decode_ready),
-                                          "constrained": False})
+                                          "constrained": constrained})
             if tl is not None:
                 tl.note(self._ticks, "decode_dispatch", time.perf_counter() - tp)
         elif self._inflight is not None:
@@ -1845,6 +1980,7 @@ class Engine:
             pending = self._requests.get(rid)
             if pending is not None:
                 self._slot_req[slot] = rid
+                self._aid_host[slot] = pending.adapter_id
         if pending is None:
             # resolved while queued (cancel, stop): release the slot untouched
             self.batcher.release(slot)
@@ -1861,6 +1997,13 @@ class Engine:
             self._finish(slot, rid, truncated=False, cancelled=True,
                          cache_ok=False)
             return
+        if pending.constrain_snap is not None:
+            # preempt-resume: restore the automaton byte-exact from its
+            # preemption snapshot BEFORE any first-token mask is built —
+            # swap-resume and drop-recompute both sample their next token
+            # from exactly this state
+            pending.constrain.restore(pending.constrain_snap)
+            pending.constrain_snap = None
         if (pending.deadline is not None and not pending.first_token_at
                 and time.perf_counter() > pending.deadline):
             # expired while queued: shed before spending any prefill (never
@@ -2284,12 +2427,17 @@ class Engine:
             # drop-and-recompute: the resume prompt is the full committed
             # context; its completed full pages go to the prefix cache
             pending.swapped = False
-            pending.page_hashes = _page_hashes(pending.context, ps)
+            pending.page_hashes = _page_hashes(pending.context, ps, pending.adapter_id)
             release_hashes = pending.page_hashes[:max(0, (L - 1) // ps)]
             # the resume re-prefill recomputes positions this engine already
             # computed once: waste, attributed (the cache-hit share is never
             # dispatched, so only the recomputed positions are charged)
             pending.waste_reason = "preempt_recompute"
+        if pending.constrain is not None:
+            # the automaton rides the slot like its KV: the "preempt" drain
+            # above landed every committed token's advance, so the snapshot
+            # covers the whole committed generation
+            pending.constrain_snap = pending.constrain.snapshot()
         pending.preemptions += 1
         self._preemptions += 1
         self._preempt_modes[mode] += 1
@@ -2385,8 +2533,21 @@ class Engine:
         mask[rows] = True
         return torch.from_numpy(mask).to(self.device)
 
-    def _sample(self, logits, ok_dev):
-        """One host transfer of the sampled tokens (and the guard)."""
+    def _lora_args(self, aids: np.ndarray) -> dict:
+        """The LoRA keyword arguments of a prefill or decode call: the
+        adapter table and the rows' adapter ids on the device, or nothing
+        on an engine without adapters."""
+        if self._lora is None:
+            return {}
+        return {"lora_params": self._lora, "adapter_ids": self._host(aids)}
+
+    def _sample(self, logits, ok_dev, mask: Optional[np.ndarray] = None):
+        """One host transfer of the sampled tokens (and the guard).  A
+        grammar ``mask`` ([rows, V] bool) sets illegal logits to the finite
+        -1e30 AFTER the guard has read the raw logits, so a poisoned row
+        still trips the guard."""
+        if mask is not None:
+            logits = torch.where(self._host(mask), logits, -1e30)
         sampled = sample_tokens(logits, self._gen, self.ec.temperature)
         if ok_dev is None:
             return sampled.cpu().numpy(), None
@@ -2404,6 +2565,7 @@ class Engine:
         toks = np.zeros((B, bucket), np.int32)
         lens = np.zeros((B,), np.int32)
         rows = np.zeros((B, n_pages), np.int32)
+        aids = np.zeros((B,), np.int32)
         for i, slot in enumerate(slots):
             pending = self._requests[self._slot_req[slot]]
             if pending.span is not None:
@@ -2411,15 +2573,18 @@ class Engine:
             plen = len(pending.tokens)
             toks[i, :plen] = pending.tokens
             lens[i] = plen
+            aids[i] = pending.adapter_id
             owned = self._pages_for(plen)
             rows[i, :owned] = self._prefill_rows[slot][:owned]
         self._check_epoch()  # last fence before writing the pools
         logits, pk, pv = prefill(self.params, self.config, self._host(toks),
-                                 self._host(lens), ps)
+                                 self._host(lens), ps, **self._lora_args(aids))
         self._count_prefill(B)
         write_pages(self.k_pool, self.v_pool, pk, pv, self._host(rows))
-        sampled, ok = self._sample(*self._guard_logits(
-            logits, [self._slot_req[sl] for sl in slots], phase="prefill"))
+        logits, ok_dev = self._guard_logits(
+            logits, [self._slot_req[sl] for sl in slots], phase="prefill")
+        cmask, cstall, cdone = self._prefill_masks(slots)
+        sampled, ok = self._sample(logits, ok_dev, cmask)
         if self._perf_on:
             # per ROW at the real prompt length; a recompute prefill lands
             # under its waste reason, a NaN-tripped row -> tick_retry
@@ -2429,9 +2594,20 @@ class Engine:
             if ok is not None and not ok[i]:
                 self._fail_nan(slot, "prefill sample row")
                 continue
+            if i in cstall:
+                self._fail_constraint_stall(slot)
+                continue
             pending = self._requests[self._slot_req[slot]]
             del self._prefilling[slot]
             plen = int(lens[i])
+            if i in cdone:
+                # a recompute-resumed automaton already at a closed grammar:
+                # nothing may follow — finish with the kept tokens instead
+                # of sampling (outcome "valid")
+                self._activate_decode(slot, plen, self._pages_for(plen),
+                                      self._prefill_rows[slot])
+                self._finish(slot, self._slot_req[slot], truncated=False)
+                continue
             self._mark_first_token(pending, now)
             self._activate_decode(slot, plen, self._pages_for(plen),
                                   self._prefill_rows[slot])
@@ -2459,6 +2635,7 @@ class Engine:
         n_hist = first_page + n_chunk
         toks = np.zeros((B, C), np.int32)
         lens = np.zeros((B,), np.int32)
+        aids = np.zeros((B,), np.int32)
         chunk_ids = np.zeros((B, n_chunk), np.int32)
         hist_ids = np.zeros((B, n_hist), np.int32)
         table_rows = {}
@@ -2470,6 +2647,7 @@ class Engine:
             chunk = pending.tokens[off:off + C]
             toks[i, :len(chunk)] = chunk
             lens[i] = plen
+            aids[i] = pending.adapter_id
             owned = self._pages_for(plen)
             table_rows[slot] = row = self._prefill_rows[slot]
             # pages past the owned range (final-chunk padding) scatter into
@@ -2482,15 +2660,20 @@ class Engine:
         logits, self.k_pool, self.v_pool = prefill_chunk(
             self.params, self.config, self._host(toks), off,
             self._host(lens), self._host(chunk_ids), self._host(hist_ids),
-            self.k_pool, self.v_pool, ps)
+            self.k_pool, self.v_pool, ps, **self._lora_args(aids))
         self._count_prefill(B)
         finishing = [i for i in range(B) if off + C >= int(lens[i])]
         ok = None
+        cstall = cdone = ()
         if finishing:
+            logits, ok_dev = self._guard_logits(
+                logits, [self._slot_req[sl] for sl in slots], phase="prefill")
+            # mid-prompt rows sample nothing: their grammar walks would be
+            # pure waste
+            cmask, cstall, cdone = self._prefill_masks(slots, only=set(finishing))
             # rows mid-prompt get sampled too (their values are unused) —
             # still one transfer in total
-            sampled, ok = self._sample(*self._guard_logits(
-                logits, [self._slot_req[sl] for sl in slots], phase="prefill"))
+            sampled, ok = self._sample(logits, ok_dev, cmask)
             now = time.perf_counter()
         if self._perf_on:
             # each row advances min(C, plen-off) real positions over `off`
@@ -2505,27 +2688,38 @@ class Engine:
             if ok is not None and not ok[i]:
                 self._fail_nan(slot, "chunked-prefill sample row")
                 continue
+            if i in cstall:
+                self._fail_constraint_stall(slot)
+                continue
             pending = self._requests[self._slot_req[slot]]
             del self._prefilling[slot]
             plen = int(lens[i])
+            if i in cdone:
+                # closed restored automaton: the same graceful finish as the
+                # short-prefill group
+                self._activate_decode(slot, plen, self._pages_for(plen),
+                                      table_rows[slot])
+                self._finish(slot, self._slot_req[slot], truncated=False)
+                continue
             self._mark_first_token(pending, now)
             self._activate_decode(slot, plen, self._pages_for(plen),
                                   table_rows[slot])
             self._commit(slot, int(sampled[i]))
 
-    def _decode_tick_single(self, decode_ready) -> None:
+    def _decode_tick_single(self, decode_ready, gmask=None) -> None:
         """One decode step over ALL slots (inactive and prefilling rows hold
-        len 0 and the trash page), the NaN guard, one batched sample, and
-        the commits."""
+        len 0 and the trash page), the NaN guard, one batched sample (under
+        this tick's grammar mask ``gmask``, if any), and the commits."""
         self._check_epoch()  # last fence before writing the pools
         self._note_dispatch_gap(time.perf_counter())
         logits, self.k_pool, self.v_pool = decode_step(
             self.params, self.config, self._host(self._tok_host),
             self._host(self._len_host), self._host(self._pt_host),
-            self.k_pool, self.v_pool, paged=self._paged)
+            self.k_pool, self.v_pool, paged=self._paged,
+            **self._lora_args(self._aid_host))
         self._dispatch_mark = (self._ticks, time.perf_counter())
         self._decode_steps += 1
-        sampled, ok = self._sample(*self._guard_logits(logits, self._row_rids()))
+        sampled, ok = self._sample(*self._guard_logits(logits, self._row_rids()), gmask)
         if self._perf_on:
             # charged before the commits below advance the lengths
             for slot in decode_ready:
@@ -2643,14 +2837,21 @@ class Engine:
         reason, self._dirty_reason = self._dirty_reason or "roster", None
         return self._fence(reason, st)
 
-    def _sync_fallback(self) -> None:
+    def _sync_fallback(self, gmask=None) -> None:
         """Pool exhausted at the lookahead: drain, then run this tick through
         the sync path, whose commit-time OOM truncates the right row; the
         device state rebuilds next tick."""
         self._drain_pipeline("pool")
         decode_ready = self._ready_now()
         if decode_ready:
-            self._decode_tick_single(decode_ready)
+            self._decode_tick_single(decode_ready, gmask)
+
+    def _pipe_lora(self, st: _Staging) -> dict:
+        """``_lora_args`` for a pipelined dispatch: the adapter ids go up
+        from the staging set's pinned buffer without blocking."""
+        if self._lora is None:
+            return {}
+        return {"lora_params": self._lora, "adapter_ids": st.upload("aids", self._aid_host)}
 
     def _acquire_staging(self) -> _Staging:
         """The staging set of this tick's dispatch.  Its previous user was
@@ -2782,11 +2983,17 @@ class Engine:
                 return False
         return True
 
-    def _decode_tick_pipelined(self, decode_ready) -> None:
+    def _decode_tick_pipelined(self, decode_ready, gmask=None) -> None:
         """One pipelined decode tick: fence if the roster changed, reserve
         lookahead pages, dispatch the fused step (the device consumes its
         own previous output), start the token readback, then commit the
-        PREVIOUS tick's tokens while this one runs."""
+        PREVIOUS tick's tokens while this one runs.
+
+        ``gmask``: this tick's [max_slots, V] grammar mask, the fused
+        step's ``token_mask``, uploaded from a pinned buffer without
+        blocking.  A constrained tick arrives with the pipeline already
+        drained (the "constrain" fence), so the mask is exact for the token
+        this dispatch samples; its commit lands at the next tick's fence."""
         self._check_epoch()  # a superseded thread must not touch the pipeline
         try:
             st = self._acquire_staging()
@@ -2794,7 +3001,7 @@ class Engine:
             if not decode_ready:
                 return
             if not self._reserve_lookahead(decode_ready):
-                self._sync_fallback()
+                self._sync_fallback(gmask)
                 return
             poison = self._poison()
             self._check_epoch()  # last fence before writing the pools
@@ -2804,7 +3011,9 @@ class Engine:
                 st.upload("lens", self._dec_lens_shadow),
                 st.upload("table", self._pt_host), self.k_pool, self.v_pool,
                 self._gen, poison, temperature=self.ec.temperature,
-                guard=self.ec.logit_guard, paged=self._paged)
+                guard=self.ec.logit_guard, paged=self._paged,
+                token_mask=st.upload("mask", gmask) if gmask is not None else None,
+                **self._pipe_lora(st))
             self._dispatch_mark = (self._ticks, time.perf_counter())
             self._decode_steps += 1
             rec = {"staging": st, "out": st.read_back("sampled", sampled),
@@ -2997,7 +3206,7 @@ class Engine:
                     st.upload("drafts", drafts), st.upload("dlen", dlen), lens,
                     table, self.k_pool, self.v_pool, self._gen, poison,
                     temperature=self.ec.temperature, guard=self.ec.logit_guard,
-                    paged=self._paged)
+                    paged=self._paged, **self._pipe_lora(st))
             else:
                 # no drafts anywhere: the single-token step (the sync loop's
                 # no-draft dispatch, same numerics) on the packed edge
@@ -3007,7 +3216,7 @@ class Engine:
                     self.params, self.config, self._dec_state, lens, table,
                     self.k_pool, self.v_pool, self._gen, poison,
                     temperature=self.ec.temperature, guard=self.ec.logit_guard,
-                    paged=self._paged)
+                    paged=self._paged, **self._pipe_lora(st))
             self._dispatch_mark = (self._ticks, time.perf_counter())
             self._decode_steps += 1
             self._inflight = {
@@ -3059,6 +3268,12 @@ class Engine:
             owned = int(np.count_nonzero(self._pt_host[slot]))
         room = owned * ps - seq_len
         pending = self._requests[self._slot_req[slot]]
+        if pending.brownout >= 2:
+            # ingress brownout stage 2+: speculation spends K-wide verify
+            # passes to buy latency, the first quality cost a browned-out
+            # service sheds.  No draft = the plain single-token step, the
+            # same tokens, only slower
+            return []
         if gen_count is None:
             gen_count = len(pending.generated)
         budget = pending.max_new_tokens - gen_count - 1
@@ -3071,7 +3286,35 @@ class Engine:
             if p >= 0:
                 self._pt_host[slot, owned] = p
                 room += ps
-        return self._lookup_draft(pending, min(self.ec.spec_max_draft, room, budget))
+        draft = self._lookup_draft(pending, min(self.ec.spec_max_draft, room, budget))
+        if draft and pending.constrain is not None:
+            draft = self._legal_draft_prefix(pending, draft)
+        return draft
+
+    def _legal_draft_prefix(self, pending: _Pending, draft: list) -> list:
+        """Truncate a prompt-lookup draft at the first token the grammar
+        rejects, walking an automaton CLONE (the request's own automaton
+        advances only in _commit): a known-illegal draft position would
+        spend a verify row on a certain rejection, so every rejected draft
+        that does reach verify is a genuine model disagreement, charged to
+        spec_reject.  A stop id also ends the draft."""
+        ts = time.perf_counter()
+        walker = pending.constrain.clone()
+        keep = 0
+        for t in draft:
+            if int(t) in self._stop_ids or not walker.advance(int(t)):
+                break
+            if not self._grammar_row(walker).any():
+                # the grammar CLOSED behind this token (zero legal rows):
+                # keep the closing token out of the draft, so no verify
+                # position samples from an all-False mask; it arrives as a
+                # sampled token and the next tick's mask build finishes the
+                # slot
+                break
+            keep += 1
+        if pending.span is not None:
+            pending.span.hint("grammar_advance", time.perf_counter() - ts)
+        return draft[:keep]
 
     def _lookup_draft(self, pending: _Pending, limit: int) -> list:
         """Advance the request's n-gram index over newly appended context
@@ -3098,26 +3341,59 @@ class Engine:
             return []
         return ctx[i + n:i + n + limit]
 
-    def _decode_tick_speculative(self, decode_ready, drafts) -> None:
+    def _decode_tick_speculative(self, decode_ready, drafts, gmask=None) -> None:
         """One verify pass over [last token + drafts] for every ready slot;
         commit the longest draft prefix matching greedy argmax plus the
         bonus token of the first non-matching row.  Rejected draft KV stays
-        masked and is overwritten by a later row-0 write."""
+        masked and is overwritten by a later row-0 write.
+
+        ``gmask``: the [max_slots, V] position-0 grammar mask, expanded here
+        into the [max_slots, K, V] verify mask by walking an automaton CLONE
+        over each slot's drafts — position j's row assumes drafts 0..j-1
+        accepted, the state the commit walk is in when it reads logits[j].
+        Drafts the grammar rejects were already cut by _draft_for."""
         K = self._k
         tokens = np.zeros((self.ec.max_slots, K), np.int32)
         for slot in decode_ready:
             tokens[slot, 0] = self._tok_host[slot]
             d = drafts.get(slot) or []
             tokens[slot, 1:1 + len(d)] = d
+        vmask = None
+        if gmask is not None:
+            tm = time.perf_counter()
+            vmask = np.ones((self.ec.max_slots, K, self.config.vocab_size), np.bool_)
+            for slot in decode_ready:
+                pending = self._requests.get(self._slot_req.get(slot))
+                if pending is None or pending.constrain is None:
+                    continue
+                ts = time.perf_counter()
+                vmask[slot, 0, :] = gmask[slot]
+                walker = pending.constrain.clone()
+                for j, t in enumerate(drafts.get(slot) or []):
+                    if not walker.advance(int(t)):
+                        # only from a dead-end state (illegal drafts were
+                        # cut): the previous position's mask forbids going
+                        # on, so the commit walk never reads the rows left
+                        # all-True here
+                        break
+                    vmask[slot, j + 1, :] = self._grammar_row(walker)
+                if pending.span is not None:
+                    pending.span.hint("grammar_advance", time.perf_counter() - ts)
+            self.telemetry.observe_grammar_mask(time.perf_counter() - tm)
         self._check_epoch()  # last fence before writing the pools
         self._note_dispatch_gap(time.perf_counter())
         logits, self.k_pool, self.v_pool = decode_step_k(
             self.params, self.config, self._host(tokens),
             self._host(self._len_host), self._host(self._pt_host),
-            self.k_pool, self.v_pool, paged=self._paged)
+            self.k_pool, self.v_pool, paged=self._paged,
+            **self._lora_args(self._aid_host))
         self._dispatch_mark = (self._ticks, time.perf_counter())
         self._decode_steps += 1
         logits, ok_dev = self._guard_logits(logits, self._row_rids(), phase="verify")
+        if vmask is not None:
+            # AFTER the guard read the raw logits: a poisoned verify pass
+            # must still trip the guard
+            logits = torch.where(self._host(vmask), logits, -1e30)
         B, _, V = logits.shape
         sampled = sample_tokens(logits.reshape(B * K, V), self._gen,
                                 self.ec.temperature).reshape(B, K)
@@ -3188,6 +3464,15 @@ class Engine:
         rid = self._slot_req[slot]
         pending = self._requests[rid]
         self._reset_failures(pending)
+        if pending.constrain is not None and token not in self._stop_ids:
+            # THE automaton-advance point: once per committed token, and
+            # every commit path funnels here.  The mask already forced
+            # legality, so a failed advance is a mask/automaton disagreement
+            # (the stall class): the slot fails BEFORE the token reaches
+            # the stream or the result
+            if not pending.constrain.advance(int(token)):
+                self._fail_constraint_stall(slot)
+                return 0
         if self.ec.telemetry:
             now = time.perf_counter()
             if pending.last_token_at:
@@ -3214,10 +3499,13 @@ class Engine:
         return rc
 
     def _release_slot_state(self, slot: int) -> None:
-        """Zero one slot's host mirrors; every release path funnels here,
-        and a release is a roster change for the pipeline."""
+        """Zero one slot's host mirrors (page row, length, adapter id, last
+        token, prefill row); every release path funnels here, and a release
+        is a roster change for the pipeline.  A freed slot decodes as the
+        zero adapter."""
         self._pt_host[slot, :] = 0
         self._len_host[slot] = 0
+        self._aid_host[slot] = 0
         self._tok_host[slot] = 0
         self._prefill_rows.pop(slot, None)
         self._mark_roster_change("finish")
@@ -3247,12 +3535,15 @@ class Engine:
         if pending.handoff and not cancelled:
             handoff_rec = self._export_handoff(slot, pending, cache_ok)
         # the fleet-fabric publish, same window; a prefill phase skips it
-        # (its pages leave through the one-shot handoff store).  The JAX
-        # engine defers this publish under ingress brownout stage >= 3,
-        # which comes with brownout (ROADMAP item 1.4): here the stage is
-        # always 0.
+        # (its pages leave through the one-shot handoff store)
         if self._fabric is not None and not cancelled and not pending.handoff:
-            self._publish_fabric(slot, pending, cache_ok)
+            if pending.brownout >= 3:
+                # ingress brownout stage 3: a publish snapshots device pages
+                # to the host, deferrable work by definition; the pages
+                # still reach the local prefix cache below
+                self.telemetry.count_fabric("publish_deferred")
+            else:
+                self._publish_fabric(slot, pending, cache_ok)
         self._release_slot_state(slot)
         # the prompt's full pages enter the prefix cache on the way out,
         # unless the prefill never finished (their KV is partial) or the
@@ -3280,6 +3571,18 @@ class Engine:
             err = session.get("error") or session.get("reason")
             if err:
                 result["session"]["error"] = err
+        if pending.constrain is not None:
+            # the structured-output receipt: "valid" when the automaton
+            # ACCEPTS the whole generation (a complete grammar-valid
+            # utterance); a budget cut, an OOM truncation or a cancel left a
+            # legal but incomplete prefix: "truncated"
+            c = pending.constrain
+            outcome = "valid" if c.accepting() else "truncated"
+            self.telemetry.count_constrain(outcome)
+            result["constrain"] = {"kind": c.kind, "outcome": outcome,
+                                   "n_tokens": c.n_tokens, "n_bytes": c.n_bytes}
+            if c.tool_name is not None:
+                result["constrain"]["tool"] = c.tool_name
         self._resolve(pending, result)
 
     def _export_handoff(self, slot: int, pending: _Pending, cache_ok: bool) -> dict:
@@ -3304,7 +3607,7 @@ class Engine:
         try:
             blob, _ = self._snapshot_pages(self._pt_host[slot, :owned])
             meta = {"resume_len": L, "page_size": self.ec.page_size,
-                    "pages": owned, "adapter_id": 0,
+                    "pages": owned, "adapter_id": pending.adapter_id,
                     "generated": list(pending.generated)}
             data, nbytes, _ = pack_frame(f"handoff/{pending.rid}", blob, meta)
             ttl = None
@@ -3347,7 +3650,7 @@ class Engine:
             return
         t0 = time.perf_counter()
         try:
-            hashes = _page_hashes(pending.context, ps)[:covered]
+            hashes = _page_hashes(pending.context, ps, pending.adapter_id)[:covered]
             key = fabric_key(hashes[-1])
             if self._fabric.covers(key, covered):
                 # the same prefix is already published and live: skip the
@@ -3359,7 +3662,7 @@ class Engine:
                 fps = self.fabric_fingerprinter(pending.context[:covered * ps]) or []
             blob, _ = self._snapshot_pages(self._pt_host[slot, :covered])
             meta = {"hashes": [int(h) for h in hashes], "pages": covered,
-                    "page_size": ps, "adapter_id": 0,
+                    "page_size": ps, "adapter_id": pending.adapter_id,
                     "model": self.fabric_model_id, "fps": fps}
             data, nbytes, _ = pack_frame(f"fabric/{key}", blob, meta)
             ttl = None
@@ -3438,10 +3741,10 @@ class Engine:
         t0 = time.perf_counter()
         try:
             blob, nbytes = self._snapshot_pages(self._pt_host[slot, :covered])
-            hashes = _page_hashes(pending.context, ps)[:covered]
+            hashes = _page_hashes(pending.context, ps, pending.adapter_id)[:covered]
             meta = {"hashes": [int(h) for h in hashes],
                     "context_len": len(pending.context),
-                    "adapter_id": 0, "pages": covered}
+                    "adapter_id": pending.adapter_id, "pages": covered}
             res = self._kv.pin_session(pending.session_id, blob, nbytes, meta)
         except Exception as exc:  # noqa: BLE001 — a pin must not fail the turn
             self.telemetry.count_session_pin("rejected")
@@ -3529,6 +3832,131 @@ class Engine:
                              rid=self._slot_req.get(slot), trace_ids=tids,
                              dump=path)
         self._fail_slot(slot, NonFiniteLogits(f"non-finite logits in {where}"))
+
+    # ------------------------------------ structured output (constrain.py)
+
+    def _constraint_for(self, slot: int) -> Optional[object]:
+        p = self._requests.get(self._slot_req.get(slot))
+        return p.constrain if p is not None else None
+
+    def _grammar_row(self, c) -> np.ndarray:
+        """One automaton state's legal-token mask for the NEXT sampled
+        token: the trie-walk token mask with the stop ids composed from
+        acceptance — a stop id is legal exactly when the text so far is a
+        complete grammar-valid utterance, and once the grammar can only
+        END it is the sole legal token (the mask forces termination)."""
+        row = c.token_mask()
+        acc = c.accepting()
+        for t in self._stop_ids:
+            if 0 <= t < row.shape[0]:
+                row[t] = acc
+        return row
+
+    def _grammar_mask_row(self, pending: _Pending):
+        """``(row, forced)``: the slot's legal-token row, zeroed when the
+        constrain chaos forces a stall; its wall joins the request's
+        ``grammar_advance`` share of the waterfall."""
+        ts = time.perf_counter()
+        row = self._grammar_row(pending.constrain)
+        forced = (self._constrain_chaos is not None
+                  and self._constrain_chaos.stall_mask())
+        if forced:
+            row = np.zeros_like(row)
+        if pending.span is not None:
+            pending.span.hint("grammar_advance", time.perf_counter() - ts)
+        return row, forced
+
+    def _build_grammar_masks(self, slots: list) -> tuple:
+        """This tick's [max_slots, V] boolean token mask from each
+        constrained slot's automaton, built on the host; unconstrained rows
+        stay all-True, so their sampling is the unmasked one.  MUST run
+        with no dispatch in flight (the _tick "constrain" fence).
+
+        A row with zero legal tokens is told apart by acceptance: a CLOSED
+        grammar (accepting, nothing may follow — e.g. no stop id to express
+        the end) finishes the slot gracefully with the tokens it has; a
+        non-accepting empty row (chaos-forced, or a compile or token-map
+        bug) fails ONLY that slot (ConstraintStall).  Both leave the
+        returned ready list.  Returns ``(surviving_slots, mask)``, mask
+        None when no surviving slot is constrained."""
+        t0 = time.perf_counter()
+        mask = None
+        stalled, closed = [], []
+        for slot in slots:
+            pending = self._requests.get(self._slot_req.get(slot))
+            if pending is None or pending.constrain is None:
+                continue
+            row, forced = self._grammar_mask_row(pending)
+            if not row.any():
+                if not forced and pending.constrain.accepting():
+                    closed.append(slot)
+                else:
+                    stalled.append(slot)
+                continue
+            if mask is None:
+                mask = np.ones((self.ec.max_slots, self.config.vocab_size), np.bool_)
+            mask[slot, :] = row
+        self.telemetry.observe_grammar_mask(time.perf_counter() - t0)
+        for slot in closed:
+            self._finish(slot, self._slot_req[slot], truncated=False)
+        for slot in stalled:
+            self._fail_constraint_stall(slot)
+        if stalled or closed:
+            gone = set(stalled) | set(closed)
+            slots = [s for s in slots if s not in gone]
+        return slots, mask
+
+    def _prefill_masks(self, slots: list, only=None) -> tuple:
+        """First-token grammar masks of one prefill group, in ROW order
+        (``mask[i]`` gates ``slots[i]``); the prompt never advances the
+        automaton, so a fresh request masks from the grammar's start state
+        and a recompute resume from its restored snapshot.  ``only``
+        restricts the build to those row indices (a chunked group's
+        finishing rows).  Returns ``(mask_or_None, stalled_rows,
+        closed_rows)``: stalled rows keep an all-True row and the caller
+        fails them; closed rows (a restored automaton at a complete
+        utterance with nothing allowed to follow) finish with their kept
+        tokens instead of committing."""
+        mask = None
+        stall, done = set(), set()
+        t0 = time.perf_counter()
+        for i, slot in enumerate(slots):
+            if only is not None and i not in only:
+                continue
+            pending = self._requests.get(self._slot_req.get(slot))
+            if pending is None or pending.constrain is None:
+                continue
+            row, forced = self._grammar_mask_row(pending)
+            if not row.any():
+                if not forced and pending.constrain.accepting():
+                    done.add(i)
+                else:
+                    stall.add(i)
+                continue
+            if mask is None:
+                mask = np.ones((len(slots), self.config.vocab_size), np.bool_)
+            mask[i, :] = row
+        if mask is not None or stall or done:
+            self.telemetry.observe_grammar_mask(time.perf_counter() - t0)
+        return mask, stall, done
+
+    def _fail_constraint_stall(self, slot: int) -> None:
+        """A constrained slot's mask has zero legal tokens: a grammar
+        compile or token-map bug, never the client's fault.  Fail ONLY this
+        slot with ConstraintStall, count the outcome, and feed the incident
+        plane's constraint_stall detector."""
+        self._constraint_stalls += 1
+        self.telemetry.count_constrain("stall")
+        tids: list = []
+        if self.ec.telemetry:
+            tids = self._slot_trace_ids([slot])
+            self._flight_event("constraint_stall", [slot], None,
+                               time.perf_counter(), "stall",
+                               error="zero legal tokens under grammar mask")
+        self._incident_event("constraint_stall", rid=self._slot_req.get(slot),
+                             trace_ids=tids)
+        self._fail_slot(slot, ConstraintStall(
+            "constrained decode reached a state with zero legal tokens"))
 
     def _check_epoch(self) -> None:
         """Die (via _StaleThread, uncatchable by the isolation boundaries)
@@ -3647,6 +4075,7 @@ class Engine:
         self._prefill_rows.clear()
         self._pt_host[:] = 0
         self._len_host[:] = 0
+        self._aid_host[:] = 0
         self._tok_host[:] = 0
         self._dec_lens_shadow[:] = 0
         if self.ec.watchdog_restart:

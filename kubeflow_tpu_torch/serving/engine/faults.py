@@ -36,8 +36,12 @@ Counterpart of ``kubeflow_tpu/serving/engine/faults.py``, in two scopes:
   sub-frame of a sharded (version 2) frame, which this port does not read
   (ROADMAP item 1.8): a config that sets one off its default is refused.
 
-The constrain, storm and fleet fault families come with the slices that
-port those subsystems.
+* Constrain scope: corrupted token-map cache reads of the constrained-
+  decoding registry (serving/constrain.py) and forced zero-legal-token
+  masks, which must fail only the stalled slot with ConstraintStall.
+
+The storm and fleet fault families come with the slices that port those
+subsystems.
 """
 
 from __future__ import annotations
@@ -631,4 +635,90 @@ class FabricChaos:
                     self.injected_expired_publishes,
                 # sharded frames are refused at config time
                 "injected_shard_faults": 0,
+            }
+
+
+# ------------------------------------------------------------ constrain scope
+
+
+@dataclasses.dataclass(frozen=True)
+class ConstrainFaultConfig:
+    """Seeded constrained-decoding fault plan (serving/constrain.py).
+    Frozen (rides in the frozen EngineConfig); all-defaults == inject
+    nothing.  ``*_on`` fields are 1-based operation ordinals (-1 = off);
+    ``*_every`` fire on every Nth operation (0 = off) — cache reads and
+    mask builds count separately."""
+
+    seed: int = 0
+    # flip one payload byte of the Nth token-map cache READ (silent
+    # corruption of the durable ``tokmap-<sig>.json`` artifact): the
+    # registry's payload CRC must catch it and degrade to a counted
+    # re-compile — NEVER an invalid output, because the rebuilt table is
+    # byte-identical to a cold build
+    corrupt_cache_on: int = -1
+    corrupt_cache_every: int = 0
+    # force the Nth constrained mask build to report ZERO legal tokens
+    # (stands in for a grammar-compile or token-mapping bug): the engine
+    # must fail ONLY that slot with ConstraintStall and feed the incident
+    # plane's ``constraint_stall`` detector — it must never "recover" by
+    # emitting a token the grammar forbids
+    stall_on: int = -1
+    stall_every: int = 0
+
+
+class ConstrainChaos:
+    """Runtime half of ConstrainFaultConfig.  ``on_cache_read(data) ->
+    data`` wraps the registry's token-map cache reads (may flip one
+    payload byte — the CRC verifier's territory); ``stall_mask() ->
+    bool`` is consulted by the engine's mask builder once per constrained
+    mask (True = zero the mask).  Counters are the test surface: injected
+    faults vs counted degradations must match exactly."""
+
+    def __init__(self, config: ConstrainFaultConfig):
+        self.config = config
+        self.rng = np.random.default_rng(config.seed)
+        self._lock = threading.Lock()
+        self.cache_reads = 0
+        self.masks = 0
+        self.injected_corrupt_reads = 0
+        self.injected_stalls = 0
+
+    @staticmethod
+    def _hit(n: int, on: int, every: int) -> bool:
+        return (on > 0 and n == on) or (every > 0 and n % every == 0)
+
+    def on_cache_read(self, data: bytes) -> bytes:
+        c = self.config
+        with self._lock:
+            self.cache_reads += 1
+            n = self.cache_reads
+            flip = (self._hit(n, c.corrupt_cache_on, c.corrupt_cache_every)
+                    and len(data) > 16)
+            if flip:
+                self.injected_corrupt_reads += 1
+                # bias into the back half: the hex token payload, so the
+                # flip lands in CRC-covered bytes, not the JSON scaffold
+                i = int(self.rng.integers(len(data) // 2, len(data)))
+        if flip:
+            b = bytearray(data)
+            b[i] ^= 0x40
+            return bytes(b)
+        return data
+
+    def stall_mask(self) -> bool:
+        c = self.config
+        with self._lock:
+            self.masks += 1
+            if self._hit(self.masks, c.stall_on, c.stall_every):
+                self.injected_stalls += 1
+                return True
+            return False
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "constrain_cache_reads": self.cache_reads,
+                "constrain_masks": self.masks,
+                "injected_corrupt_reads": self.injected_corrupt_reads,
+                "injected_stalls": self.injected_stalls,
             }

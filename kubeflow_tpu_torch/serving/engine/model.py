@@ -25,7 +25,14 @@ function, so each entry point can be held against its JAX twin:
     and ``decode_step_sample_packed``) sample and guard on the device and
     return one small int32 output per slot, so a tick copies back only
     tokens.  The verify steps run K query rows per slot, through the paged
-    kernel at K > 1 with ``paged=True``.
+    kernel at K > 1 with ``paged=True``.  A ``token_mask`` (grammar-legal
+    tokens) sets every other logit to the finite ``-1e30`` after the NaN
+    guard has read the raw logits;
+  * weights may be int8 (``quantize_weights_int8``: ``{"q", "s"}`` leaves,
+    dequantized per use by ``_w`` and ``_embed_rows``), and every
+    projection adds a per-row LoRA delta when an adapter table is passed
+    (``lora_params``, ``adapter_ids``; lora.py).  Both are plain tensor
+    code, as they are XLA code in the JAX package.
 
 Every function takes the device from its inputs; ``init`` and
 ``load_params`` take an explicit ``device`` (default ``"cuda"``, which
@@ -198,15 +205,28 @@ def _tensor_from_numpy(arr) -> torch.Tensor:
 def params_from_jax(np_params: dict, device=None) -> dict:
     """The weight carrier: a dict of numpy arrays (``np.asarray`` of the JAX
     package's params) -> a dict of tensors on ``device`` (default
-    ``"cuda"``), dtypes unchanged.  Dense weights only in this slice."""
+    ``"cuda"``), dtypes unchanged.  An int8 leaf ``{"q", "s"}`` (the JAX
+    package's ``quantize_weights_int8``) keeps its int8 payload and its bf16
+    scales bit for bit."""
     dev = resolve_device(device)
     out = {}
     for name, arr in np_params.items():
         if isinstance(arr, dict):
-            raise ValueError(f"param {name!r} is quantized; int8 weights are "
-                             "not supported by this port yet")
-        out[name] = _tensor_from_numpy(arr).to(dev)
+            out[name] = {k: _tensor_from_numpy(arr[k]).to(dev) for k in ("q", "s")}
+        else:
+            out[name] = _tensor_from_numpy(arr).to(dev)
     return out
+
+
+def param_leaves(params: dict) -> list:
+    """Every tensor of a params dict (an int8 leaf is its ``q`` and ``s``)."""
+    return [t for v in params.values()
+            for t in (v.values() if isinstance(v, dict) else (v,))]
+
+
+def param_bytes(params: dict) -> int:
+    """Bytes the params take on their device."""
+    return sum(t.numel() * t.element_size() for t in param_leaves(params))
 
 
 def load_params(model_dir: str, config: DecoderConfig, device=None) -> dict:
@@ -221,12 +241,138 @@ def load_params(model_dir: str, config: DecoderConfig, device=None) -> dict:
     return init(config, device)
 
 
+# ------------------------------------------------ int8 weight quantization
+#
+# Weight-only int8: each matmul weight becomes {"q": int8, "s": bf16 scales}
+# with one scale per OUTPUT channel (the contraction axis is reduced over,
+# so the matmul stays exact up to int8 rounding); the embedding table gets
+# one scale per row.  At-rest weight bytes halve.  ``_w`` dequantizes
+# (``q.to(bf16) * s``) at each use, as the JAX package's ``_w`` does inside
+# its jit.  The numerics are the JAX package's to the bit: the scale is
+# computed in f32, the payload rounded half to even from the f32 quotient,
+# and only then is the scale stored as bf16.
+
+_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3", "embed", "unembed")
+
+
+def _quant_f32(blk: torch.Tensor, axis: int = -2):
+    """Quantize one f32 block, scales reduced over ``axis``: -2 (default)
+    per output channel, for the matmul weights; -1 per row, for the
+    embedding table (each token's row carries its own scale, so one outlier
+    row does not degrade every other token).  Returns (q int8, s bf16)."""
+    s = blk.abs().amax(dim=axis, keepdim=True).clamp(min=1e-8) / 127.0
+    q = torch.round(blk / s).clamp(-127, 127).to(torch.int8)
+    return q, s.to(torch.bfloat16)
+
+
+def quantize_weights_int8(params: dict, col_chunk: int = 2048) -> dict:
+    """Matmul and embedding weights -> {"q": int8, "s": bf16} (norms stay
+    dense), on each weight's own device, chunked over output columns (over
+    vocab rows for ``embed``): the int8 leaves are allocated once and filled
+    block by block, so the peak transient is one f32 block and no dense f32
+    copy of the model ever exists.  Leaves already quantized pass
+    through."""
+    out = {}
+    for name, w in params.items():
+        if name not in _QUANT_KEYS or isinstance(w, dict):
+            out[name] = w
+            continue
+        rows = name == "embed"  # per-row: chunk over vocab rows instead
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        s_shape = (w.shape[0], 1) if rows else tuple(w.shape[:-2]) + (1, w.shape[-1])
+        s = torch.empty(s_shape, dtype=torch.bfloat16, device=w.device)
+        n = w.shape[0] if rows else w.shape[-1]
+        for lo in range(0, n, col_chunk):
+            if rows:
+                q[lo:lo + col_chunk], s[lo:lo + col_chunk] = _quant_f32(
+                    w[lo:lo + col_chunk].float(), axis=-1)
+            else:
+                q[..., lo:lo + col_chunk], s[..., lo:lo + col_chunk] = _quant_f32(
+                    w[..., lo:lo + col_chunk].float())
+        out[name] = {"q": q, "s": s}
+    return out
+
+
+def init_int8(config: DecoderConfig, device=None, seed: int = 0) -> dict:
+    """Random-init DIRECTLY into int8 weights, one layer (and, for the
+    embedding tables, one block) at a time, so the dense bf16 model never
+    exists.  Same names, shapes, scales and quantization as ``init`` then
+    ``quantize_weights_int8``, from a ``torch.Generator`` seeded by
+    ``seed``; as in the JAX package, the draws are laid out per layer and
+    per block, so they differ from ``init``'s, which random-weight benches
+    don't care about.  ``device`` defaults to ``"cuda"``."""
+    c = config
+    hd = c.head_dim
+    n = c.n_layers
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def draw(shape, fan_in):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32) / math.sqrt(fan_in)
+
+    def q2(rows, cols, fan_in, per_row=False):
+        q = torch.empty((rows, cols), dtype=torch.int8, device=dev)
+        s = torch.empty((rows, 1) if per_row else (1, cols),
+                        dtype=torch.bfloat16, device=dev)
+        step = 2048
+        for lo in range(0, rows if per_row else cols, step):
+            if per_row:
+                q[lo:lo + step], s[lo:lo + step] = _quant_f32(
+                    draw((min(step, rows - lo), cols), fan_in), axis=-1)
+            else:
+                q[:, lo:lo + step], s[:, lo:lo + step] = _quant_f32(
+                    draw((rows, min(step, cols - lo)), fan_in))
+        return {"q": q, "s": s}
+
+    def q3(in_dim, out_dim, fan_in):
+        q = torch.empty((n, in_dim, out_dim), dtype=torch.int8, device=dev)
+        s = torch.empty((n, 1, out_dim), dtype=torch.bfloat16, device=dev)
+        for l in range(n):
+            q[l], s[l] = _quant_f32(draw((in_dim, out_dim), fan_in))
+        return {"q": q, "s": s}
+
+    bf16 = torch.bfloat16
+    return {
+        "embed": q2(c.vocab_size, c.d_model, 1.0, per_row=True),
+        "wq": q3(c.d_model, c.n_heads * hd, c.d_model),
+        "wk": q3(c.d_model, c.n_kv_heads * hd, c.d_model),
+        "wv": q3(c.d_model, c.n_kv_heads * hd, c.d_model),
+        "wo": q3(c.n_heads * hd, c.d_model, c.n_heads * hd),
+        "w1": q3(c.d_model, c.d_ff, c.d_model),
+        "w3": q3(c.d_model, c.d_ff, c.d_model),
+        "w2": q3(c.d_ff, c.d_model, c.d_ff),
+        "ln_attn": torch.ones((n, c.d_model), dtype=bf16, device=dev),
+        "ln_mlp": torch.ones((n, c.d_model), dtype=bf16, device=dev),
+        "ln_out": torch.ones((c.d_model,), dtype=bf16, device=dev),
+        "unembed": q2(c.d_model, c.vocab_size, c.d_model),
+    }
+
+
+def _w(p, l=None):
+    """Weight leaf -> bf16 dense slice (dequantizing {"q", "s"} per use)."""
+    if isinstance(p, dict):
+        q, s = (p["q"], p["s"]) if l is None else (p["q"][l], p["s"][l])
+        return q.to(torch.bfloat16) * s
+    return p if l is None else p[l]
+
+
+def _embed_rows(p, tokens):
+    """Embedding gather that dequantizes AFTER the row gather (dequantizing
+    the whole [V, D] table first would materialize it dense); the per-row
+    scales are gathered alongside the rows."""
+    if isinstance(p, dict):
+        return p["q"][tokens].to(torch.bfloat16) * p["s"][tokens]
+    return p[tokens]
+
+
 # --------------------------------------------------------------------- blocks
 
 
 def _embed(params, config, tokens):
     """Input embedding incl. Gemma's sqrt(d_model) input-side scaling."""
-    x = params["embed"][tokens]
+    x = _embed_rows(params["embed"], tokens)
     if config.scale_embed:
         x = x * float(np.sqrt(config.d_model))
     return x
@@ -261,22 +407,41 @@ def _attn(q, k, v, mask):
     return torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)
 
 
-def _proj(params, l, name, h):
-    """h @ W[name][l] (LoRA adapters are not ported yet)."""
-    return h @ params[name][l]
+def _proj(params, l, name, h, lora=None):
+    """h @ W[name][l], plus the per-row LoRA delta when an adapter table is
+    live: ``lora`` = (adapters, adapter_ids) where adapters[name] holds
+    stacked {"A": [n_adapters, L, in, r], "B": [n_adapters, L, r, out]}
+    (adapter 0 is all zeros = "no adapter", so a row without one multiplies
+    by zeros instead of branching) and adapter_ids is [B] selecting each
+    batch row's adapter."""
+    y = h @ _w(params[name], l)
+    if lora is not None and name in lora[0]:
+        ad, aids = lora[0][name], lora[1]
+        A = ad["A"][aids, l]   # [B, in, r]: a small gather, r is 8-64
+        Bm = ad["B"][aids, l]  # [B, r, out]
+        delta = torch.einsum("bsr,bro->bso", torch.einsum("bsd,bdr->bsr", h, A), Bm)
+        y = y + delta.to(y.dtype)
+    return y
 
 
-def _block_with(params, l, config, x, positions, attend):
+def _lora(lora_params, adapter_ids):
+    """The ``lora`` argument of ``_proj``: None without an adapter table."""
+    if lora_params is None:
+        return None
+    return lora_params, adapter_ids.long()
+
+
+def _block_with(params, l, config, x, positions, attend, lora=None):
     """One transformer block with a pluggable attention: ``attend(q)`` maps
     roped queries [B, S, Hq, hd] to attention outputs of the same shape (the
     hook where the gather path and the paged kernel diverge)."""
     c = config
     h = _rms_norm(x, params["ln_attn"][l], c.norm_eps)
     B, S = x.shape[:2]
-    q = _proj(params, l, "wq", h).reshape(B, S, c.n_heads, c.head_dim)
+    q = _proj(params, l, "wq", h, lora).reshape(B, S, c.n_heads, c.head_dim)
     q = _rope(q, positions, c.rope_theta)
     attn = attend(q)
-    x = x + _proj(params, l, "wo", attn.reshape(B, S, -1))
+    x = x + _proj(params, l, "wo", attn.reshape(B, S, -1), lora)
     h = _rms_norm(x, params["ln_mlp"][l], c.norm_eps)
     if c.act == "silu":
         act = F.silu
@@ -286,21 +451,22 @@ def _block_with(params, l, config, x, positions, attend):
     else:  # a typo'd config must not silently serve wrong math
         raise ValueError(f"unknown act {c.act!r} (silu | gelu_tanh)")
     return x + _proj(params, l, "w2",
-                     act(_proj(params, l, "w1", h)) * _proj(params, l, "w3", h))
+                     act(_proj(params, l, "w1", h, lora)) * _proj(params, l, "w3", h, lora),
+                     lora)
 
 
-def _block(params, l, config, x, k_cache, v_cache, positions, mask):
+def _block(params, l, config, x, k_cache, v_cache, positions, mask, lora=None):
     """One transformer block over a contiguous cache: k_cache/v_cache
     [B, T, Hkv, hd] already hold this step's k/v at the right positions."""
     return _block_with(params, l, config, x, positions,
-                       lambda q: _attn(q, k_cache, v_cache, mask))
+                       lambda q: _attn(q, k_cache, v_cache, mask), lora=lora)
 
 
-def _kv_proj(params, l, config, h, positions):
+def _kv_proj(params, l, config, h, positions, lora=None):
     c = config
     B, S = h.shape[:2]
-    k = _proj(params, l, "wk", h).reshape(B, S, c.n_kv_heads, c.head_dim)
-    v = _proj(params, l, "wv", h).reshape(B, S, c.n_kv_heads, c.head_dim)
+    k = _proj(params, l, "wk", h, lora).reshape(B, S, c.n_kv_heads, c.head_dim)
+    v = _proj(params, l, "wv", h, lora).reshape(B, S, c.n_kv_heads, c.head_dim)
     k = _rope(k, positions, c.rope_theta)
     return k, v
 
@@ -375,11 +541,13 @@ def _lengths(lengths, B, device):
 # -------------------------------------------------------------------- prefill
 
 
-def prefill(params, config: DecoderConfig, tokens, lengths, page_size: int):
+def prefill(params, config: DecoderConfig, tokens, lengths, page_size: int,
+            lora_params=None, adapter_ids=None):
     """Process a batch of same-bucket prompts in one call.
 
     tokens: [B, S] int (each row padded to the shared bucket S); lengths:
-    [B] int per-row prompt lengths (a scalar broadcasts).  Returns
+    [B] int per-row prompt lengths (a scalar broadcasts); adapter_ids: [B]
+    per-row LoRA adapter, so mixed-adapter groups still share a call.  Returns
     (logits_last [B, vocab] f32, paged_k, paged_v) where paged_k/v are
     [layers, B, S/page_size, Hkv, page_size, hd] — ready to scatter into the
     page pool at each row's page ids via ``write_pages``."""
@@ -387,6 +555,7 @@ def prefill(params, config: DecoderConfig, tokens, lengths, page_size: int):
     B, S = tokens.shape
     dev = tokens.device
     tokens = tokens.long()
+    lora = _lora(lora_params, adapter_ids)
     lengths = _lengths(lengths, B, dev)
     pos_row = torch.arange(S, device=dev)
     positions = pos_row[None, :].expand(B, S)
@@ -397,14 +566,14 @@ def prefill(params, config: DecoderConfig, tokens, lengths, page_size: int):
     ks, vs = [], []
     for l in range(c.n_layers):
         h = _rms_norm(x, params["ln_attn"][l], c.norm_eps)
-        k, v = _kv_proj(params, l, c, h, positions)
+        k, v = _kv_proj(params, l, c, h, positions, lora)
         ks.append(k)
         vs.append(v)
-        x = _block(params, l, c, x, k, v, positions, mask)
+        x = _block(params, l, c, x, k, v, positions, mask, lora)
     x = _rms_norm(x, params["ln_out"], c.norm_eps)
     # logits at each row's last REAL token (lengths-1)
     last = x[torch.arange(B, device=dev), lengths - 1]
-    logits = (last @ params["unembed"]).float()
+    logits = (last @ _w(params["unembed"])).float()
     n_pages = S // page_size
     paged_k = (torch.stack(ks)
                .reshape(c.n_layers, B, n_pages, page_size, c.n_kv_heads, c.head_dim)
@@ -432,7 +601,8 @@ def write_pages(k_pool, v_pool, paged_k, paged_v, page_ids):
 
 
 def prefill_chunk(params, config: DecoderConfig, tokens, start, lengths,
-                  chunk_page_ids, hist_page_ids, k_pool, v_pool, page_size: int):
+                  chunk_page_ids, hist_page_ids, k_pool, v_pool, page_size: int,
+                  lora_params=None, adapter_ids=None):
     """Advance a BATCH of long prompts one page-aligned chunk each, in one
     call against the page pool (chunked prefill: a long prompt never
     head-of-line-blocks the decode steps of other slots).
@@ -442,7 +612,8 @@ def prefill_chunk(params, config: DecoderConfig, tokens, start, lengths,
     lengths (scalar broadcasts); chunk_page_ids: [B, C/page_size] pool pages
     to scatter each row's chunk KV into (unowned tail slots point at the
     trash page 0); hist_page_ids: [B, H] pool pages covering positions
-    [0, start+C) per row.  Pools are written in place.
+    [0, start+C) per row; adapter_ids: [B] per-row LoRA adapter.  Pools
+    are written in place.
 
     Returns (logits [B, vocab] at each row's position length-1 — garbage
     unless that row's final chunk — , k_pool, v_pool)."""
@@ -450,6 +621,7 @@ def prefill_chunk(params, config: DecoderConfig, tokens, start, lengths,
     B, C = tokens.shape
     dev = tokens.device
     tokens = tokens.long()
+    lora = _lora(lora_params, adapter_ids)
     start = int(start)
     lengths = _lengths(lengths, B, dev)
     if chunk_page_ids.ndim == 1:  # legacy batch-1 call shape
@@ -469,7 +641,7 @@ def prefill_chunk(params, config: DecoderConfig, tokens, start, lengths,
             & (t_range[None, None, :] < lengths[:, None, None]))
     for l in range(c.n_layers):
         h = _rms_norm(x, params["ln_attn"][l], c.norm_eps)
-        k, v = _kv_proj(params, l, c, h, positions)
+        k, v = _kv_proj(params, l, c, h, positions, lora)
         pool_set(k_pool, (l, chunk_page_ids),
                  k.reshape(B, n_chunk, page_size, c.n_kv_heads, c.head_dim)
                   .permute(0, 1, 3, 2, 4))  # [B, n, Hkv, ps, hd]
@@ -481,10 +653,10 @@ def prefill_chunk(params, config: DecoderConfig, tokens, start, lengths,
                    .permute(0, 1, 3, 2, 4).reshape(B, T, c.n_kv_heads, c.head_dim))
         v_cache = (pool_get(v_pool, (l, hist_page_ids))
                    .permute(0, 1, 3, 2, 4).reshape(B, T, c.n_kv_heads, c.head_dim))
-        x = _block(params, l, c, x, k_cache, v_cache, positions, mask)
+        x = _block(params, l, c, x, k_cache, v_cache, positions, mask, lora)
     x = _rms_norm(x, params["ln_out"], c.norm_eps)
     last = (lengths - 1 - start).clamp(0, C - 1)
-    logits = (x[torch.arange(B, device=dev), last] @ params["unembed"]).float()
+    logits = (x[torch.arange(B, device=dev), last] @ _w(params["unembed"])).float()
     return logits, k_pool, v_pool
 
 
@@ -512,11 +684,13 @@ def sample_tokens(logits, generator: Optional[torch.Generator] = None,
 
 
 def _decode_core(params, config: DecoderConfig, tokens, seq_lens, page_table,
-                 k_pool, v_pool, paged: bool = False):
+                 k_pool, v_pool, paged: bool = False,
+                 lora_params=None, adapter_ids=None):
     """Body of the single-token decode step (``decode_step``)."""
     c = config
     B = tokens.shape[0]
     dev = tokens.device
+    lora = _lora(lora_params, adapter_ids)
     page_size = pool_page_size(k_pool)
     max_pages = page_table.shape[1]
     T = max_pages * page_size
@@ -542,7 +716,7 @@ def _decode_core(params, config: DecoderConfig, tokens, seq_lens, page_table,
 
     for l in range(c.n_layers):
         h = _rms_norm(x, params["ln_attn"][l], c.norm_eps)
-        k_new, v_new = _kv_proj(params, l, c, h, positions)
+        k_new, v_new = _kv_proj(params, l, c, h, positions, lora)
         # scatter this step's kv into the pool: one (page, head, offset) per
         # slot — the slice between the advanced indices puts the broadcast
         # [B] axis first, matching k_new[:, 0]'s [B, Hkv, hd]
@@ -552,21 +726,23 @@ def _decode_core(params, config: DecoderConfig, tokens, seq_lens, page_table,
             kl, vl = pool_layer(k_pool, l), pool_layer(v_pool, l)
             x = _block_with(
                 params, l, c, x, positions,
-                lambda q: paged_attention(q, kl, vl, page_table, seq_lens, page_size))
+                lambda q: paged_attention(q, kl, vl, page_table, seq_lens, page_size),
+                lora)
         else:
             # gather each slot's pages [B, MP, Hkv, ps, hd] -> [B, T, Hkv, hd]
             k_cache = (pool_get(k_pool, (l, page_table.long()))
                        .permute(0, 1, 3, 2, 4).reshape(B, T, c.n_kv_heads, c.head_dim))
             v_cache = (pool_get(v_pool, (l, page_table.long()))
                        .permute(0, 1, 3, 2, 4).reshape(B, T, c.n_kv_heads, c.head_dim))
-            x = _block(params, l, c, x, k_cache, v_cache, positions, mask)
+            x = _block(params, l, c, x, k_cache, v_cache, positions, mask, lora)
     x = _rms_norm(x, params["ln_out"], c.norm_eps)
-    logits = (x[:, 0] @ params["unembed"]).float()
+    logits = (x[:, 0] @ _w(params["unembed"])).float()
     return logits, k_pool, v_pool
 
 
 def decode_step(params, config: DecoderConfig, tokens, seq_lens, page_table,
-                k_pool, v_pool, paged: bool = False):
+                k_pool, v_pool, paged: bool = False,
+                lora_params=None, adapter_ids=None):
     """One decode step for ALL slots.
 
     tokens: [B] int current token per slot; seq_lens: [B] int length
@@ -582,15 +758,18 @@ def decode_step(params, config: DecoderConfig, tokens, seq_lens, page_table,
     ``paged=True`` runs attention through ``paged_attention`` directly over
     the pool (the Hopper kernel on CUDA tensors) instead of gathering each
     slot's pages into a contiguous cache first; it reads int8 pools
-    natively."""
+    natively.  ``lora_params`` / ``adapter_ids`` ([B]): the LoRA table and
+    each slot's adapter (lora.py)."""
     return _decode_core(params, config, tokens, seq_lens, page_table,
-                        k_pool, v_pool, paged=paged)
+                        k_pool, v_pool, paged=paged,
+                        lora_params=lora_params, adapter_ids=adapter_ids)
 
 
 def decode_step_sample(params, config: DecoderConfig, tokens, seq_lens,
                        page_table, k_pool, v_pool, generator=None, poison=None,
                        temperature: float = 0.0, guard: bool = True,
-                       paged: bool = False):
+                       paged: bool = False, lora_params=None, adapter_ids=None,
+                       token_mask=None):
     """Decode step with sampling and the NaN guard in one call: the
     pipelined engine loop's tick body.
 
@@ -607,15 +786,26 @@ def decode_step_sample(params, config: DecoderConfig, tokens, seq_lens,
     row, fed back on the device): it is clamped to 0 before the embedding
     gather, where an out-of-range index would be a device-side assert on
     the card.  That row stays garbage in, garbage out; the engine fails it
-    at the next commit."""
+    at the next commit.
+
+    ``token_mask`` ([B, V] bool or None) constrains sampling to
+    grammar-legal tokens: illegal logits become the finite ``-1e30`` (never
+    -inf, which would turn a fully masked row into a spurious guard trip).
+    The guard reads the RAW (poisoned, unmasked) logits, so masking never
+    hides a non-finite row; and where the raw argmax is legal the masked
+    argmax is the same token (the mask only removes, never reorders)."""
     logits, k_pool, v_pool = _decode_core(
         params, config, tokens.clamp(min=0), seq_lens, page_table,
-        k_pool, v_pool, paged=paged)
+        k_pool, v_pool, paged=paged, lora_params=lora_params,
+        adapter_ids=adapter_ids)
     if poison is not None:
         logits = torch.where(poison[:, None], float("nan"), logits)
+    raw = logits
+    if token_mask is not None:
+        logits = torch.where(token_mask, logits, -1e30)
     sampled = sample_tokens(logits, generator, temperature)
     if guard:
-        ok = torch.isfinite(logits).all(dim=-1)
+        ok = torch.isfinite(raw).all(dim=-1)
         sampled = torch.where(ok, sampled, -sampled - 1)
     return sampled, k_pool, v_pool
 
@@ -631,7 +821,8 @@ def decode_step_sample_packed(params, config: DecoderConfig, prev_packed,
                               seq_lens, page_table, k_pool, v_pool,
                               generator=None, poison=None,
                               temperature: float = 0.0, guard: bool = True,
-                              paged: bool = False):
+                              paged: bool = False, lora_params=None,
+                              adapter_ids=None, token_mask=None):
     """No-draft tick of the pipelined speculative loop: the single-token
     step of ``decode_step_sample`` wearing ``decode_step_verify_sample``'s
     packed ``[B, K]`` edge on both sides.  The input token is the last
@@ -642,13 +833,15 @@ def decode_step_sample_packed(params, config: DecoderConfig, prev_packed,
     B, K = prev_packed.shape
     sampled, k_pool, v_pool = decode_step_sample(
         params, config, _last_accepted(prev_packed), seq_lens, page_table,
-        k_pool, v_pool, generator, poison, temperature, guard, paged)
+        k_pool, v_pool, generator, poison, temperature, guard, paged,
+        lora_params, adapter_ids, token_mask)
     pad = torch.full((B, K - 1), -1, dtype=torch.int32, device=sampled.device)
     return torch.cat([sampled[:, None], pad], dim=1), k_pool, v_pool
 
 
 def decode_step_k(params, config: DecoderConfig, tokens, seq_lens, page_table,
-                  k_pool, v_pool, paged: bool = False):
+                  k_pool, v_pool, paged: bool = False,
+                  lora_params=None, adapter_ids=None):
     """Speculative verify step: 1 committed + (K-1) draft tokens per slot in
     one pass.
 
@@ -667,6 +860,7 @@ def decode_step_k(params, config: DecoderConfig, tokens, seq_lens, page_table,
     c = config
     B, K = tokens.shape
     dev = tokens.device
+    lora = _lora(lora_params, adapter_ids)
     page_size = pool_page_size(k_pool)
     max_pages = page_table.shape[1]
     T = max_pages * page_size
@@ -692,7 +886,7 @@ def decode_step_k(params, config: DecoderConfig, tokens, seq_lens, page_table,
 
     for l in range(c.n_layers):
         h = _rms_norm(x, params["ln_attn"][l], c.norm_eps)
-        k_new, v_new = _kv_proj(params, l, c, h, positions)  # [B, K, Hkv, hd]
+        k_new, v_new = _kv_proj(params, l, c, h, positions, lora)  # [B, K, Hkv, hd]
         # [B, K] page ids and offsets around the head slice: the broadcast
         # [B, K] axes lead, matching k_new's [B, K, Hkv, hd]
         pool_set(k_pool, (l, page_ids, slice(None), offsets), k_new)
@@ -701,15 +895,16 @@ def decode_step_k(params, config: DecoderConfig, tokens, seq_lens, page_table,
             kl, vl = pool_layer(k_pool, l), pool_layer(v_pool, l)
             x = _block_with(
                 params, l, c, x, positions,
-                lambda q: paged_attention(q, kl, vl, page_table, seq_lens, page_size))
+                lambda q: paged_attention(q, kl, vl, page_table, seq_lens, page_size),
+                lora)
         else:
             k_cache = (pool_get(k_pool, (l, page_table.long()))
                        .permute(0, 1, 3, 2, 4).reshape(B, T, c.n_kv_heads, c.head_dim))
             v_cache = (pool_get(v_pool, (l, page_table.long()))
                        .permute(0, 1, 3, 2, 4).reshape(B, T, c.n_kv_heads, c.head_dim))
-            x = _block(params, l, c, x, k_cache, v_cache, positions, mask)
+            x = _block(params, l, c, x, k_cache, v_cache, positions, mask, lora)
     x = _rms_norm(x, params["ln_out"], c.norm_eps)
-    logits = (x @ params["unembed"]).float()
+    logits = (x @ _w(params["unembed"])).float()
     return logits, k_pool, v_pool
 
 
@@ -717,7 +912,8 @@ def decode_step_verify_sample(params, config: DecoderConfig, prev_packed,
                               drafts, draft_len, seq_lens, page_table,
                               k_pool, v_pool, generator=None, poison=None,
                               temperature: float = 0.0, guard: bool = True,
-                              paged: bool = False):
+                              paged: bool = False, lora_params=None,
+                              adapter_ids=None, token_mask=None):
     """Speculative verify with longest-prefix accept, sampling and the NaN
     guard in one call: the pipelined speculative tick body.
 
@@ -733,15 +929,26 @@ def decode_step_verify_sample(params, config: DecoderConfig, prev_packed,
     accepted draft prefix, then the bonus or correction token), later
     entries are ``-1``.  A row whose K verify rows are not all finite is
     all ``-1``: no healthy row can be, since every live row emits at least
-    one token."""
+    one token.
+
+    ``token_mask`` ([B, K, V] bool or None): position j's legal set assumes
+    drafts 0..j-1 were accepted (the host builds it by walking a clone of
+    the slot's automaton over the drafts), so the bonus or correction token
+    at the first rejected position is masked by exactly the right state.
+    Finite -1e30, and the guard reads the raw logits, as in
+    ``decode_step_sample``."""
     B, K = prev_packed.shape
     tok0 = _last_accepted(prev_packed).clamp(min=0)
     drafts = drafts.to(torch.int32)
     tokens = torch.cat([tok0[:, None], drafts], dim=1)
     logits, k_pool, v_pool = decode_step_k(
-        params, config, tokens, seq_lens, page_table, k_pool, v_pool, paged=paged)
+        params, config, tokens, seq_lens, page_table, k_pool, v_pool, paged=paged,
+        lora_params=lora_params, adapter_ids=adapter_ids)
     if poison is not None:
         logits = torch.where(poison[:, None, None], float("nan"), logits)
+    raw = logits
+    if token_mask is not None:
+        logits = torch.where(token_mask, logits, -1e30)
     V = logits.shape[-1]
     sampled = sample_tokens(logits.reshape(B * K, V), generator,
                             temperature).reshape(B, K)
@@ -754,7 +961,7 @@ def decode_step_verify_sample(params, config: DecoderConfig, prev_packed,
     j_tok = torch.arange(K, device=logits.device)
     packed = torch.where(j_tok[None, :] <= n_acc[:, None], sampled, -1)
     if guard:
-        ok = torch.isfinite(logits).reshape(B, -1).all(dim=1)
+        ok = torch.isfinite(raw).reshape(B, -1).all(dim=1)
         packed = torch.where(ok[:, None], packed, -1)
     return packed.to(torch.int32), k_pool, v_pool
 
@@ -762,19 +969,22 @@ def decode_step_verify_sample(params, config: DecoderConfig, prev_packed,
 # ------------------------------------------------------------------ reference
 
 
-def forward_full(params, config: DecoderConfig, tokens):
+def forward_full(params, config: DecoderConfig, tokens,
+                 lora_params=None, adapter_ids=None):
     """Plain full-sequence forward (correctness oracle for the paged path):
-    [B, S] tokens -> [B, S, vocab] f32 logits."""
+    [B, S] tokens -> [B, S, vocab] f32 logits; ``adapter_ids`` [B] picks
+    each row's LoRA adapter from ``lora_params``."""
     c = config
     B, S = tokens.shape
     dev = tokens.device
     tokens = tokens.long()
+    lora = _lora(lora_params, adapter_ids)
     positions = torch.arange(S, device=dev)[None, :].expand(B, S)
     x = _embed(params, c, tokens)
     mask = torch.ones((S, S), dtype=torch.bool, device=dev).tril()[None].expand(B, S, S)
     for l in range(c.n_layers):
         h = _rms_norm(x, params["ln_attn"][l], c.norm_eps)
-        k, v = _kv_proj(params, l, c, h, positions)
-        x = _block(params, l, c, x, k, v, positions, mask)
+        k, v = _kv_proj(params, l, c, h, positions, lora)
+        x = _block(params, l, c, x, k, v, positions, mask, lora)
     x = _rms_norm(x, params["ln_out"], c.norm_eps)
-    return (x @ params["unembed"]).float()
+    return (x @ _w(params["unembed"])).float()

@@ -53,8 +53,8 @@ class SchedulerConfig:
     # order, preemption typically off — the baseline
     policy: str = "priority"
     # ((adapter_name, weight), ...): fair-share weight per adapter (absent
-    # adapters and the base model weigh 1.0).  The port serves the base
-    # model only, so the engine refuses a non-empty value.
+    # adapters and the base model weigh 1.0); the engine refuses a name it
+    # has not loaded
     adapter_weights: Tuple[Tuple[str, float], ...] = ()
     # allow evicting a decoding slot for a blocked higher-priority request
     # (and for pool pressure).  Off = admission-only QoS.

@@ -42,14 +42,25 @@ pulls a published prefix over ``GET /engine/kv_fabric/<key>`` before
 submit.  Every pull is verified (KVPG magic, length, CRC32, geometry, chain
 hashes) and any failure degrades to a re-prefill.
 
+Structured output, brownout and LoRA ride the parameters as in the JAX
+package: ``constrain`` = ``{"schema": {...}}`` | ``{"grammar": "..."}`` |
+``{"format": "json"}`` | ``{"tool": {"name", "parameters"}}`` compiles at
+admission (a bad spec is a 400 with the compiler's message) into a
+per-request automaton, and the response carries a ``constrain`` receipt
+plus the parsed ``json`` or ``tool_call`` of a valid completion (a stream
+emits them as one typed event before its final record); ``brownout`` (an
+integer stage in [0, 3], set by the ingress's overload controller) drops
+speculation drafts from stage 2 and defers the fabric publish at stage 3;
+``adapter`` names a LoRA adapter loaded from ``model_dir/adapters/``
+(lora.py; an unknown name is a 400).
+
 Tokenization: a flat ``{token: id}`` ``tokenizer.json`` in the model dir
 (greedy longest-match), else byte-level (ids 0..255).  The HF tokenizers
-format, adapters, brownout and constrained decoding come in later slices;
-their request parameters are refused with a 400 rather than silently
-ignored (a parameter whose value is null counts as absent: the OpenAI
-surface always passes ``adapter``, ``brownout`` and ``constrain``).  An
-``engine.json`` key whose feature is not ported is refused the same way
-unless it holds the JAX package's default.
+format comes in a later slice.  A request parameter this port lacks would
+be refused with a 400 rather than silently ignored (``_UNSUPPORTED_PARAMS``,
+empty since every generate parameter of the JAX package is ported; a null
+value counts as absent).  An ``engine.json`` key whose feature is not
+ported is refused the same way unless it holds the JAX package's default.
 """
 
 from __future__ import annotations
@@ -67,20 +78,23 @@ from ...core import tracing
 from ...core.metrics import add_const_labels
 from ...utils.device import resolve_device
 from .. import kvfabric, transport
+from ..constrain import ConstrainRegistry, GrammarError
 from ..errors import EngineError, RequestError
 from ..server import Model
 from ..slo import SloConfig
 from .engine import Engine, EngineConfig
-from .faults import (FabricFaultConfig, FaultConfig, HandoffFaultConfig,
-                     StorageFaultConfig)
+from .faults import (ConstrainFaultConfig, FabricFaultConfig, FaultConfig,
+                     HandoffFaultConfig, StorageFaultConfig)
 from .kvstore import (BF16Bits, KVStoreConfig, normalize_session_id,
                       unpack_frame)
+from .lora import load_adapters
 from .model import DecoderConfig, load_params
 from .scheduler import SchedulerConfig, normalize_priority
 
 # parameters of the JAX package's generate surface that this port does not
-# implement yet (null values count as absent)
-_UNSUPPORTED_PARAMS = ("adapter", "brownout", "constrain")
+# implement yet (null values count as absent); none since every one is
+# ported, the mechanism kept for the slices to come
+_UNSUPPORTED_PARAMS: tuple = ()
 
 # engine.json keys of the JAX package's EngineConfig whose feature this port
 # does not have yet -> (the JAX package's default, the ROADMAP item that
@@ -88,8 +102,6 @@ _UNSUPPORTED_PARAMS = ("adapter", "brownout", "constrain")
 # refused, never dropped.
 _UNPORTED_ENGINE_KEYS = {
     "tensor_parallel": (1, "1.8"),
-    "weight_quant": (None, "1.6"),
-    "constrain_chaos": (None, "1.4"),
 }
 
 # exported-KV pull handles are secrets.token_hex(16): exactly 32 hex chars.
@@ -263,6 +275,11 @@ def _engine_config(path: str) -> tuple:
     if isinstance(kw.get("slo"), dict):
         # per-class SLO targets (the attainment/burn-rate gauges)
         kw["slo"] = SloConfig.from_json(kw["slo"])
+    if isinstance(kw.get("constrain_chaos"), dict):
+        # structured-output chaos: cache corruption must degrade to a
+        # counted re-compile, stalls to a failed slot — never an invalid
+        # output
+        kw["constrain_chaos"] = ConstrainFaultConfig(**kw["constrain_chaos"])
     for key, cls in (("handoff_chaos", HandoffFaultConfig),
                      ("fabric_chaos", FabricFaultConfig)):
         if isinstance(kw.get(key), dict):
@@ -318,6 +335,10 @@ class JetStreamModel(Model):
         self.engine = engine
         self.device = engine.device if engine is not None else resolve_device(device)
         self.tokenizer = load_tokenizer(model_dir)
+        # structured output: spec -> automaton compilation is memoized
+        # here, built lazily so unconstrained deployments never pay the
+        # vocabulary walk
+        self._constrain_reg: Optional[ConstrainRegistry] = None
         if engine is not None:
             self._wire_fabric(engine)
 
@@ -339,8 +360,9 @@ class JetStreamModel(Model):
 
     def load(self) -> None:
         """Build the engine from the model dir (``config.json`` +
-        ``params.npz``, else the default config and random init, plus an
-        optional ``engine.json``), unless one was handed in; start it."""
+        ``params.npz``, else the default config and random init, an
+        optional ``engine.json`` and the PEFT adapters under
+        ``adapters/``), unless one was handed in; start it."""
         if self.engine is None:
             config = DecoderConfig.from_dir(self.model_dir) or DecoderConfig()
             ec = EngineConfig()
@@ -358,16 +380,18 @@ class JetStreamModel(Model):
                     ec = dataclasses.replace(ec, eos_id=eos[0],
                                              eos_ids=tuple(eos[1:]))
             params = load_params(self.model_dir, config, self.device)
-            self.engine = Engine(params, config, ec, device=self.device)
+            lora_params, adapter_ids = load_adapters(self.model_dir, config, self.device)
+            lora = (lora_params, adapter_ids) if lora_params is not None else None
+            self.engine = Engine(params, config, ec, device=self.device, lora=lora)
             self._wire_fabric(self.engine)
         self.engine.start()
         self.ready = True
 
     @property
     def adapters(self) -> dict:
-        """Loaded LoRA adapters: none until LoRA is ported (ROADMAP item
-        1.7)."""
-        return {}
+        """Loaded LoRA adapter names -> ids (each is also served as its own
+        OpenAI model id)."""
+        return self.engine.adapters if self.engine is not None else {}
 
     def health(self) -> dict:
         if self.engine is None:
@@ -509,9 +533,10 @@ class JetStreamModel(Model):
 
     def _parse_generate(self, payload: Any, headers: Optional[dict] = None):
         """-> (ids, max_tokens, deadline_s, priority, resume_token_ids,
-        session_id); every value validated here, before anything is
-        submitted (RequestError -> 400).  The ``priority`` and
-        ``session_id`` parameters win over the ``X-Priority`` and
+        session_id, adapter); every value validated here, before anything
+        is submitted (RequestError -> 400; an unknown adapter is refused by
+        the engine at submit, before anything is queued).  The ``priority``
+        and ``session_id`` parameters win over the ``X-Priority`` and
         ``X-Session-Id`` headers."""
         prompt = payload.get("text_input", "") if isinstance(payload, dict) else str(payload)
         params = (payload.get("parameters") or {}) if isinstance(payload, dict) else {}
@@ -547,7 +572,87 @@ class JetStreamModel(Model):
         if session is not None:
             session = normalize_session_id(session)
         return (self.tokenizer.encode(prompt) or [0], max_tokens,
-                _deadline(params.get("deadline_s")), priority, resume or [], session)
+                _deadline(params.get("deadline_s")), priority, resume or [], session,
+                params.get("adapter"))
+
+    @staticmethod
+    def _parse_brownout(payload: Any) -> int:
+        """The ingress brownout stage -> ``parameters.brownout`` (or, on the
+        V1 predict and OpenAI bodies, the top-level ``brownout``) as an int
+        in [0, 3].  Raises RequestError (-> 400) on anything else: a
+        malformed stage must not silently serve at full quality mid-storm,
+        and ``true`` is refused although bool subclasses int."""
+        params = (payload.get("parameters") or {}) if isinstance(payload, dict) else {}
+        if not isinstance(params, dict):
+            return 0
+        stage = params.get("brownout")
+        if stage is None and isinstance(payload, dict):
+            stage = payload.get("brownout")
+        if stage is None:
+            return 0
+        if isinstance(stage, bool) or not isinstance(stage, int) or not 0 <= stage <= 3:
+            raise RequestError(f"brownout must be an integer stage in [0, 3], "
+                               f"got {stage!r}")
+        return stage
+
+    # -------------------------------------------------- structured output
+    # parameters.constrain = {"schema": {...}} | {"grammar": "..."} |
+    # {"format": "json"} | {"tool": {name, parameters}} compiles HERE, at
+    # admission: a bad schema is a 400 with the compiler's message, never
+    # an engine-side fault
+
+    def _constrain_registry(self) -> ConstrainRegistry:
+        if self._constrain_reg is None:
+            cache = os.path.join(self.model_dir, ".constrain") if self.model_dir else None
+            # the ENGINE owns the chaos plane: the registry consults the
+            # same injector, so corrupt-cache faults show in its counts
+            chaos = getattr(self.engine, "_constrain_chaos", None)
+            self._constrain_reg = ConstrainRegistry(cache_dir=cache, chaos=chaos)
+        return self._constrain_reg
+
+    def _build_constraint(self, spec):
+        """Compile + tokenizer-map one request's spec (both memoized) into a
+        fresh automaton.  RequestError (-> 400) on any compile problem; a
+        corrupt token-map cache is a counted ``recompile``, never a fault."""
+        reg = self._constrain_registry()
+        before = reg.stats()["table_cache_recompiles"]
+        try:
+            c = reg.constraint(spec, self.tokenizer)
+        except GrammarError as e:
+            raise RequestError(str(e)) from None
+        tel = getattr(self.engine, "telemetry", None)
+        if tel is not None:
+            for _ in range(reg.stats()["table_cache_recompiles"] - before):
+                tel.count_constrain("recompile")
+        return c
+
+    def _parse_constrain(self, payload: Any):
+        params = (payload.get("parameters") or {}) if isinstance(payload, dict) else {}
+        if not isinstance(params, dict) or params.get("constrain") is None:
+            return None
+        return self._build_constraint(params["constrain"])
+
+    @staticmethod
+    def _structured_fields(rec: dict, text: str) -> dict:
+        """The parsed payload a grammar-valid completion earns: ``json`` for
+        the schema and json kinds, ``tool_call`` for the tool kind.  Empty
+        for a truncated output (a legal PREFIX is not a sentence, and a
+        client must see the difference)."""
+        if not isinstance(rec, dict) or rec.get("outcome") != "valid":
+            return {}
+        kind = rec.get("kind")
+        if kind in ("schema", "json"):
+            try:
+                return {"json": json.loads(text)}
+            except ValueError:
+                return {}
+        if kind == "tool":
+            try:
+                return {"tool_call": {"name": rec.get("tool"),
+                                      "arguments": json.loads(text)}}
+            except ValueError:
+                return {}
+        return {}
 
     @staticmethod
     def _parse_disagg_params(params: dict):
@@ -616,43 +721,63 @@ class JetStreamModel(Model):
         return {"key": key, "source_port": port, "pages": pages}
 
     def _parse_all(self, payload: Any, headers: Optional[dict]):
-        """``_parse_generate`` plus the disaggregation and fabric blocks,
-        with the JAX package's composition rules (RequestError -> 400)."""
+        """``_parse_generate`` plus the disaggregation and fabric blocks, the
+        brownout stage (counted here) and the compiled constraint, with the
+        JAX package's composition rules (RequestError -> 400).  Returns
+        ``(parsed, kv_handoff, handoff, fabric, brownout, constrain)``."""
         parsed = self._parse_generate(payload, headers)  # params is a dict now
         params = (payload.get("parameters") or {}) if isinstance(payload, dict) else {}
         kv_handoff, hand = self._parse_disagg_params(params)
         fab = self._parse_fabric_params(params)
+        brownout = self._parse_brownout(payload)
+        constrain = self._parse_constrain(payload)
+        if brownout:
+            self.engine.telemetry.count_brownout(brownout)
+        if constrain is not None:
+            if kv_handoff or hand is not None:
+                # the automaton would have to ride the KV handoff between
+                # replicas: refuse rather than serve an unconstrained
+                # decode phase
+                raise RequestError("constrain does not compose with "
+                                   "disaggregated phases (kv_handoff/handoff)")
+            if parsed[4]:
+                raise RequestError("constrain and resume_token_ids are mutually "
+                                   "exclusive — resumed tokens never advanced "
+                                   "this automaton")
         if fab is not None and hand is not None:
             # a decode phase imports the FULL prompt KV; a prefix pull on
             # top is contradictory
             raise RequestError("fabric and handoff are mutually exclusive")
-        return parsed, kv_handoff, hand, fab
+        return parsed, kv_handoff, hand, fab, brownout, constrain
 
     def generate(self, payload: Any, headers: Optional[dict] = None) -> Any:
         """V2 generate extension (unary): {"text_input": str, "parameters":
         {"max_tokens": N, "deadline_s": S, "priority": "interactive" |
         "batch" | "best_effort", "session_id": id, "resume_token_ids":
-        [...], "kv_handoff": bool, "handoff": {...}, "fabric": {...}}} ->
+        [...], "kv_handoff": bool, "handoff": {...}, "fabric": {...},
+        "adapter": name, "brownout": stage, "constrain": spec}} ->
         {"text_output": str, "token_ids", "tokens", "prompt_tokens",
         "max_tokens", "ttft_s", "latency_s"}, plus a ``session`` block
-        (restore tier, pinned/durable flags, evictions) for a session turn
-        and a ``fabric`` block after a fabric pull.  A resumed request
+        (restore tier, pinned/durable flags, evictions) for a session turn,
+        a ``fabric`` block after a fabric pull, and a ``constrain`` receipt
+        (with ``json`` or ``tool_call`` when valid).  A resumed request
         returns the continuation only; its ``tokens`` counts the resumed ids
         too.  ``kv_handoff`` answers with the prefill phase's record
         (``_prefill_phase``)."""
-        (ids, max_tokens, deadline, priority, resume, session), kv_handoff, hand, fab = \
-            self._parse_all(payload, headers)
+        ((ids, max_tokens, deadline, priority, resume, session, adapter),
+         kv_handoff, hand, fab, brownout, constrain) = self._parse_all(payload, headers)
         if kv_handoff:
             if session is not None or resume or hand is not None:
                 raise RequestError("kv_handoff composes with none of session_id, "
                                    "resume_token_ids or handoff")
             return self._prefill_phase(ids, max_tokens, deadline, priority, headers,
-                                       fab=fab)
+                                       fab=fab, adapter=adapter, brownout=brownout)
         if hand is not None:
             if resume:
                 raise RequestError("handoff and resume_token_ids are mutually exclusive")
             return self._decode_phase_unary(ids, max_tokens, deadline, priority,
-                                            session, hand, headers)
+                                            session, hand, headers, adapter=adapter,
+                                            brownout=brownout)
         max_new = max_tokens - len(resume)
         if resume and max_new <= 0:
             # the run was already complete when the failover happened
@@ -661,10 +786,11 @@ class JetStreamModel(Model):
                     "max_tokens": max_tokens, "ttft_s": 0.0, "latency_s": 0.0}
         # the pull sits on the client's critical path: its wall time joins
         # the reported TTFT and latency
-        fimp, pull_s = self._timed_fabric_import(fab)
+        fimp, pull_s = self._timed_fabric_import(fab, adapter)
         r = self.engine.generate(ids + resume, max_new, deadline=deadline,
                                  priority=priority, session_id=session,
-                                 fabric_import=fimp,
+                                 fabric_import=fimp, adapter=adapter,
+                                 brownout=brownout, constrain=constrain,
                                  trace=_trace_ctx(headers),
                                  links=_resume_link(headers),
                                  pre_hints={"fabric_pull": pull_s} if pull_s > 0 else None,
@@ -687,6 +813,9 @@ class JetStreamModel(Model):
                "prompt_tokens": len(ids), "max_tokens": max_tokens,
                "ttft_s": round(pull_s + r["ttft_s"], 4),
                "latency_s": round(pull_s + r["latency_s"], 4)}
+        if "constrain" in r:
+            out["constrain"] = r["constrain"]
+            out.update(self._structured_fields(r["constrain"], out["text_output"]))
         if "session" in r:
             out["session"] = r["session"]
         if "fabric" in r:
@@ -706,13 +835,18 @@ class JetStreamModel(Model):
             return "fabric_degraded"
         return None
 
-    def _timed_fabric_import(self, fab) -> tuple:
+    def _timed_fabric_import(self, fab, adapter=None) -> tuple:
         """``(fabric_import or None, pull wall seconds)``; no hint: (None, 0)."""
         if fab is None:
             return None, 0.0
         t_pull = time.perf_counter()
-        fimp = self._fabric_import(fab)
+        fimp = self._fabric_import(fab, adapter)
         return fimp, time.perf_counter() - t_pull
+
+    def _adapter_id(self, adapter) -> int:
+        """The engine's id of a LoRA adapter name (0 = the base model): the
+        ``adapter_id`` an imported frame's meta must carry."""
+        return self.engine.adapters.get(adapter, 0) if adapter is not None else 0
 
     # -------------------------------- disaggregated prefill/decode phases
     # The service proxy splits an eligible request into a unary PREFILL phase
@@ -723,16 +857,17 @@ class JetStreamModel(Model):
     _HANDOFF_PULL_TIMEOUT_S = 10.0
 
     def _prefill_phase(self, ids: list, max_tokens: int, deadline, priority,
-                       headers, fab=None) -> dict:
+                       headers, fab=None, adapter=None, brownout: int = 0) -> dict:
         """``parameters.kv_handoff: true``: prefill the prompt, sample exactly
         the first token a unified engine would, export the committed KV
         pages, and answer with the token and the one-shot pull handle.
         ``complete`` tells the proxy no decode phase is needed (EOS on the
         first token, or max_tokens == 1).  A fabric hint composes: its pull
         time joins this phase's TTFT (this phase IS the request's TTFT)."""
-        fimp, pull_s = self._timed_fabric_import(fab)
+        fimp, pull_s = self._timed_fabric_import(fab, adapter)
         r = self.engine.generate(ids, 1, deadline=deadline, priority=priority,
                                  handoff=True, fabric_import=fimp,
+                                 adapter=adapter, brownout=brownout,
                                  trace=_trace_ctx(headers),
                                  links=_resume_link(headers),
                                  pre_hints={"fabric_pull": pull_s} if pull_s > 0 else None,
@@ -753,7 +888,7 @@ class JetStreamModel(Model):
             out["trace"] = self.engine.trace(r["rid"])
         return out
 
-    def _handoff_import(self, hand: dict):
+    def _handoff_import(self, hand: dict, adapter=None):
         """Pull + verify the prefill replica's exported KV frame ->
         ``(blob, nbytes, resume_len)`` for ``Engine.generate(kv_import=)``,
         or None (degrade to re-prefill) on ANY problem: a missing handle, an
@@ -782,7 +917,7 @@ class JetStreamModel(Model):
             resume_len = int(meta.get("resume_len") or 0)
             pages = -(-resume_len // ec.page_size)
             if (meta.get("page_size") != ec.page_size or resume_len < 2
-                    or int(meta.get("adapter_id") or 0) != 0):
+                    or int(meta.get("adapter_id") or 0) != self._adapter_id(adapter)):
                 raise ValueError("handoff meta mismatch")
             # a legitimate export covers pages or pages-1 (the boundary
             # prompt whose finishing commit granted no next page); anything
@@ -820,7 +955,7 @@ class JetStreamModel(Model):
 
     _FABRIC_PULL_TIMEOUT_S = 5.0
 
-    def _fabric_import(self, fab: dict):
+    def _fabric_import(self, fab: dict, adapter=None):
         """Pull + verify a remote replica's published prefix frame ->
         ``(blob, hashes, nbytes)`` for ``Engine.generate(fabric_import=)``,
         or None (degrade to re-prefill) on ANY problem: an unreachable,
@@ -852,7 +987,7 @@ class JetStreamModel(Model):
             pages = int(meta.get("pages") or 0)
             if (meta.get("page_size") != ec.page_size or pages < 1
                     or not isinstance(hashes, list) or len(hashes) < pages
-                    or int(meta.get("adapter_id") or 0) != 0
+                    or int(meta.get("adapter_id") or 0) != self._adapter_id(adapter)
                     # model identity: chain hashes seed on tokens, not
                     # weights — a same-shape sibling model's frame would
                     # pass every other gate and decode silently wrong
@@ -886,7 +1021,8 @@ class JetStreamModel(Model):
             return None
 
     def _decode_phase_unary(self, ids: list, max_tokens: int, deadline, priority,
-                            session, hand: dict, headers) -> dict:
+                            session, hand: dict, headers, adapter=None,
+                            brownout: int = 0) -> dict:
         """Decode phase, unary: fold the prefill phase's token(s) into the
         prompt, import the verified KV (or degrade to re-prefill), and
         return the FULL output — the handoff tokens included.  TTFT is the
@@ -903,11 +1039,12 @@ class JetStreamModel(Model):
                     "prompt_tokens": len(ids), "max_tokens": max_tokens,
                     "ttft_s": round(base_ttft, 4), "latency_s": round(base_lat, 4)}
         t_pull = time.perf_counter()
-        imp = self._handoff_import(hand)
+        imp = self._handoff_import(hand, adapter)
         pull_s = time.perf_counter() - t_pull
         r = self.engine.generate(ids + prior, max_new, deadline=deadline,
                                  priority=priority, session_id=session,
-                                 kv_import=imp, trace=_trace_ctx(headers),
+                                 kv_import=imp, adapter=adapter, brownout=brownout,
+                                 trace=_trace_ctx(headers),
                                  links=_resume_link(headers),
                                  pre_hints={"handoff_import": pull_s} if pull_s > 0 else None,
                                  # an import that degraded before submit
@@ -955,8 +1092,8 @@ class JetStreamModel(Model):
         the stream emits only the continuation.  A ``handoff`` block streams
         the decode phase: the handoff tokens' text rides out with the first
         events.  ``kv_handoff`` is unary only."""
-        (ids, max_tokens, deadline, priority, resume, session), kv_handoff, hand, fab = \
-            self._parse_all(payload, headers)
+        ((ids, max_tokens, deadline, priority, resume, session, adapter),
+         kv_handoff, hand, fab, brownout, constrain) = self._parse_all(payload, headers)
         if kv_handoff:
             raise RequestError("kv_handoff is the unary prefill-phase parameter; "
                                "POST /generate")
@@ -969,11 +1106,12 @@ class JetStreamModel(Model):
             if max_tokens - len(prior) <= 0 or prior[-1] in self.engine._stop_ids:
                 return self._handoff_complete(prior, ids, max_tokens, hand)
             t_pull = time.perf_counter()
-            imp = self._handoff_import(hand)
+            imp = self._handoff_import(hand, adapter)
             pull_s = time.perf_counter() - t_pull
             stream = self.engine.generate_stream(
                 ids + prior, max_tokens - len(prior), deadline=deadline,
                 priority=priority, session_id=session, kv_import=imp,
+                adapter=adapter, brownout=brownout,
                 trace=_trace_ctx(headers), links=_resume_link(headers),
                 pre_hints={"handoff_import": pull_s} if pull_s > 0 else None,
                 waste_hint=None if imp is not None else "handoff_degraded")
@@ -990,10 +1128,11 @@ class JetStreamModel(Model):
             return self._resume_complete(resume, ids, max_tokens)
         # the pull's wall time joins the final record's TTFT and latency:
         # the client's clock started before the pull
-        fimp, pull_s = self._timed_fabric_import(fab)
+        fimp, pull_s = self._timed_fabric_import(fab, adapter)
         stream = self.engine.generate_stream(
             ids + resume, max_new, deadline=deadline, priority=priority,
-            session_id=session, fabric_import=fimp, trace=_trace_ctx(headers),
+            session_id=session, fabric_import=fimp, adapter=adapter,
+            brownout=brownout, constrain=constrain, trace=_trace_ctx(headers),
             links=_resume_link(headers),
             pre_hints={"fabric_pull": pull_s} if pull_s > 0 else None,
             waste_hint=self._waste_hint(resume, fab, fimp))
@@ -1042,6 +1181,16 @@ class JetStreamModel(Model):
                     full = self.tokenizer.decode(out_ids)
                     if len(full) > emitted:  # flush held-back tail
                         yield {"text_output": full[emitted:]}
+                    if "constrain" in item:
+                        # the structured event: a grammar-valid completion
+                        # re-emits the whole utterance PARSED, as its own
+                        # typed event before the final record, so a tool
+                        # dispatcher never re-assembles text pieces
+                        sf = self._structured_fields(item["constrain"], full)
+                        if sf:
+                            ev = {"text_output": "", "event": next(iter(sf))}
+                            ev.update(sf)
+                            yield ev
                     final = {"text_output": "", "done": True,
                              "tokens": item["num_tokens"] + base,
                              "prompt_tokens": len(ids), "max_tokens": max_tokens,
@@ -1053,6 +1202,8 @@ class JetStreamModel(Model):
                                              else pull_s + item["ttft_s"], 4),
                              "latency_s": round(phase_latency + pull_s
                                                 + item["latency_s"], 4)}
+                    if "constrain" in item:
+                        final["constrain"] = item["constrain"]
                     if "session" in item:
                         final["session"] = item["session"]
                     if "fabric" in item:
@@ -1084,6 +1235,11 @@ class JetStreamModel(Model):
     def predict(self, payload: Any, headers: Optional[dict] = None) -> Any:
         instances = payload.get("instances", []) if isinstance(payload, dict) else payload
         header_prio = _header(headers, "x-priority")
+        # the V1 surface carries the ingress brownout stage top-level; every
+        # instance of the batch degrades together
+        brownout = self._parse_brownout(payload)
+        if brownout:
+            self.engine.telemetry.count_brownout(brownout)
         # validate every instance BEFORE submitting anything: a bad value
         # mid-loop would 500 the request while earlier submissions burn slots
         parsed = []
@@ -1094,6 +1250,10 @@ class JetStreamModel(Model):
             if unsupported:
                 raise RequestError(f"instance fields {unsupported} are not "
                                    "supported by this engine yet")
+            ad = inst.get("adapter")
+            if ad is not None and ad not in self.adapters:
+                raise RequestError(f"unknown adapter {ad!r} "
+                                   f"(loaded: {sorted(self.adapters)})")
             try:
                 n = int(inst.get("max_tokens", 32))
             except (TypeError, ValueError):
@@ -1101,10 +1261,16 @@ class JetStreamModel(Model):
                                    f"{inst.get('max_tokens')!r}") from None
             prio = inst.get("priority")
             prio = normalize_priority(prio if prio is not None else header_prio)
-            parsed.append((inst.get("prompt", ""), n, _deadline(inst.get("deadline_s")), prio))
+            # a FRESH automaton per instance, compiled (and so validated)
+            # before anything is submitted
+            spec = inst.get("constrain")
+            con = self._build_constraint(spec) if spec is not None else None
+            parsed.append((inst.get("prompt", ""), n, _deadline(inst.get("deadline_s")),
+                           prio, ad, con))
         futures = [self.engine.generate_async(self.tokenizer.encode(p) or [0], n,
-                                              deadline=d, priority=pr)
-                   for p, n, d, pr in parsed]
+                                              deadline=d, priority=pr, adapter=ad,
+                                              brownout=brownout, constrain=con)
+                   for p, n, d, pr, ad, con in parsed]
         out = []
         for fut in futures:
             try:
@@ -1114,12 +1280,16 @@ class JetStreamModel(Model):
                 # an error entry; its siblings' results are still returned
                 out.append({"error": f"{type(e).__name__}: {e}"})
                 continue
-            out.append({
+            entry = {
                 "text": self.tokenizer.decode(r["tokens"]),
                 "token_ids": r["tokens"],
                 "tokens": r["num_tokens"],
                 "ttft_s": round(r["ttft_s"], 4),
                 "latency_s": round(r["latency_s"], 4),
                 "truncated": r["truncated"],
-            })
+            }
+            if "constrain" in r:
+                entry["constrain"] = r["constrain"]
+                entry.update(self._structured_fields(r["constrain"], entry["text"]))
+            out.append(entry)
         return out

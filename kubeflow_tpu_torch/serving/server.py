@@ -872,14 +872,26 @@ class ModelServer:
             # both keys 0>=0 would mislabel every response "length"
             finish = ("length" if "tokens" in out and "max_tokens" in out
                       and out["tokens"] >= out["max_tokens"] else "stop")
-            # a forced tool call's tool_calls message comes with constrained
-            # decoding (ROADMAP item 1.4), which is what would produce one
-            choice = ({"index": 0,
-                       "message": {"role": "assistant",
-                                   "content": out["text_output"]},
-                       "finish_reason": finish} if chat else
-                      {"index": 0, "text": out["text_output"],
-                       "finish_reason": finish})
+            tc = out.get("tool_call")
+            if chat and isinstance(tc, dict):
+                # forced tool call: render the OpenAI tool_calls message
+                # (arguments are a JSON STRING per the OpenAI wire shape)
+                msg = {"role": "assistant", "content": None,
+                       "tool_calls": [{
+                           "id": f"call_{uuid.uuid4().hex[:24]}",
+                           "type": "function",
+                           "function": {
+                               "name": tc.get("name"),
+                               "arguments": json.dumps(tc.get("arguments"))}}]}
+                choice = {"index": 0, "message": msg,
+                          "finish_reason": "tool_calls"}
+            else:
+                choice = ({"index": 0,
+                           "message": {"role": "assistant",
+                                       "content": out["text_output"]},
+                           "finish_reason": finish} if chat else
+                          {"index": 0, "text": out["text_output"],
+                           "finish_reason": finish})
             h._send(200, {
                 "id": oid, "object": obj, "created": int(time.time()),
                 "model": name, "choices": [choice],

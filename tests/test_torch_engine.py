@@ -212,7 +212,7 @@ def test_http_generate_and_predict_match_jax_jetstream(params256):
 
         code, out = _post(server.port, "/v2/models/llm/generate",
                           {"text_input": "x", "parameters": {"adapter": "a1"}})
-        assert code == 400 and "not supported" in out["error"]
+        assert code == 400 and "unknown adapter 'a1'" in out["error"]
         code, out = _post(server.port, "/v2/models/llm/generate",
                           {"text_input": "x", "parameters": {"max_tokens": "many"}})
         assert code == 400

@@ -5,8 +5,9 @@ The same files go through both packages' loaders: the ``scheduler`` block
 its storage ``chaos``, the dispatch ``chaos`` and ``slo`` blocks, the
 watchdog, telemetry, perf and incident keys off their defaults, the
 disaggregation and fabric keys (``role``, ``fabric``, ``handoff_ttl_s``,
-the ``handoff_chaos`` and ``fabric_chaos`` blocks), a bad ``role``, bad
-``speculative`` compositions and ``tensor_parallel: 0``.  Both
+the ``handoff_chaos`` and ``fabric_chaos`` blocks), ``weight_quant`` and the
+``constrain_chaos`` block, a bad ``role``, bad ``speculative`` compositions
+and ``tensor_parallel: 0``.  Both
 build the same config values, or both raise the same ValueError (naming the
 file where the JAX package names it).  A key whose feature the port lacks
 is accepted at the JAX package's default and refused otherwise, naming the
@@ -72,6 +73,10 @@ SAME = {
     "fabric_chaos": {"fabric": True,
                      "fabric_chaos": {"flip_pull_every": 2, "dead_link_on": 3,
                                       "expire_publish_every": 4}},
+    # int8 weights and structured-output chaos
+    "weight_quant": {"weight_quant": "int8"},
+    "constrain_chaos": {"constrain_chaos": {"seed": 5, "stall_on": 1,
+                                            "corrupt_cache_every": 2}},
 }
 BOTH_RAISE = {
     "adapter_weights": {"scheduler": {"adapter_weights": [["a1", 2.0]]}},
@@ -84,8 +89,6 @@ BOTH_RAISE = {
 # unported features off their default: refused by the port
 PORT_REFUSES = {
     "tensor_parallel": ({"tensor_parallel": 4}, "1.8"),
-    "weight_quant": ({"weight_quant": "int8"}, "1.6"),
-    "constrain_chaos": ({"constrain_chaos": {"stall_on": 1}}, "1.4"),
     # a sharded-frame injector: the port reads no version 2 frame
     "handoff_chaos": ({"handoff_chaos": {"shard_torn_pull_on": 1}}, "1.8"),
     "fabric_chaos": ({"fabric_chaos": {"shard_flip_pull_every": 2}}, "1.8"),
@@ -143,6 +146,10 @@ def test_both_packages_build_the_same_config(tmp_path, case):
         assert port.role == "prefill" and port.handoff_chaos.expire_export_on == 2
     if case == "fabric_chaos":
         assert port.fabric and port.fabric_chaos.flip_pull_every == 2
+    if case == "weight_quant":
+        assert port.weight_quant == "int8"
+    if case == "constrain_chaos":
+        assert port.constrain_chaos.stall_on == 1
 
 
 @pytest.mark.parametrize("case", sorted(BOTH_RAISE))
@@ -175,5 +182,5 @@ def test_unported_key_map_is_the_jax_fields_minus_the_ports():
             assert f.default_factory is dataclasses.MISSING, f.name
             want[f.name] = f.default
     assert {k: v[0] for k, v in S._UNPORTED_ENGINE_KEYS.items()} == want
-    assert len(want) == 3
-    assert {v[1] for v in S._UNPORTED_ENGINE_KEYS.values()} <= {"1.3", "1.4", "1.6", "1.8"}
+    assert want == {"tensor_parallel": 1}
+    assert {v[1] for v in S._UNPORTED_ENGINE_KEYS.values()} == {"1.8"}

@@ -1,8 +1,10 @@
 """The port stands alone: kubeflow_tpu_torch (and chip_smoke.py) import
-neither JAX, nor ml_dtypes, optax or orbax, nor anything of the JAX package.
+neither JAX, nor ml_dtypes, optax, orbax or safetensors, nor anything of the
+JAX package.
 
 A subprocess installs a meta-path finder that refuses ``jax``, ``jaxlib``,
-``ml_dtypes``, ``optax``, ``orbax`` and ``kubeflow_tpu`` (and their submodules — but not
+``ml_dtypes``, ``optax``, ``orbax``, ``safetensors`` (the port reads the
+format itself) and ``kubeflow_tpu`` (and their submodules — but not
 ``kubeflow_tpu_torch``, whose name shares the prefix), then imports every
 module of the port; a source scan backs it up for imports a runtime path
 might not reach."""
@@ -16,7 +18,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "kubeflow_tpu_torch")
-BLOCKED = ("jax", "jaxlib", "ml_dtypes", "optax", "orbax", "kubeflow_tpu")
+BLOCKED = ("jax", "jaxlib", "ml_dtypes", "optax", "orbax", "safetensors", "kubeflow_tpu")
 
 _BLOCKER = """
 import importlib.abc, sys
@@ -53,6 +55,7 @@ def test_every_port_module_imports_with_jax_blocked():
     modules = _port_modules()
     for name in ("serving.engine.paged_attention", "serving.engine.scheduler",
                  "serving.engine.kvstore", "serving.engine.faults",
+                 "serving.engine.lora", "serving.constrain",
                  "ops.attention", "ops.flash_attention",
                  "models.bert", "train.data", "train.trainer", "train.checkpoint",
                  "examples.bert_worker"):

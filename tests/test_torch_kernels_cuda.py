@@ -543,3 +543,176 @@ def test_handoff_decode_replica_decodes_through_the_kernel(card, monkeypatch):
     for s in stats.values():
         assert s["free_pages"] + s["cached_pages"] == geo["num_pages"] - 1
         assert s["swap_used_bytes"] == 0
+
+
+# int8 weights, a LoRA table with mixed adapter ids and a grammar token mask
+# ride the fused decode steps on top of the kernel: on the card the paged
+# and gather paths of decode_step_sample and decode_step_verify_sample give
+# the same tokens, and their logits agree within the 2-layer decode bound
+# (5e-2, as chip_smoke.py's decode_tol(2)).
+
+VARIANT_CFG = M.DecoderConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
+                              n_kv_heads=1, d_ff=512)
+VARIANT_TABLE = [[3, 5, 0, 0], [7, 8, 9, 0], [0, 0, 0, 0], [10, 11, 12, 13]]
+VARIANT_LENS = [40, 70, 0, 100]
+DECODE_TOL = 5e-2
+CLEAR_GAP = 0.1
+
+
+def _variant_inputs(card, variant):
+    """(params, pools, table, lens, extra kwargs) on the card, from seed 0."""
+    g = torch.Generator(device=card).manual_seed(0)
+    c = VARIANT_CFG
+    params = M.init(c, card, seed=0)
+    kw = {}
+    if variant == "int8":
+        params = M.quantize_weights_int8(params)
+    if variant == "lora":
+        dims = {"wq": (c.d_model, c.n_heads * c.head_dim), "wv": (c.d_model, c.n_kv_heads * c.head_dim),
+                "w1": (c.d_model, c.d_ff), "w2": (c.d_ff, c.d_model)}
+        table = {}
+        for name, (din, dout) in dims.items():
+            A = torch.randn((3, c.n_layers, din, 8), generator=g, device=card) * 0.05
+            Bm = torch.randn((3, c.n_layers, 8, dout), generator=g, device=card) * 0.05
+            A[0] = 0
+            Bm[0] = 0
+            table[name] = {"A": A.to(torch.bfloat16), "B": Bm.to(torch.bfloat16)}
+        kw = {"lora_params": table,
+              "adapter_ids": torch.tensor([0, 1, 2, 1], dtype=torch.int32, device=card)}
+    shape = (c.n_layers, 16, c.n_kv_heads, 32, c.head_dim)
+    pools = [torch.randn(shape, generator=g, device=card).to(torch.bfloat16) for _ in range(2)]
+    table = torch.tensor(VARIANT_TABLE, dtype=torch.int32, device=card)
+    lens = torch.tensor(VARIANT_LENS, dtype=torch.int32, device=card)
+    return params, pools, table, lens, kw, g
+
+
+def _clear(logits):
+    top2 = logits.float().topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) > CLEAR_GAP
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["int8", "lora", "mask"])
+def test_decode_step_sample_paged_vs_gather_on_card(card, variant):
+    params, pools, table, lens, kw, g = _variant_inputs(card, variant)
+    tokens = torch.tensor([5, 17, 0, 33], dtype=torch.int32, device=card)
+    mask = None
+    if variant == "mask":
+        mask = torch.rand((4, VARIANT_CFG.vocab_size), generator=g, device=card) < 0.3
+        mask[:, 0] = True
+    out = {}
+    with torch.inference_mode():
+        for paged in (True, False):
+            kp, vp = pools[0].clone(), pools[1].clone()
+            logits, _, _ = M.decode_step(params, VARIANT_CFG, tokens, lens, table, kp, vp,
+                                         paged=paged, **kw)
+            kp, vp = pools[0].clone(), pools[1].clone()
+            before = PA.paged_attention.launches
+            sampled, _, _ = M.decode_step_sample(params, VARIANT_CFG, tokens, lens, table,
+                                                 kp, vp, paged=paged, token_mask=mask, **kw)
+            assert (PA.paged_attention.launches > before) == paged
+            if mask is not None:
+                logits = torch.where(mask, logits, -1e30)
+            out[paged] = (logits, sampled)
+    (lp, sp), (lg, sg) = out[True], out[False]
+    live = [0, 1, 3]
+    torch.testing.assert_close(lp[live], lg[live], rtol=DECODE_TOL, atol=DECODE_TOL)
+    clear = _clear(lg)
+    assert bool(clear[live].any())
+    for b in live:
+        if clear[b]:
+            assert int(sp[b]) == int(sg[b]) == int(lg[b].argmax())
+        if mask is not None:
+            assert bool(mask[b, int(sp[b])])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["int8", "lora", "mask"])
+def test_decode_step_verify_sample_paged_vs_gather_on_card(card, variant):
+    params, pools, table, lens, kw, g = _variant_inputs(card, variant)
+    K = 5
+    prev = torch.full((4, K), -1, dtype=torch.int32, device=card)
+    prev[:, 0] = torch.tensor([5, 17, 0, 33], device=card)
+    drafts = torch.randint(0, VARIANT_CFG.vocab_size, (4, K - 1), generator=g, device=card,
+                           dtype=torch.int32)
+    dlen = torch.tensor([4, 2, 0, 3], dtype=torch.int32, device=card)
+    mask = None
+    if variant == "mask":
+        mask = torch.rand((4, K, VARIANT_CFG.vocab_size), generator=g, device=card) < 0.3
+        mask[..., 0] = True
+    toks = torch.cat([prev[:, :1], drafts], dim=1)
+    out = {}
+    with torch.inference_mode():
+        for paged in (True, False):
+            kp, vp = pools[0].clone(), pools[1].clone()
+            logits, _, _ = M.decode_step_k(params, VARIANT_CFG, toks, lens, table, kp, vp,
+                                           paged=paged, **kw)
+            kp, vp = pools[0].clone(), pools[1].clone()
+            before = dict(PA.paged_attention.launches_by_k)
+            packed, _, _ = M.decode_step_verify_sample(
+                params, VARIANT_CFG, prev, drafts, dlen, lens, table, kp, vp, paged=paged,
+                token_mask=mask, **kw)
+            assert (PA.paged_attention.launches_by_k.get(K, 0) > before.get(K, 0)) == paged
+            if mask is not None:
+                logits = torch.where(mask, logits, -1e30)
+            out[paged] = (logits, packed)
+    (lp, pp), (lg, pg) = out[True], out[False]
+    live = [0, 1, 3]
+    torch.testing.assert_close(lp[live], lg[live], rtol=DECODE_TOL, atol=DECODE_TOL)
+    clear = _clear(lg)
+    for b in live:
+        if bool(clear[b].all()):
+            assert torch.equal(pp[b], pg[b])
+        n = int((pp[b] >= 0).sum())
+        assert n >= 1
+        if mask is not None:
+            assert all(bool(mask[b, j, int(pp[b, j])]) for j in range(n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "speculative"])
+def test_int8_lora_constrained_engine_decodes_through_the_kernel(card, spec, monkeypatch):
+    """An engine with int8 weights and a LoRA table serves mixed adapters and
+    a constrained request through the kernel (K = 5 on the speculative
+    engine), its plain version never called; every constrained token is
+    legal, and no page leaks."""
+    from kubeflow_tpu_torch.serving.constrain import GrammarConstraint, TokenTable, compile_grammar
+    from kubeflow_tpu_torch.serving.engine.engine import Engine, EngineConfig
+
+    plain_calls = []
+    plain = PA.paged_attention_plain
+    monkeypatch.setattr(PA, "paged_attention_plain",
+                        lambda *a, **kw: plain_calls.append(1) or plain(*a, **kw))
+    c = ENGINE_CFG
+    params = M.init(c, card, seed=0)
+    g = torch.Generator(device=card).manual_seed(1)
+    dims = {"wq": (c.d_model, c.n_heads * c.head_dim), "w3": (c.d_model, c.d_ff)}
+    table = {}
+    for name, (din, dout) in dims.items():
+        A = torch.randn((2, c.n_layers, din, 4), generator=g, device=card) * 0.05
+        Bm = torch.randn((2, c.n_layers, 4, dout), generator=g, device=card) * 0.05
+        A[0] = 0
+        Bm[0] = 0
+        table[name] = {"A": A.to(torch.bfloat16), "B": Bm.to(torch.bfloat16)}
+    kw = dict(speculative="prompt_lookup", spec_ngram=1, spec_max_draft=4) if spec else {}
+    eng = Engine(params, c, EngineConfig(max_slots=4, num_pages=64, page_size=16,
+                                         max_pages_per_slot=8, weight_quant="int8", **kw),
+                 device=card, lora=(table, {"t": 1}))
+    grammar = compile_grammar(r"start ::= ([\x01-\x06] [\x07-\x0c])* ;")
+    con = GrammarConstraint(grammar, TokenTable([bytes([i]) for i in range(13)]))
+    futs = [eng.generate_async(p, 24, adapter=a, constrain=k)
+            for p, a, k in zip(ENGINE_PROMPTS, [None, "t", "t", None], [None, None, con, None])]
+    before = dict(PA.paged_attention.launches_by_k)
+    eng.start()
+    try:
+        outs = [f.result(timeout=300) for f in futs]
+        stats = eng.stats
+    finally:
+        eng.stop()
+    launched = {k: v - before.get(k, 0) for k, v in PA.paged_attention.launches_by_k.items()}
+    # a speculative engine verifies every tick that has drafts at K = 5
+    assert not plain_calls and launched.get(5 if spec else 1, 0) > 0
+    toks = outs[2]["tokens"]
+    assert outs[2]["constrain"]["n_tokens"] == len(toks) == 24
+    assert all((t <= 6) if i % 2 == 0 else (t >= 7) for i, t in enumerate(toks))
+    assert stats["free_pages"] + stats["cached_pages"] == 63

@@ -175,8 +175,9 @@ def test_normalize_priority_and_config_validation_match_jax():
 
 
 def test_engine_refuses_adapter_weights_and_bad_requests(params):
-    """No LoRA in the port: a non-empty adapter_weights raises as the JAX
-    engine does for an unknown adapter.  A bad priority is refused before
+    """An engine without adapters: a non-empty adapter_weights names an
+    adapter it has not loaded and raises, as the JAX engine does.  A bad
+    priority is refused before
     anything is queued; a full queue raises EngineOverloaded."""
     with pytest.raises(ValueError, match="unknown adapter"):
         _engine("port", params, adapter_weights=(("tenant-a", 2.0),))

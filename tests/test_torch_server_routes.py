@@ -5,9 +5,9 @@ Every route this slice adds is answered by both packages' ``ModelServer``
 that doubles its input tensor) with the same status and the same JSON shape; ids, ``created``,
 timings and the V2 ``platform`` are left out of the comparison.  The OpenAI
 routes answer unary and streamed, with the null ``adapter``, ``brownout``
-and ``constrain`` parameters the OpenAI handler always passes accepted, and
-a structured ``response_format`` (constrained decoding, not ported)
-refused in the OpenAI error schema.  ``/engine/health`` reads SERVING, then
+and ``constrain`` parameters the OpenAI handler always passes accepted; a
+structured ``response_format`` is served by both packages, and a malformed
+one is refused by both in the OpenAI error schema with the same message.  ``/engine/health`` reads SERVING, then
 DRAINING (503) while ``stop()`` drains an in-flight stream, then DEAD.
 ``/metrics`` read by the JAX package's own ``scrape_metrics`` carries the
 gauges the ingress's least-loaded pick and the autoscaler read."""
@@ -187,15 +187,28 @@ def test_openai_stream_matches(servers, chat):
 
 
 def test_structured_response_format_is_refused_in_openai_schema(servers):
-    tsrv, _ = servers
+    """Constrained decoding is served: a well-formed structured
+    ``response_format`` answers 200 in both packages, unary and streamed.
+    A malformed one (a schema the compiler refuses, an unknown format type)
+    is refused by both in the OpenAI error schema, with the same message."""
+    tsrv, jsrv = servers
     for rf in ({"type": "json_object"},
                {"type": "json_schema", "json_schema": {"schema": {"type": "object"}}}):
         for stream in (False, True):
-            code, _, raw = _req(tsrv.port, "POST", "/openai/v1/chat/completions",
-                                {**CHAT, "response_format": rf, "stream": stream})
-            err = json.loads(raw)["error"]
-            assert code == 400 and err["type"] == "invalid_request_error"
-            assert "constrain" in err["message"]
+            codes = [_req(s.port, "POST", "/openai/v1/chat/completions",
+                          {**CHAT, "response_format": rf, "stream": stream})[0]
+                     for s in (tsrv, jsrv)]
+            assert codes == [200, 200]
+    for rf in ({"type": "json_schema", "json_schema": {"schema": {"type": "frobnicate"}}},
+               {"type": "xml"}):
+        for stream in (False, True):
+            errs = []
+            for srv in (tsrv, jsrv):
+                code, _, raw = _req(srv.port, "POST", "/openai/v1/chat/completions",
+                                    {**CHAT, "response_format": rf, "stream": stream})
+                assert code == 400
+                errs.append(json.loads(raw)["error"])
+            assert errs[0] == errs[1] and errs[0]["type"] == "invalid_request_error"
     code, _, raw = _req(tsrv.port, "POST", "/openai/v1/chat/completions",
                         {**CHAT, "response_format": {"type": "text"}})
     assert code == 200
