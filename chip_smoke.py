@@ -147,6 +147,37 @@ or the script exits non-zero:
    decoding: host ms per tick, the device idle share (the step's device
    time over the tick), and the host calls that wait on the device per
    tick (the pipelined loop must block on no copy and no stream);
+5j. an unconverted HuggingFace checkout, with phase 5's Llama-3-8B freed:
+   (a) an HF Llama-3 checkout written at full width into a temp dir
+   (``config.json`` with ``model_type: "llama"`` and a list
+   ``eos_token_id``, ``generation_config.json``, bf16 safetensors shards of
+   ~5 GB under HF's tensor names in HF's [out, in] layout with
+   ``model.safetensors.index.json``, random weights from a seeded
+   ``torch.Generator``, and the committed Llama-3-shaped fixture
+   ``tokenizer.json`` padded to 128256 entries); (b) loaded through
+   ``runtime_main.load_model("jetstream")``, which converts it in place,
+   and served by a ``ModelServer`` in this process: phase 5's prompts as
+   text over HTTP unary and as an SSE stream, ``{"format": "json"}`` and
+   schema constrained requests and a three-turn ``agent.ChatSession``;
+   (c) gates: named converted tensors equal to the shards' transposed, bit for bit
+   after bf16 -> fp16 -> bf16; every served token within the oracle bound
+   of ``forward_full`` on params built from the same draws (no file, no
+   converter); one paged launch per layer and decode step, none plain; the
+   fixture's committed strings encoding to the library's ids and decoding
+   back; every constrained token legal and each receipt what a fresh
+   automaton says, the schema output valid and parsed, the json output
+   valid and parsed or cut at its token budget; turns 2-3 warm; explainer
+   models from ``runtime_main``'s ``jax`` and ``explainer`` loaders on the card
+   (integrated gradients over a ``load_torch`` MLP summing to f(x) -
+   f(baseline) within 1e-3 relative, SHAP calling a ``jax``-loader
+   predictor through ``PREDICTOR_HOST``); (d) reported: checkout bytes,
+   write s, convert s and GB/s, ``params.npz`` bytes, load s, TTFT and
+   tokens/s (at this phase's depth, so not beside phase 5's), encode us per
+   KB, the constrain token table's build s at V = 128256 and the
+   integrated-gradients ``:explain`` ms.  Depth: ``HF_LAYERS`` (8) of the
+   32 layers, width full, since the full depth runs past the phase's ~150 s
+   budget; fewer when the disk cannot hold the checkout and its
+   ``params.npz``;
 6b. runtime: with Llama-3-8B freed, ``python -m
    kubeflow_tpu_torch.serving.runtime_main --loader jetstream`` as a
    subprocess on a model dir holding Llama-3-8B's ``config.json`` (random
@@ -175,7 +206,8 @@ or the script exits non-zero:
    at its tiny defaults, killed at step 3 (exit 137) and rerun: it resumes
    from the step-2 checkpoint and finishes step 4.
 
-The Llama-3-8B weights are freed before phase 6b.  The last lines are the
+Phase 5's Llama-3-8B weights are freed before phase 5j, which runs after
+phase 6.  The last lines are the
 ``{"kernels": [...]}`` record, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Weights are random (seed 0) at full
 width (and, for the phases that serve, full depth).
@@ -2232,6 +2264,9 @@ def mask_rows(model, spec, got: list) -> tuple:
     for t in got:
         row = model.engine._grammar_row(c)
         rows.append(row)
+        if t in model.engine._stop_ids:  # a stop id ends the output where legal
+            legal = bool(row[t])
+            break
         if not row[t] or not c.advance(t):
             legal = False
             break
@@ -2889,6 +2924,524 @@ def train(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 5j
+
+HF_FIXTURE = os.path.join(REPO, "tests", "fixtures", "tokenizer_llama3_shape.json")
+HF_STRINGS = os.path.join(REPO, "tests", "fixtures", "tokenizer_llama3_shape_strings.json")
+# Meta ships Llama-3-8B's bf16 weights in four ~5 GB shards
+HF_SHARD_BYTES = 5_000_000_000
+# the depth phase 5j writes (full width always): 8 of Llama-3-8B's 32
+# layers, since the full-depth phase took 261 s on the H100 machine (the
+# host-side conversion 143 s of it) against the phase's ~150 s budget, and
+# less when the disk cannot hold the checkout and its params.npz (PERF.md
+# section 4)
+HF_LAYERS = 8
+HF_SEED = 1
+# (engine name, HF suffix, transposed) of each layer's tensors, in HF order
+HF_LAYER_TENSORS = (("wq", "self_attn.q_proj.weight", True),
+                    ("wk", "self_attn.k_proj.weight", True),
+                    ("wv", "self_attn.v_proj.weight", True),
+                    ("wo", "self_attn.o_proj.weight", True),
+                    ("w1", "mlp.gate_proj.weight", True),
+                    ("w3", "mlp.up_proj.weight", True),
+                    ("w2", "mlp.down_proj.weight", True),
+                    ("ln_attn", "input_layernorm.weight", False),
+                    ("ln_mlp", "post_attention_layernorm.weight", False))
+# 5j's constrained requests over the HF tokenizer (5i's schema)
+HF_JSON_PROMPT = "Reply with JSON: "
+HF_STRUCTURED = (("json", {"format": "json"}, 48), ("schema", {"schema": SCHEMA}, 96))
+HF_CHAT_TURNS = (PROMPTS[1], " And then? ", " Why so? ")
+# the IG explainer's MLP: features, hidden, outputs; midpoint steps
+IG_D, IG_H, IG_O, IG_STEPS = 64, 256, 4, 128
+
+
+def padded_llama3_tokenizer(data: str, vocab_size: int) -> str:
+    """The Llama-3-shaped fixture grown to ``vocab_size`` entries, as
+    Llama-3's 128256: filler tokens ``x<i>x`` take the ids from the end of
+    the learned vocab up to the specials, which move to the last 256 ids
+    (Llama-3's 128000-128255), the template's BOS with them.  No pre-token
+    of Llama-3's split regex mixes letters and digits and no merge builds a
+    filler, so the learned tokens encode as before; a filler decodes to its
+    own text."""
+    raw = json.loads(data)
+    vocab = raw["model"]["vocab"]
+    learned = len(vocab)
+    assert sorted(vocab.values()) == list(range(learned))
+    specials = raw["added_tokens"]
+    first = vocab_size - len(specials)
+    assert [a["id"] for a in specials] == list(range(learned, learned + len(specials)))
+    for i in range(learned, first):
+        vocab[f"x{i}x"] = i
+    shift = first - learned
+    for a in specials:
+        a["id"] += shift
+
+    def move(node):
+        if isinstance(node, dict):
+            if node.get("type") == "TemplateProcessing":
+                for tok in node["special_tokens"].values():
+                    tok["ids"] = [i + shift for i in tok["ids"]]
+            for v in node.values():
+                move(v)
+        elif isinstance(node, list):
+            for v in node:
+                move(v)
+
+    move(raw["post_processor"])
+    return json.dumps(raw, ensure_ascii=False)
+
+
+def hf_tensors(cfg) -> list:
+    """(HF name, shape, fan_in or None for a norm of ones) in the order a
+    Llama checkout lists them; projections in HF's [out, in] layout."""
+    hd, D = cfg.head_dim, cfg.d_model
+    shapes = {"wq": ((cfg.n_heads * hd, D), D), "wk": ((cfg.n_kv_heads * hd, D), D),
+              "wv": ((cfg.n_kv_heads * hd, D), D), "wo": ((D, cfg.n_heads * hd), cfg.n_heads * hd),
+              "w1": ((cfg.d_ff, D), D), "w3": ((cfg.d_ff, D), D), "w2": ((D, cfg.d_ff), cfg.d_ff),
+              "ln_attn": ((D,), None), "ln_mlp": ((D,), None)}
+    out = [("model.embed_tokens.weight", (cfg.vocab_size, D), 1.0)]
+    for layer in range(cfg.n_layers):
+        for ours, suffix, _ in HF_LAYER_TENSORS:
+            shape, fan_in = shapes[ours]
+            out.append((f"model.layers.{layer}.{suffix}", shape, fan_in))
+    out += [("model.norm.weight", (D,), None), ("lm_head.weight", (cfg.vocab_size, D), D)]
+    return out
+
+
+def hf_draws(cfg, dev, seed: int):
+    """(HF name, bf16 tensor on the card) for every tensor of the checkout,
+    from one seeded ``torch.Generator``: N(0, 1/fan_in), norms ones."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for name, shape, fan_in in hf_tensors(cfg):
+        if fan_in is None:
+            yield name, torch.ones(shape, dtype=torch.bfloat16, device=dev)
+        else:
+            t = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+            yield name, t.div_(math.sqrt(fan_in)).to(torch.bfloat16)
+
+
+def write_hf_checkout(cfg, dev, path: str, seed: int) -> dict:
+    """An HF Llama-3 checkout in ``path``: ``config.json``,
+    ``generation_config.json``, bf16 safetensors shards of ~5 GB under HF's
+    tensor names (header and raw bytes written here) with
+    ``model.safetensors.index.json``; returns {name: (shard, offset,
+    shape)} of every tensor and the bytes written."""
+    specs = hf_tensors(cfg)
+    shards, cur, size = [], [], 0
+    for name, shape, _ in specs:
+        nbytes = 2 * math.prod(shape)
+        if cur and size + nbytes > HF_SHARD_BYTES:
+            shards.append(cur)
+            cur, size = [], 0
+        cur.append((name, shape))
+        size += nbytes
+    shards.append(cur)
+    where, total = {}, 0
+    draws = hf_draws(cfg, dev, seed)
+    for k, members in enumerate(shards):
+        fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        header, off = {"__metadata__": {"format": "pt"}}, 0
+        for name, shape in members:
+            n = 2 * math.prod(shape)
+            header[name] = {"dtype": "BF16", "shape": list(shape), "data_offsets": [off, off + n]}
+            off += n
+        head = json.dumps(header).encode()
+        with open(os.path.join(path, fname), "wb") as f:
+            f.write(len(head).to_bytes(8, "little"))
+            f.write(head)
+            for name, shape in members:
+                got, t = next(draws)
+                assert got == name
+                f.write(t.view(torch.int16).cpu().numpy().tobytes())
+                where[name] = (fname, 8 + len(head) + header[name]["data_offsets"][0], shape)
+        total += 8 + len(head) + off
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": {n: w[0] for n, w in where.items()}}, f, indent=1)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+                   "hidden_size": cfg.d_model, "intermediate_size": cfg.d_ff,
+                   "num_hidden_layers": cfg.n_layers, "num_attention_heads": cfg.n_heads,
+                   "num_key_value_heads": cfg.n_kv_heads, "vocab_size": cfg.vocab_size,
+                   "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.norm_eps,
+                   "max_position_embeddings": 8192, "tie_word_embeddings": False,
+                   "hidden_act": "silu", "torch_dtype": "bfloat16",
+                   "bos_token_id": 128000, "eos_token_id": [128001, 128009]}, f, indent=1)
+    with open(os.path.join(path, "generation_config.json"), "w") as f:
+        json.dump({"bos_token_id": 128000, "eos_token_id": [128001, 128009],
+                   "do_sample": False}, f, indent=1)
+    with open(HF_FIXTURE, encoding="utf-8") as f:
+        tok = padded_llama3_tokenizer(f.read(), cfg.vocab_size)
+    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+        f.write(tok)
+    return {"where": where, "bytes": total}
+
+
+def hf_oracle_params(cfg, dev, seed: int) -> dict:
+    """Engine params built straight from the same draws as the shards (no
+    file, no converter): transposed, stacked per layer, bf16 on the card."""
+    out: dict = {}
+    layers = {ours: [] for ours, _, _ in HF_LAYER_TENSORS}
+    suffix_to = {suffix: (ours, tr) for ours, suffix, tr in HF_LAYER_TENSORS}
+    for name, t in hf_draws(cfg, dev, seed):
+        if name.startswith("model.layers."):
+            ours, tr = suffix_to[name.split(".", 3)[3]]
+            layers[ours].append(t.t().contiguous() if tr else t)
+        elif name == "model.embed_tokens.weight":
+            out["embed"] = t
+        elif name == "model.norm.weight":
+            out["ln_out"] = t
+        else:
+            out["unembed"] = t.t().contiguous()
+    for ours, ts in layers.items():
+        out[ours] = torch.stack(ts)
+        ts.clear()
+    return out
+
+
+def shard_tensor(path: str, where: tuple) -> torch.Tensor:
+    """One bf16 tensor read straight from its shard's bytes."""
+    fname, off, shape = where
+    with open(os.path.join(path, fname), "rb") as f:
+        f.seek(off)
+        raw = f.read(2 * math.prod(shape))
+    return torch.from_numpy(np.frombuffer(raw, np.int16).copy()).view(torch.bfloat16).reshape(shape)
+
+
+def converted_bits_equal(path: str, where: dict, cfg) -> dict:
+    """Named converted tensors against the shards' tensors transposed, bit
+    for bit after bf16 -> fp16 -> bf16 (the converter stores fp16)."""
+    last = cfg.n_layers - 1
+    checks = {"embed": ("model.embed_tokens.weight", None, False),
+              "wq": ("model.layers.0.self_attn.q_proj.weight", 0, True),
+              "w2": (f"model.layers.{last}.mlp.down_proj.weight", last, True),
+              "ln_out": ("model.norm.weight", None, False),
+              "unembed": ("lm_head.weight", None, True)}
+    out = {}
+    with np.load(os.path.join(path, "params.npz")) as z:
+        for ours, (name, layer, tr) in checks.items():
+            arr = z[ours] if layer is None else z[ours][layer]
+            conv = torch.from_numpy(np.ascontiguousarray(arr))
+            src = shard_tensor(path, where[name])
+            src = src.t() if tr else src
+            want = src.to(torch.float16).to(torch.bfloat16)
+            out[ours] = (conv.dtype == torch.float16 and tuple(conv.shape) == tuple(want.shape)
+                         and torch.equal(conv.to(torch.bfloat16).view(torch.int16),
+                                         want.contiguous().view(torch.int16)))
+    return out
+
+
+def fixture_strings() -> dict:
+    """The committed fixture strings through the port's reader: the
+    library's ids and decodes."""
+    from kubeflow_tpu_torch.serving.engine.hf_tokenizer import HFTokenizer
+
+    with open(HF_FIXTURE, encoding="utf-8") as f:
+        tok = HFTokenizer(f.read())
+    with open(HF_STRINGS, encoding="utf-8") as f:
+        cases = json.load(f)["cases"]
+    ids_ok = sum(tok.encode(c["text"]) == c["ids"] for c in cases)
+    dec_ok = sum(tok.decode(c["ids"]) == c["decode"] for c in cases)
+    return {"cases": len(cases), "ids_equal": ids_ok, "decodes_equal": dec_ok,
+            "ok": ids_ok == dec_ok == len(cases) >= 50}
+
+
+MLP_PY = '''import os
+
+import numpy as np
+import torch
+
+
+def load_torch(model_dir):
+    with np.load(os.path.join(model_dir, "mlp.npz")) as z:  # CPU tensors
+        params = {k: torch.from_numpy(z[k]) for k in z.files}
+
+    def apply(p, x):
+        return torch.tanh(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+    return apply, params
+'''
+
+
+def explainer_pods(tmp: str) -> dict:
+    """``runtime_main``'s ``jax`` loader serving ``load_torch`` MLPs on the
+    card; an ``explainer`` with integrated gradients over the 64-feature
+    one (timed ``:explain``; attributions summing to f(x) - f(baseline)),
+    and a SHAP ``explainer`` calling an 8-feature one through
+    ``PREDICTOR_HOST`` (exact Shapley values summing to f(x) - f(the
+    background))."""
+    from kubeflow_tpu_torch.serving import runtime_main as RM
+
+    rng = np.random.default_rng(3)
+    w = {"w1": (rng.normal(size=(IG_D, IG_H)) / math.sqrt(IG_D)).astype(np.float32),
+         "b1": (rng.normal(size=IG_H) * 0.1).astype(np.float32),
+         "w2": (rng.normal(size=(IG_H, IG_O)) / math.sqrt(IG_H)).astype(np.float32),
+         "b2": np.zeros(IG_O, np.float32)}
+    w8 = dict(w, w1=np.ascontiguousarray(w["w1"][:8]))
+    x = rng.normal(size=(4, IG_D)).astype(np.float32)
+    dirs = {}
+    for kind, weights, exp in (
+            ("ig", w, {"method": "integrated_gradients", "steps": IG_STEPS, "output_index": 1}),
+            ("pred8", w8, None),
+            ("shap", w8, {"method": "shap", "background": [[0.0] * 8], "output_index": 1})):
+        d = os.path.join(tmp, kind)
+        os.makedirs(d)
+        np.savez(os.path.join(d, "mlp.npz"), **weights)
+        with open(os.path.join(d, "model.py"), "w") as f:
+            f.write(MLP_PY)
+        if exp is not None:
+            with open(os.path.join(d, "explainer.json"), "w") as f:
+                json.dump(exp, f)
+        dirs[kind] = d
+    out: dict = {}
+    servers = []
+
+    def serve_model(m):
+        srv = ModelServer([m], port=0, host="127.0.0.1")
+        srv.start()
+        servers.append(srv)
+        return srv.port
+
+    try:
+        # no device asked for: the loaders move the CPU params to the card
+        models = [RM.load_model("jax", "mlp", dirs["ig"]),
+                  RM.load_model("explainer", "mlp", dirs["ig"]),
+                  RM.load_model("jax", "mlp", dirs["pred8"])]
+        pred, ig, pred8 = (serve_model(m) for m in models)
+        out["devices"] = [str(m.device) for m in models]
+        code, f_x = post_json(pred, "/v1/models/mlp:predict", {"instances": x.tolist()})
+        _, f_0 = post_json(pred, "/v1/models/mlp:predict",
+                           {"instances": np.zeros_like(x).tolist()})
+        body = {"instances": x.tolist()}
+        post_json(ig, "/v1/models/mlp:explain", body)  # first use
+        t0 = time.perf_counter()
+        code_ig, res = post_json(ig, "/v1/models/mlp:explain", body)
+        out["ig_explain_ms"] = (time.perf_counter() - t0) * 1e3
+        attr = np.asarray([e["attributions"] for e in res["explanations"]])
+        gap = np.asarray(f_x["predictions"])[:, 1] - np.asarray(f_0["predictions"])[:, 1]
+        out["ig_completeness_rel_err"] = float(np.max(np.abs(attr.sum(-1) - gap)
+                                                      / np.maximum(np.abs(gap), 1e-6)))
+        old = os.environ.get("PREDICTOR_HOST")
+        os.environ["PREDICTOR_HOST"] = f"127.0.0.1:{pred8}"
+        try:
+            shap = serve_model(RM.load_model("explainer", "mlp", dirs["shap"]))
+        finally:
+            if old is None:
+                os.environ.pop("PREDICTOR_HOST")
+            else:
+                os.environ["PREDICTOR_HOST"] = old
+        rows = np.zeros((2, 8), np.float32)
+        rows[0] = x[0, :8]
+        code_shap, res = post_json(shap, "/v1/models/mlp:explain",
+                                   {"instances": rows[:1].tolist()})
+        phi = np.asarray(res["explanations"][0]["shap_values"])
+        _, f_rows = post_json(pred8, "/v1/models/mlp:predict", {"instances": rows.tolist()})
+        sgap = f_rows["predictions"][0][1] - f_rows["predictions"][1][1]
+        out["shap_completeness_abs_err"] = float(abs(phi.sum() - sgap))
+        out.update(statuses=[code, code_ig, code_shap], shap_features=int(phi.size))
+    finally:
+        for s in servers:
+            s.stop()
+    out["ok"] = (out["statuses"] == [200, 200, 200]
+                 and all(d.startswith("cuda") for d in out["devices"])
+                 and out["ig_completeness_rel_err"] <= 1e-3
+                 and out["shap_completeness_abs_err"] <= 1e-3 * max(1.0, abs(sgap)))
+    return out
+
+
+def hf_checkout(cfg, dev) -> dict:
+    """Phase 5j: an unconverted HuggingFace Llama-3 checkout written at full
+    width (random bf16 weights, seed HF_SEED, the padded fixture tokenizer),
+    loaded through ``runtime_main.load_model("jetstream")`` (which converts
+    it in place) and served by a ``ModelServer`` in this process, so the
+    kernel's launches can be read: text prompts unary and SSE, json and
+    schema constrained requests, a three-turn ``ChatSession``; then the gates
+    (converted bits, the oracle on params built from the same draws, one
+    paged launch per layer and decode step) and the explainer pods."""
+    from kubeflow_tpu_torch.serving import runtime_main as RM
+    from kubeflow_tpu_torch.serving.agent import ChatSession
+    from kubeflow_tpu_torch.serving.engine import serve as SV
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out: dict = {"fixture": fixture_strings()}
+    free = shutil.disk_usage(BUILD_DIR).free
+    layers = min(HF_LAYERS, cfg.n_layers)
+    per_layer = 2 * sum(math.prod(s) for n, s, _ in hf_tensors(cfg) if n.startswith("model.layers.0."))
+    fixed = 2 * (2 * cfg.vocab_size * cfg.d_model + cfg.d_model)
+    while layers > 2 and 2 * (fixed + layers * per_layer) + (4 << 30) > free:
+        layers //= 2
+    hcfg = dataclasses.replace(cfg, n_layers=layers)
+    out["disk_free_bytes"] = free
+    causes = []
+    if HF_LAYERS < cfg.n_layers:
+        causes.append(f"time: the phase's ~150 s budget holds {HF_LAYERS} layers")
+    if layers < min(HF_LAYERS, cfg.n_layers):
+        causes.append(f"disk: {free} bytes free under {BUILD_DIR}")
+    out["reduced"] = None if layers == cfg.n_layers else (
+        f"n_layers {cfg.n_layers} -> {layers} ({'; '.join(causes)})")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        ckpt = os.path.join(tmp, "llama3-8b-hf")
+        os.makedirs(ckpt)
+        t0 = time.perf_counter()
+        written = write_hf_checkout(hcfg, dev, ckpt, HF_SEED)
+        out["checkout_bytes"] = written["bytes"]
+        out["write_s"] = time.perf_counter() - t0
+        convert_s = []
+        convert = SV.convert_hf_checkpoint
+
+        def timed_convert(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return convert(*a, **kw)
+            finally:
+                convert_s.append(time.perf_counter() - t)
+
+        SV.convert_hf_checkpoint = timed_convert
+        t0 = time.perf_counter()
+        try:
+            model = RM.load_model("jetstream", "llama3-8b", ckpt, device=dev)
+            model.load()
+        finally:
+            SV.convert_hf_checkpoint = convert
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        out["convert_s"] = convert_s[0] if convert_s else None
+        out["load_s"] = total - (out["convert_s"] or 0.0)
+        out["params_npz_bytes"] = os.path.getsize(os.path.join(ckpt, "params.npz"))
+        if out["convert_s"]:
+            out["convert_gb_per_s"] = out["checkout_bytes"] / out["convert_s"] / 1e9
+        out["tokenizer"] = type(model.tokenizer).__name__
+        out["vocab_size"] = model.tokenizer.vocab_size
+        out["eos"] = [model.engine.ec.eos_id, *model.engine.ec.eos_ids]
+        tok = model.tokenizer
+        text = (TEXT * 120)[:16384]
+        tok.encode(text)
+        t0 = time.perf_counter()
+        tok.encode(text)
+        out["encode_us_per_kb"] = (time.perf_counter() - t0) * 1e6 / (len(text.encode()) / 1024)
+        srv = ModelServer([model], port=0, host="127.0.0.1")
+        srv.start()
+        engine = model.engine
+        try:
+            with ThreadPoolExecutor(len(PROMPTS)) as pool:  # first use of each shape
+                list(pool.map(lambda p: post(srv.port, {
+                    "text_input": p[::-1].swapcase(), "parameters": {"max_tokens": 2}}), PROMPTS))
+            t0 = time.perf_counter()
+            model._constrain_registry().table_for(tok)
+            out["token_table_s"] = time.perf_counter() - t0
+            before = engine.stats
+            with KernelWatch() as watch:
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(len(PROMPTS)) as pool:
+                    results = list(pool.map(lambda p: post(srv.port, {
+                        "text_input": p, "parameters": {"max_tokens": MAX_TOKENS}}), PROMPTS))
+                wall = time.perf_counter() - t0
+                code, events, times = sse(srv.port, STREAM_PATH, {
+                    "text_input": PROMPTS[2], "parameters": {"max_tokens": MAX_TOKENS}},
+                    {"X-Stream-Resume": "1"})
+                structured = {kind: post(srv.port, {"text_input": HF_JSON_PROMPT, "parameters": {
+                    "max_tokens": n, "constrain": spec}}) for kind, spec, n in HF_STRUCTURED}
+                chat = ChatSession(model, max_tokens=16)
+                turns = [chat.turn(t) for t in HF_CHAT_TURNS]
+                stats = engine.stats
+                while stats["active_slots"]:
+                    time.sleep(0.01)
+                    stats = engine.stats
+            steps = stats["decode_steps"] - before["decode_steps"]
+            masks = {}
+            for kind, spec, n in HF_STRUCTURED:
+                code_k, body_k = structured[kind]
+                rec = body_k.get("constrain") or {} if code_k == 200 else {}
+                got_k = body_k.get("token_ids", []) if code_k == 200 else []
+                rows, legal, auto = mask_rows(model, spec, got_k)
+                masks[kind] = rows if legal else None
+                out[kind] = {"status": code_k, "outcome": rec.get("outcome"),
+                             "parsed": "json" in body_k, "legal": legal,
+                             "receipt_matches_automaton": (rec.get("outcome") == "valid")
+                             == auto.accepting(),
+                             "text": body_k.get("text_output", "")[:120], "tokens": len(got_k),
+                             "max_tokens": n}
+            out["requests"] = {
+                "statuses": [r[0] for r in results],
+                "tokens": [r[1].get("tokens") for r in results],
+                "ttft_s": [r[1].get("ttft_s") for r in results],
+                "tokens_per_s": sum(r[1].get("tokens", 0) for r in results) / wall,
+                "text_head": [r[1].get("text_output", "")[:60] for r in results]}
+            final = events[-1] if events and isinstance(events[-1], dict) else {}
+            stream_ids = [i for e in events if isinstance(e, dict) for i in e.get("token_ids", [])]
+            out["stream"] = {"status": code, "tokens": final.get("tokens"),
+                             "ids": len(stream_ids),
+                             "client_first_event_s": times[0] if times else None}
+            out["chat"] = {"restore_history": chat.restore_history,
+                           "prompt_tokens": [t["prompt_tokens"] for t in turns],
+                           "ttft_s": [t["ttft_s"] for t in turns]}
+            chat_prompts, ctx = [], []
+            for t, text_in in zip(turns, HF_CHAT_TURNS):
+                ids = ctx + tok.encode(text_in)
+                chat_prompts.append((ids, t["token_ids"]))
+                ctx = ids + t["token_ids"]
+            out["chat"]["context_ids_match"] = ctx == chat.context_ids
+            chat.end()
+            out["launches"], out["plain_calls"], out["decode_steps"] = (
+                watch.launches, watch.plain_calls, steps)
+            out["leaked_pages"] = leaked_pages(stats, engine.ec)
+        finally:
+            srv.stop()
+            engine.stop()
+        model.engine = None
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["converted_bits_equal"] = converted_bits_equal(ckpt, written["where"], hcfg)
+    oracle = hf_oracle_params(hcfg, dev, HF_SEED)
+    lags = [oracle_lag(oracle, hcfg, dev, tok.encode(p), r[1]["token_ids"])
+            for p, r in zip(PROMPTS, results) if r[0] == 200]
+    if stream_ids:
+        lags.append(oracle_lag(oracle, hcfg, dev, tok.encode(PROMPTS[2]), stream_ids))
+    lags += [oracle_lag(oracle, hcfg, dev, ids, got) for ids, got in chat_prompts]
+    for kind, _, _ in HF_STRUCTURED:
+        if masks[kind]:  # legal and non-empty
+            lags.append(oracle_lag(oracle, hcfg, dev, tok.encode(HF_JSON_PROMPT),
+                                   structured[kind][1]["token_ids"], mask_rows=masks[kind]))
+    out["oracle_max_logit_lag"] = lags
+    del oracle
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        out["explainers"] = explainer_pods(tmp)
+    eos = set(out["eos"])
+
+    def full(r):  # 32 tokens, or fewer ending on a declared EOS
+        ids = r[1].get("token_ids") or []
+        return r[0] == 200 and (len(ids) == MAX_TOKENS or (ids and ids[-1] in eos))
+
+    out["ok"] = (out["fixture"]["ok"] and all(out["converted_bits_equal"].values())
+                 and out["tokenizer"] == "HFTokenizer" and out["vocab_size"] == cfg.vocab_size
+                 and all(full(r) for r in results)
+                 and out["stream"]["status"] == 200 and out["stream"]["ids"] == out["stream"]["tokens"]
+                 # as in 5i: every constrained token legal, the receipt what a
+                 # fresh automaton says; the schema (enums close it) valid and
+                 # parsed; json valid and parsed, or cut by the budget alone
+                 # (random weights may run a bare JSON number forever), so an
+                 # early stop short of a sentence fails
+                 and all(out[k]["status"] == 200 and out[k]["legal"]
+                         and out[k]["receipt_matches_automaton"] for k, _, _ in HF_STRUCTURED)
+                 and out["schema"]["outcome"] == "valid" and out["schema"]["parsed"]
+                 and ((out["json"]["outcome"] == "valid" and out["json"]["parsed"])
+                      or (out["json"]["outcome"] == "truncated"
+                          and out["json"]["tokens"] == out["json"]["max_tokens"]))
+                 and out["chat"]["restore_history"][0] == "cold"
+                 and all(h in ("host", "disk", "cache")  # warm: no re-prefill of the pin
+                         for h in out["chat"]["restore_history"][1:])
+                 and out["chat"]["context_ids_match"]
+                 and out["launches"] == hcfg.n_layers * out["decode_steps"] > 0
+                 and out["plain_calls"] == 0 and out["leaked_pages"] == 0
+                 and max(lags) <= ORACLE_TIE_EPS and out["explainers"]["ok"])
+    return out
+
+
 # ---------------------------------------------------------------- phase 6b
 
 RUNTIME_READY_S = 600
@@ -3086,9 +3639,12 @@ def main() -> int:
 
     phase("profile", profile)
 
-    # the serving phases are done: free Llama-3-8B before the pod entry
-    # point loads its own, and before training
+    # the serving phases are done: free Llama-3-8B before the HF checkout's
+    # and the pod entry point's own loads, and before training
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    served.append(phase("hf_checkout", lambda: hf_checkout(cfg, dev)))
     gc.collect()
     torch.cuda.empty_cache()
     phase("runtime", lambda: runtime(cfg))
@@ -3116,10 +3672,11 @@ def main() -> int:
               "tpu_kernel": "kubeflow_tpu/serving/engine/paged_attention.py:_kernel",
               # every served path in this process: phase 5's two loops,
               # speculative, prefix cache, QoS preemption, session restores,
-              # the streaming surfaces, observability, disaggregation and
-              # 5i's int8, LoRA, constrained and brownout engines (the
-              # runtime phase's subprocess launches the kernel too, but its
-              # counter is not readable here)
+              # the streaming surfaces, observability, disaggregation,
+              # 5i's int8, LoRA, constrained and brownout engines and 5j's
+              # converted HF checkout (the runtime phase's subprocess
+              # launches the kernel too, but its counter is not readable
+              # here)
               "launches": sum(r.get("launches", 0) for r in served),
               "max_abs_err": max((c["max_abs_err"] for c in cases), default=None),
               "ms": head.get("kernel_ms"), "kernel_ms": head.get("kernel_ms"),

@@ -16,7 +16,8 @@ in f32, before the table is rounded to bf16 (round to nearest even, as the
 JAX package rounds it): A and B are the JAX package's bits.
 
 The JAX package reads the files with the ``safetensors`` package; the port
-reads the format itself (``read_safetensors``), so it needs no package
+reads the format itself (``SafetensorsFile``, one tensor at a time, which
+``hf_convert`` also reads checkpoint shards with), so it needs no package
 beyond torch and numpy.
 """
 
@@ -35,52 +36,95 @@ from ...utils.device import resolve_device
 _PROJ_MAP = {"q_proj": "wq", "k_proj": "wk", "v_proj": "wv", "o_proj": "wo",
              "gate_proj": "w1", "up_proj": "w3", "down_proj": "w2"}
 
-# safetensors dtype tag -> (numpy dtype of the raw little-endian data,
-# whether the 16-bit pattern is bfloat16)
-_ST_DTYPES = {"F32": (np.dtype("<f4"), False), "F16": (np.dtype("<f2"), False),
-              "BF16": (np.dtype("<i2"), True)}
+# safetensors dtype tag -> (numpy dtype of the raw little-endian data, the
+# torch dtype it is handed out as; bf16 travels as its 16-bit pattern)
+_ST_DTYPES = {"F32": (np.dtype("<f4"), torch.float32),
+              "F16": (np.dtype("<f2"), torch.float16),
+              "BF16": (np.dtype("<i2"), torch.bfloat16),
+              "F64": (np.dtype("<f8"), torch.float64),
+              "I64": (np.dtype("<i8"), torch.int64),
+              "I32": (np.dtype("<i4"), torch.int32),
+              "I16": (np.dtype("<i2"), torch.int16),
+              "I8": (np.dtype("i1"), torch.int8),
+              "U8": (np.dtype("u1"), torch.uint8),
+              "BOOL": (np.dtype("?"), torch.bool)}
+# what an adapter may hold
+_ADAPTER_DTYPES = ("F32", "F16", "BF16")
+
+
+class SafetensorsFile:
+    """Per-tensor access to one ``.safetensors`` file.
+
+    The format: an 8-byte little-endian header length, a JSON header mapping
+    each tensor name to its ``dtype``, ``shape`` and ``data_offsets`` (begin,
+    end) into the data that follows, then the raw little-endian data.  The
+    header is parsed and checked once; ``get`` then reads one tensor with a
+    seek and a read, so a multi-GB checkpoint shard never sits in host RAM
+    whole.  BF16 comes back as a torch bf16 tensor through its 16-bit
+    pattern, never a numpy ``bfloat16``; the other float, integer and bool
+    tags as their torch dtypes.  An unknown dtype or an inconsistent header
+    raises ValueError.  ``__metadata__`` is ignored."""
+
+    def __init__(self, path: str):
+        self.path = path
+        size = os.path.getsize(path)
+        with open(path, "rb") as f:
+            head = f.read(8)
+            if len(head) < 8:
+                raise ValueError(f"{path}: not a safetensors file (too short)")
+            (n,) = struct.unpack("<Q", head)
+            if 8 + n > size:
+                raise ValueError(f"{path}: header length {n} runs past the file")
+            try:
+                header = json.loads(f.read(n))
+            except ValueError as e:
+                raise ValueError(f"{path}: unreadable safetensors header: {e}") from None
+        self._base = 8 + n
+        self._entries = {}
+        self.dtypes: dict = {}  # name -> the header's dtype tag
+        for name, info in header.items():
+            if name == "__metadata__":
+                continue
+            dt = _ST_DTYPES.get(info.get("dtype"))
+            if dt is None:
+                raise ValueError(f"{path}: tensor {name!r} has unsupported dtype "
+                                 f"{info.get('dtype')!r} ({', '.join(_ST_DTYPES)})")
+            shape = tuple(int(d) for d in info["shape"])
+            lo, hi = (int(o) for o in info["data_offsets"])
+            count = int(np.prod(shape, dtype=np.int64))
+            if not 0 <= lo <= hi <= size - self._base or hi - lo != count * dt[0].itemsize:
+                raise ValueError(f"{path}: tensor {name!r} data_offsets {lo}..{hi} "
+                                 f"do not fit shape {shape}")
+            self._entries[name] = (dt, shape, lo, hi)
+            self.dtypes[name] = info["dtype"]
+
+    def keys(self) -> list:
+        return list(self._entries)
+
+    def get(self, name: str) -> torch.Tensor:
+        """One tensor, read from disk now, as a CPU tensor of its dtype."""
+        (np_dt, torch_dt), shape, lo, hi = self._entries[name]
+        arr = np.empty(shape, dtype=np_dt)
+        if hi == lo:  # an empty tensor: nothing to read
+            return torch.from_numpy(arr).view(torch_dt)
+        with open(self.path, "rb") as f:
+            f.seek(self._base + lo)
+            if f.readinto(memoryview(arr.reshape(-1)).cast("B")) != hi - lo:
+                raise ValueError(f"{self.path}: tensor {name!r} is truncated")
+        t = torch.from_numpy(arr)
+        return t.view(torch.bfloat16) if torch_dt is torch.bfloat16 else t
 
 
 def read_safetensors(path: str) -> dict:
-    """A ``.safetensors`` file -> {name: float32 numpy array}.
-
-    The format: an 8-byte little-endian header length, a JSON header
-    mapping each tensor name to its ``dtype``, ``shape`` and
-    ``data_offsets`` (begin, end) into the data that follows, then the raw
-    little-endian data.  ``__metadata__`` is ignored.  F32, F16 and BF16
-    are read (BF16 as its 16-bit pattern, widened to f32 exactly); any
-    other dtype or an inconsistent header raises ValueError."""
-    with open(path, "rb") as f:
-        raw = f.read()
-    if len(raw) < 8:
-        raise ValueError(f"{path}: not a safetensors file (too short)")
-    (n,) = struct.unpack("<Q", raw[:8])
-    if 8 + n > len(raw):
-        raise ValueError(f"{path}: header length {n} runs past the file")
-    try:
-        header = json.loads(raw[8:8 + n])
-    except ValueError as e:
-        raise ValueError(f"{path}: unreadable safetensors header: {e}") from None
-    data = memoryview(raw)[8 + n:]
-    out = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        dt = _ST_DTYPES.get(info.get("dtype"))
-        if dt is None:
+    """A ``.safetensors`` file of F32, F16 or BF16 tensors -> {name: float32
+    numpy array} (BF16 widened to f32 exactly); any other dtype or an
+    inconsistent header raises ValueError."""
+    f = SafetensorsFile(path)
+    for name in f.keys():
+        if f.dtypes[name] not in _ADAPTER_DTYPES:
             raise ValueError(f"{path}: tensor {name!r} has unsupported dtype "
-                             f"{info.get('dtype')!r} (F32, F16, BF16)")
-        shape = tuple(int(d) for d in info["shape"])
-        lo, hi = (int(o) for o in info["data_offsets"])
-        count = int(np.prod(shape, dtype=np.int64))
-        if not 0 <= lo <= hi <= len(data) or hi - lo != count * dt[0].itemsize:
-            raise ValueError(f"{path}: tensor {name!r} data_offsets {lo}..{hi} "
-                             f"do not fit shape {shape}")
-        arr = np.frombuffer(data[lo:hi], dtype=dt[0]).reshape(shape)
-        if dt[1]:  # bf16: the high half of an f32
-            arr = (arr.astype(np.uint16).astype(np.uint32) << 16).view(np.float32)
-        out[name] = arr.astype(np.float32)
-    return out
+                             f"{f.dtypes[name]!r} (F32, F16, BF16)")
+    return {name: f.get(name).float().numpy() for name in f.keys()}
 
 
 def _read_peft_dir(path: str) -> tuple:

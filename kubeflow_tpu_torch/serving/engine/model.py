@@ -52,14 +52,8 @@ import torch
 import torch.nn.functional as F
 
 from ...utils.device import resolve_device
+from .hf_convert import is_hf_config
 from .paged_attention import paged_attention
-
-
-def is_hf_config(raw: dict) -> bool:
-    """True if a config.json dict is a transformers config (not ours).
-    HF configs always carry model_type/architectures; ours never do.
-    (A copy of ``kubeflow_tpu/serving/engine/hf_convert.is_hf_config``.)"""
-    return "model_type" in raw or "architectures" in raw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,8 +95,8 @@ class DecoderConfig:
             # would produce a config with DEFAULT dims and garbage serving
             raise ValueError(
                 f"{path} is a HuggingFace config — convert the checkpoint "
-                "first (kubeflow_tpu.serving.engine.hf_convert writes "
-                "config.json + params.npz in the engine's format)")
+                "first (kubeflow_tpu_torch.serving.engine.hf_convert; the "
+                "JetStream runtime auto-converts on load)")
         fields = {f.name for f in dataclasses.fields(DecoderConfig)}
         return DecoderConfig(**{k: v for k, v in raw.items() if k in fields})
 

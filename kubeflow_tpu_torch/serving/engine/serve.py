@@ -54,9 +54,15 @@ speculation drafts from stage 2 and defers the fabric publish at stage 3;
 ``adapter`` names a LoRA adapter loaded from ``model_dir/adapters/``
 (lora.py; an unknown name is a 400).
 
-Tokenization: a flat ``{token: id}`` ``tokenizer.json`` in the model dir
-(greedy longest-match), else byte-level (ids 0..255).  The HF tokenizers
-format comes in a later slice.  A request parameter this port lacks would
+A model dir that holds an unconverted HuggingFace checkout (an HF
+``config.json`` beside safetensors shards or ``pytorch_model*.bin``) is
+converted in place on load (``hf_convert``), as the JAX package does.
+
+Tokenization: ``tokenizer.json`` if the model dir has one — the HF
+tokenizers-library format (detected by its ``{"model": {"type": ...}}``
+shape; read by the port's own ``hf_tokenizer.HFTokenizer``, re-exported
+here) or a flat ``{token: id}`` vocab with greedy longest-match — else
+byte-level (ids 0..255).  A request parameter this port lacks would
 be refused with a 400 rather than silently ignored (``_UNSUPPORTED_PARAMS``,
 empty since every generate parameter of the JAX package is ported; a null
 value counts as absent).  An ``engine.json`` key whose feature is not
@@ -85,6 +91,8 @@ from ..slo import SloConfig
 from .engine import Engine, EngineConfig
 from .faults import (ConstrainFaultConfig, FabricFaultConfig, FaultConfig,
                      HandoffFaultConfig, StorageFaultConfig)
+from .hf_convert import convert_hf_checkpoint, hf_dir_needs_conversion
+from .hf_tokenizer import HFTokenizer
 from .kvstore import (BF16Bits, KVStoreConfig, normalize_session_id,
                       unpack_frame)
 from .lora import load_adapters
@@ -209,12 +217,12 @@ class VocabTokenizer:
 def load_tokenizer(model_dir: str):
     path = os.path.join(model_dir, "tokenizer.json")
     if model_dir and os.path.exists(path):
-        with open(path) as f:
-            raw = json.load(f)
+        with open(path, encoding="utf-8") as f:
+            data = f.read()  # read once: sniff + construct from the string
+        raw = json.loads(data)
         if isinstance(raw.get("model"), dict) and "type" in raw["model"]:
-            raise ValueError(f"{path} is a HuggingFace tokenizers file, which "
-                             "this port does not read yet")
-        return VocabTokenizer(raw)
+            return HFTokenizer(data)  # tokenizers-library format
+        return VocabTokenizer(raw)  # a flat {token: id} vocab
     return ByteTokenizer()
 
 
@@ -362,8 +370,14 @@ class JetStreamModel(Model):
         """Build the engine from the model dir (``config.json`` +
         ``params.npz``, else the default config and random init, an
         optional ``engine.json`` and the PEFT adapters under
-        ``adapters/``), unless one was handed in; start it."""
+        ``adapters/``), unless one was handed in; start it.  An unconverted
+        HuggingFace checkout is converted in place first."""
         if self.engine is None:
+            if self.model_dir and hf_dir_needs_conversion(self.model_dir):
+                # storage_uri pointed at a raw HuggingFace checkout: convert
+                # its weights into engine params in place, next to the
+                # originals (model_dir is the pod-local copy)
+                convert_hf_checkpoint(self.model_dir, self.model_dir)
             config = DecoderConfig.from_dir(self.model_dir) or DecoderConfig()
             ec = EngineConfig()
             eos_explicit = False

@@ -14,14 +14,22 @@ Loaders:
                else a pickled booster.
   tensorflow   (or ``savedmodel``) a TF SavedModel's ``serving_default``
                signature on TF's own runtime.
-  jetstream    the LLM decode engine (serving/engine) on a checkpoint dir,
+  jax          model dir contains ``model.py`` defining
+               ``load_torch(model_dir) -> (apply, params)``, where
+               ``apply(params, x: Tensor) -> Tensor`` runs where ``params``
+               live (the card, for a model.py that puts them there).  The
+               loader keeps the JAX package's name, so a spec rendered for
+               model format ``jax`` (``--loader jax``) reaches a port pod; a
+               ``model.py`` that defines only ``load_jax`` is refused.
+  explainer    ``explainer.json`` in the model dir: SHAP over the predictor
+               at ``PREDICTOR_HOST``, or integrated gradients over the
+               ``load_torch`` model of the same dir (serving/explainers.py).
+  jetstream    the LLM decode engine (serving/engine) on a checkpoint dir
+               (an unconverted HuggingFace checkout is converted on load),
                on the card unless ``TORCH_DEVICE`` names another device
                (``TORCH_DEVICE=cpu`` for a run without one).
   huggingface  a transformers pipeline.
   echo         identity model (tests, smoke).
-
-The ``jax`` loader has no torch contract yet, and the ``explainer`` loader
-waits for the explainers' port (ROADMAP item 2.2): both are refused.
 
 A transformer component sets ``PREDICTOR_HOST``; the loaded model's
 ``predict`` then delegates over HTTP — the same chain as upstream
@@ -99,9 +107,35 @@ class _FnModel(Model):
         return self._fn(instances)
 
 
+def load_torch_model(model_dir: str, loader: str = "jax", device=None) -> tuple:
+    """``model_dir/model.py``'s ``load_torch(model_dir)`` -> ``(apply,
+    params, device)``: the port's counterpart of the JAX package's
+    ``load_jax`` contract, with ``params`` moved to ``device`` (default:
+    the card; a run without one raises).  A ``model.py`` that defines only
+    ``load_jax`` (a JAX model) is refused with a message naming
+    ``load_torch``."""
+    from ..utils.device import resolve_device
+    from .explainers import params_to
+
+    path = _find(model_dir, "model.py")
+    if path is None:
+        raise FileNotFoundError(f"{loader}: no model.py in {model_dir}")
+    mod = _load_module(path)
+    if not hasattr(mod, "load_torch"):
+        got = "only load_jax (a JAX model)" if hasattr(mod, "load_jax") else "neither"
+        raise AttributeError(
+            f"{loader}: {path} must define load_torch(model_dir) -> (apply, params), "
+            f"with apply(params, x: Tensor) -> Tensor; it defines {got} — this "
+            "runtime runs torch, not JAX")
+    dev = resolve_device(device)
+    apply_fn, params = mod.load_torch(model_dir)
+    return apply_fn, params_to(params, dev), dev
+
+
 def load_model(loader: str, name: str, model_dir: str, device=None) -> Model:
     """The model ``loader`` builds from ``model_dir``; ``device`` is where
-    the ``jetstream`` engine runs (default: the card)."""
+    the ``jetstream`` engine and the ``jax`` and ``explainer`` loaders'
+    torch models run (default: the card)."""
     predictor_host = os.environ.get("PREDICTOR_HOST", "")
 
     if loader == "echo":
@@ -153,13 +187,30 @@ def load_model(loader: str, name: str, model_dir: str, device=None) -> Model:
         return _FnModel(name, lambda instances: _np_list(booster.predict(_np(instances))))
 
     if loader == "explainer":
-        raise ValueError("loader 'explainer' is not ported yet (ROADMAP item "
-                         "2.2 brings the explainers)")
+        from .explainers import ExplainerModel
+
+        m = ExplainerModel(name, model_dir, device=device)
+        if predictor_host:
+            m.predictor = PredictorClient(predictor_host)
+        return m
 
     if loader == "jax":
-        raise ValueError("loader 'jax' is not ported: a model.py's load_jax "
-                         "returns a JAX function, and a torch loader contract "
-                         "for it is not defined yet")
+        import numpy as np
+        import torch
+
+        apply_fn, params, dev = load_torch_model(model_dir, "jax", device)
+
+        def _torch_predict(instances):
+            x = np.asarray(instances)
+            if x.dtype == np.float64:  # JSON numbers: f32, as JAX takes them
+                x = x.astype(np.float32)
+            with torch.inference_mode():
+                y = apply_fn(params, torch.as_tensor(x, device=dev))
+            return _np_list(torch.as_tensor(y).cpu().numpy())
+
+        m = _FnModel(name, _torch_predict)
+        m.device = dev
+        return m
 
     if loader in ("tensorflow", "savedmodel"):
         # TF-Serving-equivalent SavedModel path: TF's own runtime executes

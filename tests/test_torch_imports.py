@@ -1,13 +1,16 @@
 """The port stands alone: kubeflow_tpu_torch (and chip_smoke.py) import
-neither JAX, nor ml_dtypes, optax, orbax or safetensors, nor anything of the
-JAX package.
+neither JAX, nor ml_dtypes, optax, orbax, safetensors, tokenizers, regex or
+transformers, nor anything of the JAX package.
 
 A subprocess installs a meta-path finder that refuses ``jax``, ``jaxlib``,
 ``ml_dtypes``, ``optax``, ``orbax``, ``safetensors`` (the port reads the
-format itself) and ``kubeflow_tpu`` (and their submodules — but not
-``kubeflow_tpu_torch``, whose name shares the prefix), then imports every
-module of the port; a source scan backs it up for imports a runtime path
-might not reach."""
+format itself), ``tokenizers`` and ``regex`` (the port reads
+``tokenizer.json`` itself), ``transformers`` and ``kubeflow_tpu`` (and their
+submodules — but not ``kubeflow_tpu_torch``, whose name shares the prefix),
+then imports every module of the port; a source scan backs it up for
+imports a runtime path might not reach.  The one import the scan lets
+through is the ``huggingface`` loader's ``transformers``: that loader IS a
+transformers pipeline, imported only when a pod asks for it."""
 
 import ast
 import os
@@ -18,7 +21,11 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "kubeflow_tpu_torch")
-BLOCKED = ("jax", "jaxlib", "ml_dtypes", "optax", "orbax", "safetensors", "kubeflow_tpu")
+BLOCKED = ("jax", "jaxlib", "ml_dtypes", "optax", "orbax", "safetensors", "tokenizers",
+           "regex", "transformers", "kubeflow_tpu")
+# (file relative to the repo, module): the huggingface loader's own runtime
+THIRD_PARTY_LOADERS = {(os.path.join("kubeflow_tpu_torch", "serving", "runtime_main.py"),
+                        "transformers")}
 
 _BLOCKER = """
 import importlib.abc, sys
@@ -56,6 +63,8 @@ def test_every_port_module_imports_with_jax_blocked():
     for name in ("serving.engine.paged_attention", "serving.engine.scheduler",
                  "serving.engine.kvstore", "serving.engine.faults",
                  "serving.engine.lora", "serving.constrain",
+                 "serving.engine.hf_convert", "serving.engine.hf_tokenizer",
+                 "serving.explainers", "serving.storage",
                  "ops.attention", "ops.flash_attention",
                  "models.bert", "train.data", "train.trainer", "train.checkpoint",
                  "examples.bert_worker"):
@@ -106,5 +115,7 @@ def test_source_imports_nothing_of_jax(path):
         else:
             continue
         for name in names:
+            if (os.path.relpath(path, REPO), name) in THIRD_PARTY_LOADERS:
+                continue
             assert not any(name == b or name.startswith(b + ".") for b in BLOCKED), (
                 f"{path}:{node.lineno} imports {name}")

@@ -4,7 +4,10 @@ Run as a subprocess on the CPU (``TORCH_DEVICE=cpu``), as a pod runs it:
 the ``jetstream`` loader serves a model dir (a tiny ``config.json`` with no
 weights, so random init, plus an ``engine.json`` with ``scheduler`` and
 ``kv_store`` blocks) through ready, generate, stream and ``/engine/health``;
-``echo`` and ``pyfunc`` serve too.  ``jax`` and ``explainer`` are refused.
+``echo`` and ``pyfunc`` serve too; ``jax`` serves a ``load_torch`` model
+and refuses a ``load_jax`` one, ``explainer`` serves SHAP and refuses a
+dir without ``explainer.json`` or a white-box model without
+``load_torch``.
 ``BATCHER_MAX_BATCH_SIZE`` wraps the model in the agent's batcher and
 ``LOGGER_PATH`` in its payload logger.  The ``sklearn`` loader's ``joblib``
 and the ``huggingface`` loader's ``transformers`` import with JAX absent."""
@@ -128,10 +131,44 @@ def test_echo_and_pyfunc_loaders(tmp_path):
 
 @pytest.mark.parametrize("loader", ["jax", "explainer"])
 def test_unported_loaders_are_refused(tmp_path, loader):
-    with pytest.raises(ValueError, match="not ported"):
-        RM.load_model(loader, "m", str(tmp_path))
+    """What these loaders cannot run is refused, naming what they need: a
+    JAX model (``model.py`` with only ``load_jax``) has no ``load_torch``
+    for the ``jax`` loader or for the explainer's integrated gradients; an
+    explainer dir without ``explainer.json`` has no method; and an unknown
+    loader is refused."""
+    (tmp_path / "model.py").write_text("def load_jax(model_dir):\n    return None, None\n")
+    if loader == "jax":
+        with pytest.raises(AttributeError, match="load_torch"):
+            RM.load_model(loader, "m", str(tmp_path), device="cpu")
+    else:
+        with pytest.raises(FileNotFoundError, match="explainer.json"):
+            RM.load_model(loader, "m", str(tmp_path), device="cpu")
+        (tmp_path / "explainer.json").write_text(json.dumps({"method": "integrated_gradients"}))
+        with pytest.raises(AttributeError, match="load_torch"):
+            RM.load_model(loader, "m", str(tmp_path), device="cpu").load()
     with pytest.raises(ValueError, match="unknown loader"):
         RM.load_model("bogus", "m", str(tmp_path))
+
+
+@pytest.mark.parametrize("loader", ["jax", "explainer"])
+def test_jax_and_explainer_loaders_serve(tmp_path, loader):
+    """The ``jax`` loader serves a ``load_torch`` model; the ``explainer``
+    loader answers ``:explain`` with SHAP through its predictor."""
+    if loader == "jax":
+        (tmp_path / "model.py").write_text(
+            "import torch\n"
+            "def load_torch(model_dir):\n"
+            "    return (lambda p, x: x * p), torch.tensor(2.0)\n")
+        m = RM.load_model(loader, "m", str(tmp_path), device="cpu")
+        assert m.predict({"instances": [[1.0, 2.5]]}) == [[2.0, 5.0]]
+    else:
+        (tmp_path / "explainer.json").write_text(json.dumps(
+            {"method": "shap", "background": [[0.0, 0.0]]}))
+        m = RM.load_model(loader, "m", str(tmp_path))
+        m.predictor = type("P", (), {"predict": staticmethod(
+            lambda name, body: {"predictions": [sum(r) * 2 for r in body["instances"]]})})()
+        m.load()
+        assert m.explain({"instances": [[1.0, 3.0]]}) == [{"shap_values": [2.0, 6.0]}]
 
 
 def test_agent_wrappers_from_the_environment(tmp_path):
