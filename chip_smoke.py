@@ -132,7 +132,9 @@ or the script exits non-zero:
    output legal under a fresh automaton replayed over its tokens and within
    the oracle bound of the masked logits, schema and tool valid and parsed;
    ``engine_grammar_mask_seconds`` p50/p99 and host ms per tick without and
-   with a constrained slot (the "constrain" fence); a speculative
+   with a constrained slot (the "constrain" fence), and where the
+   constrained slot's tokens part from its plain run's, the oracle's top-2
+   gap there (``prompt4_divergence``); a speculative
    constrained request whose drafts are cut by the automaton (K = 5
    launched); ``ConstrainFaultConfig(stall_on=1)`` failing only its victim
    (500, ConstraintStall) with one ``constraint_stall`` incident; (d) a
@@ -204,7 +206,29 @@ or the script exits non-zero:
    the dense path for the end-to-end comparison;
 9. worker: ``python -m kubeflow_tpu_torch.examples.bert_worker`` on the card
    at its tiny defaults, killed at step 3 (exit 137) and rerun: it resumes
-   from the step-2 checkpoint and finishes step 4.
+   from the step-2 checkpoint and finishes step 4;
+10. mnist: ``python -m kubeflow_tpu_torch.examples.mnist_worker`` on the
+   card at ``MnistConfig()`` and the JAX worker's defaults (60 steps of 64):
+   ``MNIST-OK`` and accuracy above 0.8; samples/s;
+11. darts: the Katib DARTS trial worker on the card (4 layers, 300 steps,
+   seed 37): the all-``relu_linear`` genotype and ``val_acc``;
+12. resnet: ResNet-50 (``ResNetConfig()``, GroupNorm, bf16) at 224x224:
+   (a) one process, batch 64, through the DDP worker's own step (loss after
+   2 SGD steps; step ms, samples/s, MFU from ``flops_per_image() * 3``, a
+   profiler window); (b) the worker's ``DDP_TRANSPORT=shim`` path as 2
+   processes sharing the card, 32 images each: one loss on both ranks,
+   within 5e-2 of (a)'s; (c) the worker's default path as one process at
+   world 1, batch 64: ``RESNET-DDP-OK`` and a finite loss; samples/s; the
+   ring's ms per step for the model's f32 gradients;
+13. decoder: ``decoder.gemma_7b()`` at full width cut to 20 of 28 layers
+   (``reduced`` says why), 10 steps of ``lm_loss`` and AdamW on
+   ``synthetic_lm_batches`` at 4 x 512: every loss finite, the last below
+   the first; step ms, tokens/s, MFU from ``train_flops``, peak memory;
+14. bert_remat: phase 8's cell without remat and under each of the five
+   remat policies: loss and gradient norm against no remat (1e-4
+   relative), peak memory (``nothing`` below no remat), step ms, flash
+   launches per step and a profiled step of each (up to 3 windows, until
+   one keeps every device record), no plain flash call.
 
 Phase 5's Llama-3-8B weights are freed before phase 5j, which runs after
 phase 6.  The last lines are the
@@ -216,6 +240,7 @@ width (and, for the phases that serve, full depth).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import glob
@@ -352,31 +377,75 @@ def time_ms(fn, flush: torch.Tensor) -> float:
     return total / N_TIMED
 
 
-def profiled_ms(fn, flush: torch.Tensor, markers: tuple, n: int = 10) -> dict:
+PROFILED_CALLS = 100
+
+
+# a profiler window's lead-in: late in a process a window loses device
+# records, more as the process ages (on the H100 a window of ten ~0.3 ms
+# calls keeps none after a few minutes); windows with host time before
+# their measured part kept every record more often than windows without,
+# not always, and ``window_records`` counts what is lost
+PROFILE_LEAD_IN_S = 0.05
+MEASURED = "chip_smoke.measured"
+# host calls that put one record on the device: kernel launches, copies, fills
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
+
+
+@contextlib.contextmanager
+def profile_window():
+    """A torch.profiler window whose measured part, a ``record_function``
+    span, starts ``PROFILE_LEAD_IN_S`` of host time after the window opens."""
+    with torch.profiler.profile(activities=PROFILE_ACTIVITIES, acc_events=True) as prof:
+        time.sleep(PROFILE_LEAD_IN_S)
+        with torch.profiler.record_function(MEASURED):
+            yield prof
+
+
+def window_records(prof) -> tuple:
+    """The device records (name, start ns, end ns) of the host launch calls
+    made inside a ``profile_window``'s measured span, tied to them by
+    correlation id in kineto's own results, the number of those calls, and
+    the number of them without a record: records the window lost."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    ev = list(prof.profiler.kineto_results.events())
+    span = next(((e.start_ns(), e.end_ns()) for e in ev
+                 if e.device_type() == cpu and e.name() == MEASURED), None)
+    ids = {e.correlation_id() for e in ev
+           if e.device_type() == cpu and e.name().startswith(LAUNCH_CALLS)
+           and (span is None or span[0] <= e.start_ns() <= span[1])}
+    recs = [e for e in ev if e.device_type() == cuda and e.correlation_id() in ids]
+    return ([(e.name(), e.start_ns(), e.end_ns()) for e in recs], len(ids),
+            len(ids - {e.correlation_id() for e in recs}))
+
+
+def profiled_ms(fn, flush: torch.Tensor, markers: tuple, n: int = PROFILED_CALLS) -> dict:
     """Device time of ``fn`` per call from a torch.profiler window of ``n``
-    calls (each after the same L2 flush as ``time_ms``): ``total`` sums the
-    kernels whose name holds one of ``markers``, and each marker has its
-    own share.  The profiler reads each kernel's own duration, where the
-    CUDA-event window of ``time_ms`` also holds the gaps between a call's
-    kernels.  ``total`` is None when the profiler records no matching
-    device event."""
+    calls (each after the same L2 flush as ``time_ms``): each marker's share
+    is the mean duration of the kernels whose name holds it (one such kernel
+    a call), and ``total`` their sum.  The profiler reads each kernel's own
+    duration, where the CUDA-event window of ``time_ms`` also holds the gaps
+    between a call's kernels.
+
+    The window is a ``profile_window``; the mean is over the records it
+    kept, not over ``n``.  ``records`` counts them; ``total`` is None when
+    a marker kept none."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=PROFILE_ACTIVITIES, acc_events=True) as prof:
+    with profile_window() as prof:
         for _ in range(n):
             flush.zero_()
             fn()
         torch.cuda.synchronize()
-    us = {m: 0.0 for m in markers}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for m in markers:
-                if m in e.name:
-                    us[m] += e.time_range.end - e.time_range.start
-                    break
-    total = sum(us.values())
-    return {"total": total / n / 1e3 if total > 0 else None,
-            **{m: v / n / 1e3 for m, v in us.items()}}
+    ns = {m: [] for m in markers}
+    for name, t0, t1 in window_records(prof)[0]:
+        for m in markers:
+            if m in name:
+                ns[m].append(t1 - t0)
+                break
+    means = {m: sum(v) / len(v) / 1e6 if v else None for m, v in ns.items()}
+    kept = all(v is not None for v in means.values())
+    return {"total": sum(means.values()) if kept else None,
+            "records": sum(len(v) for v in ns.values()), "calls": n, **means}
 
 
 # the device kernels of one paged_attention call, and of the flash forward
@@ -2121,7 +2190,7 @@ def step_device_ms(params, cfg, dev, pools, lora=None) -> dict:
     with torch.inference_mode():
         steps(2)
         host_ms = steps(5)
-        with torch.profiler.profile(activities=PROFILE_ACTIVITIES, acc_events=True) as prof:
+        with profile_window() as prof:
             wall_ms = steps(4)
     return {"host_ms_per_step": host_ms,
             **device_breakdown(prof, 4, wall_ms, "paged_attention", PAGED_MARKERS)}
@@ -2383,6 +2452,9 @@ def variants_constrain(params, cfg, dev, scratch: str) -> dict:
             out["plain_calls"] += fw.plain_calls
         fence["constrained_identical_leading"] = leading_identical(
             fence["plain"]["tokens"][3] or [], fence["one_constrained"]["tokens"][3] or [])
+        fence["prompt4_divergence"] = divergence(
+            params, cfg, dev, model.tokenizer.encode(PROMPTS[3]),
+            fence["plain"]["tokens"][3] or [], fence["one_constrained"]["tokens"][3] or [])
         for v in fence.values():
             if isinstance(v, dict):
                 v.pop("tokens", None)
@@ -2466,6 +2538,22 @@ def variants_constrain(params, cfg, dev, scratch: str) -> dict:
                          for s in out["fence"][f]["statuses"])
                  and clean(out["left"]) and spec["ok"] and chaos["ok"])
     return out
+
+
+def divergence(params, cfg, dev, ids: list, a: list, b: list) -> dict:
+    """Where two greedy runs of one prompt part (``a``, ``b``: token ids),
+    and how close the ``forward_full`` oracle's top two logits stand there,
+    given the prefix both share: a gap within the oracle bound is a near
+    tie either run may take; each run's token's lag below the oracle max."""
+    k = leading_identical(a, b)
+    if k == min(len(a), len(b)):
+        return {"first_diff": None, "tokens": [len(a), len(b)]}
+    with torch.inference_mode():
+        logits = M.forward_full(params, cfg, torch.tensor([ids + a[:k]], device=dev))[0, -1]
+    top = logits.topk(2).values
+    return {"first_diff": k, "top2_gap": float(top[0] - top[1]),
+            "lag_a": float(top[0] - logits[a[k]]), "lag_b": float(top[0] - logits[b[k]]),
+            "oracle_bound": ORACLE_TIE_EPS, "tokens_ab": [a[k], b[k]]}
 
 
 def variants_brownout(params, cfg, dev) -> dict:
@@ -2592,7 +2680,7 @@ def profile_decode(params, cfg, dev) -> dict:
         out.setdefault("paged_step_ms" if paged else "gather_step_ms", []).append(
             steps(paged, 10))
     n = 5
-    with torch.profiler.profile(activities=PROFILE_ACTIVITIES, acc_events=True) as prof:
+    with profile_window() as prof:
         wall_ms = steps(True, n)
     out.update(device_breakdown(prof, n, wall_ms, "paged_attention", PAGED_MARKERS))
     # the engine's loop at both depths on one card; a tick's device work is
@@ -2668,17 +2756,25 @@ PROFILE_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
                       torch.profiler.ProfilerActivity.CUDA]
 
 
-def device_breakdown(prof, n: int, wall_ms: float, family: str, markers: tuple) -> dict:
+def device_breakdown(prof, n: int, wall_ms: float, family: str, markers: tuple,
+                     expected: int | None = None) -> dict:
     """Device busy time, idle share and device ms per step by kernel family
     (``family`` = kernels whose name holds one of ``markers``, then GEMMs,
     then the rest) from a profiler window of ``n`` steps of ``wall_ms``
-    each."""
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    each, and the mean duration of one ``family`` record.
+
+    The window is a ``profile_window``.  A lost device record makes busy
+    time a lower bound and the idle share an upper one, so
+    ``window_complete`` holds when the measured span kept a device record
+    for each of its host launch calls and, given ``expected`` (the family's
+    launches per step), ``n * expected`` family records; the idle share is
+    reported only then (else under ``device_idle_share_at_most``).  The
+    per-record mean is not biased by a loss."""
+    kern, calls, lost = window_records(prof)
     if not kern:
         return {"device_time": "not measured (the profiler recorded no device events)"}
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
-    busy, cur_s, cur_e = 0.0, *spans[0]
+    spans = sorted((t0, t1) for _, t0, t1 in kern)
+    busy, cur_s, cur_e = 0, *spans[0]
     for s0, e0 in spans[1:]:
         if s0 > cur_e:
             busy += cur_e - cur_s
@@ -2687,21 +2783,28 @@ def device_breakdown(prof, n: int, wall_ms: float, family: str, markers: tuple) 
             cur_e = max(cur_e, e0)
     busy += cur_e - cur_s
     fam: dict = {}
+    fam_n = 0
     by_name: dict = {}
-    for e in kern:
-        name = e.name.lower()
-        key = (family if any(m in name for m in markers) else
-               "gemm" if any(t in name for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass")) else
+    for name, t0, t1 in kern:
+        low = name.lower()
+        key = (family if any(m in low for m in markers) else
+               "gemm" if any(t in low for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass")) else
                "other")
-        dt = e.time_range.end - e.time_range.start
-        fam[key] = fam.get(key, 0.0) + dt
-        by_name[e.name[:100]] = by_name.get(e.name[:100], 0.0) + dt
+        fam[key] = fam.get(key, 0) + t1 - t0
+        fam_n += key == family
+        by_name[name[:100]] = by_name.get(name[:100], 0) + t1 - t0
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {"profiled_step_ms": wall_ms, "device_busy_ms_per_step": busy / n / 1e3,
-            "device_idle_share": max(0.0, 1 - busy / 1e3 / (wall_ms * n)),
-            "kernels_per_step": len(kern) / n,
-            "device_ms_per_step": {k: v / n / 1e3 for k, v in sorted(fam.items())},
-            "top_kernels_ms_per_step": [[k, v / n / 1e3] for k, v in top]}
+    complete = lost == 0 and (expected is None or fam_n == expected * n)
+    idle = max(0.0, 1 - busy / 1e6 / (wall_ms * n))
+    return {"profiled_step_ms": wall_ms, "device_busy_ms_per_step": busy / n / 1e6,
+            "window_complete": complete, "launch_calls": calls, "lost_records": lost,
+            "device_records": len(kern),
+            "device_idle_share" if complete else "device_idle_share_at_most": idle,
+            "kernels_per_step": len(kern) / n, f"{family}_records": fam_n,
+            f"{family}_records_expected": None if expected is None else expected * n,
+            f"{family}_ms_per_record": fam.get(family, 0) / fam_n / 1e6 if fam_n else None,
+            "device_ms_per_step": {k: v / n / 1e6 for k, v in sorted(fam.items())},
+            "top_kernels_ms_per_step": [[k, v / n / 1e6] for k, v in top]}
 
 
 # ----------------------------------------------------------------- phase 7
@@ -2758,7 +2861,9 @@ def flash_case(name, dtype, S, causal, key_mask, rng, dev, flush) -> dict:
         return torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=bm)
 
     kernel_ms = time_ms(lambda: FA._flash_fwd(*args, FH), flush)
-    device_ms = profiled_ms(lambda: FA._flash_fwd(*args, FH), flush, FLASH_MARKERS)["total"]
+    device = profiled_ms(lambda: FA._flash_fwd(*args, FH), flush, FLASH_MARKERS)
+    # a ten-call window, for its record count only
+    short = profiled_ms(lambda: FA._flash_fwd(*args, FH), flush, FLASH_MARKERS, n=10)
     plain_ms = time_ms(lambda: FA.flash_attention_plain(*args), flush)
     library_ms = time_ms(library, flush)
     # the backward the training path pairs with the kernel: the JAX
@@ -2778,7 +2883,9 @@ def flash_case(name, dtype, S, causal, key_mask, rng, dev, flush) -> dict:
     return {"case": name, "dtype": str(dtype).removeprefix("torch."), "S": S,
             "causal": causal, "key_mask": key_mask, "max_abs_err": float(err.max()),
             "max_lse_err": float(lse_err.max()), "ok": ok, "kernel_ms": kernel_ms,
-            "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "device_ms": device["total"], "device_records": device["records"],
+            "device_records_of_10": short["records"],
+            "plain_ms": plain_ms, "library_ms": library_ms,
             "kernel_over_library": kernel_ms / library_ms, "backward_ms": backward_ms,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -2897,7 +3004,7 @@ def train(dev) -> dict:
                  and launches == cfg.num_layers * TRAIN_TIMED)
 
     # where a step's device time goes
-    with torch.profiler.profile(activities=PROFILE_ACTIVITIES, acc_events=True) as prof:
+    with profile_window() as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(TRAIN_PROFILED):
@@ -3549,6 +3656,353 @@ def worker(dev) -> dict:
             "stderr_tail": [r.stderr[-1500:] for r in runs if r.returncode not in (0, 137)]}
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+def run_worker(module: str, env: dict, timeout: float = 600) -> tuple:
+    """``python -m kubeflow_tpu_torch.examples.<module>`` on the card (no
+    ``TORCH_DEVICE``: the worker's default), its stdout lines by key."""
+    full = {k: v for k, v in os.environ.items() if k != "TORCH_DEVICE"}
+    full.update({k: str(v) for k, v in env.items()})
+    r = subprocess.run([sys.executable, "-m", f"kubeflow_tpu_torch.examples.{module}"],
+                       env=full, cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    lines = r.stdout.strip().splitlines()
+    kv = dict(line.split("=", 1) for line in lines if "=" in line)
+    return r, lines, kv
+
+
+def mnist_phase() -> dict:
+    """The TFJob MNIST worker on the card at ``MnistConfig()`` and the JAX
+    worker's defaults (60 steps of 64); accuracy above the JAX CNN's 0.8
+    bar (tests/test_model_families.py:41)."""
+    r, lines, kv = run_worker("mnist_worker", {"TRAIN_STEPS": 60, "BATCH_SIZE": 64})
+    acc = float(kv.get("accuracy", "nan"))
+    return {"ok": r.returncode == 0 and "MNIST-OK" in lines and acc > 0.8,
+            "exit_code": r.returncode, "accuracy": acc, "loss": float(kv.get("loss", "nan")),
+            "samples_per_s": float(kv.get("samples_per_sec", "nan")), "stdout": lines,
+            "stderr_tail": r.stderr[-1500:] if r.returncode else ""}
+
+
+# ---------------------------------------------------------------- phase 11
+
+# the search recovers the all-relu_linear genotype for some seeds only, in
+# both packages (tests/test_torch_darts.py's sweep: 11 of 64 seeds for the
+# port, 14 of 64 for the JAX worker); this is the seed with the widest
+# architecture-logit margin among the port's, drawn on the CPU as on the card
+DARTS_SEED = 37
+
+
+def darts_phase() -> dict:
+    """The Katib DARTS trial worker on the card: 4 layers, 300 steps."""
+    r, lines, kv = run_worker("darts_worker", {"NUM_LAYERS": 4, "SEARCH_STEPS": 300,
+                                               "SEED": DARTS_SEED})
+    geno = json.loads(kv.get("genotype", "null"))
+    return {"ok": (r.returncode == 0 and "DARTS-OK" in lines and "val_acc" in kv
+                   and geno == ["relu_linear"] * 4),
+            "exit_code": r.returncode, "seed": DARTS_SEED, "genotype": geno,
+            "val_acc": float(kv.get("val_acc", "nan")), "stdout": lines,
+            "stderr_tail": r.stderr[-1500:] if r.returncode else ""}
+
+
+# ---------------------------------------------------------------- phase 12
+
+# 2 steps after the warm-up, as tests/test_transport.py drives the JAX shim:
+# SGD at 0.1 with momentum 0.9 from random weights sends the loss from ~7
+# to ~40 in a step, and past that the two runs' rounding differences grow
+# with every step; then 5 timed steps and a profiled window of 2
+RESNET_B, RESNET_STEPS, RESNET_TIMED, RESNET_PROFILED = 64, 2, 5, 2
+# the shim's loss against one process on the same global batch
+# (tests/test_transport.py:181)
+RESNET_LOSS_GAP = 5e-2
+RESNET_ENV = {"IMAGE_SIZE": 224, "NUM_CLASSES": 1000, "TRAIN_STEPS": RESNET_STEPS}
+
+
+def ring_probe(port: int, n_floats: int, reps: int) -> list:
+    """Two processes on this host mean-allreduce ``n_floats`` f32 of
+    gradients on the card through ``grad_allreduce`` (device -> host, the
+    ring over TCP, host -> device); each prints its ms per call."""
+    code = f"""
+import sys, time, torch
+from kubeflow_tpu_torch.transport import RingTransport, grad_allreduce
+rank = int(sys.argv[1])
+g = {{"g": torch.randn({n_floats}, device="cuda")}}
+with RingTransport(rank, 2, base_port={port}) as tr:
+    grad_allreduce(tr, g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range({reps}):
+        out = grad_allreduce(tr, g)
+    torch.cuda.synchronize()
+    print((time.perf_counter() - t0) / {reps} * 1e3)
+"""
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], cwd=REPO, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in range(2)]
+    out = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=300)
+            if p.returncode:
+                raise RuntimeError(f"ring probe failed: {e[-1500:]}")
+            out.append(float(o.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return out
+
+
+def resnet_phase(dev) -> dict:
+    """(a) ResNet-50 (``ResNetConfig()``: 1000 classes, width 64, GroupNorm
+    32, bf16) at 224x224 in one process, batch 64, through the DDP worker's
+    own step on the shim's schedule (a gradient-only warm-up on batch 0,
+    then 2 SGD steps), then timed and profiled steps on batches drawn
+    beforehand; (b) the worker's shim path as 2 processes sharing the card,
+    32 images each, on the same global batches; (c) the worker's default
+    path as a user starts it, one process at world 1 (``torch.distributed``
+    takes one rank per card), batch 64; the ring's ms for the model's f32
+    gradients."""
+    from kubeflow_tpu_torch.examples import resnet_ddp_worker as W
+
+    out: dict = {"config": "ResNetConfig() (ResNet-50, GroupNorm 32, bf16), 224x224",
+                 "batch": RESNET_B}
+    config, params, leaves, opt, opt_state = W.make_model(1000, dev)
+    n_params = sum(t.numel() for t in leaves.values())
+
+    def batch(seed):
+        return W.local_batch(seed, 1, 0, RESNET_B, 224, 1000)
+
+    def step(b, update=True):
+        return W.train_step(config, params, leaves, opt, opt_state, *b, dev, None, update)
+
+    step(batch(0), update=False)
+    losses = [float(step(batch(i + 1))) for i in range(RESNET_STEPS)]
+    timed = [batch(10 + i) for i in range(RESNET_TIMED + RESNET_PROFILED)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in timed[:RESNET_TIMED]:
+        step(b)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / RESNET_TIMED
+    flops = config.flops_per_image() * 3 * RESNET_B
+    torch.cuda.reset_peak_memory_stats(dev)
+    with profile_window() as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in timed[RESNET_TIMED:]:
+            step(b)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) / RESNET_PROFILED * 1e3
+    out.update({"one_process_loss": losses[-1], "losses": losses, "num_params": n_params,
+                "step_ms": step_s * 1e3, "samples_per_s": RESNET_B / step_s,
+                "flops_per_step": flops, "mfu": flops / step_s / BF16_FLOPS_PER_S,
+                "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                # "cudnn": cuDNN's kernels, its convolutions and their
+                # NCHW <-> NHWC transposes
+                "profile": device_breakdown(prof, RESNET_PROFILED, prof_ms, "cudnn",
+                                            ("cudnn", "conv", "implicit", "xmma_fprop",
+                                             "dgrad", "wgrad"))})
+    del params, leaves, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    port = free_port()
+    env = {**RESNET_ENV, "DDP_TRANSPORT": "shim", "WORLD_SIZE": 2,
+           "PER_CHIP_BATCH": RESNET_B // 2,
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port}
+    with ThreadPoolExecutor(2) as pool:
+        runs = list(pool.map(lambda r: run_worker("resnet_ddp_worker", {**env, "RANK": r}),
+                             range(2)))
+    shim = [float(kv.get("loss", "nan")) for _, _, kv in runs]
+    out["shim"] = {"exit_codes": [r.returncode for r, _, _ in runs], "losses": shim,
+                   "gap_to_one_process": abs(shim[0] - out["one_process_loss"]),
+                   "samples_per_s": [float(kv.get("samples_per_sec", "nan")) for _, _, kv in runs],
+                   "stdout": [lines for _, lines, _ in runs],
+                   "stderr_tail": [r.stderr[-1500:] for r, _, _ in runs if r.returncode]}
+    r, lines, kv = run_worker("resnet_ddp_worker", {**RESNET_ENV, "PER_CHIP_BATCH": RESNET_B})
+    dp = out["default_path"] = {"exit_code": r.returncode, "loss": float(kv.get("loss", "nan")),
+                                "samples_per_s": float(kv.get("samples_per_sec", "nan")),
+                                "stdout": lines,
+                                "stderr_tail": r.stderr[-1500:] if r.returncode else ""}
+    out["ring_ms_per_step"] = ring_probe(free_port(), n_params, 5)
+    out["ring_mbytes"] = n_params * 4 / 1e6
+    sh = out["shim"]
+    out["ok"] = (all(math.isfinite(x) for x in losses)
+                 and sh["exit_codes"] == [0, 0] and shim[0] == shim[1]
+                 and sh["gap_to_one_process"] <= RESNET_LOSS_GAP
+                 and all("RESNET-DDP-OK" in lines and "transport=shim" in lines
+                         for lines in sh["stdout"])
+                 and dp["exit_code"] == 0 and math.isfinite(dp["loss"])
+                 and "RESNET-DDP-OK" in dp["stdout"] and "transport=shim" not in dp["stdout"]
+                 and "world size=1 global devices=1" in dp["stdout"])
+    return out
+
+
+# ---------------------------------------------------------------- phase 13
+
+# Gemma-7B at full width (vocab 256128, d_model 3072, 16 heads of 256, d_ff
+# 24576, GeGLU, scaled embeddings), cut to 20 of its 28 layers: bf16
+# parameters, gradients and two bf16 moments take 8 bytes a parameter, and
+# full depth (9.3 B parameters, ~75 GB) does not fit on 80 GB before
+# activations.  On an H100 80GB HBM3 (700 W) the peak was 34.2 GiB at 8
+# layers, 56.7 at 16 and 68.4 at 20, and 24 ran out of memory: 20 layers
+# (7.11 B parameters) is the deepest with ~10 GiB to spare
+DECODER_LAYERS, DECODER_B, DECODER_S, DECODER_STEPS = 20, 4, 512, 10
+DECODER_REDUCED = ("memory: bf16 params + grads + two bf16 moments at 28 layers (9.3 B "
+                   "parameters, ~75 GB) do not fit on 80 GB with activations; the peak "
+                   "grows ~2.9 GiB a layer (68.4 GiB at 20 layers), and 24 layers ran "
+                   "out of memory")
+# optax.adamw(3e-3), as the JAX package's Gemma pipeline fine-tunes this
+# family (kubeflow_tpu/examples/gemma_pipeline.py:39)
+DECODER_LR = 3e-3
+
+
+def decoder_phase(dev) -> dict:
+    """``decoder.gemma_7b()`` at 20 layers trained with ``lm_loss`` and the
+    port's AdamW on ``synthetic_lm_batches``: every loss finite, the last of
+    10 steps below the first."""
+    from kubeflow_tpu_torch.models import decoder
+    from kubeflow_tpu_torch.train.trainer import adamw
+
+    cfg = dataclasses.replace(decoder.gemma_7b(), n_layers=DECODER_LAYERS)
+    t0 = time.perf_counter()
+    params = decoder.init(cfg, dev, seed=0)
+    for t in params.values():
+        t.requires_grad_()
+    opt = adamw(DECODER_LR)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = decoder.synthetic_lm_batches(cfg.vocab_size, DECODER_B, DECODER_S, seed=0)
+    batches = [torch.from_numpy(next(data)["tokens"]).to(dev) for _ in range(DECODER_STEPS)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = [], []
+    for toks in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = decoder.lm_loss(params, cfg, toks)
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        opt.update(grads, state, params)
+        del grads
+        losses.append(float(loss.detach()))
+        times.append(time.perf_counter() - t0)
+    step_s = sum(times[1:]) / len(times[1:])
+    flops = decoder.train_flops(cfg, DECODER_B, DECODER_S)
+    n = cfg.param_count()
+    out = {"config": f"gemma_7b() at {DECODER_LAYERS} of 28 layers, full width",
+           "reduced": {"n_layers": [DECODER_LAYERS, 28], "why": DECODER_REDUCED},
+           "params": n, "batch": DECODER_B, "seq": DECODER_S, "learning_rate": DECODER_LR,
+           "init_s": init_s, "losses": losses, "step_ms": step_s * 1e3,
+           "first_step_ms": times[0] * 1e3, "tokens_per_s": DECODER_B * DECODER_S / step_s,
+           "train_flops_per_step": flops, "mfu": flops / step_s / BF16_FLOPS_PER_S,
+           "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    out["ok"] = all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+    del params, state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase 14
+
+REMAT_POLICIES = ("nothing", "dots", "save_qkv", "save_attn", "save_mlp")
+REMAT_STEPS, REMAT_PROFILED = 3, 1
+# profiler windows per policy, taken until one keeps every device record
+REMAT_WINDOWS = 3
+# the loss and gradient norm of a policy against no remat: remat recomputes
+# the same values in the same order on the card, so only the summation
+# order of gradients that reach one tensor along several paths changes
+REMAT_RTOL = 1e-4
+
+
+def bert_remat(dev) -> dict:
+    """Phase 8's BERT-base cell (B=32, S=512, flash, max_predictions 80)
+    without remat and under each remat policy: loss and gradient norm on one
+    batch from the same weights, then peak memory, step ms, flash launches
+    per step and a profiled step of each."""
+    cfg0 = bert.BertConfig(attention="flash")
+    model = bert.init(cfg0, dev, seed=0)
+    batches = train_batches(cfg0.vocab_size, 2 + REMAT_STEPS, seed=5)
+    cfgs = {"none": cfg0, **{p: dataclasses.replace(cfg0, remat=True, remat_policy=p)
+                             for p in REMAT_POLICIES}}
+
+    def loss_fn(c):
+        def f(m, b):
+            return bert.mlm_loss(m, c, b["input_ids"], b["labels"], b["attention_mask"],
+                                 max_predictions=TRAIN_P)
+        return f
+
+    out: dict = {"config": "BERT-base (BertConfig defaults), attention=flash", "batch": TRAIN_B,
+                 "seq": TRAIN_S, "policies": {}}
+    plain_calls = [0]
+    plain = FA.flash_attention_plain
+
+    def counting_plain(*a, **kw):
+        plain_calls[0] += 1
+        return plain(*a, **kw)
+
+    FA.flash_attention_plain = counting_plain
+    launches = 0
+    try:
+        b0 = to_device(batches[0], dev)
+        ref = None
+        for name, c in cfgs.items():
+            FA.flash_attention.launches = 0
+            loss = loss_fn(c)(model, b0)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            res = {"loss": float(loss.detach()), "grad_norm": float(global_norm(grads)),
+                   "grad_launches": FA.flash_attention.launches}
+            launches += FA.flash_attention.launches
+            del loss, grads
+            ref = ref or res
+            res["loss_rel"] = abs(res["loss"] - ref["loss"]) / abs(ref["loss"])
+            res["grad_rel"] = abs(res["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+            out["policies"][name] = res
+        trainer = Trainer(loss_fn(cfg0), model, TrainerConfig(learning_rate=1e-4, warmup_steps=2,
+                                                              total_steps=64), device=dev)
+        for name, c in cfgs.items():
+            trainer.loss_fn = loss_fn(c)
+            trainer.train_step(batches[1])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            FA.flash_attention.launches = 0
+            t0 = time.perf_counter()
+            for b in batches[2:]:
+                trainer.train_step(b, sync=False)
+            trainer.block_until_ready()
+            wall = time.perf_counter() - t0
+            res = out["policies"][name]
+            res.update({"step_ms": wall / REMAT_STEPS * 1e3,
+                        "launches_per_step": FA.flash_attention.launches / REMAT_STEPS,
+                        "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30})
+            launches += FA.flash_attention.launches
+            for window in range(1, REMAT_WINDOWS + 1):
+                FA.flash_attention.launches = 0
+                with profile_window() as prof:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(REMAT_PROFILED):
+                        trainer.train_step(batches[1], sync=False)
+                    trainer.block_until_ready()
+                    prof_ms = (time.perf_counter() - t0) / REMAT_PROFILED * 1e3
+                launches += FA.flash_attention.launches
+                res["profile"] = device_breakdown(
+                    prof, REMAT_PROFILED, prof_ms, "flash_attention", FLASH_MARKERS,
+                    expected=FA.flash_attention.launches // REMAT_PROFILED)
+                res["profile"]["window"] = window
+                if res["profile"]["window_complete"]:
+                    break
+    finally:
+        FA.flash_attention_plain = plain
+    pol = out["policies"]
+    out.update({"launches": launches, "plain_calls": plain_calls[0]})
+    out["ok"] = (plain_calls[0] == 0
+                 and all(r["loss_rel"] <= REMAT_RTOL and r["grad_rel"] <= REMAT_RTOL
+                         for r in pol.values())
+                 and pol["nothing"]["peak_memory_gib"] < pol["none"]["peak_memory_gib"]
+                 and pol["none"]["launches_per_step"] == cfg0.num_layers)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -3663,6 +4117,11 @@ def main() -> int:
     fres = phase("flash_kernel", flash_kernel)
     tres = phase("train", lambda: train(dev))
     phase("worker", lambda: worker(dev))
+    phase("mnist", mnist_phase)
+    phase("darts", darts_phase)
+    phase("resnet", lambda: resnet_phase(dev))
+    phase("decoder", lambda: decoder_phase(dev))
+    rres = phase("bert_remat", lambda: bert_remat(dev))
 
     cases = kres.get("cases") or []
     head = next((c for c in cases if c["pool"] == "bf16" and c["K"] == 1), {})
@@ -3689,7 +4148,9 @@ def main() -> int:
                "source": "kubeflow_tpu_torch/ops/csrc/flash_attention.cu",
                "replaces": "kubeflow_tpu/ops/flash_attention.py:40",
                "tpu_kernel": "kubeflow_tpu/ops/flash_attention.py:_fwd_kernel",
-               "launches": tres.get("launches", 0),
+               # phase 8's training steps and the remat phase's (its
+               # recomputes included); both count from zero
+               "launches": tres.get("launches", 0) + rres.get("launches", 0),
                "max_abs_err": max((c["max_abs_err"] for c in fcases), default=None),
                "ms": fhead.get("kernel_ms"), "kernel_ms": fhead.get("kernel_ms"),
                "device_ms": fhead.get("device_ms"), "plain_ms": fhead.get("plain_ms"),

@@ -13,21 +13,35 @@ Numerics follow the JAX package: f32 master weights cast to ``config.dtype``
 bias adds in bf16, LayerNorm in f32 with population variance, tanh GELU, and
 the MLM logits in bf16 upcast for the log-softmax.  The layer stack runs as a
 Python loop over the stacked weights (``lax.scan`` has no counterpart here).
+
+Rematerialization (``remat=True``) checkpoints one layer at a time with
+``torch.utils.checkpoint`` (``use_reentrant=False``) and a selective
+checkpoint policy that keeps what the JAX policy of the same name keeps
+(``REMAT_SAVES``): nothing but the layer input; every matmul without a
+batch dimension (``dots``: the four projections' ``mm`` outputs, not
+attention's batched products); or the ``checkpoint_name`` sites (``qkv``,
+``attn_out``, ``attn_proj``, ``ffn1``, ``ffn2``), marked here by the
+``checkpoint_name`` op, a copy the policy keeps.  The backward recomputes
+the rest of the layer once, as JAX does, so the numbers are those without
+remat.  The flash kernel's forward runs again in the recompute under every
+policy: its log-sum-exp is never a kept value (in the JAX package either).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from ..ops.attention import multihead_attention, padding_mask
 from ..ops.flash_attention import flash_attention
 from ..utils.device import resolve_device
+from ._tree import tensor_from_numpy
 
 
 @dataclass(frozen=True)
@@ -41,8 +55,8 @@ class BertConfig:
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
     dtype: torch.dtype = torch.bfloat16
-    # rematerialization (torch.utils.checkpoint) is not ported yet: ROADMAP
-    # Queue 1 item 3.1.  Only the defaults are accepted.
+    # rematerialization: each layer under torch.utils.checkpoint, saving
+    # what the JAX policy of that name saves (REMAT_SAVES)
     remat: bool = False
     remat_policy: str = "nothing"
     # encoder attention: "dense" materializes [B,H,S,T] logits; "flash" runs
@@ -54,10 +68,9 @@ class BertConfig:
     pipeline_microbatches: int = 4
 
     def __post_init__(self):
-        if self.remat or self.remat_policy != "nothing":
-            raise NotImplementedError(
-                "BertConfig.remat is not ported yet (ROADMAP Queue 1 item 3.1: "
-                "BERT remat via torch.utils.checkpoint)")
+        if self.remat_policy not in REMAT_SAVES:
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r} "
+                             f"(one of {', '.join(REMAT_SAVES)})")
         if self.pipeline_stages > 1:
             raise NotImplementedError(
                 "BertConfig.pipeline_stages > 1 is not ported yet (ROADMAP "
@@ -177,24 +190,12 @@ def init(config: BertConfig, device=None, seed: int = 0) -> BertMLM:
     })
 
 
-def _tensor_from_numpy(arr) -> torch.Tensor:
-    """numpy array -> CPU tensor.  bf16 arrays (JAX hands out
-    ml_dtypes.bfloat16) travel bit-exactly through an int16 view,
-    recognised by dtype name so nothing imports ml_dtypes."""
-    arr = np.ascontiguousarray(arr)
-    if not arr.flags.writeable:  # e.g. a view of a JAX buffer: never alias it
-        arr = arr.copy()
-    if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(arr)
-
-
 def params_from_jax(np_tree: dict, device=None) -> BertMLM:
     """The weight carrier: the JAX package's nested param dict as numpy
     arrays -> ``BertMLM`` on ``device`` (default ``"cuda"``), name for name
     and bit for bit."""
     dev = resolve_device(device)
-    return BertMLM({group: {name: _tensor_from_numpy(arr).to(dev)
+    return BertMLM({group: {name: tensor_from_numpy(arr).to(dev)
                             for name, arr in leaves.items()}
                     for group, leaves in np_tree.items()})
 
@@ -221,10 +222,8 @@ def encode(params, config: BertConfig, input_ids: torch.Tensor,
            attention_mask: Optional[torch.Tensor] = None,
            token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, S] ids → [B, S, H] hidden states in ``config.dtype``."""
-    dt = config.dtype
     emb = params["embeddings"]
-    b, s = input_ids.shape
-    h, nh, hd = config.hidden_size, config.num_heads, config.head_dim
+    s = input_ids.shape[1]
     # the embedding sum in f32, cast to the compute dtype before the LN
     x = emb["word"][input_ids.long()]
     x = x + emb["position"][None, :s]
@@ -232,29 +231,94 @@ def encode(params, config: BertConfig, input_ids: torch.Tensor,
         x = x + emb["type"][token_type_ids.long()]
     else:
         x = x + emb["type"][0]
-    x = _layer_norm(x.to(dt), emb["ln_scale"], emb["ln_bias"], config.layer_norm_eps)
+    x = _layer_norm(x.to(config.dtype), emb["ln_scale"], emb["ln_bias"], config.layer_norm_eps)
 
     mask = padding_mask(attention_mask) if attention_mask is not None else None
     lp = params["layers"]
+    keep = REMAT_SAVES[config.remat_policy]
+    kw = {"use_reentrant": False}
+    if keep:
+        kw["context_fn"] = functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                             _keep_policy("dots" in keep))
     for i in range(config.num_layers):
-        qkv = x @ lp["attn_qkv_kernel"][i].to(dt).reshape(h, 3 * nh * hd)
-        qkv = qkv.reshape(b, s, 3, nh, hd) + lp["attn_qkv_bias"][i].to(dt)
-        q, k_, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        if config.attention == "flash":
-            # kv_mask: key-side padding exclusion inside the kernel
-            attn = flash_attention(q, k_, v, causal=False, kv_mask=attention_mask)
+        if config.remat:
+            x = _ckpt.checkpoint(_layer, lp, i, config, x, mask, attention_mask,
+                                 keep - {"dots"}, **kw)
         else:
-            attn = multihead_attention(q, k_, v, mask=mask)
-        attn = attn.reshape(b, s, nh * hd) @ lp["attn_out_kernel"][i].to(dt).reshape(nh * hd, h)
-        attn = attn + lp["attn_out_bias"][i].to(dt)
-        x = _layer_norm(x + attn, lp["ln1_scale"][i], lp["ln1_bias"][i], config.layer_norm_eps)
-
-        hmid = x @ lp["mlp_in_kernel"][i].to(dt)
-        hmid = _gelu(hmid + lp["mlp_in_bias"][i].to(dt))
-        hout = hmid @ lp["mlp_out_kernel"][i].to(dt)
-        hout = hout + lp["mlp_out_bias"][i].to(dt)
-        x = _layer_norm(x + hout, lp["ln2_scale"][i], lp["ln2_bias"][i], config.layer_norm_eps)
+            x = _layer(lp, i, config, x, mask, attention_mask, frozenset())
     return x
+
+
+# ------------------------------------------------------------ one layer
+
+
+@torch.library.custom_op("kubeflow_tpu_torch::checkpoint_name", mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``jax.ad_checkpoint.checkpoint_name``: a copy of ``x`` that a remat
+    policy keeps for the backward (a custom op's output may not alias its
+    input, hence the copy; it is made only for the values a policy keeps)."""
+    return x.clone()
+
+
+@checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+checkpoint_name.register_autograd(lambda ctx, grad: (grad, None))
+
+# what each JAX policy keeps (kubeflow_tpu/models/bert.py:254-269): "dots"
+# stands for every matmul without a batch dimension, the other entries are
+# checkpoint_name sites
+REMAT_SAVES = {
+    "nothing": frozenset(),
+    "dots": frozenset({"dots"}),
+    "save_qkv": frozenset({"qkv"}),
+    "save_attn": frozenset({"qkv", "attn_out"}),
+    "save_mlp": frozenset({"qkv", "attn_out", "attn_proj", "ffn1", "ffn2"}),
+}
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_policy(dots: bool):
+    """The selective checkpoint policy: keep every ``checkpoint_name`` copy
+    (only kept names are marked) and, for ``dots``, every 2-d ``mm`` (the
+    projections: a ``[B, S, H] @ [H, F]`` product runs as one; attention's
+    products run as ``bmm``); recompute everything else."""
+    def policy(ctx, op, *args, **kwargs):
+        if op is torch.ops.kubeflow_tpu_torch.checkpoint_name.default or (dots and op in _MATMULS):
+            return _ckpt.CheckpointPolicy.MUST_SAVE
+        return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+def _layer(lp, i, config: BertConfig, x, mask, attention_mask, names: frozenset):
+    """Encoder layer ``i``; the values in ``names`` pass through
+    ``checkpoint_name`` for the remat policy to keep."""
+    def mark(t, name):
+        return checkpoint_name(t, name) if name in names else t
+
+    dt = config.dtype
+    b, s = x.shape[:2]
+    h, nh, hd = config.hidden_size, config.num_heads, config.head_dim
+    qkv = x @ lp["attn_qkv_kernel"][i].to(dt).reshape(h, 3 * nh * hd)
+    qkv = mark(qkv.reshape(b, s, 3, nh, hd) + lp["attn_qkv_bias"][i].to(dt), "qkv")
+    q, k_, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    if config.attention == "flash":
+        # kv_mask: key-side padding exclusion inside the kernel
+        attn = flash_attention(q, k_, v, causal=False, kv_mask=attention_mask)
+    else:
+        attn = multihead_attention(q, k_, v, mask=mask)
+    attn = mark(attn, "attn_out")
+    attn = attn.reshape(b, s, nh * hd) @ lp["attn_out_kernel"][i].to(dt).reshape(nh * hd, h)
+    attn = mark(attn + lp["attn_out_bias"][i].to(dt), "attn_proj")
+    x = _layer_norm(x + attn, lp["ln1_scale"][i], lp["ln1_bias"][i], config.layer_norm_eps)
+
+    hmid = mark(x @ lp["mlp_in_kernel"][i].to(dt), "ffn1")
+    hmid = _gelu(hmid + lp["mlp_in_bias"][i].to(dt))
+    hout = hmid @ lp["mlp_out_kernel"][i].to(dt)
+    hout = mark(hout + lp["mlp_out_bias"][i].to(dt), "ffn2")
+    return _layer_norm(x + hout, lp["ln2_scale"][i], lp["ln2_bias"][i], config.layer_norm_eps)
 
 
 def mlm_logits(params, config: BertConfig, hidden: torch.Tensor) -> torch.Tensor:

@@ -68,6 +68,13 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
+def _rounded(values: dict, dtype: torch.dtype) -> dict:
+    """Python constants rounded to ``dtype``, as JAX applies a Python float
+    to an array of that dtype (weakly typed: a bf16 array multiplies by the
+    constant's bf16 value, so optax's b2 = 0.999 acts as 0.99609375)."""
+    return {k: float(torch.tensor(v, dtype=dtype)) for k, v in values.items()}
+
+
 class AdamW:
     """optax ``chain(clip_by_global_norm(max_norm), adamw(schedule,
     weight_decay=wd))`` with optax's defaults (b1 0.9, b2 0.999, eps 1e-8,
@@ -75,7 +82,7 @@ class AdamW:
 
     * clip: every gradient becomes ``g / ‖g‖ * max_norm`` when ``‖g‖ >=
       max_norm`` and stays as it is otherwise (no ``+1e-6`` as in torch's
-      ``clip_grad_norm_``);
+      ``clip_grad_norm_``); ``max_norm = inf`` is no clip;
     * moments ``m = (1-b1) g + b1 m``, ``v = (1-b2) g² + b2 v``, bias
       corrected by ``1 - b**t`` at the incremented count t;
     * update ``-lr_c * (m̂ / (sqrt(v̂) + eps) + wd * p)`` on every leaf,
@@ -83,8 +90,13 @@ class AdamW:
       count c BEFORE this update (so the first step of a warmup from 0
       moves nothing).
 
-    ``moment_dtype`` (bf16) stores m and v at rest in that dtype; each
-    update upcasts them to f32 and rounds them back after."""
+    Each operation runs in the gradient's dtype, one rounding per
+    operation, with its constants rounded to that dtype (``_rounded``), as
+    optax's tree maps do: f32 parameters get f32 arithmetic, and bf16
+    parameters (the MNIST, ResNet and decoder configs) bf16 moments and
+    bf16 arithmetic.  ``moment_dtype`` (bf16 beside f32 parameters) stores
+    m and v at rest in that dtype; each update reads them back into the
+    gradient's dtype and rounds them again after."""
 
     def __init__(self, schedule: Callable[[int], float], weight_decay: float,
                  max_grad_norm: float, b1: float = 0.9, b2: float = 0.999,
@@ -109,21 +121,66 @@ class AdamW:
         gn = global_norm(grads.values())
         count = state["count"]
         t = count + 1
-        lr = self.schedule(count)
         b1, b2 = self.b1, self.b2
-        c1, c2 = 1 - b1 ** t, 1 - b2 ** t
+        consts = {"1-b1": 1 - b1, "b1": b1, "1-b2": 1 - b2, "b2": b2, "eps": self.eps,
+                  "c1": 1 - b1 ** t, "c2": 1 - b2 ** t, "wd": self.weight_decay,
+                  "-lr": -self.schedule(count)}
+        by_dtype: dict = {}
         clip = gn < self.max_grad_norm
         for name, p in params.items():
-            g = grads[name].float()
-            g = torch.where(clip, g, g / gn * self.max_grad_norm)
-            mu = (1 - b1) * g + b1 * state["mu"][name].float()
-            nu = (1 - b2) * g.square() + b2 * state["nu"][name].float()
-            u = (mu / c1) / (torch.sqrt(nu / c2) + self.eps) + self.weight_decay * p
-            p.add_(u, alpha=-lr)
+            g = grads[name]
+            k = by_dtype.get(g.dtype) or by_dtype.setdefault(g.dtype, _rounded(consts, g.dtype))
+            if math.isfinite(self.max_grad_norm):
+                g = torch.where(clip, g, g / gn.to(g.dtype) * self.max_grad_norm)
+            mu = g.mul(k["1-b1"]).add_(state["mu"][name].to(g.dtype).mul(k["b1"]))
+            nu = g.square().mul_(k["1-b2"]).add_(state["nu"][name].to(g.dtype).mul(k["b2"]))
+            u = mu.div(k["c1"]).div_(nu.div(k["c2"]).sqrt_().add_(k["eps"]))
+            if self.weight_decay:
+                u.add_(p.to(g.dtype).mul(k["wd"]))
+            p.add_(u.mul_(k["-lr"]))
             state["mu"][name].copy_(mu)
             state["nu"][name].copy_(nu)
         state["count"] = t
         return gn
+
+
+def adam(learning_rate: float) -> AdamW:
+    """``optax.adam(learning_rate)``: a constant rate, no clip, no decay."""
+    return AdamW(lambda _: learning_rate, 0.0, math.inf)
+
+
+def adamw(learning_rate: float, weight_decay: float = 1e-4) -> AdamW:
+    """``optax.adamw(learning_rate)``: a constant rate, no clip, and optax's
+    default decay 1e-4 (torch's ``AdamW`` defaults to 1e-2)."""
+    return AdamW(lambda _: learning_rate, weight_decay, math.inf)
+
+
+class SGD:
+    """``optax.sgd(learning_rate, momentum)``: the trace ``t = g + momentum
+    * t`` (kept in the parameters' dtype, as optax keeps it), then ``p +=
+    -lr * t``, each operation in the gradient's dtype with its constants
+    rounded to it, as ``AdamW`` does."""
+
+    def __init__(self, learning_rate: float, momentum: Optional[float] = None):
+        self.learning_rate = learning_rate
+        self.momentum = momentum
+
+    def init(self, params: dict) -> dict:
+        if self.momentum is None:
+            return {}
+        return {"trace": {n: torch.zeros_like(p) for n, p in params.items()}}
+
+    @torch.no_grad()
+    def update(self, grads: dict, state: dict, params: dict) -> None:
+        consts = {"m": self.momentum or 0.0, "-lr": -self.learning_rate}
+        by_dtype: dict = {}
+        for name, p in params.items():
+            g = grads[name]
+            k = by_dtype.get(g.dtype) or by_dtype.setdefault(g.dtype, _rounded(consts, g.dtype))
+            if self.momentum is not None:
+                g = g.add(state["trace"][name].mul(k["m"]))
+                state["trace"][name].copy_(g)
+            p.add_(g.mul(k["-lr"]))
 
 
 def default_optimizer(cfg: TrainerConfig) -> AdamW:

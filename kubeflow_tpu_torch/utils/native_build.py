@@ -5,12 +5,15 @@ never reuses a stale binary, and both racing safely between concurrent
 builders through an atomic rename:
 
 * ``build_native`` — g++ for host C++ cores (the serving engine's batcher,
-  ``serving/engine/core.cc``); the ``.so`` lands next to its source.
+  ``serving/engine/core.cc``, and the DDP shim's ring,
+  ``transport/transport_core.cc``).
 * ``build_cuda`` — nvcc for hand-written Hopper kernels
   (``serving/engine/csrc/*.cu``, ``ops/csrc/*.cu``), compiled for ``sm_90a`` into a shared
-  library with a plain C interface.  The ``.so`` lands in
-  ``kubeflow_tpu_torch/_build/``.  No PyTorch headers are included, so a
+  library with a plain C interface.  No PyTorch headers are included, so a
   build takes seconds, and nothing needs ``ninja``.
+
+Every ``.so`` lands in ``kubeflow_tpu_torch/_build/`` (``BUILD_DIR``), which
+git ignores.
 """
 
 from __future__ import annotations
@@ -50,9 +53,9 @@ def _compile(cmd: list[str], tmp: str, so_path: str, src_path: str) -> str:
 
 
 def build_native(src_path: str, prefix: str, extra_flags: list[str] | None = None) -> str:
-    """Compile ``src_path`` with g++ to ``<dir>/_<prefix>_<srchash>.so``."""
-    src_dir = os.path.dirname(os.path.abspath(src_path))
-    so_path = os.path.join(src_dir, f"_{prefix}_{_tag(src_path, extra_flags or [])}.so")
+    """Compile ``src_path`` with g++ to ``_build/_<prefix>_<srchash>.so``."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so_path = os.path.join(BUILD_DIR, f"_{prefix}_{_tag(src_path, extra_flags or [])}.so")
     if os.path.exists(so_path):
         return so_path
     tmp = so_path + f".tmp{os.getpid()}"

@@ -190,9 +190,11 @@ def test_all_ignored_loss_is_exactly_zero(np_tree):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbert.BertConfig(remat=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbert.BertConfig(remat_policy="dots")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # remat is ported (tests/test_torch_bert_remat.py); pipeline parallelism
+    # is still refused, naming its item, and an unknown policy is an error
+    tbert.BertConfig(remat=True)
+    tbert.BertConfig(remat_policy="dots")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3.2"):
         tbert.BertConfig(pipeline_stages=2)
+    with pytest.raises(ValueError, match="remat_policy"):
+        tbert.BertConfig(remat=True, remat_policy="everything")

@@ -7,7 +7,9 @@ A subprocess installs a meta-path finder that refuses ``jax``, ``jaxlib``,
 format itself), ``tokenizers`` and ``regex`` (the port reads
 ``tokenizer.json`` itself), ``transformers`` and ``kubeflow_tpu`` (and their
 submodules — but not ``kubeflow_tpu_torch``, whose name shares the prefix),
-then imports every module of the port; a source scan backs it up for
+then imports every module of the port, and runs each training worker end
+to end as ``python -m`` at a tiny size (so the imports inside its
+``main()`` happen under the blocker too); a source scan backs it up for
 imports a runtime path might not reach.  The one import the scan lets
 through is the ``huggingface`` loader's ``transformers``: that loader IS a
 transformers pipeline, imported only when a pod asks for it."""
@@ -67,7 +69,10 @@ def test_every_port_module_imports_with_jax_blocked():
                  "serving.explainers", "serving.storage",
                  "ops.attention", "ops.flash_attention",
                  "models.bert", "train.data", "train.trainer", "train.checkpoint",
-                 "examples.bert_worker"):
+                 "examples.bert_worker", "utils.jax_platform", "parallel.distributed",
+                 "models.mnist", "models.resnet", "models.decoder", "transport.transport",
+                 "examples.mnist_worker", "examples.darts_worker",
+                 "examples.resnet_ddp_worker"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = _BLOCKER.format(blocked=BLOCKED) + f"""
 import importlib
@@ -91,6 +96,42 @@ print("IMPORTED", len({modules!r}))
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-4000:]
     assert f"IMPORTED {len(modules)}" in r.stdout
+
+
+# each worker run end to end as ``python -m`` at a tiny size, so the imports
+# inside its main() (lazy ones included) happen under the blocker
+WORKER_RUNS = {
+    "mnist_worker": {"TRAIN_STEPS": "1", "BATCH_SIZE": "2"},
+    "darts_worker": {"SEARCH_STEPS": "2"},
+    "resnet_ddp_worker": {"TRAIN_STEPS": "1", "PER_CHIP_BATCH": "1", "IMAGE_SIZE": "32",
+                          "NUM_CLASSES": "10"},
+    "resnet_ddp_worker:shim": {"TRAIN_STEPS": "1", "PER_CHIP_BATCH": "1", "IMAGE_SIZE": "32",
+                               "NUM_CLASSES": "10", "DDP_TRANSPORT": "shim"},
+}
+
+
+@pytest.mark.parametrize("run", sorted(WORKER_RUNS))
+def test_worker_runs_with_jax_blocked(run):
+    import socket
+
+    module = "kubeflow_tpu_torch.examples." + run.split(":")[0]
+    code = _BLOCKER.format(blocked=BLOCKED) + f"""
+import runpy
+runpy.run_module({module!r}, run_name="__main__")
+bad = sorted(n for n in sys.modules if _blocked(n) and sys.modules[n] is not None)
+assert not bad, bad
+"""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=REPO, TORCH_DEVICE="cpu", MASTER_PORT=str(port),
+               **WORKER_RUNS[run])
+    for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "JAX_COORDINATOR_ADDRESS"):
+        env.pop(k, None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert r.stdout.strip().splitlines()[-1].endswith("-OK")
 
 
 def _sources():
