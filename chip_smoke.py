@@ -18,7 +18,10 @@ or the script exits non-zero:
    its split and merge kernels in a torch.profiler window), the plain
    version, ``scaled_dot_product_attention`` over the already-gathered
    cache (a yardstick the port never calls) and the device-memory bound;
-   at K = 1 also the kernel at 2, 4, 8 and 16 pages per split;
+   at K = 1 also the kernel at 2, 4, 8 and 16 pages per split; then bf16 at
+   phase 15's served shape (hd 192, Hq = Hkv = 16, K = 1 and 5), which takes
+   the CUDA-core split kernel (a profiler window must show it and no
+   tensor-core record);
 4. decode: one full-width Llama-3-8B ``decode_step`` with ``paged=True``
    against ``paged=False`` (the gather path) on the same pool state;
 5. main path: ``model.init(llama3_8b)`` -> ``Engine`` -> ``JetStreamModel``
@@ -229,6 +232,31 @@ or the script exits non-zero:
    relative), peak memory (``nothing`` below no remat), step ms, flash
    launches per step and a profiled step of each (up to 3 windows, until
    one keeps every device record), no plain flash call.
+15. pipeline: BASELINE config 4 on the port's pipeline SDK. (a) The port's
+   ``examples.gemma_pipeline`` compiled by the port's compiler at Gemma-7B
+   width (vocab 256128, d_model 3072, 16/16 heads, d_ff 24576; the six-field
+   ``DecoderConfig`` gives head_dim 192), cut to ``PIPELINE_LAYERS`` (4)
+   layers (``reduced`` says why), 10 steps at 4 x 512, ``max_perplexity``
+   1e7; (b) its DAG walked in dependency order, each step a ``python -m
+   kubeflow_tpu_torch.pipelines.launcher_main`` subprocess on the card with
+   a ``task.json`` as the reference controller writes it, artifacts through
+   the port's ``ObjectStore``, ``deploy``'s condition from the IR; (c)
+   gates: finetune's final loss finite and below its first, a finite
+   perplexity below 1e7, an ``mstore://`` URI from ``deploy``, the stored
+   ``params.npz`` all f32 with the config's parameter count and the six
+   fields in ``config.json``; each step's wall time, staged bytes, savez,
+   put, get and load seconds, finetune's step ms and tokens/s; (d) the
+   pipeline's tiny defaults with ``max_perplexity=1.0``: ``deploy``
+   Skipped; (e) the deployed URI fetched and served by the port's
+   ``JetStreamModel`` (``params.npz`` + ``config.json``, byte tokenizer):
+   phase 5's four prompts x 32 tokens, each token within the oracle bound
+   of ``forward_full`` on the loaded params, one paged launch per layer
+   and decode step, none plain, and a profiler window over a request
+   holding the CUDA-core split and merge kernels and no tensor-core one;
+   TTFT and tokens/s; (g) ``examples.distributed_check`` on the card at
+   world 1 (``PSUM got=1.0 expected=1.0``, ``TRAIN-OK``) and
+   ``parallel.profiling.maybe_trace`` over a small card workload: a trace
+   holding 3 step annotations and their device kernels.
 
 Phase 5's Llama-3-8B weights are freed before phase 5j, which runs after
 phase 6.  The last lines are the
@@ -458,13 +486,20 @@ SPLIT_SWEEP = (2, 4, 8, 16)
 # ----------------------------------------------------------------- phase 3
 
 
-def kernel_case(quant, K, rng, dev, flush) -> dict:
+def kernel_case(quant, K, rng, dev, flush, heads: tuple = (HQ, HKV), hd: int = HD,
+                markers: tuple = PAGED_MARKERS) -> dict:
+    """``paged_attention`` against its plain version at B=8, page 32, 64
+    pages a slot over a 512-page pool, the phase's lengths: ``heads`` (Hq,
+    Hkv) and ``hd`` default to Llama-3-8B's; ``markers`` name the device
+    kernels the call must run (one record of each a call).  At the default
+    shapes and K = 1 also the split sweep."""
     P = POOL_PAGES
-    q = torch.from_numpy(rng.standard_normal((B, K, HQ, HD), dtype=np.float32)).to(
+    hq, hkv = heads
+    q = torch.from_numpy(rng.standard_normal((B, K, hq, hd), dtype=np.float32)).to(
         dev, torch.bfloat16)
 
     def pool():
-        x = torch.from_numpy(rng.standard_normal((P, HKV, PS, HD), dtype=np.float32)).to(
+        x = torch.from_numpy(rng.standard_normal((P, hkv, PS, hd), dtype=np.float32)).to(
             dev, torch.bfloat16)
         if quant is None:
             return x
@@ -484,8 +519,8 @@ def kernel_case(quant, K, rng, dev, flush) -> dict:
     idle_zero = bool(torch.all(out[1] == 0)) if K == 1 else True
 
     # the yardstick: one library call over the already-gathered cache
-    kc = M.pool_get(k_pool, table.long()).permute(0, 2, 1, 3, 4).reshape(B, HKV, -1, HD)
-    vc = M.pool_get(v_pool, table.long()).permute(0, 2, 1, 3, 4).reshape(B, HKV, -1, HD)
+    kc = M.pool_get(k_pool, table.long()).permute(0, 2, 1, 3, 4).reshape(B, hkv, -1, hd)
+    vc = M.pool_get(v_pool, table.long()).permute(0, 2, 1, 3, 4).reshape(B, hkv, -1, hd)
     T = kc.shape[2]
     pos = torch.arange(T, device=dev)
     draft = torch.arange(K, device=dev)
@@ -499,19 +534,20 @@ def kernel_case(quant, K, rng, dev, flush) -> dict:
     try:
         library()
     except TypeError:  # a PyTorch without enable_gqa: expand the kv heads
-        kc = kc.repeat_interleave(HQ // HKV, dim=1)
-        vc = vc.repeat_interleave(HQ // HKV, dim=1)
+        kc = kc.repeat_interleave(hq // hkv, dim=1)
+        vc = vc.repeat_interleave(hq // hkv, dim=1)
 
         def library():
             return torch.nn.functional.scaled_dot_product_attention(
                 qs, kc, vc, attn_mask=mask)
 
     kernel_ms = time_ms(lambda: PA.paged_attention(*args), flush)
-    device = profiled_ms(lambda: PA.paged_attention(*args), flush, PAGED_MARKERS)
+    device = profiled_ms(lambda: PA.paged_attention(*args), flush, markers)
+    names, _ = device_kernel_names(lambda: [PA.paged_attention(*args) for _ in range(10)])
     plain_ms = time_ms(lambda: PA.paged_attention_plain(*args), flush)
     library_ms = time_ms(library, flush)
     sweep = {}
-    if K == 1:
+    if K == 1 and (heads, hd) == ((HQ, HKV), HD):
         for pps in SPLIT_SWEEP:
             def call(pps=pps):
                 return PA.paged_attention(*args, _pages_per_split=pps)
@@ -522,22 +558,23 @@ def kernel_case(quant, K, rng, dev, flush) -> dict:
     # the bound: each input read once, each output written once, with only
     # the pages this run's lengths visit; operations of QK^T and PV
     pages = [min(MAX_PAGES, max(0, -(-(s + K - 1) // PS))) for s in SEQ_LENS]
-    tok_bytes = HD * (1 if quant else 2) + (2 if quant else 0)  # + bf16 scale
-    kv_bytes = 2 * sum(pages) * HKV * PS * tok_bytes
+    tok_bytes = hd * (1 if quant else 2) + (2 if quant else 0)  # + bf16 scale
+    kv_bytes = 2 * sum(pages) * hkv * PS * tok_bytes
     io_bytes = 2 * q.numel() * 2 + table.numel() * 4 + lens.numel() * 4
-    flops = sum(pages) * PS * 4 * HD * K * HQ
+    flops = sum(pages) * PS * 4 * hd * K * hq
     bound_ms = max((kv_bytes + io_bytes) / HBM_BYTES_PER_S,
                    flops / BF16_FLOPS_PER_S) * 1e3
-    return {"pool": quant or "bf16", "K": K, "max_abs_err": float(err.max()),
+    return {"pool": quant or "bf16", "K": K, "hd": hd, "heads": list(heads),
+            "max_abs_err": float(err.max()),
             "ok": ok and idle_zero, "kernel_ms": kernel_ms, "device_ms": device["total"],
             "device_ms_by_kernel": device,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms,
-            "pages_per_split": PA._split_plan(MAX_PAGES, B, HKV, K * HQ // HKV),
+            "pages_per_split": PA._split_plan(MAX_PAGES, B, hkv, K * hq // hkv),
             "split_sweep": sweep,
             "bound_by": ("bytes" if (kv_bytes + io_bytes) / HBM_BYTES_PER_S
                          >= flops / BF16_FLOPS_PER_S else "operations"),
-            "visited_kv_bytes": kv_bytes}
+            "visited_kv_bytes": kv_bytes, "device_kernels": names}
 
 
 # ----------------------------------------------------------------- phase 4
@@ -585,9 +622,9 @@ PROMPTS = [TEXT[:60], TEXT[:150], (TEXT * 3)[:300], (TEXT * 5)[:600]]
 LONG_PROMPT = (TEXT * 8)[:1000]
 
 
-def post(port: int, body: dict, headers: dict = None) -> tuple:
+def post(port: int, body: dict, headers: dict = None, model: str = "llama3-8b") -> tuple:
     req = urllib.request.Request(
-        f"http://127.0.0.1:{port}/v2/models/llama3-8b/generate",
+        f"http://127.0.0.1:{port}/v2/models/{model}/generate",
         data=json.dumps(body).encode(),
         headers={"Content-Type": "application/json", **(headers or {})})
     try:
@@ -4003,6 +4040,390 @@ def bert_remat(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 15
+
+# BASELINE config 4 at Gemma-7B's widths, built as the JAX pipeline builds
+# its model, from six size fields (head_dim 3072 / 16 = 192, SwiGLU, no
+# embedding scale); 10 steps at 4 x 512 as phase 13.  Ten steps leave the
+# held-out loss near 13 at vocab 256128 (a perplexity near 5e5), so the
+# gate is 1e7, not the pipeline's default of 1000.
+# Depth: 4 of 28 layers (2.63 B parameters, a 10.5 GB f32 params.npz), as
+# deep as the phase's ~150 s budget holds (158.1 s alone on an H100 80GB
+# HBM3 at 700 W).  2 layers would save ~1/5 of the npz's trips but fail the
+# served-token oracle: ten AdamW steps leave a 2-layer model's logits at up
+# to ~17 (std 3.3), where the paged kernel's f32 probabilities (the Pallas
+# kernel's too) put one token 0.625 below forward_full's max, whose
+# probabilities are bf16 (the gather path, bf16 as well, lags 0)
+PIPELINE_LAYERS = 4
+PIPELINE_HEADS, PIPELINE_HD = (16, 16), 3072 // 16
+PIPELINE_ARGS = {"vocab_size": 256128, "d_model": 3072, "n_layers": PIPELINE_LAYERS,
+                 "n_heads": 16, "n_kv_heads": 16, "d_ff": 24576, "steps": 10,
+                 "batch_size": 4, "seq_len": 512, "max_perplexity": 1e7}
+PIPELINE_REDUCED = ("time: the f32 params.npz (6.3 GB of embeddings + 1.06 GB a layer) "
+                    "crosses the disk five times (savez, put, a get for evaluate, deploy "
+                    "and serving) and loads twice; at 4 layers the phase takes ~150 s, "
+                    "its budget")
+# the skip branch: the pipeline's own tiny defaults, gated out
+PIPELINE_SKIP_ARGS = {"max_perplexity": 1.0}
+# the IR features the walker runs; anything else (loops, exit handlers,
+# retries, resources) is refused
+WALKED_TASK_KEYS = {"componentRef", "displayName", "dependentTasks", "inputs",
+                    "cachingOptions", "conditions"}
+CONDITION_OPS = {"==": lambda a, b: a == b, "!=": lambda a, b: a != b,
+                 "<": lambda a, b: a < b, "<=": lambda a, b: a <= b,
+                 ">": lambda a, b: a > b, ">=": lambda a, b: a >= b}
+STEP_TIMEOUT_S = 900
+# the CUDA-core split kernel (any hd: the tensor-core one takes hd 64 and
+# 128 only) and the merge
+SIMT_MARKERS = ("paged_split_simt", "paged_merge")
+TC_MARKER = "paged_split_tc"
+
+
+def walk_order(tasks: dict) -> list:
+    """The tasks in dependency order (ties by name); refuses what the
+    walker does not run."""
+    for name, t in tasks.items():
+        extra = set(t) - WALKED_TASK_KEYS
+        if extra:
+            raise ValueError(f"task {name!r}: IR feature(s) {sorted(extra)} not run here")
+    order, done = [], set()
+    while len(order) < len(tasks):
+        ready = sorted(n for n, t in tasks.items()
+                       if n not in done and set(t["dependentTasks"]) <= done)
+        if not ready:
+            raise ValueError(f"dependency cycle among {sorted(set(tasks) - done)}")
+        order += ready
+        done.update(ready)
+    return order
+
+
+def resolve_ref(ref: dict, args: dict, nodes: dict):
+    """A parameter reference against the run's arguments and finished steps,
+    as the reference workflow controller resolves it."""
+    if "constant" in ref:
+        return ref["constant"]
+    if "componentInputParameter" in ref:
+        return args[ref["componentInputParameter"]]
+    if "taskOutputParameter" in ref:
+        src = ref["taskOutputParameter"]
+        return nodes[src["producerTask"]]["outputParameters"][src["outputParameterKey"]]
+    raise ValueError(f"IR reference not run here: {sorted(ref)}")
+
+
+def run_ir(ir: dict, arguments: dict, store, work: str, run_id: str, env: dict) -> dict:
+    """Run a compiled pipeline's DAG as the reference workflow controller
+    does, one step pod at a time: each step's ``task.json`` written as the
+    controller writes it, then ``python -m
+    kubeflow_tpu_torch.pipelines.launcher_main <workspace>`` as a
+    subprocess of its own (its card memory freed when it exits), its
+    outputs read from ``outputs.json``; a task whose condition is false is
+    Skipped, its dependents Omitted.  A step that exits non-zero raises.
+    Each workspace is removed once its outputs are read (the store keeps
+    the artifacts).  Returns the nodes by task name."""
+    tasks = ir["root"]["dag"]["tasks"]
+    args = {p: d["defaultValue"]
+            for p, d in ir["root"]["inputDefinitions"]["parameters"].items()
+            if "defaultValue" in d}
+    args.update(arguments)
+    nodes: dict = {}
+    for name in walk_order(tasks):
+        t = tasks[name]
+        if any(nodes[d]["phase"] != "Succeeded" for d in t["dependentTasks"]):
+            nodes[name] = {"phase": "Omitted"}
+            continue
+        if not all(CONDITION_OPS[c["op"]](resolve_ref(c["left"], args, nodes),
+                                          resolve_ref(c["right"], args, nodes))
+                   for c in t.get("conditions", [])):
+            nodes[name] = {"phase": "Skipped"}
+            continue
+        params = {p: resolve_ref(ref, args, nodes) for p, ref in t["inputs"]["parameters"].items()}
+        in_arts = {}
+        for a, ref in t["inputs"]["artifacts"].items():
+            src = ref["taskOutputArtifact"]
+            in_arts[a] = nodes[src["producerTask"]]["outputArtifacts"][src["outputArtifactKey"]]
+        comp = ir["components"][t["componentRef"]]
+        executor = ir["deploymentSpec"]["executors"][comp["executorLabel"]]
+        out_arts = {a: {"uri": store.uri("mlpipeline", f"{run_id}/{name}/{a}"),
+                        "type": d["schemaTitle"]}
+                    for a, d in comp["outputDefinitions"]["artifacts"].items()}
+        ws = os.path.join(work, run_id, name)
+        os.makedirs(ws)
+        with open(os.path.join(ws, "task.json"), "w") as f:
+            json.dump({"functionName": executor["python"]["functionName"],
+                       "source": executor["python"]["source"],
+                       "defaults": executor["python"].get("defaults", {}),
+                       "parameters": params, "inputArtifacts": in_arts,
+                       "outputArtifacts": out_arts,
+                       "outputParameters": sorted(comp["outputDefinitions"]["parameters"]),
+                       "storeRoot": store.root}, f)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "kubeflow_tpu_torch.pipelines.launcher_main",
+                            ws], env=env, cwd=REPO, capture_output=True, text=True,
+                           timeout=STEP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise RuntimeError(f"step {name!r} exited {r.returncode}: {r.stderr[-3000:]}")
+        with open(os.path.join(ws, "outputs.json")) as f:
+            outs = json.load(f)
+        shutil.rmtree(ws)
+        lines = r.stdout.strip().splitlines()
+        nodes[name] = {
+            "phase": "Succeeded", "wall_s": wall, "stdout": lines,
+            "outputParameters": outs["outputParameters"],
+            "outputArtifacts": {a: {**spec, "metadata": outs["artifactMetadata"].get(a, {})}
+                                for a, spec in out_arts.items()}}
+    return nodes
+
+
+def step_report(node: dict) -> dict:
+    """A step's wall time and the numbers its stdout carries: the
+    launcher's staged copies (``<op>_<artifact>_s`` and ``_bytes``) and the
+    component's own ``key=value`` timings."""
+    rep = {"phase": node["phase"], "wall_s": node.get("wall_s")}
+    for line in node.get("stdout", []):
+        kv = dict(w.split("=", 1) for w in line.split()[1:] if "=" in w)
+        if line.startswith("LAUNCHER "):
+            rep[f"{kv['op']}_{kv['artifact']}_s"] = float(kv["seconds"])
+            rep[f"{kv['op']}_{kv['artifact']}_bytes"] = int(kv["bytes"])
+        elif line.startswith(("FINETUNE ", "EVALUATE ")):
+            rep.update({k: v if k == "device" else float(v) for k, v in kv.items()})
+    return rep
+
+
+def npz_members(path: str) -> dict:
+    """(shape, dtype) of each member of an ``.npz``, from the headers alone."""
+    import zipfile
+
+    out = {}
+    with zipfile.ZipFile(path) as z:
+        for name in z.namelist():
+            with z.open(name) as f:
+                read_header = {(1, 0): np.lib.format.read_array_header_1_0,
+                               (2, 0): np.lib.format.read_array_header_2_0}[
+                                   np.lib.format.read_magic(f)]
+                shape, _, dtype = read_header(f)
+            out[name[:-len(".npy")]] = (tuple(shape), str(dtype))
+    return out
+
+
+def device_kernel_names(fn, tries: int = 3) -> tuple:
+    """The device kernels ``fn`` runs: the names of the records of a
+    ``profile_window`` around it (a template's name without its argument
+    list), from the first of up to ``tries`` windows that loses none; and
+    the records the last window lost."""
+    for _ in range(tries):
+        with profile_window() as prof:
+            fn()
+            torch.cuda.synchronize()
+        recs, _, lost = window_records(prof)
+        if not lost:
+            break
+    return sorted({name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+                   .split("::")[-1].split()[-1] for name, _, _ in recs}), lost
+
+
+def serve_deployed(model_dir: str, dev) -> dict:
+    """The deployed artifact served as a KServe pod would serve it: the
+    port's ``JetStreamModel`` on the dir (``config.json`` + ``params.npz``,
+    the byte tokenizer) behind a ``ModelServer``; phase 5's four prompts
+    concurrently, 32 greedy tokens each, counted from zero; each token
+    against ``forward_full`` on the loaded params; then one request inside
+    a profiler window for the kernels a decode tick runs."""
+    t0 = time.perf_counter()
+    model = JetStreamModel("gemma", model_dir, device=dev)
+    model.load()
+    torch.cuda.synchronize()
+    out = {"load_s": time.perf_counter() - t0}
+    engine = model.engine
+    params, cfg = engine.params, engine.config
+    out.update({"head_dim": cfg.head_dim, "act": cfg.act, "scale_embed": cfg.scale_embed})
+    server = ModelServer([model], port=0, host="127.0.0.1")
+    server.start()
+    try:
+        def post_one(prompt, n):
+            return post(server.port, {"text_input": prompt, "parameters": {"max_tokens": n}},
+                        model="gemma")
+
+        with ThreadPoolExecutor(len(PROMPTS)) as pool:
+            warm = list(pool.map(lambda p: post_one(p[::-1].swapcase(), 2)[0], PROMPTS))
+        assert all(code == 200 for code in warm), warm
+        before = engine.stats
+        with KernelWatch() as watch:
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(PROMPTS)) as pool:
+                results = list(pool.map(lambda p: post_one(p, MAX_TOKENS), PROMPTS))
+            wall = time.perf_counter() - t0
+        deadline = time.monotonic() + 30
+        while engine.stats["active_slots"] and time.monotonic() < deadline:
+            time.sleep(0.01)
+        stats = engine.stats
+        names, lost = device_kernel_names(lambda: post_one(PROMPTS[1], 8))
+    finally:
+        server.stop()
+        engine.stop()
+    served = all(code == 200 and body["tokens"] == MAX_TOKENS for code, body in results)
+    steps = stats["decode_steps"] - before["decode_steps"]
+    out.update({
+        "statuses": [code for code, _ in results],
+        "token_ids": [body.get("token_ids") for _, body in results],
+        "ttft_s": [body.get("ttft_s") for _, body in results],
+        "wall_s": wall, "tokens_per_s": MAX_TOKENS * len(PROMPTS) / wall,
+        "launches": watch.launches, "launches_by_k": watch.by_k,
+        "plain_calls": watch.plain_calls, "decode_steps": steps,
+        "leaked_pages": leaked_pages(stats, EngineConfig()),
+        "tick_kernels": [n for n in names if "paged" in n], "tick_lost_records": lost})
+    out["oracle_max_logit_lag"] = ([oracle_lag(params, cfg, dev, p, body["token_ids"])
+                                    for p, (_, body) in zip(PROMPTS, results)]
+                                   if served else None)
+    out["ok"] = (served and out["leaked_pages"] == 0
+                 and watch.launches == cfg.n_layers * steps > 0 and watch.plain_calls == 0
+                 and max(out["oracle_max_logit_lag"]) <= ORACLE_TIE_EPS
+                 and any(SIMT_MARKERS[0] in n for n in names)
+                 and any(SIMT_MARKERS[1] in n for n in names)
+                 and not any(TC_MARKER in n for n in names))
+    del params, engine, model
+    return out
+
+
+def distributed_check_run() -> dict:
+    """``python -m kubeflow_tpu_torch.examples.distributed_check`` on the
+    card at world 1 (no ``TORCH_DEVICE``: its default): the sum over the one
+    process and five falling losses.  NCCL takes one rank per card, so world
+    2 is gated on the CPU (gloo)."""
+    r, lines, _ = run_worker("distributed_check", {}, timeout=300)
+    losses = [float(line.split("loss=")[1]) for line in lines if line.startswith("STEP ")]
+    return {"ok": (r.returncode == 0 and "PSUM got=1.0 expected=1.0" in lines
+                   and "TRAIN-OK" in lines and len(losses) == 5 and losses[-1] < losses[0]),
+            "exit_code": r.returncode, "stdout": lines,
+            "stderr_tail": r.stderr[-1500:] if r.returncode else ""}
+
+
+PROFILE_STEPS = 3
+
+
+# a training loop of a small card workload under maybe_trace, in a process
+# of its own as a worker is: a torch.profiler session late in this one
+# loses its device records (PERF.md §7)
+PROFILE_WORKER = """
+import json, os, sys, torch
+from kubeflow_tpu_torch.parallel import profiling
+from kubeflow_tpu_torch.utils.jax_platform import honor_jax_platforms
+a = torch.randn((2048, 2048), device=honor_jax_platforms())
+flags = []
+for step in range(int(sys.argv[1])):
+    with profiling.maybe_trace(step) as traced:
+        flags.append(traced)
+        float((a @ a).relu().sum())
+print(json.dumps({"traced": flags, "path": profiling.trace_path(os.environ["TPU_PROFILE_DIR"])}))
+"""
+
+
+def profiling_run(trace_dir: str) -> dict:
+    """``parallel.profiling.maybe_trace`` around 5 steps of a small card
+    workload (a 2048² matmul) in a subprocess on the card with
+    ``TPU_PROFILE_DIR`` set and ``TPU_PROFILE_STEPS=3``: steps 0-2 traced,
+    3-4 not, and the Chrome trace it writes parses and holds the three step
+    annotations and the device kernels of those steps."""
+    env = {k: v for k, v in os.environ.items() if k != "TORCH_DEVICE"}
+    env.update(PYTHONPATH=REPO, TPU_PROFILE_DIR=trace_dir, TPU_PROFILE_STEPS=str(PROFILE_STEPS))
+    r = subprocess.run([sys.executable, "-c", PROFILE_WORKER, str(PROFILE_STEPS + 2)], env=env,
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        return {"ok": False, "exit_code": r.returncode, "stderr_tail": r.stderr[-1500:]}
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    flags, path = res["traced"], res["path"]
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    steps = sorted({n for n in names if n.startswith("train#step_num=")})
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return {"ok": (flags == [True] * PROFILE_STEPS + [False, False]
+                   and steps == [f"train#step_num={i}#" for i in range(PROFILE_STEPS)]
+                   and len(kernels) >= PROFILE_STEPS),
+            "traced": flags, "trace_bytes": os.path.getsize(path), "step_annotations": steps,
+            "device_kernels": len(kernels)}
+
+
+def pipeline_phase(dev) -> dict:
+    """BASELINE config 4 on the port's pipeline SDK: the port's
+    ``gemma_pipeline`` compiled by the port's compiler at Gemma-7B width
+    (``PIPELINE_LAYERS`` of 28 layers), its DAG run step by step through the
+    port's launcher on the card, then the skip branch at the pipeline's
+    tiny defaults, then the deployed artifact served through the paged
+    kernel at head_dim 192."""
+    from kubeflow_tpu_torch.examples.gemma_pipeline import gemma_pipeline
+    from kubeflow_tpu_torch.pipelines.artifacts import ObjectStore
+    from kubeflow_tpu_torch.pipelines.compiler import Compiler
+
+    ir = Compiler().compile(gemma_pipeline)
+    env = {k: v for k, v in os.environ.items() if k != "TORCH_DEVICE"}  # the card
+    env["PYTHONPATH"] = REPO
+    cfg = M.DecoderConfig(**{k: PIPELINE_ARGS[k] for k in (
+        "vocab_size", "d_model", "n_layers", "n_heads", "n_kv_heads", "d_ff")})
+    out: dict = {"config": "DecoderConfig from the pipeline's six size fields at Gemma-7B width",
+                 "arguments": PIPELINE_ARGS, "params": cfg.param_count(),
+                 "head_dim": cfg.head_dim,
+                 "reduced": {"n_layers": [PIPELINE_LAYERS, 28], "why": PIPELINE_REDUCED}}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        out["disk_free_bytes"] = shutil.disk_usage(tmp).free
+        store = ObjectStore(os.path.join(tmp, "objects"))
+        t0 = time.perf_counter()
+        nodes = run_ir(ir, PIPELINE_ARGS, store, os.path.join(tmp, "nodes"), "gemma", env)
+        out["dag_s"] = time.perf_counter() - t0
+        out["steps"] = {n: step_report(node) for n, node in nodes.items()}
+        ft, ev, dp = nodes["finetune"], nodes["evaluate"], nodes["deploy"]
+        losses = ft["outputArtifacts"]["metrics"]["metadata"]
+        ppl = ev["outputParameters"]["Output"]
+        uri = dp.get("outputParameters", {}).get("Output", "")
+        out.update({"first_loss": losses["first_loss"], "final_loss": losses["final_loss"],
+                    "eval": ev["outputArtifacts"]["metrics"]["metadata"], "perplexity": ppl,
+                    "deploy_uri": uri})
+        members = npz_members(os.path.join(store._path(uri), "params.npz")) if uri else {}
+        out["npz_members"] = len(members)
+        out["npz_params"] = sum(math.prod(s) for s, _ in members.values())
+        stored_cfg = None
+        if uri:
+            with open(os.path.join(store._path(uri), "config.json")) as f:
+                stored_cfg = json.load(f)
+        gates = {
+            "finetune": (math.isfinite(losses["final_loss"])
+                         and losses["final_loss"] < losses["first_loss"]),
+            "evaluate": math.isfinite(ppl) and ppl < PIPELINE_ARGS["max_perplexity"],
+            "deploy": dp["phase"] == "Succeeded" and uri.startswith("mstore://"),
+            "artifact": (bool(members) and all(d == "float32" for _, d in members.values())
+                         and out["npz_params"] == cfg.param_count()
+                         and stored_cfg == {k: PIPELINE_ARGS[k] for k in (
+                             "vocab_size", "d_model", "n_layers", "n_heads", "n_kv_heads",
+                             "d_ff")})}
+
+        t0 = time.perf_counter()
+        skip = run_ir(ir, PIPELINE_SKIP_ARGS, store, os.path.join(tmp, "nodes"), "skip", env)
+        out["skip"] = {"dag_s": time.perf_counter() - t0,
+                       "phases": {n: node["phase"] for n, node in skip.items()},
+                       "perplexity": skip["evaluate"].get("outputParameters", {}).get("Output")}
+        gates["skip"] = (skip["finetune"]["phase"] == skip["evaluate"]["phase"] == "Succeeded"
+                         and skip["deploy"]["phase"] == "Skipped")
+
+        if uri:
+            t0 = time.perf_counter()
+            model_dir = store.get(uri, os.path.join(tmp, "served"))
+            out["serve_get_s"] = time.perf_counter() - t0
+            shutil.rmtree(store._path(uri))  # the disk: one copy of the model at a time
+            out["serve"] = serve_deployed(model_dir, dev)
+            gates["serve"] = out["serve"]["ok"] and out["serve"]["head_dim"] == 192
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["distributed_check"] = distributed_check_run()
+        gates["distributed_check"] = out["distributed_check"]["ok"]
+        out["profiling"] = profiling_run(os.path.join(tmp, "profile"))
+        gates["profiling"] = out["profiling"]["ok"]
+    out["gates"] = gates
+    out["launches"] = out.get("serve", {}).get("launches", 0)
+    out["ok"] = all(gates.values()) and "serve" in gates
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -4061,7 +4482,13 @@ def main() -> int:
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
         cases = [kernel_case(quant, K, rng, dev, flush)
                  for quant in (None, "int8") for K in (1, 5)]
-        return {"ok": all(c["ok"] for c in cases), "cases": cases}
+        # the served shape of phase 15: hd 192 takes the CUDA-core kernel
+        hd192 = [kernel_case(None, K, rng, dev, flush, heads=PIPELINE_HEADS,
+                             hd=PIPELINE_HD, markers=SIMT_MARKERS) for K in (1, 5)]
+        for c in hd192:
+            c["ok"] = (c["ok"] and c["device_ms"] is not None
+                       and not any(TC_MARKER in n for n in c["device_kernels"]))
+        return {"ok": all(c["ok"] for c in cases + hd192), "cases": cases, "hd192": hd192}
 
     kres = phase("kernel", kernels)
 
@@ -4122,6 +4549,7 @@ def main() -> int:
     phase("resnet", lambda: resnet_phase(dev))
     phase("decoder", lambda: decoder_phase(dev))
     rres = phase("bert_remat", lambda: bert_remat(dev))
+    pres = phase("pipeline", lambda: pipeline_phase(dev))
 
     cases = kres.get("cases") or []
     head = next((c for c in cases if c["pool"] == "bf16" and c["K"] == 1), {})
@@ -4133,15 +4561,22 @@ def main() -> int:
               # speculative, prefix cache, QoS preemption, session restores,
               # the streaming surfaces, observability, disaggregation,
               # 5i's int8, LoRA, constrained and brownout engines and 5j's
-              # converted HF checkout (the runtime phase's subprocess
-              # launches the kernel too, but its counter is not readable
-              # here)
-              "launches": sum(r.get("launches", 0) for r in served),
+              # converted HF checkout and phase 15's deployed model (the
+              # runtime phase's subprocess launches the kernel too, but its
+              # counter is not readable here)
+              "launches": sum(r.get("launches", 0) for r in served + [pres]),
               "max_abs_err": max((c["max_abs_err"] for c in cases), default=None),
               "ms": head.get("kernel_ms"), "kernel_ms": head.get("kernel_ms"),
               "device_ms": head.get("device_ms"), "plain_ms": head.get("plain_ms"),
               "bound_ms": head.get("bound_ms"),
-              "bound_by": head.get("bound_by"), "library_ms": head.get("library_ms")}
+              "bound_by": head.get("bound_by"), "library_ms": head.get("library_ms"),
+              # the CUDA-core kernel at phase 15's served shape (hd 192,
+              # 16/16 heads), K = 1 and 5, and its launches serving there
+              "hd192": [{k: c.get(k) for k in (
+                  "K", "max_abs_err", "kernel_ms", "device_ms", "plain_ms", "bound_ms",
+                  "bound_by", "library_ms", "device_kernels")}
+                  for c in kres.get("hd192") or []],
+              "hd192_launches": pres.get("launches", 0)}
     fcases = fres.get("cases") or []
     fhead = next((c for c in fcases if c["case"] == "ragged"), {})  # the training path's case
     frecord = {"name": "flash_attention", "route": "cuda",

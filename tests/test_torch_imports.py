@@ -72,7 +72,10 @@ def test_every_port_module_imports_with_jax_blocked():
                  "examples.bert_worker", "utils.jax_platform", "parallel.distributed",
                  "models.mnist", "models.resnet", "models.decoder", "transport.transport",
                  "examples.mnist_worker", "examples.darts_worker",
-                 "examples.resnet_ddp_worker"):
+                 "examples.resnet_ddp_worker", "pipelines", "pipelines.dsl",
+                 "pipelines.compiler", "pipelines.artifacts", "pipelines.launcher_main",
+                 "examples.gemma_pipeline", "examples.distributed_check",
+                 "parallel.profiling"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = _BLOCKER.format(blocked=BLOCKED) + f"""
 import importlib
@@ -107,6 +110,7 @@ WORKER_RUNS = {
                           "NUM_CLASSES": "10"},
     "resnet_ddp_worker:shim": {"TRAIN_STEPS": "1", "PER_CHIP_BATCH": "1", "IMAGE_SIZE": "32",
                                "NUM_CLASSES": "10", "DDP_TRANSPORT": "shim"},
+    "distributed_check": {},
 }
 
 
@@ -132,6 +136,85 @@ assert not bad, bad
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-4000:]
     assert r.stdout.strip().splitlines()[-1].endswith("-OK")
+
+
+def test_pipeline_steps_run_with_jax_blocked(tmp_path):
+    """The Gemma pipeline's three steps, compiled by the port and run by
+    the port's launcher at the pipeline's tiny defaults (2 training steps),
+    then ``maybe_trace`` over 2 traced steps, all under the blocker: the
+    component bodies' own imports (torch and the port, inside each
+    function) happen there."""
+    code = _BLOCKER.format(blocked=BLOCKED) + f"""
+import json, os
+from kubeflow_tpu_torch.examples.gemma_pipeline import gemma_pipeline
+from kubeflow_tpu_torch.parallel import profiling
+from kubeflow_tpu_torch.pipelines import launcher_main
+from kubeflow_tpu_torch.pipelines.artifacts import ObjectStore
+from kubeflow_tpu_torch.pipelines.compiler import Compiler
+
+root = {str(tmp_path)!r}
+ir = Compiler().compile(gemma_pipeline)
+args = {{p: d["defaultValue"] for p, d in ir["root"]["inputDefinitions"]["parameters"].items()}}
+args["steps"] = 2
+store = ObjectStore(os.path.join(root, "objects"))
+model = {{"uri": store.uri("b", "model"), "type": "system.Model", "metadata": {{}}}}
+for name in ("finetune", "evaluate", "deploy"):
+    task = ir["root"]["dag"]["tasks"][name]
+    comp = ir["components"][task["componentRef"]]
+    ex = ir["deploymentSpec"]["executors"][comp["executorLabel"]]["python"]
+    params = {{p: args[ref["componentInputParameter"]]
+              for p, ref in task["inputs"]["parameters"].items()}}
+    outs = {{a: {{"uri": store.uri("b", a), "type": d["schemaTitle"]}}
+            for a, d in comp["outputDefinitions"]["artifacts"].items()}}
+    ws = os.path.join(root, name)
+    os.makedirs(ws)
+    with open(os.path.join(ws, "task.json"), "w") as f:
+        json.dump({{"functionName": ex["functionName"], "source": ex["source"],
+                   "defaults": ex["defaults"], "parameters": params,
+                   "inputArtifacts": {{"model": model}} if name != "finetune" else {{}},
+                   "outputArtifacts": outs, "outputParameters": ["Output"],
+                   "storeRoot": store.root}}, f)
+    assert launcher_main.run(ws) == 0, name
+env = {{"TPU_PROFILE_DIR": os.path.join(root, "prof"), "TPU_PROFILE_STEPS": "2"}}
+for step in range(3):
+    with profiling.maybe_trace(step, environ=env):
+        pass
+assert os.path.exists(profiling.trace_path(env["TPU_PROFILE_DIR"]))
+bad = sorted(n for n in sys.modules if _blocked(n) and sys.modules[n] is not None)
+assert not bad, bad
+print("STEPS-OK")
+"""
+    env = dict(os.environ, PYTHONPATH=REPO, TORCH_DEVICE="cpu")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert r.stdout.strip().splitlines()[-1] == "STEPS-OK"
+
+
+def _component_sources():
+    """The component sources the step pods exec, from the port's IR."""
+    from kubeflow_tpu_torch.examples.gemma_pipeline import gemma_pipeline
+    from kubeflow_tpu_torch.pipelines.compiler import Compiler
+
+    ir = Compiler().compile(gemma_pipeline)
+    return {name: ex["python"]["source"]
+            for name, ex in ir["deploymentSpec"]["executors"].items()}
+
+
+@pytest.mark.parametrize("executor", sorted(_component_sources()))
+def test_component_source_imports_nothing_of_jax(executor):
+    tree = ast.parse(_component_sources()[executor])
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, "a relative import cannot run in a step pod"
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert not any(name == b or name.startswith(b + ".") for b in BLOCKED), (
+                f"{executor} imports {name}")
 
 
 def _sources():

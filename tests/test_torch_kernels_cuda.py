@@ -139,6 +139,31 @@ def test_paged_attention_kernel_other_tiles(card, head_dim, page, kind, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 5])
+@pytest.mark.parametrize("head_dim", [96, 160, 192, 256])
+def test_paged_attention_cuda_core_kernel_wide_heads(card, head_dim, K):
+    """Head dims outside the tensor-core kernel's (64, 128) take the
+    CUDA-core split kernel: hd 192 is the Gemma pipeline's served shape
+    (d_model 3072 over 16 heads, 16 kv heads, page 32), 96, 160 and 256
+    the widths beside it.  bf16 pools, the plan's own split."""
+    heads = 16
+    g = torch.Generator().manual_seed(head_dim + K)
+    q = torch.randn((len(SEQ_LENS), K, heads, head_dim), generator=g).to(card, torch.bfloat16)
+    k_pool, v_pool = (torch.randn((P, heads, ps, head_dim), generator=g).to(card, torch.bfloat16)
+                      for _ in range(2))
+    table = torch.randint(1, P, (len(SEQ_LENS), MP), generator=g, dtype=torch.int32).to(card)
+    lens = torch.tensor(SEQ_LENS, dtype=torch.int32, device=card)
+    before = PA.paged_attention.launches
+    out = PA.paged_attention(q, k_pool, v_pool, table, lens, ps)
+    ref = PA.paged_attention_plain(q, k_pool, v_pool, table, lens, ps)
+    torch.cuda.synchronize()
+    assert PA.paged_attention.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7, atol=1e-3)
+    if K == 1:
+        assert torch.all(out[1] == 0)  # the idle slot
+
+
+@pytest.mark.cuda
 def test_paged_attention_plan_is_one_of_the_tested_splits(card):
     for rows in (4, 20):
         assert PA._split_plan(SPLIT_MP, len(SPLIT_LENS), Hkv, rows) in SPLIT_PPS
