@@ -21,7 +21,9 @@ or the script exits non-zero:
    at K = 1 also the kernel at 2, 4, 8 and 16 pages per split; then bf16 at
    phase 15's served shape (hd 192, Hq = Hkv = 16, K = 1 and 5), which takes
    the CUDA-core split kernel (a profiler window must show it and no
-   tensor-core record);
+   tensor-core record); then bf16 at phase 16's shards, one shard's call
+   with Llama-3-8B's heads split 2 and 4 ways (16/4 and 8/2, K = 1 and 5),
+   through the tensor-core kernel;
 4. decode: one full-width Llama-3-8B ``decode_step`` with ``paged=True``
    against ``paged=False`` (the gather path) on the same pool state;
 5. main path: ``model.init(llama3_8b)`` -> ``Engine`` -> ``JetStreamModel``
@@ -257,9 +259,26 @@ or the script exits non-zero:
    world 1 (``PSUM got=1.0 expected=1.0``, ``TRAIN-OK``) and
    ``parallel.profiling.maybe_trace`` over a small card workload: a trace
    holding 3 step annotations and their device kernels.
+16. tp: tensor-parallel serving at Llama-3-8B width and depth over
+   ``TP_SHARDS`` (2) shards on this one card (``device=["cuda:0"] * 2``),
+   after phase 6 on phase 5's weights: (a) phase 5's four prompts over
+   HTTP on a TP 2 engine, then on a TP 1 engine (each ``serve``: 32
+   tokens within the oracle bound, TP x layers paged launches per decode
+   step, none plain, no leak), TTFT, tokens/s, each shard's parameter and
+   pool bytes and the MFU label (``...x2``, one card's peak); the two
+   runs' tokens identical or parted at a near tie (``divergence``); (b)
+   the KV data plane at TP 2 over HTTP: a session pinned to the disk tier
+   and restored (``match``), a handoff to a TP 1 engine (``reshard``, no
+   prefill there), a version-2 fabric frame pulled by a TP 2 engine
+   (``match``) and the TP 1 engine (``reshard``), a ``shard_flip`` pull
+   degrading to a re-prefill, every token within the bound, shard bytes
+   in both directions, no leak; (c) a TP 2 decode step's device records:
+   the paged split and merge kernels once per shard and layer, no
+   softmax.  One card shows the layout, the per-shard launches and the
+   frames, not scaling.
 
 Phase 5's Llama-3-8B weights are freed before phase 5j, which runs after
-phase 6.  The last lines are the
+phases 6 and 16.  The last lines are the
 ``{"kernels": [...]}`` record, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Weights are random (seed 0) at full
 width (and, for the phases that serve, full depth).
@@ -280,6 +299,7 @@ import math
 import os
 import shutil
 import socket
+import struct
 import subprocess
 import sys
 import tempfile
@@ -301,6 +321,7 @@ from kubeflow_tpu_torch.serving.engine.faults import (ConstrainFaultConfig,
                                                       FabricFaultConfig, FaultConfig,
                                                       HandoffFaultConfig)
 from kubeflow_tpu_torch.serving.engine.perf import CUDA_PEAKS
+from kubeflow_tpu_torch.serving.engine import kvstore as KV
 from kubeflow_tpu_torch.serving.engine.kvstore import KVStoreConfig
 from kubeflow_tpu_torch.serving.engine.native import load_library
 from kubeflow_tpu_torch.serving.engine.scheduler import SchedulerConfig
@@ -721,12 +742,28 @@ def leaked_pages(stats: dict, ec: EngineConfig) -> int:
     return ec.num_pages - 1 - stats["free_pages"] - stats["cached_pages"]
 
 
+def shard_bytes(engine) -> dict:
+    """Device bytes of the first shard's params and KV pools (the whole
+    engine's at TP 1); replicated leaves (embedding, unembedding, norms)
+    count in every shard."""
+    def first(x):
+        return x[0] if isinstance(x, list) else x
+
+    pools = [first(engine.k_pool), first(engine.v_pool)]
+    return {"param_bytes": M.param_bytes(first(engine.params)),
+            "pool_bytes": sum(t.numel() * t.element_size() for p in pools
+                              for t in (p.values() if isinstance(p, dict) else (p,)))}
+
+
 def serve(params, cfg, dev, ec: EngineConfig, prompts: list, sequential=False) -> dict:
     """A warm-up, then ``prompts`` over HTTP (concurrently, or one after
     another with the cache counters read after each), with the paged
     kernel's launches counted from zero for this run; every served request
-    checked against the ``forward_full`` oracle."""
-    with Served(params, cfg, dev, ec) as srv:
+    checked against the ``forward_full`` oracle.  At ``tensor_parallel`` N
+    the engine's N shards share the card and the kernel launches once per
+    shard, layer and step."""
+    shards = ec.tensor_parallel
+    with Served(params, cfg, [dev] * shards if shards > 1 else dev, ec) as srv:
         srv.warm(prompts)
         engine = srv.engine
         before = engine.stats
@@ -750,6 +787,8 @@ def serve(params, cfg, dev, ec: EngineConfig, prompts: list, sequential=False) -
                     t.join(timeout=600)
             wall = time.perf_counter() - t0
         stats = srv.idle()
+        perf = engine.perf_snapshot()
+        sizes = shard_bytes(engine)
     served = all(r is not None and r[0] == 200 and r[1]["tokens"] == MAX_TOKENS
                  for r in results)
     leaked = leaked_pages(stats, ec)
@@ -767,11 +806,14 @@ def serve(params, cfg, dev, ec: EngineConfig, prompts: list, sequential=False) -
            "spec_proposed": stats["spec_proposed"], "spec_accepted": stats["spec_accepted"],
            "page_hits": stats["page_hits"] - before["page_hits"], "after_each": after_each,
            "ttft_s": [r[1]["ttft_s"] if r else None for r in results],
-           "wall_s": wall, "tokens_per_s": sum(MAX_TOKENS for r in results if r) / wall}
+           "wall_s": wall, "tokens_per_s": sum(MAX_TOKENS for r in results if r) / wall,
+           "tensor_parallel": shards, "platform": perf["platform"],
+           "peak_flops": perf["peak_flops"], "mfu": perf["mfu"],
+           **{f"{k}_per_shard": v for k, v in sizes.items()}}
     out["oracle_max_logit_lag"] = ([oracle_lag(params, cfg, dev, p, r[1]["token_ids"])
                                     for p, r in zip(prompts, results)] if served else None)
-    # every decode or verify call runs the kernel once per layer
-    out["ok"] = (served and leaked == 0 and launches == cfg.n_layers * steps > 0
+    # every decode or verify call runs the kernel once per shard and layer
+    out["ok"] = (served and leaked == 0 and launches == shards * cfg.n_layers * steps > 0
                  and plain_calls == 0
                  and max(out["oracle_max_logit_lag"]) <= ORACLE_TIE_EPS)
     return out
@@ -4424,6 +4466,234 @@ def pipeline_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 16
+
+TP_SHARDS = 2
+# the data plane's prompts: a two-turn session, a handoff, and two fabric
+# prefixes (the second one's pull is flipped), 600-700 bytes each, sharing no
+# full page with phase 5's prompts or with each other
+TP_SESSION = (TEXT * 5)[100:700]
+TP_HANDOFF = (TEXT * 5)[50:650].upper()
+TP_FABRIC = [(TEXT * 5)[7:607].swapcase(), (TEXT * 5)[33:733].swapcase()]
+TP_TOKENS = 16
+
+
+def tp_post(srv, prompt: str, **p) -> dict:
+    code, body = srv.post(prompt, TP_TOKENS, **p)
+    return {"status": code, **body}
+
+
+def tp_publish(srv, prompt: str) -> dict:
+    """Serve ``prompt`` on a fabric-on replica: the ``fabric`` hint block of
+    the prefix its finish published (the entry new in ``fabric_view``)."""
+    before = {e["key"] for e in srv.engine.fabric_view()}
+    tp_post(srv, prompt)
+    entry = next(e for e in srv.engine.fabric_view() if e["key"] not in before)
+    return {"fabric": {"key": entry["key"], "source_port": srv.server.port,
+                       "pages": entry["pages"]}}
+
+
+def tp_checks(params, cfg, dev, prompt: str, r: dict) -> dict:
+    ok = r["status"] == 200 and r.get("tokens") == TP_TOKENS
+    lag = oracle_lag(params, cfg, dev, prompt, r["token_ids"]) if ok else None
+    return {"status": r["status"], "tokens": r.get("tokens"), "oracle_max_logit_lag": lag,
+            "ok": ok and lag <= ORACLE_TIE_EPS}
+
+
+def tp_data_plane(params, cfg, dev, scratch: str) -> dict:
+    """Phase 16 (c): the KV data plane at TP 2 over HTTP.  E2 (TP 2, the
+    fabric on, sessions on the disk tier only) pins a session and restores
+    it (``match``), exports a handoff that E1 (TP 1) imports (``reshard``)
+    and publishes two prefixes; E2b (TP 2) pulls the first (``match``) and
+    the second through a ``shard_flip`` (degraded, re-prefilled), E1 pulls
+    the first (``reshard``)."""
+    shards = [dev] * TP_SHARDS
+    e2 = Replica(params, cfg, shards, EngineConfig(
+        tensor_parallel=TP_SHARDS, fabric=True,
+        kv_store=KVStoreConfig(host_max_bytes=1, disk_dir=os.path.join(scratch, "kv"))))
+    e1 = Replica(params, cfg, dev, EngineConfig(fabric=True))
+    e2b = Replica(params, cfg, shards, EngineConfig(
+        tensor_parallel=TP_SHARDS, fabric=True,
+        fabric_chaos=FabricFaultConfig(shard_flip_pull_on=2)))
+    out: dict = {}
+    with e2, e1, e2b, KernelWatch() as watch:
+        t1 = tp_post(e2, TP_SESSION, session_id="tp")
+        ctx2 = TP_SESSION + t1.get("text_output", "") + " And then?"
+        t2 = tp_post(e2, ctx2, session_id="tp")
+        out["session"] = {"turn1": tp_checks(params, cfg, dev, TP_SESSION, t1),
+                          "turn2": tp_checks(params, cfg, dev, ctx2, t2),
+                          "restore": (t2.get("session") or {}).get("restore"),
+                          "reshard": outcomes(e2.engine.telemetry.kv_reshard)}
+        files = glob.glob(os.path.join(scratch, "kv", "**", "*.kvpg"), recursive=True)
+        metas = []
+        for path in files:
+            with open(path, "rb") as f:
+                metas.append(KV.unpack_frame(f.read())[1]["meta"].get("tp"))
+        out["session"]["page_file_tp"] = metas
+        pre = tp_post(e2, TP_HANDOFF, kv_handoff=True)
+        before = e1.engine.stats["prefill_dispatches"]
+        dec = tp_post(e1, TP_HANDOFF, **hand_params(pre, e2.server.port))
+        out["handoff"] = {**tp_checks(params, cfg, dev, TP_HANDOFF, dec),
+                          "e1_prefills": e1.engine.stats["prefill_dispatches"] - before,
+                          "e1_reshard": outcomes(e1.engine.telemetry.kv_reshard),
+                          "e1_handoff": outcomes(e1.engine.telemetry.kv_handoff)}
+        hints = [tp_publish(e2, prompt) for prompt in TP_FABRIC]
+        frame = e2.engine.pull_fabric(hints[0]["fabric"]["key"]) or b""
+        pulls = {}
+        for name, srv, i in (("e2b_match", e2b, 0), ("e1_reshard", e1, 0),
+                             ("e2b_shard_flip", e2b, 1)):
+            prompt = TP_FABRIC[i]
+            r = tp_post(srv, prompt, **hints[i])
+            pulls[name] = {**tp_checks(params, cfg, dev, prompt, r), "fabric": r.get("fabric")}
+        out["fabric"] = {"pulls": pulls, "e2_published": e2.engine.stats["fabric"]["publishes"],
+                         "frame_version": struct.unpack("<I", frame[4:8])[0] if frame else None,
+                         "frame_shards": len(KV.unpack_frame(frame)[1]["shards"]) if frame
+                         else None,
+                         "e2b_reshard": outcomes(e2b.engine.telemetry.kv_reshard),
+                         "e1_reshard": outcomes(e1.engine.telemetry.kv_reshard),
+                         "e2b_fabric": outcomes(e2b.engine.telemetry.kv_fabric),
+                         "e2b_injected_shard_faults":
+                             e2b.engine._fabric_chaos.stats()["injected_shard_faults"]}
+        out["shard_bytes"] = {n: {dict(k)["direction"]: v for k, v in
+                                  r.engine.telemetry.kv_shard_bytes.series().items()}
+                              for n, r in (("e2", e2), ("e2b", e2b))}
+        out["leaks"] = {n: engine_left(r) for n, r in (("e2", e2), ("e1", e1), ("e2b", e2b))}
+    out["launches"], out["plain_calls"] = watch.launches, watch.plain_calls
+    s, h, f = out["session"], out["handoff"], out["fabric"]
+    out["gates"] = {
+        "session": (s["turn1"]["ok"] and s["turn2"]["ok"] and s["restore"] == "disk"
+                    and s["reshard"].get("match", 0) >= 1 and 2 in s["page_file_tp"]),
+        "handoff": (h["ok"] and h["e1_prefills"] == 0 and h["e1_reshard"].get("reshard", 0) >= 1
+                    and h["e1_handoff"].get("import", 0) >= 1),
+        "fabric": (all(p["ok"] for p in f["pulls"].values())
+                   and f["pulls"]["e2b_match"]["fabric"] == {"restore": "hit"}
+                   and f["pulls"]["e1_reshard"]["fabric"] == {"restore": "hit"}
+                   and f["pulls"]["e2b_shard_flip"]["fabric"] == {"restore": "degraded"}
+                   and f["e2b_reshard"].get("match", 0) >= 1
+                   and f["e1_reshard"].get("reshard", 0) >= 1
+                   and f["e2b_injected_shard_faults"] == 1
+                   and f["frame_version"] == KV.SHARDED_FORMAT_VERSION
+                   and f["frame_shards"] == TP_SHARDS),
+        "shard_bytes": (out["shard_bytes"]["e2"].get("export", 0) > 0
+                        and out["shard_bytes"]["e2"].get("restore", 0) > 0
+                        and out["shard_bytes"]["e2b"].get("restore", 0) > 0),
+        "leaks": all(clean(v) for v in out["leaks"].values()),
+        "no_plain": out["plain_calls"] == 0}
+    out["ok"] = all(out["gates"].values())
+    return out
+
+
+TP_WINDOWS = 3
+
+
+def tp_attention_records(engine, cfg, dev) -> dict:
+    """Decode steps of a TP 2 engine's own shards and pools (the tick's
+    device work) in a profiler window: its attention records must be the
+    paged split and merge kernels, one pair per shard and layer, and no
+    softmax of the gather path.  Up to ``TP_WINDOWS`` windows, until one
+    keeps every device record (a late window can lose a few, §7 of
+    PERF.md); a window that lost some still passes when every paged record
+    is there and fewer records were lost than the softmaxes a gather path
+    would have added, so none could hide among them."""
+    ec = engine.ec
+    lens = [len(p) + MAX_TOKENS for p in PROMPTS] + [0] * (ec.max_slots - len(PROMPTS))
+    table = torch.zeros((ec.max_slots, ec.max_pages_per_slot), dtype=torch.int32)
+    nxt = 1
+    for b, n in enumerate(lens):
+        pages = -(-n // ec.page_size)
+        table[b, :pages] = torch.arange(nxt, nxt + pages)
+        nxt += pages
+    args = (torch.zeros(ec.max_slots, dtype=torch.int32, device=dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev), table.to(dev))
+
+    def step():
+        M.decode_step(engine.params, cfg, *args, engine.k_pool, engine.v_pool,
+                      paged=True, mesh=engine._mesh)
+
+    n = 3
+    expected = 2 * TP_SHARDS * cfg.n_layers * n
+    with torch.inference_mode():
+        step()
+        torch.cuda.synchronize()
+        for window in range(1, TP_WINDOWS + 1):
+            with profile_window() as prof:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    step()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) / n * 1e3
+            recs, _, lost = window_records(prof)
+            if not lost:
+                break
+    names = [name.lower() for name, _, _ in recs]
+    paged = sum(any(m in x for m in PAGED_MARKERS) for x in names)
+    softmax = sum("softmax" in x for x in names)
+    out = {"steps": n, "windows": window, "paged_records": paged,
+           "paged_records_expected": expected, "softmax_records": softmax,
+           "lost_records": lost,
+           **device_breakdown(prof, n, wall_ms, "paged_attention", PAGED_MARKERS,
+                              expected=2 * TP_SHARDS * cfg.n_layers)}
+    # a gather path adds one softmax per shard and layer
+    out["ok"] = paged == expected and softmax == 0 and lost < TP_SHARDS * cfg.n_layers * n
+    return out
+
+
+def tp_phase(params, cfg, dev) -> dict:
+    """Phase 16: tensor-parallel serving at Llama-3-8B width over a mesh of
+    TP_SHARDS shards on this one card: (a) phase 5's four prompts over HTTP
+    on a TP 2 engine, then on a TP 1 engine of the same weights (each
+    ``serve``: 32 tokens within the oracle bound, TP x layers paged
+    launches per decode step and no plain call, no leak), their tokens
+    compared (a parting must be a near tie: ``divergence``); (b) a TP 2
+    decode step's attention device records; (c) the KV data plane
+    (``tp_data_plane``).  One card shows the layout, the per-shard launches,
+    where the reductions run and the frames; it shows no scaling."""
+    out: dict = {"shards": TP_SHARDS, "devices": [str(dev)] * TP_SHARDS}
+    runs = {}
+    for tp in (TP_SHARDS, 1):
+        runs[tp] = serve(params, cfg, dev, EngineConfig(tensor_parallel=tp), PROMPTS)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["runs"] = {f"tp{k}": v for k, v in runs.items()}
+    a, b = runs[TP_SHARDS]["token_ids"], runs[1]["token_ids"]
+    out["tp2_vs_tp1"] = [divergence(params, cfg, dev, list(p.encode()), x, y)
+                         if x and y else None for p, x, y in zip(PROMPTS, a, b)]
+    out["launches_per_decode_step"] = {
+        f"tp{k}": v["launches"] / v["decode_steps"] if v["decode_steps"] else None
+        for k, v in runs.items()}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as scratch:
+        plane = tp_data_plane(params, cfg, dev, scratch)
+    out["data_plane"] = plane
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = Engine(params, cfg, EngineConfig(tensor_parallel=TP_SHARDS), device=[dev] * TP_SHARDS)
+    try:
+        out["attention_records"] = tp_attention_records(eng, cfg, dev)
+    finally:
+        eng.stop()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    agree = all(d is not None and (d["first_diff"] is None or (
+        d["top2_gap"] <= ORACLE_TIE_EPS and max(d["lag_a"], d["lag_b"]) <= ORACLE_TIE_EPS))
+        for d in out["tp2_vs_tp1"])
+    r2 = runs[TP_SHARDS]
+    out["gates"] = {"tp2": r2["ok"], "tp1": runs[1]["ok"], "tp2_vs_tp1": agree,
+                    "mfu_label": r2["platform"].endswith(f"x{TP_SHARDS}")
+                    and r2["peak_flops"] == runs[1]["peak_flops"],
+                    "attention_records": out["attention_records"]["ok"],
+                    "data_plane": plane["ok"]}
+    out["launches"] = r2["launches"] + runs[1]["launches"] + plane["launches"]
+    out["ok"] = all(out["gates"].values())
+    log(f"16 tp: TP2 {r2['tokens_per_s']:.1f} tok/s, TTFT {r2['ttft_s']}, TP1 "
+        f"{runs[1]['tokens_per_s']:.1f} tok/s, TTFT {runs[1]['ttft_s']}; per shard "
+        f"{r2['param_bytes_per_shard']} param B, {r2['pool_bytes_per_shard']} pool B; "
+        f"{r2['platform']} peak {r2['peak_flops']:.4g}; launches/step "
+        f"{out['launches_per_decode_step']}; gates {out['gates']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -4488,7 +4758,14 @@ def main() -> int:
         for c in hd192:
             c["ok"] = (c["ok"] and c["device_ms"] is not None
                        and not any(TC_MARKER in n for n in c["device_kernels"]))
-        return {"ok": all(c["ok"] for c in cases + hd192), "cases": cases, "hd192": hd192}
+        # phase 16's shards: Llama-3-8B's heads split 2 and 4 ways, one
+        # shard's kernel call (the tensor-core kernel, like the unsplit one)
+        shards = [kernel_case(None, K, rng, dev, flush, heads=(HQ // n, HKV // n))
+                  for n in (2, 4) for K in (1, 5)]
+        for c in shards:
+            c["ok"] = c["ok"] and any(TC_MARKER in n for n in c["device_kernels"])
+        return {"ok": all(c["ok"] for c in cases + hd192 + shards), "cases": cases,
+                "hd192": hd192, "tp_shards": shards}
 
     kres = phase("kernel", kernels)
 
@@ -4519,6 +4796,8 @@ def main() -> int:
             return profile_decode(params, cfg, dev)
 
     phase("profile", profile)
+    tpres = phase("tp", lambda: tp_phase(params, cfg, dev))
+    served.append(tpres)
 
     # the serving phases are done: free Llama-3-8B before the HF checkout's
     # and the pod entry point's own loads, and before training
@@ -4560,12 +4839,14 @@ def main() -> int:
               # every served path in this process: phase 5's two loops,
               # speculative, prefix cache, QoS preemption, session restores,
               # the streaming surfaces, observability, disaggregation,
-              # 5i's int8, LoRA, constrained and brownout engines and 5j's
+              # 5i's int8, LoRA, constrained and brownout engines, phase
+              # 16's tensor-parallel engines (one launch per shard), 5j's
               # converted HF checkout and phase 15's deployed model (the
               # runtime phase's subprocess launches the kernel too, but its
               # counter is not readable here)
               "launches": sum(r.get("launches", 0) for r in served + [pres]),
-              "max_abs_err": max((c["max_abs_err"] for c in cases), default=None),
+              "max_abs_err": max((c["max_abs_err"] for c in cases + (kres.get("tp_shards") or [])),
+                                 default=None),
               "ms": head.get("kernel_ms"), "kernel_ms": head.get("kernel_ms"),
               "device_ms": head.get("device_ms"), "plain_ms": head.get("plain_ms"),
               "bound_ms": head.get("bound_ms"),
@@ -4576,7 +4857,14 @@ def main() -> int:
                   "K", "max_abs_err", "kernel_ms", "device_ms", "plain_ms", "bound_ms",
                   "bound_by", "library_ms", "device_kernels")}
                   for c in kres.get("hd192") or []],
-              "hd192_launches": pres.get("launches", 0)}
+              "hd192_launches": pres.get("launches", 0),
+              # one shard's call at phase 16's head split (Llama-3-8B's heads
+              # over 2 and 4 shards), K = 1 and 5, and phase 16's launches
+              "tp_shards": [{k: c.get(k) for k in (
+                  "heads", "K", "max_abs_err", "kernel_ms", "device_ms", "plain_ms",
+                  "bound_ms", "bound_by", "library_ms", "pages_per_split")}
+                  for c in kres.get("tp_shards") or []],
+              "tp_launches": tpres.get("launches", 0)}
     fcases = fres.get("cases") or []
     fhead = next((c for c in fcases if c["case"] == "ragged"), {})  # the training path's case
     frecord = {"name": "flash_attention", "route": "cuda",

@@ -28,7 +28,10 @@ exist), never a failed request.  Under greedy decoding the degraded path
 re-derives the identical byte sequence.
 
 The frames are the JAX package's bytes (kvstore.py), so a frame either
-package exports imports into the other.
+package exports imports into the other.  A tensor-parallel exporter
+writes a sharded (version 2) frame; the store holds and serves frames as
+opaque bytes of either version, and the importer reshards a frame of
+another degree.
 """
 
 from __future__ import annotations

@@ -116,8 +116,16 @@ quantizes the weights at construction on their device; ``lora`` (from
 lora.load_adapters) gives every slot its adapter id, which rides every
 prefill and decode call and seeds the prefix-cache chain hashes.
 
-Not ported yet (later slices): sharded (version 2) frames and tensor
-parallelism.
+Tensor parallelism, as the JAX engine has it: ``tensor_parallel = N``
+splits the params and the KV pool over a 1-D mesh of N shards
+(sharding.py; the Megatron split, the pools on the KV-head axis), N
+shards possibly on one card.  One loop drives every shard; each decode or
+verify step launches the paged kernel once per shard and layer, and the
+row-parallel partials meet in ``sharding.all_reduce_sum``.  Every KV
+movement (swap, session pin and restore, handoff, fabric) snapshots and
+scatters shard by shard, its frames are sharded (version 2) KVPG frames
+with a CRC per shard, and a blob of another degree is resharded on the
+host, counted under ``engine_kv_reshard_total``.
 """
 
 from __future__ import annotations
@@ -147,8 +155,9 @@ from ..constrain import ConstraintStall
 from .faults import (ChaosInjector, ConstrainChaos, ConstrainFaultConfig,
                      FabricChaos, FabricFaultConfig, FaultConfig, HandoffChaos,
                      HandoffFaultConfig)
-from .kvstore import (BF16Bits, KVStoreConfig, TieredKVStore, bf16_bits,
-                      normalize_session_id, pack_frame)
+from .kvstore import (KVStoreConfig, TieredKVStore, blob_degree,
+                      normalize_session_id, pack_frame, pack_sharded_frame,
+                      reshard_blob)
 from .perf import (CacheStats, FlopsModel, PerfLedger, ProfileStore,
                    TickTimeline, WASTE_REASONS, platform_peak_flops)
 from .model import (DecoderConfig, decode_step, decode_step_k,
@@ -157,6 +166,9 @@ from .model import (DecoderConfig, decode_step, decode_step_k,
                     prefill, prefill_chunk, quantize_weights_int8,
                     sample_tokens, write_pages)
 from .native import NativeBatcher
+from .sharding import (alloc_pool, leaf_to_host, leaf_to_tensor, scatter_shards,
+                       shard_lora, shard_params, snapshot_shards, tensor_mesh,
+                       validate_config)
 from .scheduler import (PRIORITY_RANK, QosScheduler, QueueEntry,
                         SchedulerConfig, normalize_priority)
 from .telemetry import (EngineTelemetry, FlightRecorder, RequestSpan,
@@ -205,6 +217,10 @@ class EngineConfig:
     # weight-only quantization: "int8" halves the weights' bytes on the
     # card (per-output-channel scales; each use dequantizes); None = bf16
     weight_quant: Optional[str] = None
+    # tensor-parallel degree (sharding.py): >1 splits the params and the KV
+    # pool over a 1-D ``tensor`` mesh of that many shards (the Megatron
+    # split), each shard's attention through its own kernel launch
+    tensor_parallel: int = 1
     # admission control: submissions past this many queued-unadmitted
     # requests fail fast with EngineOverloaded (0 = unbounded)
     max_queue_depth: int = 0
@@ -429,31 +445,13 @@ def _pool_map(fn, pool, *blobs):
 
 
 def _blob_leaves(blob) -> list:
-    """The numpy leaves of a ``(k, v)`` KV blob."""
-    return [a for part in blob
-            for a in (part.values() if isinstance(part, dict) else (part,))]
-
-
-def _leaf_to_host(t: torch.Tensor) -> np.ndarray:
-    """One device slab as a KV blob leaf on the host (a blocking copy): bf16
-    as its raw bits (kvstore.BF16Bits), other dtypes as they are."""
-    t = t.cpu()
-    if t.dtype == torch.bfloat16:
-        return bf16_bits(t.view(torch.int16).numpy())
-    return t.numpy()
-
-
-def _leaf_to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A KV blob leaf as a tensor on ``device``; bf16 bits (BF16Bits, or an
-    ml_dtypes bfloat16 array) come back by a view, bit for bit."""
-    bf16 = isinstance(arr, BF16Bits) or arr.dtype.name == "bfloat16"
-    a = np.asarray(arr)
-    if bf16:
-        a = a.view(np.int16)
-    if not (a.flags.writeable and a.flags.c_contiguous):
-        a = np.array(a, order="C")  # e.g. read back from a page file
-    t = torch.from_numpy(a)
-    return (t.view(torch.bfloat16) if bf16 else t).to(device)
+    """The numpy leaves of a KV blob: a ``(k, v)`` tuple (each part an array
+    or the int8 pool's ``{"q", "s"}`` dict), or a per-shard list of them."""
+    if isinstance(blob, np.ndarray):
+        return [blob]
+    if isinstance(blob, dict):
+        return [a for k in sorted(blob) for a in _blob_leaves(blob[k])]
+    return [a for part in blob for a in _blob_leaves(part)]
 
 
 class _Staging:
@@ -536,18 +534,33 @@ class Engine:
     """Continuous-batching generation engine over one model, on ``device``
     (default ``"cuda"``; raises without a card — pass ``device="cpu"``).
     ``lora``: ``(adapter table, {name: id})`` from ``lora.load_adapters``,
-    or None."""
+    or None.
+
+    ``tensor_parallel = N > 1`` serves over a mesh of N shards: ``device``
+    may then be a list of N devices, one per shard (a device may repeat, so
+    N shards may share one card); a single ``"cpu"`` puts every shard on the
+    CPU; a single CUDA device asks for the first N cards and refuses with
+    fewer.  The params may then lie on any device: each shard gets its own
+    slice.  One controller thread drives every shard (``self.device`` is
+    the first shard's, where tokens are sampled)."""
 
     def __init__(self, params, config: DecoderConfig,
                  engine_config: EngineConfig = EngineConfig(), device=None,
                  lora=None):
-        self.device = resolve_device(device)
-        for name, v in params.items():
-            for t in param_leaves({name: v}):
-                if t.device != self.device:
-                    raise ValueError(f"param {name!r} is on {t.device}, the "
-                                     f"engine runs on {self.device}")
         ec = engine_config
+        self._mesh = self._build_mesh(ec.tensor_parallel, device)
+        self._tp = 1 if self._mesh is None else self._mesh.size
+        if self._mesh is None:
+            self.device = resolve_device(device[0] if isinstance(device, (list, tuple))
+                                         else device)
+            for name, v in params.items():
+                for t in param_leaves({name: v}):
+                    if t.device != self.device:
+                        raise ValueError(f"param {name!r} is on {t.device}, the "
+                                         f"engine runs on {self.device}")
+        else:
+            validate_config(config, self._mesh)
+            self.device = self._mesh.devices[0]
         if ec.prefill_chunk % ec.page_size != 0:
             raise ValueError("prefill_chunk must be a multiple of page_size")
         if ec.pipeline_depth not in (0, 1):
@@ -569,6 +582,10 @@ class Engine:
         # table below lets every decode row pick its own adapter with no
         # branching (lora.py)
         self._lora = lora[0] if lora else None
+        # the FLOPs model counts the whole adapter table's matmuls
+        self._fm = FlopsModel(config, lora=self._lora)
+        if self._lora is not None and self._mesh is not None:
+            self._lora = shard_lora(self._lora, self._mesh)
         self.adapters = dict(lora[1]) if lora else {}
         self._aid_host = np.zeros((ec.max_slots,), np.int32)
         self.params = params
@@ -594,8 +611,15 @@ class Engine:
         c = config
         shape = (c.n_layers, ec.num_pages, c.n_kv_heads, ec.page_size, c.head_dim)
         self._paged = ec.paged_kernel
-        self.k_pool = make_kv_pool(shape, ec.kv_quant, device=self.device)
-        self.v_pool = make_kv_pool(shape, ec.kv_quant, device=self.device)
+        if self._mesh is None:
+            self.k_pool = make_kv_pool(shape, ec.kv_quant, device=self.device)
+            self.v_pool = make_kv_pool(shape, ec.kv_quant, device=self.device)
+        else:
+            # per-shard lists: each shard holds its own slice of the weights
+            # and its own KV heads' pages, allocated on its device directly
+            self.params = shard_params(self.params, self._mesh)
+            self.k_pool = alloc_pool(shape, self._mesh, quant=ec.kv_quant)
+            self.v_pool = alloc_pool(shape, self._mesh, quant=ec.kv_quant)
         # per-engine registry (TTFT/TPOT/queue-wait/tick histograms + KV
         # gauges) and the SLO tracker it feeds
         self.telemetry = EngineTelemetry(
@@ -747,8 +771,9 @@ class Engine:
         self._perf_on = ec.perf if ec.perf is not None else ec.telemetry
         dev_kind = (torch.cuda.get_device_name(self.device)
                     if self.device.type == "cuda" else "")
-        plat, peak = platform_peak_flops(self.device.type, dev_kind)
-        self._fm = FlopsModel(config, lora=self._lora)
+        plat, peak = platform_peak_flops(
+            self.device.type, dev_kind, self._tp,
+            n_cards=1 if self._mesh is None else len(self._mesh.distinct_devices))
         self.perf = PerfLedger(peak, plat, window_s=ec.perf_window_s,
                                on_charge=(self.telemetry.count_flops
                                           if self._perf_on else None))
@@ -794,6 +819,21 @@ class Engine:
         # window's last kernels are in the trace
         self._profiler = TickProfiler(sync=self._sync_device)
         self._profiler.on_complete = self._profile_complete
+
+    @staticmethod
+    def _build_mesh(tp: int, device):
+        """The engine's tensor mesh, or None at ``tensor_parallel`` 1."""
+        if not isinstance(tp, int) or tp < 1:
+            raise ValueError(f"tensor_parallel={tp!r} must be an integer >= 1")
+        devices = list(device) if isinstance(device, (list, tuple)) else None
+        if devices is not None and len(devices) != tp:
+            raise ValueError(f"tensor_parallel={tp} needs one device per shard, "
+                             f"got {len(devices)}")
+        if tp == 1:
+            return None
+        if devices is None and resolve_device(device).type == "cpu":
+            devices = ["cpu"] * tp
+        return tensor_mesh(tp, devices)
 
     # ---------------------------------------------------------------- public
 
@@ -1342,6 +1382,8 @@ class Engine:
                 "trace_history_entries": len(self._trace_ring),
                 "trace_history_bytes": self._trace_ring_bytes,
                 "role": self.ec.role,
+                # the tensor mesh's degree (1 = no mesh)
+                "tensor_parallel": self._tp,
                 "handoff": self._handoffs.stats(),
                 **({"fabric": self._fabric.stats()}
                    if self._fabric is not None else {}),
@@ -2066,30 +2108,80 @@ class Engine:
         self._prefilling[slot] = off
         self._prefill_rows[slot] = self.batcher.slot_pages(slot)
 
+    def _pack(self, key: str, blob, meta: dict) -> tuple:
+        """A handoff or fabric blob as its wire frame -> ``(data, nbytes)``:
+        version 1 at TP=1; at TP>1 the sharded version-2 frame (a CRC per
+        shard's sub-frame) with the degree in ``meta["tp"]``, so the
+        importer can check the layout."""
+        if self._mesh is None:
+            data, nbytes, _ = pack_frame(key, blob, meta)
+        else:
+            meta["tp"] = self._tp
+            data, nbytes, _ = pack_sharded_frame(key, blob, meta)
+        return data, nbytes
+
     def _snapshot_pages(self, pages: np.ndarray) -> tuple:
         """Host snapshot of the pools' ``pages`` -> ``(blob, nbytes)``, the
-        one device -> host primitive behind swap and session pin: a ``(k,
-        v)`` tuple whose parts are numpy ``[layers, n, Hkv, page, hd]``
-        slabs (bf16 as raw bits) or the int8 pool's ``{"q", "s"}`` dicts —
-        the JAX engine's blob layout.  A blocking copy; the callers run
-        after the pipeline fence."""
-        idx = torch.from_numpy(np.asarray(pages, np.int64)).to(self.device)
-        fetch = lambda leaf: _leaf_to_host(leaf[:, idx])  # noqa: E731
-        blob = (_pool_map(fetch, self.k_pool), _pool_map(fetch, self.v_pool))
-        return blob, sum(a.nbytes for a in _blob_leaves(blob))
+        one device -> host primitive behind swap, session pin, handoff
+        export and fabric publish, in the JAX engine's blob layout.  TP=1:
+        a ``(k, v)`` tuple whose parts are numpy ``[layers, n, Hkv, page,
+        hd]`` slabs (bf16 as raw bits) or the int8 pool's ``{"q", "s"}``
+        dicts.  TP>1: a per-shard LIST of such ``(k, v)`` pytrees in
+        KV-head order, each read from its own shard's pool, so no
+        pool-sized gathered buffer ever exists (counted in
+        ``engine_kv_shard_bytes_total{direction="export"}``).  A blocking
+        copy; the callers run after the pipeline fence."""
+        if self._mesh is None:
+            idx = torch.from_numpy(np.asarray(pages, np.int64)).to(self.device)
+            fetch = lambda leaf: leaf_to_host(leaf[:, idx])  # noqa: E731
+            blob = (_pool_map(fetch, self.k_pool), _pool_map(fetch, self.v_pool))
+            return blob, sum(a.nbytes for a in _blob_leaves(blob))
+        k_blocks = _pool_map(lambda *shards: snapshot_shards(shards, pages), *self.k_pool)
+        v_blocks = _pool_map(lambda *shards: snapshot_shards(shards, pages), *self.v_pool)
+        blob = [(_pool_map(lambda b: b[i], k_blocks), _pool_map(lambda b: b[i], v_blocks))
+                for i in range(self._tp)]
+        nbytes = sum(a.nbytes for a in _blob_leaves(blob))
+        self.telemetry.count_kv_shard_bytes("export", nbytes)
+        return blob, nbytes
 
     def _scatter_pages(self, pages: np.ndarray, blob, lo: int, hi: int) -> None:
         """Write a host KV blob's page range ``[lo, hi)`` into the pools at
         device ``pages``, in place — the one host -> device primitive
-        behind every restore.  Enqueued on the loop's stream, so it lands
-        after any tick already dispatched."""
-        idx = torch.from_numpy(np.asarray(pages, np.int64)).to(self.device)
+        behind every restore.  A blob whose mesh degree matches this
+        engine's scatters shard to shard; a mismatched degree is resharded
+        on the host first, the EXPLICIT slow path counted under
+        ``engine_kv_reshard_total{outcome="reshard"}`` (``match`` for a
+        sharded blob at this degree), never silent garbage.  Enqueued on
+        the loop's stream, so it lands after any tick already dispatched."""
+        tp = self._tp
+        if blob_degree(blob) != tp:
+            blob = reshard_blob(blob, tp)
+            self.telemetry.count_reshard("reshard")
+        elif tp > 1:
+            self.telemetry.count_reshard("match")
+        if tp == 1:
+            if isinstance(blob, list):  # a degree-1 shard list: unwrap
+                blob = blob[0]
+            idx = torch.from_numpy(np.asarray(pages, np.int64)).to(self.device)
 
-        def put(leaf, host):
-            leaf[:, idx] = _leaf_to_tensor(host[:, lo:hi], self.device)
+            def put(leaf, host):
+                leaf[:, idx] = leaf_to_tensor(host[:, lo:hi], self.device)
 
-        _pool_map(put, self.k_pool, blob[0])
-        _pool_map(put, self.v_pool, blob[1])
+            _pool_map(put, self.k_pool, blob[0])
+            _pool_map(put, self.v_pool, blob[1])
+            return
+        nbytes = 0
+        for part, pools in ((0, self.k_pool), (1, self.v_pool)):
+            hosts = [shard[part] for shard in blob]
+
+            def put(*args):
+                nonlocal nbytes
+                leaves, blocks = args[:tp], [b[:, lo:hi] for b in args[tp:]]
+                nbytes += sum(b.nbytes for b in blocks)
+                scatter_shards(leaves, pages, blocks)
+
+            _pool_map(put, *pools, *hosts)
+        self.telemetry.count_kv_shard_bytes("restore", nbytes)
 
     def _restore_session(self, slot: int, pending: _Pending, cached: int) -> int:
         """Session-turn prefix restore: fetch the session's pinned KV pages
@@ -2533,13 +2625,14 @@ class Engine:
         mask[rows] = True
         return torch.from_numpy(mask).to(self.device)
 
-    def _lora_args(self, aids: np.ndarray) -> dict:
-        """The LoRA keyword arguments of a prefill or decode call: the
-        adapter table and the rows' adapter ids on the device, or nothing
-        on an engine without adapters."""
+    def _model_kw(self, aids: np.ndarray) -> dict:
+        """The keyword arguments of a prefill or decode call: the tensor
+        mesh, and the adapter table with the rows' adapter ids on the
+        device on an engine with adapters."""
         if self._lora is None:
-            return {}
-        return {"lora_params": self._lora, "adapter_ids": self._host(aids)}
+            return {"mesh": self._mesh}
+        return {"mesh": self._mesh, "lora_params": self._lora,
+                "adapter_ids": self._host(aids)}
 
     def _sample(self, logits, ok_dev, mask: Optional[np.ndarray] = None):
         """One host transfer of the sampled tokens (and the guard).  A
@@ -2578,9 +2671,9 @@ class Engine:
             rows[i, :owned] = self._prefill_rows[slot][:owned]
         self._check_epoch()  # last fence before writing the pools
         logits, pk, pv = prefill(self.params, self.config, self._host(toks),
-                                 self._host(lens), ps, **self._lora_args(aids))
+                                 self._host(lens), ps, **self._model_kw(aids))
         self._count_prefill(B)
-        write_pages(self.k_pool, self.v_pool, pk, pv, self._host(rows))
+        write_pages(self.k_pool, self.v_pool, pk, pv, self._host(rows), mesh=self._mesh)
         logits, ok_dev = self._guard_logits(
             logits, [self._slot_req[sl] for sl in slots], phase="prefill")
         cmask, cstall, cdone = self._prefill_masks(slots)
@@ -2660,7 +2753,7 @@ class Engine:
         logits, self.k_pool, self.v_pool = prefill_chunk(
             self.params, self.config, self._host(toks), off,
             self._host(lens), self._host(chunk_ids), self._host(hist_ids),
-            self.k_pool, self.v_pool, ps, **self._lora_args(aids))
+            self.k_pool, self.v_pool, ps, **self._model_kw(aids))
         self._count_prefill(B)
         finishing = [i for i in range(B) if off + C >= int(lens[i])]
         ok = None
@@ -2716,7 +2809,7 @@ class Engine:
             self.params, self.config, self._host(self._tok_host),
             self._host(self._len_host), self._host(self._pt_host),
             self.k_pool, self.v_pool, paged=self._paged,
-            **self._lora_args(self._aid_host))
+            **self._model_kw(self._aid_host))
         self._dispatch_mark = (self._ticks, time.perf_counter())
         self._decode_steps += 1
         sampled, ok = self._sample(*self._guard_logits(logits, self._row_rids()), gmask)
@@ -2846,12 +2939,13 @@ class Engine:
         if decode_ready:
             self._decode_tick_single(decode_ready, gmask)
 
-    def _pipe_lora(self, st: _Staging) -> dict:
-        """``_lora_args`` for a pipelined dispatch: the adapter ids go up
+    def _pipe_model_kw(self, st: _Staging) -> dict:
+        """``_model_kw`` for a pipelined dispatch: the adapter ids go up
         from the staging set's pinned buffer without blocking."""
         if self._lora is None:
-            return {}
-        return {"lora_params": self._lora, "adapter_ids": st.upload("aids", self._aid_host)}
+            return {"mesh": self._mesh}
+        return {"mesh": self._mesh, "lora_params": self._lora,
+                "adapter_ids": st.upload("aids", self._aid_host)}
 
     def _acquire_staging(self) -> _Staging:
         """The staging set of this tick's dispatch.  Its previous user was
@@ -3013,7 +3107,7 @@ class Engine:
                 self._gen, poison, temperature=self.ec.temperature,
                 guard=self.ec.logit_guard, paged=self._paged,
                 token_mask=st.upload("mask", gmask) if gmask is not None else None,
-                **self._pipe_lora(st))
+                **self._pipe_model_kw(st))
             self._dispatch_mark = (self._ticks, time.perf_counter())
             self._decode_steps += 1
             rec = {"staging": st, "out": st.read_back("sampled", sampled),
@@ -3206,7 +3300,7 @@ class Engine:
                     st.upload("drafts", drafts), st.upload("dlen", dlen), lens,
                     table, self.k_pool, self.v_pool, self._gen, poison,
                     temperature=self.ec.temperature, guard=self.ec.logit_guard,
-                    paged=self._paged, **self._pipe_lora(st))
+                    paged=self._paged, **self._pipe_model_kw(st))
             else:
                 # no drafts anywhere: the single-token step (the sync loop's
                 # no-draft dispatch, same numerics) on the packed edge
@@ -3216,7 +3310,7 @@ class Engine:
                     self.params, self.config, self._dec_state, lens, table,
                     self.k_pool, self.v_pool, self._gen, poison,
                     temperature=self.ec.temperature, guard=self.ec.logit_guard,
-                    paged=self._paged, **self._pipe_lora(st))
+                    paged=self._paged, **self._pipe_model_kw(st))
             self._dispatch_mark = (self._ticks, time.perf_counter())
             self._decode_steps += 1
             self._inflight = {
@@ -3386,7 +3480,7 @@ class Engine:
             self.params, self.config, self._host(tokens),
             self._host(self._len_host), self._host(self._pt_host),
             self.k_pool, self.v_pool, paged=self._paged,
-            **self._lora_args(self._aid_host))
+            **self._model_kw(self._aid_host))
         self._dispatch_mark = (self._ticks, time.perf_counter())
         self._decode_steps += 1
         logits, ok_dev = self._guard_logits(logits, self._row_rids(), phase="verify")
@@ -3609,7 +3703,7 @@ class Engine:
             meta = {"resume_len": L, "page_size": self.ec.page_size,
                     "pages": owned, "adapter_id": pending.adapter_id,
                     "generated": list(pending.generated)}
-            data, nbytes, _ = pack_frame(f"handoff/{pending.rid}", blob, meta)
+            data, nbytes = self._pack(f"handoff/{pending.rid}", blob, meta)
             ttl = None
             if self._handoff_chaos is not None and self._handoff_chaos.expire_export():
                 ttl = 0.0  # chaos: the puller must find it expired
@@ -3664,7 +3758,7 @@ class Engine:
             meta = {"hashes": [int(h) for h in hashes], "pages": covered,
                     "page_size": ps, "adapter_id": pending.adapter_id,
                     "model": self.fabric_model_id, "fps": fps}
-            data, nbytes, _ = pack_frame(f"fabric/{key}", blob, meta)
+            data, nbytes = self._pack(f"fabric/{key}", blob, meta)
             ttl = None
             if self._fabric_chaos is not None and self._fabric_chaos.expire_publish():
                 ttl = 0.0  # chaos: every later pull must find it expired
@@ -3745,6 +3839,11 @@ class Engine:
             meta = {"hashes": [int(h) for h in hashes],
                     "context_len": len(pending.context),
                     "adapter_id": pending.adapter_id, "pages": covered}
+            if self._mesh is not None:
+                # per-shard list blobs flatten natively into the store's
+                # version-1 page files; the degree rides in meta so a
+                # restore at another degree reshards explicitly
+                meta["tp"] = self._tp
             res = self._kv.pin_session(pending.session_id, blob, nbytes, meta)
         except Exception as exc:  # noqa: BLE001 — a pin must not fail the turn
             self.telemetry.count_session_pin("rejected")

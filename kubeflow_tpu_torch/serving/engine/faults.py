@@ -32,9 +32,9 @@ Counterpart of ``kubeflow_tpu/serving/engine/faults.py``, in two scopes:
 * Handoff and fabric scopes: torn, flipped, slow and dead-link pulls of a
   KVPG frame, and pre-expired exports and publishes, on the disaggregated
   handoff (disagg.py) and the fleet KV fabric (kvfabric.py), counted as
-  the JAX package counts them.  Their ``shard_*`` fields corrupt one
-  sub-frame of a sharded (version 2) frame, which this port does not read
-  (ROADMAP item 1.8): a config that sets one off its default is refused.
+  the JAX package counts them.  Their ``shard_*`` fields corrupt exactly
+  one sub-frame of a sharded (version 2, tensor-parallel) frame, leaving
+  the outer stream intact so only the per-shard verifier can catch it.
 
 * Constrain scope: corrupted token-map cache reads of the constrained-
   decoding registry (serving/constrain.py) and forced zero-legal-token
@@ -48,6 +48,8 @@ from __future__ import annotations
 
 import dataclasses
 import errno
+import json
+import struct
 import threading
 import time
 from typing import Tuple
@@ -395,22 +397,51 @@ class StorageChaos:
 
 # ----------------------------------------------------- handoff, fabric scopes
 
-_SHARD_FIELDS = ("shard_torn_pull_on", "shard_torn_pull_every",
-                 "shard_flip_pull_on", "shard_flip_pull_every",
-                 "shard_drop_pull_on", "shard_drop_pull_every")
+
+def _shard_regions(data: bytes) -> list:
+    """``(offset, length)`` of each sub-frame in a version-2 sharded KVPG
+    frame; ``[]`` for legacy frames and torn streams.  A minimal local
+    parser of the outer header's shard table (kvstore.py imports this
+    module, so the real parser cannot be imported here), used by the
+    shard-level injectors to corrupt exactly ONE sub-frame while leaving
+    the outer stream length intact (so only the per-shard verifier, not
+    the outer length check, can catch it)."""
+    if len(data) < 12 or data[:4] != b"KVPG":
+        return []
+    ver, hlen = struct.unpack("<II", data[4:12])
+    if ver != 2 or len(data) < 12 + hlen:
+        return []
+    try:
+        shards = json.loads(data[12:12 + hlen]).get("shards") or []
+    except (ValueError, AttributeError):
+        return []
+    out, off = [], 12 + hlen
+    for n in shards:
+        out.append((off, int(n)))
+        off += int(n)
+    return out if out and off <= len(data) else []
 
 
-def _refuse_shard_faults(config) -> None:
-    """The ``shard_*`` injectors corrupt one sub-frame of a sharded
-    (version 2) KVPG frame; this port reads no such frame, so a plan that
-    arms one would inject nothing.  Refused, never dropped."""
-    armed = [f for f in _SHARD_FIELDS
-             if getattr(config, f) != (-1 if f.endswith("_on") else 0)]
-    if armed:
-        raise ValueError(
-            f"{type(config).__name__}: {armed} corrupt sharded (format "
-            "version 2) KVPG frames, which this port does not support yet "
-            "(ROADMAP item 1.8 brings them)")
+def _corrupt_shard(data: bytes, n: int, torn: bool, flip: bool,
+                   drop: bool) -> bytes:
+    """Corrupt one sub-frame of a sharded frame (pull ordinal ``n`` picks
+    which, deterministically): torn zeroes the tail half (its length/CRC
+    verifier fails exactly like a torn unified frame), flip flips one
+    payload bit (CRC32 catches it), drop zeroes the whole sub-frame (its
+    magic fails).  Legacy frames pass through untouched — the unified
+    injectors cover those."""
+    regions = _shard_regions(data)
+    if not regions:
+        return data
+    off, ln = regions[n % len(regions)]
+    out = bytearray(data)
+    if torn:
+        out[off + ln // 2:off + ln] = bytes(ln - ln // 2)
+    elif flip:
+        out[off + ln - 3] ^= 0x20
+    elif drop:
+        out[off:off + ln] = bytes(ln)
+    return bytes(out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -438,16 +469,17 @@ class HandoffFaultConfig:
     # replica's pull finds the handle expired
     expire_export_on: int = -1
     expire_export_every: int = 0
-    # sharded frames: refused off their defaults (_refuse_shard_faults)
+    # sharded frames: corrupt ONE sub-frame of the Nth pulled version-2
+    # frame — torn (tail half zeroed), flipped (one payload bit), or
+    # dropped (whole sub-frame zeroed) — leaving the outer stream intact,
+    # so ONLY the per-shard verifier can catch it; legacy frames pass
+    # through untouched
     shard_torn_pull_on: int = -1
     shard_torn_pull_every: int = 0
     shard_flip_pull_on: int = -1
     shard_flip_pull_every: int = 0
     shard_drop_pull_on: int = -1
     shard_drop_pull_every: int = 0
-
-    def __post_init__(self):
-        _refuse_shard_faults(self)
 
 
 class HandoffChaos:
@@ -466,6 +498,7 @@ class HandoffChaos:
         self.injected_slow_pulls = 0
         self.injected_dead_links = 0
         self.injected_expired_exports = 0
+        self.injected_shard_faults = 0
 
     @staticmethod
     def _hit(n: int, on: int, every: int) -> bool:
@@ -487,10 +520,20 @@ class HandoffChaos:
             torn = self._hit(n, c.torn_pull_on, c.torn_pull_every)
             if torn:
                 self.injected_torn_pulls += 1
+            s_torn = self._hit(n, c.shard_torn_pull_on,
+                               c.shard_torn_pull_every)
+            s_flip = self._hit(n, c.shard_flip_pull_on,
+                               c.shard_flip_pull_every)
+            s_drop = self._hit(n, c.shard_drop_pull_on,
+                               c.shard_drop_pull_every)
+            if s_torn or s_flip or s_drop:
+                self.injected_shard_faults += 1
         if slow:
             time.sleep(c.slow_pull_s)
         if torn:
             return data[:max(8, len(data) // 2)]
+        if s_torn or s_flip or s_drop:
+            return _corrupt_shard(data, n, s_torn, s_flip, s_drop)
         return data
 
     def expire_export(self) -> bool:
@@ -512,19 +555,18 @@ class HandoffChaos:
                 "injected_slow_pulls": self.injected_slow_pulls,
                 "injected_dead_links": self.injected_dead_links,
                 "injected_expired_exports": self.injected_expired_exports,
-                # sharded frames are refused at config time
-                "injected_shard_faults": 0,
+                "injected_shard_faults": self.injected_shard_faults,
             }
 
 
 @dataclasses.dataclass(frozen=True)
 class FabricFaultConfig:
     """Seeded fault plan for the fleet KV fabric (serving/kvfabric.py).
-    Frozen (rides in the frozen EngineConfig as ``fabric_chaos``);
-    all-defaults == inject nothing.  ``*_on`` are 1-based pull/publish
-    ordinals (-1 = off); ``*_every`` fire on every Nth (0 = off).  Every
-    injection must leave the request COMPLETED via the degraded re-prefill
-    path with zero leaked KV pages on both replicas."""
+    Frozen (rides in the frozen EngineConfig as ``fabric_chaos``); all-defaults == inject nothing.  ``*_on`` are
+    1-based pull/publish ordinals (-1 = off); ``*_every`` fire on every
+    Nth (0 = off).  Every injection must leave the request COMPLETED via
+    the degraded re-prefill path with zero leaked KV pages on both
+    replicas."""
 
     seed: int = 0
     # truncate the Nth pulled frame to half (socket closed mid-body); the
@@ -546,16 +588,16 @@ class FabricFaultConfig:
     # pull finds the entry expired
     expire_publish_on: int = -1
     expire_publish_every: int = 0
-    # sharded frames: refused off their defaults (_refuse_shard_faults)
+    # sharded frames: corrupt ONE sub-frame of the Nth pulled version-2
+    # frame — torn / flipped / dropped — leaving the outer stream intact,
+    # so ONLY the per-shard verifier can catch it; legacy frames pass
+    # through untouched
     shard_torn_pull_on: int = -1
     shard_torn_pull_every: int = 0
     shard_flip_pull_on: int = -1
     shard_flip_pull_every: int = 0
     shard_drop_pull_on: int = -1
     shard_drop_pull_every: int = 0
-
-    def __post_init__(self):
-        _refuse_shard_faults(self)
 
 
 class FabricChaos:
@@ -575,6 +617,7 @@ class FabricChaos:
         self.injected_slow_pulls = 0
         self.injected_dead_links = 0
         self.injected_expired_publishes = 0
+        self.injected_shard_faults = 0
 
     @staticmethod
     def _hit(n: int, on: int, every: int) -> bool:
@@ -599,10 +642,20 @@ class FabricChaos:
             flip = self._hit(n, c.flip_pull_on, c.flip_pull_every)
             if flip:
                 self.injected_flipped_pulls += 1
+            s_torn = self._hit(n, c.shard_torn_pull_on,
+                               c.shard_torn_pull_every)
+            s_flip = self._hit(n, c.shard_flip_pull_on,
+                               c.shard_flip_pull_every)
+            s_drop = self._hit(n, c.shard_drop_pull_on,
+                               c.shard_drop_pull_every)
+            if s_torn or s_flip or s_drop:
+                self.injected_shard_faults += 1
         if slow:
             time.sleep(c.slow_pull_s)
         if torn:
             return data[:max(8, len(data) // 2)]
+        if s_torn or s_flip or s_drop:
+            return _corrupt_shard(data, n, s_torn, s_flip, s_drop)
         if flip and len(data) > 16:
             # flip a PAYLOAD bit (past magic + lengths + a header margin)
             # so the CRC verifier — not the JSON parser — is what catches
@@ -633,8 +686,7 @@ class FabricChaos:
                 "injected_dead_links": self.injected_dead_links,
                 "injected_expired_publishes":
                     self.injected_expired_publishes,
-                # sharded frames are refused at config time
-                "injected_shard_faults": 0,
+                "injected_shard_faults": self.injected_shard_faults,
             }
 
 

@@ -39,8 +39,17 @@ reads the other's; the engine turns them back into ``torch.bfloat16`` by a
 ``view``, never by a float conversion.  An ``ml_dtypes`` bf16 array handed
 in by a caller also packs as ``"bfloat16"`` (its dtype's own name).
 
-Sharded frames (format version 2, tensor-parallel KV) wait for the port's
-tensor parallelism; ``unpack_frame`` refuses them with a clear error.
+Sharded frame format (KVPG version 2, tensor-parallel KV, byte-for-byte
+the JAX package's)::
+
+    b"KVPG" | u32 2 | u32 header_len | outer JSON | sub0 | ... | subN-1
+
+where each sub-frame is a complete version-1 frame holding one shard's
+``(k, v)`` pytree (its kv heads, in kv-head order) with its own CRC32, and
+the outer header's shard-length table catches a truncated stream.  A blob
+of degree N > 1 is a LIST of N per-shard pytrees (``blob_degree``);
+``reshard_blob`` converts between degrees by re-cutting the kv-head axis,
+bit for bit.  Degree-1 blobs keep the version-1 layout byte for byte.
 
 Synchronous by design: puts/gets run on the engine loop thread at slot
 admission/release, after the pipeline fence.
@@ -66,7 +75,7 @@ from .faults import StorageChaos, StorageFaultConfig
 
 MAGIC = b"KVPG"
 FORMAT_VERSION = 1
-# the JAX package's tensor-parallel layout; not read by this port yet
+# the tensor-parallel layout: a table of per-shard version-1 sub-frames
 SHARDED_FORMAT_VERSION = 2
 MANIFEST = "manifest.json"
 
@@ -210,20 +219,132 @@ def pack_frame(key: str, blob, meta: dict, version: int = 1) -> tuple:
     return data, total, crc
 
 
+def pack_sharded_frame(key: str, shard_blobs: list, meta: dict,
+                       version: int = 1) -> tuple:
+    """Serialize a tensor-parallel KV blob (a list of per-shard pytrees, one
+    per mesh position in kv-head order) into a sharded KVPG frame ->
+    ``(data, nbytes, crc)``, byte for byte the JAX package's.
+
+    The outer header carries {v, key, meta, shards: [len0..lenN-1],
+    nbytes, version}; each sub-frame is a complete version-1 frame (own
+    magic, header, CRC32) whose meta records {shard: i, degree: N}.  A
+    torn or flipped single-shard transfer fails ITS verifier, while the
+    outer length table catches a truncated stream.  ``nbytes`` sums the
+    per-shard payload bytes; ``crc`` is a CRC32 over the sub-frame
+    region."""
+    degree = len(shard_blobs)
+    subs = []
+    total = 0
+    for i, blob in enumerate(shard_blobs):
+        sub, n, _ = pack_frame(f"{key}#{i}", blob,
+                               {"shard": i, "degree": degree}, version)
+        subs.append(sub)
+        total += n
+    body = b"".join(subs)
+    header = json.dumps({
+        "v": SHARDED_FORMAT_VERSION, "key": key, "meta": dict(meta),
+        "shards": [len(s) for s in subs], "nbytes": total,
+        "version": version,
+    }).encode()
+    data = (MAGIC + struct.pack("<II", SHARDED_FORMAT_VERSION, len(header))
+            + header + body)
+    return data, total, zlib.crc32(body)
+
+
+def _unpack_sharded(data: bytes, header: dict):
+    """Verify + parse the sub-frames of a version-2 frame's body ->
+    ``(shard_blobs, header)``; the degree is ``len(header["shards"])``."""
+    shards = header.get("shards")
+    if not isinstance(shards, list) or not shards:
+        raise KVStoreCorrupt("corrupt sharded header: no shard table")
+    degree = len(shards)
+    blobs, off = [], 0
+    for i, n in enumerate(shards):
+        sub = data[off:off + n]
+        if len(sub) != n:
+            raise KVStoreCorrupt(
+                f"torn write: shard {i} truncated ({len(sub)} != {n})")
+        try:
+            blob, sub_header = unpack_frame(sub)
+        except KVStoreCorrupt as exc:
+            raise KVStoreCorrupt(f"shard {i}: {exc}") from exc
+        sm = sub_header.get("meta", {})
+        if sm.get("shard") != i or sm.get("degree") != degree:
+            raise KVStoreCorrupt(
+                f"shard {i}: layout mismatch (shard={sm.get('shard')} "
+                f"degree={sm.get('degree')} expected {i}/{degree})")
+        blobs.append(blob)
+        off += n
+    if off != len(data):
+        raise KVStoreCorrupt(
+            f"torn write: {len(data) - off} trailing bytes after shards")
+    return blobs, header
+
+
+def blob_degree(blob) -> int:
+    """Mesh degree of a KV blob: a list is per-shard (one entry per mesh
+    position), anything else is a unified degree-1 blob."""
+    return len(blob) if isinstance(blob, list) else 1
+
+
+def _like(arr: np.ndarray, parts) -> np.ndarray:
+    """``arr`` tagged as bf16 bits when its source leaves were."""
+    return bf16_bits(arr) if isinstance(parts[0], BF16Bits) else arr
+
+
+def reshard_blob(blob, degree: int):
+    """Host-side layout conversion between mesh degrees, the EXPLICIT slow
+    path of a cross-degree import (the caller counts it): concatenate the
+    per-shard blocks along the kv-head axis (axis 2 of every pool leaf,
+    scales included) and re-split into ``degree`` blocks.  Pure
+    reindexing, so bit-exact.  Returns a unified pytree for
+    ``degree <= 1``, else a per-shard list.  Raises ValueError when the
+    kv-head axis does not divide."""
+    shards = blob if isinstance(blob, list) else [blob]
+    if len(shards) == degree > 1:
+        return shards
+    unified = shards[0] if len(shards) == 1 else _tree_zip(
+        lambda *parts: _like(np.concatenate(parts, axis=2), parts), *shards)
+    if degree <= 1:
+        return unified
+
+    def cut(i):
+        def f(a):
+            if a.shape[2] % degree:
+                raise ValueError(
+                    f"kv-head axis {a.shape[2]} not divisible by "
+                    f"degree {degree}")
+            h = a.shape[2] // degree
+            return _like(np.ascontiguousarray(a[:, :, i * h:(i + 1) * h]), (a,))
+        return f
+    return [_tree_zip(cut(i), unified) for i in range(degree)]
+
+
+def _tree_zip(fn, *trees):
+    """Map ``fn`` over aligned leaves of same-structure KV blob pytrees
+    (the ``_flatten`` subset: ndarray / dict / tuple / list)."""
+    t0 = trees[0]
+    if isinstance(t0, np.ndarray):
+        return fn(*trees)
+    if isinstance(t0, dict):
+        return {k: _tree_zip(fn, *[t[k] for t in trees]) for k in sorted(t0)}
+    if isinstance(t0, (tuple, list)):
+        out = [_tree_zip(fn, *[t[i] for t in trees]) for i in range(len(t0))]
+        return tuple(out) if isinstance(t0, tuple) else out
+    raise TypeError(f"unsupported blob leaf type {type(t0).__name__}")
+
+
 def unpack_frame(data: bytes):
     """Parse + VERIFY one KVPG frame -> ``(blob, header)``.  Raises
     :class:`KVStoreCorrupt` on any verification failure — bad magic /
     truncated header (torn transfer), payload length mismatch, CRC32
-    mismatch (bit flip), an unknown format version or leaf dtype — and on
-    a sharded (version-2) frame, which this port does not read yet."""
+    mismatch (bit flip), an unknown format version or leaf dtype.
+    Version-2 (sharded) frames return ``(shard_blobs, header)``, a LIST of
+    per-shard pytrees, each sub-frame verified by its own CRC."""
     if len(data) < 12 or data[:4] != MAGIC:
         raise KVStoreCorrupt("bad magic (torn write?)")
     ver, hlen = struct.unpack("<II", data[4:12])
-    if ver == SHARDED_FORMAT_VERSION:
-        raise KVStoreCorrupt(
-            "sharded (tensor-parallel, format version 2) KVPG frames are "
-            "not supported by this port yet")
-    if ver != FORMAT_VERSION:
+    if ver not in (FORMAT_VERSION, SHARDED_FORMAT_VERSION):
         raise KVStoreCorrupt(f"unsupported format version {ver}")
     if len(data) < 12 + hlen:
         raise KVStoreCorrupt("torn write: truncated header")
@@ -231,6 +352,10 @@ def unpack_frame(data: bytes):
         header = json.loads(data[12:12 + hlen])
     except ValueError as exc:
         raise KVStoreCorrupt(f"corrupt header: {exc}") from exc
+    if ver == SHARDED_FORMAT_VERSION:
+        if not isinstance(header, dict):
+            raise KVStoreCorrupt("corrupt sharded header: not an object")
+        return _unpack_sharded(data[12 + hlen:], header)
     payload = data[12 + hlen:]
     try:
         if len(payload) != header["nbytes"]:

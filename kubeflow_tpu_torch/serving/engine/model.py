@@ -32,7 +32,12 @@ function, so each entry point can be held against its JAX twin:
     dequantized per use by ``_w`` and ``_embed_rows``), and every
     projection adds a per-row LoRA delta when an adapter table is passed
     (``lora_params``, ``adapter_ids``; lora.py).  Both are plain tensor
-    code, as they are XLA code in the JAX package.
+    code, as they are XLA code in the JAX package;
+  * ``mesh=`` (sharding.TensorMesh) runs an entry point tensor-parallel
+    over per-shard params and pools, as GSPMD partitions the JAX
+    functions: each shard its own heads and d_ff columns, the ``wo`` and
+    ``w2`` partials summed by ``sharding.all_reduce_sum``, decode
+    attention through one paged-kernel launch per shard.
 
 Every function takes the device from its inputs; ``init`` and
 ``load_params`` take an explicit ``device`` (default ``"cuda"``, which
@@ -54,6 +59,7 @@ import torch.nn.functional as F
 from ...utils.device import resolve_device
 from .hf_convert import is_hf_config
 from .paged_attention import paged_attention
+from .sharding import all_reduce_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -425,44 +431,136 @@ def _lora(lora_params, adapter_ids):
     return lora_params, adapter_ids.long()
 
 
-def _block_with(params, l, config, x, positions, attend, lora=None):
-    """One transformer block with a pluggable attention: ``attend(q)`` maps
-    roped queries [B, S, Hq, hd] to attention outputs of the same shape (the
-    hook where the gather path and the paged kernel diverge)."""
-    c = config
-    h = _rms_norm(x, params["ln_attn"][l], c.norm_eps)
-    B, S = x.shape[:2]
-    q = _proj(params, l, "wq", h, lora).reshape(B, S, c.n_heads, c.head_dim)
-    q = _rope(q, positions, c.rope_theta)
-    attn = attend(q)
-    x = x + _proj(params, l, "wo", attn.reshape(B, S, -1), lora)
-    h = _rms_norm(x, params["ln_mlp"][l], c.norm_eps)
-    if c.act == "silu":
-        act = F.silu
-    elif c.act == "gelu_tanh":
-        def act(t):
-            return F.gelu(t, approximate="tanh")
-    else:  # a typo'd config must not silently serve wrong math
-        raise ValueError(f"unknown act {c.act!r} (silu | gelu_tanh)")
-    return x + _proj(params, l, "w2",
-                     act(_proj(params, l, "w1", h, lora)) * _proj(params, l, "w3", h, lora),
-                     lora)
-
-
-def _block(params, l, config, x, k_cache, v_cache, positions, mask, lora=None):
-    """One transformer block over a contiguous cache: k_cache/v_cache
-    [B, T, Hkv, hd] already hold this step's k/v at the right positions."""
-    return _block_with(params, l, config, x, positions,
-                       lambda q: _attn(q, k_cache, v_cache, mask), lora=lora)
+def _act(config):
+    """The MLP activation of ``config.act``."""
+    if config.act == "silu":
+        return F.silu
+    if config.act == "gelu_tanh":
+        return lambda t: F.gelu(t, approximate="tanh")
+    # a typo'd config must not silently serve wrong math
+    raise ValueError(f"unknown act {config.act!r} (silu | gelu_tanh)")
 
 
 def _kv_proj(params, l, config, h, positions, lora=None):
+    """This shard's new K (roped) and V, ``[B, S, Hkv/N, hd]``."""
     c = config
     B, S = h.shape[:2]
-    k = _proj(params, l, "wk", h, lora).reshape(B, S, c.n_kv_heads, c.head_dim)
-    v = _proj(params, l, "wv", h, lora).reshape(B, S, c.n_kv_heads, c.head_dim)
+    k = _proj(params, l, "wk", h, lora).reshape(B, S, -1, c.head_dim)
+    v = _proj(params, l, "wv", h, lora).reshape(B, S, -1, c.head_dim)
     k = _rope(k, positions, c.rope_theta)
     return k, v
+
+
+# ------------------------------------------------------------ tensor parallel
+#
+# Every entry point takes ``mesh`` (sharding.TensorMesh, default None).
+# With a mesh, ``params`` is the per-shard list of sharding.shard_params,
+# each pool a per-shard list of sharding.alloc_pool and ``lora_params`` the
+# per-shard list of sharding.shard_lora; without one they are a single dict,
+# pool and table, run as a mesh of one shard through the same code.  Each
+# shard computes its own query and KV heads and its own d_ff columns; the
+# row-parallel ``wo`` and ``w2`` partials meet in sharding.all_reduce_sum,
+# the only collective (the two GSPMD inserts in the JAX package).
+# Replicated work (norms, residual adds) runs once per distinct device; the
+# embedding, the final norm and the unembed run on the first shard's
+# device, where the logits are sampled.
+
+
+def _shards(mesh, *trees) -> list:
+    """Each of ``trees`` as a per-shard list (a one-element one without a
+    mesh)."""
+    return [t if mesh is not None else [t] for t in trees]
+
+
+def _devices(mesh, home: torch.device) -> list:
+    return list(mesh.devices) if mesh is not None else [home]
+
+
+def _rep(t, devs: list) -> list:
+    """``t`` on each shard's device (the one tensor where devices repeat)."""
+    return [t.to(d) for d in devs]
+
+
+def _each(fn, *per_shard) -> list:
+    """``fn`` over the shards' replicas of replicated values, once per
+    distinct set of inputs: shards on one device hold the same tensors, so
+    their replicated work runs once."""
+    memo: dict = {}
+    out = []
+    for args in zip(*per_shard):
+        key = tuple(id(a) for a in args)
+        if key not in memo:
+            memo[key] = fn(*args)
+        out.append(memo[key])
+    return out
+
+
+def _shard_lora(lora, s: int, device):
+    """Shard ``s``'s ``lora`` argument of ``_proj`` on its device."""
+    if lora is None:
+        return None
+    tables, aids = lora
+    return (tables[s] if isinstance(tables, list) else tables), aids.to(device)
+
+
+def _layer(shards, l, config, xs, positions, write_kv, attend, lora, mesh):
+    """One transformer block on every shard.  ``xs`` and ``positions`` are
+    the shards' replicas of the residual stream ``[B, S, D]`` and of the
+    token positions; ``write_kv(s, k, v)`` stores shard s's new KV (its own
+    heads) before attention, and ``attend(qs)`` maps the shards' roped
+    queries ``[B, S, Hq/N, hd]`` to their attention outputs (the hook where
+    the gather path and the paged kernel diverge).  Returns the shards'
+    replicas of the block's output."""
+    c = config
+    eps = c.norm_eps
+    hs = _each(lambda x, ln: _rms_norm(x, ln[l], eps), xs, [p["ln_attn"] for p in shards])
+    los = [_shard_lora(lora, s, h.device) for s, h in enumerate(hs)]
+    qs = []
+    for s, (p, h, lo) in enumerate(zip(shards, hs, los)):
+        B, S = h.shape[:2]
+        k, v = _kv_proj(p, l, c, h, positions[s], lo)
+        write_kv(s, k, v)
+        q = _proj(p, l, "wq", h, lo).reshape(B, S, -1, c.head_dim)
+        qs.append(_rope(q, positions[s], c.rope_theta))
+    outs = attend(qs)
+    partials = [_proj(p, l, "wo", a.reshape(a.shape[0], a.shape[1], -1), lo)
+                for p, a, lo in zip(shards, outs, los)]
+    xs = _each(torch.add, xs, all_reduce_sum(partials, mesh))
+    hs = _each(lambda x, ln: _rms_norm(x, ln[l], eps), xs, [p["ln_mlp"] for p in shards])
+    act = _act(c)
+    partials = [_proj(p, l, "w2", act(_proj(p, l, "w1", h, lo)) * _proj(p, l, "w3", h, lo), lo)
+                for p, h, lo in zip(shards, hs, los)]
+    return _each(torch.add, xs, all_reduce_sum(partials, mesh))
+
+
+def _logits(shards, config, x):
+    """Final norm and unembed on the first shard's device, f32."""
+    x = _rms_norm(x, shards[0]["ln_out"], config.norm_eps)
+    return (x @ _w(shards[0]["unembed"])).float()
+
+
+def _dense_attend(qs, caches, masks):
+    """The gather path's attention: each shard's queries over its own
+    contiguous ``[B, T, Hkv/N, hd]`` cache."""
+    return [_attn(q, k, v, m) for q, (k, v), m in zip(qs, caches, masks)]
+
+
+def _paged_attend(qs, k_pools, v_pools, l, page_table, seq_lens, page_size, mesh):
+    """The paged kernel over layer ``l`` of each shard's pool: one launch
+    per shard (``paged_attention``'s mesh wrapper), or one call without a
+    mesh."""
+    kls = [pool_layer(kp, l) for kp in k_pools]
+    vls = [pool_layer(vp, l) for vp in v_pools]
+    if mesh is None:
+        return [paged_attention(qs[0], kls[0], vls[0], page_table, seq_lens, page_size)]
+    return paged_attention(qs, kls, vls, page_table, seq_lens, page_size, mesh=mesh)
+
+
+def _gather_cache(pool, l, rows, T, hd):
+    """Pool pages ``rows`` [B, n] of layer ``l`` as a token-major cache
+    ``[B, n * page, Hkv/N, hd]``."""
+    B = rows.shape[0]
+    return pool_get(pool, (l, rows)).permute(0, 1, 3, 2, 4).reshape(B, T, -1, hd)
 
 
 # ------------------------------------------------------------------- KV pools
@@ -536,7 +634,7 @@ def _lengths(lengths, B, device):
 
 
 def prefill(params, config: DecoderConfig, tokens, lengths, page_size: int,
-            lora_params=None, adapter_ids=None):
+            lora_params=None, adapter_ids=None, mesh=None):
     """Process a batch of same-bucket prompts in one call.
 
     tokens: [B, S] int (each row padded to the shared bucket S); lengths:
@@ -544,59 +642,72 @@ def prefill(params, config: DecoderConfig, tokens, lengths, page_size: int,
     per-row LoRA adapter, so mixed-adapter groups still share a call.  Returns
     (logits_last [B, vocab] f32, paged_k, paged_v) where paged_k/v are
     [layers, B, S/page_size, Hkv, page_size, hd] — ready to scatter into the
-    page pool at each row's page ids via ``write_pages``."""
+    page pool at each row's page ids via ``write_pages``.  With ``mesh``,
+    paged_k/v are per-shard lists, each holding that shard's KV heads."""
     c = config
     B, S = tokens.shape
     dev = tokens.device
-    tokens = tokens.long()
+    (shards,) = _shards(mesh, params)
     lora = _lora(lora_params, adapter_ids)
+    devs = _devices(mesh, dev)
+    tokens = tokens.long()
     lengths = _lengths(lengths, B, dev)
     pos_row = torch.arange(S, device=dev)
-    positions = pos_row[None, :].expand(B, S)
-    x = _embed(params, c, tokens)
+    positions = _rep(pos_row[None, :].expand(B, S), devs)
     causal = torch.ones((S, S), dtype=torch.bool, device=dev).tril()[None]
     valid = pos_row[None, None, :] < lengths[:, None, None]
-    mask = causal & valid  # [B, S, S]
-    ks, vs = [], []
+    masks = _rep(causal & valid, devs)  # [B, S, S]
+    xs = _rep(_embed(shards[0], c, tokens), devs)
+    ks = [[] for _ in shards]
+    vs = [[] for _ in shards]
+    kv: list = [None] * len(shards)
+
+    def write_kv(s, k, v):
+        ks[s].append(k)
+        vs[s].append(v)
+        kv[s] = (k, v)
+
     for l in range(c.n_layers):
-        h = _rms_norm(x, params["ln_attn"][l], c.norm_eps)
-        k, v = _kv_proj(params, l, c, h, positions, lora)
-        ks.append(k)
-        vs.append(v)
-        x = _block(params, l, c, x, k, v, positions, mask, lora)
-    x = _rms_norm(x, params["ln_out"], c.norm_eps)
+        xs = _layer(shards, l, c, xs, positions, write_kv,
+                    lambda qs: _dense_attend(qs, kv, masks), lora, mesh)
     # logits at each row's last REAL token (lengths-1)
-    last = x[torch.arange(B, device=dev), lengths - 1]
-    logits = (last @ _w(params["unembed"])).float()
+    logits = _logits(shards, c, xs[0][torch.arange(B, device=dev), lengths - 1])
     n_pages = S // page_size
-    paged_k = (torch.stack(ks)
-               .reshape(c.n_layers, B, n_pages, page_size, c.n_kv_heads, c.head_dim)
-               .permute(0, 1, 2, 4, 3, 5))  # -> [L, B, n_pages, Hkv, ps, hd]
-    paged_v = (torch.stack(vs)
-               .reshape(c.n_layers, B, n_pages, page_size, c.n_kv_heads, c.head_dim)
-               .permute(0, 1, 2, 4, 3, 5))
+
+    def paged(per_layer):  # -> [L, B, n_pages, Hkv/N, ps, hd]
+        t = torch.stack(per_layer)
+        return (t.reshape(c.n_layers, B, n_pages, page_size, t.shape[3], c.head_dim)
+                .permute(0, 1, 2, 4, 3, 5))
+
+    paged_k = [paged(k) for k in ks]
+    paged_v = [paged(v) for v in vs]
+    if mesh is None:
+        return logits, paged_k[0], paged_v[0]
     return logits, paged_k, paged_v
 
 
-def write_pages(k_pool, v_pool, paged_k, paged_v, page_ids):
+def write_pages(k_pool, v_pool, paged_k, paged_v, page_ids, mesh=None):
     """Scatter prefilled KV into the pools at page_ids, in place.
 
     Batched form: paged_k/v [layers, B, n, Hkv, page_size, hd] with
     page_ids [B, n] (rows route unowned tail pages to the reserved trash
     page 0).  The single-prompt form (paged [layers, n, ...], page_ids [n])
-    also works.  Returns the (same) pools."""
+    also works.  With ``mesh``, pools and paged_k/v are per-shard lists and
+    each shard writes its own heads.  Returns the (same) pools."""
     if page_ids.ndim == 2:
-        L = paged_k.shape[0]
-        paged_k = paged_k.reshape((L, -1) + tuple(paged_k.shape[3:]))
-        paged_v = paged_v.reshape((L, -1) + tuple(paged_v.shape[3:]))
         page_ids = page_ids.reshape(-1)
-    idx = (slice(None), page_ids.long())
-    return pool_set(k_pool, idx, paged_k), pool_set(v_pool, idx, paged_v)
+    kps, vps, pks, pvs = _shards(mesh, k_pool, v_pool, paged_k, paged_v)
+    for kp, vp, pk, pv in zip(kps, vps, pks, pvs):
+        L = pk.shape[0]
+        idx = (slice(None), page_ids.to(pk.device).long())
+        pool_set(kp, idx, pk.reshape((L, -1) + tuple(pk.shape[-3:])))
+        pool_set(vp, idx, pv.reshape((L, -1) + tuple(pv.shape[-3:])))
+    return k_pool, v_pool
 
 
 def prefill_chunk(params, config: DecoderConfig, tokens, start, lengths,
                   chunk_page_ids, hist_page_ids, k_pool, v_pool, page_size: int,
-                  lora_params=None, adapter_ids=None):
+                  lora_params=None, adapter_ids=None, mesh=None):
     """Advance a BATCH of long prompts one page-aligned chunk each, in one
     call against the page pool (chunked prefill: a long prompt never
     head-of-line-blocks the decode steps of other slots).
@@ -607,50 +718,51 @@ def prefill_chunk(params, config: DecoderConfig, tokens, start, lengths,
     to scatter each row's chunk KV into (unowned tail slots point at the
     trash page 0); hist_page_ids: [B, H] pool pages covering positions
     [0, start+C) per row; adapter_ids: [B] per-row LoRA adapter.  Pools
-    are written in place.
+    are written in place (with ``mesh``, each shard its own).
 
     Returns (logits [B, vocab] at each row's position length-1 — garbage
     unless that row's final chunk — , k_pool, v_pool)."""
     c = config
     B, C = tokens.shape
     dev = tokens.device
-    tokens = tokens.long()
+    shards, k_pools, v_pools = _shards(mesh, params, k_pool, v_pool)
     lora = _lora(lora_params, adapter_ids)
+    devs = _devices(mesh, dev)
+    tokens = tokens.long()
     start = int(start)
     lengths = _lengths(lengths, B, dev)
     if chunk_page_ids.ndim == 1:  # legacy batch-1 call shape
         chunk_page_ids = chunk_page_ids[None, :].expand(B, -1)
     if hist_page_ids.ndim == 1:
         hist_page_ids = hist_page_ids[None, :].expand(B, -1)
-    chunk_page_ids = chunk_page_ids.long()
-    hist_page_ids = hist_page_ids.long()
+    chunk_ids = _rep(chunk_page_ids.long(), devs)
+    hist_ids = _rep(hist_page_ids.long(), devs)
     H = hist_page_ids.shape[1]
     T = H * page_size
     n_chunk = C // page_size
-    positions = start + torch.arange(C, device=dev)[None, :].expand(B, C)
-    x = _embed(params, c, tokens)
+    pos = start + torch.arange(C, device=dev)[None, :].expand(B, C)
+    positions = _rep(pos, devs)
     t_range = torch.arange(T, device=dev)
     # causal across chunks + clipped to each row's real prompt
-    mask = ((t_range[None, None, :] <= positions[:, :, None])
-            & (t_range[None, None, :] < lengths[:, None, None]))
+    masks = _rep((t_range[None, None, :] <= pos[:, :, None])
+                 & (t_range[None, None, :] < lengths[:, None, None]), devs)
+    xs = _rep(_embed(shards[0], c, tokens), devs)
     for l in range(c.n_layers):
-        h = _rms_norm(x, params["ln_attn"][l], c.norm_eps)
-        k, v = _kv_proj(params, l, c, h, positions, lora)
-        pool_set(k_pool, (l, chunk_page_ids),
-                 k.reshape(B, n_chunk, page_size, c.n_kv_heads, c.head_dim)
-                  .permute(0, 1, 3, 2, 4))  # [B, n, Hkv, ps, hd]
-        pool_set(v_pool, (l, chunk_page_ids),
-                 v.reshape(B, n_chunk, page_size, c.n_kv_heads, c.head_dim)
-                  .permute(0, 1, 3, 2, 4))
-        # gather [B, H, Hkv, ps, hd] -> [B, T, Hkv, hd] (token-major cache)
-        k_cache = (pool_get(k_pool, (l, hist_page_ids))
-                   .permute(0, 1, 3, 2, 4).reshape(B, T, c.n_kv_heads, c.head_dim))
-        v_cache = (pool_get(v_pool, (l, hist_page_ids))
-                   .permute(0, 1, 3, 2, 4).reshape(B, T, c.n_kv_heads, c.head_dim))
-        x = _block(params, l, c, x, k_cache, v_cache, positions, mask, lora)
-    x = _rms_norm(x, params["ln_out"], c.norm_eps)
+        caches: list = [None] * len(shards)
+
+        def write_kv(s, k, v, l=l, caches=caches):
+            for pool, new in ((k_pools[s], k), (v_pools[s], v)):
+                pool_set(pool, (l, chunk_ids[s]),
+                         new.reshape(B, n_chunk, page_size, -1, c.head_dim)
+                         .permute(0, 1, 3, 2, 4))  # [B, n, Hkv/N, ps, hd]
+            # gather [B, H, Hkv/N, ps, hd] -> [B, T, Hkv/N, hd]
+            caches[s] = (_gather_cache(k_pools[s], l, hist_ids[s], T, c.head_dim),
+                         _gather_cache(v_pools[s], l, hist_ids[s], T, c.head_dim))
+
+        xs = _layer(shards, l, c, xs, positions, write_kv,
+                    lambda qs, caches=caches: _dense_attend(qs, caches, masks), lora, mesh)
     last = (lengths - 1 - start).clamp(0, C - 1)
-    logits = (x[torch.arange(B, device=dev), last] @ _w(params["unembed"])).float()
+    logits = _logits(shards, c, xs[0][torch.arange(B, device=dev), last])
     return logits, k_pool, v_pool
 
 
@@ -677,66 +789,78 @@ def sample_tokens(logits, generator: Optional[torch.Generator] = None,
 # --------------------------------------------------------------------- decode
 
 
-def _decode_core(params, config: DecoderConfig, tokens, seq_lens, page_table,
-                 k_pool, v_pool, paged: bool = False,
-                 lora_params=None, adapter_ids=None):
-    """Body of the single-token decode step (``decode_step``)."""
+def _pool_step(shards, config, tokens, pos, mask, seq_lens, page_table, k_pools,
+               v_pools, paged, lora, mesh):
+    """The layers of a decode (``pos`` [B, 1]) or verify (``pos`` [B, K])
+    step over the page pools: each row's new KV is written into its page
+    slot first, then attention runs over the pool, through the paged
+    kernel or the gather path under ``mask`` [B, K, T].  Returns the
+    residual stream after the last layer, on the first shard's device,
+    [B, K, D]."""
     c = config
-    B = tokens.shape[0]
     dev = tokens.device
-    lora = _lora(lora_params, adapter_ids)
-    page_size = pool_page_size(k_pool)
+    devs = _devices(mesh, dev)
+    page_size = pool_page_size(k_pools[0])
     max_pages = page_table.shape[1]
     T = max_pages * page_size
+    page_of = pos // page_size
+    # a row stepped past its page table (a decode row, or a draft near the
+    # slot's capacity) routes its KV write to the trash page 0 explicitly:
+    # indexing past the table would raise here, and an index clipped to
+    # the last page would alias the row's last owned page and corrupt
+    # committed KV
+    page_ids = torch.where(
+        page_of < max_pages,
+        page_table.long().gather(1, page_of.clamp(max=max_pages - 1)), 0)
+    slots = _rep(torch.stack([page_ids, pos % page_size]), devs)
+    tables = _rep(page_table.long(), devs)
+    positions = _rep(pos, devs)
+    masks = _rep(mask, devs)
+    xs = _rep(_embed(shards[0], c, tokens.long()), devs)  # [B, K, D]
+    for l in range(c.n_layers):
+        caches: list = [None] * len(shards)
+
+        def write_kv(s, k, v, l=l, caches=caches):
+            # [B, K] page ids and offsets around the head slice: the
+            # broadcast [B, K] axes lead, matching k's [B, K, Hkv/N, hd]
+            idx = (l, slots[s][0], slice(None), slots[s][1])
+            pool_set(k_pools[s], idx, k)
+            pool_set(v_pools[s], idx, v)
+            if not paged:
+                # gather each slot's pages -> [B, T, Hkv/N, hd]
+                caches[s] = (_gather_cache(k_pools[s], l, tables[s], T, c.head_dim),
+                             _gather_cache(v_pools[s], l, tables[s], T, c.head_dim))
+
+        if paged:
+            def attend(qs, l=l):
+                return _paged_attend(qs, k_pools, v_pools, l, page_table, seq_lens,
+                                     page_size, mesh)
+        else:
+            def attend(qs, caches=caches):
+                return _dense_attend(qs, caches, masks)
+        xs = _layer(shards, l, c, xs, positions, write_kv, attend, lora, mesh)
+    return xs[0]
+
+
+def _decode_core(params, config: DecoderConfig, tokens, seq_lens, page_table,
+                 k_pool, v_pool, paged: bool = False,
+                 lora_params=None, adapter_ids=None, mesh=None):
+    """Body of the single-token decode step (``decode_step``)."""
+    shards, k_pools, v_pools = _shards(mesh, params, k_pool, v_pool)
     seq_lens = seq_lens.to(torch.int32)
     page_table = page_table.to(torch.int32)
-    pos = (seq_lens.long() - 1).clamp(min=0)  # current token's position
-    positions = pos[:, None]
-
-    x = _embed(params, c, tokens.long())[:, None, :]  # [B, 1, D]
-    t_range = torch.arange(T, device=dev)
+    pos = (seq_lens.long() - 1).clamp(min=0)[:, None]  # current token's position
+    T = page_table.shape[1] * pool_page_size(k_pools[0])
+    t_range = torch.arange(T, device=tokens.device)
     mask = (t_range[None, :] < seq_lens[:, None])[:, None, :]  # [B, 1, T]
-
-    page_of = pos // page_size
-    # a row stepped past its page table routes its KV write to the trash
-    # page 0 explicitly: indexing past the table would raise here (and an
-    # index clipped to the last page would alias the row's last owned page
-    # and corrupt committed KV)
-    page_id = torch.where(
-        page_of < max_pages,
-        page_table.long().gather(1, page_of.clamp(max=max_pages - 1)[:, None])[:, 0],
-        0)
-    offset = pos % page_size
-
-    for l in range(c.n_layers):
-        h = _rms_norm(x, params["ln_attn"][l], c.norm_eps)
-        k_new, v_new = _kv_proj(params, l, c, h, positions, lora)
-        # scatter this step's kv into the pool: one (page, head, offset) per
-        # slot — the slice between the advanced indices puts the broadcast
-        # [B] axis first, matching k_new[:, 0]'s [B, Hkv, hd]
-        pool_set(k_pool, (l, page_id, slice(None), offset), k_new[:, 0])
-        pool_set(v_pool, (l, page_id, slice(None), offset), v_new[:, 0])
-        if paged:
-            kl, vl = pool_layer(k_pool, l), pool_layer(v_pool, l)
-            x = _block_with(
-                params, l, c, x, positions,
-                lambda q: paged_attention(q, kl, vl, page_table, seq_lens, page_size),
-                lora)
-        else:
-            # gather each slot's pages [B, MP, Hkv, ps, hd] -> [B, T, Hkv, hd]
-            k_cache = (pool_get(k_pool, (l, page_table.long()))
-                       .permute(0, 1, 3, 2, 4).reshape(B, T, c.n_kv_heads, c.head_dim))
-            v_cache = (pool_get(v_pool, (l, page_table.long()))
-                       .permute(0, 1, 3, 2, 4).reshape(B, T, c.n_kv_heads, c.head_dim))
-            x = _block(params, l, c, x, k_cache, v_cache, positions, mask, lora)
-    x = _rms_norm(x, params["ln_out"], c.norm_eps)
-    logits = (x[:, 0] @ _w(params["unembed"])).float()
-    return logits, k_pool, v_pool
+    x = _pool_step(shards, config, tokens[:, None], pos, mask, seq_lens, page_table,
+                   k_pools, v_pools, paged, _lora(lora_params, adapter_ids), mesh)
+    return _logits(shards, config, x[:, 0]), k_pool, v_pool
 
 
 def decode_step(params, config: DecoderConfig, tokens, seq_lens, page_table,
                 k_pool, v_pool, paged: bool = False,
-                lora_params=None, adapter_ids=None):
+                lora_params=None, adapter_ids=None, mesh=None):
     """One decode step for ALL slots.
 
     tokens: [B] int current token per slot; seq_lens: [B] int length
@@ -753,17 +877,19 @@ def decode_step(params, config: DecoderConfig, tokens, seq_lens, page_table,
     the pool (the Hopper kernel on CUDA tensors) instead of gathering each
     slot's pages into a contiguous cache first; it reads int8 pools
     natively.  ``lora_params`` / ``adapter_ids`` ([B]): the LoRA table and
-    each slot's adapter (lora.py)."""
+    each slot's adapter (lora.py).  ``mesh``: run tensor-parallel over the
+    shards of ``params`` and the pools (the tensor-parallel section above);
+    ``paged=True`` then launches the kernel once per shard and layer."""
     return _decode_core(params, config, tokens, seq_lens, page_table,
                         k_pool, v_pool, paged=paged,
-                        lora_params=lora_params, adapter_ids=adapter_ids)
+                        lora_params=lora_params, adapter_ids=adapter_ids, mesh=mesh)
 
 
 def decode_step_sample(params, config: DecoderConfig, tokens, seq_lens,
                        page_table, k_pool, v_pool, generator=None, poison=None,
                        temperature: float = 0.0, guard: bool = True,
                        paged: bool = False, lora_params=None, adapter_ids=None,
-                       token_mask=None):
+                       token_mask=None, mesh=None):
     """Decode step with sampling and the NaN guard in one call: the
     pipelined engine loop's tick body.
 
@@ -791,7 +917,7 @@ def decode_step_sample(params, config: DecoderConfig, tokens, seq_lens,
     logits, k_pool, v_pool = _decode_core(
         params, config, tokens.clamp(min=0), seq_lens, page_table,
         k_pool, v_pool, paged=paged, lora_params=lora_params,
-        adapter_ids=adapter_ids)
+        adapter_ids=adapter_ids, mesh=mesh)
     if poison is not None:
         logits = torch.where(poison[:, None], float("nan"), logits)
     raw = logits
@@ -816,7 +942,7 @@ def decode_step_sample_packed(params, config: DecoderConfig, prev_packed,
                               generator=None, poison=None,
                               temperature: float = 0.0, guard: bool = True,
                               paged: bool = False, lora_params=None,
-                              adapter_ids=None, token_mask=None):
+                              adapter_ids=None, token_mask=None, mesh=None):
     """No-draft tick of the pipelined speculative loop: the single-token
     step of ``decode_step_sample`` wearing ``decode_step_verify_sample``'s
     packed ``[B, K]`` edge on both sides.  The input token is the last
@@ -828,14 +954,14 @@ def decode_step_sample_packed(params, config: DecoderConfig, prev_packed,
     sampled, k_pool, v_pool = decode_step_sample(
         params, config, _last_accepted(prev_packed), seq_lens, page_table,
         k_pool, v_pool, generator, poison, temperature, guard, paged,
-        lora_params, adapter_ids, token_mask)
+        lora_params, adapter_ids, token_mask, mesh)
     pad = torch.full((B, K - 1), -1, dtype=torch.int32, device=sampled.device)
     return torch.cat([sampled[:, None], pad], dim=1), k_pool, v_pool
 
 
 def decode_step_k(params, config: DecoderConfig, tokens, seq_lens, page_table,
                   k_pool, v_pool, paged: bool = False,
-                  lora_params=None, adapter_ids=None):
+                  lora_params=None, adapter_ids=None, mesh=None):
     """Speculative verify step: 1 committed + (K-1) draft tokens per slot in
     one pass.
 
@@ -851,55 +977,20 @@ def decode_step_k(params, config: DecoderConfig, tokens, seq_lens, page_table,
     slot's owned pages.  ``paged=True`` runs attention through
     ``paged_attention`` with ``q [B, K, Hq, hd]``, whose per-row horizon is
     the same causal mask."""
-    c = config
-    B, K = tokens.shape
-    dev = tokens.device
-    lora = _lora(lora_params, adapter_ids)
-    page_size = pool_page_size(k_pool)
-    max_pages = page_table.shape[1]
-    T = max_pages * page_size
+    K = tokens.shape[1]
+    shards, k_pools, v_pools = _shards(mesh, params, k_pool, v_pool)
     seq_lens = seq_lens.to(torch.int32)
     page_table = page_table.to(torch.int32)
     pos0 = (seq_lens.long() - 1).clamp(min=0)
-    positions = pos0[:, None] + torch.arange(K, device=dev)[None, :]  # [B, K]
-
-    x = _embed(params, c, tokens.long())  # [B, K, D]
-    t_range = torch.arange(T, device=dev)
+    pos = pos0[:, None] + torch.arange(K, device=tokens.device)[None, :]  # [B, K]
+    T = page_table.shape[1] * pool_page_size(k_pools[0])
+    t_range = torch.arange(T, device=tokens.device)
     # causal over the history and this call's own K tokens (their KV is
-    # written below before attention reads it)
-    mask = t_range[None, None, :] <= positions[:, :, None]  # [B, K, T]
-
-    page_of = positions // page_size  # [B, K]
-    # draft rows near the slot's capacity can step past the table: route
-    # them to the trash page 0 (a clipped index would alias the slot's last
-    # owned page and corrupt committed KV)
-    page_ids = torch.where(
-        page_of < max_pages,
-        page_table.long().gather(1, page_of.clamp(max=max_pages - 1)), 0)
-    offsets = positions % page_size
-
-    for l in range(c.n_layers):
-        h = _rms_norm(x, params["ln_attn"][l], c.norm_eps)
-        k_new, v_new = _kv_proj(params, l, c, h, positions, lora)  # [B, K, Hkv, hd]
-        # [B, K] page ids and offsets around the head slice: the broadcast
-        # [B, K] axes lead, matching k_new's [B, K, Hkv, hd]
-        pool_set(k_pool, (l, page_ids, slice(None), offsets), k_new)
-        pool_set(v_pool, (l, page_ids, slice(None), offsets), v_new)
-        if paged:
-            kl, vl = pool_layer(k_pool, l), pool_layer(v_pool, l)
-            x = _block_with(
-                params, l, c, x, positions,
-                lambda q: paged_attention(q, kl, vl, page_table, seq_lens, page_size),
-                lora)
-        else:
-            k_cache = (pool_get(k_pool, (l, page_table.long()))
-                       .permute(0, 1, 3, 2, 4).reshape(B, T, c.n_kv_heads, c.head_dim))
-            v_cache = (pool_get(v_pool, (l, page_table.long()))
-                       .permute(0, 1, 3, 2, 4).reshape(B, T, c.n_kv_heads, c.head_dim))
-            x = _block(params, l, c, x, k_cache, v_cache, positions, mask, lora)
-    x = _rms_norm(x, params["ln_out"], c.norm_eps)
-    logits = (x @ _w(params["unembed"])).float()
-    return logits, k_pool, v_pool
+    # written before attention reads it)
+    mask = t_range[None, None, :] <= pos[:, :, None]  # [B, K, T]
+    x = _pool_step(shards, config, tokens, pos, mask, seq_lens, page_table, k_pools,
+                   v_pools, paged, _lora(lora_params, adapter_ids), mesh)
+    return _logits(shards, config, x), k_pool, v_pool
 
 
 def decode_step_verify_sample(params, config: DecoderConfig, prev_packed,
@@ -907,7 +998,7 @@ def decode_step_verify_sample(params, config: DecoderConfig, prev_packed,
                               k_pool, v_pool, generator=None, poison=None,
                               temperature: float = 0.0, guard: bool = True,
                               paged: bool = False, lora_params=None,
-                              adapter_ids=None, token_mask=None):
+                              adapter_ids=None, token_mask=None, mesh=None):
     """Speculative verify with longest-prefix accept, sampling and the NaN
     guard in one call: the pipelined speculative tick body.
 
@@ -937,7 +1028,7 @@ def decode_step_verify_sample(params, config: DecoderConfig, prev_packed,
     tokens = torch.cat([tok0[:, None], drafts], dim=1)
     logits, k_pool, v_pool = decode_step_k(
         params, config, tokens, seq_lens, page_table, k_pool, v_pool, paged=paged,
-        lora_params=lora_params, adapter_ids=adapter_ids)
+        lora_params=lora_params, adapter_ids=adapter_ids, mesh=mesh)
     if poison is not None:
         logits = torch.where(poison[:, None, None], float("nan"), logits)
     raw = logits
@@ -971,14 +1062,16 @@ def forward_full(params, config: DecoderConfig, tokens,
     c = config
     B, S = tokens.shape
     dev = tokens.device
-    tokens = tokens.long()
     lora = _lora(lora_params, adapter_ids)
-    positions = torch.arange(S, device=dev)[None, :].expand(B, S)
-    x = _embed(params, c, tokens)
-    mask = torch.ones((S, S), dtype=torch.bool, device=dev).tril()[None].expand(B, S, S)
+    positions = [torch.arange(S, device=dev)[None, :].expand(B, S)]
+    masks = [torch.ones((S, S), dtype=torch.bool, device=dev).tril()[None].expand(B, S, S)]
+    xs = [_embed(params, c, tokens.long())]
+    kv: list = [None]
+
+    def write_kv(s, k, v):
+        kv[s] = (k, v)
+
     for l in range(c.n_layers):
-        h = _rms_norm(x, params["ln_attn"][l], c.norm_eps)
-        k, v = _kv_proj(params, l, c, h, positions, lora)
-        x = _block(params, l, c, x, k, v, positions, mask, lora)
-    x = _rms_norm(x, params["ln_out"], c.norm_eps)
-    return (x @ _w(params["unembed"])).float()
+        xs = _layer([params], l, c, xs, positions, write_kv,
+                    lambda qs: _dense_attend(qs, kv, masks), lora, None)
+    return _logits([params], c, xs[0])

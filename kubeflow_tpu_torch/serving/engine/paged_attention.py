@@ -6,7 +6,8 @@ the engine reads each slot's pages straight out of the pool instead of
 gathering them into a contiguous ``[B, T, Hkv, hd]`` cache first (the gather
 writes a full KV copy to device memory before attention reads it back).
 
-* ``paged_attention`` keeps the JAX signature and layout.  On CUDA tensors
+* ``paged_attention`` keeps the JAX signature and layout (``mesh=`` runs
+  it once per tensor-parallel shard, sharding.py).  On CUDA tensors
   it launches the CUDA C++ kernels in ``csrc/paged_attention.cu`` (built
   with nvcc for sm_90a at first use, bound with ctypes, launched on
   PyTorch's current stream) and counts the call as ONE launch in
@@ -149,7 +150,7 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, seq_lens,
 
 
 def paged_attention(q, k_pool, v_pool, page_table, seq_lens, page_size: int,
-                    *, _pages_per_split: int | None = None):
+                    mesh=None, *, _pages_per_split: int | None = None):
     """Attention for K query tokens per slot directly over the page pool.
 
     q: [B, K, Hq, hd] bf16 or f32 — query 0 is the slot's current committed
@@ -162,7 +163,24 @@ def paged_attention(q, k_pool, v_pool, page_table, seq_lens, page_size: int,
     CPU tensors run the plain version; CUDA tensors launch the Hopper
     split and merge kernels (counted as one launch in
     ``paged_attention.launches``) or raise.  ``_pages_per_split`` overrides
-    ``_split_plan`` (tests only)."""
+    ``_split_plan`` (tests only).
+
+    ``mesh`` (a sharding.TensorMesh) is the counterpart of the JAX
+    package's ``shard_map`` wrapper: q, k_pool and v_pool are then lists,
+    one entry per shard (that shard's query heads ``[B, K, Hq/N, hd]`` and
+    its own layer pool ``[P, Hkv/N, page_size, hd]``), and the kernel runs
+    once per shard on that shard's device, each run counted as a launch.
+    Attention is independent per KV head, so nothing is communicated;
+    page_table and seq_lens are replicated.  Returns the list of per-shard
+    outputs, each feeding its shard's ``wo`` slice."""
+    if mesh is not None:
+        if not len(q) == len(k_pool) == len(v_pool) == mesh.size:
+            raise ValueError(f"paged_attention: {mesh.size} shards need one q and "
+                             f"one pool each, got {len(q)}, {len(k_pool)}, {len(v_pool)}")
+        return [paged_attention(qs, kp, vp, page_table.to(qs.device),
+                                seq_lens.to(qs.device), page_size,
+                                _pages_per_split=_pages_per_split)
+                for qs, kp, vp in zip(q, k_pool, v_pool)]
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, page_table, seq_lens,
                                      page_size)

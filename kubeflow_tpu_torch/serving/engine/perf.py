@@ -82,17 +82,20 @@ CUDA_PEAKS = (("H100 PCIe", "cuda-h100-pcie", 756e12),
 
 
 def platform_peak_flops(backend: str, device_kind: str = "",
-                        n_devices: int = 1) -> tuple:
+                        n_devices: int = 1, n_cards: Optional[int] = None) -> tuple:
     """-> (platform_label, peak_flops) for MFU math.
 
     CUDA backends resolve ``device_kind`` (``torch.cuda.get_device_name``)
     through ``CUDA_PEAKS``: "NVIDIA H100 80GB HBM3" (SXM) -> 989.4e12,
     "NVIDIA H100 PCIe" -> 756e12.  An unknown kind takes the SXM figure
     rather than refusing to serve, and its label says so
-    (``cuda-h100-sxm?``).  A multi-card engine passes its degree as
-    ``n_devices``: the peak multiplies per card and the label gains an
-    ``xN`` suffix.  The CPU fallback keeps the HOST-wide estimate
-    un-multiplied but still annotates the degree.  ``ENGINE_PEAK_FLOPS``
+    (``cuda-h100-sxm?``).  A tensor-parallel engine passes its degree as
+    ``n_devices`` (the label gains an ``xN`` suffix) and the number of
+    DISTINCT cards its shards sit on as ``n_cards`` (default
+    ``n_devices``): the peak multiplies by the cards, so N shards sharing
+    one card charge one card's peak, as the JAX package's virtual CPU mesh
+    does not multiply its host estimate.  The CPU fallback keeps the
+    HOST-wide estimate un-multiplied but still annotates the degree.  ``ENGINE_PEAK_FLOPS``
     overrides the value (label gains a ``!`` so a doctored denominator is
     visible in every snapshot)."""
     env = os.environ.get("ENGINE_PEAK_FLOPS")
@@ -102,7 +105,7 @@ def platform_peak_flops(backend: str, device_kind: str = "",
             if needle in (device_kind or ""):
                 label, peak = name, flops
                 break
-        peak *= max(1, n_devices)
+        peak *= max(1, n_devices if n_cards is None else n_cards)
     else:
         label = backend or "cpu"
         peak = _cpu_peak_estimate()

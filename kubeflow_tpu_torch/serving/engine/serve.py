@@ -79,6 +79,7 @@ import time
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from ...core import tracing
 from ...core.metrics import add_const_labels
@@ -107,10 +108,9 @@ _UNSUPPORTED_PARAMS: tuple = ()
 # engine.json keys of the JAX package's EngineConfig whose feature this port
 # does not have yet -> (the JAX package's default, the ROADMAP item that
 # brings it).  A file may name one at its default; any other value is
-# refused, never dropped.
-_UNPORTED_ENGINE_KEYS = {
-    "tensor_parallel": (1, "1.8"),
-}
+# refused, never dropped.  Empty since tensor parallelism landed; kept for
+# the slices to come.
+_UNPORTED_ENGINE_KEYS: dict = {}
 
 # exported-KV pull handles are secrets.token_hex(16): exactly 32 hex chars.
 # The decode phase interpolates them into a URL, so the shape is enforced
@@ -159,6 +159,19 @@ def _kv_leaves(part) -> list:
     """The leaves of one side of a KV blob or pool: one array, or the int8
     pool's ``{"q", "s"}`` in key order."""
     return [part[k] for k in sorted(part)] if isinstance(part, dict) else [part]
+
+
+def _pool_geometry(pool) -> list:
+    """``(shape, dtype name)`` of each leaf of one side of an engine's KV
+    pool, the shape with the GLOBAL KV-head count: a tensor-parallel pool is
+    a per-shard list, each shard holding 1/N of the heads."""
+    shards = pool if isinstance(pool, list) else [pool]
+    out = []
+    for leaf in _kv_leaves(shards[0]):
+        shape = list(leaf.shape)
+        shape[2] *= len(shards)
+        out.append((tuple(shape), _dtype_name(leaf)))
+    return out
 
 
 def _dtype_name(leaf) -> str:
@@ -248,12 +261,16 @@ def _checkout_eos_ids(model_dir: str) -> list:
     return []
 
 
-def _engine_config(path: str) -> tuple:
+def _engine_config(path: str, config: DecoderConfig, device: torch.device) -> tuple:
     """An ``engine.json`` -> ``(EngineConfig, raw dict)``, its blocks built into
     their config classes and its keys validated as the JAX package's
     ``JetStreamModel.load`` does, every message naming the file.  A key of
     neither package's EngineConfig is dropped, as the JAX package drops it;
-    an unported key off its default raises ValueError."""
+    an unported key off its default raises ValueError.  ``tensor_parallel``
+    is checked against ``config`` and, on a CUDA ``device``, against the
+    cards present (``torch.cuda.device_count()``): a pod with fewer cards
+    than shards refuses the file, as the JAX package refuses with fewer
+    devices.  On the CPU any number of shards may share it."""
     with open(path) as f:
         raw = json.load(f)
     fields = {f.name for f in dataclasses.fields(EngineConfig)}
@@ -291,13 +308,9 @@ def _engine_config(path: str) -> tuple:
     for key, cls in (("handoff_chaos", HandoffFaultConfig),
                      ("fabric_chaos", FabricFaultConfig)):
         if isinstance(kw.get(key), dict):
-            # disaggregation and fabric chaos straight from an engine.json;
-            # a sharded-frame field off its default is refused (item 1.8)
-            try:
-                kw[key] = cls(**kw[key])
-            except ValueError as exc:
-                raise ValueError(f"{path}: {key}={raw[key]!r} is not supported "
-                                 f"by this port yet: {exc}") from None
+            # disaggregation and fabric chaos straight from an engine.json,
+            # the shard_* sub-frame injectors included
+            kw[key] = cls(**kw[key])
     ec = EngineConfig(**kw)
     # disaggregation role: validated HERE with a config-level message, so a
     # pod that crash-loops on a bad engine.json says which key to fix
@@ -316,9 +329,24 @@ def _engine_config(path: str) -> tuple:
         if ec.spec_max_draft < 1 or ec.spec_ngram < 1:
             raise ValueError(f"{path}: spec_max_draft and spec_ngram must be "
                              f">= 1 (got {ec.spec_max_draft}, {ec.spec_ngram})")
-    tp = raw.get("tensor_parallel", 1)
+    # tensor parallelism: validated HERE with a config-level message (the
+    # engine and sharding.py raise too, but name no file)
+    tp = ec.tensor_parallel
     if not isinstance(tp, int) or tp < 1:
         raise ValueError(f"{path}: tensor_parallel={tp!r} must be an integer >= 1")
+    if tp > 1:
+        if config.n_kv_heads % tp or config.n_heads % tp:
+            raise ValueError(
+                f"{path}: tensor_parallel={tp} must divide "
+                f"n_heads={config.n_heads} and n_kv_heads={config.n_kv_heads}")
+        if config.d_ff % tp:
+            raise ValueError(f"{path}: tensor_parallel={tp} must divide "
+                             f"d_ff={config.d_ff}")
+        have = torch.cuda.device_count()
+        if device.type == "cuda" and have < tp:
+            raise ValueError(
+                f"{path}: tensor_parallel={tp} needs {tp} devices, have {have} "
+                "— refusing to silently serve at a lower degree")
     for key in sorted(raw):
         if key not in _UNPORTED_ENGINE_KEYS:
             continue
@@ -384,7 +412,7 @@ class JetStreamModel(Model):
             path = os.path.join(self.model_dir, "engine.json")
             if self.model_dir and os.path.exists(path):
                 # validated before the weights load: a bad file fails fast
-                ec, raw = _engine_config(path)
+                ec, raw = _engine_config(path, config, self.device)
                 # an operator's explicit eos_id — INCLUDING -1 "never stop
                 # early" — wins over the checkout's declaration
                 eos_explicit = "eos_id" in raw or "eos_ids" in raw
@@ -943,29 +971,38 @@ class JetStreamModel(Model):
         return blob, int(header.get("nbytes") or 0), resume_len
 
     def _verify_kv_layout(self, blob, meta: dict, min_pages: int, max_pages: int) -> None:
-        """The KV frame geometry gate of the handoff and fabric importers:
-        a ``(k, v)`` pair whose leaves match this engine's pools in every
-        dim but the page count (which must lie in [min_pages, max_pages])
-        and in dtype.  Degree 1 only: the port refuses sharded frames
-        (format version 2) before this point, and a frame that declares
-        another degree is refused here.  Raises ValueError."""
-        if int(meta.get("tp") or 1) != 1:
-            raise ValueError(f"frame declares tp={meta.get('tp')}; this port "
-                             "imports degree-1 frames only")
-        if not (isinstance(blob, tuple) and len(blob) == 2):
-            raise ValueError("frame blob is not a (k, v) pair")
-        for side, pool in ((blob[0], self.engine.k_pool), (blob[1], self.engine.v_pool)):
-            bl, pl = _kv_leaves(side), _kv_leaves(pool)
-            if len(bl) != len(pl):
-                raise ValueError("frame blob leaf-count mismatch")
-            for b, p in zip(bl, pl):
-                if (b.ndim != p.ndim or b.shape[0] != p.shape[0]
-                        or tuple(b.shape[2:]) != tuple(p.shape[2:])
-                        or _dtype_name(b) != _dtype_name(p)
-                        or not min_pages <= b.shape[1] <= max_pages):
-                    raise ValueError(f"frame leaf {tuple(b.shape)}/{_dtype_name(b)} "
-                                     f"does not fit pool {tuple(p.shape)}/"
-                                     f"{_dtype_name(p)}")
+        """The degree-aware KV frame geometry gate of the handoff and fabric
+        importers.  A version-2 frame arrives as a LIST of per-shard ``(k,
+        v)`` pairs, a version-1 frame as one pair.  Every shard must carry
+        1/degree of this engine's KV heads (the FRAME's degree, which must
+        equal its declared ``tp``) and match the pools in every other dim
+        but the page count (which must lie in [min_pages, max_pages]) and
+        in dtype: a frame of this engine's degree scatters shard to shard,
+        one of another degree is resharded on the host (the engine's
+        counted slow path), and anything else is refused here.  Raises
+        ValueError."""
+        shards = blob if isinstance(blob, list) else [blob]
+        degree = len(shards)
+        if int(meta.get("tp") or 1) != degree:
+            raise ValueError(f"frame degree {degree} != declared tp {meta.get('tp')}")
+        for shard in shards:
+            if not (isinstance(shard, tuple) and len(shard) == 2):
+                raise ValueError("frame blob is not a (k, v) pair")
+            for side, pool in ((shard[0], self.engine.k_pool),
+                               (shard[1], self.engine.v_pool)):
+                bl, pl = _kv_leaves(side), _pool_geometry(pool)
+                if len(bl) != len(pl):
+                    raise ValueError("frame blob leaf-count mismatch")
+                for b, (shape, dtype) in zip(bl, pl):
+                    # each shard carries 1/degree of the kv-head axis (2)
+                    if (b.ndim != len(shape) or b.shape[0] != shape[0]
+                            or b.shape[2] * degree != shape[2]
+                            or tuple(b.shape[3:]) != tuple(shape[3:])
+                            or _dtype_name(b) != dtype
+                            or not min_pages <= b.shape[1] <= max_pages):
+                        raise ValueError(f"frame leaf {tuple(b.shape)}/{_dtype_name(b)} "
+                                         f"(degree {degree}) does not fit pool "
+                                         f"{shape}/{dtype}")
 
     _FABRIC_PULL_TIMEOUT_S = 5.0
 

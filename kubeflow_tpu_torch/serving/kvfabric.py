@@ -16,8 +16,10 @@ orchestration kept off the engine's critical path per JetStream:
   * **publish** — when a request finishes, the engine snapshots its
     committed full-page prefix (the same geometry a session pin uses,
     keyed by the existing context chain hashes) into its local
-    :class:`FabricStore` as one KVPG/CRC frame.  The frame is
-    fleet-addressable via ``GET /engine/kv_fabric/<key>`` (server.py).
+    :class:`FabricStore` as one KVPG/CRC frame (a sharded version-2
+    frame from a tensor-parallel replica, carried as opaque bytes like a
+    version-1 one).  The frame is fleet-addressable via
+    ``GET /engine/kv_fabric/<key>`` (server.py).
   * **place** — the service proxy scores replicas from the ``/fleet/cache``
     view (each replica's published prefixes ride in its cache analytics
     block): deepest-matched-prefix wins, load-balanced tiebreak,

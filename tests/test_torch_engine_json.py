@@ -7,14 +7,16 @@ watchdog, telemetry, perf and incident keys off their defaults, the
 disaggregation and fabric keys (``role``, ``fabric``, ``handoff_ttl_s``,
 the ``handoff_chaos`` and ``fabric_chaos`` blocks), ``weight_quant`` and the
 ``constrain_chaos`` block, a bad ``role``, bad ``speculative`` compositions
-and ``tensor_parallel: 0``.  Both
-build the same config values, or both raise the same ValueError (naming the
-file where the JAX package names it).  A key whose feature the port lacks
-is accepted at the JAX package's default and refused otherwise, naming the
-file, the key and the ROADMAP item; the port's literal map of those keys
-equals the JAX EngineConfig's fields and defaults minus the port's own.  A
-chaos block that arms a sharded-frame (``shard_*``) injector is refused
-the same way, naming item 1.8."""
+and ``tensor_parallel`` that is 0 or does not divide the heads or d_ff.
+Both build the same config values, or both raise the same ValueError
+(naming the file where the JAX package names it).  A key whose feature the
+port lacks would be accepted at the JAX package's default and refused
+otherwise, naming the file, the key and the ROADMAP item; the port's
+literal map of those keys equals the JAX EngineConfig's fields and
+defaults minus the port's own, and is empty since ``tensor_parallel``
+(item 1.8) landed.  The keys the port refused until then — a
+``tensor_parallel`` degree and a chaos block arming a sharded-frame
+(``shard_*``) injector — now build the JAX package's config and serve."""
 
 import dataclasses
 import json
@@ -85,20 +87,23 @@ BOTH_RAISE = {
     "speculative_temperature": {"speculative": "prompt_lookup", "temperature": 0.5},
     "speculative_draft": {"speculative": "prompt_lookup", "spec_max_draft": 0},
     "tensor_parallel_zero": {"tensor_parallel": 0},
+    # CONFIG's one KV head and d_ff 64 split neither 2 nor 3 ways
+    "tensor_parallel_heads": {"tensor_parallel": 2},
 }
-# unported features off their default: refused by the port
-PORT_REFUSES = {
-    "tensor_parallel": ({"tensor_parallel": 4}, "1.8"),
-    # a sharded-frame injector: the port reads no version 2 frame
-    "handoff_chaos": ({"handoff_chaos": {"shard_torn_pull_on": 1}}, "1.8"),
-    "fabric_chaos": ({"fabric_chaos": {"shard_flip_pull_every": 2}}, "1.8"),
+# keys the port refused off their default until item 1.8 landed -> (the
+# engine.json body, the config.json fields it needs beside CONFIG's)
+ONCE_REFUSED = {
+    "tensor_parallel": ({"tensor_parallel": 2}, {"n_kv_heads": 2}),
+    # the sharded-frame injectors
+    "handoff_chaos": ({"handoff_chaos": {"shard_torn_pull_on": 1}}, {}),
+    "fabric_chaos": ({"fabric_chaos": {"shard_flip_pull_every": 2}}, {}),
 }
 
 
-def _model_dir(tmp_path, body) -> str:
+def _model_dir(tmp_path, body, config=None) -> str:
     d = tmp_path / "m"
     d.mkdir()
-    (d / "config.json").write_text(json.dumps(CONFIG))
+    (d / "config.json").write_text(json.dumps({**CONFIG, **(config or {})}))
     text = json.dumps({**GEO, **body}).replace("{dir}", str(d))
     (d / "engine.json").write_text(text)
     return str(d)
@@ -164,14 +169,25 @@ def test_both_packages_refuse_the_same_file(tmp_path, case):
         assert str(port.value).startswith(f"{d}/engine.json: ")
 
 
-@pytest.mark.parametrize("key", sorted(PORT_REFUSES))
+@pytest.mark.parametrize("key", sorted(ONCE_REFUSED))
 def test_port_refuses_an_unported_key_off_its_default(tmp_path, key):
-    body, item = PORT_REFUSES[key]
-    d = _model_dir(tmp_path, body)
-    with pytest.raises(ValueError) as e:
-        _port(d)
-    msg = str(e.value)
-    assert msg.startswith(f"{d}/engine.json: {key}=") and f"ROADMAP item {item}" in msg
+    """The keys refused until item 1.8 landed are refused no more: off
+    their default they build the JAX package's config, and the engine
+    serves with them (a two-shard mesh on the CPU; armed shard chaos)."""
+    body, config = ONCE_REFUSED[key]
+    d = _model_dir(tmp_path, body, {"vocab_size": 288, **config})  # byte prompts
+    port, ref = _port(d), _jax(d)
+    assert dataclasses.asdict(port)[key] == dataclasses.asdict(ref)[key]
+    m = S.JetStreamModel("m", d, device="cpu")
+    m.load()
+    try:
+        assert m.engine.stats["tensor_parallel"] == (2 if key == "tensor_parallel" else 1)
+        assert m.generate({"text_input": "hi", "parameters": {"max_tokens": 3}})["tokens"] == 3
+        if key != "tensor_parallel":
+            assert m.engine.stats[key]["injected_shard_faults"] == 0  # nothing pulled
+    finally:
+        m.engine.stop()
+    assert not S._UNPORTED_ENGINE_KEYS
 
 
 def test_unported_key_map_is_the_jax_fields_minus_the_ports():
@@ -182,5 +198,4 @@ def test_unported_key_map_is_the_jax_fields_minus_the_ports():
             assert f.default_factory is dataclasses.MISSING, f.name
             want[f.name] = f.default
     assert {k: v[0] for k, v in S._UNPORTED_ENGINE_KEYS.items()} == want
-    assert want == {"tensor_parallel": 1}
-    assert {v[1] for v in S._UNPORTED_ENGINE_KEYS.values()} == {"1.8"}
+    assert want == {}  # tensor_parallel, the last one, landed with item 1.8

@@ -75,7 +75,7 @@ def test_every_port_module_imports_with_jax_blocked():
                  "examples.resnet_ddp_worker", "pipelines", "pipelines.dsl",
                  "pipelines.compiler", "pipelines.artifacts", "pipelines.launcher_main",
                  "examples.gemma_pipeline", "examples.distributed_check",
-                 "parallel.profiling"):
+                 "parallel.profiling", "serving.engine.sharding"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = _BLOCKER.format(blocked=BLOCKED) + f"""
 import importlib

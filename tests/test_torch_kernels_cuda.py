@@ -741,3 +741,94 @@ def test_int8_lora_constrained_engine_decodes_through_the_kernel(card, spec, mon
     assert outs[2]["constrain"]["n_tokens"] == len(toks) == 24
     assert all((t <= 6) if i % 2 == 0 else (t >= 7) for i, t in enumerate(toks))
     assert stats["free_pages"] + stats["cached_pages"] == 63
+
+
+# ------------------------------------------------------- tensor-parallel shards
+#
+# Tensor parallelism splits the KV heads over the shards, so each shard's
+# kernel sees Hkv/N heads (Llama-3-8B: 32/8 heads -> 16/4 at TP 2, 8/2 at
+# TP 4, 4/1 at TP 8) with the group (Hq/Hkv) unchanged: the grid and the
+# split plan change, the rows per block do not.
+
+SHARD_HEADS = [(16, 4), (8, 2), (4, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 5])
+@pytest.mark.parametrize("heads", SHARD_HEADS, ids=[f"{h[0]}-{h[1]}" for h in SHARD_HEADS])
+def test_paged_attention_kernel_at_per_shard_heads(card, heads, K):
+    hq, hkv = heads
+    g = torch.Generator().manual_seed(hkv * 10 + K)
+    q = torch.randn((len(SPLIT_LENS), K, hq, hd), generator=g).to(card, torch.bfloat16)
+    k_pool, v_pool = (torch.randn((SPLIT_P, hkv, ps, hd), generator=g).to(card, torch.bfloat16)
+                      for _ in range(2))
+    table = torch.randint(1, SPLIT_P, (len(SPLIT_LENS), SPLIT_MP), generator=g,
+                          dtype=torch.int32).to(card)
+    lens = torch.tensor(SPLIT_LENS, dtype=torch.int32, device=card)
+    before = PA.paged_attention.launches
+    out = PA.paged_attention(q, k_pool, v_pool, table, lens, ps)
+    ref = PA.paged_attention_plain(q, k_pool, v_pool, table, lens, ps)
+    torch.cuda.synchronize()
+    assert PA.paged_attention.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+def test_paged_attention_mesh_launches_once_per_shard(card, tp):
+    """With ``mesh=``, shards on one card each launch the kernel on their
+    own heads and pool; the outputs are the unsharded call's head slices."""
+    from kubeflow_tpu_torch.serving.engine.sharding import tensor_mesh
+
+    g = torch.Generator().manual_seed(tp)
+    hq, hkv = 32, 8
+    q = torch.randn((B, 1, hq, hd), generator=g).to(card, torch.bfloat16)
+    k_pool, v_pool = (torch.randn((P, hkv, ps, hd), generator=g).to(card, torch.bfloat16)
+                      for _ in range(2))
+    table = torch.randint(1, P, (B, MP), generator=g, dtype=torch.int32).to(card)
+    lens = torch.tensor(SEQ_LENS, dtype=torch.int32, device=card)
+    full = PA.paged_attention(q, k_pool, v_pool, table, lens, ps)
+    a, b = hq // tp, hkv // tp
+    before = PA.paged_attention.launches
+    outs = PA.paged_attention(
+        [q[:, :, i * a:(i + 1) * a].contiguous() for i in range(tp)],
+        [k_pool[:, i * b:(i + 1) * b].contiguous() for i in range(tp)],
+        [v_pool[:, i * b:(i + 1) * b].contiguous() for i in range(tp)],
+        table, lens, ps, mesh=tensor_mesh(tp, [card] * tp))
+    torch.cuda.synchronize()
+    assert PA.paged_attention.launches == before + tp
+    torch.testing.assert_close(torch.cat(outs, dim=2).float(), full.float(),
+                               rtol=2.0 ** -7, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_engine_tensor_parallel_on_card(card):
+    """A two-shard engine on one card gives the TP 1 engine's tokens (or
+    parts at a near tie, tie-aware against ``forward_full``), launching the
+    kernel twice per layer and decode step."""
+    tp_cfg = M.DecoderConfig(vocab_size=13, d_model=256, n_layers=2, n_heads=4,
+                             n_kv_heads=2, d_ff=512)
+    from kubeflow_tpu_torch.serving.engine.engine import Engine, EngineConfig
+
+    params = M.init(tp_cfg, card, seed=0)
+    outs = {}
+    for tp in (1, 2):
+        ec = EngineConfig(max_slots=4, num_pages=64, page_size=16, max_pages_per_slot=8,
+                          tensor_parallel=tp)
+        eng = Engine(params, tp_cfg, ec, device=[card] * tp)
+        before = PA.paged_attention.launches
+        futs = [eng.generate_async(p, 24) for p in ENGINE_PROMPTS]
+        eng.start()
+        try:
+            outs[tp] = [f.result(timeout=300)["tokens"] for f in futs]
+            stats = eng.stats
+        finally:
+            eng.stop()
+        assert PA.paged_attention.launches - before == tp * tp_cfg.n_layers * stats["decode_steps"]
+        assert stats["free_pages"] + stats["cached_pages"] == 63
+    for p, got in zip(ENGINE_PROMPTS, outs[2]):
+        with torch.inference_mode():
+            logits = M.forward_full(params, tp_cfg, torch.tensor(
+                [p + got[:-1]], device=card))[0, len(p) - 1:]
+        picked = logits[torch.arange(len(got), device=card), torch.tensor(got, device=card)]
+        assert float((logits.max(-1).values - picked).max()) <= 5e-2

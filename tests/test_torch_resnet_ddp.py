@@ -10,11 +10,14 @@
 
 Every process, pod and queue wait has a timeout of its own."""
 
+import json
 import multiprocessing as mp
 import os
+import random
 import socket
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -30,6 +33,26 @@ def _port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def _ring_master_port(world: int) -> int:
+    """A MASTER_PORT whose ring ports (MASTER_PORT + 1000 + rank, the
+    shim's listeners) and itself are free: below the kernel's ephemeral
+    range, where no outgoing connection of a concurrent process takes a
+    local port (a MASTER_PORT picked by binding port 0 is ephemeral, and so
+    is its +1000), and bind-checked here."""
+    lo = int(open("/proc/sys/net/ipv4/ip_local_port_range").read().split()[0])
+    rng = random.Random(os.getpid() ^ time.monotonic_ns())
+    for _ in range(200):
+        port = rng.randrange(10000, lo - 1000 - world)
+        try:
+            for p in [port] + [port + 1000 + r for r in range(world)]:
+                with socket.socket() as s:
+                    s.bind(("", p))
+        except OSError:
+            continue
+        return port
+    raise RuntimeError("no free rendezvous ports below the ephemeral range")
 
 
 def _rank_grads(rank: int, port: int, q) -> None:
@@ -130,6 +153,7 @@ def test_shim_path_through_the_control_plane_matches_one_process():
     from kubeflow_tpu.training import api as tapi
     from kubeflow_tpu.training.api import ReplicaSpec, job
     from kubeflow_tpu.training.client import TrainingClient
+    from kubeflow_tpu.training.common import PORTS_ANNOTATION
     from kubeflow_tpu.training.frameworks import install
 
     wenv = {"TORCH_DEVICE": "cpu", "PYTHONPATH": REPO, "DDP_TRANSPORT": "shim",
@@ -141,6 +165,11 @@ def test_shim_path_through_the_control_plane_matches_one_process():
         spec = job("PyTorchJob", "torch-resnet-shim", {
             "Master": ReplicaSpec(replicas=1, command=WORKER, env=dict(wenv)),
             "Worker": ReplicaSpec(replicas=1, command=WORKER, env=dict(wenv))})
+        # the job's rendezvous port, set as the controller would pick it, so
+        # that the ring's listeners do not land on an ephemeral port another
+        # process of a parallel test run holds (a rendezvous failure, seen
+        # under six test workers)
+        spec["metadata"]["annotations"] = {PORTS_ANNOTATION: json.dumps([_ring_master_port(2)])}
         client = TrainingClient(c)
         client.create_job(spec)
         state = client.wait_for_job("PyTorchJob", "torch-resnet-shim", timeout=300)
