@@ -276,6 +276,30 @@ or the script exits non-zero:
    the paged split and merge kernels once per shard and layer, no
    softmax.  One card shows the layout, the per-shard launches and the
    frames, not scaling.
+17. mesh: the mesh layer on ``MESH_SHARDS`` (4) shards of this one card
+   (``build_mesh(..., [cuda:0] * 4)``): (a) BERT-base
+   (``BertConfig(attention="flash")``, seed 0) on the ``tp`` preset (fsdp
+   2 x tensor 2, ``bert.SHARDING_RULES``) through ``Trainer(mesh=,
+   rules=)``, 5 steps of phase 8's batches against the unsharded
+   ``Trainer`` on the same weights: every loss within 1e-2 absolute and
+   every gradient norm within 1.22e-2 relative of it, exactly 12 x 2 x 2
+   = 48 flash launches a step (12 unsharded) and no plain call, each
+   shard's parameter and moment bytes its rule's shard shape and the
+   card holding each distinct slice once; ms a step, peak memory, MFU
+   over 4 chips with its shared-card label and over one; (b) S = 8192, 16
+   heads, D = 128, causal, on the ``ring-cp`` and ``ulysses`` presets:
+   ring attention in f32, forward and backward, within 1e-4 of dense f32
+   attention over the gathered inputs; Ulysses with ``inner=
+   flash_attention`` in bf16 within one bf16 ulp of Ulysses with the
+   dense inner in f32, 4 launches a call; times (CUDA events and the
+   profiler's device busy time) of the ring, Ulysses, the unsharded flash
+   op and SDPA (a yardstick the port never calls), and the flash kernel
+   against its plain version at both paths' per-shard shapes (a tp@4
+   shard's 16 x 6 heads at 512, ragged; a Ulysses shard's 4 heads at
+   8192, causal) with their bounds; (c) ``python -m
+   kubeflow_tpu_torch.examples.bert_worker`` at ``LOCAL_DEVICES=2``:
+   ``resumed_from=0`` and ``TRAIN-DONE step=4``.  One card shows the
+   layout, the per-shard launches and the numerics, not scaling.
 
 Phase 5's Llama-3-8B weights are freed before phase 5j, which runs after
 phases 6 and 16.  The last lines are the
@@ -329,12 +353,18 @@ from kubeflow_tpu_torch.serving.engine.serve import JetStreamModel
 from kubeflow_tpu_torch.serving.kvfabric import fabric_key
 from kubeflow_tpu_torch.serving.server import ModelServer
 from kubeflow_tpu_torch.models import bert
+from kubeflow_tpu_torch.ops.attention import multihead_attention
+from kubeflow_tpu_torch.ops.ring_attention import ring_attention
+from kubeflow_tpu_torch.ops.ulysses import ulysses_attention
+from kubeflow_tpu_torch.parallel.mesh import build_mesh
+from kubeflow_tpu_torch.parallel.presets import get_preset
 from kubeflow_tpu_torch.train.data import synthetic_mlm_batches, to_device
 from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig, global_norm
 from kubeflow_tpu_torch.utils.native_build import BUILD_DIR
 
 # the module, not the function the package re-exports under the same name
 FA = importlib.import_module("kubeflow_tpu_torch.ops.flash_attention")
+flash_attention = FA.flash_attention
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA's H100 SXM data sheet: HBM3 bandwidth and dense bf16 tensor rate
@@ -2896,25 +2926,27 @@ FB, FH, FS, FD, FBLOCK = 32, 12, 512, 64, 128
 FLASH_F32_TOL = 1e-5
 
 
-def flash_case(name, dtype, S, causal, key_mask, rng, dev, flush) -> dict:
+def flash_case(name, dtype, S, causal, key_mask, rng, dev, flush, b: int = FB, h: int = FH,
+               d: int = FD) -> dict:
     """One ``flash_attention`` forward case: kernel vs plain (out and lse),
     times of the kernel, the plain version and SDPA with the same boolean
     mask, and the bound.  ``key_mask``: None, "ragged" (batch row 0 keeps
     300 keys) or "left" (batch row 1's first 200 keys padded: under causal,
-    its first 200 query rows see no key)."""
-    bh, scale = FB * FH, FD ** -0.5
-    q, k, v = (torch.from_numpy(rng.standard_normal((bh, S, FD), dtype=np.float32)).to(
+    its first 200 query rows see no key).  ``b``, ``h`` and ``d``: batch,
+    heads and head_dim (default BERT-base's)."""
+    bh, scale = b * h, d ** -0.5
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, S, d), dtype=np.float32)).to(
         dev, dtype) for _ in range(3))
-    am = torch.ones((FB, S), device=dev)
+    am = torch.ones((b, S), device=dev)
     if key_mask == "ragged":
         am[0, 300:] = 0
     elif key_mask == "left":
         am[1, :200] = 0
-    mask = am.reshape(FB, 1, S) if key_mask else None
+    mask = am.reshape(b, 1, S) if key_mask else None
     block = min(FBLOCK, S)
     args = (q, k, v, mask, scale, causal, block, block)
 
-    out, lse = FA._flash_fwd(*args, FH)
+    out, lse = FA._flash_fwd(*args, h)
     ref, ref_lse = FA.flash_attention_plain(*args)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs()
@@ -2927,39 +2959,40 @@ def flash_case(name, dtype, S, causal, key_mask, rng, dev, flush) -> dict:
     if key_mask == "left" and causal:
         # batch row 1, head 0, query row 5 sees no key: it averages V over
         # the keys its block visits (0..block-1), as the TPU kernel does
-        want = v[FH, :block].float().mean(0)
-        ok = ok and bool(torch.allclose(out[FH, 5].float(), want, rtol=rtol, atol=atol))
+        want = v[h, :block].float().mean(0)
+        ok = ok and bool(torch.allclose(out[h, 5].float(), want, rtol=rtol, atol=atol))
 
     # the yardstick: one library call, the same boolean mask
     bm = am[:, None, None, :] > 0.5
     if causal:
         bm = bm & torch.ones((S, S), dtype=torch.bool, device=dev).tril()
-    qs, ks, vs = (t.view(FB, FH, S, FD) for t in (q, k, v))
+    qs, ks, vs = (t.view(b, h, S, d) for t in (q, k, v))
 
     def library():
         return torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=bm)
 
-    kernel_ms = time_ms(lambda: FA._flash_fwd(*args, FH), flush)
-    device = profiled_ms(lambda: FA._flash_fwd(*args, FH), flush, FLASH_MARKERS)
+    kernel_ms = time_ms(lambda: FA._flash_fwd(*args, h), flush)
+    device = profiled_ms(lambda: FA._flash_fwd(*args, h), flush, FLASH_MARKERS)
     # a ten-call window, for its record count only
-    short = profiled_ms(lambda: FA._flash_fwd(*args, FH), flush, FLASH_MARKERS, n=10)
+    short = profiled_ms(lambda: FA._flash_fwd(*args, h), flush, FLASH_MARKERS, n=10)
     plain_ms = time_ms(lambda: FA.flash_attention_plain(*args), flush)
     library_ms = time_ms(library, flush)
     # the backward the training path pairs with the kernel: the JAX
     # package's blockwise recompute in f32 torch (no kernel on either side)
     do = torch.randn_like(out)
     backward_ms = time_ms(lambda: FA._flash_bwd(q, k, v, mask, out, lse, do, scale, causal,
-                                                block, FH), flush)
+                                                block, h), flush)
 
     # the bound: q, k, v (and the mask) read once, out and lse written once;
     # the operations of QK^T and PV over the keys each row visits
     visited = int(FA._visited(S, S, causal, block, block, dev).sum()) * bh
     io_bytes = (4 * q.numel() * q.element_size() + lse.numel() * 4
                 + (mask.numel() * 4 if mask is not None else 0))
-    flops = 4 * FD * visited
+    flops = 4 * d * visited
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
     t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S, flops / peak
-    return {"case": name, "dtype": str(dtype).removeprefix("torch."), "S": S,
+    return {"case": name, "dtype": str(dtype).removeprefix("torch."), "B": b, "H": h, "D": d,
+            "S": S,
             "causal": causal, "key_mask": key_mask, "max_abs_err": float(err.max()),
             "max_lse_err": float(lse_err.max()), "ok": ok, "kernel_ms": kernel_ms,
             "device_ms": device["total"], "device_records": device["records"],
@@ -4694,6 +4727,273 @@ def tp_phase(params, cfg, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 17
+
+MESH_SHARDS = 4
+MESH_STEPS = 5
+# the sharded run against the unsharded one, step by step: the loss within
+# tests/test_models_training.py's sharded-vs-single bound (1e-2 absolute),
+# the gradient norm within the flash-vs-dense bound of PERF.md §2 (relative)
+MESH_LOSS_ATOL, MESH_NORM_RTOL = 1e-2, 1.22e-2
+# the seq axis: one long causal sequence over the ring
+SEQ_B, SEQ_S, SEQ_H, SEQ_D = 1, 8192, 16, 128
+# ring attention against dense f32 attention over the gathered inputs, in
+# f32, outputs and gradients: tests/test_longcontext.py's ring bound
+RING_TOL = 1e-4
+MESH_WORKER_SHARDS = 2
+
+
+def window_ms(fn, n: int = 10) -> dict:
+    """Device busy ms per call of ``fn`` (every kernel it launches) from a
+    profiler window of ``n`` calls, and the host ms per call around it."""
+    fn()
+    torch.cuda.synchronize()
+    with profile_window() as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+    b = device_breakdown(prof, n, wall_ms, "flash_attention", FLASH_MARKERS)
+    return {"host_ms": wall_ms, "device_ms": b.get("device_busy_ms_per_step"),
+            "window_complete": b.get("window_complete"),
+            "lost_records": b.get("lost_records")}
+
+
+def counting_plain_flash() -> tuple:
+    """Swap in a counting ``flash_attention_plain``; returns (counts, undo)."""
+    calls = [0]
+    plain = FA.flash_attention_plain
+
+    def counting(*a, **kw):
+        calls[0] += 1
+        return plain(*a, **kw)
+
+    FA.flash_attention_plain = counting
+
+    def undo():
+        FA.flash_attention_plain = plain
+
+    return calls, undo
+
+
+def mesh_train(dev) -> dict:
+    """(a) BERT-base on the ``tp`` preset over MESH_SHARDS shards of the
+    card (fsdp 2 x tensor 2) against the unsharded Trainer on the same
+    weights and batches."""
+    preset = get_preset("tp", MESH_SHARDS)
+    mesh = build_mesh(preset.mesh, [dev] * MESH_SHARDS)
+    cfg = bert.BertConfig(attention="flash")
+    batches = train_batches(cfg.vocab_size, MESH_STEPS)
+    flops = cfg.train_flops(TRAIN_B, TRAIN_S, TRAIN_P)
+    tcfg = TrainerConfig(learning_rate=1e-4, warmup_steps=2, total_steps=16)
+
+    def loss_fn(m, b):
+        return bert.mlm_loss(m, cfg, b["input_ids"], b["labels"], b["attention_mask"],
+                             max_predictions=TRAIN_P)
+
+    model = bert.init(cfg, dev, seed=0)
+    out: dict = {"preset": preset.name, "mesh": mesh.shape, "devices": [str(dev)] * MESH_SHARDS,
+                 "config": "BERT-base (BertConfig defaults), attention=flash",
+                 "batch": TRAIN_B, "seq": TRAIN_S, "max_predictions": TRAIN_P}
+    runs = {}
+    trainer = None
+    for name in ("mesh", "one"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        # the mesh trainer copies the weights onto its shards; the unsharded
+        # one (made after) trains ``model`` itself
+        trainer = (Trainer(loss_fn, model, tcfg, flops_per_batch=flops, mesh=mesh,
+                           rules=bert.SHARDING_RULES) if name == "mesh" else
+                   Trainer(loss_fn, model, tcfg, flops_per_batch=flops, device=dev))
+        calls, undo = counting_plain_flash()
+        try:
+            FA.flash_attention.launches = 0
+            metrics = [trainer.train_step(b) for b in batches]
+            launches = FA.flash_attention.launches
+        finally:
+            undo()
+        runs[name] = {"losses": [m["loss"] for m in metrics],
+                      "grad_norms": [m["grad_norm"] for m in metrics],
+                      "step_ms": [m["step_time_s"] * 1e3 for m in metrics],
+                      "step_ms_mean_after_first": sum(
+                          m["step_time_s"] for m in metrics[1:]) / (len(metrics) - 1) * 1e3,
+                      "launches": launches, "launches_per_step": launches / MESH_STEPS,
+                      "plain_calls": calls[0],
+                      "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                      "mfu": trainer.mfu(BF16_FLOPS_PER_S), "mfu_label": trainer.mfu_label,
+                      "mfu_one_card": trainer.mfu(BF16_FLOPS_PER_S, n_chips=1)}
+        if name == "mesh":
+            out["bytes"] = mesh_bytes(trainer)
+        del trainer
+    out["runs"] = runs
+    m, o = runs["mesh"], runs["one"]
+    per_step = cfg.num_layers * mesh.shape["data"] * mesh.shape["fsdp"] * mesh.shape["tensor"]
+    finite = all(math.isfinite(x) for r in runs.values() for x in r["losses"] + r["grad_norms"])
+    out["gates"] = {
+        "loss": all(abs(a - b) <= MESH_LOSS_ATOL for a, b in zip(m["losses"], o["losses"])),
+        "grad_norm": all(abs(a - b) <= MESH_NORM_RTOL * abs(b)
+                         for a, b in zip(m["grad_norms"], o["grad_norms"])),
+        "launches": m["launches"] == per_step * MESH_STEPS and m["plain_calls"] == 0
+        and o["launches"] == cfg.num_layers * MESH_STEPS and o["plain_calls"] == 0,
+        "bytes": out["bytes"]["ok"], "finite": finite}
+    out["launches_per_step_expected"] = per_step
+    out["launches"] = m["launches"] + o["launches"]
+    out["max_loss_diff"] = max(abs(a - b) for a, b in zip(m["losses"], o["losses"]))
+    out["max_grad_norm_rel"] = max(abs(a - b) / abs(b)
+                                   for a, b in zip(m["grad_norms"], o["grad_norms"]))
+    out["ok"] = all(out["gates"].values())
+    return out
+
+
+def mesh_bytes(trainer) -> dict:
+    """Each position's parameter and moment bytes against its rule's shard
+    shape, and the bytes the card holds: each distinct slice once."""
+    mesh = trainer.mesh
+    per_shard = [0] * mesh.size
+    held = expected = 0
+    ok = True
+    for name, st in trainer.params.items():
+        shape = st.sharding.shard_shape(tuple(st.shape))
+        for leaf in (st, trainer.opt_state["mu"][name], trainer.opt_state["nu"][name]):
+            size = leaf.dtype.itemsize
+            for pos, t in enumerate(leaf.shards):
+                ok = ok and tuple(t.shape) == shape
+                per_shard[pos] += t.numel() * size
+            held += sum(t.numel() * size for t in leaf.locals)
+            expected += len({leaf.block(p) for p in range(mesh.size)}) * math.prod(shape) * size
+    unsharded = 3 * sum(st.shape.numel() * st.dtype.itemsize for st in trainer.params.values())
+    return {"ok": ok and held == expected, "per_shard_bytes": per_shard,
+            "device_bytes": held, "device_bytes_expected": expected,
+            "unsharded_bytes": unsharded}
+
+
+def mesh_seq(dev, flush) -> dict:
+    """(b) The seq axis over the ``ring-cp`` and ``ulysses`` presets at
+    MESH_SHARDS shards of the card, one causal sequence of SEQ_S tokens."""
+    ring_p, uly_p = get_preset("ring-cp", MESH_SHARDS), get_preset("ulysses", MESH_SHARDS)
+    mesh = build_mesh(ring_p.mesh, [dev] * MESH_SHARDS)
+    rng = np.random.default_rng(0)
+    shape = (SEQ_B, SEQ_S, SEQ_H, SEQ_D)
+    q32, k32, v32 = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+                     for _ in range(3))
+    out: dict = {"shape": list(shape), "mesh": mesh.shape, "causal": True}
+
+    # ring, f32, forward and backward, against dense f32 attention over the
+    # gathered inputs (one group of heads at a time: the heads are
+    # independent, and sum(out**2) splits over them)
+    args = [t.clone().requires_grad_() for t in (q32, k32, v32)]
+    ring_out = ring_p.attention(*args, mesh, causal=True)
+    ring_out.square().sum().backward()
+    ref_out = torch.empty_like(q32)
+    ref_grads = [torch.empty_like(q32) for _ in range(3)]
+    for h0 in range(0, SEQ_H, MESH_SHARDS):
+        hs = slice(h0, h0 + MESH_SHARDS)
+        part = [t[:, :, hs].clone().requires_grad_() for t in (q32, k32, v32)]
+        o = multihead_attention(*part, causal=True)
+        o.square().sum().backward()
+        ref_out[:, :, hs] = o.detach()
+        for g, p in zip(ref_grads, part):
+            g[:, :, hs] = p.grad
+        del o, part
+    errs = {"out": float((ring_out.detach() - ref_out).abs().max())}
+    ok_ring = bool(torch.allclose(ring_out.detach(), ref_out, rtol=RING_TOL, atol=RING_TOL))
+    for name, a, g in zip("qkv", args, ref_grads):
+        errs[f"grad_{name}"] = float((a.grad - g).abs().max())
+        ok_ring = ok_ring and bool(torch.allclose(a.grad, g, rtol=RING_TOL, atol=RING_TOL))
+    out["ring_f32"] = {"max_abs_err": errs, "tol": RING_TOL, "ok": ok_ring}
+    del args, ring_out, ref_out, ref_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ulysses with the flash inner (bf16) against ulysses with the dense
+    # inner over the same inputs in f32: within one bf16 ulp
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q32, k32, v32))
+    with torch.no_grad():
+        FA.flash_attention.launches = 0
+        calls, undo = counting_plain_flash()
+        try:
+            uf = ulysses_attention(qb, kb, vb, mesh, causal=True, inner=flash_attention)
+        finally:
+            undo()
+        uly_launches = FA.flash_attention.launches
+        ud = uly_p.attention(qb.float(), kb.float(), vb.float(), mesh, causal=True)
+    err = (uf.float() - ud).abs()
+    ok_uly = (bool(torch.all(err <= KERNEL_ATOL + KERNEL_RTOL * ud.abs())) and uly_launches
+              == MESH_SHARDS and calls[0] == 0 and bool(torch.isfinite(uf).all()))
+    out["ulysses_flash"] = {"max_abs_err": float(err.max()), "rtol": KERNEL_RTOL,
+                            "atol": KERNEL_ATOL, "launches_per_call": uly_launches,
+                            "plain_calls": calls[0], "ok": ok_uly}
+    del uf, ud, err
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # times, bf16 forward: ring, ulysses (flash inner), the unsharded flash
+    # op, and SDPA as a yardstick the port never calls
+    qt, kt, vt = (t.transpose(1, 2) for t in (qb, kb, vb))
+    fns = {"ring": lambda: ring_attention(qb, kb, vb, mesh, causal=True),
+           "ulysses_flash": lambda: ulysses_attention(qb, kb, vb, mesh, causal=True,
+                                                      inner=flash_attention),
+           "flash_unsharded": lambda: flash_attention(qb, kb, vb, causal=True),
+           "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=True)}
+    times = {}
+    with torch.no_grad():
+        for name, fn in fns.items():
+            times[name] = {"ms": time_ms(fn, flush), **window_ms(fn)}
+    out["times"] = times
+    out["ok"] = ok_ring and ok_uly
+    return out
+
+
+def mesh_worker() -> dict:
+    """(c) The BERT worker on a mesh of MESH_WORKER_SHARDS shards of the card."""
+    r, lines, kv = run_worker("bert_worker", {"LOCAL_DEVICES": MESH_WORKER_SHARDS,
+                                              "TRAIN_STEPS": 4})
+    ok = (r.returncode == 0 and "resumed_from=0" in lines
+          and any(line.startswith("TRAIN-DONE step=4") for line in lines))
+    return {"ok": ok, "exit_code": r.returncode, "stdout": lines,
+            "stderr_tail": r.stderr[-1500:] if r.returncode else ""}
+
+
+def mesh_phase(dev) -> dict:
+    """Phase 17: the mesh (ROADMAP items 3.3 and 3.4) on shards of this one
+    card: (a) BERT-base trained on the ``tp`` preset (``mesh_train``), (b)
+    ring attention and Ulysses on the seq axis (``mesh_seq``), the flash
+    kernel at both paths' per-shard shapes, (c) the worker on a mesh.  One
+    card shows the layout, the per-shard launches and the numerics; it
+    shows no scaling."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rng = np.random.default_rng(0)
+    bf16 = torch.bfloat16
+    train_res = mesh_train(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq_res = mesh_seq(dev, flush)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the flash kernel at the per-shard shapes of (a) and (b)
+    cases = [flash_case("tp4_shard", bf16, TRAIN_S, False, "ragged", rng, dev, flush,
+                        b=TRAIN_B // 2, h=12 // 2, d=64),
+             flash_case("ulysses_shard", bf16, SEQ_S, True, None, rng, dev, flush,
+                        b=SEQ_B, h=SEQ_H // MESH_SHARDS, d=SEQ_D)]
+    worker_res = mesh_worker()
+    out = {"train": train_res, "seq": seq_res, "flash_cases": cases, "worker": worker_res,
+           "launches": train_res.get("launches", 0)
+           + seq_res.get("ulysses_flash", {}).get("launches_per_call", 0)}
+    out["gates"] = {"train": train_res["ok"], "seq": seq_res["ok"],
+                    "flash_cases": all(c["ok"] for c in cases), "worker": worker_res["ok"]}
+    out["ok"] = all(out["gates"].values())
+    log(f"17 mesh: tp@4 {train_res['runs']['mesh']['step_ms_mean_after_first']:.1f} ms/step "
+        f"vs one {train_res['runs']['one']['step_ms_mean_after_first']:.1f}; launches/step "
+        f"{train_res['runs']['mesh']['launches_per_step']}; ring "
+        f"{seq_res['times']['ring']['ms']:.3f} ms, ulysses "
+        f"{seq_res['times']['ulysses_flash']['ms']:.3f} ms, flash "
+        f"{seq_res['times']['flash_unsharded']['ms']:.3f} ms; gates {out['gates']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -4829,6 +5129,7 @@ def main() -> int:
     phase("decoder", lambda: decoder_phase(dev))
     rres = phase("bert_remat", lambda: bert_remat(dev))
     pres = phase("pipeline", lambda: pipeline_phase(dev))
+    mres = phase("mesh", lambda: mesh_phase(dev))
 
     cases = kres.get("cases") or []
     head = next((c for c in cases if c["pool"] == "bf16" and c["K"] == 1), {})
@@ -4871,14 +5172,25 @@ def main() -> int:
                "source": "kubeflow_tpu_torch/ops/csrc/flash_attention.cu",
                "replaces": "kubeflow_tpu/ops/flash_attention.py:40",
                "tpu_kernel": "kubeflow_tpu/ops/flash_attention.py:_fwd_kernel",
-               # phase 8's training steps and the remat phase's (its
-               # recomputes included); both count from zero
-               "launches": tres.get("launches", 0) + rres.get("launches", 0),
-               "max_abs_err": max((c["max_abs_err"] for c in fcases), default=None),
+               # phase 8's training steps, the remat phase's (its
+               # recomputes included) and phase 17's: the tp@4 mesh run
+               # (one launch per batch shard, tensor shard and layer), its
+               # unsharded twin and one Ulysses call; each counts from zero
+               "launches": tres.get("launches", 0) + rres.get("launches", 0)
+               + mres.get("launches", 0),
+               "max_abs_err": max((c["max_abs_err"] for c in
+                                   fcases + (mres.get("flash_cases") or [])), default=None),
                "ms": fhead.get("kernel_ms"), "kernel_ms": fhead.get("kernel_ms"),
                "device_ms": fhead.get("device_ms"), "plain_ms": fhead.get("plain_ms"),
                "bound_ms": fhead.get("bound_ms"),
-               "bound_by": fhead.get("bound_by"), "library_ms": fhead.get("library_ms")}
+               "bound_by": fhead.get("bound_by"), "library_ms": fhead.get("library_ms"),
+               # phase 17's per-shard calls: a tp@4 shard (16 rows of 6
+               # heads, ragged) and a Ulysses shard (4 heads, 8192, causal)
+               "mesh_shards": [{k: c.get(k) for k in (
+                   "case", "B", "H", "D", "S", "causal", "max_abs_err", "kernel_ms",
+                   "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                   for c in mres.get("flash_cases") or []],
+               "mesh_launches": mres.get("launches", 0)}
     report["kernels"] = [record, frecord]
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -14,8 +14,10 @@ limits it to one process of a gang (read against ``RANK``, else
 
 The device is ``TORCH_DEVICE`` (default ``"cuda"``: the card, raising
 without one; ``TORCH_DEVICE=cpu`` runs on the CPU), the port's counterpart
-of the ``JAX_PLATFORMS`` the JAX worker reads.  This slice trains on one
-device per process; joining a process group is ROADMAP Queue 1 item 3.3.
+of the ``JAX_PLATFORMS`` the JAX worker reads.  As the JAX worker does, it
+trains on an ``fsdp`` mesh of ``LOCAL_DEVICES`` (default 1) shards with
+``bert.SHARDING_RULES``; here the shards share the process's device.  A mesh
+across the processes of a gang is ROADMAP Queue 1 item 3.3.
 
     python -m kubeflow_tpu_torch.examples.bert_worker
 """
@@ -27,11 +29,15 @@ import os
 
 def main() -> None:
     from kubeflow_tpu_torch.models import bert
+    from kubeflow_tpu_torch.parallel.distributed import initialize
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
     from kubeflow_tpu_torch.train.data import synthetic_mlm_batches
     from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig
     from kubeflow_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(os.environ.get("TORCH_DEVICE") or None)
+    shards = int(os.environ.get("LOCAL_DEVICES", "1"))
+    initialize(local_device_count=shards, device=device)
     config = bert.BertConfig(
         vocab_size=int(os.environ.get("VOCAB_SIZE", "512")),
         hidden_size=int(os.environ.get("HIDDEN_SIZE", "64")),
@@ -42,6 +48,7 @@ def main() -> None:
     )
     steps = int(os.environ.get("TRAIN_STEPS", "20"))
     batch_size = int(os.environ.get("BATCH_SIZE", "8"))
+    mesh = build_mesh(MeshConfig(fsdp=shards), [device] * shards)
     model = bert.init(config, device, seed=0)
 
     def loss_fn(m, b):
@@ -54,7 +61,7 @@ def main() -> None:
             checkpoint_dir=os.environ.get("CHECKPOINT_DIR") or None,
             checkpoint_every=int(os.environ.get("CHECKPOINT_EVERY", "1000")),
         ),
-        device=device,
+        mesh=mesh, rules=bert.SHARDING_RULES,
     )
     # auto-resume: the platform contract for restarted gangs
     resumed = trainer.restore_latest()

@@ -25,6 +25,19 @@ attention's batched products); or the ``checkpoint_name`` sites (``qkv``,
 the rest of the layer once, as JAX does, so the numbers are those without
 remat.  The flash kernel's forward runs again in the recompute under every
 policy: its log-sum-exp is never a kept value (in the JAX package either).
+
+On a mesh (``with mesh:``, ``parallel/mesh.py``), with the parameters placed
+by ``SHARDING_RULES`` (``parallel/sharding.py``), ``encode``, ``mlm_logits``
+and ``mlm_loss`` split their work the way GSPMD partitions the JAX model:
+the batch over ``("data", "fsdp")``; Megatron on ``tensor``, each tensor
+shard taking its heads' slice of the qkv projection and running attention
+on those heads (one flash launch per batch shard, tensor shard and layer),
+the rows of ``attn_out_kernel`` and ``mlp_out_kernel`` giving partials that
+``psum`` adds, ``mlp_in`` split by columns; and every dim a rule splits that
+the layer does not compute split (the ``fsdp`` dims, the embeddings'
+vocabulary on ``tensor``, the tied MLM head) gathered before use, as XLA's
+all-gather.  The MLM loss is exact: the ``psum`` of the masked sums over
+the ``psum`` of the counts.  Remat wraps the per-shard layer.
 """
 
 from __future__ import annotations
@@ -40,6 +53,10 @@ from torch.utils import checkpoint as _ckpt
 
 from ..ops.attention import multihead_attention, padding_mask
 from ..ops.flash_attention import flash_attention
+from ..ops.shard_map_compat import each, psum
+from ..parallel.mesh import Mesh, current_mesh
+from ..parallel.sharding import (NamedSharding, P, ShardedTensor, Views, as_sharded, batch_spec,
+                                 place_params)
 from ..utils.device import resolve_device
 from ._tree import tensor_from_numpy
 
@@ -103,6 +120,39 @@ class BertConfig:
         attn = l * 2 * seq_len * seq_len * h
         head = (h * h + h * v) * p
         return 6 * batch * (encoder + attn + head)
+
+
+# ----------------------------------------------------------------- sharding
+
+SHARDING_RULES = (
+    # embeddings: vocab on tensor, embed on fsdp
+    (r"embeddings/(word|position|type)", P("tensor", "fsdp")),
+    (r"embeddings/ln_", P()),
+    # attention: qkv fused kernel [h, 3, nh, hd] → heads on tensor
+    (r"layers/attn_qkv_kernel", P("fsdp", None, "tensor", None)),
+    (r"layers/attn_qkv_bias", P(None, "tensor", None)),
+    (r"layers/attn_out_kernel", P("tensor", None, "fsdp")),
+    # mlp: ffn dim on tensor
+    (r"layers/mlp_in_kernel", P("fsdp", "tensor")),
+    (r"layers/mlp_in_bias", P("tensor")),
+    (r"layers/mlp_out_kernel", P("tensor", "fsdp")),
+    # everything else (lns, small biases): replicated
+    (r".*", P()),
+)
+
+
+def pp_sharding_rules() -> tuple:
+    """SHARDING_RULES variant for pipeline parallelism: the layer-stack dim
+    (leading dim of every layers/* leaf) is pinned to the `stages` mesh axis,
+    so each stage's device block holds only its own layers.  Pure data here:
+    the pipeline schedule is ROADMAP Queue 1 item 3.2."""
+    out = []
+    for pat, spec in SHARDING_RULES:
+        if pat.startswith("layers/"):
+            out.append((pat, P("stages", *tuple(spec))))
+        else:
+            out.append((pat, spec))
+    return tuple(out)
 
 
 # --------------------------------------------------------------------- init
@@ -221,7 +271,12 @@ def _gelu(x):
 def encode(params, config: BertConfig, input_ids: torch.Tensor,
            attention_mask: Optional[torch.Tensor] = None,
            token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[B, S] ids → [B, S, H] hidden states in ``config.dtype``."""
+    """[B, S] ids → [B, S, H] hidden states in ``config.dtype`` (under a
+    mesh, a ShardedTensor split over the batch)."""
+    mesh = current_mesh()
+    if mesh is not None:
+        xs = _mesh_encode(params, config, mesh, input_ids, attention_mask, token_type_ids)
+        return _batch_sharded(xs, mesh)
     emb = params["embeddings"]
     s = input_ids.shape[1]
     # the embedding sum in f32, cast to the compute dtype before the LN
@@ -322,7 +377,14 @@ def _layer(lp, i, config: BertConfig, x, mask, attention_mask, names: frozenset)
 
 
 def mlm_logits(params, config: BertConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """MLM head with tied embeddings: [B, S, H] → [B, S, V] in ``config.dtype``."""
+    """MLM head with tied embeddings: [B, S, H] → [B, S, V] in ``config.dtype``
+    (a ShardedTensor ``hidden`` gives one)."""
+    if isinstance(hidden, ShardedTensor):
+        mesh = hidden.mesh
+        params = place_params(params, mesh, SHARDING_RULES)
+        logits = each(lambda hs, *leaves: mlm_logits(_head_params(*leaves), config, hs),
+                      hidden.shards, *_head_views(params, mesh))
+        return _batch_sharded(logits, mesh)
     dt = config.dtype
     mlm = params["mlm"]
     h = hidden @ mlm["transform_kernel"].to(dt)
@@ -345,7 +407,17 @@ def mlm_loss(params, config: BertConfig, input_ids: torch.Tensor,
     ``max_predictions``: gather only (up to) P masked positions per sequence
     before the vocab projection, so the [B, S, V] logits become [B, P, V].
     """
+    mesh = current_mesh()
+    if mesh is not None:
+        return _mesh_mlm_loss(params, config, mesh, input_ids, labels, attention_mask,
+                              max_predictions)
     hidden = encode(params, config, input_ids, attention_mask)
+    total, count = _masked_sums(params, config, hidden, labels, max_predictions)
+    return total / torch.clamp(count, min=1)
+
+
+def _masked_sums(params, config: BertConfig, hidden, labels, max_predictions):
+    """(sum of the masked positions' cross entropy, their count)."""
     valid = labels != -100
     if max_predictions is not None:
         # indices of masked positions, padded with unmasked (weight-0) slots.
@@ -360,5 +432,135 @@ def mlm_loss(params, config: BertConfig, input_ids: torch.Tensor,
     safe_labels = torch.where(valid, labels, 0).long()
     logp = torch.log_softmax(logits, dim=-1)
     token_loss = -torch.take_along_dim(logp, safe_labels[..., None], dim=-1)[..., 0]
-    denom = torch.clamp(valid.sum(), min=1)
-    return (token_loss * valid).sum() / denom
+    return (token_loss * valid).sum(), valid.sum()
+
+
+# ------------------------------------------------------------ on a mesh
+
+
+def _batch_lists(mesh: Mesh, *ts) -> list:
+    """Each batch input's per-position shards (split over the batch spec),
+    None for an absent one."""
+    spec = batch_spec(mesh)
+    return [[None] * mesh.size if t is None else as_sharded(t, mesh, spec).shards
+            for t in ts]
+
+
+def _batch_sharded(shards: list, mesh: Mesh) -> ShardedTensor:
+    shape = list(shards[0].shape)
+    shape[0] *= mesh.shape["data"] * mesh.shape["fsdp"]
+    return ShardedTensor(shards, shape, NamedSharding(mesh, batch_spec(mesh)))
+
+
+def _mesh_encode(params, config: BertConfig, mesh: Mesh, input_ids, attention_mask,
+                 token_type_ids) -> list:
+    """``encode`` over the mesh: per-position hidden states, one tensor per
+    batch shard and device."""
+    tp = mesh.shape["tensor"]
+    if config.num_heads % tp or config.intermediate_size % tp:
+        raise ValueError(f"tensor={tp} must divide num_heads={config.num_heads} and "
+                         f"intermediate_size={config.intermediate_size}")
+    params = place_params(params, mesh, SHARDING_RULES)
+    ids, am, tt = _batch_lists(mesh, input_ids, attention_mask, token_type_ids)
+    emb = params["embeddings"]
+    views = Views(mesh)
+
+    def embed(ids_, tt_, word, position, typ, ln_s, ln_b):
+        x = word[ids_.long()] + position[None, :ids_.shape[1]]
+        x = x + (typ[tt_.long()] if tt_ is not None else typ[0])
+        return _layer_norm(x.to(config.dtype), ln_s, ln_b, config.layer_norm_eps)
+
+    xs = each(embed, ids, tt, *(views(emb[n]) for n in
+                                ("word", "position", "type", "ln_scale", "ln_bias")))
+    masks = each(lambda a: None if a is None else padding_mask(a), am)
+    lp = params["layers"]
+    keep = REMAT_SAVES[config.remat_policy]
+    kw = {"use_reentrant": False}
+    if keep:
+        kw["context_fn"] = functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                             _keep_policy("dots" in keep))
+    for i in range(config.num_layers):
+        if config.remat:
+            xs = _ckpt.checkpoint(_mesh_layer, lp, i, config, mesh, xs, masks, am,
+                                  keep - {"dots"}, **kw)
+        else:
+            xs = _mesh_layer(lp, i, config, mesh, xs, masks, am, frozenset())
+    return xs
+
+
+def _mesh_layer(lp, i, config: BertConfig, mesh: Mesh, xs, masks, kv_masks,
+                names: frozenset) -> list:
+    """Encoder layer ``i`` over the mesh's shards: each tensor shard its
+    heads and its ``d_ff`` columns (the weights' ``fsdp`` dims gathered),
+    the two row-parallel partials added by ``psum`` over ``tensor``."""
+    def mark(t, name):
+        return checkpoint_name(t, name) if name in names else t
+
+    dt = config.dtype
+    h, hd, eps = config.hidden_size, config.head_dim, config.layer_norm_eps
+    views = Views(mesh)
+    tp = ("tensor",)
+
+    def attention(x, w_qkv, b_qkv, w_out, mask, kv_mask):
+        b, s = x.shape[:2]
+        nh = w_qkv.shape[2]
+        qkv = x @ w_qkv.reshape(h, 3 * nh * hd)
+        qkv = mark(qkv.reshape(b, s, 3, nh, hd) + b_qkv, "qkv")
+        q, k_, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if config.attention == "flash":
+            attn = flash_attention(q, k_, v, causal=False, kv_mask=kv_mask)
+        else:
+            attn = multihead_attention(q, k_, v, mask=mask)
+        attn = mark(attn, "attn_out")
+        return attn.reshape(b, s, nh * hd) @ w_out.reshape(nh * hd, h)
+
+    parts = each(attention, xs, views(lp["attn_qkv_kernel"], tp, i, dt),
+                 views(lp["attn_qkv_bias"], tp, i, dt), views(lp["attn_out_kernel"], tp, i, dt),
+                 masks, kv_masks)
+    xs = each(lambda x, a, bias, ln_s, ln_b: _layer_norm(
+        x + mark(a + bias, "attn_proj"), ln_s, ln_b, eps),
+        xs, psum(parts, "tensor", mesh), views(lp["attn_out_bias"], (), i, dt),
+        views(lp["ln1_scale"], (), i), views(lp["ln1_bias"], (), i))
+
+    def mlp(x, w_in, b_in, w_out):
+        hmid = _gelu(mark(x @ w_in, "ffn1") + b_in)
+        return hmid @ w_out
+
+    parts = each(mlp, xs, views(lp["mlp_in_kernel"], tp, i, dt),
+                 views(lp["mlp_in_bias"], tp, i, dt), views(lp["mlp_out_kernel"], tp, i, dt))
+    return each(lambda x, o, bias, ln_s, ln_b: _layer_norm(
+        x + mark(o + bias, "ffn2"), ln_s, ln_b, eps),
+        xs, psum(parts, "tensor", mesh), views(lp["mlp_out_bias"], (), i, dt),
+        views(lp["ln2_scale"], (), i), views(lp["ln2_bias"], (), i))
+
+
+_HEAD_LEAVES = ("transform_kernel", "transform_bias", "ln_scale", "ln_bias", "output_bias")
+
+
+def _head_views(params, mesh: Mesh) -> list:
+    """Per-position views of the MLM head's leaves, the tied embedding
+    gathered whole (its vocabulary on ``tensor``, its width on ``fsdp``)."""
+    views = Views(mesh)
+    return ([views(params["mlm"][n]) for n in _HEAD_LEAVES]
+            + [views(params["embeddings"]["word"])])
+
+
+def _head_params(*leaves) -> dict:
+    *mlm, word = leaves
+    return {"mlm": dict(zip(_HEAD_LEAVES, mlm)), "embeddings": {"word": word}}
+
+
+def _mesh_mlm_loss(params, config: BertConfig, mesh: Mesh, input_ids, labels,
+                   attention_mask, max_predictions) -> torch.Tensor:
+    """``mlm_loss`` over the mesh: each batch shard's masked sum and count,
+    each summed over the batch axes, their quotient the global mean."""
+    params = place_params(params, mesh, SHARDING_RULES)
+    xs = _mesh_encode(params, config, mesh, input_ids, attention_mask, None)
+    (labs,) = _batch_lists(mesh, labels)
+    sums = each(lambda x, lab, *leaves: _masked_sums(_head_params(*leaves), config, x, lab,
+                                                     max_predictions),
+                xs, labs, *_head_views(params, mesh))
+    axes = batch_spec(mesh)[0]
+    totals = psum([t for t, _ in sums], axes, mesh)
+    counts = psum([c for _, c in sums], axes, mesh)
+    return each(lambda t, c: t / torch.clamp(c, min=1), totals, counts)[0]

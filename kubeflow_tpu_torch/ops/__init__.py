@@ -2,10 +2,15 @@
 
   * ``attention`` — dense MHA, the reference implementation;
   * ``flash_attention`` — hand-written Hopper forward kernel, blockwise
-    backward.
+    backward;
+  * ``ring_attention`` — context parallelism over the ``seq`` axis;
+  * ``ulysses`` — head all-to-all sequence parallelism;
+  * ``shard_map_compat`` — ``shard_map`` and the collectives over shards.
 
-Ring attention, Ulysses and MoE are not ported yet (ROADMAP Queue 1).
+MoE is not ported yet (ROADMAP Queue 1 item 3.2).
 """
 
 from .attention import multihead_attention  # noqa: F401
 from .flash_attention import flash_attention  # noqa: F401
+from .ring_attention import ring_attention  # noqa: F401
+from .ulysses import ulysses_attention  # noqa: F401

@@ -7,8 +7,10 @@ Counterpart of ``kubeflow_tpu/parallel/distributed.py``, on
 ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``, ``MEGASCALE_*``) and, where the
 coordinator is not set, the PyTorchJob rendezvous (``MASTER_ADDR``,
 ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``), as the JAX ResNet worker's
-``_map_torch_env`` maps them.  The multi-node mesh half waits for ROADMAP
-Queue 1 item 3.3.
+``_map_torch_env`` maps them.  ``local_device_count=N`` in a
+single-process job means N mesh shards on the process's device
+(``parallel/mesh.py``); the mesh across processes waits for ROADMAP Queue 1
+item 3.3.
 """
 
 from __future__ import annotations
@@ -56,14 +58,16 @@ def initialize(local_device_count: Optional[int] = None, device=None) -> Process
 
     ``device`` (default ``"cuda"``) picks the backend: ``nccl`` for the
     card, ``gloo`` for the CPU.  ``local_device_count`` forces N virtual
-    CPU devices per process in the JAX package; PyTorch has no virtual
-    devices, so only ``None`` and ``1`` are accepted and more is refused."""
-    if local_device_count not in (None, 1):
-        raise ValueError(
-            f"local_device_count={local_device_count}: more than one device per "
-            "process is not ported yet (ROADMAP Queue 1 item 3.3: the mesh on "
-            "torch.distributed)")
+    CPU devices per process in the JAX package; here, in a single-process
+    job, it means N mesh shards on the process's device (the caller builds
+    the mesh over ``[device] * N``).  More than one in a multi-process job
+    is refused: that is a mesh across processes."""
     penv = read_env()
+    if local_device_count not in (None, 1) and penv.is_distributed:
+        raise ValueError(
+            f"local_device_count={local_device_count} in a job of "
+            f"{penv.num_processes} processes: a mesh across processes is not ported "
+            "yet (ROADMAP Queue 1 item 3.3: the cross-process mesh)")
     if penv.is_distributed and not dist.is_initialized():
         dev = resolve_device(device)
         if dev.type == "cuda":

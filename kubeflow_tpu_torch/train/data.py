@@ -2,9 +2,9 @@
 
 Counterpart of ``kubeflow_tpu/train/data.py``.  ``synthetic_mlm_batches`` is
 the JAX package's numpy generator verbatim, so one seed gives byte-identical
-batches in both packages.  This slice trains on one card: ``to_device`` takes
-the place of ``global_batch``, and the multi-process mesh waits for
-``parallel/*`` on ``torch.distributed`` (ROADMAP Queue 1 item 3.3).
+batches in both packages.  ``to_device`` moves a batch to one device;
+``global_batch`` splits it over a mesh's batch axes, in one process (the
+cross-process mesh is ROADMAP Queue 1 item 3.3).
 """
 
 from __future__ import annotations
@@ -14,6 +14,9 @@ from typing import Iterator
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..parallel.mesh import Mesh
+from ..parallel.sharding import ShardedTensor, batch_spec
 
 
 def synthetic_mlm_batches(
@@ -55,3 +58,17 @@ def host_shard(global_batch_size: int) -> tuple[int, int]:
 def to_device(batch: dict, device) -> dict:
     """numpy (or tensor) batch -> tensors on one device."""
     return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
+
+
+def global_batch(local_batch: dict, mesh: Mesh) -> dict:
+    """A batch split over the mesh's batch axes (``P(("data", "fsdp"))``):
+    each leaf a ShardedTensor whose positions hold their rows on their own
+    devices.  One process holds the whole batch; a job of several processes
+    would assemble it from each one's rows (ROADMAP Queue 1 item 3.3)."""
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        raise NotImplementedError(
+            "global_batch across processes is not ported yet (ROADMAP Queue 1 item "
+            "3.3: the cross-process mesh)")
+    spec = batch_spec(mesh)
+    return {k: ShardedTensor.shard(torch.as_tensor(v), mesh, spec)
+            for k, v in local_batch.items()}

@@ -1,10 +1,20 @@
-"""Training loop on one card: forward, backward and an optax-exact AdamW.
+"""Training loop: forward, backward and an optax-exact AdamW, on one device
+or on a mesh.
 
-Counterpart of ``kubeflow_tpu/train/trainer.py``.  This slice trains on ONE
-device: there is no mesh and there are no sharding rules.  Data, FSDP and
-tensor parallelism on ``torch.distributed`` are ROADMAP Queue 1 item 3.3.
-PyTorch runs eagerly, so there is no jit and no buffer donation; the trainer
-updates the model's parameters and the optimizer state in place.
+Counterpart of ``kubeflow_tpu/train/trainer.py``.  PyTorch runs eagerly, so
+there is no jit and no buffer donation; the trainer updates the parameters
+and the optimizer state in place.
+
+``mesh=None`` trains the model on one device.  With a mesh
+(``parallel/mesh.py``) and the model's sharding rules, the parameters and
+the AdamW moments are placed by the rules as ``ShardedTensor``s (the
+moments' paths, ``mu/<param path>``, resolve by the same rules), the batch
+by ``batch_spec``, and the loss, its backward and the update run on each
+shard's slice with the mesh current, as the JAX package's one jitted step
+runs on its mesh.  Where one slice lives on several devices the replicas'
+gradients are summed; the global gradient norm counts each slice once.
+One controller drives every shard (the mesh's devices may repeat: N shards
+of one card); the cross-process mesh is ROADMAP Queue 1 item 3.3.
 
 ``default_optimizer`` reproduces the JAX package's optax chain
 ``clip_by_global_norm(max_grad_norm)`` then ``adamw(warmup_cosine_decay)``
@@ -23,8 +33,11 @@ from typing import Any, Callable, Optional
 import torch
 from torch import nn
 
+from ..parallel.mesh import Mesh
+from ..parallel.sharding import (ShardedTensor, path_of, sanitize_spec, shard_params,
+                                 spec_for)
 from ..utils.device import resolve_device
-from .data import to_device
+from .data import global_batch, to_device
 
 
 @dataclass
@@ -115,10 +128,12 @@ class AdamW:
                 "nu": {n: zeros(p) for n, p in params.items()}}
 
     @torch.no_grad()
-    def update(self, grads: dict, state: dict, params: dict) -> torch.Tensor:
+    def update(self, grads: dict, state: dict, params: dict,
+               grad_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Apply one update to ``params`` and ``state`` in place; returns
-        the global norm of ``grads`` before the clip."""
-        gn = global_norm(grads.values())
+        the global norm of ``grads`` before the clip (``grad_norm`` when the
+        caller computed it: a mesh's norm counts each slice once)."""
+        gn = global_norm(grads.values()) if grad_norm is None else grad_norm
         count = state["count"]
         t = count + 1
         b1, b2 = self.b1, self.b2
@@ -126,12 +141,17 @@ class AdamW:
                   "c1": 1 - b1 ** t, "c2": 1 - b2 ** t, "wd": self.weight_decay,
                   "-lr": -self.schedule(count)}
         by_dtype: dict = {}
-        clip = gn < self.max_grad_norm
+        # the norm and its clip test on each device the leaves live on
+        norms: dict = {}
         for name, p in params.items():
             g = grads[name]
             k = by_dtype.get(g.dtype) or by_dtype.setdefault(g.dtype, _rounded(consts, g.dtype))
             if math.isfinite(self.max_grad_norm):
-                g = torch.where(clip, g, g / gn.to(g.dtype) * self.max_grad_norm)
+                if g.device not in norms:
+                    gd = gn.to(g.device)
+                    norms[g.device] = (gd, gd < self.max_grad_norm)
+                gd, clip = norms[g.device]
+                g = torch.where(clip, g, g / gd.to(g.dtype) * self.max_grad_norm)
             mu = g.mul(k["1-b1"]).add_(state["mu"][name].to(g.dtype).mul(k["b1"]))
             nu = g.square().mul_(k["1-b2"]).add_(state["nu"][name].to(g.dtype).mul(k["b2"]))
             u = mu.div(k["c1"]).div_(nu.div(k["c2"]).sqrt_().add_(k["eps"]))
@@ -191,12 +211,17 @@ def default_optimizer(cfg: TrainerConfig) -> AdamW:
 
 
 class Trainer:
-    """Drives ``loss_fn(model, batch) -> scalar`` on one device.
+    """Drives ``loss_fn(model, batch) -> scalar`` on one device or a mesh.
 
-    ``model`` is an ``nn.Module`` (``models.bert.BertMLM``); it is moved to
-    ``device`` (default ``"cuda"``, which raises without a card) and its
-    parameters are updated in place.  ``batch`` is a dict of numpy arrays or
-    tensors."""
+    ``model`` is an ``nn.Module`` (``models.bert.BertMLM``).  Without a
+    mesh it is moved to ``device`` (default ``"cuda"``, which raises without
+    a card) and its parameters are updated in place.  With ``mesh`` and
+    ``rules`` (the model's path rules, e.g. ``bert.SHARDING_RULES``) its
+    parameters are copied onto the mesh as ``ShardedTensor``s: ``params``
+    maps each ``state_dict`` name to one, ``tree`` nests them as the model
+    does, and ``loss_fn`` receives ``tree`` under ``with mesh:`` (``model``
+    is left as it was; ``model`` is None on the trainer).  ``batch`` is a
+    dict of numpy arrays or tensors, split over the batch on a mesh."""
 
     def __init__(
         self,
@@ -206,26 +231,101 @@ class Trainer:
         optimizer: Optional[AdamW] = None,
         flops_per_batch: Optional[float] = None,
         device=None,
+        mesh: Optional[Mesh] = None,
+        rules=None,
     ):
         self.config = config or TrainerConfig()
-        self.device = resolve_device(device)
-        self.model = model.to(self.device)
         self.loss_fn = loss_fn
         self.optimizer = optimizer or default_optimizer(self.config)
         self.flops_per_batch = flops_per_batch
         self.step_num = 0
         self._history: list[dict] = []
-        self.params = dict(self.model.named_parameters())
-        self.opt_state = self.optimizer.init(self.params)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.model = model.to(self.device)
+            self.params = dict(self.model.named_parameters())
+            self.opt_state = self.optimizer.init(self.params)
+        else:
+            if rules is None:
+                raise ValueError("Trainer on a mesh needs the model's sharding rules")
+            self.rules = tuple(rules)
+            self.device = mesh.device(0)
+            self.model = None
+            self.tree = shard_params(model, mesh, self.rules)
+            self.params = _flatten(self.tree)
+            for st in self.params.values():
+                for t in st.locals:
+                    t.requires_grad_(True)
+            self._replicas = {n: _replica_groups(st) for n, st in self.params.items()}
+            self.opt_state = self._init_sharded_state()
         self._ckpt = None
         if self.config.checkpoint_dir:
             from .checkpoint import CheckpointManager
 
             self._ckpt = CheckpointManager(self.config.checkpoint_dir)
 
+    # ------------------------------------------------------- mesh placement
+
+    def _local_params(self) -> dict:
+        """Every distinct local slice, keyed ``(name, j)``."""
+        return {(n, j): t for n, st in self.params.items() for j, t in enumerate(st.locals)}
+
+    def _init_sharded_state(self) -> dict:
+        """The optimizer's state over the local slices, each per-parameter
+        entry regrouped into ShardedTensors placed by the rules at
+        ``<entry>/<param path>`` (optax's moment paths embed the param
+        paths, so ``mu/layers/...`` resolves as ``layers/...``)."""
+        flat = self.optimizer.init(self._local_params())
+        state: dict = {}
+        for key, value in flat.items():
+            if not isinstance(value, dict):
+                state[key] = value  # the step count: a replicated scalar
+                continue
+            state[key] = {}
+            for name, st in self.params.items():
+                path = path_of((key,) + tuple(name.split(".")))
+                spec = spec_for(path, self.rules, st.ndim)
+                if sanitize_spec(spec, tuple(st.shape), self.mesh) != st.spec:
+                    raise ValueError(f"the rules place {path} as {spec}, its parameter "
+                                     f"as {st.spec}: optimizer state must share the layout")
+                locals_ = {id(t): value[(name, j)] for j, t in enumerate(st.locals)}
+                state[key][name] = st.like([locals_[id(t)] for t in st.shards])
+        return state
+
+    def _flat_state(self) -> dict:
+        return {k: ({(n, j): t for n, st in v.items() for j, t in enumerate(st.locals)}
+                    if isinstance(v, dict) else v) for k, v in self.opt_state.items()}
+
+    def _mesh_update(self, loss: torch.Tensor) -> torch.Tensor:
+        """Backward onto every local slice, replicas' gradients summed, the
+        norm over each slice once, then the update in place."""
+        params = self._local_params()
+        keys = list(params)
+        got = torch.autograd.grad(loss, [params[k] for k in keys], allow_unused=True)
+        grads = {k: torch.zeros_like(params[k]) if g is None else g for k, g in zip(keys, got)}
+        dev0 = self.mesh.device(0)
+        sumsq = []
+        for name, groups in self._replicas.items():
+            for group in groups:
+                if len(group) > 1:  # one slice on several devices: psum
+                    total = grads[(name, group[0])]
+                    for j in group[1:]:
+                        total = total + grads[(name, j)].to(total.device)
+                    for j in group:
+                        grads[(name, j)] = total.to(params[(name, j)].device)
+                sumsq.append(grads[(name, group[0])].float().square().sum().to(dev0))
+        gnorm = torch.sqrt(sum(sumsq))
+        state = self._flat_state()
+        self.optimizer.update(grads, state, params, grad_norm=gnorm)
+        self.opt_state["count"] = state["count"]
+        return gnorm
+
     # ---------------------------------------------------------------- train
 
     def put_batch(self, batch: Any) -> Any:
+        if self.mesh is not None:
+            return global_batch(batch, self.mesh)
         return to_device(batch, self.device)
 
     def train_step(self, batch: Any, sync: bool = True) -> dict:
@@ -237,10 +337,15 @@ class Trainer:
         """
         t0 = time.perf_counter()
         batch = self.put_batch(batch)
-        names = list(self.params)
-        loss = self.loss_fn(self.model, batch)
-        grads = dict(zip(names, torch.autograd.grad(loss, [self.params[n] for n in names])))
-        gnorm = self.optimizer.update(grads, self.opt_state, self.params)
+        if self.mesh is not None:
+            with self.mesh:
+                loss = self.loss_fn(self.tree, batch)
+            gnorm = self._mesh_update(loss)
+        else:
+            names = list(self.params)
+            loss = self.loss_fn(self.model, batch)
+            grads = dict(zip(names, torch.autograd.grad(loss, [self.params[n] for n in names])))
+            gnorm = self.optimizer.update(grads, self.opt_state, self.params)
         metrics = {"loss": loss.detach(), "grad_norm": gnorm}
         if sync:
             metrics = {k: float(v) for k, v in metrics.items()}
@@ -255,13 +360,24 @@ class Trainer:
         return metrics
 
     def block_until_ready(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devices = self.mesh.distinct_devices if self.mesh is not None else [self.device]
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     # ----------------------------------------------------------- checkpoint
 
     def _state(self) -> dict:
-        return {"params": self.model.state_dict(), "opt_state": self.opt_state}
+        """The checkpointed state; on a mesh the global tensors, in the
+        one-device layout (``state_dict`` names), so either trainer restores
+        the other's checkpoints."""
+        if self.mesh is None:
+            return {"params": self.model.state_dict(), "opt_state": self.opt_state}
+        with torch.no_grad():
+            return {"params": {n: st.gather() for n, st in self.params.items()},
+                    "opt_state": {k: ({n: st.gather() for n, st in v.items()}
+                                      if isinstance(v, dict) else v)
+                                  for k, v in self.opt_state.items()}}
 
     def save(self) -> None:
         if self._ckpt:
@@ -275,23 +391,70 @@ class Trainer:
             self._ckpt.wait()
 
     def restore_latest(self) -> bool:
-        """Resume from the newest checkpoint; returns True if one existed."""
+        """Resume from the newest checkpoint; returns True if one existed.
+        On a mesh the global tensors are read on the host and re-sharded."""
         if not self._ckpt:
             return False
-        restored = self._ckpt.restore_latest(self._state())
+        restored = self._ckpt.restore_latest(self._state() if self.mesh is None else None)
         if restored is None:
             return False
-        with torch.no_grad():
-            self.model.load_state_dict(restored["state"]["params"])
-        self.opt_state = restored["state"]["opt_state"]
+        state = restored["state"]
+        if self.mesh is None:
+            with torch.no_grad():
+                self.model.load_state_dict(state["params"])
+            self.opt_state = state["opt_state"]
+        else:
+            for n, st in self.params.items():
+                st.assign_(state["params"][n])
+            for k, v in self.opt_state.items():
+                if isinstance(v, dict):
+                    for n, st in v.items():
+                        st.assign_(state["opt_state"][k][n])
+                else:
+                    self.opt_state[k] = state["opt_state"][k]
         self.step_num = restored["step"]
         return True
 
     # -------------------------------------------------------------- metrics
 
-    def mfu(self, peak_flops_per_chip: float, n_chips: int = 1) -> Optional[float]:
+    def mfu(self, peak_flops_per_chip: float, n_chips: Optional[int] = None) -> Optional[float]:
+        """Achieved over peak FLOP/s, counting ``mesh.devices.size`` chips
+        on a mesh, as the JAX package does (see ``mfu_label``)."""
         if not self.flops_per_batch or not self._history:
             return None
+        if n_chips is None:
+            n_chips = self.mesh.size if self.mesh is not None else 1
         times = [m["step_time_s"] for m in self._history[1:]] or [self._history[0]["step_time_s"]]
         achieved = self.flops_per_batch / (sum(times) / len(times))
         return achieved / (n_chips * peak_flops_per_chip)
+
+    @property
+    def mfu_label(self) -> str:
+        """What ``mfu()``'s chips are: ``"4 mesh shards on 1 device
+        (cuda:0)"`` says that the shards share one card."""
+        if self.mesh is None:
+            return f"1 device ({self.device})"
+        devs = self.mesh.distinct_devices
+        return (f"{self.mesh.size} mesh shards on {len(devs)} device"
+                f"{'s' if len(devs) > 1 else ''} ({', '.join(str(d) for d in devs)})")
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    """A nested dict's leaves under dotted names (``state_dict`` names)."""
+    out: dict = {}
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else str(k)
+        out.update(_flatten(v, name) if isinstance(v, dict) else {name: v})
+    return out
+
+
+def _replica_groups(st: ShardedTensor) -> list:
+    """The local indices of ``st`` grouped by the slice they hold: a group
+    of more than one is one slice on several devices."""
+    index = {id(t): j for j, t in enumerate(st.locals)}
+    groups: dict = {}
+    for pos, t in enumerate(st.shards):
+        g = groups.setdefault(st.block(pos), [])
+        if index[id(t)] not in g:
+            g.append(index[id(t)])
+    return list(groups.values())

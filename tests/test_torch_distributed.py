@@ -49,8 +49,16 @@ def test_single_process_is_a_noop_and_more_devices_are_refused(monkeypatch):
     penv = tdist.initialize(local_device_count=1, device="cpu")
     assert not penv.is_distributed
     assert not torch.distributed.is_initialized()
+    # one process: N local devices are N mesh shards on its device
+    penv = tdist.initialize(local_device_count=2, device="cpu")
+    assert not penv.is_distributed and not torch.distributed.is_initialized()
+    # several processes: that is a mesh across processes, still refused
+    # (before any group is joined)
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "127.0.0.1:1")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
     with pytest.raises(ValueError, match="ROADMAP Queue 1 item 3.3"):
         tdist.initialize(local_device_count=2, device="cpu")
+    assert not torch.distributed.is_initialized()
 
 
 def _member(rank: int, port: int, q) -> None:

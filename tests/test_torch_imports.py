@@ -75,7 +75,9 @@ def test_every_port_module_imports_with_jax_blocked():
                  "examples.resnet_ddp_worker", "pipelines", "pipelines.dsl",
                  "pipelines.compiler", "pipelines.artifacts", "pipelines.launcher_main",
                  "examples.gemma_pipeline", "examples.distributed_check",
-                 "parallel.profiling", "serving.engine.sharding"):
+                 "parallel.profiling", "serving.engine.sharding", "parallel.mesh",
+                 "parallel.sharding", "parallel.presets", "ops.shard_map_compat",
+                 "ops.ring_attention", "ops.ulysses"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = _BLOCKER.format(blocked=BLOCKED) + f"""
 import importlib

@@ -832,3 +832,69 @@ def test_engine_tensor_parallel_on_card(card):
                 [p + got[:-1]], device=card))[0, len(p) - 1:]
         picked = logits[torch.arange(len(got), device=card), torch.tensor(got, device=card)]
         assert float((logits.max(-1).values - picked).max()) <= 5e-2
+
+
+# ------------------------------------------------------------------- the mesh
+
+MESH_SIZES = {2: dict(fsdp=2), 4: dict(fsdp=2, tensor=2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_ulysses_flash_inner_matches_dense_on_card(card, n):
+    """Ulysses over n shards of the card: the flash kernel once per shard on
+    its heads at full length, within one bf16 ulp of the dense inner over
+    the same inputs in f32."""
+    from kubeflow_tpu_torch.ops.ulysses import ulysses_attention
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    FA = importlib.import_module("kubeflow_tpu_torch.ops.flash_attention")
+    mesh = build_mesh(MeshConfig(fsdp=1, seq=n), [card] * n)
+    g = torch.Generator().manual_seed(n)
+    q, k, v = (torch.randn((1, 1024, 8, 64), generator=g).to(card, torch.bfloat16)
+               for _ in range(3))
+    before = FA.flash_attention.launches
+    with torch.no_grad():
+        got = ulysses_attention(q, k, v, mesh, causal=True, inner=FA.flash_attention)
+        want = ulysses_attention(q.float(), k.float(), v.float(), mesh, causal=True)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + n
+    torch.testing.assert_close(got.float(), want, rtol=2.0 ** -7, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", sorted(MESH_SIZES))
+def test_bert_mesh_step_launches_flash_once_per_shard_and_layer(card, n):
+    """One BERT train step on a mesh of n shards of the card: one flash
+    launch per layer, batch shard and tensor shard; the plain version never."""
+    from kubeflow_tpu_torch.models import bert
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from kubeflow_tpu_torch.train.data import synthetic_mlm_batches
+    from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    FA = importlib.import_module("kubeflow_tpu_torch.ops.flash_attention")
+    sizes = MESH_SIZES[n]
+    mesh = build_mesh(MeshConfig(**sizes), [card] * n)
+    cfg = bert.BertConfig(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4,
+                          intermediate_size=256, max_position=128, attention="flash")
+
+    def loss_fn(m, b):
+        return bert.mlm_loss(m, cfg, b["input_ids"], b["labels"], b["attention_mask"])
+
+    trainer = Trainer(loss_fn, bert.init(cfg, card, seed=0),
+                      TrainerConfig(learning_rate=1e-3, warmup_steps=1, total_steps=4),
+                      mesh=mesh, rules=bert.SHARDING_RULES)
+    batch = next(synthetic_mlm_batches(cfg.vocab_size, 8, 128, seed=0))
+    batch["attention_mask"][1, 100:] = 0
+    plain = FA.flash_attention_plain
+    calls = []
+    FA.flash_attention_plain = lambda *a, **kw: calls.append(1) or plain(*a, **kw)
+    try:
+        before = FA.flash_attention.launches
+        metrics = trainer.train_step(batch)
+        launches = FA.flash_attention.launches - before
+    finally:
+        FA.flash_attention_plain = plain
+    shards = sizes.get("data", 1) * sizes.get("fsdp", 1) * sizes.get("tensor", 1)
+    assert launches == cfg.num_layers * shards and not calls
+    assert torch.isfinite(torch.tensor(metrics["loss"]))

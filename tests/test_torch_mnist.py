@@ -159,8 +159,11 @@ def test_worker_prints_its_four_lines():
 
 
 def test_more_than_one_local_device_is_refused():
+    # in a job of two processes (one process takes LOCAL_DEVICES as mesh
+    # shards on its device): refused before any group is joined
     env = dict(os.environ, TORCH_DEVICE="cpu", TRAIN_STEPS="1", LOCAL_DEVICES="2",
-               PYTHONPATH=REPO)
+               JAX_COORDINATOR_ADDRESS="127.0.0.1:1", JAX_NUM_PROCESSES="2",
+               JAX_PROCESS_ID="0", PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-m", "kubeflow_tpu_torch.examples.mnist_worker"],
                        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode != 0 and "item 3.3" in r.stderr
