@@ -300,6 +300,30 @@ or the script exits non-zero:
    kubeflow_tpu_torch.examples.bert_worker`` at ``LOCAL_DEVICES=2``:
    ``resumed_from=0`` and ``TRAIN-DONE step=4``.  One card shows the
    layout, the per-shard launches and the numerics, not scaling.
+18. gpipe: pipeline parallelism and MoE on shards of this one card: (a)
+   BERT-base (``BertConfig(pipeline_stages=2, pipeline_microbatches=4,
+   attention="flash")``, seed 0) on the ``pp`` preset's mesh (stages 2 x
+   fsdp 2 over ``GPIPE_SHARDS`` (4) shards, ``bert.pp_sharding_rules()``)
+   through ``Trainer(mesh=, rules=)``, 5 steps of full-length batches (no
+   ``attention_mask``: pp refuses one) at B=32, S=512, P=80 against the
+   unsharded ``Trainer`` on the same weights: every loss within 1e-2
+   absolute and every gradient norm within 1.22e-2 relative, exactly 4 x
+   12 x 2 = 96 flash launches a step (one per microbatch, layer and fsdp
+   shard; bubble ticks skipped) and no plain call, each shard's bytes its
+   rule's shard shape with each stage holding its 6 layers; ms a step and
+   peak memory of both; the flash kernel against its plain version at the
+   per-shard shape ([48, 512, 64], no mask) with its bound and SDPA's time;
+   (b) the MoE FFN at ``MoEConfig()`` widths (d 512, d_ff 2048, 8 experts,
+   top-2, capacity 1.25), bf16, x [8, 1024, 512], on the ``moe-ep`` preset
+   (4 expert shards of 2 experts) against the unsharded op: outputs within
+   2**-7 relative and 1e-3 absolute, every aux value within 1e-5 and
+   ``fraction_dropped`` identical; both ms and the bytes of the dense
+   ``[T, E, cap]`` tensors; (c) ``graft_entry._dryrun_composed`` over 16
+   shards (stages, seq, expert and tensor all 2) and 8 (stages, seq and
+   expert 2): its ``OK`` line and a finite loss; in f32 at
+   tests/test_pipeline.py's composed sizes the 8-shard loss within 1e-4 of
+   the unsharded ``lm_loss``; ``graft_entry.dryrun_multichip(4)`` on its
+   default devices: both ``OK`` lines.
 
 Phase 5's Llama-3-8B weights are freed before phase 5j, which runs after
 phases 6 and 16.  The last lines are the
@@ -317,6 +341,7 @@ import gc
 import glob
 import http.client
 import importlib
+import io
 import itertools
 import json
 import math
@@ -352,11 +377,14 @@ from kubeflow_tpu_torch.serving.engine.scheduler import SchedulerConfig
 from kubeflow_tpu_torch.serving.engine.serve import JetStreamModel
 from kubeflow_tpu_torch.serving.kvfabric import fabric_key
 from kubeflow_tpu_torch.serving.server import ModelServer
+from kubeflow_tpu_torch import graft_entry
 from kubeflow_tpu_torch.models import bert
+from kubeflow_tpu_torch.models import moe_transformer as mt
 from kubeflow_tpu_torch.ops.attention import multihead_attention
+from kubeflow_tpu_torch.ops.moe import MoEConfig, capacity, init_moe, moe_ffn
 from kubeflow_tpu_torch.ops.ring_attention import ring_attention
 from kubeflow_tpu_torch.ops.ulysses import ulysses_attention
-from kubeflow_tpu_torch.parallel.mesh import build_mesh
+from kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 from kubeflow_tpu_torch.parallel.presets import get_preset
 from kubeflow_tpu_torch.train.data import synthetic_mlm_batches, to_device
 from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig, global_norm
@@ -4994,6 +5022,244 @@ def mesh_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 18
+
+GPIPE_SHARDS, GPIPE_STEPS, GPIPE_MICROBATCHES = 4, 5, 4
+# the MoE FFN at MoEConfig() widths, expert-parallel over MOE_EP shards
+MOE_X, MOE_EP = (8, 1024, 512), 4
+# every aux value of the sharded op against the unsharded one
+MOE_AUX_TOL = 1e-5
+# the composed step in f32 at tests/test_pipeline.py's composed sizes: the
+# 8-shard loss against the unsharded lm_loss (that test's bound)
+COMPOSED_BASE = dict(vocab_size=128, d_model=32, n_layers=2, n_heads=4, num_experts=2,
+                     top_k=1, capacity_factor=4.0)
+COMPOSED_TOL = 1e-4
+
+
+def gpipe_bytes(trainer) -> dict:
+    """``mesh_bytes`` plus the stage split: every leaf whose rule names
+    ``stages`` holds its stage's layers only on each position."""
+    res = mesh_bytes(trainer)
+    stages = trainer.mesh.shape["stages"]
+    staged = {n: st.sharding.shard_shape(tuple(st.shape))[0]
+              for n, st in trainer.params.items() if "stages" in tuple(st.spec)}
+    res["stage_layers"] = staged
+    res["ok"] = res["ok"] and bool(staged) and all(
+        n == trainer.params[k].shape[0] // stages for k, n in staged.items())
+    return res
+
+
+def gpipe_train(dev) -> dict:
+    """(a) BERT-base under GPipe on the ``pp`` preset (stages 2 x fsdp 2)
+    over GPIPE_SHARDS shards of the card against the unsharded Trainer on
+    the same weights and full-length batches."""
+    preset = get_preset("pp", GPIPE_SHARDS)
+    mesh = build_mesh(preset.mesh, [dev] * GPIPE_SHARDS)
+    stages = mesh.shape["stages"]
+    cfg_one = bert.BertConfig(attention="flash")
+    cfg_pp = dataclasses.replace(cfg_one, pipeline_stages=stages,
+                                 pipeline_microbatches=GPIPE_MICROBATCHES)
+    gen = synthetic_mlm_batches(cfg_one.vocab_size, TRAIN_B, TRAIN_S, seed=0)
+    batches = [{k: v for k, v in next(gen).items() if k != "attention_mask"}
+               for _ in range(GPIPE_STEPS)]
+    flops = cfg_one.train_flops(TRAIN_B, TRAIN_S, TRAIN_P)
+    tcfg = TrainerConfig(learning_rate=1e-4, warmup_steps=2, total_steps=16)
+
+    def loss_fn(cfg):
+        return lambda m, b: bert.mlm_loss(m, cfg, b["input_ids"], b["labels"],
+                                          max_predictions=TRAIN_P)
+
+    model = bert.init(cfg_one, dev, seed=0)
+    out: dict = {"preset": preset.name, "mesh": mesh.shape,
+                 "devices": [str(dev)] * GPIPE_SHARDS,
+                 "config": f"BERT-base (BertConfig defaults), attention=flash, "
+                           f"pipeline_stages={stages}, pipeline_microbatches="
+                           f"{GPIPE_MICROBATCHES}, no attention_mask",
+                 "batch": TRAIN_B, "seq": TRAIN_S, "max_predictions": TRAIN_P,
+                 "bubble_fraction": (stages - 1) / (GPIPE_MICROBATCHES + stages - 1)}
+    runs = {}
+    for name in ("pp", "one"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        # the mesh trainer copies the weights onto its shards; the unsharded
+        # one (made after) trains ``model`` itself
+        trainer = (Trainer(loss_fn(cfg_pp), model, tcfg, flops_per_batch=flops, mesh=mesh,
+                           rules=bert.pp_sharding_rules()) if name == "pp" else
+                   Trainer(loss_fn(cfg_one), model, tcfg, flops_per_batch=flops, device=dev))
+        calls, undo = counting_plain_flash()
+        try:
+            FA.flash_attention.launches = 0
+            metrics = [trainer.train_step(b) for b in batches]
+            launches = FA.flash_attention.launches
+        finally:
+            undo()
+        runs[name] = {"losses": [m["loss"] for m in metrics],
+                      "grad_norms": [m["grad_norm"] for m in metrics],
+                      "step_ms": [m["step_time_s"] * 1e3 for m in metrics],
+                      "step_ms_mean_after_first": sum(
+                          m["step_time_s"] for m in metrics[1:]) / (len(metrics) - 1) * 1e3,
+                      "launches": launches, "launches_per_step": launches / GPIPE_STEPS,
+                      "plain_calls": calls[0],
+                      "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                      "mfu_one_card": trainer.mfu(BF16_FLOPS_PER_S, n_chips=1)}
+        # one step more in a profiler window (after the counted ones): the
+        # device's busy ms a step, its idle share and the flash records
+        with profile_window() as prof:
+            t0 = time.perf_counter()
+            trainer.train_step(batches[-1])
+            trainer.block_until_ready()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        runs[name]["profile"] = device_breakdown(prof, 1, wall_ms, "flash_attention",
+                                                 FLASH_MARKERS, launches // GPIPE_STEPS)
+        if name == "pp":
+            out["bytes"] = gpipe_bytes(trainer)
+        del trainer
+    out["runs"] = runs
+    p, o = runs["pp"], runs["one"]
+    # one launch per microbatch, layer and position of a stage's sub-mesh
+    per_step = (GPIPE_MICROBATCHES * cfg_one.num_layers * mesh.shape["data"]
+                * mesh.shape["fsdp"] * mesh.shape["tensor"])
+    finite = all(math.isfinite(x) for r in runs.values() for x in r["losses"] + r["grad_norms"])
+    out["gates"] = {
+        "loss": all(abs(a - b) <= MESH_LOSS_ATOL for a, b in zip(p["losses"], o["losses"])),
+        "grad_norm": all(abs(a - b) <= MESH_NORM_RTOL * abs(b)
+                         for a, b in zip(p["grad_norms"], o["grad_norms"])),
+        "launches": p["launches"] == per_step * GPIPE_STEPS and p["plain_calls"] == 0
+        and o["launches"] == cfg_one.num_layers * GPIPE_STEPS and o["plain_calls"] == 0,
+        "bytes": out["bytes"]["ok"], "finite": finite}
+    out["launches_per_step_expected"] = per_step
+    out["launches"] = p["launches"] + o["launches"]
+    out["max_loss_diff"] = max(abs(a - b) for a, b in zip(p["losses"], o["losses"]))
+    out["max_grad_norm_rel"] = max(abs(a - b) / abs(b)
+                                   for a, b in zip(p["grad_norms"], o["grad_norms"]))
+    out["ok"] = all(out["gates"].values())
+    return out
+
+
+def dense_moe_bytes(cfg: MoEConfig, tokens: int) -> int:
+    """Bytes of the dense formulation's ``[T, E, cap]`` tensors in one call:
+    the f32 combine and the bool dispatch (cap grows with T, so they grow
+    as T**2)."""
+    return tokens * cfg.num_experts * capacity(cfg, tokens) * (4 + 1)
+
+
+def gpipe_moe(dev, flush) -> dict:
+    """(b) The MoE FFN at ``MoEConfig()`` widths, bf16, x MOE_X, over the
+    ``moe-ep`` preset's MOE_EP expert shards of the card against the
+    unsharded op."""
+    cfg = MoEConfig()
+    params = init_moe(cfg, dev, seed=0)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(MOE_X, generator=g).to(dev, torch.bfloat16)
+    mesh = build_mesh(get_preset("moe-ep", MOE_EP).mesh, [dev] * MOE_EP)
+    T = MOE_X[0] * MOE_X[1]
+
+    def unsharded():
+        return moe_ffn(params, x, cfg, shard=False)
+
+    def sharded():
+        with mesh:
+            return moe_ffn(params, x, cfg)
+
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats(dev)
+        ref, ref_aux = unsharded()
+        torch.cuda.synchronize()
+        peak_one = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        got, aux = sharded()
+        torch.cuda.synchronize()
+        peak_ep = torch.cuda.max_memory_allocated(dev)
+        err = (got.float() - ref.float()).abs()
+        ok_out = (bool(torch.all(err <= KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()))
+                  and bool(torch.isfinite(got).all()))
+        aux_diff = {k: abs(float(aux[k]) - float(ref_aux[k])) for k in ref_aux}
+        ok_aux = (all(d <= MOE_AUX_TOL for d in aux_diff.values())
+                  and float(aux["fraction_dropped"]) == float(ref_aux["fraction_dropped"]))
+        times = {"unsharded_ms": time_ms(unsharded, flush), "ep_ms": time_ms(sharded, flush)}
+    return {"config": dataclasses.asdict(cfg), "x": list(MOE_X), "dtype": "bfloat16",
+            "mesh": mesh.shape, "tokens": T, "capacity": capacity(cfg, T),
+            "dispatch_bytes": dense_moe_bytes(cfg, T),
+            "max_abs_err": float(err.max()), "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL,
+            "aux": {k: float(v) for k, v in ref_aux.items()}, "aux_diff": aux_diff,
+            "peak_memory_gib": {"unsharded": peak_one / 2**30, "ep": peak_ep / 2**30},
+            **times, "gates": {"out": ok_out, "aux": ok_aux}, "ok": ok_out and ok_aux}
+
+
+def gpipe_composed(dev) -> dict:
+    """(c) ``graft_entry._dryrun_composed`` over 16 and 8 shards of the
+    card; the composed loss in f32 at the JAX test's sizes on 8 shards
+    against the unsharded ``lm_loss``; ``dryrun_multichip(4)`` on its
+    default devices (4 shards of the visible card)."""
+    out: dict = {}
+
+    def captured(fn):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = fn()
+        return res, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+    for n in (16, 8):
+        loss, lines, secs = captured(lambda n=n: graft_entry._dryrun_composed(n, [dev] * n))
+        out[f"composed_{n}"] = {
+            "loss": loss, "stdout": lines, "seconds": secs,
+            "ok": math.isfinite(loss) and any(x.startswith("dryrun_composed OK") for x in lines)}
+    cfg_ref = mt.MoeTransformerConfig(**COMPOSED_BASE, dtype=torch.float32)
+    cfg_pp = dataclasses.replace(cfg_ref, pipeline_stages=2, pipeline_microbatches=2)
+    model = mt.init(cfg_ref, dev, seed=0)
+    toks = torch.randint(0, cfg_ref.vocab_size, (4, 17),
+                         generator=torch.Generator().manual_seed(1)).to(dev)
+    mesh = build_mesh(MeshConfig(stages=2, fsdp=1, seq=2, expert=2), [dev] * 8)
+    with torch.no_grad():
+        ref = float(mt.lm_loss(model, cfg_ref, toks))
+        with mesh:
+            pp = float(mt.lm_loss(model, cfg_pp, toks))
+    out["f32_8_shards"] = {"loss": pp, "unsharded_loss": ref, "diff": abs(pp - ref),
+                           "tol": COMPOSED_TOL, "ok": abs(pp - ref) <= COMPOSED_TOL}
+    _, lines, secs = captured(lambda: graft_entry.dryrun_multichip(4))
+    out["multichip_4"] = {"stdout": lines, "seconds": secs,
+                          "ok": any(x.startswith("dryrun_multichip OK") for x in lines)
+                          and any(x.startswith("dryrun_composed OK") for x in lines)}
+    out["ok"] = all(v["ok"] for v in out.values())
+    return out
+
+
+def gpipe_phase(dev) -> dict:
+    """Phase 18: pipeline parallelism and MoE on shards of this one card:
+    (a) BERT-base under GPipe on the ``pp`` preset (``gpipe_train``) and
+    the flash kernel at its per-shard shape, (b) the MoE FFN expert-parallel
+    (``gpipe_moe``), (c) the composed stages x seq x expert (x tensor) step
+    and the BERT dry run (``gpipe_composed``).  One card runs the stages one
+    after another: the bubble is counted, not seen; nothing scales."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rng = np.random.default_rng(0)
+    train_res = gpipe_train(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mb_rows = TRAIN_B // GPIPE_MICROBATCHES // train_res["mesh"]["fsdp"]
+    case = flash_case("gpipe_shard", torch.bfloat16, TRAIN_S, False, None, rng, dev, flush,
+                      b=mb_rows, h=12, d=64)
+    moe_res = gpipe_moe(dev, flush)
+    gc.collect()
+    torch.cuda.empty_cache()
+    comp_res = gpipe_composed(dev)
+    out = {"train": train_res, "flash_case": case, "moe": moe_res, "composed": comp_res,
+           "launches": train_res.get("launches", 0)}
+    out["gates"] = {"train": train_res["ok"], "flash_case": case["ok"], "moe": moe_res["ok"],
+                    "composed": comp_res["ok"]}
+    out["ok"] = all(out["gates"].values())
+    busy = {k: r["profile"].get("device_busy_ms_per_step") for k, r in train_res["runs"].items()}
+    log(f"18 gpipe: pp {train_res['runs']['pp']['step_ms_mean_after_first']:.1f} ms/step vs "
+        f"one {train_res['runs']['one']['step_ms_mean_after_first']:.1f} (device busy {busy}); "
+        f"launches/step "
+        f"{train_res['runs']['pp']['launches_per_step']}; flash@[{mb_rows * 12},512,64] "
+        f"{case['kernel_ms']:.4f} ms; moe {moe_res['unsharded_ms']:.3f} ms vs ep "
+        f"{moe_res['ep_ms']:.3f}; gates {out['gates']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -5130,6 +5396,7 @@ def main() -> int:
     rres = phase("bert_remat", lambda: bert_remat(dev))
     pres = phase("pipeline", lambda: pipeline_phase(dev))
     mres = phase("mesh", lambda: mesh_phase(dev))
+    gres = phase("gpipe", lambda: gpipe_phase(dev))
 
     cases = kres.get("cases") or []
     head = next((c for c in cases if c["pool"] == "bf16" and c["K"] == 1), {})
@@ -5173,11 +5440,13 @@ def main() -> int:
                "replaces": "kubeflow_tpu/ops/flash_attention.py:40",
                "tpu_kernel": "kubeflow_tpu/ops/flash_attention.py:_fwd_kernel",
                # phase 8's training steps, the remat phase's (its
-               # recomputes included) and phase 17's: the tp@4 mesh run
-               # (one launch per batch shard, tensor shard and layer), its
-               # unsharded twin and one Ulysses call; each counts from zero
+               # recomputes included), phase 17's (the tp@4 mesh run: one
+               # launch per batch shard, tensor shard and layer; its
+               # unsharded twin and one Ulysses call) and phase 18's (the
+               # pp run: one launch per microbatch, layer and fsdp shard;
+               # its unsharded twin); each counts from zero
                "launches": tres.get("launches", 0) + rres.get("launches", 0)
-               + mres.get("launches", 0),
+               + mres.get("launches", 0) + gres.get("launches", 0),
                "max_abs_err": max((c["max_abs_err"] for c in
                                    fcases + (mres.get("flash_cases") or [])), default=None),
                "ms": fhead.get("kernel_ms"), "kernel_ms": fhead.get("kernel_ms"),
@@ -5190,7 +5459,13 @@ def main() -> int:
                    "case", "B", "H", "D", "S", "causal", "max_abs_err", "kernel_ms",
                    "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
                    for c in mres.get("flash_cases") or []],
-               "mesh_launches": mres.get("launches", 0)}
+               "mesh_launches": mres.get("launches", 0),
+               # phase 18's per-shard call under GPipe (a microbatch's 4 rows
+               # of 12 heads at 512, no mask) and phase 18's launches
+               "gpipe_shard": {k: (gres.get("flash_case") or {}).get(k) for k in (
+                   "case", "B", "H", "D", "S", "causal", "max_abs_err", "kernel_ms",
+                   "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+               "gpipe_launches": gres.get("launches", 0)}
     report["kernels"] = [record, frecord]
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

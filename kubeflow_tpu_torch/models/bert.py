@@ -55,6 +55,7 @@ from ..ops.attention import multihead_attention, padding_mask
 from ..ops.flash_attention import flash_attention
 from ..ops.shard_map_compat import each, psum
 from ..parallel.mesh import Mesh, current_mesh
+from ..parallel.pipeline import gpipe, stack_stages
 from ..parallel.sharding import (NamedSharding, P, ShardedTensor, Views, as_sharded, batch_spec,
                                  place_params)
 from ..utils.device import resolve_device
@@ -80,7 +81,8 @@ class BertConfig:
     # the Hopper kernel (ops/flash_attention.py) whose backward recomputes P
     # blockwise.  Both honor the key-side padding mask.
     attention: str = "dense"
-    # pipeline parallelism is not ported yet: ROADMAP Queue 1 item 3.2
+    # pipeline parallelism (GPipe over the `stages` mesh axis, see
+    # parallel/pipeline.py): >1 splits the layer stack into stages
     pipeline_stages: int = 1
     pipeline_microbatches: int = 4
 
@@ -88,10 +90,6 @@ class BertConfig:
         if self.remat_policy not in REMAT_SAVES:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r} "
                              f"(one of {', '.join(REMAT_SAVES)})")
-        if self.pipeline_stages > 1:
-            raise NotImplementedError(
-                "BertConfig.pipeline_stages > 1 is not ported yet (ROADMAP "
-                "Queue 1 item 3.2: pipeline parallelism)")
 
     @property
     def head_dim(self) -> int:
@@ -144,8 +142,7 @@ SHARDING_RULES = (
 def pp_sharding_rules() -> tuple:
     """SHARDING_RULES variant for pipeline parallelism: the layer-stack dim
     (leading dim of every layers/* leaf) is pinned to the `stages` mesh axis,
-    so each stage's device block holds only its own layers.  Pure data here:
-    the pipeline schedule is ROADMAP Queue 1 item 3.2."""
+    so each stage's device block holds only its own layers."""
     out = []
     for pat, spec in SHARDING_RULES:
         if pat.startswith("layers/"):
@@ -153,6 +150,13 @@ def pp_sharding_rules() -> tuple:
         else:
             out.append((pat, spec))
     return tuple(out)
+
+
+def _rules(config: BertConfig) -> tuple:
+    """The rules the mesh path places the parameters by: the pipeline rules
+    under ``pipeline_stages > 1``, so the layers stay where the Trainer put
+    them."""
+    return pp_sharding_rules() if config.pipeline_stages > 1 else SHARDING_RULES
 
 
 # --------------------------------------------------------------------- init
@@ -277,6 +281,8 @@ def encode(params, config: BertConfig, input_ids: torch.Tensor,
     if mesh is not None:
         xs = _mesh_encode(params, config, mesh, input_ids, attention_mask, token_type_ids)
         return _batch_sharded(xs, mesh)
+    if config.pipeline_stages > 1 and attention_mask is not None:
+        raise ValueError(_PP_MASK_ERROR)
     emb = params["embeddings"]
     s = input_ids.shape[1]
     # the embedding sum in f32, cast to the compute dtype before the LN
@@ -290,6 +296,9 @@ def encode(params, config: BertConfig, input_ids: torch.Tensor,
 
     mask = padding_mask(attention_mask) if attention_mask is not None else None
     lp = params["layers"]
+    if config.pipeline_stages > 1:
+        return _pipeline(config, lp, x, lambda lp_s, i, xm, names: _layer(
+            lp_s, i, config, xm, None, None, names))
     keep = REMAT_SAVES[config.remat_policy]
     kw = {"use_reentrant": False}
     if keep:
@@ -302,6 +311,29 @@ def encode(params, config: BertConfig, input_ids: torch.Tensor,
         else:
             x = _layer(lp, i, config, x, mask, attention_mask, frozenset())
     return x
+
+
+_PP_MASK_ERROR = (
+    "pipeline_stages > 1 requires attention_mask=None (the mask "
+    "is full-batch shaped; microbatches would mis-slice it) — "
+    "use packed/full-length sequences under pipeline parallelism")
+
+
+def _pipeline(config: BertConfig, layers, x, run_layer):
+    """The layer stack under GPipe (``pipeline_stages > 1``): each stage
+    runs ``run_layer(stage_layers, i, x, names)`` over its L/S layers, the
+    stage call under remat when ``config.remat`` (with the policy's kept
+    names marked, as the per-layer remat marks them)."""
+    keep = REMAT_SAVES[config.remat_policy] if config.remat else frozenset()
+
+    def stage(lp, xm):
+        for i in range(lp["ln1_scale"].shape[0]):
+            xm = run_layer(lp, i, xm, keep - {"dots"})
+        return xm
+
+    return gpipe(stage, stack_stages(layers, config.pipeline_stages), x,
+                 config.pipeline_microbatches, mb_spec=P(("data", "fsdp"), None, None),
+                 remat=config.remat, remat_policy=_keep_policy("dots" in keep) if keep else None)
 
 
 # ------------------------------------------------------------ one layer
@@ -381,7 +413,7 @@ def mlm_logits(params, config: BertConfig, hidden: torch.Tensor) -> torch.Tensor
     (a ShardedTensor ``hidden`` gives one)."""
     if isinstance(hidden, ShardedTensor):
         mesh = hidden.mesh
-        params = place_params(params, mesh, SHARDING_RULES)
+        params = place_params(params, mesh, _rules(config))
         logits = each(lambda hs, *leaves: mlm_logits(_head_params(*leaves), config, hs),
                       hidden.shards, *_head_views(params, mesh))
         return _batch_sharded(logits, mesh)
@@ -460,7 +492,9 @@ def _mesh_encode(params, config: BertConfig, mesh: Mesh, input_ids, attention_ma
     if config.num_heads % tp or config.intermediate_size % tp:
         raise ValueError(f"tensor={tp} must divide num_heads={config.num_heads} and "
                          f"intermediate_size={config.intermediate_size}")
-    params = place_params(params, mesh, SHARDING_RULES)
+    if config.pipeline_stages > 1 and attention_mask is not None:
+        raise ValueError(_PP_MASK_ERROR)
+    params = place_params(params, mesh, _rules(config))
     ids, am, tt = _batch_lists(mesh, input_ids, attention_mask, token_type_ids)
     emb = params["embeddings"]
     views = Views(mesh)
@@ -474,6 +508,12 @@ def _mesh_encode(params, config: BertConfig, mesh: Mesh, input_ids, attention_ma
                                 ("word", "position", "type", "ln_scale", "ln_bias")))
     masks = each(lambda a: None if a is None else padding_mask(a), am)
     lp = params["layers"]
+    if config.pipeline_stages > 1:
+        def run_layer(lp_s, i, xm, names):
+            none = [None] * xm.mesh.size
+            return xm.like(_mesh_layer(lp_s, i, config, xm.mesh, xm.shards, none, none, names))
+
+        return _pipeline(config, lp, _batch_sharded(xs, mesh), run_layer).shards
     keep = REMAT_SAVES[config.remat_policy]
     kw = {"use_reentrant": False}
     if keep:
@@ -554,7 +594,7 @@ def _mesh_mlm_loss(params, config: BertConfig, mesh: Mesh, input_ids, labels,
                    attention_mask, max_predictions) -> torch.Tensor:
     """``mlm_loss`` over the mesh: each batch shard's masked sum and count,
     each summed over the batch axes, their quotient the global mean."""
-    params = place_params(params, mesh, SHARDING_RULES)
+    params = place_params(params, mesh, _rules(config))
     xs = _mesh_encode(params, config, mesh, input_ids, attention_mask, None)
     (labs,) = _batch_lists(mesh, labels)
     sums = each(lambda x, lab, *leaves: _masked_sums(_head_params(*leaves), config, x, lab,

@@ -121,7 +121,8 @@ def psum(xs: Sequence, axis_name, mesh: Optional[Mesh] = None) -> list:
 
 def ppermute(xs: Sequence, axis_name, perm: Sequence, mesh: Optional[Mesh] = None) -> list:
     """Send each member's value along ``axis_name`` by ``perm`` (pairs of
-    source, destination index); a member no pair names receives zeros."""
+    source, destination index); a member no pair names receives zeros, or
+    None where it holds None (a pipeline stage idle at this tick)."""
     m = _mesh(mesh)
     idx = axis_index(axis_name, m)
     out: list = [None] * m.size
@@ -131,7 +132,7 @@ def ppermute(xs: Sequence, axis_name, perm: Sequence, mesh: Optional[Mesh] = Non
             d = by_idx[dst]
             out[d] = xs[by_idx[src]].to(m.device(d))
         for p in group:
-            if out[p] is None:
+            if out[p] is None and xs[p] is not None:
                 out[p] = torch.zeros_like(xs[p])
     return out
 

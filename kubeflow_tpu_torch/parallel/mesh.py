@@ -106,6 +106,15 @@ class Mesh:
         return int(np.ravel_multi_index(tuple(int(coords[a]) for a in self.axis_names),
                                         self.devices.shape))
 
+    def submesh(self, axis: str, index: int) -> tuple:
+        """The positions whose ``axis`` coordinate is ``index``: a mesh of
+        the same axes with ``axis`` of size 1, and the positions in this
+        mesh of its positions, in its order (a pipeline stage's sub-mesh,
+        ``parallel/pipeline.py``)."""
+        devices = np.take(self.devices, [index], axis=self.axis_names.index(axis))
+        sub = Mesh(devices, self.axis_names)
+        return sub, [self.position({**sub.coords(p), axis: index}) for p in range(sub.size)]
+
     @property
     def distinct_devices(self) -> list:
         """The mesh's devices without repeats, in first-use order."""

@@ -10,9 +10,8 @@ math.
     mesh = build_mesh(preset.mesh, ["cuda:0"] * 4)
     out = preset.attention(q, k, v, mesh, causal=True)
 
-The ``pp`` preset resolves its mesh as the JAX package does; the pipeline
-schedule itself (``parallel/pipeline.py``) is not ported yet (ROADMAP
-Queue 1 item 3.2).
+The ``pp`` preset's mesh carries a model whose ``pipeline_stages`` match
+its ``stages`` (the GPipe schedule, ``parallel/pipeline.py``).
 """
 
 from __future__ import annotations

@@ -174,6 +174,11 @@ class ShardedTensor:
         """The distinct local tensors, in position order."""
         return list({id(t): t for t in self.shards}.values())
 
+    def split_axes(self, dim: int) -> tuple:
+        """The axes of size > 1 that split dim ``dim``."""
+        sizes = self.mesh.shape
+        return tuple(a for a in self._entries[dim] if sizes[a] > 1)
+
     def block(self, pos: int) -> tuple:
         """Position ``pos``'s block index on each dim."""
         coords, sizes = self.mesh.coords(pos), self.mesh.shape
@@ -241,8 +246,12 @@ class ShardedTensor:
         return [self.mesh.position(c) for c in coords]
 
     def _gathered_dims(self, keep: tuple) -> list:
+        # a dim split over axes of size 1 (``stages`` on a stage's
+        # sub-mesh) is whole in every slice: nothing to gather
+        sizes = self.mesh.shape
         return [d for d, axes in enumerate(self._entries)
-                if axes and not set(axes) <= set(keep)]
+                if axes and not set(axes) <= set(keep)
+                and math.prod(sizes[a] for a in axes) > 1]
 
     def _assemble(self, sources: list, dims: list, dev, index, dtype) -> torch.Tensor:
         parts = []

@@ -7,8 +7,8 @@ and the optimizer state in place.
 
 ``mesh=None`` trains the model on one device.  With a mesh
 (``parallel/mesh.py``) and the model's sharding rules, the parameters and
-the AdamW moments are placed by the rules as ``ShardedTensor``s (the
-moments' paths, ``mu/<param path>``, resolve by the same rules), the batch
+the AdamW moments are placed by the rules as ``ShardedTensor``s (each
+moment in its parameter's layout), the batch
 by ``batch_spec``, and the loss, its backward and the update run on each
 shard's slice with the mesh current, as the JAX package's one jitted step
 runs on its mesh.  Where one slice lives on several devices the replicas'
@@ -34,8 +34,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import Mesh
-from ..parallel.sharding import (ShardedTensor, path_of, sanitize_spec, shard_params,
-                                 spec_for)
+from ..parallel.sharding import ShardedTensor, shard_params
 from ..utils.device import resolve_device
 from .data import global_batch, to_device
 
@@ -273,9 +272,12 @@ class Trainer:
 
     def _init_sharded_state(self) -> dict:
         """The optimizer's state over the local slices, each per-parameter
-        entry regrouped into ShardedTensors placed by the rules at
-        ``<entry>/<param path>`` (optax's moment paths embed the param
-        paths, so ``mu/layers/...`` resolves as ``layers/...``)."""
+        entry regrouped into ShardedTensors laid out as its parameter.  The
+        update is elementwise beside the parameter, so a moment keeps its
+        parameter's layout; where the rules resolve ``<entry>/<param path>``
+        otherwise (a rule anchored at ``^``, as the MoE transformer's are),
+        XLA would reshard it to that layout, here it stays beside its
+        parameter."""
         flat = self.optimizer.init(self._local_params())
         state: dict = {}
         for key, value in flat.items():
@@ -284,11 +286,6 @@ class Trainer:
                 continue
             state[key] = {}
             for name, st in self.params.items():
-                path = path_of((key,) + tuple(name.split(".")))
-                spec = spec_for(path, self.rules, st.ndim)
-                if sanitize_spec(spec, tuple(st.shape), self.mesh) != st.spec:
-                    raise ValueError(f"the rules place {path} as {spec}, its parameter "
-                                     f"as {st.spec}: optimizer state must share the layout")
                 locals_ = {id(t): value[(name, j)] for j, t in enumerate(st.locals)}
                 state[key][name] = st.like([locals_[id(t)] for t in st.shards])
         return state

@@ -190,11 +190,12 @@ def test_all_ignored_loss_is_exactly_zero(np_tree):
 
 
 def test_unported_options_raise():
-    # remat is ported (tests/test_torch_bert_remat.py); pipeline parallelism
-    # is still refused, naming its item, and an unknown policy is an error
+    # remat is ported (tests/test_torch_bert_remat.py) and so is pipeline
+    # parallelism (tests/test_torch_gpipe.py): nothing is refused any more,
+    # and an unknown policy is an error
     tbert.BertConfig(remat=True)
     tbert.BertConfig(remat_policy="dots")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3.2"):
-        tbert.BertConfig(pipeline_stages=2)
+    cfg = tbert.BertConfig(pipeline_stages=2)
+    assert (cfg.pipeline_stages, cfg.pipeline_microbatches) == (2, 4)
     with pytest.raises(ValueError, match="remat_policy"):
         tbert.BertConfig(remat=True, remat_policy="everything")

@@ -77,7 +77,8 @@ def test_every_port_module_imports_with_jax_blocked():
                  "examples.gemma_pipeline", "examples.distributed_check",
                  "parallel.profiling", "serving.engine.sharding", "parallel.mesh",
                  "parallel.sharding", "parallel.presets", "ops.shard_map_compat",
-                 "ops.ring_attention", "ops.ulysses"):
+                 "ops.ring_attention", "ops.ulysses", "parallel.pipeline", "ops.moe",
+                 "models.moe_transformer", "graft_entry"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = _BLOCKER.format(blocked=BLOCKED) + f"""
 import importlib

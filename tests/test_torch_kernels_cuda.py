@@ -898,3 +898,62 @@ def test_bert_mesh_step_launches_flash_once_per_shard_and_layer(card, n):
     shards = sizes.get("data", 1) * sizes.get("fsdp", 1) * sizes.get("tensor", 1)
     assert launches == cfg.num_layers * shards and not calls
     assert torch.isfinite(torch.tensor(metrics["loss"]))
+
+
+# ------------------------------------------------------------ pipeline (pp)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_at_the_pp_shard_shape(card):
+    """BERT-base under GPipe on stages 2 x fsdp 2 (B=32, 4 microbatches):
+    each launch is one microbatch's fsdp shard, 4 rows of 12 heads at 512,
+    non-causal and with no mask (pp refuses one)."""
+    g = torch.Generator().manual_seed(48)
+    q, k, v = (torch.randn((4 * 12, 512, 64), generator=g).to(card, torch.bfloat16)
+               for _ in range(3))
+    args = (q, k, v, None, 64 ** -0.5, False, 128, 128)
+    before = FA.flash_attention.launches
+    out, lse = FA._flash_fwd(*args, 12)
+    ref, ref_lse = FA.flash_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7, atol=1e-3)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_bert_pp_step_launches_flash_once_per_microbatch_layer_and_shard(card):
+    """One BERT train step under GPipe on the ``pp`` preset's 4 shards of the
+    card (stages 2 x fsdp 2): one flash launch per microbatch, layer and
+    fsdp shard of its stage (bubble ticks skipped), the plain version
+    never; the loss within 1e-2 of the unsharded step's."""
+    from kubeflow_tpu_torch.models import bert
+    from kubeflow_tpu_torch.parallel.mesh import build_mesh
+    from kubeflow_tpu_torch.parallel.presets import get_preset
+    from kubeflow_tpu_torch.train.data import synthetic_mlm_batches
+    from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    mesh = build_mesh(get_preset("pp", 4).mesh, [card] * 4)
+    base = dict(vocab_size=512, hidden_size=128, num_layers=4, num_heads=4,
+                intermediate_size=256, max_position=128, attention="flash")
+    cfg = bert.BertConfig(**base, pipeline_stages=2, pipeline_microbatches=4)
+    one_cfg = bert.BertConfig(**base)
+    tcfg = TrainerConfig(learning_rate=1e-3, warmup_steps=1, total_steps=4)
+    batch = next(synthetic_mlm_batches(cfg.vocab_size, 16, 128, seed=0))
+    del batch["attention_mask"]
+    trainer = Trainer(lambda m, b: bert.mlm_loss(m, cfg, b["input_ids"], b["labels"]),
+                      bert.init(one_cfg, card, seed=0), tcfg, mesh=mesh,
+                      rules=bert.pp_sharding_rules())
+    plain = FA.flash_attention_plain
+    calls = []
+    FA.flash_attention_plain = lambda *a, **kw: calls.append(1) or plain(*a, **kw)
+    try:
+        before = FA.flash_attention.launches
+        metrics = trainer.train_step(batch)
+        launches = FA.flash_attention.launches - before
+    finally:
+        FA.flash_attention_plain = plain
+    assert launches == 4 * cfg.num_layers * 2 and not calls
+    one = Trainer(lambda m, b: bert.mlm_loss(m, one_cfg, b["input_ids"], b["labels"]),
+                  bert.init(one_cfg, card, seed=0), tcfg, device=card)
+    assert abs(metrics["loss"] - one.train_step(batch)["loss"]) <= 1e-2
