@@ -224,7 +224,11 @@ or the script exits non-zero:
    processes sharing the card, 32 images each: one loss on both ranks,
    within 5e-2 of (a)'s; (c) the worker's default path as one process at
    world 1, batch 64: ``RESNET-DDP-OK`` and a finite loss; samples/s; the
-   ring's ms per step for the model's f32 gradients;
+   ring's ms per step for the model's f32 gradients; (d) the default path
+   in one process at ``LOCAL_DEVICES=2``, ``PER_CHIP_BATCH=32``: a data
+   mesh of two shards of the card on a global batch of 64,
+   ``world size=1 global devices=2``, ``RESNET-DDP-OK`` and a finite loss;
+   samples/s;
 13. decoder: ``decoder.gemma_7b()`` at full width cut to 20 of 28 layers
    (``reduced`` says why), 10 steps of ``lm_loss`` and AdamW on
    ``synthetic_lm_batches`` at 4 x 512: every loss finite, the last below
@@ -3963,6 +3967,16 @@ def resnet_phase(dev) -> dict:
                                 "samples_per_s": float(kv.get("samples_per_sec", "nan")),
                                 "stdout": lines,
                                 "stderr_tail": r.stderr[-1500:] if r.returncode else ""}
+    # (d) one process over a data mesh of two shards of the card
+    r, lines, kv = run_worker("resnet_ddp_worker", {**RESNET_ENV, "LOCAL_DEVICES": 2,
+                                                    "PER_CHIP_BATCH": RESNET_B // 2})
+    lm = out["local_mesh"] = {"exit_code": r.returncode, "loss": float(kv.get("loss", "nan")),
+                              "global_batch": RESNET_B,
+                              "samples_per_s": float(kv.get("samples_per_sec", "nan")),
+                              "samples_per_s_per_shard": float(
+                                  kv.get("samples_per_sec_per_chip", "nan")),
+                              "stdout": lines,
+                              "stderr_tail": r.stderr[-1500:] if r.returncode else ""}
     out["ring_ms_per_step"] = ring_probe(free_port(), n_params, 5)
     out["ring_mbytes"] = n_params * 4 / 1e6
     sh = out["shim"]
@@ -3973,7 +3987,9 @@ def resnet_phase(dev) -> dict:
                          for lines in sh["stdout"])
                  and dp["exit_code"] == 0 and math.isfinite(dp["loss"])
                  and "RESNET-DDP-OK" in dp["stdout"] and "transport=shim" not in dp["stdout"]
-                 and "world size=1 global devices=1" in dp["stdout"])
+                 and "world size=1 global devices=1" in dp["stdout"]
+                 and lm["exit_code"] == 0 and math.isfinite(lm["loss"])
+                 and lm["stdout"][-2:] == ["world size=1 global devices=2", "RESNET-DDP-OK"])
     return out
 
 
@@ -5260,6 +5276,131 @@ def gpipe_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 19
+
+# Llama-3-8B's widths (vocab 128256, d 4096, 32/8 heads, d_ff 14336) cut to
+# 16 of its 32 layers: the phase keeps the unsharded weights beside the mesh
+# trainer's copy, its gradients, two bf16 AdamW moments and the weights it
+# gathers at use, ~12 bytes a parameter (21.9 GiB at 4 layers and 1.92 B
+# parameters on an H100 80GB HBM3, 700 W); at 32 layers (8.03 B) that is
+# ~90 GiB, past the card's 80 GB, and 16 layers (4.54 B) peak near 52 GiB
+MESH_DECODER_LAYERS, MESH_DECODER_B, MESH_DECODER_S, MESH_DECODER_STEPS = 16, 4, 512, 5
+MESH_DECODER_REDUCED = ("memory: the mesh run holds the unsharded weights, its own copy, "
+                        "their gradients, two bf16 AdamW moments and the weights gathered at "
+                        "use, ~12 B a parameter (21.9 GiB at 4 layers); 32 layers (8.03 B "
+                        "parameters) would need ~90 GiB of the card's 80 GB, 16 layers (4.54 B) "
+                        "~52 GiB")
+MESH_RESNET_B, MESH_RESNET_STEPS = 32, 3
+MESH_MNIST_B, MESH_MNIST_STEPS = 64, 20
+
+
+def mesh_model_run(dev, mesh, rules, loss_fn, model, batches: list, tcfg,
+                   evaluate=None) -> dict:
+    """``model`` trained on ``batches`` on the mesh, then unsharded (the
+    mesh trainer copies the weights onto its shards and is freed before
+    the unsharded one trains ``model`` itself): both runs' losses, norms,
+    ms a step and peak memory, the mesh's bytes and the phase 17 gates.
+    ``evaluate(tree, on_mesh)`` reads a metric of the trained weights."""
+    runs: dict = {}
+    out: dict = {"mesh": mesh.shape, "devices": [str(dev)] * mesh.size}
+    for name in ("mesh", "one"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        trainer = (Trainer(loss_fn, model, tcfg, mesh=mesh, rules=rules) if name == "mesh"
+                   else Trainer(loss_fn, model, tcfg, device=dev))
+        metrics = [trainer.train_step(b) for b in batches]
+        runs[name] = {"losses": [m["loss"] for m in metrics],
+                      "grad_norms": [m["grad_norm"] for m in metrics],
+                      "step_ms": [m["step_time_s"] * 1e3 for m in metrics],
+                      "step_ms_mean_after_first": sum(
+                          m["step_time_s"] for m in metrics[1:]) / (len(metrics) - 1) * 1e3,
+                      "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                      "mfu_label": trainer.mfu_label}
+        if evaluate is not None:
+            with torch.no_grad():
+                runs[name]["eval"] = (evaluate(trainer.tree, True) if name == "mesh"
+                                      else evaluate(trainer.model, False))
+        if name == "mesh":
+            out["bytes"] = mesh_bytes(trainer)
+        del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["runs"] = runs
+    m, o = runs["mesh"], runs["one"]
+    by = out["bytes"]
+    out["gates"] = {
+        "loss": all(abs(a - b) <= MESH_LOSS_ATOL for a, b in zip(m["losses"], o["losses"])),
+        "grad_norm": all(abs(a - b) <= MESH_NORM_RTOL * abs(b)
+                         for a, b in zip(m["grad_norms"], o["grad_norms"])),
+        "bytes": by["ok"] and by["device_bytes"] == by["unsharded_bytes"],
+        "finite": all(math.isfinite(x) for r in runs.values()
+                      for x in r["losses"] + r["grad_norms"])}
+    out["max_loss_diff"] = max(abs(a - b) for a, b in zip(m["losses"], o["losses"]))
+    out["max_grad_norm_rel"] = max(abs(a - b) / abs(b)
+                                   for a, b in zip(m["grad_norms"], o["grad_norms"]))
+    out["ok"] = all(out["gates"].values())
+    return out
+
+
+def mesh_models_phase(dev) -> dict:
+    """Phase 19: the decoder, ResNet-50 and the MNIST CNN trained on
+    MESH_SHARDS shards of the card through their ``SHARDING_RULES``, each
+    against its unsharded run (``mesh_model_run``).  One card shows the
+    layout and the numerics, not scaling."""
+    from kubeflow_tpu_torch.models import decoder, mnist, resnet
+
+    mesh = build_mesh(MeshConfig(fsdp=2, tensor=2), [dev] * MESH_SHARDS)
+    tcfg = TrainerConfig(learning_rate=1e-4, warmup_steps=2, total_steps=16)
+    out: dict = {}
+
+    cfg = dataclasses.replace(M.DecoderConfig.llama3_8b(), n_layers=MESH_DECODER_LAYERS)
+    data = decoder.synthetic_lm_batches(cfg.vocab_size, MESH_DECODER_B, MESH_DECODER_S, seed=0)
+    batches = [next(data) for _ in range(MESH_DECODER_STEPS)]
+    res = mesh_model_run(dev, mesh, decoder.SHARDING_RULES,
+                         lambda p, b: decoder.lm_loss(p, cfg, b["tokens"]),
+                         decoder.init(cfg, dev, seed=0), batches, tcfg)
+    res.update({"config": f"DecoderConfig.llama3_8b() at {MESH_DECODER_LAYERS} of 32 layers",
+                "params": cfg.param_count(), "batch": MESH_DECODER_B, "seq": MESH_DECODER_S,
+                "reduced": {"n_layers": [MESH_DECODER_LAYERS, 32],
+                            "why": MESH_DECODER_REDUCED}})
+    out["decoder"] = res
+
+    rcfg = resnet.ResNetConfig()
+    batches = [resnet.synthetic_batch(i, MESH_RESNET_B) for i in range(MESH_RESNET_STEPS)]
+    res = mesh_model_run(dev, mesh, resnet.SHARDING_RULES,
+                         lambda p, b: resnet.loss(p, rcfg, b["images"], b["labels"]),
+                         resnet.init(rcfg, dev, seed=0), batches, tcfg)
+    res.update({"config": "ResNetConfig() (ResNet-50, 1000 classes), 224x224",
+                "batch": MESH_RESNET_B})
+    out["resnet"] = res
+
+    mcfg = mnist.MnistConfig()
+    batches = [mnist.synthetic_batch(i, MESH_MNIST_B) for i in range(MESH_MNIST_STEPS)]
+    held = {k: torch.from_numpy(v).to(dev)
+            for k, v in mnist.synthetic_batch(10_000, MESH_MNIST_B).items()}
+
+    def accuracy(tree, on_mesh):
+        with mesh if on_mesh else contextlib.nullcontext():
+            return float(mnist.accuracy(tree, mcfg, held["images"], held["labels"]))
+
+    res = mesh_model_run(dev, mesh, mnist.SHARDING_RULES,
+                         lambda p, b: mnist.loss(p, mcfg, b["images"], b["labels"]),
+                         mnist.init(mcfg, dev, seed=0), batches, tcfg, evaluate=accuracy)
+    res.update({"config": "MnistConfig()", "batch": MESH_MNIST_B,
+                "accuracy": {k: r["eval"] for k, r in res["runs"].items()}})
+    out["mnist"] = res
+    out["gates"] = {k: out[k]["ok"] for k in ("decoder", "resnet", "mnist")}
+    out["ok"] = all(out["gates"].values())
+    log("19 mesh_models: " + "; ".join(
+        f"{k} {out[k]['runs']['mesh']['step_ms_mean_after_first']:.1f} ms/step on 4 shards vs "
+        f"{out[k]['runs']['one']['step_ms_mean_after_first']:.1f}, peak "
+        f"{out[k]['runs']['mesh']['peak_memory_gib']:.1f} vs "
+        f"{out[k]['runs']['one']['peak_memory_gib']:.1f} GiB" for k in out["gates"])
+        + f"; gates {out['gates']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -5397,6 +5538,7 @@ def main() -> int:
     pres = phase("pipeline", lambda: pipeline_phase(dev))
     mres = phase("mesh", lambda: mesh_phase(dev))
     gres = phase("gpipe", lambda: gpipe_phase(dev))
+    phase("mesh_models", lambda: mesh_models_phase(dev))
 
     cases = kres.get("cases") or []
     head = next((c for c in cases if c["pool"] == "bf16" and c["K"] == 1), {})

@@ -11,14 +11,23 @@ the classifier's width.  The optimiser is ``optax.sgd(0.1, momentum=0.9)``'s
 arithmetic, TF32 is off, and the device is ``TORCH_DEVICE`` (default the
 card).
 
-Two paths, both data parallel over equal local slices of one global batch
-(every rank draws the whole batch from the step's seed and keeps its slice),
-so mean-reduced gradients equal the global-batch gradient:
+Two paths, both data parallel over equal slices of one global batch of
+``PER_CHIP_BATCH`` x the job's devices (drawn whole from the step's seed, as
+the JAX worker's ``make_batch`` draws it), so the gradient is the
+global-batch gradient:
 
 * the default path joins a ``torch.distributed`` group through
   ``parallel.distributed.initialize`` (gloo on the CPU, nccl on the card;
   one rank per card, so one process on a one-card machine) and averages the
-  gradients with ``all_reduce``;
+  gradients with ``all_reduce``.  A one-process job with ``LOCAL_DEVICES=N``
+  > 1 trains as the JAX worker does over its N devices: over
+  ``build_mesh(MeshConfig(data=N), [device] * N)``, the parameters and the
+  SGD momentum replicated (one tensor of each on the one device), each data shard
+  taking its own rows of the global batch through ResNet's mesh loss, whose
+  exact global mean makes the gradient the shards' mean gradient, as
+  ``dist_mean`` averages the ranks'.  ``LOCAL_DEVICES`` > 1 in a job of
+  several processes is refused (a mesh across processes, ROADMAP Queue 1
+  item 3.3);
 * ``DDP_TRANSPORT=shim``: every process keeps a full replica and the
   per-step gradient sync goes through the C++ ring (``transport/``) over
   host TCP instead, so several processes can share one card.
@@ -28,6 +37,7 @@ so mean-reduced gradients equal the global-batch gradient:
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Callable, Optional
@@ -77,14 +87,18 @@ def make_model(num_classes: int, device):
 
 def train_step(config, params: dict, leaves: dict, opt, opt_state, imgs, lbls, device,
                sync: Optional[Callable[[dict], dict]] = None,
-               update: bool = True) -> torch.Tensor:
+               update: bool = True, mesh=None) -> torch.Tensor:
     """One local forward/backward, the gradient sync (``sync``: a dict of
     named gradients -> their mean over ranks; None for one process) and,
-    with ``update``, one SGD step.  Returns the local loss, on the device."""
+    with ``update``, one SGD step.  On ``mesh`` (N data shards of
+    ``device``) the loss is ResNet's mesh loss over the shards' rows, the
+    parameters replicated over them: the shards of the one device read
+    the one tensor of each leaf.  Returns the loss, on the device."""
     from kubeflow_tpu_torch.models import resnet
 
-    loss = resnet.loss(params, config, torch.from_numpy(imgs).to(device),
-                       torch.from_numpy(lbls).to(device))
+    with mesh if mesh is not None else contextlib.nullcontext():
+        loss = resnet.loss(params, config, torch.from_numpy(imgs).to(device),
+                           torch.from_numpy(lbls).to(device))
     grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
     if sync is not None:
         grads = sync(grads)
@@ -106,36 +120,49 @@ def dist_mean(grads: dict) -> dict:
 
 
 def _run(device, world: int, rank: int, sync, mean_loss: Callable[[float], float],
-         warm_update: bool) -> dict:
+         warm_update: bool, local_devices: int = 1) -> dict:
     """The timed loop of both paths, after a warm-up step on batch 0 that
     updates the weights (``warm_update``, the default path's compile step)
-    or only computes the gradients (the shim's), as in the JAX worker."""
+    or only computes the gradients (the shim's), as in the JAX worker.
+    ``local_devices`` > 1 (one process only) trains over a data mesh of
+    that many shards of ``device`` on their global batch."""
     s = settings()
+    mesh = None
+    if local_devices > 1:
+        from kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+        mesh = build_mesh(MeshConfig(data=local_devices, fsdp=1), [device] * local_devices)
     config, params, leaves, opt, opt_state = make_model(s["num_classes"], device)
 
     def batch(seed):
-        return local_batch(seed, world, rank, s["per_chip_batch"], s["image_size"],
-                           s["num_classes"])
+        # the step's global batch of PER_CHIP_BATCH x every device of the
+        # job; this process keeps its ranks' rows, its mesh splits them
+        return local_batch(seed, world, rank, s["per_chip_batch"] * local_devices,
+                           s["image_size"], s["num_classes"])
 
-    train_step(config, params, leaves, opt, opt_state, *batch(0), device, sync, warm_update)
+    train_step(config, params, leaves, opt, opt_state, *batch(0), device, sync, warm_update,
+               mesh=mesh)
     loss = None
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     for i in range(s["steps"]):
-        loss = train_step(config, params, leaves, opt, opt_state, *batch(i + 1), device, sync)
+        loss = train_step(config, params, leaves, opt, opt_state, *batch(i + 1), device, sync,
+                          mesh=mesh)
     loss = float(loss)  # waits for the device
     dt = time.perf_counter() - t0
-    sps = s["steps"] * s["per_chip_batch"] * world / dt
+    devices = world * local_devices
+    sps = s["steps"] * s["per_chip_batch"] * devices / dt
     # global mean loss so every rank prints the single-process-comparable value
-    return {"loss": mean_loss(loss), "samples_per_sec": sps, "per_chip": sps / world}
+    return {"loss": mean_loss(loss), "samples_per_sec": sps, "per_chip": sps / devices,
+            "devices": devices}
 
 
 def _report(res: dict, world: int) -> None:
     print(f"loss={res['loss']:.4f}")
     print(f"samples_per_sec={res['samples_per_sec']:.1f}")
     print(f"samples_per_sec_per_chip={res['per_chip']:.1f}")
-    print(f"world size={world} global devices={world}")
+    print(f"world size={world} global devices={res['devices']}")
 
 
 def main_shim(device) -> None:
@@ -168,8 +195,8 @@ def main() -> None:
 
     from kubeflow_tpu_torch.parallel.distributed import initialize
 
-    penv = initialize(local_device_count=int(os.environ.get("LOCAL_DEVICES", "1")),
-                      device=device)
+    local_devices = int(os.environ.get("LOCAL_DEVICES", "1"))
+    penv = initialize(local_device_count=local_devices, device=device)
     world, rank = penv.num_processes, penv.process_id
 
     def mean_loss(x: float) -> float:
@@ -181,7 +208,7 @@ def main() -> None:
 
     try:
         res = _run(device, world, rank, dist_mean if world > 1 else None, mean_loss,
-                   warm_update=True)
+                   warm_update=True, local_devices=local_devices)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

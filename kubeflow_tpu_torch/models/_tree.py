@@ -20,9 +20,10 @@ def tensor_from_numpy(arr) -> torch.Tensor:
 
 
 def named_leaves(tree, prefix: str = "") -> dict:
-    """Every tensor of a nested dict / list of tensors, under dotted names
-    (``blocks.0.conv1``, ``stem_gn.scale``), in the tree's order."""
-    if isinstance(tree, torch.Tensor):
+    """Every leaf of a nested dict / list of tensors (or of ShardedTensors),
+    under dotted names (``blocks.0.conv1``, ``stem_gn.scale``), in the tree's
+    order."""
+    if not isinstance(tree, (dict, list, tuple)):
         return {prefix: tree}
     items = tree.items() if isinstance(tree, dict) else enumerate(tree)
     out: dict = {}

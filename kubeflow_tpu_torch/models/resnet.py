@@ -15,7 +15,21 @@ stride-2 convolution and the stem's max pool at even sizes), the extra row
 and column go on the high side, so a stride-2 layer pads explicitly
 (``F.pad``) rather than through ``conv2d``'s symmetric ``padding``; the 7x7
 stride-2 stem at 224 pads (2, 3) and the 3x3 stride-2 max pool (0, 1), with
--inf.  ``SHARDING_RULES`` waits for ROADMAP Queue 1 item 3.3.
+-inf.
+
+``SHARDING_RULES`` are the JAX package's, with the conv kernels' spec laid
+out as ``params_from_jax`` lays out the kernels: the JAX rule
+``P(None, None, None, "fsdp")`` splits an HWIO kernel's output channels,
+which are dim 0 of the port's OIHW kernel, so the port's rule is
+``P("fsdp", None, None, None)`` and every leaf's shard holds the same
+numbers as the JAX shard.  On a mesh (``with mesh:``), with the parameters
+placed by these rules, ``forward``, ``loss`` and ``accuracy``-style callers
+split the batch over ``("data", "fsdp")``: the conv kernels are gathered at
+use, GroupNorm stays local to each example (no state to reduce), and the
+classifier is column-parallel over ``tensor`` (``fc_kernel``'s classes,
+the replicated ``fc_bias`` sliced to each tensor shard's classes), its
+logits left split and their cross entropy reduced over ``tensor``
+(``models/_mesh.py``).  ``loss`` is the exact mean over the global batch.
 """
 
 from __future__ import annotations
@@ -26,10 +40,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.shard_map_compat import each
+from ..parallel.mesh import Mesh, current_mesh
+from ..parallel.sharding import P, Views, place_params, tree_map_with_path
 from ..utils.device import resolve_device
+from . import _mesh
 from ._tree import named_leaves, tensor_from_numpy
 
 STAGES_50 = (3, 4, 6, 3)
+
+SHARDING_RULES = (
+    (r"fc_kernel", P("fsdp", "tensor")),
+    # the JAX rule splits an HWIO kernel's output channels: dim 0 of OIHW
+    (r".*conv.*", P("fsdp", None, None, None)),
+    (r".*", P()),
+)
 
 
 @dataclass(frozen=True)
@@ -140,7 +165,20 @@ def _max_pool_3x3_s2(x):
 
 
 def forward(params: dict, config: ResNetConfig, images: torch.Tensor) -> torch.Tensor:
-    """images [B, H, W, 3] (NHWC) -> f32 logits [B, num_classes]."""
+    """images [B, H, W, 3] (NHWC) -> f32 logits [B, num_classes]; on a mesh
+    a ShardedTensor split over the batch and, where the rules split the
+    classes, over ``tensor``."""
+    mesh = current_mesh()
+    if mesh is not None:
+        logits, split = _mesh_logits(place_params(params, mesh, SHARDING_RULES), config, mesh,
+                                     _mesh.batch_lists(mesh, images)[0])
+        return _mesh.split_logits(mesh, logits, images.shape[0], config.num_classes, split)
+    return _head(params, _features(params, config, images))
+
+
+def _features(params: dict, config: ResNetConfig, images: torch.Tensor) -> torch.Tensor:
+    """The backbone: images [B, H, W, 3] -> pooled features [B, C] in
+    ``config.dtype``."""
     x = images.to(config.dtype).permute(0, 3, 1, 2)  # NCHW view, channels-last strides
     x = _conv(x, params["stem_conv"], 2)
     x = torch.relu(_group_norm(x, params["stem_gn"], config.groups))
@@ -154,14 +192,58 @@ def forward(params: dict, config: ResNetConfig, images: torch.Tensor) -> torch.T
             residual = _group_norm(_conv(x, blk["proj"], stride), blk["proj_gn"], config.groups)
         x = torch.relu(residual + y)
     # the spatial mean in f32, cast back, as jnp.mean does for bf16
-    x = x.float().mean(dim=(2, 3)).to(config.dtype)
+    return x.float().mean(dim=(2, 3)).to(config.dtype)
+
+
+def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
     return (x @ params["fc_kernel"] + params["fc_bias"]).float()
 
 
 def loss(params: dict, config: ResNetConfig, images: torch.Tensor,
          labels: torch.Tensor) -> torch.Tensor:
+    mesh = current_mesh()
+    if mesh is not None:
+        return _mesh_loss(params, config, mesh, images, labels)
     logp = torch.log_softmax(forward(params, config, images), dim=-1)
     return -torch.take_along_dim(logp, labels.long()[:, None], dim=-1).mean()
+
+
+# ------------------------------------------------------------ on a mesh
+
+
+def _mesh_loss(params, config: ResNetConfig, mesh: Mesh, images, labels) -> torch.Tensor:
+    """``loss`` over the mesh: each batch shard's cross-entropy sum on its
+    class-split logits, the mean over the global batch."""
+    params = place_params(params, mesh, SHARDING_RULES)
+    imgs, lbls = _mesh.batch_lists(mesh, images, labels)
+    logits, split = _mesh_logits(params, config, mesh, imgs)
+    sums = _mesh.xent_sums(mesh, logits, lbls,
+                           _mesh.class_starts(mesh, params["fc_kernel"], 1), split)
+    return _mesh.global_mean(mesh, sums, [t.numel() for t in lbls])
+
+
+def _mesh_logits(params: dict, config: ResNetConfig, mesh: Mesh, imgs: list) -> tuple:
+    """Per-position f32 logits ``[b, C or C/tensor]`` of the batch shards
+    ``imgs`` (the backbone's weights gathered whole, once per device and
+    batch shard), and whether they are split over ``tensor``."""
+    views = Views(mesh)
+    backbone = {k: v for k, v in params.items() if not k.startswith("fc_")}
+    flat = named_leaves(backbone)
+
+    def features(img, *ws):
+        by_name = dict(zip(flat, ws))
+        tree = tree_map_with_path(lambda kp, _: by_name[".".join(map(str, kp))], backbone)
+        return _features(tree, config, img)
+
+    xs = each(features, imgs, *(views(t) for t in flat.values()))
+    fc = params["fc_kernel"]
+    starts = _mesh.class_starts(mesh, fc, 1)
+    split = "tensor" in fc.split_axes(1)
+
+    def head(x, w, b, lo):
+        return _head({"fc_kernel": w, "fc_bias": b[lo:lo + w.shape[1]]}, x)
+
+    return each(head, xs, views(fc, ("tensor",)), views(params["fc_bias"]), starts), split
 
 
 def synthetic_batch(seed: int, batch_size: int, image_size: int = 224,

@@ -119,6 +119,24 @@ def psum(xs: Sequence, axis_name, mesh: Optional[Mesh] = None) -> list:
     return out
 
 
+def pmax(xs: Sequence, axis_name, mesh: Optional[Mesh] = None) -> list:
+    """The elementwise maximum of each group's values along ``axis_name``,
+    given to every member as ``psum`` gives the sum."""
+    m = _mesh(mesh)
+    out: list = [None] * m.size
+    for group in _groups(m, axis_name):
+        top = xs[group[0]]
+        for pos in group[1:]:
+            top = torch.maximum(top, xs[pos].to(top.device))
+        moved: dict = {}
+        for pos in group:
+            dev = m.device(pos)
+            if dev not in moved:
+                moved[dev] = top.to(dev)
+            out[pos] = moved[dev]
+    return out
+
+
 def ppermute(xs: Sequence, axis_name, perm: Sequence, mesh: Optional[Mesh] = None) -> list:
     """Send each member's value along ``axis_name`` by ``perm`` (pairs of
     source, destination index); a member no pair names receives zeros, or

@@ -5,7 +5,9 @@ Counterpart of ``kubeflow_tpu/train/trainer.py``.  PyTorch runs eagerly, so
 there is no jit and no buffer donation; the trainer updates the parameters
 and the optimizer state in place.
 
-``mesh=None`` trains the model on one device.  With a mesh
+The model is an ``nn.Module`` (BERT, the MoE transformer) or a nested dict
+/ list of tensors (the decoder, ResNet, MNIST).  ``mesh=None`` trains the
+model on one device.  With a mesh
 (``parallel/mesh.py``) and the model's sharding rules, the parameters and
 the AdamW moments are placed by the rules as ``ShardedTensor``s (each
 moment in its parameter's layout), the batch
@@ -33,8 +35,9 @@ from typing import Any, Callable, Optional
 import torch
 from torch import nn
 
+from ..models._tree import named_leaves as _flatten
 from ..parallel.mesh import Mesh
-from ..parallel.sharding import ShardedTensor, shard_params
+from ..parallel.sharding import ShardedTensor, shard_params, tree_map_with_path
 from ..utils.device import resolve_device
 from .data import global_batch, to_device
 
@@ -212,20 +215,26 @@ def default_optimizer(cfg: TrainerConfig) -> AdamW:
 class Trainer:
     """Drives ``loss_fn(model, batch) -> scalar`` on one device or a mesh.
 
-    ``model`` is an ``nn.Module`` (``models.bert.BertMLM``).  Without a
+    ``model`` is an ``nn.Module`` (``models.bert.BertMLM``) or a nested
+    dict / list of tensors (``decoder.init``, ``resnet.init``).  Without a
     mesh it is moved to ``device`` (default ``"cuda"``, which raises without
-    a card) and its parameters are updated in place.  With ``mesh`` and
-    ``rules`` (the model's path rules, e.g. ``bert.SHARDING_RULES``) its
-    parameters are copied onto the mesh as ``ShardedTensor``s: ``params``
-    maps each ``state_dict`` name to one, ``tree`` nests them as the model
-    does, and ``loss_fn`` receives ``tree`` under ``with mesh:`` (``model``
-    is left as it was; ``model`` is None on the trainer).  ``batch`` is a
-    dict of numpy arrays or tensors, split over the batch on a mesh."""
+    a card) and its parameters are updated in place: a module's own, a
+    tree's leaves as new leaf tensors (sharing the caller's storage where
+    they are on ``device`` already), which ``loss_fn`` receives as
+    ``model``.  With ``mesh`` and ``rules`` (the model's path rules, e.g.
+    ``bert.SHARDING_RULES``) its parameters are copied onto the mesh as
+    ``ShardedTensor``s: ``params`` maps each dotted name (a module's
+    ``state_dict`` name) to one, ``tree`` nests them as the model does, and
+    ``loss_fn`` receives ``tree`` under ``with mesh:`` (``model`` is left as
+    it was; ``model`` is None on the trainer).  ``global_params()`` hands
+    back the model's tree of global tensors, to serve or evaluate off the
+    mesh.  ``batch`` is a dict of numpy arrays or tensors, split over the
+    batch on a mesh."""
 
     def __init__(
         self,
         loss_fn: Callable[[Any, Any], torch.Tensor],
-        model: nn.Module,
+        model: Any,
         config: Optional[TrainerConfig] = None,
         optimizer: Optional[AdamW] = None,
         flops_per_batch: Optional[float] = None,
@@ -242,8 +251,13 @@ class Trainer:
         self.mesh = mesh
         if mesh is None:
             self.device = resolve_device(device)
-            self.model = model.to(self.device)
-            self.params = dict(self.model.named_parameters())
+            if isinstance(model, nn.Module):
+                self.model = model.to(self.device)
+                self.params = dict(self.model.named_parameters())
+            else:
+                self.model = tree_map_with_path(
+                    lambda _, t: t.detach().to(self.device).requires_grad_(), model)
+                self.params = _flatten(self.model)
             self.opt_state = self.optimizer.init(self.params)
         else:
             if rules is None:
@@ -369,7 +383,9 @@ class Trainer:
         one-device layout (``state_dict`` names), so either trainer restores
         the other's checkpoints."""
         if self.mesh is None:
-            return {"params": self.model.state_dict(), "opt_state": self.opt_state}
+            params = (self.model.state_dict() if isinstance(self.model, nn.Module)
+                      else {n: t.detach() for n, t in self.params.items()})
+            return {"params": params, "opt_state": self.opt_state}
         with torch.no_grad():
             return {"params": {n: st.gather() for n, st in self.params.items()},
                     "opt_state": {k: ({n: st.gather() for n, st in v.items()}
@@ -398,7 +414,11 @@ class Trainer:
         state = restored["state"]
         if self.mesh is None:
             with torch.no_grad():
-                self.model.load_state_dict(state["params"])
+                if isinstance(self.model, nn.Module):
+                    self.model.load_state_dict(state["params"])
+                else:
+                    for n, t in self.params.items():
+                        t.copy_(state["params"][n])
             self.opt_state = state["opt_state"]
         else:
             for n, st in self.params.items():
@@ -411,6 +431,21 @@ class Trainer:
                     self.opt_state[k] = state["opt_state"][k]
         self.step_num = restored["step"]
         return True
+
+    def global_params(self) -> Any:
+        """The parameters as the model's tree of global tensors, detached
+        (the JAX ``Trainer.params``): on a mesh each ShardedTensor gathered
+        onto the mesh's first device; on one device the model's own leaves
+        (a module's as its ``param_tree``).  A leaf that no rule splits and
+        that lives there already is the parameter's own storage, not a
+        copy."""
+        tree = self.tree if self.mesh is not None else self.model
+
+        def leaf(_, t):
+            return (t.gather() if isinstance(t, ShardedTensor) else t).detach()
+
+        with torch.no_grad():
+            return tree_map_with_path(leaf, tree)
 
     # -------------------------------------------------------------- metrics
 
@@ -434,15 +469,6 @@ class Trainer:
         devs = self.mesh.distinct_devices
         return (f"{self.mesh.size} mesh shards on {len(devs)} device"
                 f"{'s' if len(devs) > 1 else ''} ({', '.join(str(d) for d in devs)})")
-
-
-def _flatten(tree: dict, prefix: str = "") -> dict:
-    """A nested dict's leaves under dotted names (``state_dict`` names)."""
-    out: dict = {}
-    for k, v in tree.items():
-        name = f"{prefix}.{k}" if prefix else str(k)
-        out.update(_flatten(v, name) if isinstance(v, dict) else {name: v})
-    return out
 
 
 def _replica_groups(st: ShardedTensor) -> list:

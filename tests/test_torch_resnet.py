@@ -155,3 +155,18 @@ def test_three_sgd_momentum_steps_match_optax(dtype):
     want = _jax_leaves(jp)
     for k, t in leaves.items():
         np.testing.assert_allclose(t.float().numpy(), want[k], rtol=tol, atol=tol, err_msg=k)
+
+
+def test_synthetic_batch_has_the_jax_layout():
+    """The batches phase 19 trains on: the JAX function's shapes and dtypes
+    (NHWC f32 images, int32 labels), labels in range, N(0, 1) images, and
+    the same draws for the same seed (numpy's numbers, not jax.random's)."""
+    got = tresnet.synthetic_batch(3, B, image_size=32, num_classes=10)
+    want = jresnet.synthetic_batch(jax.random.PRNGKey(3), B, image_size=32, num_classes=10)
+    for k in ("images", "labels"):
+        assert got[k].shape == tuple(want[k].shape) and got[k].dtype == want[k].dtype, k
+    assert got["labels"].min() >= 0 and got["labels"].max() < 10
+    images = got["images"]
+    assert abs(float(images.mean())) < 0.05 and abs(float(images.std()) - 1) < 0.05
+    again = tresnet.synthetic_batch(3, B, image_size=32, num_classes=10)
+    assert all(np.array_equal(got[k], again[k]) for k in got)

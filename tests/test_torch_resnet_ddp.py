@@ -7,6 +7,10 @@
   package's control plane, as tests/test_transport.py drives the JAX worker
   with 4 ranks (2 here, to bound the time): both ranks print one loss,
   within 5e-2 of a single-process run on the same global batch.
+* The default path in one process at ``LOCAL_DEVICES=2``: a data mesh of
+  two shards, whose gradient equals the global-batch gradient and the mean
+  of the shards' gradients; on the JAX worker's initial weights it prints
+  the JAX worker's last two lines and its loss within ``LOSS_GAP``.
 
 Every process, pod and queue wait has a timeout of its own."""
 
@@ -109,6 +113,94 @@ def test_default_path_mean_reduced_grads_equal_the_global_batch_gradient():
         # may differ by a few bf16 ulps (2**-8 each) of its largest entry
         worst = max(gaps.values())
         assert worst <= 4 * 2.0 ** -8, (rank, sorted(gaps.items(), key=lambda kv: -kv[1])[:5])
+
+
+def test_local_devices_mesh_gradient_is_the_shards_mean_gradient():
+    """At ``LOCAL_DEVICES=2`` the worker's loss is ResNet's mesh loss over
+    ``MeshConfig(data=2)``: its gradient (one tensor per leaf, the shards
+    sharing the device) equals the gradient of the global batch in one
+    piece and the mean of each shard's own gradient, as ``dist_mean``
+    averages the ranks'."""
+    from kubeflow_tpu_torch.examples import resnet_ddp_worker as W
+    from kubeflow_tpu_torch.models import resnet
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    dev = torch.device("cpu")
+    mesh = build_mesh(MeshConfig(data=2, fsdp=1), [dev] * 2)
+    config, params, plain, opt, state = W.make_model(SMALL["num_classes"], dev)
+    b = (SMALL["per_chip_batch"], SMALL["image_size"], SMALL["num_classes"])
+    imgs, lbls = W.local_batch(1, 1, 0, 2 * b[0], *b[1:])
+    assert imgs.shape[0] == 4
+    got = {}
+
+    def sync(grads):  # the step's gradients, as the worker syncs them
+        got.update(grads)
+        return grads
+
+    W.train_step(config, params, plain, opt, state, imgs, lbls, dev, sync, update=False,
+                 mesh=mesh)
+
+    def grads(lo, hi):
+        part = resnet.loss(params, config, torch.from_numpy(imgs[lo:hi]),
+                           torch.from_numpy(lbls[lo:hi]))
+        return dict(zip(plain, torch.autograd.grad(part, list(plain.values()))))
+
+    whole, halves = grads(0, 4), [grads(0, 2), grads(2, 4)]
+    for want in (whole, {n: (halves[0][n] + halves[1][n]) / 2 for n in plain}):
+        gaps = {n: float((got[n].float() - want[n].float()).abs().max()
+                         / want[n].float().abs().max().clamp(min=1e-30)) for n in plain}
+        # bf16 gradients rounded at other places: a few bf16 ulps of a
+        # leaf's largest entry, the bound of the world-2 test above
+        assert max(gaps.values()) <= 4 * 2.0 ** -8, sorted(gaps.items(), key=lambda kv: -kv[1])[:5]
+
+
+def test_local_devices_mesh_prints_the_jax_workers_lines(monkeypatch, capsys):
+    """The JAX worker and the port's at ``LOCAL_DEVICES=2`` in one process,
+    one step after the warm-up (the loss after one SGD update; later steps
+    at lr 0.1 amplify the frameworks' bf16 rounding past any fixed bound):
+    the same last two lines, a global batch of 2 x ``PER_CHIP_BATCH``, and
+    losses within ``LOSS_GAP`` on the JAX worker's initial weights (carried
+    into the port's ``resnet.init``, the only change to its path)."""
+    import jax
+    import numpy as np
+
+    from kubeflow_tpu.models import resnet as jresnet
+    from kubeflow_tpu_torch.examples import resnet_ddp_worker as W
+    from kubeflow_tpu_torch.models import resnet
+
+    knobs = dict(LOCAL_DEVICES="2", TRAIN_STEPS="1", IMAGE_SIZE="32", PER_CHIP_BATCH="2")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "WORLD_SIZE", "RANK", "JAX_COORDINATOR_ADDRESS")}
+    ref = subprocess.run([sys.executable, "-m", "kubeflow_tpu.examples.resnet_ddp_worker"],
+                         cwd=REPO, capture_output=True, text=True, timeout=300,
+                         env={**env, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu", **knobs})
+    assert ref.returncode == 0, ref.stderr[-3000:]
+
+    tree = jax.tree.map(np.asarray, jresnet.init(jax.random.PRNGKey(0),
+                                                 jresnet.ResNetConfig(num_classes=100)))
+    monkeypatch.setattr(resnet, "init",
+                        lambda config, device=None, seed=0: resnet.params_from_jax(tree, device))
+    drawn = []
+    local_batch = W.local_batch
+
+    def recording(*a):
+        out = local_batch(*a)
+        drawn.append(out[0].shape[0])
+        return out
+
+    monkeypatch.setattr(W, "local_batch", recording)
+    for k in ("MASTER_ADDR", "WORLD_SIZE", "RANK", "JAX_COORDINATOR_ADDRESS", "NUM_CLASSES"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in {"TORCH_DEVICE": "cpu", **knobs}.items():
+        monkeypatch.setenv(k, v)
+    W.main()
+    got = capsys.readouterr().out.strip().splitlines()
+    want = ref.stdout.strip().splitlines()
+    assert got[-2:] == want[-2:] == ["world size=1 global devices=2", "RESNET-DDP-OK"]
+    assert drawn == [4, 4]  # the warm-up's batch and the step's: 2 x 2 images
+    gap = abs(_loss("\n".join(got)) - _loss(ref.stdout))
+    print(f"port vs JAX worker at LOCAL_DEVICES=2: loss gap {gap:.6f}")
+    assert gap < LOSS_GAP, (got, want)
 
 
 def _env(**kw) -> dict:
