@@ -328,6 +328,28 @@ or the script exits non-zero:
    tests/test_pipeline.py's composed sizes the 8-shard loss within 1e-4 of
    the unsharded ``lm_loss``; ``graft_entry.dryrun_multichip(4)`` on its
    default devices: both ``OK`` lines.
+19. mesh_models: the decoder at Llama-3-8B width (``MESH_DECODER_LAYERS``
+   layers), ResNet-50 and MNIST on fsdp 2 x tensor 2 shards of the card
+   against the unsharded Trainer (``mesh_models_phase``).
+20. gang: the mesh across processes, every member on ``cuda:0`` (so the
+   backend is gloo, the collectives staged through host memory; the
+   members' backend line is in the phase line): (a) BERT-base with flash
+   on the ``tp`` preset (fsdp 2 x tensor 2) over two processes of two
+   positions each, ``chip_smoke.py --gang-member`` subprocesses on the
+   parent's weights and phase 8's batches, 5 steps at lr 1e-4, against the
+   one-process tp@4 run: every loss within 1e-2, every grad norm within
+   1.22e-2 relative, both members equal, each position's bytes its rule's
+   shard shape, 24 flash launches a step in each member (48 over the gang)
+   and no plain call; ms a step in each member and in the one-process run,
+   the collectives' bytes and host ms a step, peak memory; (b) ``python -m
+   kubeflow_tpu_torch.examples.bert_worker`` as a gang of two at BERT-base
+   widths (``GANG_WORKER_ENV``): rank 1 exits 137 at step 5, the phase kills
+   a survivor still running after ``GANG_KILL_WAIT_S`` and relaunches both:
+   both first runs ``resumed_from=0``, both second runs the same
+   ``resumed_from=K`` > 0, no ``step=1``, the same ``step=`` lines and
+   ``TRAIN-DONE step=10``; (c) the ResNet worker at world 2 x
+   ``LOCAL_DEVICES=2`` on phase 12's global batch: ``world size=2 global
+   devices=4``, a finite loss, samples/s beside 12(c) and 12(d).
 
 Phase 5's Llama-3-8B weights are freed before phase 5j, which runs after
 phases 6 and 16.  The last lines are the
@@ -4821,6 +4843,15 @@ def counting_plain_flash() -> tuple:
     return calls, undo
 
 
+def mesh_loss_fn(cfg):
+    """BERT's MLM loss on the training cell's batches (``TRAIN_P``
+    predictions a row)."""
+    def loss_fn(m, b):
+        return bert.mlm_loss(m, cfg, b["input_ids"], b["labels"], b["attention_mask"],
+                             max_predictions=TRAIN_P)
+    return loss_fn
+
+
 def mesh_train(dev) -> dict:
     """(a) BERT-base on the ``tp`` preset over MESH_SHARDS shards of the
     card (fsdp 2 x tensor 2) against the unsharded Trainer on the same
@@ -4831,11 +4862,7 @@ def mesh_train(dev) -> dict:
     batches = train_batches(cfg.vocab_size, MESH_STEPS)
     flops = cfg.train_flops(TRAIN_B, TRAIN_S, TRAIN_P)
     tcfg = TrainerConfig(learning_rate=1e-4, warmup_steps=2, total_steps=16)
-
-    def loss_fn(m, b):
-        return bert.mlm_loss(m, cfg, b["input_ids"], b["labels"], b["attention_mask"],
-                             max_predictions=TRAIN_P)
-
+    loss_fn = mesh_loss_fn(cfg)
     model = bert.init(cfg, dev, seed=0)
     out: dict = {"preset": preset.name, "mesh": mesh.shape, "devices": [str(dev)] * MESH_SHARDS,
                  "config": "BERT-base (BertConfig defaults), attention=flash",
@@ -4892,8 +4919,9 @@ def mesh_train(dev) -> dict:
 
 
 def mesh_bytes(trainer) -> dict:
-    """Each position's parameter and moment bytes against its rule's shard
-    shape, and the bytes the card holds: each distinct slice once."""
+    """Each of this process's positions' parameter and moment bytes against
+    its rule's shard shape (0 at another process's), and the bytes the
+    process holds on the card: each distinct slice once."""
     mesh = trainer.mesh
     per_shard = [0] * mesh.size
     held = expected = 0
@@ -4902,11 +4930,12 @@ def mesh_bytes(trainer) -> dict:
         shape = st.sharding.shard_shape(tuple(st.shape))
         for leaf in (st, trainer.opt_state["mu"][name], trainer.opt_state["nu"][name]):
             size = leaf.dtype.itemsize
-            for pos, t in enumerate(leaf.shards):
-                ok = ok and tuple(t.shape) == shape
-                per_shard[pos] += t.numel() * size
+            for pos in mesh.local_positions:
+                ok = ok and tuple(leaf.shards[pos].shape) == shape
+                per_shard[pos] += leaf.shards[pos].numel() * size
             held += sum(t.numel() * size for t in leaf.locals)
-            expected += len({leaf.block(p) for p in range(mesh.size)}) * math.prod(shape) * size
+            expected += (len({leaf.block(p) for p in mesh.local_positions})
+                         * math.prod(shape) * size)
     unsharded = 3 * sum(st.shape.numel() * st.dtype.itemsize for st in trainer.params.values())
     return {"ok": ok and held == expected, "per_shard_bytes": per_shard,
             "device_bytes": held, "device_bytes_expected": expected,
@@ -5401,15 +5430,341 @@ def mesh_models_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 20
+
+# 20(a): phase 17's tp preset (fsdp 2 x tensor 2) over GANG_WORLD processes
+# of GANG_LOCAL positions each, all on the one card
+GANG_WORLD, GANG_LOCAL, GANG_STEPS = 2, 2, MESH_STEPS
+GANG_TIMEOUT_S = 300
+# 20(b): the BERT worker's gang restart at BERT-base widths, as
+# tests/test_training_jobs.py:503 runs the JAX worker's gang
+GANG_WORKER_ENV = {"VOCAB_SIZE": 30522, "HIDDEN_SIZE": 768, "NUM_LAYERS": 12, "NUM_HEADS": 12,
+                   "INTERMEDIATE_SIZE": 3072, "TRAIN_STEPS": 10, "CHECKPOINT_EVERY": 2,
+                   "FAIL_AT_STEP": 5, "FAIL_RANK": 1, "LOCAL_DEVICES": 1}
+# the controller's bounded wait for the survivor of a preempted member
+GANG_KILL_WAIT_S = 30
+
+
+def gang_env(rank: int, port: int, extra: dict = None) -> dict:
+    """A gang member's environment: the JAX package's rendezvous variables,
+    the card (no ``TORCH_DEVICE``)."""
+    env = {k: v for k, v in os.environ.items() if k != "TORCH_DEVICE"}
+    env.update({k: str(v) for k, v in (extra or {}).items()})
+    env.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+               JAX_NUM_PROCESSES=str(GANG_WORLD), JAX_PROCESS_ID=str(rank))
+    return env
+
+
+def gang_member(spec_path: str) -> int:
+    """``chip_smoke.py --gang-member SPEC``: one process of 20(a)'s gang.
+    Joins the job from the JAX rendezvous variables (``GANG_LOCAL``
+    positions on the card), trains BERT-base with flash on the ``tp``
+    preset over the job's global devices from the parent's weights and
+    batches, and writes what it counted to the spec's ``out``."""
+    from kubeflow_tpu_torch.parallel import distributed
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    distributed.initialize(local_device_count=GANG_LOCAL, device=dev)
+    FA.load_kernel()
+    cfg = bert.BertConfig(attention="flash")
+    model = bert.init(cfg, dev, seed=spec["seed"])
+    model.load_state_dict(torch.load(spec["weights"], map_location=dev, weights_only=True))
+    mesh = build_mesh(get_preset("tp", GANG_WORLD * GANG_LOCAL).mesh)
+    trainer = Trainer(mesh_loss_fn(cfg), model,
+                      TrainerConfig(learning_rate=1e-4, warmup_steps=2, total_steps=16),
+                      flops_per_batch=cfg.train_flops(TRAIN_B, TRAIN_S, TRAIN_P), mesh=mesh,
+                      rules=bert.SHARDING_RULES)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    batches = train_batches(cfg.vocab_size, GANG_STEPS)
+    calls, undo = counting_plain_flash()
+    metrics, stats = [], []
+    try:
+        FA.flash_attention.launches = 0
+        for b in batches:
+            distributed.collective_stats(reset=True)
+            metrics.append(trainer.train_step(b))
+            stats.append(distributed.collective_stats())
+        launches = FA.flash_attention.launches
+    finally:
+        undo()
+    out = {"rank": distributed.process_index(), "backend": distributed.backend(),
+           "mesh": mesh.shape, "local_positions": mesh.local_positions,
+           "losses": [m["loss"] for m in metrics],
+           "grad_norms": [m["grad_norm"] for m in metrics],
+           "step_ms": [m["step_time_s"] * 1e3 for m in metrics],
+           "step_ms_mean_after_first": sum(m["step_time_s"] for m in metrics[1:])
+           / (len(metrics) - 1) * 1e3,
+           "launches": launches, "launches_per_step": launches / GANG_STEPS,
+           "plain_calls": calls[0],
+           "staged_bytes_per_step": [s["bytes"] for s in stats],
+           "collective_ms_per_step": [s["seconds"] * 1e3 for s in stats],
+           "collective_calls_per_step": [s["calls"] for s in stats],
+           "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "mfu_label": trainer.mfu_label, "bytes": mesh_bytes(trainer)}
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def wait_gang(procs: list, deadline: float, kill_after_137: bool = False) -> dict:
+    """Wait for a gang's processes; with ``kill_after_137`` act as the
+    controller: once a member exits 137, give the survivors
+    ``GANG_KILL_WAIT_S`` and kill them.  Past ``deadline`` kill them all."""
+    killed, timed_out, t137 = [], False, None
+    while any(p.poll() is None for p in procs):
+        now = time.monotonic()
+        if kill_after_137 and t137 is None and any(p.poll() == 137 for p in procs):
+            t137 = now
+        late = t137 is not None and now - t137 > GANG_KILL_WAIT_S
+        if late or now > deadline:
+            timed_out = timed_out or now > deadline
+            for r, p in enumerate(procs):
+                if p.poll() is None:
+                    p.kill()
+                    killed.append(r)
+            for p in procs:
+                p.wait(timeout=30)
+            break
+        time.sleep(0.1)
+    return {"exit_codes": [p.returncode for p in procs], "killed": killed,
+            "timed_out": timed_out}
+
+
+def backend_line(stderr: str) -> str:
+    return next((line for line in stderr.splitlines()
+                 if line.startswith("kubeflow_tpu_torch.distributed:")), "")
+
+
+def gang_train(dev) -> dict:
+    """(a) BERT-base with flash on the ``tp`` preset over two processes of
+    two positions each, against the one-process tp@4 run on the same
+    weights and batches."""
+    cfg = bert.BertConfig(attention="flash")
+    preset = get_preset("tp", GANG_WORLD * GANG_LOCAL)
+    batches = train_batches(cfg.vocab_size, GANG_STEPS)
+    out: dict = {"preset": preset.name, "config": "BERT-base (BertConfig defaults), attention=flash",
+                 "batch": TRAIN_B, "seq": TRAIN_S, "max_predictions": TRAIN_P,
+                 "processes": GANG_WORLD, "positions_per_process": GANG_LOCAL}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        model = bert.init(cfg, dev, seed=0)
+        weights = os.path.join(tmp, "weights.pt")
+        torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, weights)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mesh = build_mesh(preset.mesh, [dev] * (GANG_WORLD * GANG_LOCAL))
+        trainer = Trainer(mesh_loss_fn(cfg), model,
+                          TrainerConfig(learning_rate=1e-4, warmup_steps=2, total_steps=16),
+                          flops_per_batch=cfg.train_flops(TRAIN_B, TRAIN_S, TRAIN_P),
+                          mesh=mesh, rules=bert.SHARDING_RULES)
+        del model
+        calls, undo = counting_plain_flash()
+        try:
+            FA.flash_attention.launches = 0
+            metrics = [trainer.train_step(b) for b in batches]
+            launches = FA.flash_attention.launches
+        finally:
+            undo()
+        one = out["one_process"] = {
+            "losses": [m["loss"] for m in metrics],
+            "grad_norms": [m["grad_norm"] for m in metrics],
+            "step_ms": [m["step_time_s"] * 1e3 for m in metrics],
+            "step_ms_mean_after_first": sum(m["step_time_s"] for m in metrics[1:])
+            / (len(metrics) - 1) * 1e3,
+            "launches": launches, "plain_calls": calls[0],
+            "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "mfu_label": trainer.mfu_label}
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        port = free_port()
+        procs, specs = [], []
+        for r in range(GANG_WORLD):
+            spec = {"weights": weights, "seed": 0, "out": os.path.join(tmp, f"member{r}.json")}
+            path = os.path.join(tmp, f"spec{r}.json")
+            with open(path, "w") as f:
+                json.dump(spec, f)
+            specs.append(spec)
+            err = open(os.path.join(tmp, f"member{r}.err"), "w+")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--gang-member", path],
+                env=gang_env(r, port), cwd=REPO, stdout=subprocess.DEVNULL, stderr=err), err))
+        t0 = time.perf_counter()
+        waited = wait_gang([p for p, _ in procs], time.monotonic() + GANG_TIMEOUT_S)
+        out["gang_wall_s"] = time.perf_counter() - t0
+        out.update(waited)
+        members, stderr = [], []
+        for (p, err), spec in zip(procs, specs):
+            err.seek(0)
+            stderr.append(err.read())
+            err.close()
+            if p.returncode == 0 and os.path.exists(spec["out"]):
+                with open(spec["out"]) as f:
+                    members.append(json.load(f))
+    out["members"] = members
+    out["backend_lines"] = [backend_line(s) for s in stderr]
+    if len(members) != GANG_WORLD:
+        out["stderr_tail"] = [s[-3000:] for s in stderr]
+        out["ok"] = False
+        return out
+    per_member = cfg.num_layers * GANG_LOCAL  # a launch per layer and local position
+    m0, m1 = members
+    out["gates"] = {
+        "loss": all(abs(a - b) <= MESH_LOSS_ATOL
+                    for m in members for a, b in zip(m["losses"], one["losses"])),
+        "grad_norm": all(abs(a - b) <= MESH_NORM_RTOL * abs(b)
+                         for m in members for a, b in zip(m["grad_norms"], one["grad_norms"])),
+        "members_agree": m0["losses"] == m1["losses"] and m0["grad_norms"] == m1["grad_norms"],
+        "launches": all(m["launches"] == per_member * GANG_STEPS and m["plain_calls"] == 0
+                        for m in members)
+        and sum(m["launches"] for m in members) == 2 * per_member * GANG_STEPS,
+        "bytes": all(m["bytes"]["ok"] for m in members),
+        "backend": all(m["backend"] == "gloo" for m in members)
+        and all("host memory" in line for line in out["backend_lines"]),
+        "finite": all(math.isfinite(x) for m in members for x in m["losses"] + m["grad_norms"])}
+    out["launches_per_step_per_member_expected"] = per_member
+    out["launches"] = one["launches"] + sum(m["launches"] for m in members)
+    out["max_loss_diff"] = max(abs(a - b) for m in members
+                               for a, b in zip(m["losses"], one["losses"]))
+    out["max_grad_norm_rel"] = max(abs(a - b) / abs(b) for m in members
+                                   for a, b in zip(m["grad_norms"], one["grad_norms"]))
+    out["ok"] = all(out["gates"].values())
+    return out
+
+
+def gang_restart() -> dict:
+    """(b) ``python -m kubeflow_tpu_torch.examples.bert_worker`` as a gang
+    of two at BERT-base widths: rank 1 preempted at step 5 (exit 137), the
+    survivor killed after a bounded wait if it has not left, both relaunched
+    from the gang's checkpoints."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    runs = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        extra = {**GANG_WORKER_ENV, "CHECKPOINT_DIR": os.path.join(tmp, "ckpt"),
+                 "FAIL_MARKER": os.path.join(tmp, "died")}
+        for attempt in range(2):
+            port = free_port()
+            procs = []
+            for r in range(GANG_WORLD):
+                files = [open(os.path.join(tmp, f"run{attempt}.{r}.{k}"), "w+")
+                         for k in ("out", "err")]
+                procs.append((subprocess.Popen(
+                    [sys.executable, "-m", "kubeflow_tpu_torch.examples.bert_worker"],
+                    env=gang_env(r, port, extra), cwd=REPO, stdout=files[0], stderr=files[1]),
+                    files))
+            t0 = time.perf_counter()
+            waited = wait_gang([p for p, _ in procs], time.monotonic() + GANG_TIMEOUT_S,
+                               kill_after_137=attempt == 0)
+            waited["wall_s"] = time.perf_counter() - t0
+            outs, errs = [], []
+            for _, files in procs:
+                for f in files:
+                    f.seek(0)
+                outs.append(files[0].read().strip().splitlines())
+                errs.append(files[1].read())
+                for f in files:
+                    f.close()
+            waited["stdout"] = outs
+            waited["backend_lines"] = [backend_line(e) for e in errs]
+            waited["stderr_tail"] = [e[-1500:] for e, c in zip(errs, waited["exit_codes"])
+                                     if c not in (0, 137, 143)]
+            runs.append(waited)
+    first, second = runs
+
+    def resumed(lines):
+        return next((int(x.split("=")[1]) for x in lines if x.startswith("resumed_from=")), None)
+
+    ks = [resumed(lines) for lines in second["stdout"]]
+    steps = [[x for x in lines if x.startswith("step=")] for lines in second["stdout"]]
+    gates = {
+        "first_fresh": all(resumed(lines) == 0 for lines in first["stdout"]),
+        "preempted": first["exit_codes"][GANG_WORKER_ENV["FAIL_RANK"]] == 137,
+        "resumed_same_k": ks[0] is not None and ks[0] > 0 and ks[0] == ks[1],
+        "no_step_1": not any(x.startswith("step=1 ") for s in steps for x in s),
+        "done": all(f"TRAIN-DONE step={GANG_WORKER_ENV['TRAIN_STEPS']}" in lines
+                    for lines in second["stdout"]) and second["exit_codes"] == [0, 0],
+        "same_steps": steps[0] == steps[1] and len(steps[0]) > 0}
+    return {"ok": all(gates.values()), "gates": gates, "resumed_from": ks, "runs": runs}
+
+
+def gang_resnet() -> dict:
+    """(c) the ResNet worker at world 2 x ``LOCAL_DEVICES=2`` on the card:
+    the global data mesh of 4 positions over two processes, phase 12's
+    global batch of RESNET_B."""
+    port = free_port()
+    env = {**RESNET_ENV, "LOCAL_DEVICES": GANG_LOCAL, "WORLD_SIZE": GANG_WORLD,
+           "PER_CHIP_BATCH": RESNET_B // (GANG_WORLD * GANG_LOCAL),
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port}
+    with ThreadPoolExecutor(GANG_WORLD) as pool:
+        runs = list(pool.map(lambda r: run_worker("resnet_ddp_worker", {**env, "RANK": r},
+                                                  timeout=GANG_TIMEOUT_S), range(GANG_WORLD)))
+    losses = [float(kv.get("loss", "nan")) for _, _, kv in runs]
+    out = {"exit_codes": [r.returncode for r, _, _ in runs], "losses": losses,
+           "global_batch": RESNET_B,
+           "samples_per_s": [float(kv.get("samples_per_sec", "nan")) for _, _, kv in runs],
+           "stdout": [lines for _, lines, _ in runs],
+           "backend_lines": [backend_line(r.stderr) for r, _, _ in runs],
+           "stderr_tail": [r.stderr[-1500:] for r, _, _ in runs if r.returncode]}
+    out["ok"] = (out["exit_codes"] == [0, 0] and all(math.isfinite(x) for x in losses)
+                 and all("world size=2 global devices=4" in lines and "RESNET-DDP-OK" in lines
+                         for lines in out["stdout"]))
+    return out
+
+
+def gang_phase(dev, resnet_res: dict) -> dict:
+    """Phase 20: the mesh across processes (the rest of ROADMAP item 3.3) on
+    the one card, every member on ``cuda:0`` (so the backend is gloo, the
+    collectives staged through host memory): (a) ``gang_train``, (b)
+    ``gang_restart``, (c) ``gang_resnet``."""
+    train_res = gang_train(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    restart_res = gang_restart()
+    resnet_gang = gang_resnet()
+    out = {"train": train_res, "restart": restart_res, "resnet": resnet_gang,
+           "launches": train_res.get("launches", 0),
+           "gang_launches": sum(m["launches"] for m in train_res.get("members", [])),
+           "resnet_samples_per_s_12c_12d": [
+               (resnet_res.get("default_path") or {}).get("samples_per_s"),
+               (resnet_res.get("local_mesh") or {}).get("samples_per_s")]}
+    out["gates"] = {"train": train_res["ok"], "restart": restart_res["ok"],
+                    "resnet": resnet_gang["ok"]}
+    out["ok"] = all(out["gates"].values())
+    members = train_res.get("members") or []
+    one = train_res.get("one_process") or {}
+    backend = (train_res.get("backend_lines") or [""])[0].split("backend ", 1)[-1]
+    log(f"20 gang (backend {backend}): tp@4 over {GANG_WORLD} processes "
+        f"{[round(m['step_ms_mean_after_first'], 1) for m in members]} ms/step vs one process "
+        f"{one.get('step_ms_mean_after_first', float('nan')):.1f}; launches/step per member "
+        f"{[m['launches_per_step'] for m in members]}; staged MB/step "
+        f"{[round(m['staged_bytes_per_step'][-1] / 1e6, 1) for m in members]}; collective "
+        f"ms/step {[round(m['collective_ms_per_step'][-1], 1) for m in members]}; restart "
+        f"resumed_from {restart_res['resumed_from']}; resnet samples/s "
+        f"{resnet_gang['samples_per_s']} vs 12(c)/(d) {out['resnet_samples_per_s_12c_12d']}; "
+        f"gates {out['gates']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every measured number to this JSON file")
+    ap.add_argument("--gang-member", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False — this smoke run needs "
               "an NVIDIA GPU", file=sys.stderr)
         return 2
+    if args.gang_member:  # one process of phase 20's gang
+        return gang_member(args.gang_member)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -5532,13 +5887,14 @@ def main() -> int:
     phase("worker", lambda: worker(dev))
     phase("mnist", mnist_phase)
     phase("darts", darts_phase)
-    phase("resnet", lambda: resnet_phase(dev))
+    rsres = phase("resnet", lambda: resnet_phase(dev))
     phase("decoder", lambda: decoder_phase(dev))
     rres = phase("bert_remat", lambda: bert_remat(dev))
     pres = phase("pipeline", lambda: pipeline_phase(dev))
     mres = phase("mesh", lambda: mesh_phase(dev))
     gres = phase("gpipe", lambda: gpipe_phase(dev))
     phase("mesh_models", lambda: mesh_models_phase(dev))
+    zres = phase("gang", lambda: gang_phase(dev, rsres))
 
     cases = kres.get("cases") or []
     head = next((c for c in cases if c["pool"] == "bf16" and c["K"] == 1), {})
@@ -5586,9 +5942,10 @@ def main() -> int:
                # launch per batch shard, tensor shard and layer; its
                # unsharded twin and one Ulysses call) and phase 18's (the
                # pp run: one launch per microbatch, layer and fsdp shard;
-               # its unsharded twin); each counts from zero
+               # its unsharded twin) and phase 20's (the one-process tp@4
+               # run and both gang members); each counts from zero
                "launches": tres.get("launches", 0) + rres.get("launches", 0)
-               + mres.get("launches", 0) + gres.get("launches", 0),
+               + mres.get("launches", 0) + gres.get("launches", 0) + zres.get("launches", 0),
                "max_abs_err": max((c["max_abs_err"] for c in
                                    fcases + (mres.get("flash_cases") or [])), default=None),
                "ms": fhead.get("kernel_ms"), "kernel_ms": fhead.get("kernel_ms"),
@@ -5607,7 +5964,10 @@ def main() -> int:
                "gpipe_shard": {k: (gres.get("flash_case") or {}).get(k) for k in (
                    "case", "B", "H", "D", "S", "causal", "max_abs_err", "kernel_ms",
                    "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-               "gpipe_launches": gres.get("launches", 0)}
+               "gpipe_launches": gres.get("launches", 0),
+               # phase 20's: the one-process tp@4 run and both gang members
+               # (each counted in its own process), 24 a step in each member
+               "gang_launches": zres.get("launches", 0)}
     report["kernels"] = [record, frecord]
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

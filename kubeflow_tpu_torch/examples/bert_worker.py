@@ -10,14 +10,18 @@ metrics to stdout.
 ``FAIL_AT_STEP``/``FAIL_MARKER`` simulate a mid-run preemption (exit 137,
 retryable under the ExitCode restart policy) exactly once; ``FAIL_RANK``
 limits it to one process of a gang (read against ``RANK``, else
-``JAX_PROCESS_ID``, the index the controller injects).
+``JAX_PROCESS_ID``, the index the controller injects).  A member whose gang
+lost a process exits with ``GANG_LOST_EXIT`` (143, retryable), so the
+controller restarts the whole gang.
 
 The device is ``TORCH_DEVICE`` (default ``"cuda"``: the card, raising
 without one; ``TORCH_DEVICE=cpu`` runs on the CPU), the port's counterpart
 of the ``JAX_PLATFORMS`` the JAX worker reads.  As the JAX worker does, it
-trains on an ``fsdp`` mesh of ``LOCAL_DEVICES`` (default 1) shards with
-``bert.SHARDING_RULES``; here the shards share the process's device.  A mesh
-across the processes of a gang is ROADMAP Queue 1 item 3.3.
+trains on an ``fsdp`` mesh over the job's global devices with
+``bert.SHARDING_RULES``: ``LOCAL_DEVICES`` (default 1) shards per process,
+sharing the process's device, so a gang of P processes trains on P x
+``LOCAL_DEVICES`` shards; every member draws the same global batches and
+keeps its own rows, and process 0 writes the checkpoints.
 
     python -m kubeflow_tpu_torch.examples.bert_worker
 """
@@ -25,11 +29,22 @@ across the processes of a gang is ROADMAP Queue 1 item 3.3.
 from __future__ import annotations
 
 import os
+import sys
 
 
 def main() -> None:
+    from kubeflow_tpu_torch.parallel.distributed import GANG_LOST_EXIT, GangMemberLost
+
+    try:
+        _main()
+    except GangMemberLost as e:
+        print(f"gang member lost: {e}", file=sys.stderr, flush=True)
+        os._exit(GANG_LOST_EXIT)
+
+
+def _main() -> None:
     from kubeflow_tpu_torch.models import bert
-    from kubeflow_tpu_torch.parallel.distributed import initialize
+    from kubeflow_tpu_torch.parallel.distributed import GangMemberLost, devices, initialize
     from kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
     from kubeflow_tpu_torch.train.data import synthetic_mlm_batches
     from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -37,7 +52,7 @@ def main() -> None:
 
     device = resolve_device(os.environ.get("TORCH_DEVICE") or None)
     shards = int(os.environ.get("LOCAL_DEVICES", "1"))
-    initialize(local_device_count=shards, device=device)
+    penv = initialize(local_device_count=shards, device=device)
     config = bert.BertConfig(
         vocab_size=int(os.environ.get("VOCAB_SIZE", "512")),
         hidden_size=int(os.environ.get("HIDDEN_SIZE", "64")),
@@ -48,7 +63,8 @@ def main() -> None:
     )
     steps = int(os.environ.get("TRAIN_STEPS", "20"))
     batch_size = int(os.environ.get("BATCH_SIZE", "8"))
-    mesh = build_mesh(MeshConfig(fsdp=shards), [device] * shards)
+    devs = devices() if penv.is_distributed else [device] * shards
+    mesh = build_mesh(MeshConfig(fsdp=len(devs)), devs)
     model = bert.init(config, device, seed=0)
 
     def loss_fn(m, b):
@@ -74,6 +90,18 @@ def main() -> None:
     if fail_rank >= 0 and rank != fail_rank:
         fail_at = -1
     data = synthetic_mlm_batches(config.vocab_size, batch_size, seq_len=32)
+    try:
+        _train(trainer, data, steps, fail_at, marker)
+    except GangMemberLost:
+        trainer.finalize()  # the writer's checkpoint in flight is made whole first
+        raise
+    trainer.save()
+    trainer.block_until_ready()
+    trainer.finalize()
+    print(f"TRAIN-DONE step={trainer.step_num}", flush=True)
+
+
+def _train(trainer, data, steps: int, fail_at: int, marker: str) -> None:
     while trainer.step_num < steps:
         metrics = trainer.train_step(next(data))
         print(f"step={trainer.step_num} loss={metrics['loss']:.4f}", flush=True)
@@ -84,10 +112,6 @@ def main() -> None:
             # makes the step the rerun resumes from deterministic
             trainer.finalize()
             os._exit(137)
-    trainer.save()
-    trainer.block_until_ready()
-    trainer.finalize()
-    print(f"TRAIN-DONE step={trainer.step_num}", flush=True)
 
 
 if __name__ == "__main__":

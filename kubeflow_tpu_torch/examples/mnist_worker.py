@@ -7,7 +7,8 @@ environment (``TRAIN_STEPS``, ``BATCH_SIZE``, ``LEARNING_RATE``,
 TFJob/TPUJob replica: joins the process group from the injected env, trains
 the CNN on synthetic MNIST with Adam (``optax.adam``'s arithmetic), and
 prints Katib-style ``key=value`` metrics.  The device is ``TORCH_DEVICE``
-(default the card).  TF32 is off for convolutions and matmuls, so an f32
+(default the card).  As the JAX worker (which builds no mesh), each process
+of a job trains on its own device, ``LOCAL_DEVICES`` > 1 included.  TF32 is off for convolutions and matmuls, so an f32
 config computes in f32 on the card as on the CPU.
 
     python -m kubeflow_tpu_torch.examples.mnist_worker

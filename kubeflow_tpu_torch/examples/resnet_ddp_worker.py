@@ -26,8 +26,11 @@ global-batch gradient:
   taking its own rows of the global batch through ResNet's mesh loss, whose
   exact global mean makes the gradient the shards' mean gradient, as
   ``dist_mean`` averages the ranks'.  ``LOCAL_DEVICES`` > 1 in a job of
-  several processes is refused (a mesh across processes, ROADMAP Queue 1
-  item 3.3);
+  several processes trains, as the JAX worker does, over the job's global
+  ``MeshConfig(data=world x N)`` (``parallel/distributed.devices()``): each
+  process materializes only its rows of the step's global batch (assembled
+  by ``train.data.global_batch``), the mesh loss is the global mean, and
+  ``dist_sum`` adds the processes' shares of the gradient;
 * ``DDP_TRANSPORT=shim``: every process keeps a full replica and the
   per-step gradient sync goes through the C++ ring (``transport/``) over
   host TCP instead, so several processes can share one card.
@@ -95,16 +98,39 @@ def train_step(config, params: dict, leaves: dict, opt, opt_state, imgs, lbls, d
     parameters replicated over them: the shards of the one device read
     the one tensor of each leaf.  Returns the loss, on the device."""
     from kubeflow_tpu_torch.models import resnet
+    from kubeflow_tpu_torch.train.data import global_batch
 
     with mesh if mesh is not None else contextlib.nullcontext():
-        loss = resnet.loss(params, config, torch.from_numpy(imgs).to(device),
-                           torch.from_numpy(lbls).to(device))
+        if mesh is not None and not mesh.is_fully_addressable:
+            # this process's rows of the global batch, on its positions
+            b = global_batch({"images": imgs, "labels": lbls}, mesh)
+            images, labels = b["images"], b["labels"]
+        else:
+            images, labels = torch.from_numpy(imgs).to(device), torch.from_numpy(lbls).to(device)
+        loss = resnet.loss(params, config, images, labels)
     grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
     if sync is not None:
         grads = sync(grads)
     if update:
         opt.update(grads, opt_state, leaves)
     return loss.detach()
+
+
+def dist_sum(grads: dict) -> dict:
+    """The mesh across processes' sync: each process's gradient is its
+    share of the global mean's, so the ranks' shares add up: one
+    ``all_reduce`` of every leaf in sorted name order, in f32 (staged
+    through host memory where the processes share a card)."""
+    from kubeflow_tpu_torch.parallel.distributed import all_reduce_sum
+
+    names = sorted(grads)
+    total = all_reduce_sum(torch.cat([grads[n].float().reshape(-1) for n in names]))
+    off = 0
+    for n in names:
+        g = grads[n]
+        grads[n] = total[off:off + g.numel()].reshape(g.shape).to(g.dtype)
+        off += g.numel()
+    return grads
 
 
 def dist_mean(grads: dict) -> dict:
@@ -124,14 +150,16 @@ def _run(device, world: int, rank: int, sync, mean_loss: Callable[[float], float
     """The timed loop of both paths, after a warm-up step on batch 0 that
     updates the weights (``warm_update``, the default path's compile step)
     or only computes the gradients (the shim's), as in the JAX worker.
-    ``local_devices`` > 1 (one process only) trains over a data mesh of
-    that many shards of ``device`` on their global batch."""
+    ``local_devices`` > 1 trains over a data mesh of that many shards of
+    ``device`` in each process, over the job's global devices at world > 1."""
     s = settings()
     mesh = None
     if local_devices > 1:
+        from kubeflow_tpu_torch.parallel import distributed
         from kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
-        mesh = build_mesh(MeshConfig(data=local_devices, fsdp=1), [device] * local_devices)
+        devs = distributed.devices() if world > 1 else [device] * local_devices
+        mesh = build_mesh(MeshConfig(data=len(devs), fsdp=1), devs)
     config, params, leaves, opt, opt_state = make_model(s["num_classes"], device)
 
     def batch(seed):
@@ -206,8 +234,9 @@ def main() -> None:
         dist.all_reduce(t)
         return float(t[0]) / world
 
+    sync = None if world == 1 else dist_sum if local_devices > 1 else dist_mean
     try:
-        res = _run(device, world, rank, dist_mean if world > 1 else None, mean_loss,
+        res = _run(device, world, rank, sync, mean_loss if local_devices == 1 else float,
                    warm_update=True, local_devices=local_devices)
     finally:
         if dist.is_initialized():

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.shard_map_compat import axis_index, each, pmax, psum
+from ..ops.shard_map_compat import axis_index, each, pmax, position0, psum
 from ..parallel.mesh import Mesh
 from ..parallel.sharding import NamedSharding, P, ShardedTensor, as_sharded, batch_spec
 
@@ -41,7 +41,7 @@ def split_logits(mesh: Mesh, shards: list, batch: int, n_classes: int,
     """Per-position logits ``[b, ..., classes/tensor]`` as one ShardedTensor:
     the batch over ``("data", "fsdp")``, the last dim over ``tensor`` where
     ``split``."""
-    lead = shards[0].shape[1:-1]
+    lead = shards[mesh.local_positions[0]].shape[1:-1]
     spec = P(batch_spec(mesh)[0], *([None] * len(lead)), "tensor" if split else None)
     return ShardedTensor(shards, (batch, *lead, n_classes), NamedSharding(mesh, spec))
 
@@ -75,8 +75,9 @@ def xent_sums(mesh: Mesh, logits: list, targets: list, starts: list, split: bool
 
 def global_mean(mesh: Mesh, sums: list, counts: list) -> torch.Tensor:
     """The ``psum`` over the batch axes of each position's sum, over the
-    ``psum`` of its count: the mean over every row of the global batch
-    (position 0's value, whose graph reaches every shard)."""
+    ``psum`` of its count (a per-position list of numbers): the mean over
+    every row of the global batch (position 0's value, whose graph reaches
+    every shard; ``position0`` on a mesh across processes)."""
     axes = batch_spec(mesh)[0]
     totals, n = psum(sums, axes, mesh), psum(counts, axes, mesh)
-    return totals[0] / n[0]
+    return position0(each(lambda t, c: t / c, totals, n), mesh)

@@ -53,7 +53,7 @@ from torch.utils import checkpoint as _ckpt
 
 from ..ops.attention import multihead_attention, padding_mask
 from ..ops.flash_attention import flash_attention
-from ..ops.shard_map_compat import each, psum
+from ..ops.shard_map_compat import each, position0, psum
 from ..parallel.mesh import Mesh, current_mesh
 from ..parallel.pipeline import gpipe, stack_stages
 from ..parallel.sharding import (NamedSharding, P, ShardedTensor, Views, as_sharded, batch_spec,
@@ -479,7 +479,7 @@ def _batch_lists(mesh: Mesh, *ts) -> list:
 
 
 def _batch_sharded(shards: list, mesh: Mesh) -> ShardedTensor:
-    shape = list(shards[0].shape)
+    shape = list(shards[mesh.local_positions[0]].shape)
     shape[0] *= mesh.shape["data"] * mesh.shape["fsdp"]
     return ShardedTensor(shards, shape, NamedSharding(mesh, batch_spec(mesh)))
 
@@ -601,6 +601,6 @@ def _mesh_mlm_loss(params, config: BertConfig, mesh: Mesh, input_ids, labels,
                                                      max_predictions),
                 xs, labs, *_head_views(params, mesh))
     axes = batch_spec(mesh)[0]
-    totals = psum([t for t, _ in sums], axes, mesh)
-    counts = psum([c for _, c in sums], axes, mesh)
-    return each(lambda t, c: t / torch.clamp(c, min=1), totals, counts)[0]
+    totals = psum(each(lambda s: s[0], sums), axes, mesh)
+    counts = psum(each(lambda s: s[1], sums), axes, mesh)
+    return position0(each(lambda t, c: t / torch.clamp(c, min=1), totals, counts), mesh)

@@ -138,7 +138,7 @@ def _mesh_lm_loss(params, config: DecoderConfig, mesh: Mesh, tokens) -> torch.Te
     targets = each(lambda t: t[:, 1:], toks)
     sums = _mesh.xent_sums(mesh, logits, targets,
                            _mesh.class_starts(mesh, params["unembed"], 1), split)
-    return _mesh.global_mean(mesh, sums, [t.numel() for t in targets])
+    return _mesh.global_mean(mesh, sums, each(torch.numel, targets))
 
 
 def _mesh_logits(params: dict, config: DecoderConfig, mesh: Mesh, toks: list) -> tuple:

@@ -133,7 +133,7 @@ def loss(params: dict, config: MnistConfig, images: torch.Tensor,
     if mesh is not None:
         logits, lbls = _mesh_batch_logits(params, config, mesh, images, labels)
         sums = _mesh.xent_sums(mesh, logits, lbls, [0] * mesh.size, False)
-        return _mesh.global_mean(mesh, sums, [t.numel() for t in lbls])
+        return _mesh.global_mean(mesh, sums, each(torch.numel, lbls))
     return cross_entropy(forward(params, config, images), labels)
 
 
@@ -143,7 +143,7 @@ def accuracy(params: dict, config: MnistConfig, images: torch.Tensor,
     if mesh is not None:
         logits, lbls = _mesh_batch_logits(params, config, mesh, images, labels)
         hits = each(lambda z, t: (z.argmax(-1) == t).float().sum(), logits, lbls)
-        return _mesh.global_mean(mesh, hits, [t.numel() for t in lbls])
+        return _mesh.global_mean(mesh, hits, each(torch.numel, lbls))
     return (forward(params, config, images).argmax(-1) == labels).float().mean()
 
 

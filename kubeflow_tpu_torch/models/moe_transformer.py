@@ -226,6 +226,9 @@ def _act_spec(mesh: Mesh, shape: tuple) -> P:
 def _mesh_forward(params, config: MoeTransformerConfig, mesh: Mesh,
                   tokens: torch.Tensor) -> ShardedTensor:
     dt = config.dtype
+    if not mesh.is_fully_addressable:
+        raise NotImplementedError("the MoE transformer on a mesh across processes is not ported "
+                                  "yet (ROADMAP Queue 1 item 3.3: the cross-process mesh)")
     if config.n_heads % mesh.shape["tensor"]:
         raise ValueError(f"tensor={mesh.shape['tensor']} must divide "
                          f"n_heads={config.n_heads}")

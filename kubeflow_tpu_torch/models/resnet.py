@@ -219,7 +219,7 @@ def _mesh_loss(params, config: ResNetConfig, mesh: Mesh, images, labels) -> torc
     logits, split = _mesh_logits(params, config, mesh, imgs)
     sums = _mesh.xent_sums(mesh, logits, lbls,
                            _mesh.class_starts(mesh, params["fc_kernel"], 1), split)
-    return _mesh.global_mean(mesh, sums, [t.numel() for t in lbls])
+    return _mesh.global_mean(mesh, sums, each(torch.numel, lbls))
 
 
 def _mesh_logits(params: dict, config: ResNetConfig, mesh: Mesh, imgs: list) -> tuple:

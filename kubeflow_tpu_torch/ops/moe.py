@@ -179,6 +179,9 @@ def mesh_moe(x: ShardedTensor, config: MoEConfig, router: ShardedTensor, wi: Sha
     are summed over.  Returns (out, a ShardedTensor of ``x``'s layout;
     aux)."""
     mesh = x.mesh
+    if not mesh.is_fully_addressable:
+        raise NotImplementedError("expert parallelism on a mesh across processes is not ported "
+                                  "yet (ROADMAP Queue 1 item 3.3: the cross-process mesh)")
     B, S, d = x.shape
     T, E, k = B * S, config.num_experts, config.top_k
     cap = capacity(config, T)

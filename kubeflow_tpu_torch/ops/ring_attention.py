@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from ..parallel.mesh import Mesh
+from ..parallel.mesh import Mesh, current_mesh
 from ..parallel.sharding import P
 from .shard_map_compat import axis_index, axis_size, each, ppermute, shard_map
 
@@ -70,10 +70,15 @@ def _ring_attention_sharded(qs, ks, vs, *, axis_name, causal):
 
     state = each(init, qs)
     k_r, v_r = list(ks), list(vs)
+    # across processes a future block is folded masked (exact zeros: the
+    # diagonal block, folded first, has set every row's max), so that every
+    # process's backward reaches every ppermute: a block one process skips
+    # drops its receive from the graph and leaves the peer waiting
+    skip_future = causal and current_mesh().is_fully_addressable
     for r in range(n):
         def step(q, k, v, st, i):
             src = (i - r) % n
-            if causal and src > i:
+            if skip_future and src > i:
                 # a visiting block strictly in the future contributes
                 # nothing: skip BOTH products, not just mask them
                 return st

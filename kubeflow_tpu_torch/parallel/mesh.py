@@ -10,16 +10,22 @@ same named axes, in the same order (MaxText-style):
   expert — MoE expert parallel
   stages — pipeline stages
 
-A JAX mesh is driven by a single controller: one process drives every
-device of its mesh.  So is this one.  ``Mesh.devices`` is a numpy object
-array of ``torch.device``s shaped by ``AXES`` (``mesh.devices.size`` and
-``.shape`` read as in JAX), and a device may repeat: N shards may share one
-card (or ``"cpu"``), each still holding only its own slice and getting its
-own kernel launches, as the JAX package's tests run N shards on forced
-virtual CPU devices.  Sharded values are held as per-shard tensors
-(``parallel/sharding.py``) and the collectives are functions over those
-shards (``ops/shard_map_compat.py``); nothing here uses
-``torch.distributed``.
+``Mesh.devices`` is a numpy object array shaped by ``AXES``
+(``mesh.devices.size`` and ``.shape`` read as in JAX), and a device may
+repeat: N shards may share one card (or ``"cpu"``), each still holding only
+its own slice and getting its own kernel launches, as the JAX package's
+tests run N shards on forced virtual CPU devices.  Sharded values are held
+as per-shard tensors (``parallel/sharding.py``) and the collectives are
+functions over those shards (``ops/shard_map_compat.py``).
+
+One process drives every position it owns.  A mesh over ``torch.device``s
+is all this process's (a single controller, as a one-process JAX mesh); a
+mesh over the job's global list (``distributed.devices()``) holds
+``JobDevice`` records, and the positions of other processes are known by
+their owner and device name only: ``device(pos)`` answers for local
+positions, and a collective between positions of different processes goes
+over ``torch.distributed``, through the groups the mesh builds once, in one
+fixed order on every process (``process_group``).
 
 ``with mesh:`` makes the mesh current (``current_mesh()``), the
 counterpart of ``jax.set_mesh`` / ``get_abstract_mesh()`` that model code
@@ -35,8 +41,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..utils.device import resolve_device
+from . import distributed
+from .distributed import JobDevice
 
 AXES = ("data", "stages", "fsdp", "seq", "expert", "tensor")
 
@@ -75,18 +84,27 @@ class Mesh:
 
     Shards are numbered by their flat position in ``devices`` (C order:
     ``data`` slowest, ``tensor`` fastest); ``coords(pos)`` gives a shard's
-    coordinate on each axis and ``device(pos)`` its device."""
+    coordinate on each axis, ``process_of(pos)`` the process that owns it
+    and ``device(pos)`` its device, for a position of this process."""
 
     def __init__(self, devices: np.ndarray, axis_names: tuple = AXES):
         if devices.ndim != len(axis_names):
             raise ValueError(f"devices of rank {devices.ndim} for axes {axis_names}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
-        self._flat = [resolve_device(d) for d in devices.flat]
-        if len({d.type for d in self._flat}) > 1:
-            raise ValueError("a mesh of mixed device types: "
-                             f"{sorted({str(d) for d in self._flat})}")
+        me = distributed.process_index()
+        self._owner = [d.process if isinstance(d, JobDevice) else me for d in devices.flat]
+        self._names = [d.name if isinstance(d, JobDevice) else str(resolve_device(d))
+                       for d in devices.flat]
+        if len({torch.device(n).type for n in self._names}) > 1:
+            raise ValueError(f"a mesh of mixed device types: {sorted(set(self._names))}")
+        self._flat = [resolve_device(n) if p == me else None
+                      for n, p in zip(self._names, self._owner)]
+        self.local_positions = [p for p, o in enumerate(self._owner) if o == me]
+        self.processes = sorted(set(self._owner))
         self._tokens: list = []
+        if not self.is_fully_addressable:
+            self._build_groups()
 
     @property
     def shape(self) -> dict:
@@ -97,7 +115,49 @@ class Mesh:
         return self.devices.size
 
     def device(self, pos: int) -> torch.device:
-        return self._flat[pos]
+        """Position ``pos``'s device; raises for a position of another process."""
+        dev = self._flat[pos]
+        if dev is None:
+            raise RuntimeError(f"mesh position {pos} is on process {self._owner[pos]} "
+                               f"({self._names[pos]}), not this one")
+        return dev
+
+    def device_name(self, pos: int) -> str:
+        """Position ``pos``'s device as its own process names it."""
+        return self._names[pos]
+
+    def process_of(self, pos: int) -> int:
+        return self._owner[pos]
+
+    def is_local(self, pos: int) -> bool:
+        return self._flat[pos] is not None
+
+    @property
+    def is_fully_addressable(self) -> bool:
+        """Whether this process owns every position (a single controller)."""
+        return len(self.local_positions) == self.size
+
+    def _build_groups(self) -> None:
+        """The ``torch.distributed`` group of every set of processes that a
+        group of positions along some axes spans: built here, for every
+        subset of the mesh's axes, in sorted order, so that every process
+        calls ``new_group`` alike (it is collective)."""
+        axes = [a for a in self.axis_names if self.shape[a] > 1]
+        sets = {tuple(self.processes)}
+        for mask in range(1, 2 ** len(axes)):
+            chosen = [a for i, a in enumerate(axes) if mask >> i & 1]
+            groups: dict = {}
+            for pos in range(self.size):
+                c = self.coords(pos)
+                key = tuple(int(c[a]) for a in self.axis_names if a not in chosen)
+                groups.setdefault(key, set()).add(self._owner[pos])
+            sets.update(tuple(sorted(g)) for g in groups.values() if len(g) > 1)
+        for procs in sorted(sets):
+            process_group(procs)
+
+    def group(self, processes) -> Optional[object]:
+        """The group over ``processes`` (a sorted tuple); None is the world."""
+        return process_group(tuple(processes))
 
     def coords(self, pos: int) -> dict:
         return dict(zip(self.axis_names, np.unravel_index(pos, self.devices.shape)))
@@ -117,8 +177,9 @@ class Mesh:
 
     @property
     def distinct_devices(self) -> list:
-        """The mesh's devices without repeats, in first-use order."""
-        return list(dict.fromkeys(self._flat))
+        """This process's devices of the mesh without repeats, in first-use
+        order."""
+        return list(dict.fromkeys(d for d in self._flat if d is not None))
 
     def __enter__(self) -> "Mesh":
         self._tokens.append(_CURRENT.set(self))
@@ -137,29 +198,36 @@ def current_mesh() -> Optional[Mesh]:
     return _CURRENT.get()
 
 
-def _visible_cards() -> list:
-    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if n == 0:
-        raise RuntimeError("build_mesh: no visible card; pass devices explicitly "
-                           "(for example ['cpu'] * n) to build a mesh on the CPU")
-    return [torch.device("cuda", i) for i in range(n)]
+_GROUPS: dict = {}
+
+
+def process_group(processes: tuple):
+    """The ``torch.distributed`` group over ``processes``, made on first
+    use (every process of the job must ask for the same groups in the same
+    order); None (the default group) for the whole job."""
+    if len(processes) == distributed.process_count():
+        return None
+    if processes not in _GROUPS:
+        _GROUPS[processes] = dist.new_group(list(processes))
+    return _GROUPS[processes]
 
 
 def build_mesh(config: Optional[MeshConfig] = None, devices=None) -> Mesh:
-    """Build the global mesh over ``devices`` (default: every visible card;
+    """Build the global mesh over ``devices`` (default: the job's global
+    device list in a job of several processes, else every visible card;
     raises without one).  A device may repeat.  Axis order puts ``data``
     outermost and ``tensor`` innermost, as the JAX package lays a slice."""
     config = config or MeshConfig()
-    devices = list(devices if devices is not None else _visible_cards())
+    devices = list(devices if devices is not None else distributed.devices())
     sizes = config.sizes(len(devices))
     shape = tuple(sizes[a] for a in AXES)
     arr = np.empty(len(devices), dtype=object)
-    arr[:] = [resolve_device(d) for d in devices]
+    arr[:] = [d if isinstance(d, JobDevice) else resolve_device(d) for d in devices]
     return Mesh(arr.reshape(shape), AXES)
 
 
 def single_device_mesh(device=None) -> Mesh:
-    d = resolve_device(device) if device is not None else _visible_cards()[0]
+    d = resolve_device(device) if device is not None else distributed.visible_cards()[0]
     arr = np.empty(1, dtype=object)
     arr[0] = d
     return Mesh(arr.reshape((1,) * len(AXES)), AXES)

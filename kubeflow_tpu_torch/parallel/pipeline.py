@@ -8,7 +8,8 @@ microbatches through the stages tick by tick, as the JAX schedule does.
 
 The JAX schedule is one ``lax.scan`` over M + S - 1 ticks, each applying a
 ``vmap`` of the stage to the whole shift register and rolling it one stage
-forward.  Here one controller drives every shard (``parallel/mesh.py``):
+forward.  Here one process drives every shard (``parallel/mesh.py``; a
+mesh across processes is refused, ROADMAP Queue 1 item 3.3):
 
   * stage ``s`` runs ``stage_fn`` over its sub-mesh, the positions whose
     ``stages`` coordinate is ``s`` (``Mesh.submesh``), with that sub-mesh
@@ -186,6 +187,9 @@ def _stage_slice(leaf, s: int, mesh: Mesh, sub: Mesh, positions: list) -> Sharde
 
 def _gpipe_mesh(call, stage_fn, stage_params, x, S: int, M: int, mb: int, mb_spec: P,
                 mesh: Mesh) -> ShardedTensor:
+    if not mesh.is_fully_addressable:
+        raise NotImplementedError("GPipe on a mesh across processes is not ported yet "
+                                  "(ROADMAP Queue 1 item 3.3: the cross-process mesh)")
     n = mesh.shape["stages"]
     if n not in (1, S):
         raise ValueError(f"{S} pipeline stages on a mesh of stages={n}")

@@ -10,14 +10,20 @@ one local tensor per mesh position.  Positions that share a device and a
 slice share one tensor (one storage), as one device of a JAX mesh holds one
 buffer for each of its shards' slices; so a leaf replicated over four shards
 of one card is one tensor there, and a parameter's gradient from every
-shard that reads it accumulates into that one tensor.
+shard that reads it accumulates into that one tensor.  The rule holds per
+process: on a mesh across processes a ShardedTensor holds this process's
+positions only (None at the others'), and each process holds one tensor per
+device and slice of its own.
 
 Where XLA would insert an all-gather (an ``fsdp`` dim before its matmul,
 the vocabulary on ``tensor`` before a lookup), model code asks ``Views``
 for each shard's view: its own slice on the dims it computes split, the
 rest gathered.  The gather is plain ``torch.cat`` of the local slices, so it is
 differentiable, and its backward is a slice per shard and, for replicas, a
-sum: the reduce-scatter XLA inserts for ``fsdp``.
+sum: the reduce-scatter XLA inserts for ``fsdp``.  A slice that only
+another process holds is fetched over ``torch.distributed`` by ``_Fetch``,
+whose backward sends each receiver's gradient back to the slice's holder and
+sums them there, the same reduce-scatter across processes.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Any, Iterable, Optional
 import torch
 from torch import nn
 
+from . import distributed
 from .mesh import Mesh
 
 
@@ -167,12 +174,12 @@ class ShardedTensor:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.shards[0].dtype
+        return self.locals[0].dtype
 
     @property
     def locals(self) -> list:
         """The distinct local tensors, in position order."""
-        return list({id(t): t for t in self.shards}.values())
+        return list({id(t): t for t in self.shards if t is not None}.values())
 
     def split_axes(self, dim: int) -> tuple:
         """The axes of size > 1 that split dim ``dim``."""
@@ -209,7 +216,7 @@ class ShardedTensor:
         sharding.shard_shape(tuple(t.shape))  # raises on a dim that does not divide
         out = cls([None] * mesh.size, t.shape, sharding)
         made: dict = {}
-        for pos in range(mesh.size):
+        for pos in mesh.local_positions:
             dev, blk = mesh.device(pos), out.block(pos)
             if (dev, blk) not in made:
                 part = out._narrow(t, blk).to(dev)
@@ -253,13 +260,28 @@ class ShardedTensor:
                 if axes and not set(axes) <= set(keep)
                 and math.prod(sizes[a] for a in axes) > 1]
 
-    def _assemble(self, sources: list, dims: list, dev, index, dtype) -> torch.Tensor:
+    def _base(self, q: int, fetched: dict):
+        """The tensor this process reads for source position ``q`` (its own
+        slice, else a local replica of ``q``'s block, else the fetched
+        copy), and whether ``index`` and ``dtype`` are still to be applied
+        (the fetched copy comes with them applied)."""
+        t = self.shards[q]
+        if t is not None:
+            return t, True
+        blk = self.block(q)
+        for p in self.mesh.local_positions:
+            if self.block(p) == blk:
+                return self.shards[p], True
+        return fetched[(self.mesh.process_of(q), blk)], False
+
+    def _assemble(self, sources: list, dims: list, dev, index, dtype,
+                  fetched: Optional[dict] = None) -> torch.Tensor:
         parts = []
         for q in sources:
-            t = self.shards[q]
-            if index is not None:
+            t, raw = self._base(q, fetched)
+            if raw and index is not None:
                 t = t[index]
-            if dtype is not None:
+            if raw and dtype is not None:
                 t = t.to(dtype)
             parts.append(t.to(dev))
         shift = 0 if index is None else 1
@@ -270,19 +292,66 @@ class ShardedTensor:
         return parts[0]
 
     def gather(self, device=None) -> torch.Tensor:
-        """The global tensor, on ``device`` (default the first shard's);
-        where nothing is split and the local lives there already, the
-        local itself."""
+        """The global tensor, on ``device`` (default this process's first
+        shard's); where nothing is split and the local lives there already,
+        the local itself.  On a mesh across processes every process gets
+        it, the slices it lacks fetched from their holders."""
         dims = self._gathered_dims(())
-        dev = self.mesh.device(0) if device is None else device
-        return self._assemble(self._sources(0, dims), dims, dev, None, None)
+        mesh = self.mesh
+        dev = mesh.device(mesh.local_positions[0]) if device is None else device
+        firsts = {}
+        for pos in range(mesh.size):
+            firsts.setdefault(mesh.process_of(pos), pos)
+        # each process gathers its first position's view of the whole
+        fetched = self._fetch({r: self._sources(p, dims) for r, p in firsts.items()},
+                              None, None, dev)
+        return self._assemble(self._sources(mesh.local_positions[0], dims), dims, dev, None,
+                              None, fetched)
+
+    def _fetch(self, want: dict, index, dtype, dev) -> dict:
+        """The source positions each process reads (``want``: process ->
+        positions, the same on every process) whose block it holds no slice
+        of, fetched from the process of each such position: this
+        process's, keyed by (that process, block), with ``index`` and
+        ``dtype`` applied by the sender, on ``dev``.  Empty on a one-process
+        mesh."""
+        mesh = self.mesh
+        if mesh.is_fully_addressable:
+            return {}
+        holds = {r: {self.block(p) for p in range(mesh.size) if mesh.process_of(p) == r}
+                 for r in mesh.processes}
+        need = {r: sorted({(mesh.process_of(q), self.block(q)) for q in want.get(r, ())
+                           if self.block(q) not in holds[r]}) for r in mesh.processes}
+        if not any(need.values()):
+            return {}
+        sends = {r: sorted({b for q in mesh.processes for s, b in need[q] if s == r})
+                 for r in mesh.processes}
+        me = distributed.process_index()
+        local = {}
+        for b in sends[me]:
+            t = self.shards[next(p for p in mesh.local_positions if self.block(p) == b)]
+            if index is not None:
+                t = t[index]
+            local[b] = t if dtype is None else t.to(dtype)
+        needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in self.locals)
+        if needs_grad and any(not need[r] or not sends[r] for r in mesh.processes):
+            raise NotImplementedError(
+                "a differentiable gather across processes where a process only sends or "
+                "only receives (ROADMAP Queue 1 item 3.3: the cross-process mesh)")
+        shape = self.sharding.shard_shape(tuple(self.shape))[0 if index is None else 1:]
+        plan = _FetchPlan(mesh, need, sends, shape, dtype or self.dtype, dev)
+        sent = [local[b] for b in sends[me]]
+        if needs_grad:
+            return dict(zip(need[me], _Fetch.apply(plan, *sent)))
+        with torch.no_grad():
+            return dict(zip(need[me], _Fetch.exchange(plan, sent)))
 
     @torch.no_grad()
     def assign_(self, t: torch.Tensor) -> "ShardedTensor":
         """Copy the global ``t`` into every local slice, in place."""
         if tuple(t.shape) != tuple(self.shape):
             raise ValueError(f"assign_: shape {tuple(t.shape)} into {tuple(self.shape)}")
-        done = set()
+        done = {id(None)}
         for pos, local in enumerate(self.shards):
             if id(local) not in done:
                 local.copy_(self._narrow(t, self.block(pos)))
@@ -292,6 +361,75 @@ class ShardedTensor:
     def __repr__(self) -> str:
         return (f"ShardedTensor(shape={tuple(self.shape)}, spec={self.spec!r}, "
                 f"dtype={self.dtype}, locals={len(self.locals)})")
+
+
+def pack(tensors) -> torch.Tensor:
+    """Tensors of one dtype as one 1-D uint8 buffer (empty for none)."""
+    flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+    return torch.cat(flat) if flat else torch.empty(0, dtype=torch.uint8)
+
+
+def unpack(buf: torch.Tensor, shape, dtype, n: int) -> list:
+    """``n`` tensors of ``shape`` and ``dtype`` packed in ``buf``."""
+    size = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    return [buf[i * size:(i + 1) * size].view(dtype).reshape(shape) for i in range(n)]
+
+
+class _FetchPlan:
+    """Who sends which blocks of one fetch, and the wire layout."""
+
+    def __init__(self, mesh: Mesh, need: dict, sends: dict, shape, dtype, dev):
+        self.procs = mesh.processes
+        self.group = mesh.group(self.procs)
+        self.need, self.sends = need, sends
+        self.shape, self.dtype, self.dev = tuple(shape), dtype, dev
+        self.item = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+
+
+class _Fetch(torch.autograd.Function):
+    """Forward: one all-gather in which each process sends the blocks it
+    serves (``plan.sends``) and keeps those it needs (``plan.need``: pairs
+    of the serving process and the block).
+    Backward, its transpose: one all-gather of each receiver's gradients,
+    each sender summing, in process order, what every receiver sent back
+    for its blocks (the reduce-scatter across processes)."""
+
+    @staticmethod
+    def forward(ctx, plan: _FetchPlan, *sent):
+        ctx.plan = plan
+        return _Fetch.exchange(plan, sent)
+
+    @staticmethod
+    def exchange(plan: _FetchPlan, sent) -> tuple:
+        me = distributed.process_index()
+        bufs = distributed.all_gather_bytes(
+            pack(sent).to(plan.dev), [len(plan.sends[r]) * plan.item for r in plan.procs],
+            plan.group)
+        served = {r: dict(zip(plan.sends[r], unpack(buf, plan.shape, plan.dtype,
+                                                      len(plan.sends[r]))))
+                  for r, buf in zip(plan.procs, bufs)}
+        return tuple(served[s][b].clone() for s, b in plan.need[me])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plan = ctx.plan
+        me = distributed.process_index()
+        bufs = distributed.all_gather_bytes(
+            pack([g.to(plan.dtype) for g in grads]).to(plan.dev),
+            [len(plan.need[r]) * plan.item for r in plan.procs], plan.group)
+        back = {r: dict(zip(plan.need[r], unpack(buf, plan.shape, plan.dtype,
+                                                   len(plan.need[r]))))
+                for r, buf in zip(plan.procs, bufs)}
+        # each block's gradients summed in f32, in process order
+        out = []
+        for b in plan.sends[me]:
+            total = None
+            for r in plan.procs:
+                if (me, b) in back[r]:
+                    g = back[r][(me, b)].float()
+                    total = g if total is None else total + g
+            out.append(total.to(plan.dtype))
+        return (None, *out)
 
 
 class Views:
@@ -312,14 +450,25 @@ class Views:
         dims = t._gathered_dims(keep)
         if index is not None and 0 in dims:
             raise ValueError("index on a gathered leading dim")
-        out = []
-        for pos in range(self.mesh.size):
-            dev = self.mesh.device(pos)
+        mesh = self.mesh
+        fetched: dict = {}
+        if not mesh.is_fully_addressable:
+            fkey = ("fetch", id(t), tuple(dims), index, dtype)
+            if fkey not in self._cache:
+                want: dict = {}
+                for pos in range(mesh.size):
+                    want.setdefault(mesh.process_of(pos), set()).update(t._sources(pos, dims))
+                self._cache[fkey] = t._fetch(want, index, dtype,
+                                             mesh.device(mesh.local_positions[0]))
+            fetched = self._cache[fkey]
+        out: list = [None] * mesh.size
+        for pos in mesh.local_positions:
+            dev = mesh.device(pos)
             src = t._sources(pos, dims)
-            key = (id(t), dev, tuple(id(t.shards[q]) for q in src), index, dtype)
+            key = (id(t), dev, tuple(id(t._base(q, fetched)[0]) for q in src), index, dtype)
             if key not in self._cache:
-                self._cache[key] = t._assemble(src, dims, dev, index, dtype)
-            out.append(self._cache[key])
+                self._cache[key] = t._assemble(src, dims, dev, index, dtype, fetched)
+            out[pos] = self._cache[key]
         return out
 
 

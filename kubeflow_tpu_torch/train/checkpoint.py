@@ -5,6 +5,12 @@ port does not use).  Each step lives in ``<directory>/<step>/state.pt``,
 written under a temporary name and renamed into place, so a reader (or a
 restart after a kill mid-write) sees whole steps only.  The newest
 ``MAX_TO_KEEP`` steps are kept.
+
+In a job of several processes (``parallel/distributed.py``) every process
+hands ``save`` the whole state (the Trainer gathers it), process 0 alone
+writes it, and ``restore_latest`` restores the step that process 0 reads as
+the newest, broadcast to the others, so the members of a restarted gang
+resume from the same step.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import uuid
 from typing import Any, Optional
 
 import torch
+
+from ..parallel import distributed
 
 MAX_TO_KEEP = 3
 
@@ -50,6 +58,8 @@ class CheckpointManager:
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.async_save = async_save
+        # one writer per job: process 0
+        self.writer = distributed.process_index() == 0
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
 
@@ -63,9 +73,10 @@ class CheckpointManager:
     def save(self, step: int, state: Any) -> bool:
         """Copy ``state`` to host memory, then write it (on a background
         thread when ``async_save``).  A step already saved is skipped and
-        returns False, as Orbax's manager does."""
+        returns False, as Orbax's manager does; so does every process but
+        the writer."""
         self.wait()  # one write in flight at a time
-        if step in self.all_steps():
+        if not self.writer or step in self.all_steps():
             return False
         host = _map(lambda t: t.detach().to("cpu", copy=True), state)
         if self.async_save:
@@ -100,9 +111,12 @@ class CheckpointManager:
 
     def restore_latest(self, like: Any) -> Optional[dict]:
         """Restore the newest step with its tensors on the devices of the
-        matching leaves of ``like``: ``{"step", "state"}``, or None."""
+        matching leaves of ``like``: ``{"step", "state"}``, or None.  In a
+        job of several processes the step is the writer's newest."""
         self.wait()
-        step = self.latest_step()
+        step = self.latest_step() if self.writer else None
+        if distributed.process_count() > 1:
+            step = distributed.broadcast_object(step)
         if step is None:
             return None
         state = torch.load(os.path.join(self.directory, str(step), "state.pt"),

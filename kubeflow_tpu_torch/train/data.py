@@ -3,8 +3,8 @@
 Counterpart of ``kubeflow_tpu/train/data.py``.  ``synthetic_mlm_batches`` is
 the JAX package's numpy generator verbatim, so one seed gives byte-identical
 batches in both packages.  ``to_device`` moves a batch to one device;
-``global_batch`` splits it over a mesh's batch axes, in one process (the
-cross-process mesh is ROADMAP Queue 1 item 3.3).
+``global_batch`` assembles a mesh's batch from each process's local rows
+(``make_array_from_process_local_data``).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.mesh import Mesh
-from ..parallel.sharding import ShardedTensor, batch_spec
+from ..parallel.sharding import NamedSharding, ShardedTensor, batch_spec
 
 
 def synthetic_mlm_batches(
@@ -61,14 +61,32 @@ def to_device(batch: dict, device) -> dict:
 
 
 def global_batch(local_batch: dict, mesh: Mesh) -> dict:
-    """A batch split over the mesh's batch axes (``P(("data", "fsdp"))``):
-    each leaf a ShardedTensor whose positions hold their rows on their own
-    devices.  One process holds the whole batch; a job of several processes
-    would assemble it from each one's rows (ROADMAP Queue 1 item 3.3)."""
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "global_batch across processes is not ported yet (ROADMAP Queue 1 item "
-            "3.3: the cross-process mesh)")
+    """``jax.make_array_from_process_local_data``: the global batch is every
+    process's local rows concatenated in process order, split over the
+    mesh's batch axes (``P(("data", "fsdp"))``); each leaf a ShardedTensor
+    whose positions (this process's) hold their rows on their own devices.
+    In one process the local batch is the global one."""
     spec = batch_spec(mesh)
-    return {k: ShardedTensor.shard(torch.as_tensor(v), mesh, spec)
-            for k, v in local_batch.items()}
+    out = {}
+    for k, v in local_batch.items():
+        v = torch.as_tensor(v)
+        if mesh.is_fully_addressable:
+            out[k] = ShardedTensor.shard(v, mesh, spec)
+            continue
+        shape = (v.shape[0] * len(mesh.processes), *v.shape[1:])
+        st = ShardedTensor([None] * mesh.size, shape, NamedSharding(mesh, spec))
+        # this process's rows are its positions' blocks, in block order
+        blocks = sorted({st.block(p)[0] for p in mesh.local_positions})
+        rows = st.sharding.shard_shape(shape)[0]
+        if rows * len(blocks) != v.shape[0]:
+            raise ValueError(f"{v.shape[0]} local rows for {len(blocks)} batch blocks of "
+                             f"{rows} on this process")
+        made: dict = {}
+        for pos in mesh.local_positions:
+            dev, b = mesh.device(pos), st.block(pos)[0]
+            if (dev, b) not in made:
+                i = blocks.index(b)
+                made[(dev, b)] = v[i * rows:(i + 1) * rows].to(dev)
+            st.shards[pos] = made[(dev, b)]
+        out[k] = st
+    return out

@@ -15,8 +15,14 @@ by ``batch_spec``, and the loss, its backward and the update run on each
 shard's slice with the mesh current, as the JAX package's one jitted step
 runs on its mesh.  Where one slice lives on several devices the replicas'
 gradients are summed; the global gradient norm counts each slice once.
-One controller drives every shard (the mesh's devices may repeat: N shards
-of one card); the cross-process mesh is ROADMAP Queue 1 item 3.3.
+Each process drives the shards it owns (the mesh's devices may repeat: N
+shards of one card).  On a mesh across processes (``parallel/mesh.py``)
+the batch is the global value, equal on every process, each keeping its
+rows (``put_batch``); a slice's gradient is summed over every process that
+holds it, the norm counts each slice on the process of its first holder
+(one all-reduce of the sum of squares), and every process gets the same
+loss and norm.  Checkpoints gather every process's slices; process 0 alone
+writes them (``train/checkpoint.py``).
 
 ``default_optimizer`` reproduces the JAX package's optax chain
 ``clip_by_global_norm(max_grad_norm)`` then ``adamw(warmup_cosine_decay)``
@@ -29,17 +35,20 @@ from __future__ import annotations
 
 import math
 import time
+import zlib
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..models._tree import named_leaves as _flatten
+from ..parallel import distributed
 from ..parallel.mesh import Mesh
-from ..parallel.sharding import ShardedTensor, shard_params, tree_map_with_path
+from ..parallel.sharding import ShardedTensor, batch_spec, shard_params, tree_map_with_path
 from ..utils.device import resolve_device
-from .data import global_batch, to_device
+from .data import to_device
 
 
 @dataclass
@@ -263,7 +272,7 @@ class Trainer:
             if rules is None:
                 raise ValueError("Trainer on a mesh needs the model's sharding rules")
             self.rules = tuple(rules)
-            self.device = mesh.device(0)
+            self.device = mesh.device(mesh.local_positions[0])
             self.model = None
             self.tree = shard_params(model, mesh, self.rules)
             self.params = _flatten(self.tree)
@@ -271,6 +280,10 @@ class Trainer:
                 for t in st.locals:
                     t.requires_grad_(True)
             self._replicas = {n: _replica_groups(st) for n, st in self.params.items()}
+            # the slices other processes hold too, in one order everywhere
+            self._shared = {n: sorted({st.block(p) for p in range(mesh.size)
+                                       if _holders_span(st, st.block(p))})
+                            for n, st in self.params.items()}
             self.opt_state = self._init_sharded_state()
         self._ckpt = None
         if self.config.checkpoint_dir:
@@ -301,7 +314,8 @@ class Trainer:
             state[key] = {}
             for name, st in self.params.items():
                 locals_ = {id(t): value[(name, j)] for j, t in enumerate(st.locals)}
-                state[key][name] = st.like([locals_[id(t)] for t in st.shards])
+                state[key][name] = st.like([None if t is None else locals_[id(t)]
+                                            for t in st.shards])
         return state
 
     def _flat_state(self) -> dict:
@@ -315,29 +329,80 @@ class Trainer:
         keys = list(params)
         got = torch.autograd.grad(loss, [params[k] for k in keys], allow_unused=True)
         grads = {k: torch.zeros_like(params[k]) if g is None else g for k, g in zip(keys, got)}
-        dev0 = self.mesh.device(0)
-        sumsq = []
+        dev0 = self.device
         for name, groups in self._replicas.items():
-            for group in groups:
+            for _, group, _ in groups:
                 if len(group) > 1:  # one slice on several devices: psum
                     total = grads[(name, group[0])]
                     for j in group[1:]:
                         total = total + grads[(name, j)].to(total.device)
                     for j in group:
                         grads[(name, j)] = total.to(params[(name, j)].device)
-                sumsq.append(grads[(name, group[0])].float().square().sum().to(dev0))
-        gnorm = torch.sqrt(sum(sumsq))
+        if not self.mesh.is_fully_addressable:
+            self._sum_across(grads, params)
+        sumsq = [grads[(name, group[0])].float().square().sum().to(dev0)
+                 for name, groups in self._replicas.items()
+                 for _, group, first_here in groups if first_here]
+        total = sum(sumsq) if sumsq else torch.zeros((), device=dev0)
+        if not self.mesh.is_fully_addressable:
+            total = distributed.all_reduce_sum(total)
+        gnorm = torch.sqrt(total)
         state = self._flat_state()
         self.optimizer.update(grads, state, params, grad_norm=gnorm)
         self.opt_state["count"] = state["count"]
         return gnorm
 
+    def _sum_across(self, grads: dict, params: dict) -> None:
+        """Sum each slice that several processes hold over them: one
+        all-reduce of every such slice, zeros where this process holds
+        none, in one order on every process."""
+        parts, slots = [], []
+        for name, blocks in self._shared.items():
+            mine = {blk: group for blk, group, _ in self._replicas[name]}
+            st = self.params[name]
+            shape = st.sharding.shard_shape(tuple(st.shape))
+            for blk in blocks:
+                if blk in mine:
+                    g = grads[(name, mine[blk][0])]
+                    parts.append(g.float().reshape(-1).to(self.device))
+                    slots.append((name, mine[blk]))
+                else:
+                    parts.append(torch.zeros(math.prod(shape), device=self.device))
+                    slots.append(None)
+        if not parts:
+            return
+        total = distributed.all_reduce_sum(torch.cat(parts))
+        off = 0
+        for part, slot in zip(parts, slots):
+            if slot is not None:
+                name, group = slot
+                like = params[(name, group[0])]
+                summed = total[off:off + part.numel()].reshape(like.shape)
+                for j in group:
+                    grads[(name, j)] = summed.to(params[(name, j)].device, like.dtype)
+            off += part.numel()
+
     # ---------------------------------------------------------------- train
 
     def put_batch(self, batch: Any) -> Any:
-        if self.mesh is not None:
-            return global_batch(batch, self.mesh)
-        return to_device(batch, self.device)
+        """The batch on the trainer's device, or split over its mesh by
+        ``batch_spec``.  On a mesh across processes the batch is the global
+        value (``jax.device_put``'s rule), which must be equal on every
+        process: a checksum over the job raises on a mismatch, as JAX
+        asserts; each process keeps its positions' rows."""
+        if self.mesh is None:
+            return to_device(batch, self.device)
+        if not self.mesh.is_fully_addressable:
+            sums = distributed.all_gather_object(_checksum(batch), self.mesh.group(
+                self.mesh.processes))
+            if any(s != sums[0] for s in sums):
+                raise ValueError("the batch passed to put_batch is not the same on each "
+                                 f"process (checksums {sums}); a process-local batch goes "
+                                 "through train.data.global_batch")
+        spec = batch_spec(self.mesh)
+        return {k: v if isinstance(v, ShardedTensor) else
+                ShardedTensor.shard(torch.as_tensor(v), self.mesh, spec)
+                for k, v in batch.items()}
 
     def train_step(self, batch: Any, sync: bool = True) -> dict:
         """One optimizer step.
@@ -463,21 +528,51 @@ class Trainer:
     @property
     def mfu_label(self) -> str:
         """What ``mfu()``'s chips are: ``"4 mesh shards on 1 device
-        (cuda:0)"`` says that the shards share one card."""
+        (cuda:0)"`` says that the shards share one card; ``"4 mesh shards in
+        2 processes on 1 device (cuda:0)"`` that two processes share it."""
         if self.mesh is None:
             return f"1 device ({self.device})"
-        devs = self.mesh.distinct_devices
-        return (f"{self.mesh.size} mesh shards on {len(devs)} device"
-                f"{'s' if len(devs) > 1 else ''} ({', '.join(str(d) for d in devs)})")
+        mesh = self.mesh
+        if mesh.is_fully_addressable:
+            devs = [str(d) for d in mesh.distinct_devices]
+            where = ""
+        else:
+            devs = sorted({mesh.device_name(p) for p in range(mesh.size)})
+            where = f" in {len(mesh.processes)} processes"
+        n = distributed.card_count(mesh.processes) if where else len(devs)
+        return (f"{mesh.size} mesh shards{where} on {n} device"
+                f"{'s' if n > 1 else ''} ({', '.join(devs)})")
+
+
+def _checksum(batch: dict) -> list:
+    """A CRC of each leaf's bytes, in key order."""
+    out = []
+    for k in sorted(batch):
+        v = batch[k]
+        if isinstance(v, ShardedTensor):  # placed already (``global_batch``)
+            continue
+        v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        out.append((k, v.shape, str(v.dtype), zlib.crc32(np.ascontiguousarray(v).tobytes())))
+    return out
+
+
+def _holders_span(st: ShardedTensor, blk: tuple) -> bool:
+    mesh = st.mesh
+    return len({mesh.process_of(p) for p in range(mesh.size) if st.block(p) == blk}) > 1
 
 
 def _replica_groups(st: ShardedTensor) -> list:
-    """The local indices of ``st`` grouped by the slice they hold: a group
-    of more than one is one slice on several devices."""
+    """The local indices of ``st`` grouped by the slice they hold, as
+    (block, indices, whether this process holds the block's first holder):
+    a group of more than one is one slice on several devices."""
+    mesh = st.mesh
     index = {id(t): j for j, t in enumerate(st.locals)}
     groups: dict = {}
-    for pos, t in enumerate(st.shards):
+    for pos in mesh.local_positions:
         g = groups.setdefault(st.block(pos), [])
-        if index[id(t)] not in g:
-            g.append(index[id(t)])
-    return list(groups.values())
+        if index[id(st.shards[pos])] not in g:
+            g.append(index[id(st.shards[pos])])
+    first = {}
+    for pos in range(mesh.size):
+        first.setdefault(st.block(pos), pos)
+    return [(blk, g, mesh.is_local(first[blk])) for blk, g in groups.items()]

@@ -900,6 +900,22 @@ def test_bert_mesh_step_launches_flash_once_per_shard_and_layer(card, n):
     assert torch.isfinite(torch.tensor(metrics["loss"]))
 
 
+@pytest.mark.cuda
+def test_bert_step_across_two_processes_launches_flash_in_each(card):
+    """A gang of 2 processes sharing the card (gloo, host-staged), 2 mesh
+    positions each of fsdp 2 x tensor 2, one BERT flash step: each member
+    launches the kernel once per layer and local position, never the plain
+    version, and both report the same loss."""
+    from test_torch_mesh_processes import flash_gang_member, run_gang
+
+    gang = run_gang(flash_gang_member, device="cuda", timeout=300)
+    for got in gang.values():
+        assert got["backend"] == "gloo"
+        assert got["launches"] == got["layers"] * got["local"] and got["plain_calls"] == 0
+        assert torch.isfinite(torch.tensor(got["loss"]))
+    assert gang[0]["loss"] == gang[1]["loss"]
+
+
 # ------------------------------------------------------------ pipeline (pp)
 
 

@@ -22,10 +22,14 @@ TIMEOUT_S = 90
 
 
 def free_base_port(n: int) -> int:
-    """A base port with ``n`` consecutive ports free right now."""
+    """A base port with ``n`` consecutive ports free right now, below the
+    kernel's ephemeral range (where a concurrent process's outgoing
+    connection can take a port between this check and the ring's bind) and
+    above tests/test_transport.py's fixed ports (24800-25310, 26110-26114)."""
+    lo = int(open("/proc/sys/net/ipv4/ip_local_port_range").read().split()[0])
     rng = np.random.default_rng()
     for _ in range(200):
-        base = int(rng.integers(20000, 60000 - n))
+        base = int(rng.integers(27000, lo - n))
         socks = []
         try:
             for p in range(base, base + n):
