@@ -327,7 +327,8 @@ or the script exits non-zero:
    expert 2): its ``OK`` line and a finite loss; in f32 at
    tests/test_pipeline.py's composed sizes the 8-shard loss within 1e-4 of
    the unsharded ``lm_loss``; ``graft_entry.dryrun_multichip(4)`` on its
-   default devices: both ``OK`` lines.
+   default devices: both ``OK`` lines and its two losses (phase 21(c)'s
+   yardstick).
 19. mesh_models: the decoder at Llama-3-8B width (``MESH_DECODER_LAYERS``
    layers), ResNet-50 and MNIST on fsdp 2 x tensor 2 shards of the card
    against the unsharded Trainer (``mesh_models_phase``).
@@ -350,6 +351,25 @@ or the script exits non-zero:
    ``TRAIN-DONE step=10``; (c) the ResNet worker at world 2 x
    ``LOCAL_DEVICES=2`` on phase 12's global batch: ``world size=2 global
    devices=4``, a finite loss, samples/s beside 12(c) and 12(d).
+21. gang_pp: GPipe and expert parallelism across processes, run by 20(a)'s
+   two members after their tp steps (no process start or kernel build
+   more) and held to phase 18: (a) BERT-base with flash under GPipe on the
+   ``pp`` preset (stages 2 x fsdp 2) over the job's global devices, each
+   process one stage so every hand-off crosses processes, phase 18's
+   weights and batches, 5 steps: every loss within 1e-2 and every grad
+   norm within 1.22e-2 relative of 18(a)'s pp run, both members equal, 4 x
+   6 x 2 = 48 flash launches a step in each member (96 over the gang, as
+   18(a)'s pp step) and no plain call, each position's bytes its pp rule's
+   shard shape; ms a step, the hand-offs' and gathers' bytes and host ms a
+   step, peak memory; (b) the MoE FFN at ``MoEConfig()`` widths over the
+   ``moe-ep`` preset's 4 expert shards across the gang (the expert axis
+   spans processes) against the one-process 4-shard op on 18(b)'s inputs:
+   within one bf16 ulp (bit-identity reported), aux within 1e-5,
+   ``fraction_dropped`` identical, its ms beside 18(b)'s; (c)
+   ``graft_entry.dryrun_multichip(4)`` on the job's global devices in each
+   member: both ``OK`` lines, equal losses, the composed loss (stages 2 x
+   seq 2, the MoE transformer's hand-off across processes) within 1e-4 of
+   18(c)'s one-process run.
 
 Phase 5's Llama-3-8B weights are freed before phase 5j, which runs after
 phases 6 and 16.  The last lines are the
@@ -5094,6 +5114,22 @@ def gpipe_bytes(trainer) -> dict:
     return res
 
 
+GPIPE_TCFG = TrainerConfig(learning_rate=1e-4, warmup_steps=2, total_steps=16)
+
+
+def gpipe_batches(vocab: int) -> list:
+    """GPIPE_STEPS full-length MLM batches (no ``attention_mask``: pp
+    refuses one)."""
+    gen = synthetic_mlm_batches(vocab, TRAIN_B, TRAIN_S, seed=0)
+    return [{k: v for k, v in next(gen).items() if k != "attention_mask"}
+            for _ in range(GPIPE_STEPS)]
+
+
+def gpipe_loss_fn(cfg):
+    return lambda m, b: bert.mlm_loss(m, cfg, b["input_ids"], b["labels"],
+                                      max_predictions=TRAIN_P)
+
+
 def gpipe_train(dev) -> dict:
     """(a) BERT-base under GPipe on the ``pp`` preset (stages 2 x fsdp 2)
     over GPIPE_SHARDS shards of the card against the unsharded Trainer on
@@ -5104,16 +5140,10 @@ def gpipe_train(dev) -> dict:
     cfg_one = bert.BertConfig(attention="flash")
     cfg_pp = dataclasses.replace(cfg_one, pipeline_stages=stages,
                                  pipeline_microbatches=GPIPE_MICROBATCHES)
-    gen = synthetic_mlm_batches(cfg_one.vocab_size, TRAIN_B, TRAIN_S, seed=0)
-    batches = [{k: v for k, v in next(gen).items() if k != "attention_mask"}
-               for _ in range(GPIPE_STEPS)]
+    batches = gpipe_batches(cfg_one.vocab_size)
     flops = cfg_one.train_flops(TRAIN_B, TRAIN_S, TRAIN_P)
-    tcfg = TrainerConfig(learning_rate=1e-4, warmup_steps=2, total_steps=16)
-
-    def loss_fn(cfg):
-        return lambda m, b: bert.mlm_loss(m, cfg, b["input_ids"], b["labels"],
-                                          max_predictions=TRAIN_P)
-
+    tcfg = GPIPE_TCFG
+    loss_fn = gpipe_loss_fn
     model = bert.init(cfg_one, dev, seed=0)
     out: dict = {"preset": preset.name, "mesh": mesh.shape,
                  "devices": [str(dev)] * GPIPE_SHARDS,
@@ -5189,14 +5219,19 @@ def dense_moe_bytes(cfg: MoEConfig, tokens: int) -> int:
     return tokens * cfg.num_experts * capacity(cfg, tokens) * (4 + 1)
 
 
+def moe_inputs(dev) -> tuple:
+    """The MoE FFN's config, weights (seed 0) and bf16 input x MOE_X (seed 1)."""
+    cfg = MoEConfig()
+    g = torch.Generator().manual_seed(1)
+    return (cfg, init_moe(cfg, dev, seed=0),
+            torch.randn(MOE_X, generator=g).to(dev, torch.bfloat16))
+
+
 def gpipe_moe(dev, flush) -> dict:
     """(b) The MoE FFN at ``MoEConfig()`` widths, bf16, x MOE_X, over the
     ``moe-ep`` preset's MOE_EP expert shards of the card against the
     unsharded op."""
-    cfg = MoEConfig()
-    params = init_moe(cfg, dev, seed=0)
-    g = torch.Generator().manual_seed(1)
-    x = torch.randn(MOE_X, generator=g).to(dev, torch.bfloat16)
+    cfg, params, x = moe_inputs(dev)
     mesh = build_mesh(get_preset("moe-ep", MOE_EP).mesh, [dev] * MOE_EP)
     T = MOE_X[0] * MOE_X[1]
 
@@ -5263,8 +5298,8 @@ def gpipe_composed(dev) -> dict:
             pp = float(mt.lm_loss(model, cfg_pp, toks))
     out["f32_8_shards"] = {"loss": pp, "unsharded_loss": ref, "diff": abs(pp - ref),
                            "tol": COMPOSED_TOL, "ok": abs(pp - ref) <= COMPOSED_TOL}
-    _, lines, secs = captured(lambda: graft_entry.dryrun_multichip(4))
-    out["multichip_4"] = {"stdout": lines, "seconds": secs,
+    losses, lines, secs = captured(lambda: graft_entry.dryrun_multichip(4))
+    out["multichip_4"] = {"stdout": lines, "seconds": secs, "losses": losses,
                           "ok": any(x.startswith("dryrun_multichip OK") for x in lines)
                           and any(x.startswith("dryrun_composed OK") for x in lines)}
     out["ok"] = all(v["ok"] for v in out.values())
@@ -5460,7 +5495,8 @@ def gang_member(spec_path: str) -> int:
     Joins the job from the JAX rendezvous variables (``GANG_LOCAL``
     positions on the card), trains BERT-base with flash on the ``tp``
     preset over the job's global devices from the parent's weights and
-    batches, and writes what it counted to the spec's ``out``."""
+    batches, and writes what it counted to the spec's ``out``; then runs
+    phase 21's work (``gang_pp_member``) and writes that there too."""
     from kubeflow_tpu_torch.parallel import distributed
 
     with open(spec_path) as f:
@@ -5482,7 +5518,34 @@ def gang_member(spec_path: str) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    batches = train_batches(cfg.vocab_size, GANG_STEPS)
+    out = {"rank": distributed.process_index(), "backend": distributed.backend(),
+           "mesh": mesh.shape, "local_positions": mesh.local_positions,
+           **member_steps(trainer, train_batches(cfg.vocab_size, GANG_STEPS)),
+           "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "mfu_label": trainer.mfu_label, "bytes": mesh_bytes(trainer)}
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 21 in the same members: no process start or kernel build more
+    t0 = time.perf_counter()
+    try:
+        out["gang_pp"] = gang_pp_member(dev, spec)
+    except Exception:  # noqa: BLE001 — reported to the parent, which fails phase 21
+        out["gang_pp"] = {"error": traceback.format_exc(limit=5)}
+    out["gang_pp"]["seconds"] = time.perf_counter() - t0
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def member_steps(trainer, batches: list) -> dict:
+    """``trainer`` over ``batches`` in a gang member: the metrics, ms a step,
+    the flash launches and plain calls, and what the cross-process
+    collectives moved a step (calls, bytes, host ms)."""
+    from kubeflow_tpu_torch.parallel import distributed
+
     calls, undo = counting_plain_flash()
     metrics, stats = [], []
     try:
@@ -5494,23 +5557,91 @@ def gang_member(spec_path: str) -> int:
         launches = FA.flash_attention.launches
     finally:
         undo()
-    out = {"rank": distributed.process_index(), "backend": distributed.backend(),
-           "mesh": mesh.shape, "local_positions": mesh.local_positions,
-           "losses": [m["loss"] for m in metrics],
-           "grad_norms": [m["grad_norm"] for m in metrics],
-           "step_ms": [m["step_time_s"] * 1e3 for m in metrics],
-           "step_ms_mean_after_first": sum(m["step_time_s"] for m in metrics[1:])
-           / (len(metrics) - 1) * 1e3,
-           "launches": launches, "launches_per_step": launches / GANG_STEPS,
-           "plain_calls": calls[0],
-           "staged_bytes_per_step": [s["bytes"] for s in stats],
-           "collective_ms_per_step": [s["seconds"] * 1e3 for s in stats],
-           "collective_calls_per_step": [s["calls"] for s in stats],
-           "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-           "mfu_label": trainer.mfu_label, "bytes": mesh_bytes(trainer)}
-    with open(spec["out"], "w") as f:
-        json.dump(out, f)
-    return 0
+    return {"losses": [m["loss"] for m in metrics],
+            "grad_norms": [m["grad_norm"] for m in metrics],
+            "step_ms": [m["step_time_s"] * 1e3 for m in metrics],
+            "step_ms_mean_after_first": sum(m["step_time_s"] for m in metrics[1:])
+            / (len(metrics) - 1) * 1e3,
+            "launches": launches, "launches_per_step": launches / len(batches),
+            "plain_calls": calls[0],
+            "staged_bytes_per_step": [s["bytes"] for s in stats],
+            "collective_ms_per_step": [s["seconds"] * 1e3 for s in stats],
+            "collective_calls_per_step": [s["calls"] for s in stats]}
+
+
+def gang_pp_member(dev, spec: dict) -> dict:
+    """Phase 21 in a member of 20(a)'s gang: (a) BERT-base under GPipe on
+    the ``pp`` preset over the job's global devices (this process one stage,
+    every hand-off across processes), phase 18's weights and batches; (b)
+    the MoE FFN over the ``moe-ep`` preset's 4 expert shards across the
+    gang, held to 18(b)'s one-process 4-shard op on the same inputs, run
+    here on a mesh of this process's card; (c)
+    ``graft_entry.dryrun_multichip`` on the job's global devices."""
+    from kubeflow_tpu_torch.parallel import distributed
+
+    n = GANG_WORLD * GANG_LOCAL
+    out: dict = {}
+    cfg = bert.BertConfig(attention="flash", pipeline_stages=2,
+                          pipeline_microbatches=GPIPE_MICROBATCHES)
+    model = bert.init(cfg, dev, seed=spec["seed"])
+    model.load_state_dict(torch.load(spec["weights"], map_location=dev, weights_only=True))
+    mesh = build_mesh(get_preset("pp", n).mesh)
+    trainer = Trainer(gpipe_loss_fn(cfg), model, GPIPE_TCFG,
+                      flops_per_batch=cfg.train_flops(TRAIN_B, TRAIN_S, TRAIN_P), mesh=mesh,
+                      rules=bert.pp_sharding_rules())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out["train"] = {"mesh": mesh.shape, "local_positions": mesh.local_positions,
+                    **member_steps(trainer, gpipe_batches(cfg.vocab_size)),
+                    "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                    "mfu_label": trainer.mfu_label, "bytes": gpipe_bytes(trainer),
+                    "seconds": time.perf_counter() - t0}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mcfg, params, x = moe_inputs(dev)
+    mesh = build_mesh(get_preset("moe-ep", n).mesh)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def sharded():
+        with mesh:
+            return moe_ffn(params, x, mcfg)
+
+    with torch.no_grad():
+        got, aux = sharded()
+        distributed.collective_stats(reset=True)
+        ms = time_ms(sharded, flush)
+        stats = distributed.collective_stats()
+        with build_mesh(get_preset("moe-ep", MOE_EP).mesh, [dev] * MOE_EP):
+            ref, ref_aux = moe_ffn(params, x, mcfg)
+    err = (got.float() - ref.float()).abs()
+    calls = N_WARM + N_TIMED
+    out["moe"] = {"mesh": mesh.shape, "local_positions": mesh.local_positions,
+                  "aux": {k: float(v) for k, v in aux.items()},
+                  "one_process_aux": {k: float(v) for k, v in ref_aux.items()},
+                  "bit_identical": bool(torch.equal(got, ref)), "max_abs_err": float(err.max()),
+                  # one bf16 ulp of the output
+                  "within_ulp": bool(torch.all(err <= KERNEL_RTOL * ref.float().abs())),
+                  "ep_ms": ms, "staged_bytes_per_call": stats["bytes"] / calls,
+                  "collective_ms_per_call": stats["seconds"] * 1e3 / calls,
+                  "collective_calls_per_call": stats["calls"] / calls,
+                  "seconds": time.perf_counter() - t0}
+    del flush, params, x, got, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        losses = graft_entry.dryrun_multichip(n)
+    out["entry"] = {"losses": losses, "stdout": buf.getvalue().splitlines(),
+                    "seconds": time.perf_counter() - t0}
+    return out
 
 
 def wait_gang(procs: list, deadline: float, kill_after_137: bool = False) -> dict:
@@ -5753,6 +5884,86 @@ def gang_phase(dev, resnet_res: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 21
+
+# 21(c): the composed loss of the gang's entry run against phase 18(c)'s
+# one-process run over as many shards (tests/test_torch_moe_transformer.py's
+# bound)
+GANG_ENTRY_TOL = 1e-4
+
+
+def gang_pp_phase(gres: dict, zres: dict) -> dict:
+    """Phase 21: GPipe and expert parallelism across processes, run by 20(a)'s
+    members (``gang_pp_member``) and held to phase 18's one-process runs:
+    (a) BERT-base under GPipe against 18(a)'s pp run, (b) the MoE FFN over 4
+    expert shards across the gang against the one-process 4-shard op (which
+    each member runs on its card), (c) ``dryrun_multichip`` on the job's
+    devices against 18(c)'s."""
+    members = [m.get("gang_pp") or {} for m in (zres.get("train") or {}).get("members", [])]
+    out: dict = {"processes": GANG_WORLD, "positions_per_process": GANG_LOCAL,
+                 "members": members}
+    errors = [m["error"] for m in members if "error" in m]
+    if len(members) != GANG_WORLD or errors:
+        out.update(ok=False, errors=errors)
+        return out
+    one = gres["train"]["runs"]["pp"]
+    pp = [m["train"] for m in members]
+    stages = 2
+    per_member = GPIPE_MICROBATCHES * bert.BertConfig().num_layers // stages * GANG_LOCAL
+    train = {
+        "loss": all(abs(a - b) <= MESH_LOSS_ATOL for m in pp
+                    for a, b in zip(m["losses"], one["losses"])),
+        "grad_norm": all(abs(a - b) <= MESH_NORM_RTOL * abs(b)
+                         for m in pp for a, b in zip(m["grad_norms"], one["grad_norms"])),
+        "members_agree": pp[0]["losses"] == pp[1]["losses"]
+        and pp[0]["grad_norms"] == pp[1]["grad_norms"],
+        "launches": all(m["launches"] == per_member * GPIPE_STEPS and m["plain_calls"] == 0
+                        for m in pp),
+        "bytes": all(m["bytes"]["ok"] for m in pp),
+        "finite": all(math.isfinite(x) for m in pp for x in m["losses"] + m["grad_norms"])}
+    out["train"] = {"gates": train, "launches_per_step_per_member_expected": per_member,
+                    "one_process_losses": one["losses"],
+                    "one_process_step_ms_mean_after_first": one["step_ms_mean_after_first"],
+                    "max_loss_diff": max(abs(a - b) for m in pp
+                                         for a, b in zip(m["losses"], one["losses"])),
+                    "max_grad_norm_rel": max(abs(a - b) / abs(b) for m in pp
+                                             for a, b in zip(m["grad_norms"],
+                                                             one["grad_norms"]))}
+    ms = [m["moe"] for m in members]
+    out["moe"] = {"bit_identical": [m["bit_identical"] for m in ms],
+                  "max_abs_err": max(m["max_abs_err"] for m in ms),
+                  "one_process_ep_ms": gres["moe"]["ep_ms"],
+                  "gates": {"out": all(m["within_ulp"] for m in ms),
+                            "aux": all(abs(v - m["one_process_aux"][k]) <= MOE_AUX_TOL
+                                       for m in ms for k, v in m["aux"].items())
+                            and all(m["aux"]["fraction_dropped"]
+                                    == m["one_process_aux"]["fraction_dropped"] for m in ms)}}
+    moe = out["moe"]
+    want = gres["composed"]["multichip_4"]["losses"]
+    entry = [m["entry"] for m in members]
+    out["entry"] = {"one_process_losses": want, "losses": [e["losses"] for e in entry],
+                    "gates": {
+                        "ok_lines": all(any(x.startswith("dryrun_multichip OK") for x in e["stdout"])
+                                        and any(x.startswith("dryrun_composed OK")
+                                                for x in e["stdout"]) for e in entry),
+                        "members_agree": entry[0]["losses"] == entry[1]["losses"],
+                        "composed": all(abs(e["losses"]["composed"] - want["composed"])
+                                        <= GANG_ENTRY_TOL for e in entry)}}
+    out["launches"] = sum(m["launches"] for m in pp)
+    out["gates"] = {k: all(out[k]["gates"].values()) for k in ("train", "moe", "entry")}
+    out["ok"] = all(out["gates"].values())
+    log(f"21 gang_pp: pp over {GANG_WORLD} processes "
+        f"{[round(m['step_ms_mean_after_first'], 1) for m in pp]} ms/step vs one process "
+        f"{one['step_ms_mean_after_first']:.1f}; launches/step per member "
+        f"{[m['launches_per_step'] for m in pp]}; staged MB/step "
+        f"{[round(m['staged_bytes_per_step'][-1] / 1e6, 1) for m in pp]}; collective ms/step "
+        f"{[round(m['collective_ms_per_step'][-1], 1) for m in pp]}; moe ep "
+        f"{[round(m['moe']['ep_ms'], 3) for m in members]} ms vs one process "
+        f"{gres['moe']['ep_ms']:.3f}, bit-identical {moe['bit_identical']}; entry "
+        f"{[e['losses'] for e in entry]} vs {want}; gates {out['gates']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -5895,6 +6106,7 @@ def main() -> int:
     gres = phase("gpipe", lambda: gpipe_phase(dev))
     phase("mesh_models", lambda: mesh_models_phase(dev))
     zres = phase("gang", lambda: gang_phase(dev, rsres))
+    ppres = phase("gang_pp", lambda: gang_pp_phase(gres, zres))
 
     cases = kres.get("cases") or []
     head = next((c for c in cases if c["pool"] == "bf16" and c["K"] == 1), {})
@@ -5940,12 +6152,14 @@ def main() -> int:
                # phase 8's training steps, the remat phase's (its
                # recomputes included), phase 17's (the tp@4 mesh run: one
                # launch per batch shard, tensor shard and layer; its
-               # unsharded twin and one Ulysses call) and phase 18's (the
+               # unsharded twin and one Ulysses call), phase 18's (the
                # pp run: one launch per microbatch, layer and fsdp shard;
-               # its unsharded twin) and phase 20's (the one-process tp@4
-               # run and both gang members); each counts from zero
+               # its unsharded twin), phase 20's (the one-process tp@4
+               # run and both gang members) and phase 21's (both members of
+               # the pp gang); each counts from zero
                "launches": tres.get("launches", 0) + rres.get("launches", 0)
-               + mres.get("launches", 0) + gres.get("launches", 0) + zres.get("launches", 0),
+               + mres.get("launches", 0) + gres.get("launches", 0) + zres.get("launches", 0)
+               + ppres.get("launches", 0),
                "max_abs_err": max((c["max_abs_err"] for c in
                                    fcases + (mres.get("flash_cases") or [])), default=None),
                "ms": fhead.get("kernel_ms"), "kernel_ms": fhead.get("kernel_ms"),
@@ -5967,7 +6181,9 @@ def main() -> int:
                "gpipe_launches": gres.get("launches", 0),
                # phase 20's: the one-process tp@4 run and both gang members
                # (each counted in its own process), 24 a step in each member
-               "gang_launches": zres.get("launches", 0)}
+               "gang_launches": zres.get("launches", 0),
+               # phase 21's: both members of the pp gang, 48 a step in each
+               "gang_pp_launches": ppres.get("launches", 0)}
     report["kernels"] = [record, frecord]
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -8,10 +8,13 @@ then ``_dryrun_composed``: one step of the MoE transformer composing
 stages × seq × expert (× tensor) in one step.  Each prints its ``OK`` line
 with the mesh's axis sizes and the loss.
 
-The mesh is the port's single controller (``parallel/mesh.py``): the
-default ``devices`` are n shards of the visible cards (round robin, so one
-card takes every shard), and a machine without a card raises; the tests
-pass ``["cpu"] * n``.
+The default ``devices`` are, in a job of several processes
+(``parallel/distributed.py``), the first n of the job's global devices, as
+the JAX entry takes the first n of the global ``jax.devices()``: each
+process drives its own positions of the mesh.  In a one-process job they
+are n shards of the visible cards (round robin, so one card takes every
+shard), and a machine without a card raises; the tests pass
+``["cpu"] * n``.
 
     python -m kubeflow_tpu_torch.graft_entry 16
 """
@@ -54,7 +57,13 @@ def _mesh_factors(n: int) -> dict:
 
 
 def _devices(n: int, devices: Optional[list]) -> list:
-    """``devices``, or n shards of the visible cards (raises without one)."""
+    """``devices``, or the first n of the job's global devices in a job of
+    several processes, or n shards of the visible cards (raises without
+    one)."""
+    from .parallel import distributed
+
+    if devices is None and distributed.process_count() > 1:
+        devices = distributed.devices()[:n]
     if devices is not None:
         if len(devices) != n:
             raise ValueError(f"need {n} devices, have {len(devices)}")
@@ -66,8 +75,9 @@ def _devices(n: int, devices: Optional[list]) -> list:
     return [torch.device("cuda", i % cards) for i in range(n)]
 
 
-def dryrun_multichip(n_devices: int, devices: Optional[list] = None) -> None:
-    """One full sharded training step on an n-shard mesh (tiny shapes)."""
+def dryrun_multichip(n_devices: int, devices: Optional[list] = None) -> dict:
+    """One full sharded training step on an n-shard mesh (tiny shapes), then
+    the composed step; returns both losses (``bert``, ``composed``)."""
     from .models import bert
     from .parallel.mesh import MeshConfig, build_mesh
     from .train.data import synthetic_mlm_batches
@@ -81,7 +91,7 @@ def dryrun_multichip(n_devices: int, devices: Optional[list] = None) -> None:
         vocab_size=512, hidden_size=64, num_layers=2, num_heads=4,
         intermediate_size=128, max_position=64,
     )
-    model = bert.init(config, devices[0], seed=0)
+    model = bert.init(config, mesh.device(mesh.local_positions[0]), seed=0)
 
     def loss_fn(p, batch):
         return bert.mlm_loss(p, config, batch["input_ids"], batch["labels"],
@@ -98,7 +108,7 @@ def dryrun_multichip(n_devices: int, devices: Optional[list] = None) -> None:
         raise RuntimeError(f"dryrun_multichip: a non-finite loss {metrics}")
     print(f"dryrun_multichip OK: mesh={mesh.shape} loss={metrics['loss']:.4f}", flush=True)
 
-    _dryrun_composed(n_devices, devices)
+    return {"bert": metrics["loss"], "composed": _dryrun_composed(n_devices, devices)}
 
 
 def _composed_mesh_factors(n: int) -> dict:
@@ -134,7 +144,8 @@ def _dryrun_composed(n_devices: int, devices: list) -> float:
         pipeline_stages=f["stages"], pipeline_microbatches=2,
     )
     trainer = Trainer(lambda p, b: mt.lm_loss(p, config, b["tokens"]),
-                      mt.init(config, devices[0], seed=0), TrainerConfig(),
+                      mt.init(config, mesh.device(mesh.local_positions[0]), seed=0),
+                      TrainerConfig(),
                       optimizer=adamw(1e-3), mesh=mesh, rules=mt.SHARDING_RULES)
     g = torch.Generator().manual_seed(1)
     toks = torch.randint(0, config.vocab_size, (4, 17), generator=g, dtype=torch.int32)

@@ -34,7 +34,7 @@ from torch import nn
 
 from ..ops.attention import multihead_attention
 from ..ops.moe import MoEConfig, mesh_moe, moe_ffn
-from ..ops.shard_map_compat import each, psum
+from ..ops.shard_map_compat import each, position0, psum
 from ..parallel.mesh import Mesh, current_mesh
 from ..parallel.pipeline import gpipe, stack_stages
 from ..parallel.sharding import (NamedSharding, P, ShardedTensor, Views, place_params,
@@ -207,7 +207,8 @@ def lm_loss(params, config: MoeTransformerConfig, tokens) -> torch.Tensor:
         mesh = logits.mesh
         tgt = ShardedTensor.shard(targets, mesh, _act_spec(mesh, tuple(targets.shape)))
         sums = each(lambda lg, t: _xent(lg, t).sum(), logits.shards, tgt.shards)
-        return psum(sums, logits.split_axes(0) + logits.split_axes(1), mesh)[0] / targets.numel()
+        total = psum(sums, logits.split_axes(0) + logits.split_axes(1), mesh)
+        return position0(total, mesh) / targets.numel()
     return _xent(logits, targets).mean()
 
 
@@ -226,16 +227,13 @@ def _act_spec(mesh: Mesh, shape: tuple) -> P:
 def _mesh_forward(params, config: MoeTransformerConfig, mesh: Mesh,
                   tokens: torch.Tensor) -> ShardedTensor:
     dt = config.dtype
-    if not mesh.is_fully_addressable:
-        raise NotImplementedError("the MoE transformer on a mesh across processes is not ported "
-                                  "yet (ROADMAP Queue 1 item 3.3: the cross-process mesh)")
     if config.n_heads % mesh.shape["tensor"]:
         raise ValueError(f"tensor={mesh.shape['tensor']} must divide "
                          f"n_heads={config.n_heads}")
     params = place_params(params, mesh, SHARDING_RULES)
     b, s = tokens.shape
     toks = ShardedTensor.shard(tokens, mesh, _act_spec(mesh, (b, s)))
-    s_l = toks.shards[0].shape[1]
+    s_l = toks.shards[mesh.local_positions[0]].shape[1]
     starts = [toks.block(p)[1] * s_l for p in range(mesh.size)]
     views = Views(mesh)
     xs = each(lambda t, emb, pos, j: (emb[t.long()] + pos[None, j:j + t.shape[1]]).to(dt),
@@ -280,7 +278,7 @@ def _mesh_block(config: MoeTransformerConfig, x: ShardedTensor, lp, i: int) -> S
                            NamedSharding(mesh, heads))
         return views(st, keep=tuple(a for a in mesh.axis_names if a != "seq"))
 
-    s_l = x.shards[0].shape[1]
+    s_l = x.shards[mesh.local_positions[0]].shape[1]
     starts = [x.block(p)[1] * s_l for p in range(mesh.size)]
 
     def attend(t, k, v, j):

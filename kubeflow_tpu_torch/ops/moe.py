@@ -23,7 +23,10 @@ f32, small), so a batch × seq split drops exactly the tokens the unsharded
 op drops.  Each slot is filled by one token, so an expert shard's dispatched
 buffer is the ``psum`` over the token axes of the per-shard dispatch; the
 combine is each expert shard's partial (f32), summed by ``psum`` over
-``expert`` (and ``tensor``).
+``expert`` (and ``tensor``).  On a mesh across processes the same sums and
+gathers cross processes; every process routes on its own copy of the
+gathered logits, and the aux values seed their gradient once over the job
+(``position0``).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from ..parallel.mesh import current_mesh
 from ..parallel.sharding import (NamedSharding, P, ShardedTensor, Views, as_sharded,
                                  place_params)
 from ..utils.device import resolve_device
-from .shard_map_compat import each, psum
+from .shard_map_compat import each, position0, psum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,9 +182,7 @@ def mesh_moe(x: ShardedTensor, config: MoEConfig, router: ShardedTensor, wi: Sha
     are summed over.  Returns (out, a ShardedTensor of ``x``'s layout;
     aux)."""
     mesh = x.mesh
-    if not mesh.is_fully_addressable:
-        raise NotImplementedError("expert parallelism on a mesh across processes is not ported "
-                                  "yet (ROADMAP Queue 1 item 3.3: the cross-process mesh)")
+    first = mesh.local_positions[0]
     B, S, d = x.shape
     T, E, k = B * S, config.num_experts, config.top_k
     cap = capacity(config, T)
@@ -194,7 +195,7 @@ def mesh_moe(x: ShardedTensor, config: MoEConfig, router: ShardedTensor, wi: Sha
     e_per = wi.sharding.shard_shape(tuple(wi.shape))[lead]
     firsts = [wi.block(p)[lead] * e_per for p in range(mesh.size)]
     rows = [x.block(p)[:2] for p in range(mesh.size)]
-    b_l, s_l = x.shards[0].shape[:2]
+    b_l, s_l = x.shards[first].shape[:2]
 
     # routing over every token in global (b, s) order, once per device
     logits = each(lambda xl, r: xl.float() @ r, x.shards, views(router, (), index))
@@ -224,7 +225,10 @@ def mesh_moe(x: ShardedTensor, config: MoEConfig, router: ShardedTensor, wi: Sha
     outs = each(expert, expert_in, wis, wos, slots)
     if sum_axes:
         outs = psum(outs, sum_axes, mesh)
-    dt = torch.promote_types(torch.promote_types(x.dtype, wis[0].dtype), wos[0].dtype)
+    dt = torch.promote_types(torch.promote_types(x.dtype, wis[first].dtype), wos[first].dtype)
     outs = each(lambda o: o.to(dt).reshape(b_l, s_l, d), outs)
-    probs, choices = routes[0]
-    return x.like(outs), _aux(glob[0].reshape(T, E), probs, choices, k)
+    # every position routes alike: the aux values of this process's first
+    # position, their gradient seeded once over the job
+    probs, choices = routes[first]
+    aux = _aux(glob[first].reshape(T, E), probs, choices, k)
+    return x.like(outs), {name: position0([v] * mesh.size, mesh) for name, v in aux.items()}

@@ -25,7 +25,12 @@ values.  So every process must use such a collective's outputs alike: an
 output one process leaves off its loss drops that collective's backward
 from its graph, and the peer waits for it until the group's timeout
 (``ops/ring_attention.py`` folds a future block masked across processes
-for this reason).
+for this reason).  A ``ppermute`` in which a process only sends gives it a
+zero-element token, tied into its sending positions' zeros, so its backward
+still posts the receives; one in which it only receives takes its own value
+at a receiving position as an input, so its backward is reached from its
+own parameters and posts the sends (a pipeline stage's hand-off,
+``parallel/pipeline.py``).
 
 Positions that share a device and hold the same value hold the same tensor
 object.  ``each`` maps a per-shard function once per distinct tuple of
@@ -41,7 +46,8 @@ import torch
 
 from ..parallel import distributed
 from ..parallel.mesh import Mesh, current_mesh
-from ..parallel.sharding import NamedSharding, P, ShardedTensor, as_sharded, pack, unpack
+from ..parallel.sharding import (NamedSharding, P, ShardedTensor, as_sharded, pack, tie,
+                                 unpack)
 
 
 def _mesh(mesh: Optional[Mesh]) -> Mesh:
@@ -126,11 +132,12 @@ def axis_size(axis_name, mesh: Optional[Mesh] = None) -> int:
 
 
 def _like(m: Mesh, xs: Sequence) -> torch.Tensor:
-    """A local value of ``xs``: every member's value has its shape and dtype."""
-    for p in m.local_positions:
-        if isinstance(xs[p], torch.Tensor):
-            return xs[p]
-    raise ValueError("a collective across processes needs a tensor on a local position")
+    """A local value of ``xs``, one that needs a gradient where there is
+    one: every member's value has its shape and dtype."""
+    held = [xs[p] for p in m.local_positions if isinstance(xs[p], torch.Tensor)]
+    if not held:
+        raise ValueError("a collective across processes needs a tensor on a local position")
+    return next((t for t in held if t.requires_grad), held[0])
 
 
 def _members(m: Mesh, groups: list, xs: Sequence) -> dict:
@@ -283,18 +290,23 @@ class _Permute(torch.autograd.Function):
     """The crossings of a ``ppermute``: forward a send per crossing this
     process sources and a receive per crossing it ends; backward the same
     pairs reversed.  ``pairs`` lists (source position, destination
-    position) in one order on every process."""
+    position) in one order on every process; ``like`` is a local value
+    (the received values' shape and dtype), an input of the node, so a
+    process that only receives reaches this backward from its own graph.
+    A process that receives nothing gets a zero-element token instead."""
 
     @staticmethod
     def forward(ctx, m: Mesh, pairs: list, like: torch.Tensor, *sent):
-        ctx.m, ctx.pairs, ctx.like = m, pairs, like
-        return _Permute.exchange(m, pairs, list(sent), like)
+        ctx.m, ctx.pairs, ctx.like = m, pairs, (like.shape, like.dtype)
+        got = _Permute.exchange(m, pairs, list(sent), ctx.like)
+        return got or (like.new_empty(0),)
 
     @staticmethod
-    def exchange(m: Mesh, pairs: list, sent: list, like: torch.Tensor) -> tuple:
+    def exchange(m: Mesh, pairs: list, sent: list, like: tuple) -> tuple:
+        shape, dtype = like
         sends = [(t, m.process_of(d)) for t, (_, d) in
                  zip(sent, [pr for pr in pairs if m.is_local(pr[0])])]
-        recvs = [(torch.empty(like.shape, dtype=like.dtype, device=m.device(d)),
+        recvs = [(torch.empty(shape, dtype=dtype, device=m.device(d)),
                   m.process_of(s)) for s, d in pairs if m.is_local(d)]
         distributed.send_recv(sends, recvs)
         return tuple(t for t, _ in recvs)
@@ -302,9 +314,9 @@ class _Permute(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         m, pairs = ctx.m, ctx.pairs
-        back = [(d, s) for s, d in pairs]
-        like = ctx.like
-        got = _Permute.exchange(m, back, list(grads), like)
+        if not any(m.is_local(d) for _, d in pairs):
+            grads = ()  # the token's
+        got = _Permute.exchange(m, [(d, s) for s, d in pairs], list(grads), ctx.like)
         return (None, None, None, *got)
 
 
@@ -313,7 +325,11 @@ def ppermute(xs: Sequence, axis_name, perm: Sequence, mesh: Optional[Mesh] = Non
     source, destination index); a member no pair names receives zeros, or
     None where it holds None (a pipeline stage idle at this tick).  A pair
     whose ends sit in two processes is a send and a receive (``_Permute``);
-    both sides read from ``perm`` whether a tensor crosses."""
+    both sides read from ``perm`` whether a tensor crosses.  A process that
+    receives across processes holds a value at some position (its shape
+    and dtype are the received ones; where it only receives, the node's
+    input: one that needs a gradient, for its backward to run); where it
+    only sends, its token is tied into the zeros its positions get."""
     m = _mesh(mesh)
     idx = axis_index(axis_name, m)
     out: list = [None] * m.size
@@ -326,19 +342,17 @@ def ppermute(xs: Sequence, axis_name, perm: Sequence, mesh: Optional[Mesh] = Non
                 crossing.append((s, d))
             elif m.is_local(d):
                 out[d] = xs[s].to(m.device(d))
-    if crossing:
+    token = None
+    if any(m.is_local(s) or m.is_local(d) for s, d in crossing):
         sent = [xs[s] for s, _ in crossing if m.is_local(s)]
+        got = _Permute.apply(m, crossing, _like(m, xs), *sent)
         ends = [d for _, d in crossing if m.is_local(d)]
-        if torch.is_grad_enabled() and any(t.requires_grad for t in sent) and (
-                not sent or not ends):
-            raise NotImplementedError(
-                "a differentiable ppermute where a process only sends or only receives "
-                "(ROADMAP Queue 1 item 3.3: the cross-process mesh)")
-        for d, t in zip(ends, _Permute.apply(m, crossing, _like(m, xs), *sent)):
+        for d, t in zip(ends, got):
             out[d] = t
+        token = None if ends else got[0]
     for p in m.local_positions:
         if out[p] is None and xs[p] is not None:
-            out[p] = torch.zeros_like(xs[p])
+            out[p] = tie(torch.zeros_like(xs[p]), token)
     return out
 
 

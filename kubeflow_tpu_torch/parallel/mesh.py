@@ -103,7 +103,10 @@ class Mesh:
         self.local_positions = [p for p, o in enumerate(self._owner) if o == me]
         self.processes = sorted(set(self._owner))
         self._tokens: list = []
-        if not self.is_fully_addressable:
+        # the groups of a mesh that spans several processes, built alike on
+        # every process, also on one that holds none of its positions (a
+        # pipeline stage's sub-mesh); a mesh in one process needs none
+        if len(self.processes) > 1:
             self._build_groups()
 
     @property

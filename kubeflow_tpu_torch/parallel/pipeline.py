@@ -8,21 +8,33 @@ microbatches through the stages tick by tick, as the JAX schedule does.
 
 The JAX schedule is one ``lax.scan`` over M + S - 1 ticks, each applying a
 ``vmap`` of the stage to the whole shift register and rolling it one stage
-forward.  Here one process drives every shard (``parallel/mesh.py``; a
-mesh across processes is refused, ROADMAP Queue 1 item 3.3):
+forward.  Here each process drives the shards it owns (``parallel/mesh.py``),
+on a mesh of one process or of several:
 
   * stage ``s`` runs ``stage_fn`` over its sub-mesh, the positions whose
     ``stages`` coordinate is ``s`` (``Mesh.submesh``), with that sub-mesh
     current, so model code written for a mesh runs unchanged within a
     stage; its parameters are the stage's slice, ``[L/S, ...]`` leaves on
-    the sub-mesh;
+    the sub-mesh.  A process computes only the stages it holds positions
+    of; every process walks the same ticks, so the hand-offs pair up;
   * microbatch ``j`` is rows ``[j·mb, (j+1)·mb)`` of the global batch, laid
     out over the stage's sub-mesh by ``mb_spec``;
   * the shift register's hand-off (``jnp.roll``, a collective-permute) is a
-    ``ppermute`` over ``stages`` from each working stage to the next;
+    ``ppermute`` over ``stages`` from each working stage to the next, and,
+    as the roll wraps, from the last stage to stage 0, which so holds each
+    finished microbatch (for S > 2 a second ``ppermute`` gives it to the
+    stages between); the output is then laid out over the whole mesh;
   * bubble ticks are skipped: stage ``s`` works at tick ``t`` only when
     ``0 <= t - s < M``.  The JAX schedule computes them and never reads
     their outputs, so they add nothing to the result or the gradient.
+
+Across processes a hand-off where a process only sends (the first tick's,
+the last's) or only receives (an idle stage's) is one-sided: the receiving
+stage's positions hold a zero placeholder drawn from the input, so the
+receive is reached from the process's own parameters, and what a process
+computed for a collective's sake only (a sender's token, the input it
+gathered for a stage it does not hold) is tied into the output, so every
+process runs the same backward (``ops/shard_map_compat.py``).
 
 Autograd derives the reverse schedule.  With no mesh in context the same
 schedule runs on one device, as the JAX one does.  ``remat=True`` wraps each
@@ -46,7 +58,7 @@ from torch.utils import checkpoint as _ckpt
 
 from ..ops.shard_map_compat import each, ppermute
 from .mesh import Mesh, current_mesh
-from .sharding import NamedSharding, P, ShardedTensor, sanitize_spec, tree_map_with_path
+from .sharding import NamedSharding, P, ShardedTensor, sanitize_spec, tie, tree_map_with_path
 
 
 def _tree_map(fn, tree: Any) -> Any:
@@ -150,7 +162,7 @@ def gpipe(
     if mesh is None:
         params = [_tree_map(lambda leaf, s=s: leaf[s], stage_params) for s in range(S)]
         outs = _schedule(S, M, lambda j: x[j * mb:(j + 1) * mb],
-                         lambda s, xm: call(stage_fn, params[s], xm), lambda ys: ys)
+                         lambda s, xm: call(stage_fn, params[s], xm), lambda ys: (ys, ys[-1]))
         return torch.cat(outs)
     return _gpipe_mesh(call, stage_fn, stage_params, x, S, M, mb, P(*tuple(mb_spec)), mesh)
 
@@ -158,18 +170,20 @@ def gpipe(
 def _schedule(S: int, M: int, feed, run, hand_off) -> list:
     """The GPipe ticks: at tick t stage s runs microbatch t - s (bubble
     ticks skipped); ``hand_off`` moves each working stage's output to where
-    the next stage reads it (entry s: stage s's output, for stage s + 1).
-    Returns the last stage's outputs in microbatch order."""
+    the next stage reads it and returns the register (entry s: stage s's
+    output, for stage s + 1) and the microbatch that finished at this tick
+    (None where the last stage is idle).  Returns those in microbatch
+    order."""
     reg: list = [None] * S
-    outs: list = [None] * M
+    outs: list = []
     for t in range(M + S - 1):
         nxt: list = [None] * S
         for s in range(S):
             if 0 <= t - s < M:
                 nxt[s] = run(s, feed(t) if s == 0 else reg[s - 1])
-        if t >= S - 1:
-            outs[t - (S - 1)] = nxt[S - 1]
-        reg = hand_off(nxt)
+        reg, done = hand_off(nxt)
+        if done is not None:
+            outs.append(done)
     return outs
 
 
@@ -187,9 +201,6 @@ def _stage_slice(leaf, s: int, mesh: Mesh, sub: Mesh, positions: list) -> Sharde
 
 def _gpipe_mesh(call, stage_fn, stage_params, x, S: int, M: int, mb: int, mb_spec: P,
                 mesh: Mesh) -> ShardedTensor:
-    if not mesh.is_fully_addressable:
-        raise NotImplementedError("GPipe on a mesh across processes is not ported yet "
-                                  "(ROADMAP Queue 1 item 3.3: the cross-process mesh)")
     n = mesh.shape["stages"]
     if n not in (1, S):
         raise ValueError(f"{S} pipeline stages on a mesh of stages={n}")
@@ -203,7 +214,11 @@ def _gpipe_mesh(call, stage_fn, stage_params, x, S: int, M: int, mb: int, mb_spe
     # a microbatch dim the axes do not divide is replicated over them
     xg = x.gather() if isinstance(x, ShardedTensor) else x
     sub0 = subs[0][0]
-    spec = sanitize_spec(mb_spec, (mb, *xg.shape[1:]), sub0)
+    mb_shape = (mb, *xg.shape[1:])
+    spec = sanitize_spec(mb_spec, mb_shape, sub0)
+    # what this process computed for a collective's sake only, tied into the
+    # output so that its backward runs here too
+    spare = [] if sub0.local_positions else [xg]
 
     def feed(j):
         return ShardedTensor.shard(xg[j * mb:(j + 1) * mb], sub0, spec)
@@ -215,26 +230,74 @@ def _gpipe_mesh(call, stage_fn, stage_params, x, S: int, M: int, mb: int, mb_spe
         return fn
 
     def run(s, xm):
+        if not subs[s][0].local_positions:
+            return xm  # a stage of other processes: its output's layout only
         return call(on_sub(s), params[s], xm)
 
-    def hand_off(ys):
-        if n == 1:
-            return ys
-        moved: list = [None] * S
+    if n == 1:
+        outs = _schedule(S, M, feed, run, lambda ys: (ys, ys[-1]))
+    else:
+        outs = _schedule(S, M, feed, run, _hand_off(mesh, subs, params, x, xg, mb_shape, spec, spare))
+    out = tie(torch.cat([o.gather() for o in outs]), *spare)
+    return ShardedTensor.shard(out, mesh, sanitize_spec(mb_spec, tuple(out.shape), mesh))
+
+
+def _hand_off(mesh: Mesh, subs: list, params: list, x, xg: torch.Tensor, mb_shape: tuple,
+              spec: P, spare: list):
+    """The tick's hand-off over ``stages``: each working stage's output to the
+    next stage, and the last stage's to stage 0 (the roll wraps), then for
+    S > 2 to the stages between; returns the register and the finished
+    microbatch as a ShardedTensor of the whole mesh (None where the last
+    stage is idle).  A process's sending positions that receive nothing
+    leave their zeros, which carry a one-sided send's token, in ``spare``."""
+    S = len(subs)
+    shard_shape = NamedSharding(subs[0][0], spec).shard_shape(mb_shape)
+    # a receive-only hand-off's input: a local value that leads to this
+    # process's parameters (the input, else a stage's weights)
+    held = ((x.locals if isinstance(x, ShardedTensor) else [x])
+            + [t for p in params for st in _leaves(p) for t in st.locals])
+    anchor = next((t for t in held if t.requires_grad), None)
+
+    def permute(ys: list, pairs: list) -> list:
         full: list = [None] * mesh.size
-        for s, y in enumerate(ys[:-1]):
+        for s, y in enumerate(ys):
             if y is not None:
                 for i, pos in enumerate(subs[s][1]):
                     full[pos] = y.shards[i]
-        full = ppermute(full, "stages", [(s, s + 1) for s in range(S - 1)
-                                         if ys[s] is not None], mesh)
-        for s, y in enumerate(ys[:-1]):
-            if y is not None:
-                sub, positions = subs[s + 1]
-                moved[s] = ShardedTensor([full[p] for p in positions], y.shape,
-                                         NamedSharding(sub, y.spec))
-        return moved
+        if not mesh.is_fully_addressable:
+            for _, d in pairs:  # an idle stage that receives: a placeholder
+                for pos in subs[d][1]:
+                    if mesh.is_local(pos) and full[pos] is None:
+                        zero = torch.zeros((), dtype=xg.dtype, device=mesh.device(pos))
+                        full[pos] = tie(zero.expand(shard_shape), anchor)
+        got = ppermute(full, "stages", pairs, mesh)
+        ends = {d for _, d in pairs}
+        spare.extend(got[pos] for s, _ in pairs if s not in ends for pos in subs[s][1]
+                     if mesh.is_local(pos) and got[pos].requires_grad)
+        return got
 
-    outs = _schedule(S, M, feed, run, hand_off)
-    out = torch.cat([o.gather() for o in outs])
-    return ShardedTensor.shard(out, mesh, sanitize_spec(mb_spec, tuple(out.shape), mesh))
+    def on(s: int, full: list, like: ShardedTensor) -> ShardedTensor:
+        sub, positions = subs[s]
+        return ShardedTensor([full[p] for p in positions], like.shape,
+                             NamedSharding(sub, like.spec))
+
+    def hand_off(ys):
+        pairs = [(s, s + 1) for s in range(S - 1) if ys[s] is not None]
+        last = ys[-1]
+        if last is not None:
+            pairs.append((S - 1, 0))
+        full = permute(ys, pairs)
+        moved = [on(s + 1, full, ys[s]) if ys[s] is not None else None for s in range(S - 1)]
+        if last is None:
+            return moved, None
+        done = list(full)
+        for i, pos in enumerate(subs[-1][1]):
+            done[pos] = last.shards[i]
+        if S > 2:
+            between = permute([None] * (S - 1) + [last], [(S - 1, s) for s in range(1, S - 1)])
+            for s in range(1, S - 1):
+                for pos in subs[s][1]:
+                    done[pos] = between[pos]
+        return moved, ShardedTensor(done, last.shape, NamedSharding(mesh, last.spec))
+
+    return hand_off

@@ -23,7 +23,11 @@ differentiable, and its backward is a slice per shard and, for replicas, a
 sum: the reduce-scatter XLA inserts for ``fsdp``.  A slice that only
 another process holds is fetched over ``torch.distributed`` by ``_Fetch``,
 whose backward sends each receiver's gradient back to the slice's holder and
-sums them there, the same reduce-scatter across processes.
+sums them there, the same reduce-scatter across processes.  Where a process
+only serves a fetch (it needs no slice from the others), its ``_Fetch``
+returns a zero-element token that ``tie`` hooks into what it returns, so its
+backward still takes part; where it only receives, one of its own slices is
+the node's input, so its backward is reached from its own parameters.
 """
 
 from __future__ import annotations
@@ -303,27 +307,28 @@ class ShardedTensor:
         for pos in range(mesh.size):
             firsts.setdefault(mesh.process_of(pos), pos)
         # each process gathers its first position's view of the whole
-        fetched = self._fetch({r: self._sources(p, dims) for r, p in firsts.items()},
-                              None, None, dev)
-        return self._assemble(self._sources(mesh.local_positions[0], dims), dims, dev, None,
-                              None, fetched)
+        fetched, token = self._fetch({r: self._sources(p, dims) for r, p in firsts.items()},
+                                     None, None, dev)
+        return tie(self._assemble(self._sources(mesh.local_positions[0], dims), dims, dev,
+                                  None, None, fetched), token)
 
-    def _fetch(self, want: dict, index, dtype, dev) -> dict:
+    def _fetch(self, want: dict, index, dtype, dev) -> tuple:
         """The source positions each process reads (``want``: process ->
         positions, the same on every process) whose block it holds no slice
         of, fetched from the process of each such position: this
         process's, keyed by (that process, block), with ``index`` and
-        ``dtype`` applied by the sender, on ``dev``.  Empty on a one-process
-        mesh."""
+        ``dtype`` applied by the sender, on ``dev``; and the token to
+        ``tie`` into what the caller returns where this process only serves
+        a differentiable fetch (else None).  Empty on a one-process mesh."""
         mesh = self.mesh
         if mesh.is_fully_addressable:
-            return {}
+            return {}, None
         holds = {r: {self.block(p) for p in range(mesh.size) if mesh.process_of(p) == r}
                  for r in mesh.processes}
         need = {r: sorted({(mesh.process_of(q), self.block(q)) for q in want.get(r, ())
                            if self.block(q) not in holds[r]}) for r in mesh.processes}
         if not any(need.values()):
-            return {}
+            return {}, None
         sends = {r: sorted({b for q in mesh.processes for s, b in need[q] if s == r})
                  for r in mesh.processes}
         me = distributed.process_index()
@@ -333,18 +338,17 @@ class ShardedTensor:
             if index is not None:
                 t = t[index]
             local[b] = t if dtype is None else t.to(dtype)
-        needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in self.locals)
-        if needs_grad and any(not need[r] or not sends[r] for r in mesh.processes):
-            raise NotImplementedError(
-                "a differentiable gather across processes where a process only sends or "
-                "only receives (ROADMAP Queue 1 item 3.3: the cross-process mesh)")
         shape = self.sharding.shard_shape(tuple(self.shape))[0 if index is None else 1:]
         plan = _FetchPlan(mesh, need, sends, shape, dtype or self.dtype, dev)
         sent = [local[b] for b in sends[me]]
-        if needs_grad:
-            return dict(zip(need[me], _Fetch.apply(plan, *sent)))
+        anchor = next((t for t in self.locals if t.requires_grad), None)
+        if torch.is_grad_enabled() and anchor is not None:
+            got = _Fetch.apply(plan, anchor, *sent)
+            if not need[me]:  # this process only serves: its token
+                return {}, got[0]
+            return dict(zip(need[me], got)), None
         with torch.no_grad():
-            return dict(zip(need[me], _Fetch.exchange(plan, sent)))
+            return dict(zip(need[me], _Fetch.exchange(plan, sent))), None
 
     @torch.no_grad()
     def assign_(self, t: torch.Tensor) -> "ShardedTensor":
@@ -392,12 +396,16 @@ class _Fetch(torch.autograd.Function):
     of the serving process and the block).
     Backward, its transpose: one all-gather of each receiver's gradients,
     each sender summing, in process order, what every receiver sent back
-    for its blocks (the reduce-scatter across processes)."""
+    for its blocks (the reduce-scatter across processes).
+    ``anchor``, one of this process's own slices, keeps the node on the
+    path to its parameters where it only receives; where it needs nothing
+    the output is a zero-element token, for the caller to ``tie``."""
 
     @staticmethod
-    def forward(ctx, plan: _FetchPlan, *sent):
+    def forward(ctx, plan: _FetchPlan, anchor: torch.Tensor, *sent):
         ctx.plan = plan
-        return _Fetch.exchange(plan, sent)
+        got = _Fetch.exchange(plan, sent)
+        return got or (anchor.new_empty(0),)
 
     @staticmethod
     def exchange(plan: _FetchPlan, sent) -> tuple:
@@ -414,6 +422,8 @@ class _Fetch(torch.autograd.Function):
     def backward(ctx, *grads):
         plan = ctx.plan
         me = distributed.process_index()
+        if not plan.need[me]:
+            grads = ()  # the token's
         bufs = distributed.all_gather_bytes(
             pack([g.to(plan.dtype) for g in grads]).to(plan.dev),
             [len(plan.need[r]) * plan.item for r in plan.procs], plan.group)
@@ -429,7 +439,38 @@ class _Fetch(torch.autograd.Function):
                     g = back[r][(me, b)].float()
                     total = g if total is None else total + g
             out.append(total.to(plan.dtype))
-        return (None, *out)
+        return (None, None, *out)
+
+
+class _Tie(torch.autograd.Function):
+    """``x`` itself, with ``others`` in its graph: the backward passes
+    ``x``'s gradient through and gives each of ``others`` a zero gradient (a
+    broadcast zero, no memory), so their nodes run in this process's
+    backward too.  A defined gradient on their device, not None: a node
+    whose gradients are all undefined runs on the host's ready queue, out of
+    order with the card's, and its collectives would pair up wrongly."""
+
+    @staticmethod
+    def forward(ctx, x, *others):
+        ctx.metas = [(o.shape, o.dtype, o.device) for o in others]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *[torch.zeros((), dtype=dt, device=dev).expand(shape)
+                     for shape, dt, dev in ctx.metas])
+
+
+def tie(x: torch.Tensor, *others) -> torch.Tensor:
+    """``x``, with the tensors of ``others`` that need a gradient hooked into
+    its graph (None entries skipped): a value a process computed for a
+    collective's sake only (a token of a fetch or a ``ppermute`` it only
+    serves, a gather it does not read) reaches the loss through ``x``, so
+    its backward, and the collectives there, run in every process alike."""
+    others = [o for o in others if isinstance(o, torch.Tensor) and o.requires_grad]
+    if not others or not torch.is_grad_enabled():
+        return x
+    return _Tie.apply(x, *others)
 
 
 class Views:
@@ -439,19 +480,23 @@ class Views:
     ``dtype`` casts each slice before the gather): the positions that would
     assemble the same slices on one device share one tensor, so a gather
     (and the work downstream of it) runs once per device and block.  Make
-    one per forward call: a cached view belongs to that call's graph."""
+    one per forward call: a cached view belongs to that call's graph.  The
+    cache keys tensors by ``id``, so it holds every tensor it was asked
+    about: a freed one's id could name the next."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
         self._cache: dict = {}
+        self._held: dict = {}
 
     def __call__(self, t: ShardedTensor, keep: tuple = (), index: Optional[int] = None,
                  dtype: Optional[torch.dtype] = None) -> list:
         dims = t._gathered_dims(keep)
         if index is not None and 0 in dims:
             raise ValueError("index on a gathered leading dim")
+        self._held[id(t)] = t
         mesh = self.mesh
-        fetched: dict = {}
+        fetched, token = {}, None
         if not mesh.is_fully_addressable:
             fkey = ("fetch", id(t), tuple(dims), index, dtype)
             if fkey not in self._cache:
@@ -460,14 +505,15 @@ class Views:
                     want.setdefault(mesh.process_of(pos), set()).update(t._sources(pos, dims))
                 self._cache[fkey] = t._fetch(want, index, dtype,
                                              mesh.device(mesh.local_positions[0]))
-            fetched = self._cache[fkey]
+            fetched, token = self._cache[fkey]
         out: list = [None] * mesh.size
         for pos in mesh.local_positions:
             dev = mesh.device(pos)
             src = t._sources(pos, dims)
             key = (id(t), dev, tuple(id(t._base(q, fetched)[0]) for q in src), index, dtype)
             if key not in self._cache:
-                self._cache[key] = t._assemble(src, dims, dev, index, dtype, fetched)
+                # a fetch this process only serves: its token in every view
+                self._cache[key] = tie(t._assemble(src, dims, dev, index, dtype, fetched), token)
             out[pos] = self._cache[key]
         return out
 

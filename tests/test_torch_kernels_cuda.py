@@ -916,6 +916,27 @@ def test_bert_step_across_two_processes_launches_flash_in_each(card):
     assert gang[0]["loss"] == gang[1]["loss"]
 
 
+@pytest.mark.cuda
+def test_bert_pp_across_two_processes_launches_flash_in_each(card):
+    """GPipe across a gang of 2 processes sharing the card, stages 2 x fsdp 2
+    (each process one stage, every hand-off across processes): each member
+    launches the kernel once per microbatch, layer of its stage and local
+    position, never the plain version, and the step holds to the
+    one-process pp mesh on the card (loss within 1e-2, norm within 1.22e-2
+    relative, as chip_smoke.py's mesh phases)."""
+    from test_torch_mesh_processes import flash_pp_gang_member, flash_pp_step, run_gang
+
+    gang = run_gang(flash_pp_gang_member, device="cuda", timeout=300)
+    want = flash_pp_step(card, [card] * 4)
+    assert want["launches"] == want["per_step"] == 8 and want["plain_calls"] == 0
+    for got in gang.values():
+        assert got["backend"] == "gloo"
+        assert got["launches"] == got["per_step"] == 4 and got["plain_calls"] == 0
+        assert abs(got["loss"] - want["loss"]) <= 1e-2
+        assert abs(got["grad_norm"] - want["grad_norm"]) <= 1.22e-2 * want["grad_norm"]
+    assert gang[0]["loss"] == gang[1]["loss"]
+
+
 # ------------------------------------------------------------ pipeline (pp)
 
 

@@ -67,6 +67,8 @@ def _member(body, rank: int, world: int, port: int, local: int, device: str, arg
                           JAX_NUM_PROCESSES=str(world), JAX_PROCESS_ID=str(rank))
         torch.set_num_threads(1)
         distributed.TIMEOUT_S = 60.0
+        if isinstance(local, (list, tuple)):  # positions per process, by rank
+            local = local[rank]
         distributed.initialize(local_device_count=local, device=device)
         q.put((rank, "ok", body(rank, *args)))
     except BaseException:  # noqa: BLE001 — reported to the parent
@@ -76,8 +78,8 @@ def _member(body, rank: int, world: int, port: int, local: int, device: str, arg
 def run_gang(body, *args, world: int = 2, local: int = 2, device: str = "cpu",
              timeout: float = GANG_TIMEOUT_S):
     """``body(rank, *args)`` in each of ``world`` spawned processes that
-    joined one group with ``local`` positions each on ``device``; their
-    results by rank.  A member that fails (or a gang past ``timeout``) fails
+    joined one group with ``local`` positions each (or ``local[rank]``) on
+    ``device``; their results by rank.  A member that fails (or a gang past ``timeout``) fails
     here."""
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
@@ -129,8 +131,9 @@ def _grads(mesh, xs, values, w) -> dict:
     positions' inputs."""
     loss = sum((values[p].float() * w[p]).sum() for p in mesh.local_positions)
     inputs = [xs[p] for p in mesh.local_positions]
-    got = torch.autograd.grad(loss, inputs)
-    return {p: g.numpy() for p, g in zip(mesh.local_positions, got)}
+    got = torch.autograd.grad(loss, inputs, allow_unused=True)  # a one-way ppermute's ends
+    return {p: (torch.zeros_like(x) if g is None else g).numpy()
+            for p, g, x in zip(mesh.local_positions, got, inputs)}
 
 
 def collective_cases(mesh, procs) -> dict:
@@ -166,6 +169,10 @@ def collective_cases(mesh, procs) -> dict:
         with torch.no_grad():
             ys = smc.ppermute(fresh(), "fsdp", [(0, 1)])
         out["ppermute_oneway"] = (_out(mesh, ys), {})
+        # with gradients: a process that only sends or only receives
+        xs = fresh()
+        ys = smc.ppermute(xs, "fsdp", [(0, 1)])
+        out["ppermute_oneway_grad"] = (_out(mesh, ys), _grads(mesh, xs, ys, w))
         for name, axes, split, concat in (("fsdp", "fsdp", 0, 1),
                                           ("all", ("fsdp", "tensor"), 1, 0)):
             xs = fresh()
@@ -223,29 +230,42 @@ def collectives_member(rank: int) -> dict:
     except RuntimeError as e:
         assert f"position {other} is on process {1 - rank}" in str(e)
     return {"cases": collective_cases(mesh, [rank]), "stats": distributed.collective_stats(),
-            "backend": distributed.backend(), "refused": refusals(),
+            "backend": distributed.backend(), "refused": formerly_refused(mesh),
             "devices": [(d.process, d.name) for d in distributed.devices()]}
 
 
-def refusals() -> dict:
-    """What a mesh across processes still refuses, before any collective:
-    GPipe over ``stages`` and the MoE FFN over ``expert``."""
-    from kubeflow_tpu_torch.ops.moe import MoEConfig, init_moe, moe_ffn
-    from kubeflow_tpu_torch.parallel.pipeline import gpipe
+def uneven_member(rank: int) -> dict:
+    """Every case on a gang of 3 + 1 positions: process 0 holds both fsdp
+    blocks (and both tensor blocks) and process 1 one of each, so a gather
+    over ``fsdp`` (or ``tensor``) is one-sided: process 0 only serves it,
+    process 1 only receives."""
+    mesh = build_mesh(MeshConfig(**SIZES))
+    assert mesh.local_positions == ([0, 1, 2] if rank == 0 else [3])
+    return {"cases": collective_cases(mesh, [rank])}
 
-    out = {}
+
+def formerly_refused(mesh) -> dict:
+    """GPipe over ``stages`` and the MoE FFN over ``expert``, which a mesh
+    across processes refused before they were ported: ``gpipe`` of a scaled
+    tanh layer on stages 2 x fsdp 2 and ``moe_ffn`` on expert 2 x fsdp 2, on
+    the positions of ``mesh`` (its devices, its processes), numpy-seeded,
+    their outputs whole."""
+    from kubeflow_tpu_torch.ops.moe import MoEConfig, init_moe, moe_ffn
+    from kubeflow_tpu_torch.parallel.pipeline import gpipe, stack_stages
+
+    rng = np.random.default_rng(4)
+    devices = [mesh.devices.flat[p] for p in range(mesh.size)]
+    w = torch.from_numpy(rng.standard_normal((2, 4)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((4, 4)).astype(np.float32))
     cfg = MoEConfig(num_experts=2, top_k=1, d_model=8, d_ff=16)
-    for name, sizes, run in (
-            ("gpipe", dict(stages=2, fsdp=2), lambda: gpipe(
-                lambda p, x: x, {"w": torch.zeros(2, 1, 4)}, torch.zeros(4, 4), 2)),
-            ("moe", dict(expert=2, fsdp=2), lambda: moe_ffn(
-                init_moe(cfg, "cpu"), torch.zeros(2, 4, 8, dtype=torch.bfloat16), cfg))):
-        with build_mesh(MeshConfig(**sizes)):
-            try:
-                run()
-                out[name] = "ran"
-            except NotImplementedError as e:
-                out[name] = str(e)
+    xm = torch.from_numpy(rng.standard_normal((2, 4, 8)).astype(np.float32)).bfloat16()
+    out = {}
+    with build_mesh(MeshConfig(stages=2, fsdp=2), devices):
+        out["gpipe"] = gpipe(lambda p, xs: xs.like(smc.each(
+            lambda t, lw: torch.tanh(t * lw[0]), xs.shards, Views(xs.mesh)(p["w"]))),
+            stack_stages({"w": w[:, None]}, 2), x, 2).gather().numpy()
+    with build_mesh(MeshConfig(expert=2, fsdp=2), devices):
+        out["moe"] = moe_ffn(init_moe(cfg, "cpu"), xm, cfg)[0].float().numpy()
     return out
 
 
@@ -262,6 +282,12 @@ def gang4():
 
 
 @pytest.fixture(scope="module")
+def gang31():
+    """2 processes of 3 and 1 positions: one-sided gathers."""
+    return run_gang(uneven_member, local=[3, 1])
+
+
+@pytest.fixture(scope="module")
 def one():
     return collective_cases(build_mesh(MeshConfig(**SIZES), ["cpu"] * 4), [0, 1])
 
@@ -275,6 +301,7 @@ def one4():
 SPECS = ("ft", "f", "t", "r")
 CASES = ([f"{op}_{a}" for op in ("psum", "pmax") for a in ("fsdp", "tensor", "fsdp_tensor")]
          + ["psum_numbers", "ppermute_swap", "ppermute_ring", "ppermute_oneway",
+            "ppermute_oneway_grad",
             "all_to_all_fsdp", "all_to_all_all", "axis_index", "views_keep_t", "views_all_bf16"]
          + [f"{op}_{s}" for op in ("shard", "gather", "assign") for s in SPECS])
 # f32 cases whose every sum has two terms, or none: one order on both sides
@@ -310,11 +337,11 @@ def test_the_gang_joins_over_gloo_with_the_global_device_list(gang):
         assert res["stats"]["calls"] > 0 and res["stats"]["bytes"] > 0
 
 
-def _check(case: str, kind: str, got: dict, want: dict) -> None:
+def _check(case: str, kind: str, got: dict, want: dict, bf16: dict = BF16) -> None:
     assert got and set(got) <= set(want), (case, kind, sorted(got), sorted(want))
     for k, v in got.items():
-        if kind == "grad" and case in BF16:
-            tol = BF16[case]
+        if kind == "grad" and case in bf16:
+            tol = bf16[case]
             np.testing.assert_allclose(v, want[k], rtol=tol, atol=tol, err_msg=f"{case} {k}")
         elif case in INEXACT:
             np.testing.assert_allclose(v, want[k], rtol=F32_RTOL, atol=F32_RTOL,
@@ -350,12 +377,15 @@ def test_collective_on_four_processes_matches_the_one_controller(gang4, one4, ca
 
 @pytest.mark.parametrize("what", ["gpipe", "moe"])
 def test_what_is_not_ported_across_processes_is_refused(gang, what):
+    """What a mesh across processes refused until GPipe and expert
+    parallelism were ported: both now run across the gang and give every
+    process the one controller's values."""
+    want = formerly_refused(build_mesh(MeshConfig(**SIZES), ["cpu"] * 4))[what]
     for res in gang.values():
-        assert "ROADMAP Queue 1 item 3.3" in res["refused"][what], res["refused"]
+        np.testing.assert_array_equal(res["refused"][what], want)
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_collective_matches_the_one_controller(gang, one, case):
+def _matches_the_one_controller(gang, one, case, bf16: dict = BF16) -> None:
     want_vals, want_grads = one[case]
     for res in gang.values():
         _check(case, "value", res["cases"][case][0], want_vals)
@@ -367,7 +397,26 @@ def test_collective_matches_the_one_controller(gang, one, case):
         assert summed.keys() == want_grads.keys()
     elif want_grads:
         for g in grads:
-            _check(case, "grad", g, want_grads)
+            _check(case, "grad", g, want_grads, bf16)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_collective_matches_the_one_controller(gang, one, case):
+    _matches_the_one_controller(gang, one, case)
+
+
+# the bf16 view's gradient on 3 + 1 positions: process 0's three positions
+# share one bf16 view, whose gradient autograd sums in bf16 before process 1's
+# share is added, where the one controller sums its four in another order:
+# one more bf16 rounding, of a partial sum of up to 8 (one ulp: 2**-5)
+BF16_UNEVEN = {"views_all_bf16": 2.0 ** -5}
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_collective_on_uneven_processes_matches_the_one_controller(gang31, one, case):
+    """3 + 1 positions: the gathers over one axis (``gather_f``,
+    ``gather_t``, the views) are one-sided, with gradients."""
+    _matches_the_one_controller(gang31, one, case, BF16_UNEVEN)
 
 
 def test_each_process_holds_its_positions_only():
@@ -547,3 +596,266 @@ def seq_cases(mesh, procs) -> dict:
 
 def seq_member(rank: int) -> dict:
     return seq_cases(build_mesh(MeshConfig(fsdp=1, seq=4)), [rank])
+
+
+# ------------------------------ GPipe and expert parallelism (no JAX here)
+
+# the toy layer of tests/test_torch_gpipe.py: 4 layers of tanh(x @ w + b)
+TOY_LAYERS, TOY_D, TOY_B = 4, 16, 8
+TOY_RULES = [(r"^w$", P("stages", None, None)), (r"^b$", P("stages", None))]
+
+
+def toy_np() -> tuple:
+    rng = np.random.default_rng(0)
+    return ({"w": (rng.standard_normal((TOY_LAYERS, TOY_D, TOY_D)) * 0.3).astype(np.float32),
+             "b": (rng.standard_normal((TOY_LAYERS, TOY_D)) * 0.1).astype(np.float32)},
+            rng.standard_normal((TOY_B, TOY_D)).astype(np.float32))
+
+
+def toy_stage(lp, xmb):
+    from kubeflow_tpu_torch.parallel.mesh import current_mesh
+
+    mesh = current_mesh()
+    views = Views(mesh)
+    xs = xmb.shards
+    for i in range(lp["w"].shape[0]):
+        xs = smc.each(lambda x, w, b: torch.tanh(x @ w + b), xs, views(lp["w"], (), i),
+                      views(lp["b"], (), i))
+    return xmb.like(xs)
+
+
+def toy_gpipe(mesh, stages: int, microbatches: int, remat: bool) -> dict:
+    """The toy layer under ``gpipe`` on ``mesh``: the output, and this
+    process's share of the gradients of ``sum(out ** 2)`` (seeded once over
+    the job) at each block of the weights it holds and at the input."""
+    from kubeflow_tpu_torch.parallel import pipeline
+    from kubeflow_tpu_torch.parallel.sharding import shard_params
+
+    params, x = toy_np()
+    placed = shard_params({k: torch.from_numpy(v) for k, v in params.items()}, mesh, TOY_RULES)
+    for st in placed.values():
+        for t in st.locals:
+            t.requires_grad_(True)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    with mesh:
+        y = pipeline.gpipe(toy_stage, pipeline.stack_stages(placed, stages), tx, microbatches,
+                           mb_spec=P(("data", "fsdp")), remat=remat).gather()
+        smc.position0([(y ** 2).sum()] * mesh.size).backward()
+    grads = {(k, st.block(p)): st.shards[p].grad.numpy()
+             for k, st in placed.items() for p in mesh.local_positions}
+    return {"y": y.detach().numpy(), "grads": grads, "x_grad": tx.grad.numpy(),
+            "layers_held": sorted({t.shape[0] for st in placed.values() for t in st.locals})}
+
+
+def toy_gpipe_member(rank: int, sizes: dict, microbatches: int, remat: bool) -> dict:
+    mesh = build_mesh(MeshConfig(**sizes))
+    distributed.collective_stats(reset=True)
+    out = toy_gpipe(mesh, sizes["stages"], microbatches, remat)
+    out["stats"] = distributed.collective_stats()
+    return out
+
+
+def moe_run(mesh, kw: dict, params: dict, x: np.ndarray) -> dict:
+    """``moe_ffn`` on ``mesh`` (expert-parallel) in f32: the output, the aux
+    values and this process's share of the gradients of tests/test_torch_moe.py's
+    loss (seeded once over the job) at the weights and the input."""
+    from kubeflow_tpu_torch.ops import moe
+
+    tp = {k: torch.from_numpy(v).requires_grad_(True) for k, v in params.items()}
+    tx = torch.from_numpy(x).requires_grad_(True)
+    with mesh:
+        out, aux = moe.moe_ffn(tp, tx, moe.MoEConfig(**kw))
+        loss = (out ** 2).sum() + 0.01 * aux["load_balance_loss"] + 0.01 * aux["router_z_loss"]
+        smc.position0([loss] * mesh.size).backward()
+    return {"out": out.detach().numpy(), "aux": {k: float(v.detach()) for k, v in aux.items()},
+            "grads": {k: t.grad.numpy() for k, t in tp.items()}, "x_grad": tx.grad.numpy()}
+
+
+def moe_member(rank: int, sizes: dict, kw: dict, params: dict, x: np.ndarray) -> dict:
+    mesh = build_mesh(MeshConfig(**sizes))
+    return {**moe_run(mesh, kw, params, x), "local": mesh.local_positions}
+
+
+# BERT under GPipe on stages 2 x fsdp 2 at tests/test_torch_gpipe.py's widths
+PP_BASE = dict(vocab_size=256, hidden_size=32, num_layers=4, num_heads=4,
+               intermediate_size=64, max_position=32)
+PP_SIZES = dict(stages=2, fsdp=2)
+PP_MICROBATCHES = 4
+
+
+def pp_config(dtype: str, **kw):
+    from kubeflow_tpu_torch.models import bert
+
+    return bert.BertConfig(**PP_BASE, dtype=getattr(torch, dtype), pipeline_stages=2,
+                           pipeline_microbatches=PP_MICROBATCHES, **kw)
+
+
+def pp_batches(n: int) -> list:
+    """MLM batches without an attention mask (pipeline parallelism refuses
+    one)."""
+    from kubeflow_tpu_torch.train import data as tdata
+
+    gen = tdata.synthetic_mlm_batches(PP_BASE["vocab_size"], 8, 16, seed=3)
+    return [{k: v for k, v in next(gen).items() if k != "attention_mask"} for _ in range(n)]
+
+
+def pp_trainer(np_tree: dict, dtype: str, devices=None, **cfg):
+    """The port's pp Trainer of that BERT on the carried JAX weights, over
+    ``devices`` (default the job's global list)."""
+    from kubeflow_tpu_torch.models import bert
+    from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    config = pp_config(dtype)
+
+    def loss_fn(m, b):
+        return bert.mlm_loss(m, config, b["input_ids"], b["labels"], max_predictions=MAX_PRED)
+
+    return Trainer(loss_fn, bert.params_from_jax(np_tree, "cpu"),
+                   TrainerConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10, **cfg),
+                   mesh=build_mesh(MeshConfig(**PP_SIZES), devices),
+                   rules=bert.pp_sharding_rules())
+
+
+def pp_steps(trainer, steps: int) -> dict:
+    got = [trainer.train_step(b) for b in pp_batches(steps)]
+    shapes = {n: [None if t is None else tuple(t.shape) for t in st.shards]
+              for n, st in trainer.params.items()}
+    return {"loss": [m["loss"] for m in got], "grad_norm": [m["grad_norm"] for m in got],
+            "shapes": shapes, "label": trainer.mfu_label,
+            "staged": {n: st.sharding.shard_shape(tuple(st.shape))[0]
+                       for n, st in trainer.params.items() if "stages" in tuple(st.spec)},
+            "params": {n: st.gather().detach().float().numpy()
+                       for n, st in trainer.params.items()}}
+
+
+def pp_trainer_member(rank: int, np_tree: dict, dtype: str, steps: int) -> dict:
+    """``steps`` pp steps over the job's global devices; then a batch with
+    an attention mask, which pipeline parallelism refuses."""
+    from kubeflow_tpu_torch.models import bert
+
+    trainer = pp_trainer(np_tree, dtype)
+    out = pp_steps(trainer, steps)
+    batch = pp_batches(1)[0]
+    try:
+        with trainer.mesh:
+            bert.mlm_loss(trainer.tree, pp_config(dtype), torch.from_numpy(batch["input_ids"]),
+                          torch.from_numpy(batch["labels"]),
+                          torch.ones(batch["input_ids"].shape, dtype=torch.int32))
+        out["mask"] = "trained"
+    except ValueError as e:
+        out["mask"] = str(e)
+    return out
+
+
+def pp_checkpoint_member(rank: int, np_tree: dict, directory: str) -> dict:
+    """Train 3 pp steps with a checkpoint every 2 and a last save at 3, then
+    restore into a fresh pp trainer."""
+    trainer = pp_trainer(np_tree, "float32", checkpoint_dir=directory, checkpoint_every=2)
+    first = pp_steps(trainer, 3)
+    trainer.save()
+    trainer.finalize()
+    again = pp_trainer(np_tree, "float32", checkpoint_dir=directory, checkpoint_every=2)
+    restored = again.restore_latest()
+    return {"restored": restored, "step": again.step_num, "trained": first["params"],
+            "params": {n: st.gather().detach().numpy() for n, st in again.params.items()}}
+
+
+# graft_entry._dryrun_composed's MoE transformer, in f32
+COMPOSED_CFG = dict(vocab_size=256, d_model=32, n_layers=4, n_heads=4, num_experts=2, top_k=1,
+                    capacity_factor=4.0, pipeline_stages=2, pipeline_microbatches=2)
+COMPOSED_SIZES = dict(stages=2, fsdp=1, seq=2, expert=2)
+
+
+def composed_tokens() -> torch.Tensor:
+    """``_dryrun_composed``'s batch."""
+    g = torch.Generator().manual_seed(1)
+    return torch.randint(0, COMPOSED_CFG["vocab_size"], (4, 17), generator=g, dtype=torch.int32)
+
+
+def composed_grads(mesh, np_tree: dict) -> dict:
+    """The f32 ``lm_loss`` of that model on ``mesh`` (the JAX weights) and
+    this process's share of each gradient block it holds."""
+    from kubeflow_tpu_torch.models import moe_transformer as mt
+    from kubeflow_tpu_torch.parallel.sharding import shard_params
+    from kubeflow_tpu_torch.train.trainer import _flatten
+
+    cfg = mt.MoeTransformerConfig(**COMPOSED_CFG, dtype=torch.float32)
+    flat = _flatten(shard_params(mt.params_from_jax(np_tree, "cpu"), mesh, mt.SHARDING_RULES))
+    tree: dict = {}
+    for name, st in flat.items():
+        for t in st.locals:
+            t.requires_grad_(True)
+        *groups, leaf = name.split(".")
+        node = tree
+        for g in groups:
+            node = node.setdefault(g, {})
+        node[leaf] = st
+    with mesh:
+        loss = mt.lm_loss(tree, cfg, composed_tokens())
+    loss.backward()
+    return {"loss": float(loss.detach()),
+            "grads": {(n, st.block(p)): st.shards[p].grad.numpy()
+                      for n, st in flat.items() for p in mesh.local_positions}}
+
+
+def composed_member(rank: int, np_tree: dict) -> dict:
+    """The entry point on the job's global devices (``dryrun_multichip``:
+    the sharded BERT step, then the composed step), its stdout, and the
+    composed model's f32 loss and gradients on the 8-shard composed mesh."""
+    import contextlib
+    import io
+
+    from kubeflow_tpu_torch import graft_entry
+
+    n = len(distributed.devices())
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        losses = graft_entry.dryrun_multichip(n)
+    return {"entry": losses, "stdout": buf.getvalue().splitlines(),
+            **composed_grads(build_mesh(MeshConfig(**COMPOSED_SIZES)), np_tree)}
+
+
+def flash_pp_step(card, devices=None) -> dict:
+    """One step of a small BERT under GPipe with flash on stages 2 x fsdp 2
+    (2 layers, 2 microbatches), over ``devices`` (default the job's global
+    list): the loss, the norm, and the flash launches and plain calls counted
+    in this process (tests/test_torch_kernels_cuda.py)."""
+    import importlib
+
+    from kubeflow_tpu_torch.models import bert
+    from kubeflow_tpu_torch.train.data import synthetic_mlm_batches
+    from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    fa = importlib.import_module("kubeflow_tpu_torch.ops.flash_attention")
+    cfg = bert.BertConfig(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4,
+                          intermediate_size=256, max_position=128, attention="flash",
+                          pipeline_stages=2, pipeline_microbatches=2)
+
+    def loss_fn(m, b):
+        return bert.mlm_loss(m, cfg, b["input_ids"], b["labels"])
+
+    trainer = Trainer(loss_fn, bert.init(cfg, card, seed=0),
+                      TrainerConfig(learning_rate=1e-3, warmup_steps=1, total_steps=4),
+                      mesh=build_mesh(MeshConfig(stages=2, fsdp=2), devices),
+                      rules=bert.pp_sharding_rules())
+    batch = {k: v for k, v in next(synthetic_mlm_batches(cfg.vocab_size, 8, 128,
+                                                           seed=0)).items()
+             if k != "attention_mask"}
+    plain = fa.flash_attention_plain
+    calls = []
+    fa.flash_attention_plain = lambda *a, **kw: calls.append(1) or plain(*a, **kw)
+    try:
+        before = fa.flash_attention.launches
+        metrics = trainer.train_step(batch)
+        launches = fa.flash_attention.launches - before
+    finally:
+        fa.flash_attention_plain = plain
+    return {"launches": launches, "plain_calls": len(calls), "loss": metrics["loss"],
+            "grad_norm": metrics["grad_norm"], "backend": distributed.backend(),
+            # a launch per microbatch, layer of a stage and local position
+            "per_step": cfg.pipeline_microbatches * cfg.num_layers // cfg.pipeline_stages
+            * len(trainer.mesh.local_positions)}
+
+
+def flash_pp_gang_member(rank: int) -> dict:
+    return flash_pp_step(distributed.local_devices()[0])
