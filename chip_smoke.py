@@ -158,7 +158,7 @@ or the script exits non-zero:
    (a) an HF Llama-3 checkout written at full width into a temp dir
    (``config.json`` with ``model_type: "llama"`` and a list
    ``eos_token_id``, ``generation_config.json``, bf16 safetensors shards of
-   ~5 GB under HF's tensor names in HF's [out, in] layout with
+   at most 2 GB under HF's tensor names in HF's [out, in] layout with
    ``model.safetensors.index.json``, random weights from a seeded
    ``torch.Generator``, and the committed Llama-3-shaped fixture
    ``tokenizer.json`` padded to 128256 entries); (b) loaded through
@@ -181,17 +181,39 @@ or the script exits non-zero:
    write s, convert s and GB/s, ``params.npz`` bytes, load s, TTFT and
    tokens/s (at this phase's depth, so not beside phase 5's), encode us per
    KB, the constrain token table's build s at V = 128256 and the
-   integrated-gradients ``:explain`` ms.  Depth: ``HF_LAYERS`` (8) of the
-   32 layers, width full, since the full depth runs past the phase's ~150 s
-   budget; fewer when the disk cannot hold the checkout and its
-   ``params.npz``;
-6b. runtime: with Llama-3-8B freed, ``python -m
-   kubeflow_tpu_torch.serving.runtime_main --loader jetstream`` as a
-   subprocess on a model dir holding Llama-3-8B's ``config.json`` (random
-   init on the card) and an ``engine.json`` with ``scheduler`` and
-   ``kv_store`` blocks: time to ``/v2/health/ready``, one unary generate,
-   one stream and ``/engine/health``, all 200, no traceback, and an exit
-   after the terminate (its kernel launches are not readable from here);
+   integrated-gradients ``:explain`` ms.  Depth: ``HF_LAYERS`` (2) of the
+   32 layers, width full, since the checkout's bytes cross the disk and the
+   host's conversion several times and the script must end within its
+   limit (32 layers took 261 s, 8 took 91-133 s); the embeddings and the
+   head, 2.1 GB of the 3.0 GB, are full size at any depth;
+6b. runtime: the pod entry point (``python -m
+   kubeflow_tpu_torch.serving.runtime_main``) on Llama-3-8B, driven as 6c's
+   InferenceService's pod; its direct answers are 6c's first requests;
+6c. platform: with Llama-3-8B freed, the port's own control plane serves
+   it through the pod entry point. A ``Cluster`` of one CPU
+   node and one GPU node holding ``torch.cuda.device_count()`` cards,
+   ``install``, then an InferenceService ``llama3-8b`` of model format
+   ``llama`` whose model dir holds Llama-3-8B's ``config.json`` (full width
+   and depth, random init on the card) and an ``engine.json`` with
+   ``scheduler`` and ``kv_store`` blocks: Ready within ``RUNTIME_READY_S``;
+   the pod runs ``kubeflow_tpu_torch.serving.runtime_main`` and requests
+   ``nvidia.com/gpu: 1``, its process holds ``CUDA_VISIBLE_DEVICES`` naming
+   this process's card 0 and no ``TORCH_DEVICE``, and this process's free
+   card memory has fallen by at least the model's bf16 bytes while it is
+   Ready; on the pod's own port one unary generate, one stream and
+   ``/engine/health`` (all 200, 32 tokens, ``SERVING``); one V1 predict
+   through ``Router.predict``, then through the ``ServiceProxy`` ingress
+   over HTTP one V2 generate, one SSE stream and one OpenAI chat
+   completion, all 200 with 32 tokens, the unary texts equal to the pod's
+   direct answer for the same prompt; ``POST /engine/profile`` on the pod
+   with a ``dir`` under the build directory, then one request: the pod's
+   trace holds ``paged_split_tc`` and ``paged_merge`` device records; a
+   second InferenceService asking for a card stays Pending with the
+   scheduler's event; deleting the first terminates its pod with no
+   traceback in its log, and ``torch.cuda.mem_get_info()`` shows its memory
+   returned (within 1 GiB of the free memory before the phase); apply to
+   Ready split into schedule, storage init and pod start to ready, and the
+   ingress's TTFT beside the pod's direct TTFT;
 7. flash kernel: ``flash_attention``'s forward kernel on the card against
    ``flash_attention_plain`` at the BERT-base shapes (B=32, H=12, S=T=512,
    d=64, bf16; blocks 128): non-causal with a ragged key mask, causal, and
@@ -1523,13 +1545,18 @@ def phase_order(trace: dict) -> list:
     return out
 
 
-def paged_records(trace_path: str) -> int:
-    """Device records of the paged kernels (split + merge) in a Chrome trace."""
+def paged_records(trace_path: str, markers: tuple = PAGED_MARKERS) -> dict:
+    """Device records of the paged kernels in a Chrome trace, by marker
+    (each record counted under every marker its name holds)."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
-    return sum(1 for e in events
-               if e.get("cat") == "kernel" and e.get("ph") == "X"
-               and any(m in e.get("name", "") for m in PAGED_MARKERS))
+    counts = dict.fromkeys(markers, 0)
+    for e in events:
+        if e.get("cat") == "kernel" and e.get("ph") == "X":
+            for m in markers:
+                if m in e.get("name", ""):
+                    counts[m] += 1
+    return counts
 
 
 def timeline_medians(engine) -> dict:
@@ -1670,7 +1697,7 @@ def obs_traced(params, cfg, dev, kind: str) -> dict:
                 t.join(timeout=600)
         traces = sorted(glob.glob(os.path.join(prof["runs"][-1]["dir"], "*.json"))) \
             if prof["runs"] else []
-        found = paged_records(traces[-1]) if traces else 0
+        found = sum(paged_records(traces[-1]).values()) if traces else 0
         expected = 2 * cfg.n_layers * decode_ticks
         ok_c = (decoding and code == 200 and done and prof["last_error"] is None
                 and prof["captures"] == 1 and decode_ticks > 0 and found == expected
@@ -3221,14 +3248,16 @@ def train(dev) -> dict:
 
 HF_FIXTURE = os.path.join(REPO, "tests", "fixtures", "tokenizer_llama3_shape.json")
 HF_STRINGS = os.path.join(REPO, "tests", "fixtures", "tokenizer_llama3_shape_strings.json")
-# Meta ships Llama-3-8B's bf16 weights in four ~5 GB shards
-HF_SHARD_BYTES = 5_000_000_000
-# the depth phase 5j writes (full width always): 8 of Llama-3-8B's 32
+# Meta ships Llama-3-8B's bf16 weights in four ~5 GB shards; the cut
+# checkout (3.0 GB at HF_LAYERS) is saved as ``save_pretrained(...,
+# max_shard_size="2GB")`` would, so it still spans two shards and the
+# index
+HF_SHARD_BYTES = 2_000_000_000
+# the depth phase 5j writes (full width always): 2 of Llama-3-8B's 32
 # layers, since the full-depth phase took 261 s on the H100 machine (the
-# host-side conversion 143 s of it) against the phase's ~150 s budget, and
-# less when the disk cannot hold the checkout and its params.npz (PERF.md
-# section 4)
-HF_LAYERS = 8
+# host-side conversion 143 s of it) and 8 layers 91-133 s, more than the
+# script's limit leaves it (PERF.md section 4)
+HF_LAYERS = 2
 HF_SEED = 1
 # (engine name, HF suffix, transposed) of each layer's tensors, in HF order
 HF_LAYER_TENSORS = (("wq", "self_attn.q_proj.weight", True),
@@ -3316,8 +3345,9 @@ def hf_draws(cfg, dev, seed: int):
 
 def write_hf_checkout(cfg, dev, path: str, seed: int) -> dict:
     """An HF Llama-3 checkout in ``path``: ``config.json``,
-    ``generation_config.json``, bf16 safetensors shards of ~5 GB under HF's
-    tensor names (header and raw bytes written here) with
+    ``generation_config.json``, bf16 safetensors shards of at most
+    ``HF_SHARD_BYTES`` under HF's tensor names (header and raw bytes
+    written here) with
     ``model.safetensors.index.json``; returns {name: (shard, offset,
     shape)} of every tensor and the bytes written."""
     specs = hf_tensors(cfg)
@@ -3568,7 +3598,7 @@ def hf_checkout(cfg, dev) -> dict:
     out["disk_free_bytes"] = free
     causes = []
     if HF_LAYERS < cfg.n_layers:
-        causes.append(f"time: the phase's ~150 s budget holds {HF_LAYERS} layers")
+        causes.append(f"time: the script's limit leaves this phase {HF_LAYERS} layers")
     if layers < min(HF_LAYERS, cfg.n_layers):
         causes.append(f"disk: {free} bytes free under {BUILD_DIR}")
     out["reduced"] = None if layers == cfg.n_layers else (
@@ -3735,7 +3765,7 @@ def hf_checkout(cfg, dev) -> dict:
     return out
 
 
-# ---------------------------------------------------------------- phase 6b
+# ----------------------------------------------------------- phases 6b-6c
 
 RUNTIME_READY_S = 600
 
@@ -3746,74 +3776,257 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def runtime(cfg) -> dict:
-    """Phase 6b: the pod entry point, ``python -m
-    kubeflow_tpu_torch.serving.runtime_main --loader jetstream``, on a
-    model dir holding Llama-3-8B's ``config.json`` (no weights: random init
-    on the card) and an ``engine.json`` with ``scheduler`` and ``kv_store``
-    blocks; time to ``/v2/health/ready``, one unary generate, one stream
-    and ``/engine/health``, then terminate.  The subprocess's kernel
-    launches cannot be read from here."""
+PLATFORM_ISVC = "llama3-8b"
+PLATFORM_MEM_SLACK = 1 << 30  # the pod's memory returned within 1 GiB
+# decode ticks in the pod's profile window: 2 records (split + merge) per
+# layer each; two keep the trace's export short (8 took ~19 s with the
+# request and the read on an H100)
+PLATFORM_PROFILE_TICKS = 2
+PLATFORM_MARKERS = ("paged_split_tc", "paged_merge")
+
+
+def pod_process(cluster, pod_name: str):
+    """The pod's running main process (a ``subprocess.Popen``), or None."""
+    for kubelet in cluster.kubelets.values():
+        for run in kubelet._runs.values():
+            if run.name == pod_name and run.current is not None and not run.in_init:
+                return run.current
+    return None
+
+
+def process_env(pid: int) -> dict:
+    with open(f"/proc/{pid}/environ", "rb") as f:
+        return dict(kv.decode(errors="replace").split("=", 1)
+                    for kv in f.read().split(b"\0") if b"=" in kv)
+
+
+def isvc_ready(api, name: str) -> bool:
+    st = (api.try_get("InferenceService", name) or {}).get("status", {})
+    return any(c["type"] == "Ready" and c["status"] == "True" for c in st.get("conditions", []))
+
+
+def first_card() -> str:
+    """This process's card 0 as a child's ``CUDA_VISIBLE_DEVICES`` names it."""
+    seen = [d.strip() for d in os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")
+            if d.strip()]
+    return seen[0] if seen else ""
+
+
+def platform(cfg) -> dict:
+    """Phases 6b-6c: an InferenceService reconciled, scheduled and routed by the
+    port's own control plane, served by the port's runtime on the card (see
+    the module docstring)."""
+    from kubeflow_tpu_torch.core.cluster import Cluster
+    from kubeflow_tpu_torch.core.events import events_for
+    from kubeflow_tpu_torch.serving import install
+    from kubeflow_tpu_torch.serving.api import LABEL_ISVC, inference_service
+    from kubeflow_tpu_torch.serving.controllers import pod_port
+
     os.makedirs(BUILD_DIR, exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    out: dict = {"free_before_bytes": free0}
+    # the pod's environment starts from this process's: on the card it
+    # must not name another device
+    saved_device = os.environ.pop("TORCH_DEVICE", None)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        with open(os.path.join(tmp, "config.json"), "w") as f:
+        model_dir = os.path.join(tmp, "model")
+        os.makedirs(model_dir)
+        with open(os.path.join(model_dir, "config.json"), "w") as f:
             json.dump(dataclasses.asdict(cfg), f)
-        with open(os.path.join(tmp, "engine.json"), "w") as f:
+        with open(os.path.join(model_dir, "engine.json"), "w") as f:
             json.dump({"scheduler": {"policy": "priority", "swap_policy": "swap",
                                      "adapter_weights": []},
                        "kv_store": {"host_max_bytes": 1 << 30,
                                     "disk_dir": os.path.join(tmp, "kv")}}, f)
-        port = free_port()
-        env = dict(os.environ, PYTHONPATH=REPO)
-        env.pop("TORCH_DEVICE", None)  # the entry point's default: the card
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "kubeflow_tpu_torch.serving.runtime_main",
-             "--loader", "jetstream", "--model-name", "llama3-8b", "--model-dir", tmp,
-             "--port", str(port)], cwd=REPO, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        out: dict = {}
+        cluster = Cluster(workdir=os.path.join(tmp, "cluster"), cpu_nodes=1,
+                          gpu_nodes=(("g0", "h100", torch.cuda.device_count()),),
+                          base_env={"PYTHONPATH": REPO})
+        router, proxy = install(cluster.api, cluster.manager)
+        pod_name, checks, steps = None, {"ready": False}, {}
         try:
-            ready = None
-            while time.perf_counter() - t0 < RUNTIME_READY_S and proc.poll() is None:
-                try:
-                    with urllib.request.urlopen(f"http://127.0.0.1:{port}/v2/health/ready",
-                                                timeout=5) as r:
-                        if r.status == 200:
-                            ready = time.perf_counter() - t0
-                            break
-                except OSError:
-                    pass
-                time.sleep(0.2)
-            out["ready_s"] = ready
-            if ready is not None:
-                code, body = post(port, {"text_input": PROMPTS[1],
-                                         "parameters": {"max_tokens": MAX_TOKENS}})
-                out["generate"] = {"status": code, "tokens": body.get("tokens"),
-                                   "ttft_s": body.get("ttft_s")}
+            marks: dict = {}
+            t0 = time.perf_counter()
+            cluster.apply(inference_service(PLATFORM_ISVC, model_format="llama",
+                                            storage_uri=f"file://{model_dir}"))
+
+            def ready() -> bool:
+                # marks the schedule, the storage init's end and Ready
+                now = time.perf_counter() - t0
+                pods = cluster.api.list("Pod", label_selector={LABEL_ISVC: PLATFORM_ISVC})
+                if pods and pods[0]["spec"].get("nodeName"):
+                    marks.setdefault("bound_s", now)
+                    if pod_process(cluster, pods[0]["metadata"]["name"]) is not None:
+                        marks.setdefault("main_started_s", now)
+                if isvc_ready(cluster.api, PLATFORM_ISVC):
+                    marks.setdefault("ready_s", now)
+                    return True
+                return bool(pods) and pods[0].get("status", {}).get("phase") == "Failed"
+
+            cluster.wait_for(ready, timeout=RUNTIME_READY_S)
+            steps["ready"] = time.perf_counter() - t0
+            pods = cluster.api.list("Pod", label_selector={LABEL_ISVC: PLATFORM_ISVC})
+            pod = pods[0] if pods else {}
+            pod_name = pod.get("metadata", {}).get("name")
+            free_ready = torch.cuda.mem_get_info()[0]
+            out["apply_to_ready_s"] = marks.get("ready_s")
+            if "ready_s" in marks:
+                out["schedule_s"] = marks["bound_s"]
+                out["storage_init_s"] = marks["main_started_s"] - marks["bound_s"]
+                out["pod_start_to_ready_s"] = marks["ready_s"] - marks["main_started_s"]
+            main = (pod.get("spec", {}).get("containers") or [{}])[0]
+            proc = pod_process(cluster, pod_name) if pod_name else None
+            env = process_env(proc.pid) if proc is not None else {}
+            out["pod"] = {"name": pod_name, "node": pod.get("spec", {}).get("nodeName"),
+                          "phase": pod.get("status", {}).get("phase"),
+                          "command": main.get("command", [])[1:],
+                          "requests": main.get("resources", {}).get("requests"),
+                          "CUDA_VISIBLE_DEVICES": env.get("CUDA_VISIBLE_DEVICES"),
+                          "TORCH_DEVICE": env.get("TORCH_DEVICE")}
+            # the pod's weights sit on this process's card while it is Ready
+            out["card_bytes_taken"] = free0 - free_ready
+            out["model_bf16_bytes"] = 2 * cfg.param_count()
+            checks = {
+                "ready": "ready_s" in marks,
+                "command": out["pod"]["command"] == ["-m", "kubeflow_tpu_torch.serving.runtime_main"],
+                "gpu_request": out["pod"]["requests"] == {"nvidia.com/gpu": 1},
+                "visible_devices": env.get("CUDA_VISIBLE_DEVICES") == first_card(),
+                "no_torch_device": proc is not None and "TORCH_DEVICE" not in env,
+                "card_taken": out["card_bytes_taken"] >= out["model_bf16_bytes"]}
+            if checks["ready"]:
+                body = {"text_input": PROMPTS[1], "parameters": {"max_tokens": MAX_TOKENS}}
+                # (0) the pod's own port: unary generate, stream, health
+                port = pod_port(pod)
+                code, gen = post(port, body)
+                want_text = gen.get("text_output")
+                out["direct_generate"] = {"status": code, "tokens": gen.get("tokens"),
+                                          "ttft_s": gen.get("ttft_s")}
+                checks["direct_generate"] = code == 200 and gen.get("tokens") == MAX_TOKENS
                 code, events, times = sse(port, STREAM_PATH,
                                           {"text_input": PROMPTS[2],
                                            "parameters": {"max_tokens": MAX_TOKENS}})
                 final = events[-1] if events and isinstance(events[-1], dict) else {}
-                out["stream"] = {"status": code, "tokens": final.get("tokens"),
-                                 "ttft_s": final.get("ttft_s"),
-                                 "client_first_event_s": times[0] if times else None}
+                out["direct_stream"] = {"status": code, "tokens": final.get("tokens"),
+                                        "ttft_s": final.get("ttft_s"),
+                                        "client_first_event_s": times[0] if times else None}
+                checks["direct_stream"] = code == 200 and final.get("tokens") == MAX_TOKENS
                 code, health = get_json(port, "/engine/health")
-                out["health"] = {"status": code, "state": health.get("state")}
+                out["direct_health"] = {"status": code, "state": health.get("state")}
+                checks["direct_health"] = out["direct_health"] == {"status": 200,
+                                                                   "state": "SERVING"}
+                # (1) V1 predict through Router.predict
+                pred = router.predict(PLATFORM_ISVC, {"instances": [
+                    {"prompt": PROMPTS[1], "max_tokens": MAX_TOKENS}]})["predictions"][0]
+                out["router_predict"] = {"tokens": pred.get("tokens"),
+                                         "ttft_s": pred.get("ttft_s")}
+                checks["router_predict"] = (pred.get("tokens") == MAX_TOKENS
+                                            and pred.get("text") == want_text)
+                # (2) the ingress over HTTP: V2 generate, SSE, OpenAI chat
+                isvc = cluster.api.get("InferenceService", PLATFORM_ISVC)
+                ingress = int(isvc["status"]["address"]["url"].rsplit(":", 1)[1])
+                tg = time.perf_counter()
+                code, gen = post(ingress, body)
+                out["ingress_generate"] = {"status": code, "tokens": gen.get("tokens"),
+                                           "ttft_s": gen.get("ttft_s"),
+                                           "client_s": time.perf_counter() - tg}
+                checks["ingress_generate"] = (code == 200 and gen.get("tokens") == MAX_TOKENS
+                                              and gen.get("text_output") == want_text)
+                code, events, times = sse(ingress, STREAM_PATH,
+                                          {"text_input": PROMPTS[2],
+                                           "parameters": {"max_tokens": MAX_TOKENS}})
+                final = events[-1] if events and isinstance(events[-1], dict) else {}
+                out["ingress_stream"] = {"status": code, "tokens": final.get("tokens"),
+                                         "ttft_s": final.get("ttft_s"),
+                                         "client_first_event_s": times[0] if times else None}
+                checks["ingress_stream"] = code == 200 and final.get("tokens") == MAX_TOKENS
+                code, chat = post_json(ingress, "/openai/v1/chat/completions", {
+                    "model": PLATFORM_ISVC, "max_tokens": MAX_TOKENS,
+                    "messages": [{"role": "user", "content": PROMPTS[1]}]})
+                usage = chat.get("usage") or {}
+                out["ingress_chat"] = {"status": code,
+                                       "completion_tokens": usage.get("completion_tokens")}
+                checks["ingress_chat"] = code == 200 and usage.get("completion_tokens") == MAX_TOKENS
+                out["ttft_vs_direct"] = {
+                    "ingress_generate_s": gen.get("ttft_s"),
+                    "ingress_stream_ttft_s": out["ingress_stream"]["ttft_s"],
+                    "ingress_stream_client_first_event_s": out["ingress_stream"]["client_first_event_s"],
+                    "direct_generate_s": out["direct_generate"]["ttft_s"],
+                    "direct_stream_ttft_s": out["direct_stream"]["ttft_s"],
+                    "direct_stream_client_first_event_s":
+                        out["direct_stream"]["client_first_event_s"]}
+                steps["requests"] = time.perf_counter() - t0
+                # (3) the pod's own profiler: one request through the kernel
+                prof_dir = os.path.join(tmp, "profile")
+                code, armed = post_json(port, "/engine/profile",
+                                        {"ticks": PLATFORM_PROFILE_TICKS, "dir": prof_dir})
+                traced, _ = post(ingress, body)
+                done = wait_for(lambda: not get_json(port, "/engine/perf")[1]["models"][
+                    PLATFORM_ISVC]["profiler"]["active"], timeout=120, step=0.05)
+                traces = sorted(glob.glob(os.path.join(prof_dir, "*.json")))
+                names = paged_records(traces[-1], PLATFORM_MARKERS) if traces else {}
+                out["profile"] = {"status": code, "armed_dir": armed.get("dir"), "done": done,
+                                  "traced_request": traced, "traces": len(traces),
+                                  "records": names}
+                checks["profile"] = (code == 200 and traced == 200 and done
+                                     and names.get("paged_split_tc", 0) > 0
+                                     and names.get("paged_merge", 0) > 0)
+            steps["profile"] = time.perf_counter() - t0
+            # (4) a second card request while the one card is taken
+            cluster.apply(inference_service(PLATFORM_ISVC + "-2", model_format="llama",
+                                            storage_uri=f"file://{model_dir}"))
+
+            def refused() -> bool:
+                p2 = cluster.api.list("Pod", label_selector={LABEL_ISVC: PLATFORM_ISVC + "-2"})
+                return bool(p2) and any(e["reason"] == "FailedScheduling"
+                                        for e in events_for(cluster.api, p2[0]))
+            seen = cluster.wait_for(refused, timeout=60)
+            p2 = cluster.api.list("Pod", label_selector={LABEL_ISVC: PLATFORM_ISVC + "-2"})
+            msgs = sorted({e["message"] for e in events_for(cluster.api, p2[0])
+                           if e["reason"] == "FailedScheduling"}) if p2 else []
+            out["second"] = {"pending": bool(p2) and not p2[0]["spec"].get("nodeName"),
+                             "events": msgs}
+            checks["second_pending"] = (seen and out["second"]["pending"]
+                                        and any("nvidia.com/gpu" in m for m in msgs))
+            cluster.api.delete("InferenceService", PLATFORM_ISVC + "-2")
+            steps["second"] = time.perf_counter() - t0
+            # (5) delete the first: its pod terminates, its memory returns
+            td = time.perf_counter()
+            if pod_name:
+                out["pod_traceback"] = "Traceback" in cluster.logs(pod_name)
+            cluster.api.delete("InferenceService", PLATFORM_ISVC)
+            gone = cluster.wait_for(
+                lambda: (not cluster.api.list("Pod")
+                         and not any(k._runs for k in cluster.kubelets.values())
+                         and (proc is None or proc.poll() is not None)), timeout=60)
+            out["terminated_s"] = time.perf_counter() - td if gone else None
+            out["pod_exit_code"] = proc.poll() if proc is not None else None
+            returned = wait_for(lambda: torch.cuda.mem_get_info()[0] >= free0 - PLATFORM_MEM_SLACK,
+                                timeout=60, step=0.1)
+            out["free_after_bytes"] = torch.cuda.mem_get_info()[0]
+            out["memory_returned_s"] = time.perf_counter() - td if returned else None
+            checks["terminated"] = gone and proc is not None and proc.poll() is not None
+            checks["no_traceback"] = out.get("pod_traceback") is False
+            checks["memory_returned"] = returned
+            steps["deleted"] = time.perf_counter() - t0
         finally:
-            proc.terminate()
-            try:
-                stdout, stderr = proc.communicate(timeout=60)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                stdout, stderr = proc.communicate()
-        out.update(exit_code=proc.returncode, stdout=stdout.strip().splitlines()[-3:],
-                   stderr_tail=stderr[-1500:], traceback="Traceback" in stderr)
-    out["ok"] = (out["ready_s"] is not None and not out["traceback"]
-                 and out["exit_code"] is not None
-                 and out["generate"]["status"] == 200 and out["generate"]["tokens"] == MAX_TOKENS
-                 and out["stream"]["status"] == 200 and out["stream"]["tokens"] == MAX_TOKENS
-                 and out["health"] == {"status": 200, "state": "SERVING"})
+            if pod_name and not all(checks.values()):
+                out["pod_log_tail"] = cluster.logs(pod_name)[-2000:]
+            proxy.shutdown()
+            cluster.shutdown()
+            if saved_device is not None:
+                os.environ["TORCH_DEVICE"] = saved_device
+        steps["shutdown"] = time.perf_counter() - t0
+    out["steps_s"] = steps  # seconds from the apply to the end of each step
+    out["checks"] = checks
+    out["ok"] = all(checks.values())
+    log(f"6c platform: apply->Ready {out.get('apply_to_ready_s')} s (schedule "
+        f"{out.get('schedule_s')}, storage init {out.get('storage_init_s')}, pod start to "
+        f"ready {out.get('pod_start_to_ready_s')}); ingress TTFT "
+        f"{(out.get('ingress_generate') or {}).get('ttft_s')} s against the pod's direct "
+        f"{(out.get('direct_generate') or {}).get('ttft_s')} s; records "
+        f"{(out.get('profile') or {}).get('records')}; checks {checks}")
     return out
 
 
@@ -6080,7 +6293,7 @@ def main() -> int:
     served.append(phase("hf_checkout", lambda: hf_checkout(cfg, dev)))
     gc.collect()
     torch.cuda.empty_cache()
-    phase("runtime", lambda: runtime(cfg))
+    plres = phase("platform", lambda: platform(cfg))
 
     def flash_kernel():
         rng = np.random.default_rng(0)
@@ -6120,8 +6333,8 @@ def main() -> int:
               # 5i's int8, LoRA, constrained and brownout engines, phase
               # 16's tensor-parallel engines (one launch per shard), 5j's
               # converted HF checkout and phase 15's deployed model (the
-              # runtime phase's subprocess launches the kernel too, but its
-              # counter is not readable here)
+              # platform phase's pod launches the kernel too, but its
+              # counters are not readable here)
               "launches": sum(r.get("launches", 0) for r in served + [pres]),
               "max_abs_err": max((c["max_abs_err"] for c in cases + (kres.get("tp_shards") or [])),
                                  default=None),
@@ -6142,7 +6355,11 @@ def main() -> int:
                   "heads", "K", "max_abs_err", "kernel_ms", "device_ms", "plain_ms",
                   "bound_ms", "bound_by", "library_ms", "pages_per_split")}
                   for c in kres.get("tp_shards") or []],
-              "tp_launches": tpres.get("launches", 0)}
+              "tp_launches": tpres.get("launches", 0),
+              # phase 6c's pod (another process, so not in ``launches``):
+              # its device records in the profiled request's
+              # ``PLATFORM_PROFILE_TICKS`` (2) tick window
+              "pod_trace_records": (plres.get("profile") or {}).get("records")}
     fcases = fres.get("cases") or []
     fhead = next((c for c in fcases if c["case"] == "ragged"), {})  # the training path's case
     frecord = {"name": "flash_attention", "route": "cuda",

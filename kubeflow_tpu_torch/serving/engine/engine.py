@@ -853,6 +853,24 @@ class Engine:
         if self.incidents is not None:
             self.incidents.start()  # idempotent, like this method
 
+    def begin_drain(self) -> None:
+        """Enter DRAINING without stopping: new submissions are refused with
+        EngineShutdown, but queued and in-flight requests keep running to
+        completion — the fleet-level graceful-drain handshake (the router
+        stops routing to a DRAINING replica on its next health probe; the
+        operator calls ``stop()`` once ``stats['active_slots']`` and
+        ``stats['queue_depth']`` reach zero, or lets the drain timeout
+        force it)."""
+        with self._lock:
+            self._draining = True
+
+    def cancel_drain(self) -> None:
+        """Abort an in-progress ``begin_drain`` (scale-down was cancelled):
+        the engine resumes accepting submissions.  No-op after stop()."""
+        with self._lock:
+            if not self._stopped:
+                self._draining = False
+
     def stop(self, drain: bool = True) -> None:
         """Graceful drain then hard stop: new submissions are refused
         (EngineShutdown), queued requests are failed with EngineShutdown,

@@ -40,8 +40,12 @@ Counterpart of ``kubeflow_tpu/serving/engine/faults.py``, in two scopes:
   decoding registry (serving/constrain.py) and forced zero-legal-token
   masks, which must fail only the stalled slot with ConstraintStall.
 
-The storm and fleet fault families come with the slices that port those
-subsystems.
+* Fleet scope: ``FleetFaultConfig`` / ``FleetChaos``, the ingress's chaos
+  hooks (``ServiceProxy.chaos``, serving/router.py): replicas killed or
+  hung after an exact count of relayed tokens, slowed, or their relayed
+  streams cut, on the JAX package's schedule for the same plan.
+
+The storm fault family comes with the slice that ports the remediator.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ import json
 import struct
 import threading
 import time
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -134,8 +138,8 @@ _CAUSE_PLAYBOOK = {
 # Chaos class -> {cause, playbook}: the full expected-remediation
 # contract (README "Self-driving fleet").  A new injector class must
 # declare not just what NAMES it (EXPECTED_INCIDENT_CAUSES) but what
-# FIXES it — the fleet's remediation contract, whose control plane is
-# the JAX package's (JAX-free) router and remediator.
+# FIXES it — the fleet's remediation contract (the remediator that acts
+# on it, serving/remediator.py, is still the JAX package's only).
 EXPECTED_REMEDIATIONS = {
     key: {"cause": cause, "playbook": _CAUSE_PLAYBOOK[cause]}
     for key, cause in EXPECTED_INCIDENT_CAUSES.items()
@@ -773,4 +777,121 @@ class ConstrainChaos:
                 "constrain_masks": self.masks,
                 "injected_corrupt_reads": self.injected_corrupt_reads,
                 "injected_stalls": self.injected_stalls,
+            }
+
+
+# --------------------------------------------------------------- fleet scope
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetFaultConfig:
+    """Seeded fault plan over N in-process replicas: which
+    replicas get killed / hung / slowed, and when — measured in TOKENS THE
+    INGRESS HAS RELAYED from the victim, so the injection lands exactly
+    mid-decode, deterministically, independent of host speed.  All-defaults
+    == inject nothing.  The runtime half is ``FleetChaos``, which the
+    service proxy's resumable relay feeds (``ServiceProxy.chaos``)."""
+
+    seed: int = 0
+    # replica indices whose engine is hard-stopped mid-decode (in-flight
+    # work fails, health goes DEAD, the router must fail over + re-admit)
+    kill: Tuple[int, ...] = ()
+    kill_after_tokens: int = 6
+    # replica indices whose engine loop goes silent for hang_s mid-decode
+    # (sockets stay open — only the ingress stall detector can catch it)
+    hang: Tuple[int, ...] = ()
+    hang_after_tokens: int = 6
+    hang_s: float = 5.0
+    # chronically slow replicas: every engine tick sleeps slow_tick_s
+    slow: Tuple[int, ...] = ()
+    slow_tick_s: float = 0.02
+    # ingress-side flaky network: cut every Nth relayed stream (0 = off)
+    # after it has relayed cut_after_events events — the replica survives,
+    # the CONNECTION dies, and re-admission must still be token-exact
+    cut_stream_every: int = 0
+    cut_after_events: int = 4
+
+
+class FleetChaos:
+    """Runtime half of FleetFaultConfig: owns per-backend token counters,
+    fires one-shot kill/hang callbacks at exact token counts, and decides
+    which relayed streams get their connection cut.  Thread-safe (relay
+    workers feed it concurrently); callbacks run SYNCHRONOUSLY in the
+    relay that crossed the threshold — "kill after N tokens" is a causal
+    ordering contract (token N+1 must not be relayed before the fault
+    lands), and a detached thread loses that race on a fast data plane.
+    Callbacks must therefore be bounded (``Engine.stop(drain=False)``,
+    ``arm_slow``), which every harness callback is."""
+
+    def __init__(self, config: FleetFaultConfig):
+        self.config = config
+        self._lock = threading.Lock()
+        self._by_port: dict = {}      # port -> (replica idx, kill_cb, hang_cb)
+        self._tokens: dict = {}       # port -> relayed token events
+        self._fired: set = set()      # ports whose one-shot action fired
+        self._stream_no: dict = {}    # stream key -> 1-based stream number
+        self._stream_events: dict = {}
+        self._cut_done: set = set()
+        self.kills_fired = 0
+        self.hangs_fired = 0
+        self.streams_cut = 0
+
+    def engine_faults(self, idx: int) -> FaultConfig:
+        """The per-engine FaultConfig replica ``idx`` should be built with:
+        slow replicas tick with a per-tick sleep; every other replica gets
+        an inert injector (so hang's ``arm_slow`` has a target)."""
+        c = self.config
+        if idx in c.slow:
+            return FaultConfig(seed=c.seed + idx, slow_tick_every=1,
+                               slow_tick_s=c.slow_tick_s)
+        return FaultConfig(seed=c.seed + idx)
+
+    def register_replica(self, idx: int, port: int,
+                         kill_cb=None, hang_cb=None) -> None:
+        with self._lock:
+            self._by_port[port] = (idx, kill_cb, hang_cb)
+
+    def on_relay_event(self, port: int, stream_key) -> Optional[str]:
+        """Called by the ingress relay after each relayed stream event.
+        Returns "cut" when THIS stream's connection should drop now; fires
+        the port's one-shot kill/hang callback when its token count is
+        reached."""
+        c = self.config
+        with self._lock:
+            self._tokens[port] = self._tokens.get(port, 0) + 1
+            n = self._tokens[port]
+            if stream_key not in self._stream_no:
+                self._stream_no[stream_key] = len(self._stream_no) + 1
+            self._stream_events[stream_key] = \
+                self._stream_events.get(stream_key, 0) + 1
+            info = self._by_port.get(port)
+            cb = None
+            if info is not None and port not in self._fired:
+                idx, kill_cb, hang_cb = info
+                if idx in c.kill and n >= c.kill_after_tokens:
+                    self._fired.add(port)
+                    self.kills_fired += 1
+                    cb = kill_cb
+                elif idx in c.hang and n >= c.hang_after_tokens:
+                    self._fired.add(port)
+                    self.hangs_fired += 1
+                    cb = hang_cb
+            cut = (c.cut_stream_every > 0
+                   and self._stream_no[stream_key] % c.cut_stream_every == 0
+                   and stream_key not in self._cut_done
+                   and self._stream_events[stream_key] >= c.cut_after_events)
+            if cut:
+                self._cut_done.add(stream_key)
+                self.streams_cut += 1
+        if cb is not None:
+            cb()
+        return "cut" if cut else None
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "kills_fired": self.kills_fired,
+                "hangs_fired": self.hangs_fired,
+                "streams_cut": self.streams_cut,
+                "tokens_relayed_by_port": dict(self._tokens),
             }

@@ -259,3 +259,16 @@ def paged_attention(q, k_pool, v_pool, page_table, seq_lens, page_size: int,
 paged_attention.launches = 0
 # the same launches by query rows per slot: K = 1 decode, K > 1 verify
 paged_attention.launches_by_k = {}
+
+
+def paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens, page_size: int):
+    """One decode step of attention over the page pool (the K = 1 wrapper,
+    as the JAX package's).
+
+    q: [B, Hq, hd] (the current token per slot); k_pool/v_pool:
+    [P, Hkv, page_size, hd] (ONE layer's pool); page_table: [B, max_pages]
+    int32; seq_lens: [B] int32 (0 = inactive slot → zeros out).  Returns
+    [B, Hq, hd].  It goes through ``paged_attention``: the plain version
+    on CPU tensors, one kernel launch on CUDA tensors."""
+    return paged_attention(q[:, None], k_pool, v_pool, page_table, seq_lens,
+                           page_size)[:, 0]

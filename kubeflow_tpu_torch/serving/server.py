@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import json
 import socket
+import sys
 import threading
 import time
 import uuid
@@ -237,6 +238,14 @@ class ModelServer:
             def close_request(self, request):
                 self._live_conns.discard(request)
                 super().close_request(request)
+
+            # a client that hung up before its answer was written (a
+            # readiness probe past its timeout) is not a server fault:
+            # socketserver would print its traceback to the pod's log
+            def handle_error(self, request, client_address):
+                if isinstance(sys.exc_info()[1], ConnectionError):
+                    return
+                super().handle_error(request, client_address)
 
         self.httpd = Srv((host, port), Handler)
         self.httpd._live_conns = set()

@@ -3,7 +3,9 @@
 A copy of ``kubeflow_tpu/serving/storage.py`` (the port imports nothing of
 the JAX package): the same ``download`` dispatch over ``file://``,
 ``pvc://`` and the mirrored ``gs://``/``s3://``/``hf://`` schemes, which
-``agent.ModelPuller`` calls.
+``agent.ModelPuller`` calls and the InferenceService's storage-initializer
+init container runs (``python -m kubeflow_tpu_torch.serving.storage <uri>
+<dest>``, serving/controllers.py).
 
 Remote schemes resolve ONLY through a local mirror: set
 ``KSERVE_STORAGE_MIRROR=/path`` and ``gs://bucket/x`` maps to
@@ -16,9 +18,13 @@ from __future__ import annotations
 import os
 import shutil
 import sys
+import tempfile
 
 MIRROR_ENV = "KSERVE_STORAGE_MIRROR"
 PVC_ROOT_ENV = "KSERVE_PVC_ROOT"
+# the simulator's /mnt/models: the JAX package's /tmp/kubeflow-tpu-models,
+# under the process's temporary directory
+MOUNT_PATH = os.path.join(tempfile.gettempdir(), "kubeflow-tpu-models")
 
 
 class StorageError(RuntimeError):

@@ -1,9 +1,10 @@
 """Pooled keepalive HTTP/1.1 transport for backend pulls.
 
-A copy of the part of ``kubeflow_tpu/serving/transport.py`` that the serve
-layer's KVPG handoff and fabric pulls ride (``get``): one bounded pool of
+A copy of ``kubeflow_tpu/serving/transport.py``: one bounded pool of
 persistent ``http.client.HTTPConnection`` objects keyed by backend port,
-instead of a TCP handshake per pull.  The JAX package's ``legacy_core``
+instead of a TCP handshake per hop, for the ingress relay
+(``serving/router.py``), its probes and load scrapes, and the serve
+layer's KVPG handoff and fabric pulls.  The JAX package's ``legacy_core``
 switch (a benchmark arm of its ingress) is left out: the pool always
 reuses.
 

@@ -131,3 +131,9 @@ class CheckpointManager:
         if self._error is not None:
             err, self._error = self._error, None
             raise err
+
+    def close(self) -> None:
+        """Finish the write in flight (re-raising its error), as Orbax's
+        ``CheckpointManager.close`` does before it releases its threads;
+        every saved step is on disk afterwards.  Safe to call twice."""
+        self.wait()

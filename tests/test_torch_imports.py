@@ -78,7 +78,13 @@ def test_every_port_module_imports_with_jax_blocked():
                  "parallel.profiling", "serving.engine.sharding", "parallel.mesh",
                  "parallel.sharding", "parallel.presets", "ops.shard_map_compat",
                  "ops.ring_attention", "ops.ulysses", "parallel.pipeline", "ops.moe",
-                 "models.moe_transformer", "graft_entry"):
+                 "models.moe_transformer", "graft_entry", "utils.net", "utils.render",
+                 "core.api", "core.conditions", "core.events", "core.controller",
+                 "core.kubelet", "core.cluster", "scheduler.topology", "serving.api",
+                 "serving.config", "serving.runtimes", "serving.controllers",
+                 "serving.graph", "serving.ingress_core", "serving.overload",
+                 "serving.router", "serving.autoscaler", "examples.serve_llm",
+                 "examples.explain_isvc"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = _BLOCKER.format(blocked=BLOCKED) + f"""
 import importlib

@@ -344,3 +344,22 @@ def test_engine_health_degraded_while_a_request_retries(servers, monkeypatch):
         release.set()
         srv.stop()
         eng.stop()
+
+
+@pytest.mark.parametrize("exc, printed", [(BrokenPipeError(32, "Broken pipe"), False),
+                                          (ConnectionResetError(104, "reset"), False),
+                                          (ValueError("a handler bug"), True)])
+def test_a_client_that_hung_up_leaves_no_traceback(exc, printed, capsys):
+    """A readiness probe past its timeout closes its socket before the
+    answer is written; that write's error is not reported, a handler's is."""
+    srv = TS.ModelServer([_doubler(TS)])
+    try:
+        try:
+            raise exc
+        except Exception:  # noqa: BLE001 — what socketserver's thread sees
+            srv.httpd.handle_error(None, ("127.0.0.1", 1))
+        err = capsys.readouterr().err
+        assert ("Traceback" in err) is printed
+        assert (type(exc).__name__ in err) is printed
+    finally:
+        srv.httpd.server_close()
