@@ -218,7 +218,9 @@ or the script exits non-zero:
    ``flash_attention_plain`` at the BERT-base shapes (B=32, H=12, S=T=512,
    d=64, bf16; blocks 128): non-causal with a ragged key mask, causal, and
    causal with a left-padded row that sees no key, plus one f32 case at
-   S=128; out and lse compared; times of the kernel (CUDA events and a
+   S=128, and phase 22's BERT worker's shape (S=T=32, block 32, all-ones
+   mask; B=8 and a gang member's B=4); out and lse compared; times of the
+   kernel (CUDA events and a
    torch.profiler window), the plain version and
    ``scaled_dot_product_attention`` with the same boolean mask (a yardstick
    the port never calls) beside the bound, and the time of the blockwise
@@ -231,14 +233,9 @@ or the script exits non-zero:
    the kernel's launches (exactly 12 a step, the plain version never), step
    time, samples/s, tokens/s, MFU, a torch.profiler window, and 5 steps of
    the dense path for the end-to-end comparison;
-9. worker: ``python -m kubeflow_tpu_torch.examples.bert_worker`` on the card
-   at its tiny defaults, killed at step 3 (exit 137) and rerun: it resumes
-   from the step-2 checkpoint and finishes step 4;
-10. mnist: ``python -m kubeflow_tpu_torch.examples.mnist_worker`` on the
-   card at ``MnistConfig()`` and the JAX worker's defaults (60 steps of 64):
-   ``MNIST-OK`` and accuracy above 0.8; samples/s;
-11. darts: the Katib DARTS trial worker on the card (4 layers, 300 steps,
-   seed 37): the all-``relu_linear`` genotype and ``val_acc``;
+9-11. the BERT worker's auto-resume, the MNIST worker and the DARTS trial
+   worker run as the port's own jobs and Katib trials in phase 22 (b), (c)
+   and (e);
 12. resnet: ResNet-50 (``ResNetConfig()``, GroupNorm, bf16) at 224x224:
    (a) one process, batch 64, through the DDP worker's own step (loss after
    2 SGD steps; step ms, samples/s, MFU from ``flops_per_image() * 3``, a
@@ -274,15 +271,16 @@ or the script exits non-zero:
    ``params.npz`` all f32 with the config's parameter count and the six
    fields in ``config.json``; each step's wall time, staged bytes, savez,
    put, get and load seconds, finetune's step ms and tokens/s; (d) the
-   pipeline's tiny defaults with ``max_perplexity=1.0``: ``deploy``
-   Skipped; (e) the deployed URI fetched and served by the port's
+   deployed URI fetched and served by the port's
    ``JetStreamModel`` (``params.npz`` + ``config.json``, byte tokenizer):
    phase 5's four prompts x 32 tokens, each token within the oracle bound
    of ``forward_full`` on the loaded params, one paged launch per layer
    and decode step, none plain, and a profiler window over a request
    holding the CUDA-core split and merge kernels and no tensor-core one;
-   TTFT and tokens/s; (g) ``examples.distributed_check`` on the card at
-   world 1 (``PSUM got=1.0 expected=1.0``, ``TRAIN-OK``) and
+   TTFT and tokens/s; then side by side, none timed against another: (e)
+   the pipeline's tiny defaults with ``max_perplexity=1.0``: ``deploy``
+   Skipped; (f) ``examples.distributed_check`` on the card at world 1
+   (``PSUM got=1.0 expected=1.0``, ``TRAIN-OK``); (g)
    ``parallel.profiling.maybe_trace`` over a small card workload: a trace
    holding 3 step annotations and their device kernels.
 16. tp: tensor-parallel serving at Llama-3-8B width and depth over
@@ -364,15 +362,9 @@ or the script exits non-zero:
    1.22e-2 relative, both members equal, each position's bytes its rule's
    shard shape, 24 flash launches a step in each member (48 over the gang)
    and no plain call; ms a step in each member and in the one-process run,
-   the collectives' bytes and host ms a step, peak memory; (b) ``python -m
-   kubeflow_tpu_torch.examples.bert_worker`` as a gang of two at BERT-base
-   widths (``GANG_WORKER_ENV``): rank 1 exits 137 at step 5, the phase kills
-   a survivor still running after ``GANG_KILL_WAIT_S`` and relaunches both:
-   both first runs ``resumed_from=0``, both second runs the same
-   ``resumed_from=K`` > 0, no ``step=1``, the same ``step=`` lines and
-   ``TRAIN-DONE step=10``; (c) the ResNet worker at world 2 x
-   ``LOCAL_DEVICES=2`` on phase 12's global batch: ``world size=2 global
-   devices=4``, a finite loss, samples/s beside 12(c) and 12(d).
+   the collectives' bytes and host ms a step, peak memory.  The BERT
+   worker's gang restart and the ResNet worker's gang run as the port's own
+   jobs in phase 22 (a) and (d).
 21. gang_pp: GPipe and expert parallelism across processes, run by 20(a)'s
    two members after their tp steps (no process start or kernel build
    more) and held to phase 18: (a) BERT-base with flash under GPipe on the
@@ -392,6 +384,40 @@ or the script exits non-zero:
    member: both ``OK`` lines, equal losses, the composed loss (stages 2 x
    seq 2, the MoE transformer's hand-off across processes) within 1e-4 of
    18(c)'s one-process run.
+
+22. jobs: the port's training operator and Katib (``training/frameworks.py``
+   and ``katib/controllers.py`` installed on a ``Cluster`` of one CPU node
+   and one GPU node ``h100`` advertising ``JOBS_CARDS`` (2) cards, which its
+   kubelet maps onto this card through ``CUDA_VISIBLE_DEVICES="0,0"``),
+   every pod's worker under ``JOB_WRAPPER`` (its env and its flash
+   launches and plain calls printed) and asking for ``nvidia.com/gpu: 1``:
+   (a) TPUJob ``bert-gang``, the BERT worker at BERT-base widths
+   (``GANG_WORKER_ENV``, the flash kernel) as a gang of two with
+   ``spec.checkpoint``, rank 1 exiting 137 at step 5: the operator's gang
+   restart (one ``SliceRestarting``, restart count 1) and its condition
+   states equal to ``GANG_CONDITIONS`` (the JAX plane's for the same
+   manifest, tests/test_torch_training_jobs.py), both first runs
+   ``resumed_from=0``, both second runs the same K > 0, no ``step=1``, the
+   same ``step=`` lines, ``TRAIN-DONE step=10``, each pod's card 0, JAX
+   rendezvous env and checkpoint env, backend gloo, 12 flash launches a step
+   in each resumed run and no plain call; then at once (b) TPUJob
+   ``bert-resume``: the tiny worker killed at step 3 and recreated by the
+   operator, ``resumed_from=2`` and ``TRAIN-DONE step=4``; (c) TFJob
+   ``mnist`` with ``TF_CONFIG``: ``MNIST-OK`` and accuracy above 0.8; (d)
+   PyTorchJob ``resnet-ddp``, the ResNet worker at world 2 x
+   ``LOCAL_DEVICES=2`` over ``MASTER_ADDR``/``RANK`` on phase 12's global
+   batch: ``world size=2 global devices=4``, a finite loss, backend gloo;
+   (e) Experiment ``darts``, one TPUJob trial of the DARTS worker at seed
+   37: ``val_acc`` observed, the all-``relu_linear`` genotype, Succeeded;
+   (f) Experiment ``mnist-lr``, random search (``random_state`` 29) over
+   the MNIST worker's ``LEARNING_RATE`` in [1e-4, 1e-2], 3 trials of 8
+   steps, 2 at a time, maximising ``accuracy``: 3 succeeded, the optimal
+   strictly the best observed, the rates ``MNIST_LR_RATES`` (the JAX
+   suggester's); (g) a
+   TPUJob with ``spec.tpu`` (v5e, 2x4) Pending with ``FailedScheduling``
+   naming ``google.com/tpu`` and never Running; then every job deleted, no
+   pod left, the card's memory back within 1 GiB.  Apply to end of each
+   job and each pod run's host-clock seconds.
 
 Phase 5's Llama-3-8B weights are freed before phase 5j, which runs after
 phases 6 and 16.  The last lines are the
@@ -3025,15 +3051,19 @@ FB, FH, FS, FD, FBLOCK = 32, 12, 512, 64, 128
 # kernel vs plain, f32: both in f32, summation order only (the reference's
 # f32 kernel bound); lse is f32 on both sides in every case
 FLASH_F32_TOL = 1e-5
+# the BERT worker phase 22 runs: its sequence length and the batch each
+# process's kernel sees (8 alone, 8 / 2 on each member of a gang of two)
+JOB_WORKER_S, JOB_WORKER_BATCHES = 32, (8, 4)
 
 
 def flash_case(name, dtype, S, causal, key_mask, rng, dev, flush, b: int = FB, h: int = FH,
                d: int = FD) -> dict:
     """One ``flash_attention`` forward case: kernel vs plain (out and lse),
     times of the kernel, the plain version and SDPA with the same boolean
-    mask, and the bound.  ``key_mask``: None, "ragged" (batch row 0 keeps
-    300 keys) or "left" (batch row 1's first 200 keys padded: under causal,
-    its first 200 query rows see no key).  ``b``, ``h`` and ``d``: batch,
+    mask, and the bound.  ``key_mask``: None, "ones" (a mask that keeps
+    every key, as the BERT worker's synthetic batches pass it), "ragged"
+    (batch row 0 keeps 300 keys) or "left" (batch row 1's first 200 keys
+    padded: under causal, its first 200 query rows see no key).  ``b``, ``h`` and ``d``: batch,
     heads and head_dim (default BERT-base's)."""
     bh, scale = b * h, d ** -0.5
     q, k, v = (torch.from_numpy(rng.standard_normal((bh, S, d), dtype=np.float32)).to(
@@ -4030,32 +4060,7 @@ def platform(cfg) -> dict:
     return out
 
 
-# ----------------------------------------------------------------- phase 9
-
-
-def worker(dev) -> dict:
-    """The TPUJob worker's auto-resume contract on the card: killed at step
-    3 (exit 137), rerun, resumed from the step-2 checkpoint, done at 4."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        env = dict(os.environ, CHECKPOINT_DIR=os.path.join(tmp, "ckpt"), TRAIN_STEPS="4",
-                   CHECKPOINT_EVERY="2", FAIL_AT_STEP="3",
-                   FAIL_MARKER=os.path.join(tmp, "failed"))
-        env.pop("TORCH_DEVICE", None)  # the worker's default: the card
-        cmd = [sys.executable, "-m", "kubeflow_tpu_torch.examples.bert_worker"]
-        runs = [subprocess.run(cmd, env=env, cwd=REPO, capture_output=True, text=True,
-                               timeout=300) for _ in range(2)]
-    first, second = runs
-    ok = (first.returncode == 137 and "resumed_from=0" in first.stdout
-          and "TRAIN-DONE" not in first.stdout
-          and second.returncode == 0 and "resumed_from=2" in second.stdout
-          and "TRAIN-DONE step=4" in second.stdout)
-    return {"ok": ok, "exit_codes": [r.returncode for r in runs],
-            "stdout": [r.stdout.strip().splitlines() for r in runs],
-            "stderr_tail": [r.stderr[-1500:] for r in runs if r.returncode not in (0, 137)]}
-
-
-# ---------------------------------------------------------------- phase 10
+# ------------------------------------------------------------ workers
 
 
 def run_worker(module: str, env: dict, timeout: float = 600) -> tuple:
@@ -4070,37 +4075,12 @@ def run_worker(module: str, env: dict, timeout: float = 600) -> tuple:
     return r, lines, kv
 
 
-def mnist_phase() -> dict:
-    """The TFJob MNIST worker on the card at ``MnistConfig()`` and the JAX
-    worker's defaults (60 steps of 64); accuracy above the JAX CNN's 0.8
-    bar (tests/test_model_families.py:41)."""
-    r, lines, kv = run_worker("mnist_worker", {"TRAIN_STEPS": 60, "BATCH_SIZE": 64})
-    acc = float(kv.get("accuracy", "nan"))
-    return {"ok": r.returncode == 0 and "MNIST-OK" in lines and acc > 0.8,
-            "exit_code": r.returncode, "accuracy": acc, "loss": float(kv.get("loss", "nan")),
-            "samples_per_s": float(kv.get("samples_per_sec", "nan")), "stdout": lines,
-            "stderr_tail": r.stderr[-1500:] if r.returncode else ""}
-
-
-# ---------------------------------------------------------------- phase 11
-
-# the search recovers the all-relu_linear genotype for some seeds only, in
-# both packages (tests/test_torch_darts.py's sweep: 11 of 64 seeds for the
-# port, 14 of 64 for the JAX worker); this is the seed with the widest
-# architecture-logit margin among the port's, drawn on the CPU as on the card
+# the DARTS search recovers the all-relu_linear genotype for some seeds
+# only, in both packages (tests/test_torch_darts.py's sweep: 11 of 64 seeds
+# for the port, 14 of 64 for the JAX worker); this is the seed with the
+# widest architecture-logit margin among the port's, drawn on the CPU as on
+# the card (phase 22(e))
 DARTS_SEED = 37
-
-
-def darts_phase() -> dict:
-    """The Katib DARTS trial worker on the card: 4 layers, 300 steps."""
-    r, lines, kv = run_worker("darts_worker", {"NUM_LAYERS": 4, "SEARCH_STEPS": 300,
-                                               "SEED": DARTS_SEED})
-    geno = json.loads(kv.get("genotype", "null"))
-    return {"ok": (r.returncode == 0 and "DARTS-OK" in lines and "val_acc" in kv
-                   and geno == ["relu_linear"] * 4),
-            "exit_code": r.returncode, "seed": DARTS_SEED, "genotype": geno,
-            "val_acc": float(kv.get("val_acc", "nan")), "stdout": lines,
-            "stderr_tail": r.stderr[-1500:] if r.returncode else ""}
 
 
 # ---------------------------------------------------------------- phase 12
@@ -4317,8 +4297,12 @@ def decoder_phase(dev) -> dict:
 
 REMAT_POLICIES = ("nothing", "dots", "save_qkv", "save_attn", "save_mlp")
 REMAT_STEPS, REMAT_PROFILED = 3, 1
-# profiler windows per policy, taken until one keeps every device record
-REMAT_WINDOWS = 3
+# profiler windows per policy, taken until one keeps every device record:
+# one, for the script's time limit (with three, on an H100 80GB HBM3 at
+# 700 W, every policy took all three and 16 of 18 windows still lost
+# records, at ~2.5-4 s of host time a window); a window that lost records
+# reports its device busy time and an idle share "at most"
+REMAT_WINDOWS = 1
 # the loss and gradient norm of a policy against no remat: remat recomputes
 # the same values in the same order on the card, so only the summation
 # order of gradients that reach one tensor along several paths changes
@@ -4722,9 +4706,10 @@ def pipeline_phase(dev) -> dict:
     """BASELINE config 4 on the port's pipeline SDK: the port's
     ``gemma_pipeline`` compiled by the port's compiler at Gemma-7B width
     (``PIPELINE_LAYERS`` of 28 layers), its DAG run step by step through the
-    port's launcher on the card, then the skip branch at the pipeline's
-    tiny defaults, then the deployed artifact served through the paged
-    kernel at head_dim 192."""
+    port's launcher on the card, then the deployed artifact served through
+    the paged kernel at head_dim 192, then side by side the skip branch at
+    the pipeline's tiny defaults, ``distributed_check`` and the traced
+    loop."""
     from kubeflow_tpu_torch.examples.gemma_pipeline import gemma_pipeline
     from kubeflow_tpu_torch.pipelines.artifacts import ObjectStore
     from kubeflow_tpu_torch.pipelines.compiler import Compiler
@@ -4771,14 +4756,6 @@ def pipeline_phase(dev) -> dict:
                              "vocab_size", "d_model", "n_layers", "n_heads", "n_kv_heads",
                              "d_ff")})}
 
-        t0 = time.perf_counter()
-        skip = run_ir(ir, PIPELINE_SKIP_ARGS, store, os.path.join(tmp, "nodes"), "skip", env)
-        out["skip"] = {"dag_s": time.perf_counter() - t0,
-                       "phases": {n: node["phase"] for n, node in skip.items()},
-                       "perplexity": skip["evaluate"].get("outputParameters", {}).get("Output")}
-        gates["skip"] = (skip["finetune"]["phase"] == skip["evaluate"]["phase"] == "Succeeded"
-                         and skip["deploy"]["phase"] == "Skipped")
-
         if uri:
             t0 = time.perf_counter()
             model_dir = store.get(uri, os.path.join(tmp, "served"))
@@ -4788,9 +4765,27 @@ def pipeline_phase(dev) -> dict:
             gates["serve"] = out["serve"]["ok"] and out["serve"]["head_dim"] == 192
         gc.collect()
         torch.cuda.empty_cache()
-        out["distributed_check"] = distributed_check_run()
+
+        def skip_branch() -> dict:
+            t0 = time.perf_counter()
+            skip = run_ir(ir, PIPELINE_SKIP_ARGS, store, os.path.join(tmp, "nodes"), "skip", env)
+            return {"dag_s": time.perf_counter() - t0, "nodes": skip}
+
+        # three small card runs whose times are not read against anything,
+        # side by side: the skip branch (the pipeline's tiny defaults),
+        # distributed_check and the traced loop, each in processes of its own
+        with ThreadPoolExecutor(3) as pool:
+            runs = [pool.submit(skip_branch), pool.submit(distributed_check_run),
+                    pool.submit(profiling_run, os.path.join(tmp, "profile"))]
+            (skip, out["distributed_check"], out["profiling"]) = [f.result() for f in runs]
+        nodes_skip = skip.pop("nodes")
+        out["skip"] = {"dag_s": skip["dag_s"],
+                       "phases": {n: node["phase"] for n, node in nodes_skip.items()},
+                       "perplexity": nodes_skip["evaluate"].get("outputParameters", {}).get(
+                           "Output")}
+        gates["skip"] = (nodes_skip["finetune"]["phase"] == nodes_skip["evaluate"]["phase"]
+                         == "Succeeded" and nodes_skip["deploy"]["phase"] == "Skipped")
         gates["distributed_check"] = out["distributed_check"]["ok"]
-        out["profiling"] = profiling_run(os.path.join(tmp, "profile"))
         gates["profiling"] = out["profiling"]["ok"]
     out["gates"] = gates
     out["launches"] = out.get("serve", {}).get("launches", 0)
@@ -4923,10 +4918,10 @@ def tp_attention_records(engine, cfg, dev) -> dict:
     device work) in a profiler window: its attention records must be the
     paged split and merge kernels, one pair per shard and layer, and no
     softmax of the gather path.  Up to ``TP_WINDOWS`` windows, until one
-    keeps every device record (a late window can lose a few, §7 of
-    PERF.md); a window that lost some still passes when every paged record
-    is there and fewer records were lost than the softmaxes a gather path
-    would have added, so none could hide among them."""
+    passes: a late window can lose a few records (§7 of PERF.md), and one
+    that lost some passes when every paged record is there and fewer
+    records were lost than the softmaxes a gather path would have added,
+    so none could hide among them."""
     ec = engine.ec
     lens = [len(p) + MAX_TOKENS for p in PROMPTS] + [0] * (ec.max_slots - len(PROMPTS))
     table = torch.zeros((ec.max_slots, ec.max_pages_per_slot), dtype=torch.int32)
@@ -4955,11 +4950,11 @@ def tp_attention_records(engine, cfg, dev) -> dict:
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) / n * 1e3
             recs, _, lost = window_records(prof)
-            if not lost:
+            names = [name.lower() for name, _, _ in recs]
+            paged = sum(any(m in x for m in PAGED_MARKERS) for x in names)
+            softmax = sum("softmax" in x for x in names)
+            if paged == expected and softmax == 0 and lost < TP_SHARDS * cfg.n_layers * n:
                 break
-    names = [name.lower() for name, _, _ in recs]
-    paged = sum(any(m in x for m in PAGED_MARKERS) for x in names)
-    softmax = sum("softmax" in x for x in names)
     out = {"steps": n, "windows": window, "paged_records": paged,
            "paged_records_expected": expected, "softmax_records": softmax,
            "lost_records": lost,
@@ -5684,13 +5679,11 @@ def mesh_models_phase(dev) -> dict:
 # of GANG_LOCAL positions each, all on the one card
 GANG_WORLD, GANG_LOCAL, GANG_STEPS = 2, 2, MESH_STEPS
 GANG_TIMEOUT_S = 300
-# 20(b): the BERT worker's gang restart at BERT-base widths, as
+# 22(a): the BERT worker's gang restart at BERT-base widths, as
 # tests/test_training_jobs.py:503 runs the JAX worker's gang
 GANG_WORKER_ENV = {"VOCAB_SIZE": 30522, "HIDDEN_SIZE": 768, "NUM_LAYERS": 12, "NUM_HEADS": 12,
                    "INTERMEDIATE_SIZE": 3072, "TRAIN_STEPS": 10, "CHECKPOINT_EVERY": 2,
                    "FAIL_AT_STEP": 5, "FAIL_RANK": 1, "LOCAL_DEVICES": 1}
-# the controller's bounded wait for the survivor of a preempted member
-GANG_KILL_WAIT_S = 30
 
 
 def gang_env(rank: int, port: int, extra: dict = None) -> dict:
@@ -5857,18 +5850,13 @@ def gang_pp_member(dev, spec: dict) -> dict:
     return out
 
 
-def wait_gang(procs: list, deadline: float, kill_after_137: bool = False) -> dict:
-    """Wait for a gang's processes; with ``kill_after_137`` act as the
-    controller: once a member exits 137, give the survivors
-    ``GANG_KILL_WAIT_S`` and kill them.  Past ``deadline`` kill them all."""
-    killed, timed_out, t137 = [], False, None
+def wait_gang(procs: list, deadline: float) -> dict:
+    """Wait for a gang's processes; past ``deadline`` kill them all."""
+    killed, timed_out = [], False
     while any(p.poll() is None for p in procs):
         now = time.monotonic()
-        if kill_after_137 and t137 is None and any(p.poll() == 137 for p in procs):
-            t137 = now
-        late = t137 is not None and now - t137 > GANG_KILL_WAIT_S
-        if late or now > deadline:
-            timed_out = timed_out or now > deadline
+        if now > deadline:
+            timed_out = True
             for r, p in enumerate(procs):
                 if p.poll() is None:
                     p.kill()
@@ -5984,103 +5972,18 @@ def gang_train(dev) -> dict:
     return out
 
 
-def gang_restart() -> dict:
-    """(b) ``python -m kubeflow_tpu_torch.examples.bert_worker`` as a gang
-    of two at BERT-base widths: rank 1 preempted at step 5 (exit 137), the
-    survivor killed after a bounded wait if it has not left, both relaunched
-    from the gang's checkpoints."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    runs = []
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        extra = {**GANG_WORKER_ENV, "CHECKPOINT_DIR": os.path.join(tmp, "ckpt"),
-                 "FAIL_MARKER": os.path.join(tmp, "died")}
-        for attempt in range(2):
-            port = free_port()
-            procs = []
-            for r in range(GANG_WORLD):
-                files = [open(os.path.join(tmp, f"run{attempt}.{r}.{k}"), "w+")
-                         for k in ("out", "err")]
-                procs.append((subprocess.Popen(
-                    [sys.executable, "-m", "kubeflow_tpu_torch.examples.bert_worker"],
-                    env=gang_env(r, port, extra), cwd=REPO, stdout=files[0], stderr=files[1]),
-                    files))
-            t0 = time.perf_counter()
-            waited = wait_gang([p for p, _ in procs], time.monotonic() + GANG_TIMEOUT_S,
-                               kill_after_137=attempt == 0)
-            waited["wall_s"] = time.perf_counter() - t0
-            outs, errs = [], []
-            for _, files in procs:
-                for f in files:
-                    f.seek(0)
-                outs.append(files[0].read().strip().splitlines())
-                errs.append(files[1].read())
-                for f in files:
-                    f.close()
-            waited["stdout"] = outs
-            waited["backend_lines"] = [backend_line(e) for e in errs]
-            waited["stderr_tail"] = [e[-1500:] for e, c in zip(errs, waited["exit_codes"])
-                                     if c not in (0, 137, 143)]
-            runs.append(waited)
-    first, second = runs
-
-    def resumed(lines):
-        return next((int(x.split("=")[1]) for x in lines if x.startswith("resumed_from=")), None)
-
-    ks = [resumed(lines) for lines in second["stdout"]]
-    steps = [[x for x in lines if x.startswith("step=")] for lines in second["stdout"]]
-    gates = {
-        "first_fresh": all(resumed(lines) == 0 for lines in first["stdout"]),
-        "preempted": first["exit_codes"][GANG_WORKER_ENV["FAIL_RANK"]] == 137,
-        "resumed_same_k": ks[0] is not None and ks[0] > 0 and ks[0] == ks[1],
-        "no_step_1": not any(x.startswith("step=1 ") for s in steps for x in s),
-        "done": all(f"TRAIN-DONE step={GANG_WORKER_ENV['TRAIN_STEPS']}" in lines
-                    for lines in second["stdout"]) and second["exit_codes"] == [0, 0],
-        "same_steps": steps[0] == steps[1] and len(steps[0]) > 0}
-    return {"ok": all(gates.values()), "gates": gates, "resumed_from": ks, "runs": runs}
-
-
-def gang_resnet() -> dict:
-    """(c) the ResNet worker at world 2 x ``LOCAL_DEVICES=2`` on the card:
-    the global data mesh of 4 positions over two processes, phase 12's
-    global batch of RESNET_B."""
-    port = free_port()
-    env = {**RESNET_ENV, "LOCAL_DEVICES": GANG_LOCAL, "WORLD_SIZE": GANG_WORLD,
-           "PER_CHIP_BATCH": RESNET_B // (GANG_WORLD * GANG_LOCAL),
-           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port}
-    with ThreadPoolExecutor(GANG_WORLD) as pool:
-        runs = list(pool.map(lambda r: run_worker("resnet_ddp_worker", {**env, "RANK": r},
-                                                  timeout=GANG_TIMEOUT_S), range(GANG_WORLD)))
-    losses = [float(kv.get("loss", "nan")) for _, _, kv in runs]
-    out = {"exit_codes": [r.returncode for r, _, _ in runs], "losses": losses,
-           "global_batch": RESNET_B,
-           "samples_per_s": [float(kv.get("samples_per_sec", "nan")) for _, _, kv in runs],
-           "stdout": [lines for _, lines, _ in runs],
-           "backend_lines": [backend_line(r.stderr) for r, _, _ in runs],
-           "stderr_tail": [r.stderr[-1500:] for r, _, _ in runs if r.returncode]}
-    out["ok"] = (out["exit_codes"] == [0, 0] and all(math.isfinite(x) for x in losses)
-                 and all("world size=2 global devices=4" in lines and "RESNET-DDP-OK" in lines
-                         for lines in out["stdout"]))
-    return out
-
-
-def gang_phase(dev, resnet_res: dict) -> dict:
+def gang_phase(dev) -> dict:
     """Phase 20: the mesh across processes (the rest of ROADMAP item 3.3) on
     the one card, every member on ``cuda:0`` (so the backend is gloo, the
-    collectives staged through host memory): (a) ``gang_train``, (b)
-    ``gang_restart``, (c) ``gang_resnet``."""
+    collectives staged through host memory): ``gang_train``.  The BERT
+    worker's gang restart and the ResNet worker's gang run as the port's
+    own jobs in phase 22."""
     train_res = gang_train(dev)
     gc.collect()
     torch.cuda.empty_cache()
-    restart_res = gang_restart()
-    resnet_gang = gang_resnet()
-    out = {"train": train_res, "restart": restart_res, "resnet": resnet_gang,
-           "launches": train_res.get("launches", 0),
-           "gang_launches": sum(m["launches"] for m in train_res.get("members", [])),
-           "resnet_samples_per_s_12c_12d": [
-               (resnet_res.get("default_path") or {}).get("samples_per_s"),
-               (resnet_res.get("local_mesh") or {}).get("samples_per_s")]}
-    out["gates"] = {"train": train_res["ok"], "restart": restart_res["ok"],
-                    "resnet": resnet_gang["ok"]}
+    out = {"train": train_res, "launches": train_res.get("launches", 0),
+           "gang_launches": sum(m["launches"] for m in train_res.get("members", []))}
+    out["gates"] = {"train": train_res["ok"]}
     out["ok"] = all(out["gates"].values())
     members = train_res.get("members") or []
     one = train_res.get("one_process") or {}
@@ -6090,9 +5993,7 @@ def gang_phase(dev, resnet_res: dict) -> dict:
         f"{one.get('step_ms_mean_after_first', float('nan')):.1f}; launches/step per member "
         f"{[m['launches_per_step'] for m in members]}; staged MB/step "
         f"{[round(m['staged_bytes_per_step'][-1] / 1e6, 1) for m in members]}; collective "
-        f"ms/step {[round(m['collective_ms_per_step'][-1], 1) for m in members]}; restart "
-        f"resumed_from {restart_res['resumed_from']}; resnet samples/s "
-        f"{resnet_gang['samples_per_s']} vs 12(c)/(d) {out['resnet_samples_per_s_12c_12d']}; "
+        f"ms/step {[round(m['collective_ms_per_step'][-1], 1) for m in members]}; "
         f"gates {out['gates']}")
     return out
 
@@ -6174,6 +6075,559 @@ def gang_pp_phase(gres: dict, zres: dict) -> dict:
         f"{[round(m['moe']['ep_ms'], 3) for m in members]} ms vs one process "
         f"{gres['moe']['ep_ms']:.3f}, bit-identical {moe['bit_identical']}; entry "
         f"{[e['losses'] for e in entry]} vs {want}; gates {out['gates']}")
+    return out
+
+
+# ---------------------------------------------------------------- phase 22
+
+# the GPU node advertises two cards, and the kubelet maps node card i
+# through CUDA_VISIBLE_DEVICES: "0,0" puts both on this one card, so two
+# pods (a gang's two members, two Katib trials) share the H100 over gloo as
+# phase 20's processes do
+JOBS_CARDS = 2
+JOBS_TIMEOUT_S = 600
+# Every phase-22 pod runs its worker module unchanged under this wrapper.
+# It prints the environment the operator gave the pod (JOB-ENV), counts the
+# flash kernel's launches and its plain version's calls, and prints both
+# when the process ends (JOB-FLASH), through os._exit too: the BERT worker
+# leaves that way when it is preempted or its gang loses a member.  Both
+# lines carry the host clock (time.time), so a run's wall time is theirs.
+# ``--attention=flash`` builds the BERT worker's ``BertConfig`` with the
+# flash kernel: the worker reads no attention choice (nor does the JAX
+# worker) and its default, dense attention, launches no kernel.
+JOB_WRAPPER = r"""
+import atexit, dataclasses, importlib, json, os, runpy, sys, time
+FA = importlib.import_module("kubeflow_tpu_torch.ops.flash_attention")
+prefixes = ("CUDA_VISIBLE_DEVICES", "TORCH_DEVICE", "JAX_", "TPU_WORKER", "TF_CONFIG",
+            "MASTER_", "WORLD_SIZE", "RANK", "CHECKPOINT_")
+print(f"JOB-ENV {time.time():.3f} " + json.dumps({k: v for k, v in sorted(os.environ.items())
+                                               if k.startswith(prefixes)}), flush=True)
+plain = [0]
+plain_fn = FA.flash_attention_plain
+def counting(*a, **kw):
+    plain[0] += 1
+    return plain_fn(*a, **kw)
+FA.flash_attention_plain = counting
+if sys.argv[1] == "--attention=flash":
+    from kubeflow_tpu_torch.models import bert
+    @dataclasses.dataclass(frozen=True)
+    class FlashConfig(bert.BertConfig):
+        attention: str = "flash"
+    bert.BertConfig = FlashConfig
+def report():
+    print(f"JOB-FLASH t={time.time():.3f} launches={FA.flash_attention.launches} "
+          f"plain={plain[0]}", flush=True)
+real_exit = os._exit
+def exiting(code):
+    report()
+    real_exit(code)
+os._exit = exiting
+atexit.register(report)
+sys.argv = sys.argv[2:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
+JOB_GPU = {"requests": {"nvidia.com/gpu": 1}}
+# (a): the BERT worker's gang (GANG_WORKER_ENV) with spec.checkpoint in
+# place of the env's checkpoint cadence.  Its condition states, in order, as
+# tests/test_torch_training_jobs.py reads them for the same manifest on the
+# JAX package's control plane: (type, status, reason) of every condition
+GANG_CHECKPOINT_EVERY = 2
+GANG_CONDITIONS = [
+    [],
+    [["Created", "True", "TPUJobCreated"]],
+    [["Created", "True", "TPUJobCreated"], ["Running", "True", "TPUJobRunning"]],
+    [["Created", "True", "TPUJobCreated"], ["Running", "True", "TPUJobRunning"],
+     ["Restarting", "True", "JobRestarting"]],
+    [["Created", "True", "TPUJobCreated"], ["Running", "False", "JobSucceeded"],
+     ["Restarting", "True", "JobRestarting"], ["Succeeded", "True", "JobSucceeded"]],
+]
+# (b): the tiny worker's auto-resume, killed at step 3 of 4, checkpoints
+# every 2
+RESUME_ENV = {"TRAIN_STEPS": 4, "FAIL_AT_STEP": 3}
+# (c): the MNIST worker at MnistConfig() and the JAX worker's defaults
+MNIST_ENV = {"TRAIN_STEPS": 60, "BATCH_SIZE": 64}
+# (e): the DARTS trial: 4 layers, 300 search steps, seed DARTS_SEED
+DARTS_SETTINGS = {"num_layers": 4, "search_steps": 300, "random_state": DARTS_SEED}
+# (f): random search over the MNIST worker's LEARNING_RATE (the BERT
+# worker reads no rate, in either package), each trial 8 steps: at (c)'s
+# 60 every rate of the range reaches accuracy 1.0, at 8 the three rates
+# part (0.785, 0.449 and 0.648 on the CPU), so the best trial is one
+MNIST_LR_RANGE = (1e-4, 1e-2)
+MNIST_LR_STEPS = 8
+MNIST_LR_TRIALS, MNIST_LR_PARALLEL, MNIST_LR_RANDOM_STATE = 3, 2, 29
+# the rates the JAX package's random suggester draws for this experiment,
+# in trial order (tests/test_torch_katib.py holds them to it): two from
+# random_state + 0 for the first parallel pair, one from random_state + 2
+MNIST_LR_RATES = [0.0005954650065052823, 0.00511259075585735, 0.009041400928057119]
+# (g): a TPU slice, refused by the GPU scheduler
+REFUSED_TPU = {"accelerator": "v5e", "topology": "2x4"}
+REFUSED_WATCH_S = 2.0
+
+
+def job_command(module: str, flash: bool = False) -> list:
+    """A phase-22 pod's command: ``kubeflow_tpu_torch.examples.<module>``
+    under ``JOB_WRAPPER``."""
+    return [sys.executable, "-u", "-c", JOB_WRAPPER,
+            "--attention=flash" if flash else "--attention=default",
+            f"kubeflow_tpu_torch.examples.{module}"]
+
+
+def trial_job(module: str, env: dict) -> dict:
+    """A Katib trial's runSpec: a one-worker TPUJob asking for one card."""
+    from kubeflow_tpu_torch.training.api import ReplicaSpec, job
+
+    spec = job("TPUJob", "trial", {"Worker": ReplicaSpec(
+        command=job_command(module), env={k: str(v) for k, v in env.items()},
+        resources=JOB_GPU)})
+    spec.pop("metadata")
+    return spec
+
+
+def mnist_lr_experiment() -> dict:
+    """(f)'s Experiment: ``MNIST_LR_TRIALS`` trials of the MNIST worker,
+    ``MNIST_LR_PARALLEL`` at a time, their ``LEARNING_RATE`` from random
+    search, maximising ``accuracy``."""
+    from kubeflow_tpu_torch.katib.api import Parameter, experiment
+
+    return experiment(
+        "mnist-lr", [Parameter("learning_rate", "double", min=MNIST_LR_RANGE[0],
+                               max=MNIST_LR_RANGE[1])],
+        trial_job("mnist_worker", {**MNIST_ENV, "TRAIN_STEPS": MNIST_LR_STEPS,
+                                   "LEARNING_RATE": "${trialParameters.learningRate}"}),
+        "accuracy", objective_type="maximize", algorithm="random",
+        algorithm_settings={"random_state": MNIST_LR_RANDOM_STATE},
+        max_trials=MNIST_LR_TRIALS, parallel_trials=MNIST_LR_PARALLEL,
+        trial_parameters=[{"name": "learningRate", "reference": "learning_rate"}])
+
+
+def darts_experiment() -> dict:
+    """(e)'s Experiment: one DARTS trial at ``DARTS_SETTINGS``."""
+    from kubeflow_tpu_torch.katib.api import Parameter, experiment
+
+    return experiment(
+        "darts", [Parameter("seed", "int", min=0, max=9999)],
+        trial_job("darts_worker", {"NUM_LAYERS": "${trialParameters.numLayers}",
+                                   "SEARCH_STEPS": "${trialParameters.searchSteps}",
+                                   "SEED": "${trialParameters.seed}"}),
+        "val_acc", algorithm="darts", algorithm_settings=DARTS_SETTINGS, max_trials=1,
+        parallel_trials=1,
+        trial_parameters=[{"name": "numLayers", "reference": "num_layers"},
+                          {"name": "searchSteps", "reference": "search_steps"},
+                          {"name": "seed", "reference": "seed"}])
+
+
+def jobs_manifests(tmp: str) -> list:
+    """Phase 22's manifests in two waves, each applied at once when the one
+    before has ended: (a), the gang that takes both cards, then (b)-(f),
+    whose pods the scheduler binds as the two cards free (singles first,
+    the PyTorchJob's two pods all or nothing)."""
+    from kubeflow_tpu_torch.training.api import ReplicaSpec, job
+
+    gang = job("TPUJob", "bert-gang", {"Worker": ReplicaSpec(
+        replicas=2, restart_policy="ExitCode", command=job_command("bert_worker", flash=True),
+        env={**{k: str(v) for k, v in GANG_WORKER_ENV.items() if k != "CHECKPOINT_EVERY"},
+             "FAIL_MARKER": os.path.join(tmp, "gang-died")},
+        resources=JOB_GPU)})
+    gang["spec"]["checkpoint"] = {"dir": os.path.join(tmp, "gang-ckpt"),
+                                  "everySteps": GANG_CHECKPOINT_EVERY}
+    resume = job("TPUJob", "bert-resume", {"Worker": ReplicaSpec(
+        restart_policy="ExitCode", command=job_command("bert_worker"),
+        env={**{k: str(v) for k, v in RESUME_ENV.items()},
+             "FAIL_MARKER": os.path.join(tmp, "resume-died")},
+        resources=JOB_GPU)})
+    resume["spec"]["checkpoint"] = {"dir": os.path.join(tmp, "resume-ckpt"), "everySteps": 2}
+    mnist = job("TFJob", "mnist", {"Worker": ReplicaSpec(
+        command=job_command("mnist_worker"), env={k: str(v) for k, v in MNIST_ENV.items()},
+        resources=JOB_GPU)})
+    renv = {k: str(v) for k, v in {**RESNET_ENV, "LOCAL_DEVICES": GANG_LOCAL,
+                                   "PER_CHIP_BATCH": RESNET_B // (GANG_WORLD * GANG_LOCAL)}.items()}
+    resnet = job("PyTorchJob", "resnet-ddp", {
+        rtype: ReplicaSpec(command=job_command("resnet_ddp_worker"), env=renv, resources=JOB_GPU)
+        for rtype in ("Master", "Worker")})
+    return [[("TPUJob", "bert-gang", gang)],
+            [("TPUJob", "bert-resume", resume), ("TFJob", "mnist", mnist),
+             ("PyTorchJob", "resnet-ddp", resnet), ("Experiment", "darts", darts_experiment()),
+             ("Experiment", "mnist-lr", mnist_lr_experiment())]]
+
+
+def job_runs(text: str) -> list:
+    """A pod's log cut into its process runs (the wrapper starts each with a
+    JOB-ENV line): each run's env, other lines, flash report and host-clock
+    start and end (the report and the end None where the process was killed
+    before it could print them)."""
+    runs = []
+    for line in text.splitlines():
+        if line.startswith("JOB-ENV "):
+            t, env = line[len("JOB-ENV "):].split(" ", 1)
+            runs.append({"env": json.loads(env), "lines": [], "flash": None,
+                         "start": float(t), "end": None})
+        elif line.startswith("JOB-FLASH ") and runs:
+            kv = dict(x.split("=") for x in line.split()[1:])
+            runs[-1]["end"] = float(kv.pop("t"))
+            runs[-1]["flash"] = {k: int(v) for k, v in kv.items()}
+        elif runs:
+            runs[-1]["lines"].append(line)
+    return runs
+
+
+def run_walls(runs: list) -> list:
+    """Each run's host-clock seconds from its JOB-ENV line to its JOB-FLASH
+    line (None for a run killed before it printed one)."""
+    return [None if r["end"] is None else round(r["end"] - r["start"], 3) for r in runs]
+
+
+def resumed_from(lines: list):
+    return next((int(x.split("=")[1]) for x in lines if x.startswith("resumed_from=")), None)
+
+
+def step_lines(lines: list) -> list:
+    return [x for x in lines if x.startswith("step=")]
+
+
+def line_value(lines: list, key: str):
+    return next((x.split("=", 1)[1] for x in reversed(lines) if x.startswith(key + "=")), None)
+
+
+class ConditionLog:
+    """The distinct condition states of the objects of one kind, in order,
+    from a watch: each state the (type, status, reason) of every condition.
+    ``read()`` gives ``name``'s states, or, with no name, every object's."""
+
+    def __init__(self, api, kind: str, name: str = None):
+        self.watch, self.name, self.seq = api.watch(kind), name, {}
+
+    def read(self):
+        while (ev := self.watch.poll()) is not None:
+            state = [[c["type"], c["status"], c.get("reason", "")]
+                     for c in ev.object.get("status", {}).get("conditions", [])]
+            seq = self.seq.setdefault(ev.object["metadata"]["name"], [])
+            if not seq or seq[-1] != state:
+                seq.append(state)
+        if self.name is not None:
+            return list(self.seq.get(self.name, []))
+        return {k: list(v) for k, v in sorted(self.seq.items())}
+
+
+def terminal(api, kind: str, name: str):
+    """The terminal condition of ``kind``/``name`` (Succeeded or Failed), or
+    None while it runs."""
+    from kubeflow_tpu_torch.core.conditions import has_condition
+
+    st = (api.try_get(kind, name) or {}).get("status", {})
+    return next((c for c in ("Succeeded", "Failed") if has_condition(st, c)), None)
+
+
+def pod_checks(env: dict, card: str) -> dict:
+    """What every phase-22 pod must see: its card as CUDA_VISIBLE_DEVICES,
+    no TORCH_DEVICE."""
+    return {"card": env.get("CUDA_VISIBLE_DEVICES") == card, "no_torch_device":
+            "TORCH_DEVICE" not in env}
+
+
+def gang_job(cluster, conds: list, card: str) -> dict:
+    """(a)'s gates: Succeeded through the operator's one gang restart,
+    both members resumed from the same K > 0 with the same step lines, each
+    member's env, backend and flash launches."""
+    from kubeflow_tpu_torch.core.events import events_for
+
+    jobobj = cluster.api.get("TPUJob", "bert-gang")
+    reasons = [e["reason"] for e in events_for(cluster.api, jobobj)]
+    members = [job_runs(cluster.logs(f"bert-gang-worker-{r}")) for r in range(GANG_WORLD)]
+    out = {"conditions": conds, "restart_count": jobobj["status"].get("restartCount"),
+           "runs_per_member": [len(m) for m in members],
+           "exit_events": [e["message"] for e in events_for(cluster.api, jobobj)
+                           if e["reason"] == "SliceRestarting"]}
+    gates = {"conditions": conds == GANG_CONDITIONS,
+             "one_gang_restart": out["restart_count"] == 1 and "SliceRestarting" in reasons,
+             "two_runs_each": all(len(m) == 2 for m in members)}
+    if gates["two_runs_each"]:
+        first = [m[0] for m in members]
+        second = [m[1] for m in members]
+        ks = [resumed_from(r["lines"]) for r in second]
+        steps = [step_lines(r["lines"]) for r in second]
+        n = GANG_WORKER_ENV["TRAIN_STEPS"]
+        per_step = bert.BertConfig().num_layers  # a launch per layer and local position
+        flash = [r["flash"] for m in members for r in m]
+        out.update(resumed_from=ks, launches=sum(f["launches"] for f in flash if f),
+                   flash_reports=flash, second_run_steps=[len(s) for s in steps],
+                   preempted_exit=f"Worker[{GANG_WORKER_ENV['FAIL_RANK']}] exit 137"
+                   in " ".join(out["exit_events"]))
+        envs = [r["env"] for m in members for r in m]
+        # where (a)'s time went: each member's runs, and the operator's
+        # restart from the preempted member's exit to the gang's new start
+        out["run_s"] = [run_walls(m) for m in members]
+        preempted = members[GANG_WORKER_ENV["FAIL_RANK"]][0]
+        if preempted["end"] is not None:
+            out["restart_s"] = round(min(r["start"] for r in second) - preempted["end"], 3)
+        gates.update({
+            "first_fresh": all(resumed_from(r["lines"]) == 0 for r in first),
+            "preempted": out["preempted_exit"],
+            "resumed_same_k": ks[0] is not None and ks[0] > 0 and ks[0] == ks[1],
+            "no_step_1": not any(x.startswith("step=1 ") for s in steps for x in s),
+            "done": all(f"TRAIN-DONE step={n}" in r["lines"] for r in second),
+            "same_steps": steps[0] == steps[1] and len(steps[0]) > 0,
+            "env": all(all(pod_checks(e, card).values())
+                       and e.get("JAX_NUM_PROCESSES") == str(GANG_WORLD)
+                       and e.get("JAX_PROCESS_ID") == str(i // 2)
+                       and e.get("CHECKPOINT_EVERY") == str(GANG_CHECKPOINT_EVERY)
+                       and e.get("CHECKPOINT_DIR") for i, e in enumerate(envs)),
+            "backend_gloo": all(any(x.startswith("kubeflow_tpu_torch.distributed:")
+                                    and "backend gloo" in x for x in r["lines"])
+                                for m in members for r in m),
+            "no_plain_flash": all(f["plain"] == 0 for f in flash if f),
+            "launches_per_step": all(
+                r["flash"] is not None
+                and r["flash"]["launches"] == per_step * len(step_lines(r["lines"]))
+                for r in second)})
+    out["gates"] = gates
+    out["ok"] = all(gates.values())
+    return out
+
+
+def resume_job(cluster, card: str) -> dict:
+    """(b)'s gates: killed at step 3 (137), recreated by the operator,
+    resumed from the step-2 checkpoint, done at step 4."""
+    from kubeflow_tpu_torch.core.events import events_for
+
+    jobobj = cluster.api.get("TPUJob", "bert-resume")
+    runs = job_runs(cluster.logs("bert-resume-worker-0"))
+    # a TPUJob restarts its whole gang, here of one
+    msgs = [e["message"] for e in events_for(cluster.api, jobobj)
+            if e["reason"] == "SliceRestarting"]
+    out = {"restart_count": jobobj["status"].get("restartCount"), "runs": len(runs),
+           "restart_events": msgs, "stdout": [r["lines"][-4:] for r in runs],
+           "run_s": run_walls(runs)}
+    out["gates"] = {
+        "succeeded": terminal(cluster.api, "TPUJob", "bert-resume") == "Succeeded",
+        "recreated": out["restart_count"] == 1 and any("exit 137" in m for m in msgs),
+        "two_runs": len(runs) == 2,
+        "first": len(runs) == 2 and resumed_from(runs[0]["lines"]) == 0
+        and not any(x.startswith("TRAIN-DONE") for x in runs[0]["lines"]),
+        "resumed_from_2": len(runs) == 2 and "resumed_from=2" in runs[1]["lines"]
+        and "TRAIN-DONE step=4" in runs[1]["lines"],
+        "env": all(all(pod_checks(r["env"], card).values()) for r in runs)}
+    out["ok"] = all(out["gates"].values())
+    return out
+
+
+def mnist_job(cluster, card: str) -> dict:
+    """(c)'s gates: ``MNIST-OK``, accuracy above the JAX CNN's 0.8 bar
+    (tests/test_model_families.py:41), the TFJob's TF_CONFIG."""
+    runs = job_runs(cluster.logs("mnist-worker-0"))
+    lines = runs[-1]["lines"] if runs else []
+    env = runs[-1]["env"] if runs else {}
+    acc = float(line_value(lines, "accuracy") or "nan")
+    tf = json.loads(env.get("TF_CONFIG", "{}"))
+    out = {"accuracy": acc, "loss": float(line_value(lines, "loss") or "nan"),
+           "samples_per_s": float(line_value(lines, "samples_per_sec") or "nan"),
+           "tf_config": tf, "run_s": run_walls(runs)}
+    out["gates"] = {"succeeded": terminal(cluster.api, "TFJob", "mnist") == "Succeeded",
+                    "mnist_ok": "MNIST-OK" in lines and acc > 0.8,
+                    "tf_config": tf.get("task") == {"type": "worker", "index": 0}
+                    and len(tf.get("cluster", {}).get("worker", [])) == 1,
+                    "env": all(pod_checks(env, card).values())}
+    out["ok"] = len(runs) == 1 and all(out["gates"].values())
+    return out
+
+
+def resnet_job(cluster, card: str) -> dict:
+    """(d)'s gates: both ranks ``world size=2 global devices=4``,
+    ``RESNET-DDP-OK`` and a finite loss, over MASTER_ADDR/RANK."""
+    runs = [job_runs(cluster.logs(f"resnet-ddp-{rt}-0")) for rt in ("master", "worker")]
+    last = [r[-1] if r else {"env": {}, "lines": []} for r in runs]
+    losses = [float(line_value(r["lines"], "loss") or "nan") for r in last]
+    out = {"losses": losses, "global_batch": RESNET_B,
+           "samples_per_s": [float(line_value(r["lines"], "samples_per_sec") or "nan")
+                             for r in last],
+           "ranks": [r["env"].get("RANK") for r in last],
+           "run_s": [run_walls(r) for r in runs]}
+    out["gates"] = {
+        "succeeded": terminal(cluster.api, "PyTorchJob", "resnet-ddp") == "Succeeded",
+        "ok_lines": all("world size=2 global devices=4" in r["lines"]
+                        and "RESNET-DDP-OK" in r["lines"] for r in last),
+        "finite": all(math.isfinite(x) for x in losses),
+        "rendezvous": out["ranks"] == ["0", "1"]
+        and all(r["env"].get("WORLD_SIZE") == "2" and r["env"].get("MASTER_ADDR")
+                for r in last),
+        "env": all(all(pod_checks(r["env"], card).values()) for r in last),
+        "backend_gloo": all(any("backend gloo" in x for x in r["lines"]) for r in last)}
+    out["ok"] = all(len(r) == 1 for r in runs) and all(out["gates"].values())
+    return out
+
+
+def darts_job(cluster, card: str) -> dict:
+    """(e)'s gates: the trial's observation holds val_acc, the
+    genotype is all ``relu_linear``, the Experiment Succeeded."""
+    exp = cluster.api.get("Experiment", "darts")
+    opt = exp["status"].get("currentOptimalTrial") or {}
+    metrics = {m["name"]: m["latest"] for m in opt.get("observation", {}).get("metrics", [])}
+    runs = job_runs(cluster.logs(f"{opt.get('bestTrialName')}-worker-0")) if opt else []
+    lines = runs[-1]["lines"] if runs else []
+    geno = json.loads(line_value(lines, "genotype") or "null")
+    out = {"val_acc": metrics.get("val_acc"), "genotype": geno, "trial": opt.get("bestTrialName"),
+           "assignments": opt.get("parameterAssignments"), "run_s": run_walls(runs)}
+    out["gates"] = {"succeeded": terminal(cluster.api, "Experiment", "darts") == "Succeeded",
+                    "val_acc": "val_acc" in metrics,
+                    "genotype": geno == ["relu_linear"] * DARTS_SETTINGS["num_layers"]
+                    and "DARTS-OK" in lines,
+                    "env": bool(runs) and all(pod_checks(runs[-1]["env"], card).values())}
+    out["ok"] = all(out["gates"].values())
+    return out
+
+
+def mnist_lr_job(cluster, card: str) -> dict:
+    """(f)'s gates: three trials succeeded, the optimal strictly the best
+    observed, the rates the JAX suggester's."""
+    from kubeflow_tpu_torch.katib import api as kapi
+
+    exp = cluster.api.get("Experiment", "mnist-lr")
+    trials = sorted(cluster.api.list("Trial", label_selector={kapi.LABEL_EXPERIMENT: "mnist-lr"}),
+                    key=lambda t: t["metadata"]["name"])
+    rates = [a["value"] for t in trials for a in t["spec"]["parameterAssignments"]]
+    acc = {t["metadata"]["name"]: float(m["latest"]) for t in trials
+           for m in t.get("status", {}).get("observation", {}).get("metrics", [])
+           if m["name"] == "accuracy"}
+    opt = exp["status"].get("currentOptimalTrial") or {}
+    runs = [r for t in trials for r in job_runs(cluster.logs(f"{t['metadata']['name']}-worker-0"))]
+    envs = [r["env"] for r in runs]
+    out = {"rates": rates, "accuracy": acc, "optimal": opt.get("bestTrialName"),
+           "trials_succeeded": exp["status"].get("trialsSucceeded"), "run_s": run_walls(runs)}
+    out["gates"] = {
+        "succeeded": terminal(cluster.api, "Experiment", "mnist-lr") == "Succeeded",
+        "trials": out["trials_succeeded"] == MNIST_LR_TRIALS,
+        # strictly: every other trial's accuracy below the optimal's
+        "optimal_is_best": out["optimal"] in acc and all(
+            a < acc[out["optimal"]] for t, a in acc.items() if t != out["optimal"]),
+        "rates": rates == MNIST_LR_RATES,
+        "env": len(envs) == MNIST_LR_TRIALS and all(all(pod_checks(e, card).values())
+                                                    for e in envs)}
+    out["ok"] = all(out["gates"].values())
+    return out
+
+
+def refused_job(cluster) -> dict:
+    """(g): a TPUJob asking for a TPU slice stays Pending with the
+    scheduler's event naming google.com/tpu, and never runs."""
+    from kubeflow_tpu_torch.core.events import events_for
+    from kubeflow_tpu_torch.training.api import ReplicaSpec, job
+
+    spec = job("TPUJob", "tpu-refused", {"Worker": ReplicaSpec(
+        command=job_command("bert_worker"))})
+    spec["spec"]["tpu"] = dict(REFUSED_TPU)
+    cluster.apply(spec)
+    t0 = time.monotonic()
+    cluster.wait_for(lambda: time.monotonic() - t0 > REFUSED_WATCH_S, timeout=REFUSED_WATCH_S + 5)
+    pods = cluster.api.list("Pod", label_selector={"training.kubeflow.org/job-name": "tpu-refused"})
+    msgs = sorted({e["message"] for p in pods for e in events_for(cluster.api, p)
+                   if e["reason"] == "FailedScheduling"})
+    st = cluster.api.get("TPUJob", "tpu-refused").get("status", {})
+    out = {"pods": [(p["metadata"]["name"], p.get("status", {}).get("phase", "Pending"),
+                     p["spec"].get("nodeName")) for p in pods],
+           "events": msgs, "conditions": [c["type"] for c in st.get("conditions", [])
+                                          if c["status"] == "True"]}
+    out["ok"] = (len(pods) == 1 and all(ph == "Pending" and not node for _, ph, node in out["pods"])
+                 and any("google.com/tpu" in m for m in msgs)
+                 and out["conditions"] == ["Created"])
+    return out
+
+
+def jobs_phase() -> dict:
+    """Phase 22: the port's training operator and Katib on a GPU node of the
+    port's own cluster, their pods on this card (see the module
+    docstring)."""
+    from kubeflow_tpu_torch.core.cluster import Cluster
+    from kubeflow_tpu_torch.katib.controllers import install as katib_install
+    from kubeflow_tpu_torch.training.frameworks import install as training_install
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    card = first_card()
+    out: dict = {"free_before_bytes": free0, "cards": JOBS_CARDS}
+    saved_device = os.environ.pop("TORCH_DEVICE", None)  # the pods' default: the card
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cluster = Cluster(workdir=os.path.join(tmp, "cluster"), cpu_nodes=1,
+                          gpu_nodes=(("h100", "h100", JOBS_CARDS),),
+                          base_env={"PYTHONPATH": REPO,
+                                    "CUDA_VISIBLE_DEVICES": ",".join([card] * JOBS_CARDS)})
+        training_install(cluster.api, cluster.manager)
+        katib_install(cluster.api, cluster.manager, cluster.logs)
+        try:
+            conds = ConditionLog(cluster.api, "TPUJob", "bert-gang")
+            times: dict = {}
+            waves = jobs_manifests(tmp)
+            t0 = time.perf_counter()
+            for wave in waves:
+                applied = time.perf_counter()
+                for kind, name, obj in wave:
+                    cluster.apply(obj)
+                pending = {(kind, name) for kind, name, _ in wave}
+
+                def wave_done() -> bool:
+                    conds.read()
+                    for kind, name in list(pending):
+                        if terminal(cluster.api, kind, name):
+                            times[name] = time.perf_counter() - applied
+                            pending.discard((kind, name))
+                    return not pending
+
+                cluster.wait_for(wave_done, timeout=JOBS_TIMEOUT_S)
+            out["apply_to_end_s"] = times
+            out["jobs_s"] = time.perf_counter() - t0
+            out["terminal"] = {name: terminal(cluster.api, kind, name)
+                               for wave in waves for kind, name, _ in wave}
+            results = {}
+            for key, fn in (("bert_gang", lambda: gang_job(cluster, conds.read(), card)),
+                            ("bert_resume", lambda: resume_job(cluster, card)),
+                            ("mnist", lambda: mnist_job(cluster, card)),
+                            ("resnet_ddp", lambda: resnet_job(cluster, card)),
+                            ("darts", lambda: darts_job(cluster, card)),
+                            ("mnist_lr", lambda: mnist_lr_job(cluster, card)),
+                            ("tpu_refused", lambda: refused_job(cluster))):
+                try:
+                    results[key] = fn()
+                except Exception:  # noqa: BLE001 — a failed gate, reported with its job's
+                    results[key] = {"ok": False, "error": traceback.format_exc(limit=3)}
+            out.update(results)
+            if not all(r["ok"] for r in results.values()):
+                out["logs_tail"] = {p["metadata"]["name"]:
+                                    cluster.logs(p["metadata"]["name"])[-1500:]
+                                    for p in cluster.api.list("Pod")}
+            # delete every job and experiment: no pod is left, the card's
+            # memory is back
+            td = time.perf_counter()
+            for kind in ("Experiment", "TPUJob", "TFJob", "PyTorchJob"):
+                for obj in cluster.api.list(kind):
+                    cluster.api.delete(kind, obj["metadata"]["name"])
+            gone = cluster.wait_for(
+                lambda: (not cluster.api.list("Pod")
+                         and not any(k._runs for k in cluster.kubelets.values())), timeout=60)
+            returned = wait_for(lambda: torch.cuda.mem_get_info()[0] >= free0 - PLATFORM_MEM_SLACK,
+                                timeout=60, step=0.1)
+            out["free_after_bytes"] = torch.cuda.mem_get_info()[0]
+            out["deleted_s"] = time.perf_counter() - td
+            out["tpu_refused"]["no_pod_left"] = gone
+            out["tpu_refused"]["memory_returned"] = returned
+            out["tpu_refused"]["ok"] = out["tpu_refused"]["ok"] and gone and returned
+        finally:
+            cluster.shutdown()
+            if saved_device is not None:
+                os.environ["TORCH_DEVICE"] = saved_device
+    gang = out.get("bert_gang") or {}
+    out["launches"] = gang.get("launches", 0)
+    keys = ("bert_gang", "bert_resume", "mnist", "resnet_ddp", "darts", "mnist_lr", "tpu_refused")
+    out["gates"] = {k: (out.get(k) or {}).get("ok", False) for k in keys}
+    out["ok"] = all(out["gates"].values())
+    ends = {k: round(v, 1) for k, v in out.get("apply_to_end_s", {}).items()}
+    log(f"22 jobs: apply to end {json.dumps(ends)} s; gang runs {gang.get('run_s')} s, "
+        f"restart {gang.get('restart_s')} s, resumed_from {gang.get('resumed_from')}, "
+        f"flash launches in the pods "
+        f"{out['launches']}; mnist accuracy {(out.get('mnist') or {}).get('accuracy')}; resnet "
+        f"samples/s {(out.get('resnet_ddp') or {}).get('samples_per_s')}; darts genotype "
+        f"{(out.get('darts') or {}).get('genotype')}; lr rates "
+        f"{(out.get('mnist_lr') or {}).get('rates')}; gates {out['gates']}")
     return out
 
 
@@ -6304,22 +6758,25 @@ def main() -> int:
                  flash_case("causal_left_pad", bf16, FS, True, "left", rng, dev, flush),
                  flash_case("f32_causal_left_pad", torch.float32, 128, True, "left", rng,
                             dev, flush)]
+        # phase 22's BERT worker (kubeflow_tpu_torch/examples/bert_worker.py):
+        # S = 32 (block 32), its all-ones padding mask; its batch of 8 as one
+        # process runs it, and the 4 rows each member of (a)'s gang keeps
+        cases += [flash_case(f"bert_worker_b{b}", bf16, JOB_WORKER_S, False, "ones", rng, dev,
+                             flush, b=b) for b in JOB_WORKER_BATCHES]
         return {"ok": all(c["ok"] for c in cases), "cases": cases}
 
     fres = phase("flash_kernel", flash_kernel)
     tres = phase("train", lambda: train(dev))
-    phase("worker", lambda: worker(dev))
-    phase("mnist", mnist_phase)
-    phase("darts", darts_phase)
-    rsres = phase("resnet", lambda: resnet_phase(dev))
+    phase("resnet", lambda: resnet_phase(dev))
     phase("decoder", lambda: decoder_phase(dev))
     rres = phase("bert_remat", lambda: bert_remat(dev))
     pres = phase("pipeline", lambda: pipeline_phase(dev))
     mres = phase("mesh", lambda: mesh_phase(dev))
     gres = phase("gpipe", lambda: gpipe_phase(dev))
     phase("mesh_models", lambda: mesh_models_phase(dev))
-    zres = phase("gang", lambda: gang_phase(dev, rsres))
+    zres = phase("gang", lambda: gang_phase(dev))
     ppres = phase("gang_pp", lambda: gang_pp_phase(gres, zres))
+    jres = phase("jobs", jobs_phase)
 
     cases = kres.get("cases") or []
     head = next((c for c in cases if c["pool"] == "bf16" and c["K"] == 1), {})
@@ -6373,10 +6830,11 @@ def main() -> int:
                # pp run: one launch per microbatch, layer and fsdp shard;
                # its unsharded twin), phase 20's (the one-process tp@4
                # run and both gang members) and phase 21's (both members of
-               # the pp gang); each counts from zero
+               # the pp gang) and phase 22's (the operator's BERT gang, each
+               # pod counted in its own process); each counts from zero
                "launches": tres.get("launches", 0) + rres.get("launches", 0)
                + mres.get("launches", 0) + gres.get("launches", 0) + zres.get("launches", 0)
-               + ppres.get("launches", 0),
+               + ppres.get("launches", 0) + jres.get("launches", 0),
                "max_abs_err": max((c["max_abs_err"] for c in
                                    fcases + (mres.get("flash_cases") or [])), default=None),
                "ms": fhead.get("kernel_ms"), "kernel_ms": fhead.get("kernel_ms"),
@@ -6400,12 +6858,25 @@ def main() -> int:
                # (each counted in its own process), 24 a step in each member
                "gang_launches": zres.get("launches", 0),
                # phase 21's: both members of the pp gang, 48 a step in each
-               "gang_pp_launches": ppres.get("launches", 0)}
+               "gang_pp_launches": ppres.get("launches", 0),
+               # phase 22's: the pods of the TPUJob the port's operator runs,
+               # 12 a step in each member (both runs of both members), under
+               # the pod wrapper's flash config (the worker's own is dense)
+               "operator_launches": jres.get("launches", 0),
+               # the flash_kernel phase's calls at that worker's shape (S 32)
+               "operator_shapes": [{k: c.get(k) for k in (
+                   "case", "B", "H", "D", "S", "causal", "max_abs_err", "kernel_ms",
+                   "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                   for c in fcases if c["case"].startswith("bert_worker")]}
     report["kernels"] = [record, frecord]
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1, default=str)
+    # every phase's seconds on one line: where the script's time goes
+    print(json.dumps({"phase_seconds": {name: round(res["seconds"], 1)
+                                        for name, res in report["phases"].items()}}),
+          flush=True)
     print(json.dumps({"kernels": report["kernels"]}), flush=True)
     print(smi, flush=True)
     if failed:

@@ -84,7 +84,15 @@ def test_every_port_module_imports_with_jax_blocked():
                  "serving.config", "serving.runtimes", "serving.controllers",
                  "serving.graph", "serving.ingress_core", "serving.overload",
                  "serving.router", "serving.autoscaler", "examples.serve_llm",
-                 "examples.explain_isvc"):
+                 "examples.explain_isvc", "training", "training.api", "training.common",
+                 "training.frameworks", "training.client", "tools", "tools.mpi", "katib",
+                 "katib.api", "katib.client", "katib.controllers", "katib.collector_main",
+                 "katib.dbmanager", "katib.metrics", "katib.obslog", "katib.service",
+                 "katib.suggest", "katib.suggest.space", "katib.suggest.grid",
+                 "katib.suggest.random_search", "katib.suggest.sobol",
+                 "katib.suggest.bayesian", "katib.suggest.tpe", "katib.suggest.cmaes",
+                 "katib.suggest.hyperband", "katib.suggest.pbt", "katib.suggest.enas",
+                 "katib.suggest.darts"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = _BLOCKER.format(blocked=BLOCKED) + f"""
 import importlib
