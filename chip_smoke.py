@@ -9,7 +9,9 @@ or the script exits non-zero:
 
 1. device: the card's name and its ``nvidia-smi`` name and power limit;
 2. build: the Hopper paged-attention kernel (nvcc, sm_90a) and the C++
-   batcher core, from the sources in this checkout, timed;
+   batcher core, from the sources in this checkout, timed, with the host
+   C++ cores phases 15 and 22 load (the Pipelines metadata store and the
+   Katib observation log), each compiler started at once;
 3. kernel: ``paged_attention`` on the card against its plain PyTorch
    version at the Llama-3-8B decode shapes (B=8, Hq=32, Hkv=8, hd=128,
    page 32, 64 pages per slot), bf16 and int8 pools, K = 1 and 5, ragged
@@ -212,7 +214,19 @@ or the script exits non-zero:
    scheduler's event; deleting the first terminates its pod with no
    traceback in its log, and ``torch.cuda.mem_get_info()`` shows its memory
    returned (within 1 GiB of the free memory before the phase); apply to
-   Ready split into schedule, storage init and pod start to ready, and the
+   Ready split into schedule, storage init and pod start to ready.  Beside
+   it, once it is Ready: ``llama3-8b-tp2``, Llama-3-8B's width cut to
+   ``PLATFORM_TP_LAYERS`` (4) layers (``reduced`` says why), at
+   ``tensor_parallel`` ``PLATFORM_TP`` (2), through a namespace
+   ``ServingRuntime`` that asks for two cards, on a second GPU node whose
+   two cards both map onto this card (``CUDA_VISIBLE_DEVICES="c,c"``, where
+   torch alone finds no card: ``repeated_cards`` records it): Ready on that
+   node, its pod holding ``"c,c"``; its V2 generate through its ingress
+   answers 32 tokens, each within the oracle bound of ``forward_full`` on
+   the weights its pod drew, its MFU label ``...x2``, and its pod's trace of
+   the profiled request holds ``PLATFORM_TP`` x layers x ticks records of
+   each of the split and merge kernels; both pods gone after the delete,
+   no traceback.  The
    ingress's TTFT beside the pod's direct TTFT;
 7. flash kernel: ``flash_attention``'s forward kernel on the card against
    ``flash_attention_plain`` at the BERT-base shapes (B=32, H=12, S=T=512,
@@ -257,32 +271,48 @@ or the script exits non-zero:
    relative), peak memory (``nothing`` below no remat), step ms, flash
    launches per step and a profiled step of each (up to 3 windows, until
    one keeps every device record), no plain flash call.
-15. pipeline: BASELINE config 4 on the port's pipeline SDK. (a) The port's
-   ``examples.gemma_pipeline`` compiled by the port's compiler at Gemma-7B
-   width (vocab 256128, d_model 3072, 16/16 heads, d_ff 24576; the six-field
-   ``DecoderConfig`` gives head_dim 192), cut to ``PIPELINE_LAYERS`` (4)
-   layers (``reduced`` says why), 10 steps at 4 x 512, ``max_perplexity``
-   1e7; (b) its DAG walked in dependency order, each step a ``python -m
-   kubeflow_tpu_torch.pipelines.launcher_main`` subprocess on the card with
-   a ``task.json`` as the reference controller writes it, artifacts through
-   the port's ``ObjectStore``, ``deploy``'s condition from the IR; (c)
-   gates: finetune's final loss finite and below its first, a finite
-   perplexity below 1e7, an ``mstore://`` URI from ``deploy``, the stored
-   ``params.npz`` all f32 with the config's parameter count and the six
-   fields in ``config.json``; each step's wall time, staged bytes, savez,
-   put, get and load seconds, finetune's step ms and tokens/s; (d) the
-   deployed URI fetched and served by the port's
-   ``JetStreamModel`` (``params.npz`` + ``config.json``, byte tokenizer):
-   phase 5's four prompts x 32 tokens, each token within the oracle bound
-   of ``forward_full`` on the loaded params, one paged launch per layer
-   and decode step, none plain, and a profiler window over a request
-   holding the CUDA-core split and merge kernels and no tensor-core one;
-   TTFT and tokens/s; then side by side, none timed against another: (e)
-   the pipeline's tiny defaults with ``max_perplexity=1.0``: ``deploy``
-   Skipped; (f) ``examples.distributed_check`` on the card at world 1
-   (``PSUM got=1.0 expected=1.0``, ``TRAIN-OK``); (g)
-   ``parallel.profiling.maybe_trace`` over a small card workload: a trace
-   holding 3 step annotations and their device kernels.
+15. pipeline: BASELINE config 4 on the port's Pipelines service.  (a) A
+   ``Cluster`` of one CPU node and one GPU node of ``PIPELINE_CARDS`` (3)
+   cards, all mapped onto this card; KfAdm applies a KfDef of all five
+   planes (platform, training, Katib, serving, Pipelines), every one Ready;
+   (b) the port's ``examples.gemma_pipeline`` compiled by the port's
+   compiler at Gemma-7B width (vocab 256128, d_model 3072, 16/16 heads,
+   d_ff 24576; the six-field ``DecoderConfig`` gives head_dim 192), cut to
+   ``PIPELINE_LAYERS`` (4) layers (``reduced`` says why), 10 steps at 4 x
+   512, ``max_perplexity`` 1e7, submitted as run ``gemma`` through the
+   port's Pipelines ``Client``: a copy of the IR whose finetune and
+   evaluate tasks ask for one ``nvidia.com/gpu`` each (``card_ir``; the
+   compiled IR stays the JAX compiler's); the port's workflow controller
+   runs each step as a pod (``kubeflow_tpu_torch.pipelines.launcher_main``)
+   and records it in the metadata store; (c) gates: the run Succeeded with
+   its three metadata executions COMPLETE, the card steps on the GPU node
+   with one card each and on ``cuda:0``, finetune's final loss finite and
+   below its first, a finite perplexity below 1e7, an ``mstore://`` URI from
+   ``deploy``, the stored ``params.npz`` all f32 with the config's
+   parameter count and the six fields in ``config.json``; each step's wall
+   time (its pod's start to its end), staged bytes, savez, put, get and
+   load seconds, finetune's step ms and tokens/s; (d) once finetune is done,
+   side by side with evaluate and deploy, none timed against another: the
+   pipeline's tiny defaults with ``max_perplexity=1.0`` as a second run
+   ``gemma-skip`` (``deploy`` Skipped, two executions);
+   ``examples.distributed_check`` on the card at world 1 (``PSUM got=1.0
+   expected=1.0``, ``TRAIN-OK``); ``parallel.profiling.maybe_trace`` over a
+   small card workload (a trace holding 3 step annotations and their device
+   kernels); a spawner notebook with one card: Ready on the GPU node, its
+   pod reading this card's name through torch under ``CUDA_VISIBLE_DEVICES``
+   naming this card, then deleted and gone; (e) a one-step run whose task
+   asks for a TPU slice (``set_tpu``): its pod Pending, never bound, the
+   scheduler's ``FailedScheduling`` naming ``google.com/tpu``; (f) the web
+   UI (``DashboardWebUI`` over the Pipelines service) as the owner of the
+   runs' Profile: the overview, ``/pipelines`` and ``/runs/gemma`` answer
+   200, the run listed and its DAG drawn; (g) the deployed URI fetched and
+   served by the port's ``JetStreamModel`` (``params.npz`` +
+   ``config.json``, byte tokenizer): phase 5's four prompts x 32 tokens,
+   each token within the oracle bound of ``forward_full`` on the loaded
+   params, one paged launch per layer and decode step, none plain, and a
+   profiler window over a request holding the CUDA-core split and merge
+   kernels and no tensor-core one; TTFT and tokens/s; (h) at the end the
+   card's free memory within 1 GiB of the phase's start.
 16. tp: tensor-parallel serving at Llama-3-8B width and depth over
    ``TP_SHARDS`` (2) shards on this one card (``device=["cuda:0"] * 2``),
    after phase 6 on phase 5's weights: (a) phase 5's four prompts over
@@ -430,6 +460,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import gc
 import glob
@@ -3813,6 +3844,21 @@ PLATFORM_MEM_SLACK = 1 << 30  # the pod's memory returned within 1 GiB
 # request and the read on an H100)
 PLATFORM_PROFILE_TICKS = 2
 PLATFORM_MARKERS = ("paged_split_tc", "paged_merge")
+# the tensor-parallel case: a namespace ServingRuntime that asks for
+# PLATFORM_TP cards, on a second GPU node whose cards both map onto this one
+PLATFORM_TP = 2
+PLATFORM_TP_RUNTIME = "kserve-jetstream-tp2"
+# its model: Llama-3-8B's width at 4 of 32 layers, so its pod is Ready
+# under the first one's requests and its profiled request, beside the
+# first one's, exports a short trace (the first model serves the full depth)
+PLATFORM_TP_LAYERS = 4
+PLATFORM_TP_REDUCED = ("time: the case must add no net time to the script; at 32 layers its "
+                       "profiled request beside the first one's took 12.3 s to its first "
+                       "token and the phase grew by 25 s on an H100 host")
+# what torch sees in a process whose CUDA_VISIBLE_DEVICES names this card
+# twice (the kubelet's map of two node cards onto it)
+REPEATED_CARDS_PY = ("import json, torch; print(json.dumps({'device_count': "
+                     "torch.cuda.device_count(), 'is_available': torch.cuda.is_available()}))")
 
 
 def pod_process(cluster, pod_name: str):
@@ -3842,10 +3888,42 @@ def first_card() -> str:
     return seen[0] if seen else ""
 
 
+def tp_runtime(cards: int) -> dict:
+    """The catalog's ``kserve-jetstream`` as a namespace ``ServingRuntime``
+    that asks for ``cards`` cards."""
+    from kubeflow_tpu_torch.serving.runtimes import default_runtimes
+
+    rt = copy.deepcopy(next(r for r in default_runtimes()
+                            if r["metadata"]["name"] == "kserve-jetstream"))
+    rt["kind"] = "ServingRuntime"
+    rt["metadata"] = {"name": PLATFORM_TP_RUNTIME, "namespace": "default"}
+    # named by the model's ``runtime`` only: a namespace runtime would win
+    # the auto-selection of every llama model over the catalog's
+    for fmt in rt["spec"]["supportedModelFormats"]:
+        fmt["autoSelect"] = False
+    rt["spec"]["containers"][0]["resources"] = {"requests": {"nvidia.com/gpu": cards}}
+    return rt
+
+
+def repeated_cards() -> dict:
+    """torch in a process under ``CUDA_VISIBLE_DEVICES`` naming this card
+    twice, before anything collapses the list."""
+    card = first_card()
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": f"{card},{card}"}
+    r = subprocess.run([sys.executable, "-c", REPEATED_CARDS_PY], env=env, cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    lines = r.stdout.strip().splitlines()
+    return {"CUDA_VISIBLE_DEVICES": env["CUDA_VISIBLE_DEVICES"], "exit_code": r.returncode,
+            **(json.loads(lines[-1]) if lines else {}),
+            "warning": next((x.strip() for x in r.stderr.splitlines() if "Error 101" in x
+                             or "cudaGetDeviceCount" in x), None)}
+
+
 def platform(cfg) -> dict:
     """Phases 6b-6c: an InferenceService reconciled, scheduled and routed by the
-    port's own control plane, served by the port's runtime on the card (see
-    the module docstring)."""
+    port's own control plane, served by the port's runtime on the card, and
+    one at ``tensor_parallel`` 2 on two node cards (see the module
+    docstring)."""
     from kubeflow_tpu_torch.core.cluster import Cluster
     from kubeflow_tpu_torch.core.events import events_for
     from kubeflow_tpu_torch.serving import install
@@ -3871,11 +3949,43 @@ def platform(cfg) -> dict:
                                      "adapter_weights": []},
                        "kv_store": {"host_max_bytes": 1 << 30,
                                     "disk_dir": os.path.join(tmp, "kv")}}, f)
+        tp_dir = os.path.join(tmp, "model-tp")
+        os.makedirs(tp_dir)
+        tp_cfg = dataclasses.replace(cfg, n_layers=PLATFORM_TP_LAYERS)
+        with open(os.path.join(tp_dir, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(tp_cfg), f)
+        with open(os.path.join(tp_dir, "engine.json"), "w") as f:
+            json.dump({"tensor_parallel": PLATFORM_TP}, f)
+        # g0 holds this card; g1's two cards both map onto it ("c,c")
+        card = first_card()
         cluster = Cluster(workdir=os.path.join(tmp, "cluster"), cpu_nodes=1,
-                          gpu_nodes=(("g0", "h100", torch.cuda.device_count()),),
-                          base_env={"PYTHONPATH": REPO})
+                          gpu_nodes=(("g0", "h100", 1), ("g1", "h100", PLATFORM_TP)),
+                          base_env={"PYTHONPATH": REPO,
+                                    "CUDA_VISIBLE_DEVICES": ",".join([card] * PLATFORM_TP)})
         router, proxy = install(cluster.api, cluster.manager)
-        pod_name, checks, steps = None, {"ready": False}, {}
+        cluster.api.create(tp_runtime(PLATFORM_TP))
+        tp_name = PLATFORM_ISVC + "-tp2"
+        side = ThreadPoolExecutor(2)
+        repeated = side.submit(repeated_cards)
+        stop_pump = threading.Event()
+        tp_marks: dict = {}  # seconds from its apply: bound, main started, Ready
+
+        def tp_up() -> bool:
+            # Ready, or its pod refused a place or died (or the phase ends)
+            now = time.perf_counter() - tp_marks["t0"]
+            p = cluster.api.list("Pod", label_selector={LABEL_ISVC: tp_name})
+            if p and p[0]["spec"].get("nodeName"):
+                tp_marks.setdefault("bound_s", now)
+                if pod_process(cluster, p[0]["metadata"]["name"]) is not None:
+                    tp_marks.setdefault("main_started_s", now)
+            if isvc_ready(cluster.api, tp_name):
+                tp_marks.setdefault("ready_s", now)
+            return stop_pump.is_set() or "ready_s" in tp_marks or bool(p) and (
+                "Traceback" in cluster.logs(p[0]["metadata"]["name"])
+                or any(e["reason"] == "FailedScheduling"
+                       for e in events_for(cluster.api, p[0])))
+
+        pod_name, tp_pod_name, checks, steps = None, None, {"ready": False}, {}
         try:
             marks: dict = {}
             t0 = time.perf_counter()
@@ -3897,6 +4007,14 @@ def platform(cfg) -> dict:
 
             cluster.wait_for(ready, timeout=RUNTIME_READY_S)
             steps["ready"] = time.perf_counter() - t0
+            # the TP 2 InferenceService starts beside the first one's
+            # requests: a side thread drives the cluster (its scheduler and
+            # kubelet) until it is Ready, while this one sends them
+            tp_marks["t0"] = time.perf_counter()
+            cluster.apply(inference_service(tp_name, model_format="llama",
+                                            runtime=PLATFORM_TP_RUNTIME,
+                                            storage_uri=f"file://{tp_dir}"))
+            tp_wait = side.submit(cluster.wait_for, tp_up, RUNTIME_READY_S)
             pods = cluster.api.list("Pod", label_selector={LABEL_ISVC: PLATFORM_ISVC})
             pod = pods[0] if pods else {}
             pod_name = pod.get("metadata", {}).get("name")
@@ -3987,22 +4105,85 @@ def platform(cfg) -> dict:
                     "direct_stream_client_first_event_s":
                         out["direct_stream"]["client_first_event_s"]}
                 steps["requests"] = time.perf_counter() - t0
-                # (3) the pod's own profiler: one request through the kernel
-                prof_dir = os.path.join(tmp, "profile")
-                code, armed = post_json(port, "/engine/profile",
-                                        {"ticks": PLATFORM_PROFILE_TICKS, "dir": prof_dir})
-                traced, _ = post(ingress, body)
-                done = wait_for(lambda: not get_json(port, "/engine/perf")[1]["models"][
-                    PLATFORM_ISVC]["profiler"]["active"], timeout=120, step=0.05)
-                traces = sorted(glob.glob(os.path.join(prof_dir, "*.json")))
-                names = paged_records(traces[-1], PLATFORM_MARKERS) if traces else {}
-                out["profile"] = {"status": code, "armed_dir": armed.get("dir"), "done": done,
-                                  "traced_request": traced, "traces": len(traces),
+
+            # the TP 2 InferenceService: Ready on g1's two cards
+            tp_wait.result()
+            tp_pods = cluster.api.list("Pod", label_selector={LABEL_ISVC: tp_name})
+            tp_pod = tp_pods[0] if tp_pods else {}
+            tp_pod_name = tp_pod.get("metadata", {}).get("name")
+            tp_proc = pod_process(cluster, tp_pod_name) if tp_pod_name else None
+            tp_env = process_env(tp_proc.pid) if tp_proc is not None else {}
+            tp_main = (tp_pod.get("spec", {}).get("containers") or [{}])[0]
+            tp_ready = isvc_ready(cluster.api, tp_name)
+            out["tp"] = {"apply_to_ready_s": tp_marks.get("ready_s"),
+                         "schedule_s": tp_marks.get("bound_s"),
+                         "main_started_s": tp_marks.get("main_started_s"),
+                         "n_layers": PLATFORM_TP_LAYERS,
+                         "reduced": {"n_layers": [PLATFORM_TP_LAYERS, cfg.n_layers],
+                                     "why": PLATFORM_TP_REDUCED},
+                         "pod": tp_pod_name, "node": tp_pod.get("spec", {}).get("nodeName"),
+                         "requests": tp_main.get("resources", {}).get("requests"),
+                         "CUDA_VISIBLE_DEVICES": tp_env.get("CUDA_VISIBLE_DEVICES")}
+            checks["tp_ready"] = (tp_ready and out["tp"]["node"] == "g1"
+                                  and out["tp"]["requests"] == {"nvidia.com/gpu": PLATFORM_TP}
+                                  and out["tp"]["CUDA_VISIBLE_DEVICES"]
+                                  == ",".join([card] * PLATFORM_TP))
+            steps["tp_ready"] = time.perf_counter() - t0
+            # (3) each pod's own profiler over one request at once: the
+            # first's through the ingress, the TP 2 one's V2 generate through
+            # its ingress (its answer: 32 tokens, and two records, split and
+            # merge, per shard, layer and profiled tick)
+            ports, reqs = {}, {}
+            if checks["ready"]:
+                ports[PLATFORM_ISVC], reqs[PLATFORM_ISVC] = port, (ingress, PLATFORM_ISVC)
+            if tp_ready:
+                ports[tp_name] = pod_port(tp_pod)
+                reqs[tp_name] = (int(cluster.api.get("InferenceService", tp_name)["status"][
+                    "address"]["url"].rsplit(":", 1)[1]), tp_name)
+            prof_dirs = {n: os.path.join(tmp, f"profile-{n}") for n in ports}
+            armed = {n: post_json(p, "/engine/profile", {"ticks": PLATFORM_PROFILE_TICKS,
+                                                         "dir": prof_dirs[n]})
+                     for n, p in ports.items()}
+            body = {"text_input": PROMPTS[1], "parameters": {"max_tokens": MAX_TOKENS}}
+            with ThreadPoolExecutor(2) as pool:
+                answers = {n: f.result() for n, f in [
+                    (n, pool.submit(post, ing, body, model=model))
+                    for n, (ing, model) in reqs.items()]}
+            done = {n: wait_for(lambda n=n, p=p: not get_json(p, "/engine/perf")[1]["models"][
+                n]["profiler"]["active"], timeout=120, step=0.05) for n, p in ports.items()}
+            records = {}
+            for n in ports:
+                traces = sorted(glob.glob(os.path.join(prof_dirs[n], "*.json")))
+                records[n] = paged_records(traces[-1], PLATFORM_MARKERS) if traces else {}
+            if checks["ready"]:
+                code, armed_body = armed[PLATFORM_ISVC]
+                traced = answers[PLATFORM_ISVC][0]
+                names = records[PLATFORM_ISVC]
+                out["profile"] = {"status": code, "armed_dir": armed_body.get("dir"),
+                                  "done": done[PLATFORM_ISVC], "traced_request": traced,
                                   "records": names}
-                checks["profile"] = (code == 200 and traced == 200 and done
+                checks["profile"] = (code == 200 and traced == 200 and done[PLATFORM_ISVC]
                                      and names.get("paged_split_tc", 0) > 0
                                      and names.get("paged_merge", 0) > 0)
+            checks["tp_generate"] = checks["tp_profile"] = False
+            if tp_ready:
+                tp_code, tp_gen = answers[tp_name]
+                want_records = PLATFORM_TP * PLATFORM_TP_LAYERS * PLATFORM_PROFILE_TICKS
+                tp_platform = get_json(ports[tp_name], "/engine/perf")[1]["models"][tp_name][
+                    "platform"]
+                out["tp"].update({"generate": {"status": tp_code, "tokens": tp_gen.get("tokens"),
+                                               "ttft_s": tp_gen.get("ttft_s")},
+                                  "token_ids": tp_gen.get("token_ids"),
+                                  "platform": tp_platform, "profile_armed": armed[tp_name][0],
+                                  "records": records[tp_name],
+                                  "want_records_each": want_records})
+                checks["tp_generate"] = (tp_code == 200 and tp_gen.get("tokens") == MAX_TOKENS
+                                         and str(tp_platform).endswith(f"x{PLATFORM_TP}"))
+                checks["tp_profile"] = (armed[tp_name][0] == 200 and done[tp_name]
+                                        and records[tp_name]
+                                        == {m: want_records for m in PLATFORM_MARKERS})
             steps["profile"] = time.perf_counter() - t0
+
             # (4) a second card request while the one card is taken
             cluster.apply(inference_service(PLATFORM_ISVC + "-2", model_format="llama",
                                             storage_uri=f"file://{model_dir}"))
@@ -4021,28 +4202,52 @@ def platform(cfg) -> dict:
                                         and any("nvidia.com/gpu" in m for m in msgs))
             cluster.api.delete("InferenceService", PLATFORM_ISVC + "-2")
             steps["second"] = time.perf_counter() - t0
-            # (5) delete the first: its pod terminates, its memory returns
+            # (5) delete both: their pods terminate, their memory returns
             td = time.perf_counter()
             if pod_name:
                 out["pod_traceback"] = "Traceback" in cluster.logs(pod_name)
+            if tp_pod_name:
+                out["tp"]["pod_traceback"] = "Traceback" in cluster.logs(tp_pod_name)
             cluster.api.delete("InferenceService", PLATFORM_ISVC)
+            cluster.api.delete("InferenceService", tp_name)
             gone = cluster.wait_for(
                 lambda: (not cluster.api.list("Pod")
                          and not any(k._runs for k in cluster.kubelets.values())
-                         and (proc is None or proc.poll() is not None)), timeout=60)
+                         and (proc is None or proc.poll() is not None)
+                         and (tp_proc is None or tp_proc.poll() is not None)), timeout=60)
             out["terminated_s"] = time.perf_counter() - td if gone else None
             out["pod_exit_code"] = proc.poll() if proc is not None else None
             returned = wait_for(lambda: torch.cuda.mem_get_info()[0] >= free0 - PLATFORM_MEM_SLACK,
                                 timeout=60, step=0.1)
             out["free_after_bytes"] = torch.cuda.mem_get_info()[0]
             out["memory_returned_s"] = time.perf_counter() - td if returned else None
-            checks["terminated"] = gone and proc is not None and proc.poll() is not None
-            checks["no_traceback"] = out.get("pod_traceback") is False
+            checks["terminated"] = (gone and proc is not None and proc.poll() is not None
+                                    and tp_proc is not None and tp_proc.poll() is not None)
+            checks["no_traceback"] = (out.get("pod_traceback") is False
+                                      and out["tp"].get("pod_traceback") is False)
             checks["memory_returned"] = returned
             steps["deleted"] = time.perf_counter() - t0
+            # the TP 2 answer against forward_full on the weights its pod
+            # drew (model.init's seed 0, as load_params draws them)
+            if out["tp"].get("token_ids"):
+                params = M.init(tp_cfg, torch.device("cuda", 0), seed=0)
+                out["tp"]["oracle_max_logit_lag"] = oracle_lag(
+                    params, tp_cfg, torch.device("cuda", 0), PROMPTS[1], out["tp"]["token_ids"])
+                del params
+                gc.collect()
+                torch.cuda.empty_cache()
+            out["tp"].pop("token_ids", None)
+            checks["tp_oracle"] = (out["tp"].get("oracle_max_logit_lag") is not None
+                                   and out["tp"]["oracle_max_logit_lag"] <= ORACLE_TIE_EPS)
+            out["repeated_cards"] = repeated.result()
+            steps["tp_oracle"] = time.perf_counter() - t0
         finally:
             if pod_name and not all(checks.values()):
                 out["pod_log_tail"] = cluster.logs(pod_name)[-2000:]
+            if tp_pod_name and not all(checks.values()):
+                out["tp_pod_log_tail"] = cluster.logs(tp_pod_name)[-2000:]
+            stop_pump.set()
+            side.shutdown()
             proxy.shutdown()
             cluster.shutdown()
             if saved_device is not None:
@@ -4056,7 +4261,11 @@ def platform(cfg) -> dict:
         f"ready {out.get('pod_start_to_ready_s')}); ingress TTFT "
         f"{(out.get('ingress_generate') or {}).get('ttft_s')} s against the pod's direct "
         f"{(out.get('direct_generate') or {}).get('ttft_s')} s; records "
-        f"{(out.get('profile') or {}).get('records')}; checks {checks}")
+        f"{(out.get('profile') or {}).get('records')}; TP {PLATFORM_TP}: apply->Ready "
+        f"{(out.get('tp') or {}).get('apply_to_ready_s')} s, records "
+        f"{(out.get('tp') or {}).get('records')}, oracle lag "
+        f"{(out.get('tp') or {}).get('oracle_max_logit_lag')}; torch under a repeated card "
+        f"list {out.get('repeated_cards')}; checks {checks}")
     return out
 
 
@@ -4423,122 +4632,70 @@ PIPELINE_REDUCED = ("time: the f32 params.npz (6.3 GB of embeddings + 1.06 GB a 
                     "its budget")
 # the skip branch: the pipeline's own tiny defaults, gated out
 PIPELINE_SKIP_ARGS = {"max_perplexity": 1.0}
-# the IR features the walker runs; anything else (loops, exit handlers,
-# retries, resources) is refused
-WALKED_TASK_KEYS = {"componentRef", "displayName", "dependentTasks", "inputs",
-                    "cachingOptions", "conditions"}
-CONDITION_OPS = {"==": lambda a, b: a == b, "!=": lambda a, b: a != b,
-                 "<": lambda a, b: a < b, "<=": lambda a, b: a <= b,
-                 ">": lambda a, b: a > b, ">=": lambda a, b: a >= b}
-STEP_TIMEOUT_S = 900
+# the gemma pipeline's tasks that run on the card: the run's IR copy asks
+# for one nvidia.com/gpu for each (a step pod without one sees no card)
+CARD_TASKS = ("finetune", "evaluate")
+# the GPU node's cards, every one mapped onto this card: the main run's
+# step, the skip run's step and the notebook hold one each at once
+PIPELINE_CARDS = 3
+PIPELINE_TIMEOUT_S = 900
+# the owner of the Profile over the runs' namespace: the web UI's user
+PIPELINE_USER = "pipelines@x.io"
+NOTEBOOK_LINE = "NOTEBOOK-CARD"
+NOTEBOOK_PY = ("import os, time, torch; print('" + NOTEBOOK_LINE + "', "
+               "os.environ.get('CUDA_VISIBLE_DEVICES'), torch.cuda.get_device_name(0), "
+               "flush=True); time.sleep(600)")
 # the CUDA-core split kernel (any hd: the tensor-core one takes hd 64 and
 # 128 only) and the merge
 SIMT_MARKERS = ("paged_split_simt", "paged_merge")
 TC_MARKER = "paged_split_tc"
 
 
-def walk_order(tasks: dict) -> list:
-    """The tasks in dependency order (ties by name); refuses what the
-    walker does not run."""
-    for name, t in tasks.items():
-        extra = set(t) - WALKED_TASK_KEYS
-        if extra:
-            raise ValueError(f"task {name!r}: IR feature(s) {sorted(extra)} not run here")
-    order, done = [], set()
-    while len(order) < len(tasks):
-        ready = sorted(n for n, t in tasks.items()
-                       if n not in done and set(t["dependentTasks"]) <= done)
-        if not ready:
-            raise ValueError(f"dependency cycle among {sorted(set(tasks) - done)}")
-        order += ready
-        done.update(ready)
-    return order
+def card_ir(ir: dict) -> dict:
+    """A copy of the compiled IR whose ``CARD_TASKS`` ask for one
+    ``nvidia.com/gpu`` each, in the task's ``resources`` that the workflow
+    controller copies into the step pod's limits.  The compiled IR itself
+    stays the JAX compiler's."""
+    ir = copy.deepcopy(ir)
+    for name in CARD_TASKS:
+        task = ir["root"]["dag"]["tasks"][name]
+        task["resources"] = {**task.get("resources", {}), "nvidia.com/gpu": 1}
+    return ir
 
 
-def resolve_ref(ref: dict, args: dict, nodes: dict):
-    """A parameter reference against the run's arguments and finished steps,
-    as the reference workflow controller resolves it."""
-    if "constant" in ref:
-        return ref["constant"]
-    if "componentInputParameter" in ref:
-        return args[ref["componentInputParameter"]]
-    if "taskOutputParameter" in ref:
-        src = ref["taskOutputParameter"]
-        return nodes[src["producerTask"]]["outputParameters"][src["outputParameterKey"]]
-    raise ValueError(f"IR reference not run here: {sorted(ref)}")
+def tpu_probe_ir() -> dict:
+    """A one-step pipeline on the port's SDK whose step asks for a TPU slice
+    (``set_tpu("v5e-4")``)."""
+    from kubeflow_tpu_torch.pipelines import dsl
+    from kubeflow_tpu_torch.pipelines.compiler import Compiler
+
+    @dsl.component
+    def tpu_step() -> int:
+        return 0
+
+    @dsl.pipeline(name="tpu-probe")
+    def tpu_probe():
+        tpu_step().set_tpu("v5e-4")
+
+    return Compiler().compile(tpu_probe)
 
 
-def run_ir(ir: dict, arguments: dict, store, work: str, run_id: str, env: dict) -> dict:
-    """Run a compiled pipeline's DAG as the reference workflow controller
-    does, one step pod at a time: each step's ``task.json`` written as the
-    controller writes it, then ``python -m
-    kubeflow_tpu_torch.pipelines.launcher_main <workspace>`` as a
-    subprocess of its own (its card memory freed when it exits), its
-    outputs read from ``outputs.json``; a task whose condition is false is
-    Skipped, its dependents Omitted.  A step that exits non-zero raises.
-    Each workspace is removed once its outputs are read (the store keeps
-    the artifacts).  Returns the nodes by task name."""
-    tasks = ir["root"]["dag"]["tasks"]
-    args = {p: d["defaultValue"]
-            for p, d in ir["root"]["inputDefinitions"]["parameters"].items()
-            if "defaultValue" in d}
-    args.update(arguments)
-    nodes: dict = {}
-    for name in walk_order(tasks):
-        t = tasks[name]
-        if any(nodes[d]["phase"] != "Succeeded" for d in t["dependentTasks"]):
-            nodes[name] = {"phase": "Omitted"}
-            continue
-        if not all(CONDITION_OPS[c["op"]](resolve_ref(c["left"], args, nodes),
-                                          resolve_ref(c["right"], args, nodes))
-                   for c in t.get("conditions", [])):
-            nodes[name] = {"phase": "Skipped"}
-            continue
-        params = {p: resolve_ref(ref, args, nodes) for p, ref in t["inputs"]["parameters"].items()}
-        in_arts = {}
-        for a, ref in t["inputs"]["artifacts"].items():
-            src = ref["taskOutputArtifact"]
-            in_arts[a] = nodes[src["producerTask"]]["outputArtifacts"][src["outputArtifactKey"]]
-        comp = ir["components"][t["componentRef"]]
-        executor = ir["deploymentSpec"]["executors"][comp["executorLabel"]]
-        out_arts = {a: {"uri": store.uri("mlpipeline", f"{run_id}/{name}/{a}"),
-                        "type": d["schemaTitle"]}
-                    for a, d in comp["outputDefinitions"]["artifacts"].items()}
-        ws = os.path.join(work, run_id, name)
-        os.makedirs(ws)
-        with open(os.path.join(ws, "task.json"), "w") as f:
-            json.dump({"functionName": executor["python"]["functionName"],
-                       "source": executor["python"]["source"],
-                       "defaults": executor["python"].get("defaults", {}),
-                       "parameters": params, "inputArtifacts": in_arts,
-                       "outputArtifacts": out_arts,
-                       "outputParameters": sorted(comp["outputDefinitions"]["parameters"]),
-                       "storeRoot": store.root}, f)
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "kubeflow_tpu_torch.pipelines.launcher_main",
-                            ws], env=env, cwd=REPO, capture_output=True, text=True,
-                           timeout=STEP_TIMEOUT_S)
-        wall = time.perf_counter() - t0
-        if r.returncode != 0:
-            raise RuntimeError(f"step {name!r} exited {r.returncode}: {r.stderr[-3000:]}")
-        with open(os.path.join(ws, "outputs.json")) as f:
-            outs = json.load(f)
-        shutil.rmtree(ws)
-        lines = r.stdout.strip().splitlines()
-        nodes[name] = {
-            "phase": "Succeeded", "wall_s": wall, "stdout": lines,
-            "outputParameters": outs["outputParameters"],
-            "outputArtifacts": {a: {**spec, "metadata": outs["artifactMetadata"].get(a, {})}
-                                for a, spec in out_arts.items()}}
-    return nodes
-
-
-def step_report(node: dict) -> dict:
-    """A step's wall time and the numbers its stdout carries: the
-    launcher's staged copies (``<op>_<artifact>_s`` and ``_bytes``) and the
-    component's own ``key=value`` timings."""
-    rep = {"phase": node["phase"], "wall_s": node.get("wall_s")}
-    for line in node.get("stdout", []):
+def step_report(cluster, node: dict) -> dict:
+    """A step's wall time (its pod's start to its container's end) and the
+    numbers its log carries: the launcher's staged copies
+    (``<op>_<artifact>_s`` and ``_bytes``) and the component's own
+    ``key=value`` timings."""
+    rep = {"phase": node["phase"], "cached": node.get("cached")}
+    pod = cluster.api.try_get("Pod", node["podName"]) if node.get("podName") else None
+    if pod is None:
+        return rep
+    st = pod.get("status", {})
+    term = ((st.get("containerStatuses") or [{}])[0].get("state") or {}).get("terminated") or {}
+    if st.get("startTime") and term.get("finishedAt"):
+        rep["wall_s"] = term["finishedAt"] - st["startTime"]
+    rep["node"] = pod["spec"].get("nodeName")
+    rep["limits"] = pod["spec"]["containers"][0].get("resources", {}).get("limits")
+    for line in cluster.logs(node["podName"]).splitlines():
         kv = dict(w.split("=", 1) for w in line.split()[1:] if "=" in w)
         if line.startswith("LAUNCHER "):
             rep[f"{kv['op']}_{kv['artifact']}_s"] = float(kv["seconds"])
@@ -4546,6 +4703,16 @@ def step_report(node: dict) -> dict:
         elif line.startswith(("FINETUNE ", "EVALUATE ")):
             rep.update({k: v if k == "device" else float(v) for k, v in kv.items()})
     return rep
+
+
+def run_executions(client, run_id: str) -> list:
+    """(type, state) of each metadata execution of a run's context."""
+    from kubeflow_tpu_torch.pipelines.metadata import STATE_NAMES
+
+    store = client.service.metadata
+    ctx = store.get_context_by_name("pipeline_run", f"default/{run_id}")
+    return sorted([e.type, STATE_NAMES[e.state]]
+                  for e in (store.executions_by_context(ctx.id) if ctx else []))
 
 
 def npz_members(path: str) -> dict:
@@ -4703,20 +4870,27 @@ def profiling_run(trace_dir: str) -> dict:
 
 
 def pipeline_phase(dev) -> dict:
-    """BASELINE config 4 on the port's pipeline SDK: the port's
+    """BASELINE config 4 on the port's Pipelines service (see the module
+    docstring): a cluster with one GPU node of ``PIPELINE_CARDS`` cards
+    mapped onto this card, every plane installed by KfAdm; the port's
     ``gemma_pipeline`` compiled by the port's compiler at Gemma-7B width
-    (``PIPELINE_LAYERS`` of 28 layers), its DAG run step by step through the
-    port's launcher on the card, then the deployed artifact served through
-    the paged kernel at head_dim 192, then side by side the skip branch at
-    the pipeline's tiny defaults, ``distributed_check`` and the traced
-    loop."""
+    (``PIPELINE_LAYERS`` of 28 layers) and run by the port's API server and
+    workflow controller, its card steps on the card; the deployed artifact
+    served through the paged kernel at head_dim 192.  Once finetune is done,
+    side by side with evaluate and deploy: the skip branch as a second run,
+    ``distributed_check``, the traced loop and a spawner notebook with one
+    card.  A ``tpu`` task stays Pending; the web UI's pages name the run."""
+    from kubeflow_tpu_torch.core.cluster import Cluster
+    from kubeflow_tpu_torch.core.events import events_for
     from kubeflow_tpu_torch.examples.gemma_pipeline import gemma_pipeline
-    from kubeflow_tpu_torch.pipelines.artifacts import ObjectStore
+    from kubeflow_tpu_torch.pipelines import Client
     from kubeflow_tpu_torch.pipelines.compiler import Compiler
+    from kubeflow_tpu_torch.platform import KfAdm, kfdef
+    from kubeflow_tpu_torch.platform.api import READY, profile
+    from kubeflow_tpu_torch.platform.spawner import Spawner
+    from kubeflow_tpu_torch.platform.webui import DashboardWebUI
 
     ir = Compiler().compile(gemma_pipeline)
-    env = {k: v for k, v in os.environ.items() if k != "TORCH_DEVICE"}  # the card
-    env["PYTHONPATH"] = REPO
     cfg = M.DecoderConfig(**{k: PIPELINE_ARGS[k] for k in (
         "vocab_size", "d_model", "n_layers", "n_heads", "n_kv_heads", "d_ff")})
     out: dict = {"config": "DecoderConfig from the pipeline's six size fields at Gemma-7B width",
@@ -4724,72 +4898,239 @@ def pipeline_phase(dev) -> dict:
                  "head_dim": cfg.head_dim,
                  "reduced": {"n_layers": [PIPELINE_LAYERS, 28], "why": PIPELINE_REDUCED}}
     os.makedirs(BUILD_DIR, exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    card = first_card()
+    saved_device = os.environ.pop("TORCH_DEVICE", None)  # the steps' default: the card
+    gates: dict = {}
+    t_phase = time.perf_counter()
+    steps: dict = {}  # seconds from the phase's start to the end of each step
+
+    def mark(name: str) -> None:
+        steps[name] = time.perf_counter() - t_phase
+
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         out["disk_free_bytes"] = shutil.disk_usage(tmp).free
-        store = ObjectStore(os.path.join(tmp, "objects"))
-        t0 = time.perf_counter()
-        nodes = run_ir(ir, PIPELINE_ARGS, store, os.path.join(tmp, "nodes"), "gemma", env)
-        out["dag_s"] = time.perf_counter() - t0
-        out["steps"] = {n: step_report(node) for n, node in nodes.items()}
-        ft, ev, dp = nodes["finetune"], nodes["evaluate"], nodes["deploy"]
-        losses = ft["outputArtifacts"]["metrics"]["metadata"]
-        ppl = ev["outputParameters"]["Output"]
-        uri = dp.get("outputParameters", {}).get("Output", "")
-        out.update({"first_loss": losses["first_loss"], "final_loss": losses["final_loss"],
-                    "eval": ev["outputArtifacts"]["metrics"]["metadata"], "perplexity": ppl,
-                    "deploy_uri": uri})
-        members = npz_members(os.path.join(store._path(uri), "params.npz")) if uri else {}
-        out["npz_members"] = len(members)
-        out["npz_params"] = sum(math.prod(s) for s, _ in members.values())
-        stored_cfg = None
-        if uri:
-            with open(os.path.join(store._path(uri), "config.json")) as f:
-                stored_cfg = json.load(f)
-        gates = {
-            "finetune": (math.isfinite(losses["final_loss"])
-                         and losses["final_loss"] < losses["first_loss"]),
-            "evaluate": math.isfinite(ppl) and ppl < PIPELINE_ARGS["max_perplexity"],
-            "deploy": dp["phase"] == "Succeeded" and uri.startswith("mstore://"),
-            "artifact": (bool(members) and all(d == "float32" for _, d in members.values())
-                         and out["npz_params"] == cfg.param_count()
-                         and stored_cfg == {k: PIPELINE_ARGS[k] for k in (
-                             "vocab_size", "d_model", "n_layers", "n_heads", "n_kv_heads",
-                             "d_ff")})}
-
-        if uri:
+        cluster = Cluster(workdir=os.path.join(tmp, "cluster"), cpu_nodes=1,
+                          gpu_nodes=(("h100", "h100", PIPELINE_CARDS),),
+                          base_env={"PYTHONPATH": REPO,
+                                    "CUDA_VISIBLE_DEVICES": ",".join([card] * PIPELINE_CARDS)})
+        adm = KfAdm(cluster)
+        ui = None
+        try:
             t0 = time.perf_counter()
-            model_dir = store.get(uri, os.path.join(tmp, "served"))
-            out["serve_get_s"] = time.perf_counter() - t0
-            shutil.rmtree(store._path(uri))  # the disk: one copy of the model at a time
-            out["serve"] = serve_deployed(model_dir, dev)
-            gates["serve"] = out["serve"]["ok"] and out["serve"]["head_dim"] == 192
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        def skip_branch() -> dict:
+            applied = adm.apply(kfdef())["status"]
+            out["kfadm"] = {"s": time.perf_counter() - t0, "phase": applied["phase"],
+                            "applications": {a["name"]: a["status"]
+                                             for a in applied["applications"]}}
+            gates["kfadm"] = (applied["phase"] == "Ready"
+                              and len(out["kfadm"]["applications"]) == 5)
+            client = Client(cluster)
+            store = client.service.store
+            cluster.apply(profile("default", PIPELINE_USER))
+            mark("kfadm")
+            client.create_run_from_pipeline_func(tpu_probe_ir(), run_name="tpu-probe")
             t0 = time.perf_counter()
-            skip = run_ir(ir, PIPELINE_SKIP_ARGS, store, os.path.join(tmp, "nodes"), "skip", env)
-            return {"dag_s": time.perf_counter() - t0, "nodes": skip}
+            client.create_run_from_pipeline_func(card_ir(ir), arguments=PIPELINE_ARGS,
+                                                 run_name="gemma")
+            wave: dict = {}
+            seen: dict = {}
+            # a finished step's workspace (its staged or saved copy of the
+            # model, 10.5 GB) goes at once, beside the next step: the
+            # machine's disk counts every byte written to blocks that are
+            # not free again (a run keeping each copy was stopped at 45 GiB)
+            cleanup = ThreadPoolExecutor(1)
+            cleaned: dict = {}
+            disk_peak = [0]
 
-        # three small card runs whose times are not read against anything,
-        # side by side: the skip branch (the pipeline's tiny defaults),
-        # distributed_check and the traced loop, each in processes of its own
-        with ThreadPoolExecutor(3) as pool:
-            runs = [pool.submit(skip_branch), pool.submit(distributed_check_run),
-                    pool.submit(profiling_run, os.path.join(tmp, "profile"))]
-            (skip, out["distributed_check"], out["profiling"]) = [f.result() for f in runs]
-        nodes_skip = skip.pop("nodes")
-        out["skip"] = {"dag_s": skip["dag_s"],
-                       "phases": {n: node["phase"] for n, node in nodes_skip.items()},
-                       "perplexity": nodes_skip["evaluate"].get("outputParameters", {}).get(
-                           "Output")}
-        gates["skip"] = (nodes_skip["finetune"]["phase"] == nodes_skip["evaluate"]["phase"]
-                         == "Succeeded" and nodes_skip["deploy"]["phase"] == "Skipped")
-        gates["distributed_check"] = out["distributed_check"]["ok"]
-        gates["profiling"] = out["profiling"]["ok"]
+            def progress() -> bool:
+                # once finetune is done: the skip run, the notebook and the
+                # two small card runs beside evaluate and deploy; the
+                # notebook deleted once it has read its card
+                disk_peak[0] = max(disk_peak[0], shutil.disk_usage(tmp).used)
+                for r in ("gemma", "gemma-skip") if wave else ("gemma",):
+                    for node in client.service.get_run(r).get("nodes", {}).values():
+                        ws = node.get("workspace")
+                        if ws and node["phase"] in ("Succeeded", "Failed") and ws not in cleaned:
+                            cleaned[ws] = cleanup.submit(shutil.rmtree, ws, ignore_errors=True)
+                nodes = client.service.get_run("gemma").get("nodes", {})
+                if not wave and (nodes.get("finetune", {}).get("phase") == "Succeeded"):
+                    wave["at_s"] = time.perf_counter() - t0
+                    client.create_run_from_pipeline_func(card_ir(ir),
+                                                         arguments=PIPELINE_SKIP_ARGS,
+                                                         run_name="gemma-skip")
+                    Spawner(cluster.api).spawn("nb-card", "default", gpus=1,
+                                               command=[sys.executable, "-c", NOTEBOOK_PY])
+                    wave["pool"] = ThreadPoolExecutor(2)
+                    wave["runs"] = [wave["pool"].submit(distributed_check_run),
+                                    wave["pool"].submit(profiling_run,
+                                                        os.path.join(tmp, "profile"))]
+                if not wave:
+                    return client.service.get_run("gemma").get("phase") == "Failed"
+                nb = cluster.api.try_get("Notebook", "nb-card") or {}
+                if any(c["type"] == READY and c["status"] == "True"
+                       for c in nb.get("status", {}).get("conditions", [])):
+                    seen.setdefault("notebook_ready_s", time.perf_counter() - t0)
+                line = next((x for x in cluster.logs("nb-card-0").splitlines()
+                             if x.startswith(NOTEBOOK_LINE)), None) if nb else None
+                if line and "notebook_line" not in seen:
+                    seen["notebook_line"] = line
+                    seen["notebook_pod"] = cluster.api.try_get("Pod", "nb-card-0")
+                    cluster.api.delete("Notebook", "nb-card")
+                if "notebook_line" in seen and cluster.api.try_get("Pod", "nb-card-0") is None:
+                    seen.setdefault("notebook_gone_s", time.perf_counter() - t0)
+                done = [client.service.get_run(r).get("phase") in ("Succeeded", "Failed")
+                        for r in ("gemma", "gemma-skip")]
+                for r, d in zip(("gemma", "gemma-skip"), done):
+                    if d:
+                        seen.setdefault(f"{r}_s", time.perf_counter() - t0)
+                return all(done) and "notebook_gone_s" in seen and all(
+                    f.done() for f in wave["runs"])
+
+            cluster.wait_for(progress, timeout=PIPELINE_TIMEOUT_S)
+            cleanup.shutdown()
+            out["disk_used_peak_bytes"] = disk_peak[0]
+            mark("runs")
+            out["dag_s"] = seen.get("gemma_s")
+            out["wave"] = {"started_s": wave.get("at_s"), **{k: v for k, v in seen.items()
+                                                              if k.endswith("_s")}}
+            rec = client.service.get_run("gemma")
+            nodes = rec.get("nodes", {})
+            out["steps"] = {n: step_report(cluster, node) for n, node in nodes.items()}
+            out["run"] = {"phase": rec.get("phase"),
+                          "nodes": {n: node["phase"] for n, node in nodes.items()},
+                          "executions": run_executions(client, "gemma")}
+            ft, ev, dp = (nodes.get(n, {"phase": "Missing"})
+                          for n in ("finetune", "evaluate", "deploy"))
+            losses = ft.get("outputArtifacts", {}).get("metrics", {}).get("metadata", {})
+            ppl = ev.get("outputParameters", {}).get("Output", float("nan"))
+            uri = dp.get("outputParameters", {}).get("Output", "")
+            out.update({"first_loss": losses.get("first_loss"),
+                        "final_loss": losses.get("final_loss"),
+                        "eval": ev.get("outputArtifacts", {}).get("metrics", {}).get("metadata"),
+                        "perplexity": ppl, "deploy_uri": uri})
+            members = npz_members(os.path.join(store._path(uri), "params.npz")) if uri else {}
+            out["npz_members"] = len(members)
+            out["npz_params"] = sum(math.prod(s) for s, _ in members.values())
+            stored_cfg = None
+            if uri:
+                with open(os.path.join(store._path(uri), "config.json")) as f:
+                    stored_cfg = json.load(f)
+            first, final = out["first_loss"], out["final_loss"]
+            gates.update({
+                "finetune": (first is not None and math.isfinite(final) and final < first),
+                "evaluate": math.isfinite(ppl) and ppl < PIPELINE_ARGS["max_perplexity"],
+                "deploy": dp["phase"] == "Succeeded" and uri.startswith("mstore://"),
+                "artifact": (bool(members) and all(d == "float32" for _, d in members.values())
+                             and out["npz_params"] == cfg.param_count()
+                             and stored_cfg == {k: PIPELINE_ARGS[k] for k in (
+                                 "vocab_size", "d_model", "n_layers", "n_heads",
+                                 "n_kv_heads", "d_ff")}),
+                "run": (out["run"]["phase"] == "Succeeded"
+                        and out["run"]["executions"] == [
+                            [f"component:{n}", "COMPLETE"] for n in sorted(
+                                ("finetune", "evaluate", "deploy"))]),
+                # the card steps on the GPU node with one card, on this card
+                "card_steps": all(out["steps"][n].get("node") == "h100"
+                                  and out["steps"][n].get("limits") == {"nvidia.com/gpu": 1}
+                                  and out["steps"][n].get("device") == "cuda:0"
+                                  for n in CARD_TASKS)})
+            skip = client.service.get_run("gemma-skip")
+            out["skip"] = {"dag_s": (seen.get("gemma-skip_s") or 0) - (wave.get("at_s") or 0),
+                           "phase": skip.get("phase"),
+                           "phases": {n: node["phase"] for n, node in skip.get("nodes", {}).items()},
+                           "executions": run_executions(client, "gemma-skip"),
+                           "perplexity": skip.get("nodes", {}).get("evaluate", {}).get(
+                               "outputParameters", {}).get("Output")}
+            gates["skip"] = (out["skip"]["phase"] == "Succeeded" and out["skip"]["phases"] == {
+                "finetune": "Succeeded", "evaluate": "Succeeded", "deploy": "Skipped"}
+                and out["skip"]["executions"] == [["component:evaluate", "COMPLETE"],
+                                                  ["component:finetune", "COMPLETE"]])
+            if wave:
+                wave["pool"].shutdown()
+                out["distributed_check"], out["profiling"] = [f.result() for f in wave["runs"]]
+            gates["distributed_check"] = (out.get("distributed_check") or {}).get("ok", False)
+            gates["profiling"] = (out.get("profiling") or {}).get("ok", False)
+            # the notebook: Ready on the GPU node, its pod on this card read
+            # the card's name through torch, gone after the delete
+            words = (seen.get("notebook_line") or "").split(maxsplit=2)
+            nb_pod = seen.get("notebook_pod") or {}
+            out["notebook"] = {k: v for k, v in seen.items() if k.startswith("notebook_")
+                               and k != "notebook_pod"}
+            out["notebook"]["node"] = nb_pod.get("spec", {}).get("nodeName")
+            gates["notebook"] = ("notebook_ready_s" in seen and "notebook_gone_s" in seen
+                                 and out["notebook"]["node"] == "h100"
+                                 and words[1:] == [card, torch.cuda.get_device_name(0)])
+            # the tpu task: Pending, never bound, the event naming the resource
+            tpod = cluster.api.try_get("Pod", "tpu-probe-tpu-step-r0") or {}
+            msgs = sorted({e["message"] for e in events_for(cluster.api, tpod)
+                           if e["reason"] == "FailedScheduling"}) if tpod else []
+            out["tpu_refused"] = {"run": client.service.get_run("tpu-probe").get("phase"),
+                                  "bound": tpod.get("spec", {}).get("nodeName"),
+                                  "events": msgs}
+            gates["tpu_refused"] = (bool(tpod) and not out["tpu_refused"]["bound"]
+                                    and out["tpu_refused"]["run"] == "Running"
+                                    and any("google.com/tpu" in m for m in msgs))
+            # the web UI: the overview and the Pipelines pages name the run
+            ui = DashboardWebUI(cluster.api, pipeline_service=client.service,
+                                spawner=Spawner(cluster.api))
+            pages = {}
+            for path in ("/", "/pipelines", "/runs/gemma"):
+                req = urllib.request.Request(ui.url + path,
+                                             headers={"kubeflow-userid": PIPELINE_USER})
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    pages[path] = (r.status, r.read().decode())
+            out["webui"] = {p: s for p, (s, _) in pages.items()}
+            gates["webui"] = (all(s == 200 for s, _ in pages.values())
+                              and "GPUs requested" in pages["/"][1]
+                              and "Workflow" in pages["/"][1]
+                              and all(w in pages["/pipelines"][1] for w in (
+                                  "/runs/gemma'", "gemma-skip", "gemma-finetune-eval-deploy"))
+                              and "<svg" in pages["/runs/gemma"][1]
+                              and "finetune" in pages["/runs/gemma"][1])
+            mark("gates")
+
+            if uri:
+                t0 = time.perf_counter()
+                model_dir = store.get(uri, os.path.join(tmp, "served"))
+                out["serve_get_s"] = time.perf_counter() - t0
+                mark("served_copy")
+                # the store's copy goes while the served one serves
+                with ThreadPoolExecutor(1) as pool:
+                    removed = pool.submit(shutil.rmtree, store._path(uri))
+                    out["serve"] = serve_deployed(model_dir, dev)
+                    removed.result()
+                gates["serve"] = out["serve"]["ok"] and out["serve"]["head_dim"] == 192
+            mark("serve")
+            gc.collect()
+            torch.cuda.empty_cache()
+            returned = wait_for(lambda: torch.cuda.mem_get_info()[0] >= free0 - PLATFORM_MEM_SLACK,
+                                timeout=60, step=0.1)
+            out["free_before_bytes"], out["free_after_bytes"] = free0, torch.cuda.mem_get_info()[0]
+            gates["memory_returned"] = returned
+            mark("memory_returned")
+        finally:
+            if ui is not None:
+                ui.shutdown()
+            if "serving" in adm.installed:
+                adm.installed["serving"][1].shutdown()
+            if not all(gates.values()):
+                out["logs_tail"] = {p["metadata"]["name"]: cluster.logs(p["metadata"]["name"])[-1500:]
+                                    for p in cluster.api.list("Pod")}
+            cluster.shutdown()
+            mark("shutdown")
+            if saved_device is not None:
+                os.environ["TORCH_DEVICE"] = saved_device
+    mark("removed")
+    out["steps_s"] = steps
     out["gates"] = gates
     out["launches"] = out.get("serve", {}).get("launches", 0)
     out["ok"] = all(gates.values()) and "serve" in gates
+    log(f"15 pipeline: run {out.get('dag_s')} s through the controller (wave from "
+        f"{(out.get('wave') or {}).get('started_s')} s), notebook {out.get('notebook')}, "
+        f"paged launches serving {out['launches']}; gates {gates}")
     return out
 
 
@@ -6677,11 +7018,15 @@ def main() -> int:
             fn()
             return time.perf_counter() - t0
 
+        from kubeflow_tpu_torch.katib.obslog import _load as load_obslog
+        from kubeflow_tpu_torch.pipelines.metadata import _load as load_metadata
+
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(3) as pool:
+        with ThreadPoolExecutor(5) as pool:
             futs = {name: pool.submit(timed, fn) for name, fn in (
                 ("paged_attention_s", PA.load_kernel), ("flash_attention_s", FA.load_kernel),
-                ("core_s", load_library))}
+                ("core_s", load_library), ("metadata_core_s", load_metadata),
+                ("obslog_core_s", load_obslog))}
             res = {name: f.result() for name, f in futs.items()}
         return {"ok": True, **res, "wall_s": time.perf_counter() - t0}
 
@@ -6789,8 +7134,9 @@ def main() -> int:
               # the streaming surfaces, observability, disaggregation,
               # 5i's int8, LoRA, constrained and brownout engines, phase
               # 16's tensor-parallel engines (one launch per shard), 5j's
-              # converted HF checkout and phase 15's deployed model (the
-              # platform phase's pod launches the kernel too, but its
+              # converted HF checkout and phase 15's deployed model, the
+              # artifact its workflow controller's pods trained (the
+              # platform phase's pods launch the kernel too, but their
               # counters are not readable here)
               "launches": sum(r.get("launches", 0) for r in served + [pres]),
               "max_abs_err": max((c["max_abs_err"] for c in cases + (kres.get("tp_shards") or [])),
@@ -6816,7 +7162,9 @@ def main() -> int:
               # phase 6c's pod (another process, so not in ``launches``):
               # its device records in the profiled request's
               # ``PLATFORM_PROFILE_TICKS`` (2) tick window
-              "pod_trace_records": (plres.get("profile") or {}).get("records")}
+              "pod_trace_records": (plres.get("profile") or {}).get("records"),
+              # and its tensor-parallel pod's, PLATFORM_TP shards on the card
+              "tp_pod_trace_records": (plres.get("tp") or {}).get("records")}
     fcases = fres.get("cases") or []
     fhead = next((c for c in fcases if c["case"] == "ragged"), {})  # the training path's case
     frecord = {"name": "flash_attention", "route": "cuda",

@@ -5,8 +5,10 @@ the card indices the scheduler bound a pod to (scheduler/topology.py's
 ``gpu-indices`` annotation) reach its process as ``CUDA_VISIBLE_DEVICES``,
 as the NVIDIA device plugin's allocation does.  The indices count the
 cards this process sees: where its own ``CUDA_VISIBLE_DEVICES`` is set,
-node index ``i`` is that list's ``i``-th entry.  A pod that holds no card
-gets ``CUDA_VISIBLE_DEVICES=""`` and sees none.
+node index ``i`` is that list's ``i``-th entry, so two node cards may map
+onto one card (``"0,0"``; the port's processes collapse such a list before
+CUDA starts, utils/device.py).  A pod that holds no card gets
+``CUDA_VISIBLE_DEVICES=""`` and sees none.
 
 Upstream analogue (UNVERIFIED): the kubelet + container runtime.  This is the
 piece that lets the rebuild go *further* than upstream CI (SURVEY.md §4): pods

@@ -17,8 +17,14 @@ reaches the pod and serves on the CPU.  Either way it serves a tiny
 random-weight decoder (the JAX example's widths); point ``storage_uri`` at
 real Llama/Gemma weights (``params.npz``, or a raw HuggingFace checkout that
 the runtime converts on load) and size ``engine.json`` for a real model.
-A pod holds one card, so ``--tensor-parallel`` above 1 serves only on the
-CPU.  Prints ``SERVE-LLM-OK`` as the JAX example does.
+``--tensor-parallel N`` on the card needs a pod that holds N cards: a
+runtime that requests ``nvidia.com/gpu: N`` (a namespace ``ServingRuntime``
+named by the model's ``runtime``, or the predictor's own ``containers``) on
+a node with N cards; the pod serves shard i on the card of its
+``CUDA_VISIBLE_DEVICES``' i-th entry.  The catalog's runtime requests one
+card, so this example's pod refuses N > 1 on the card (the message names
+its ``engine.json``) and serves it on the CPU.  Prints ``SERVE-LLM-OK`` as
+the JAX example does.
 """
 
 from __future__ import annotations

@@ -3,10 +3,10 @@
 A copy of ``kubeflow_tpu/pipelines/compiler.py`` over the port's ``dsl``:
 the same ``IR_SCHEMA``, the same loop expansion, conditions, exit handlers
 and dependency derivation, the same refusals with the same messages, and
-byte-identical JSON for the same pipeline (``compile_to_json``).  The
-reference control plane takes the resulting IR dict as it is
+byte-identical JSON for the same pipeline (``compile_to_json``).  Either
+package's control plane takes the resulting IR dict as it is
 (``PipelineService.create_run`` and ``Client.create_run_from_pipeline_func``
-accept a dict), so a pipeline compiled here runs on it unchanged.
+accept a dict).
 
 Compile steps:
   1. trace the pipeline function (dsl.Pipeline.trace);

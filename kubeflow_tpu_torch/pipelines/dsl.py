@@ -6,9 +6,9 @@ embedded in the compiled IR, ``@pipeline`` tracing, the artifact types,
 ``Input[...]``/``Output[...]``, ``Condition``, ``ParallelFor`` (static lists
 expanded at compile time, a task output fanned out at run time),
 ``ExitHandler`` and ``Collected``.  The port's pipelines are built on it and
-compiled by the port's ``compiler``; the IR is plain JSON, so the JAX
-package's control plane (workflow controller, API server, metadata store)
-runs it unchanged, each step exec'ing the component's source in its pod.
+compiled by the port's ``compiler``; the IR is plain JSON, which the port's
+control plane (``workflow``, ``service``, ``metadata``) runs, each step
+exec'ing the component's source in its pod.
 """
 
 from __future__ import annotations

@@ -83,7 +83,7 @@ import torch
 
 from ...core import tracing
 from ...core.metrics import add_const_labels
-from ...utils.device import resolve_device
+from ...utils.device import pod_cards, resolve_device
 from .. import kvfabric, transport
 from ..constrain import ConstrainRegistry, GrammarError
 from ..errors import EngineError, RequestError
@@ -261,6 +261,20 @@ def _checkout_eos_ids(model_dir: str) -> list:
     return []
 
 
+def shard_devices(tensor_parallel: int) -> list:
+    """One CUDA device per shard: shard ``i`` runs on the card of the
+    ``i``-th entry of ``utils.device.pod_cards()``, which torch numbers by
+    that entry's first place among the distinct entries (``"0,1"`` ->
+    ``cuda:0, cuda:1``; ``"0,0"`` -> both shards on ``cuda:0``).  Raises
+    with fewer cards than shards."""
+    cards = pod_cards()
+    if len(cards) < tensor_parallel:
+        raise ValueError(f"tensor_parallel={tensor_parallel} needs {tensor_parallel} "
+                         f"devices, have {len(cards)}")
+    distinct = list(dict.fromkeys(cards))
+    return [torch.device("cuda", distinct.index(c)) for c in cards[:tensor_parallel]]
+
+
 def _engine_config(path: str, config: DecoderConfig, device: torch.device) -> tuple:
     """An ``engine.json`` -> ``(EngineConfig, raw dict)``, its blocks built into
     their config classes and its keys validated as the JAX package's
@@ -268,9 +282,11 @@ def _engine_config(path: str, config: DecoderConfig, device: torch.device) -> tu
     neither package's EngineConfig is dropped, as the JAX package drops it;
     an unported key off its default raises ValueError.  ``tensor_parallel``
     is checked against ``config`` and, on a CUDA ``device``, against the
-    cards present (``torch.cuda.device_count()``): a pod with fewer cards
-    than shards refuses the file, as the JAX package refuses with fewer
-    devices.  On the CPU any number of shards may share it."""
+    cards the pod holds (``pod_cards()``: the entries of its
+    ``CUDA_VISIBLE_DEVICES``, else ``torch.cuda.device_count()``): a pod
+    with fewer cards than shards refuses the file, as the JAX package
+    refuses with fewer devices.  On the CPU any number of shards may share
+    it."""
     with open(path) as f:
         raw = json.load(f)
     fields = {f.name for f in dataclasses.fields(EngineConfig)}
@@ -342,8 +358,8 @@ def _engine_config(path: str, config: DecoderConfig, device: torch.device) -> tu
         if config.d_ff % tp:
             raise ValueError(f"{path}: tensor_parallel={tp} must divide "
                              f"d_ff={config.d_ff}")
-        have = torch.cuda.device_count()
-        if device.type == "cuda" and have < tp:
+        have = len(pod_cards()) if device.type == "cuda" else tp
+        if have < tp:
             raise ValueError(
                 f"{path}: tensor_parallel={tp} needs {tp} devices, have {have} "
                 "— refusing to silently serve at a lower degree")
@@ -424,7 +440,10 @@ class JetStreamModel(Model):
             params = load_params(self.model_dir, config, self.device)
             lora_params, adapter_ids = load_adapters(self.model_dir, config, self.device)
             lora = (lora_params, adapter_ids) if lora_params is not None else None
-            self.engine = Engine(params, config, ec, device=self.device, lora=lora)
+            # at tensor_parallel N on the card: one shard per card of the pod
+            device = (shard_devices(ec.tensor_parallel)
+                      if ec.tensor_parallel > 1 and self.device.type == "cuda" else self.device)
+            self.engine = Engine(params, config, ec, device=device, lora=lora)
             self._wire_fabric(self.engine)
         self.engine.start()
         self.ready = True

@@ -92,7 +92,12 @@ def test_every_port_module_imports_with_jax_blocked():
                  "katib.suggest.random_search", "katib.suggest.sobol",
                  "katib.suggest.bayesian", "katib.suggest.tpe", "katib.suggest.cmaes",
                  "katib.suggest.hyperband", "katib.suggest.pbt", "katib.suggest.enas",
-                 "katib.suggest.darts"):
+                 "katib.suggest.darts", "pipelines.api", "pipelines.persistence",
+                 "pipelines.cron", "pipelines.schedule", "pipelines.metadata",
+                 "pipelines.workflow", "pipelines.service", "pipelines.client",
+                 "core.authz", "platform", "platform.api", "platform.kfam",
+                 "platform.controllers", "platform.spawner", "platform.dashboard",
+                 "platform.kfadm", "platform.webui"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = _BLOCKER.format(blocked=BLOCKED) + f"""
 import importlib
