@@ -17,13 +17,14 @@ or the script exits non-zero:
    page 32, 64 pages per slot), bf16 and int8 pools, K = 1 and 5, ragged
    lengths with an idle slot, partial last pages and a full 2048-token slot;
    times of the kernel (CUDA events around the call, and the device time of
-   its split and merge kernels in a torch.profiler window), the plain
+   its one cluster-launched kernel in a torch.profiler window), the plain
    version, ``scaled_dot_product_attention`` over the already-gathered
    cache (a yardstick the port never calls) and the device-memory bound;
-   at K = 1 also the kernel at 2, 4, 8 and 16 pages per split; then bf16 at
-   phase 15's served shape (hd 192, Hq = Hkv = 16, K = 1 and 5), which takes
-   the CUDA-core split kernel (a profiler window must show it and no
-   tensor-core record); then bf16 at phase 16's shards, one shard's call
+   at K = 1 also the kernel at 4, 8, 16 and 32 pages per split (every plan
+   of 16 chunks or fewer); then bf16 at phase 15's served shape (hd 192,
+   Hq = Hkv = 16, K = 1 and 5), which takes the tensor-core kernel (a
+   profiler window must show it and no CUDA-core record); then bf16 at
+   phase 16's shards, one shard's call
    with Llama-3-8B's heads split 2 and 4 ways (16/4 and 8/2, K = 1 and 5),
    through the tensor-core kernel;
 4. decode: one full-width Llama-3-8B ``decode_step`` with ``paged=True``
@@ -44,7 +45,7 @@ or the script exits non-zero:
 5c. prefix cache: one 1000-byte prompt twice in a row, the second
    admission adopting the first's cached pages; both TTFTs;
 5d. QoS: on ``EngineConfig(max_slots=2)`` two batch-class requests (700-byte
-   prompts, 160 new tokens) fill both slots and an interactive one (200
+   prompts, 48 new tokens) fill both slots and an interactive one (200
    bytes, 32 tokens) arrives once the first has committed 32 tokens, under
    priority scheduling with swap preemption, with recompute preemption,
    with swap on the int8 KV pool, and under the fifo baseline without
@@ -83,7 +84,7 @@ or the script exits non-zero:
    peak of the card's kind, MFU > 0, goodput in (0, 1], and the median host
    ms per tick of each timeline phase; (c) ``POST /engine/profile {"ticks":
    8}`` while the four decode: no error, and the Chrome trace holding
-   exactly 2 paged kernel records (split + merge) per layer per decode tick
+   exactly 1 paged kernel record per layer per decode tick
    of the window; (d) the four prompts with telemetry off and on, in turns:
    identical tokens, host ms per tick and tokens/s of each (not gated); (e)
    ``die_on_tick`` mid-decode: the requests fail with TickFailure, the
@@ -183,11 +184,12 @@ or the script exits non-zero:
    write s, convert s and GB/s, ``params.npz`` bytes, load s, TTFT and
    tokens/s (at this phase's depth, so not beside phase 5's), encode us per
    KB, the constrain token table's build s at V = 128256 and the
-   integrated-gradients ``:explain`` ms.  Depth: ``HF_LAYERS`` (2) of the
+   integrated-gradients ``:explain`` ms.  Depth: ``HF_LAYERS`` (1) of the
    32 layers, width full, since the checkout's bytes cross the disk and the
    host's conversion several times and the script must end within its
-   limit (32 layers took 261 s, 8 took 91-133 s); the embeddings and the
-   head, 2.1 GB of the 3.0 GB, are full size at any depth;
+   limit (32 layers took 261 s, 8 took 91-133 s, 2 took 64-93 s); the
+   embeddings and the head, 2.1 GB of the 2.5 GB, are full size at any
+   depth;
 6b. runtime: the pod entry point (``python -m
    kubeflow_tpu_torch.serving.runtime_main``) on Llama-3-8B, driven as 6c's
    InferenceService's pod; its direct answers are 6c's first requests;
@@ -209,7 +211,8 @@ or the script exits non-zero:
    completion, all 200 with 32 tokens, the unary texts equal to the pod's
    direct answer for the same prompt; ``POST /engine/profile`` on the pod
    with a ``dir`` under the build directory, then one request: the pod's
-   trace holds ``paged_split_tc`` and ``paged_merge`` device records; a
+   trace holds one ``paged_split_tc`` device record per layer and profiled
+   tick and no merge; a
    second InferenceService asking for a card stays Pending with the
    scheduler's event; deleting the first terminates its pod with no
    traceback in its log, and ``torch.cuda.mem_get_info()`` shows its memory
@@ -225,7 +228,7 @@ or the script exits non-zero:
    answers 32 tokens, each within the oracle bound of ``forward_full`` on
    the weights its pod drew, its MFU label ``...x2``, and its pod's trace of
    the profiled request holds ``PLATFORM_TP`` x layers x ticks records of
-   each of the split and merge kernels; both pods gone after the delete,
+   the one paged kernel; both pods gone after the delete,
    no traceback.  The
    ingress's TTFT beside the pod's direct TTFT;
 7. flash kernel: ``flash_attention``'s forward kernel on the card against
@@ -310,8 +313,8 @@ or the script exits non-zero:
    ``config.json``, byte tokenizer): phase 5's four prompts x 32 tokens,
    each token within the oracle bound of ``forward_full`` on the loaded
    params, one paged launch per layer and decode step, none plain, and a
-   profiler window over a request holding the CUDA-core split and merge
-   kernels and no tensor-core one; TTFT and tokens/s; (h) at the end the
+   profiler window over a request holding the tensor-core paged kernel and
+   no CUDA-core one; TTFT and tokens/s; (h) at the end the
    card's free memory within 1 GiB of the phase's start.
 16. tp: tensor-parallel serving at Llama-3-8B width and depth over
    ``TP_SHARDS`` (2) shards on this one card (``device=["cuda:0"] * 2``),
@@ -327,8 +330,7 @@ or the script exits non-zero:
    (``match``) and the TP 1 engine (``reshard``), a ``shard_flip`` pull
    degrading to a re-prefill, every token within the bound, shard bytes
    in both directions, no leak; (c) a TP 2 decode step's device records:
-   the paged split and merge kernels once per shard and layer, no
-   softmax.  One card shows the layout, the per-shard launches and the
+   the one paged kernel once per shard and layer, no softmax.  One card shows the layout, the per-shard launches and the
    frames, not scaling.
 17. mesh: the mesh layer on ``MESH_SHARDS`` (4) shards of this one card
    (``build_mesh(..., [cuda:0] * 4)``): (a) BERT-base
@@ -417,8 +419,8 @@ or the script exits non-zero:
 
 22. jobs: the port's training operator and Katib (``training/frameworks.py``
    and ``katib/controllers.py`` installed on a ``Cluster`` of one CPU node
-   and one GPU node ``h100`` advertising ``JOBS_CARDS`` (2) cards, which its
-   kubelet maps onto this card through ``CUDA_VISIBLE_DEVICES="0,0"``),
+   and one GPU node ``h100`` advertising ``JOBS_CARDS`` (3) cards, which its
+   kubelet maps onto this card through ``CUDA_VISIBLE_DEVICES="0,0,0"``),
    every pod's worker under ``JOB_WRAPPER`` (its env and its flash
    launches and plain calls printed) and asking for ``nvidia.com/gpu: 1``:
    (a) TPUJob ``bert-gang``, the BERT worker at BERT-base widths
@@ -471,6 +473,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import socket
 import struct
@@ -513,7 +516,7 @@ from kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 from kubeflow_tpu_torch.parallel.presets import get_preset
 from kubeflow_tpu_torch.train.data import synthetic_mlm_batches, to_device
 from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig, global_norm
-from kubeflow_tpu_torch.utils.native_build import BUILD_DIR
+from kubeflow_tpu_torch.utils.native_build import BUILD_DIR, build_log
 
 # the module, not the function the package re-exports under the same name
 FA = importlib.import_module("kubeflow_tpu_torch.ops.flash_attention")
@@ -680,11 +683,49 @@ def profiled_ms(fn, flush: torch.Tensor, markers: tuple, n: int = PROFILED_CALLS
             "records": sum(len(v) for v in ns.values()), "calls": n, **means}
 
 
-# the device kernels of one paged_attention call, and of the flash forward
-PAGED_MARKERS = ("paged_split", "paged_merge")
+def ptxas_summary(lib, since: float) -> dict:
+    """A kernel library's build, when this run compiled it (its log written
+    at or after ``since``, a ``time.time()``): its seconds and, per kernel
+    the compiler made, the registers, spill stores and loads and shared
+    memory that ``ptxas -v`` printed (the template arguments kept in the
+    name), and the wgmma serialisation warnings (C7514) it gave.  A library
+    an earlier run left in the build directory gives ``built: false`` and
+    nulls: its log is not this run's."""
+    path = lib._name + ".log"
+    if not os.path.exists(path) or os.path.getmtime(path) < since:
+        return {"built": False, "build_s": None, "kernels": None,
+                "wgmma_serialized_warnings": None}
+    log = build_log(lib._name)
+    out = log.get("output", "")
+    kernels, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d((?:paged|flash)_[a-z0-9_]*_kernel)(\w*?)Ev",
+                      line)
+        if m:
+            name = m.group(1) + m.group(2)
+            kernels[name] = {}
+            continue
+        if name is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("smem_bytes", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                kernels[name][key] = int(m.group(1))
+    return {"built": True, "build_s": log.get("seconds"), "kernels": kernels,
+            "wgmma_serialized_warnings": out.count("C7514")}
+
+
+# the device kernel of one paged_attention call (one cluster-launched kernel
+# since the merge moved into it), and of the flash forward
+PAGED_MARKERS = ("paged_split",)
 FLASH_MARKERS = ("flash_fwd",)
-# the pages_per_split values phase 3 compares on the bf16 and int8 K=1 cases
-SPLIT_SWEEP = (2, 4, 8, 16)
+# the pages_per_split values phase 3 compares on the bf16 and int8 K=1
+# cases: every capped plan at 64 pages a slot (16 chunks or fewer, one
+# cluster)
+SPLIT_SWEEP = (4, 8, 16, 32)
 
 
 # ----------------------------------------------------------------- phase 3
@@ -756,8 +797,7 @@ def kernel_case(quant, K, rng, dev, flush, heads: tuple = (HQ, HKV), hd: int = H
             def call(pps=pps):
                 return PA.paged_attention(*args, _pages_per_split=pps)
             dev_pps = profiled_ms(call, flush, PAGED_MARKERS)
-            sweep[pps] = {"kernel_ms": time_ms(call, flush), "device_ms": dev_pps["total"],
-                          "merge_ms": dev_pps["paged_merge"]}
+            sweep[pps] = {"kernel_ms": time_ms(call, flush), "device_ms": dev_pps["total"]}
 
     # the bound: each input read once, each output written once, with only
     # the pages this run's lengths visit; operations of QK^T and PV
@@ -1049,7 +1089,10 @@ def prefix_cache(params, cfg, dev) -> dict:
 # QOS_AT tokens an interactive one arrives
 QOS_BATCH = [(TEXT * 5)[:700], (TEXT * 5)[40:740]]
 QOS_INTERACTIVE = (TEXT * 2)[20:220]
-QOS_BATCH_TOKENS, QOS_INTERACTIVE_TOKENS, QOS_AT = 160, 32, 32
+# 48 new tokens a batch request (160 before, cut for the script's
+# time; the interactive request still arrives with 16 of A's to go, so it
+# preempts under priority and waits for A's end under fifo)
+QOS_BATCH_TOKENS, QOS_INTERACTIVE_TOKENS, QOS_AT = 48, 32, 32
 QOS_SLOTS = 2
 
 
@@ -1755,7 +1798,7 @@ def obs_traced(params, cfg, dev, kind: str) -> dict:
         traces = sorted(glob.glob(os.path.join(prof["runs"][-1]["dir"], "*.json"))) \
             if prof["runs"] else []
         found = sum(paged_records(traces[-1]).values()) if traces else 0
-        expected = 2 * cfg.n_layers * decode_ticks
+        expected = cfg.n_layers * decode_ticks
         ok_c = (decoding and code == 200 and done and prof["last_error"] is None
                 and prof["captures"] == 1 and decode_ticks > 0 and found == expected
                 and all(r is not None and r[0] == 200 for r in presults)
@@ -1766,7 +1809,7 @@ def obs_traced(params, cfg, dev, kind: str) -> dict:
                             "trace_mb": os.path.getsize(traces[-1]) / 2**20 if traces else None,
                             "launches": pwatch.launches, "plain_calls": pwatch.plain_calls}
         log(f"5g profile: {found} paged kernel records for {decode_ticks} decode ticks "
-            f"(expected {expected} = 2 x {cfg.n_layers} layers x ticks), last_error "
+            f"(expected {expected} = {cfg.n_layers} layers x ticks), last_error "
             f"{prof['last_error']}")
         out["leaked_pages"] = leaked_pages(srv.idle(), engine.ec)
     out["launches"] = out["a_traced"]["launches"] + out["c_profile"]["launches"]
@@ -3036,10 +3079,13 @@ def device_breakdown(prof, n: int, wall_ms: float, family: str, markers: tuple,
     for each of its host launch calls and, given ``expected`` (the family's
     launches per step), ``n * expected`` family records; the idle share is
     reported only then (else under ``device_idle_share_at_most``).  The
-    per-record mean is not biased by a loss."""
+    per-record mean is not biased by a loss.  A window that kept no device
+    record at all still reports ``window_complete`` (false), its launch
+    calls and its losses, so a caller reads the same keys either way."""
     kern, calls, lost = window_records(prof)
     if not kern:
-        return {"device_time": "not measured (the profiler recorded no device events)"}
+        return {"device_time": "not measured (the profiler recorded no device events)",
+                "window_complete": False, "launch_calls": calls, "lost_records": lost}
     spans = sorted((t0, t1) for _, t0, t1 in kern)
     busy, cur_s, cur_e = 0, *spans[0]
     for s0, e0 in spans[1:]:
@@ -3310,15 +3356,15 @@ def train(dev) -> dict:
 HF_FIXTURE = os.path.join(REPO, "tests", "fixtures", "tokenizer_llama3_shape.json")
 HF_STRINGS = os.path.join(REPO, "tests", "fixtures", "tokenizer_llama3_shape_strings.json")
 # Meta ships Llama-3-8B's bf16 weights in four ~5 GB shards; the cut
-# checkout (3.0 GB at HF_LAYERS) is saved as ``save_pretrained(...,
+# checkout (2.5 GB at HF_LAYERS) is saved as ``save_pretrained(...,
 # max_shard_size="2GB")`` would, so it still spans two shards and the
 # index
 HF_SHARD_BYTES = 2_000_000_000
-# the depth phase 5j writes (full width always): 2 of Llama-3-8B's 32
+# the depth phase 5j writes (full width always): 1 of Llama-3-8B's 32
 # layers, since the full-depth phase took 261 s on the H100 machine (the
-# host-side conversion 143 s of it) and 8 layers 91-133 s, more than the
-# script's limit leaves it (PERF.md section 4)
-HF_LAYERS = 2
+# host-side conversion 143 s of it), 8 layers 91-133 s and 2 layers 64-93
+# s, more than the script's limit leaves it (PERF.md section 4)
+HF_LAYERS = 1
 HF_SEED = 1
 # (engine name, HF suffix, transposed) of each layer's tensors, in HF order
 HF_LAYER_TENSORS = (("wq", "self_attn.q_proj.weight", True),
@@ -3839,11 +3885,11 @@ def free_port() -> int:
 
 PLATFORM_ISVC = "llama3-8b"
 PLATFORM_MEM_SLACK = 1 << 30  # the pod's memory returned within 1 GiB
-# decode ticks in the pod's profile window: 2 records (split + merge) per
-# layer each; two keep the trace's export short (8 took ~19 s with the
-# request and the read on an H100)
+# decode ticks in the pod's profile window: one paged record per layer
+# each; two keep the trace's export short (8 took ~19 s with the request
+# and the read on an H100)
 PLATFORM_PROFILE_TICKS = 2
-PLATFORM_MARKERS = ("paged_split_tc", "paged_merge")
+PLATFORM_MARKERS = ("paged_split_tc",)
 # the tensor-parallel case: a namespace ServingRuntime that asks for
 # PLATFORM_TP cards, on a second GPU node whose cards both map onto this one
 PLATFORM_TP = 2
@@ -4130,9 +4176,10 @@ def platform(cfg) -> dict:
                                   == ",".join([card] * PLATFORM_TP))
             steps["tp_ready"] = time.perf_counter() - t0
             # (3) each pod's own profiler over one request at once: the
-            # first's through the ingress, the TP 2 one's V2 generate through
-            # its ingress (its answer: 32 tokens, and two records, split and
-            # merge, per shard, layer and profiled tick)
+            # first's through the ingress (one paged record per layer and
+            # profiled tick), the TP 2 one's V2 generate through its
+            # ingress (its answer: 32 tokens, and one paged record per
+            # shard, layer and profiled tick)
             ports, reqs = {}, {}
             if checks["ready"]:
                 ports[PLATFORM_ISVC], reqs[PLATFORM_ISVC] = port, (ingress, PLATFORM_ISVC)
@@ -4159,12 +4206,12 @@ def platform(cfg) -> dict:
                 code, armed_body = armed[PLATFORM_ISVC]
                 traced = answers[PLATFORM_ISVC][0]
                 names = records[PLATFORM_ISVC]
+                want = cfg.n_layers * PLATFORM_PROFILE_TICKS
                 out["profile"] = {"status": code, "armed_dir": armed_body.get("dir"),
                                   "done": done[PLATFORM_ISVC], "traced_request": traced,
-                                  "records": names}
+                                  "records": names, "want_records": want}
                 checks["profile"] = (code == 200 and traced == 200 and done[PLATFORM_ISVC]
-                                     and names.get("paged_split_tc", 0) > 0
-                                     and names.get("paged_merge", 0) > 0)
+                                     and names == {m: want for m in PLATFORM_MARKERS})
             checks["tp_generate"] = checks["tp_profile"] = False
             if tp_ready:
                 tp_code, tp_gen = answers[tp_name]
@@ -4645,9 +4692,9 @@ NOTEBOOK_LINE = "NOTEBOOK-CARD"
 NOTEBOOK_PY = ("import os, time, torch; print('" + NOTEBOOK_LINE + "', "
                "os.environ.get('CUDA_VISIBLE_DEVICES'), torch.cuda.get_device_name(0), "
                "flush=True); time.sleep(600)")
-# the CUDA-core split kernel (any hd: the tensor-core one takes hd 64 and
-# 128 only) and the merge
-SIMT_MARKERS = ("paged_split_simt", "paged_merge")
+# the CUDA-core split kernel (any hd the tensor-core one does not take:
+# 64, 128 and 192) and the tensor-core one, which serves phase 15's hd 192
+SIMT_MARKERS = ("paged_split_simt",)
 TC_MARKER = "paged_split_tc"
 
 
@@ -4803,9 +4850,9 @@ def serve_deployed(model_dir: str, dev) -> dict:
     out["ok"] = (served and out["leaked_pages"] == 0
                  and watch.launches == cfg.n_layers * steps > 0 and watch.plain_calls == 0
                  and max(out["oracle_max_logit_lag"]) <= ORACLE_TIE_EPS
-                 and any(SIMT_MARKERS[0] in n for n in names)
-                 and any(SIMT_MARKERS[1] in n for n in names)
-                 and not any(TC_MARKER in n for n in names))
+                 and any(TC_MARKER in n for n in names)
+                 and not any(SIMT_MARKERS[0] in n for n in names)
+                 and not any("merge" in n for n in names))
     del params, engine, model
     return out
 
@@ -5257,8 +5304,8 @@ TP_WINDOWS = 3
 def tp_attention_records(engine, cfg, dev) -> dict:
     """Decode steps of a TP 2 engine's own shards and pools (the tick's
     device work) in a profiler window: its attention records must be the
-    paged split and merge kernels, one pair per shard and layer, and no
-    softmax of the gather path.  Up to ``TP_WINDOWS`` windows, until one
+    one paged kernel, once per shard and layer, and no softmax of the
+    gather path.  Up to ``TP_WINDOWS`` windows, until one
     passes: a late window can lose a few records (§7 of PERF.md), and one
     that lost some passes when every paged record is there and fewer
     records were lost than the softmaxes a gather path would have added,
@@ -5279,7 +5326,7 @@ def tp_attention_records(engine, cfg, dev) -> dict:
                       paged=True, mesh=engine._mesh)
 
     n = 3
-    expected = 2 * TP_SHARDS * cfg.n_layers * n
+    expected = TP_SHARDS * cfg.n_layers * n
     with torch.inference_mode():
         step()
         torch.cuda.synchronize()
@@ -5300,7 +5347,7 @@ def tp_attention_records(engine, cfg, dev) -> dict:
            "paged_records_expected": expected, "softmax_records": softmax,
            "lost_records": lost,
            **device_breakdown(prof, n, wall_ms, "paged_attention", PAGED_MARKERS,
-                              expected=2 * TP_SHARDS * cfg.n_layers)}
+                              expected=TP_SHARDS * cfg.n_layers)}
     # a gather path adds one softmax per shard and layer
     out["ok"] = paged == expected and softmax == 0 and lost < TP_SHARDS * cfg.n_layers * n
     return out
@@ -6421,11 +6468,12 @@ def gang_pp_phase(gres: dict, zres: dict) -> dict:
 
 # ---------------------------------------------------------------- phase 22
 
-# the GPU node advertises two cards, and the kubelet maps node card i
-# through CUDA_VISIBLE_DEVICES: "0,0" puts both on this one card, so two
-# pods (a gang's two members, two Katib trials) share the H100 over gloo as
-# phase 20's processes do
-JOBS_CARDS = 2
+# the GPU node advertises three cards, and the kubelet maps node card i
+# through CUDA_VISIBLE_DEVICES: "0,0,0" puts all on this one card, so pods
+# (a gang's two members, Katib trials) share the H100 over gloo as phase
+# 20's processes do.  Three (two before, cut for the script's time):
+# (b)-(f)'s single pods run three at a time.
+JOBS_CARDS = 3
 JOBS_TIMEOUT_S = 600
 # Every phase-22 pod runs its worker module unchanged under this wrapper.
 # It prints the environment the operator gave the pod (JOB-ENV), counts the
@@ -6559,9 +6607,9 @@ def darts_experiment() -> dict:
 
 def jobs_manifests(tmp: str) -> list:
     """Phase 22's manifests in two waves, each applied at once when the one
-    before has ended: (a), the gang that takes both cards, then (b)-(f),
-    whose pods the scheduler binds as the two cards free (singles first,
-    the PyTorchJob's two pods all or nothing)."""
+    before has ended: (a), the gang that takes two of the cards, then
+    (b)-(f), whose pods the scheduler binds as the cards free (singles
+    first, the PyTorchJob's two pods all or nothing)."""
     from kubeflow_tpu_torch.training.api import ReplicaSpec, job
 
     gang = job("TPUJob", "bert-gang", {"Worker": ReplicaSpec(
@@ -7021,28 +7069,34 @@ def main() -> int:
         from kubeflow_tpu_torch.katib.obslog import _load as load_obslog
         from kubeflow_tpu_torch.pipelines.metadata import _load as load_metadata
 
-        t0 = time.perf_counter()
+        t0, started = time.perf_counter(), time.time()
         with ThreadPoolExecutor(5) as pool:
             futs = {name: pool.submit(timed, fn) for name, fn in (
                 ("paged_attention_s", PA.load_kernel), ("flash_attention_s", FA.load_kernel),
                 ("core_s", load_library), ("metadata_core_s", load_metadata),
                 ("obslog_core_s", load_obslog))}
             res = {name: f.result() for name, f in futs.items()}
-        return {"ok": True, **res, "wall_s": time.perf_counter() - t0}
+        wall = time.perf_counter() - t0
+        # each kernel library's build seconds and ptxas -v, on a line of its own
+        ptxas = {"paged_attention": ptxas_summary(PA.load_kernel(), started),
+                 "flash_attention": ptxas_summary(FA.load_kernel(), started)}
+        log(json.dumps({"build_ptxas": ptxas}))
+        return {"ok": True, **res, "wall_s": wall, "ptxas": ptxas}
 
-    phase("build", build)
+    bres = phase("build", build)
 
     def kernels():
         rng = np.random.default_rng(0)
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
         cases = [kernel_case(quant, K, rng, dev, flush)
                  for quant in (None, "int8") for K in (1, 5)]
-        # the served shape of phase 15: hd 192 takes the CUDA-core kernel
+        # the served shape of phase 15: hd 192 takes the tensor-core kernel
         hd192 = [kernel_case(None, K, rng, dev, flush, heads=PIPELINE_HEADS,
-                             hd=PIPELINE_HD, markers=SIMT_MARKERS) for K in (1, 5)]
+                             hd=PIPELINE_HD) for K in (1, 5)]
         for c in hd192:
             c["ok"] = (c["ok"] and c["device_ms"] is not None
-                       and not any(TC_MARKER in n for n in c["device_kernels"]))
+                       and any(TC_MARKER in n for n in c["device_kernels"])
+                       and not any(SIMT_MARKERS[0] in n for n in c["device_kernels"]))
         # phase 16's shards: Llama-3-8B's heads split 2 and 4 ways, one
         # shard's kernel call (the tensor-core kernel, like the unsplit one)
         shards = [kernel_case(None, K, rng, dev, flush, heads=(HQ // n, HKV // n))
@@ -7125,6 +7179,7 @@ def main() -> int:
 
     cases = kres.get("cases") or []
     head = next((c for c in cases if c["pool"] == "bf16" and c["K"] == 1), {})
+    ptxas = bres.get("ptxas") or {}
     record = {"name": "paged_attention", "route": "cuda",
               "source": "kubeflow_tpu_torch/serving/engine/csrc/paged_attention.cu",
               "replaces": "kubeflow_tpu/serving/engine/paged_attention.py:58",
@@ -7145,7 +7200,7 @@ def main() -> int:
               "device_ms": head.get("device_ms"), "plain_ms": head.get("plain_ms"),
               "bound_ms": head.get("bound_ms"),
               "bound_by": head.get("bound_by"), "library_ms": head.get("library_ms"),
-              # the CUDA-core kernel at phase 15's served shape (hd 192,
+              # the tensor-core kernel at phase 15's served shape (hd 192,
               # 16/16 heads), K = 1 and 5, and its launches serving there
               "hd192": [{k: c.get(k) for k in (
                   "K", "max_abs_err", "kernel_ms", "device_ms", "plain_ms", "bound_ms",
@@ -7164,7 +7219,9 @@ def main() -> int:
               # ``PLATFORM_PROFILE_TICKS`` (2) tick window
               "pod_trace_records": (plres.get("profile") or {}).get("records"),
               # and its tensor-parallel pod's, PLATFORM_TP shards on the card
-              "tp_pod_trace_records": (plres.get("tp") or {}).get("records")}
+              "tp_pod_trace_records": (plres.get("tp") or {}).get("records"),
+              # its library's build: seconds, registers and spills per kernel
+              "build": ptxas.get("paged_attention")}
     fcases = fres.get("cases") or []
     fhead = next((c for c in fcases if c["case"] == "ragged"), {})  # the training path's case
     frecord = {"name": "flash_attention", "route": "cuda",
@@ -7215,7 +7272,10 @@ def main() -> int:
                "operator_shapes": [{k: c.get(k) for k in (
                    "case", "B", "H", "D", "S", "causal", "max_abs_err", "kernel_ms",
                    "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-                   for c in fcases if c["case"].startswith("bert_worker")]}
+                   for c in fcases if c["case"].startswith("bert_worker")],
+               # its library's build: seconds, registers and spills per
+               # kernel, and wgmma serialisation warnings (C7514)
+               "build": ptxas.get("flash_attention")}
     report["kernels"] = [record, frecord]
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -12,12 +12,16 @@ probabilities one key block at a time from the saved log-sum-exp.
   sm_90a at first use, bound with ctypes, launched on PyTorch's current
   stream) and counts the launch in ``flash_attention.launches``; on CPU
   tensors it runs ``flash_attention_plain``.  There is no fallback: a CUDA
-  call that cannot build or launch the kernel raises.  In bf16 the kernel
-  keeps S, P and the output accumulator in registers (``mma.sync`` tensor
-  cores, P fed as two bf16 terms so the output stays within one bf16 ulp of
-  the f32 plain version) and streams 64-key tiles of K and V through a
-  two-stage ``cp.async`` ring; f32 inputs (tests only) run on the CUDA
-  cores.  Both load rows in 16-byte chunks, so an input that is not
+  call that cannot build or launch the kernel raises.  In bf16 at head_dim
+  64 and 128 (every shape the port trains) the kernel is Hopper's own:
+  persistent CTAs in which a producer warp streams Q and 64-key tiles of K
+  and V by TMA into a 3-stage ring of ``mbarrier``-guarded shared memory,
+  and consumer warpgroups compute S and O with ``wgmma`` (S, P and the
+  output accumulator in registers, P fed as two bf16 terms so the output
+  stays within one bf16 ulp of the f32 plain version), tile j-1's P V
+  running under tile j's softmax.  head_dim 16 and 32 (tests only) run
+  the ``mma.sync`` kernel with a ``cp.async`` ring, f32 inputs (tests only)
+  the CUDA cores.  All load rows in 16-byte units, so an input that is not
   16-byte aligned is copied to a fresh allocation first.
 * ``flash_attention_plain`` is the plain PyTorch version of the forward, the
   reference the kernel is held against on the card.
@@ -46,7 +50,8 @@ _HEAD_DIMS = (16, 32, 64, 128)
 
 def load_kernel() -> ctypes.CDLL:
     """Build (first use, keyed on the source hash) and bind the kernel."""
-    lib = load_cuda(_SRC, "flash_attention")
+    # -lcuda: the host encodes the kernel's TMA maps (cuTensorMapEncodeTiled)
+    lib = load_cuda(_SRC, "flash_attention", ["-lcuda"])
     p, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_fwd.restype = i32
     lib.flash_attention_fwd.argtypes = (

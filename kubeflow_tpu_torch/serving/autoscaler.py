@@ -168,6 +168,11 @@ class ConcurrencyAutoscaler:
         # loaded) doesn't read its whole cumulative history as fresh
         # growth and ratchet replicas up.  README "Overload control".
         self._rejected_last: dict[str, dict] = {}
+        # deployment uid -> wall time every replica was first seen ready (the
+        # scale-to-zero grace counts from it too, so a request the
+        # activator holds for a pod that took longer than the grace to
+        # start still reaches it); dropped while a replica is not ready
+        self._ready_since: dict[str, float] = {}
         # ---- single-writer arbitration (README "Self-driving fleet"):
         # the remediator PROPOSES replica floors here (remediator.py);
         # _autoscale folds unexpired proposals into desired exactly like
@@ -214,6 +219,9 @@ class ConcurrencyAutoscaler:
         for uid in list(self._rejected_last):
             if uid not in deploy_uids:
                 del self._rejected_last[uid]
+        for uid in list(self._ready_since):
+            if uid not in deploy_uids:
+                del self._ready_since[uid]
         for uid in list(self._incident_hold_since):
             if uid not in deploy_uids:
                 del self._incident_hold_since[uid]
@@ -329,10 +337,15 @@ class ConcurrencyAutoscaler:
         self._last_traffic[uid] = last_traffic
         self._slo_view[uid] = slo_worst
 
+        if current > 0 and ready == current:
+            self._ready_since.setdefault(uid, time.time())
+        else:
+            self._ready_since.pop(uid, None)
         if current == 0:
             return False  # activation is the router's job
 
         now = time.time()
+        ready_since = self._ready_since.get(uid, now)
         effective = max(inflight, engine_load)
         desired = math.ceil(effective / target) if effective > 0 else 0
         desired = max(desired, min_r, 0)
@@ -456,6 +469,7 @@ class ConcurrencyAutoscaler:
                 and ready == current  # pods still starting: an activation is in flight
                 and (last_traffic == 0.0 or now - last_traffic >= grace)
                 and now - float(ann.get(ACTIVATED_AT_ANNOTATION, 0.0)) >= grace
+                and now - ready_since >= grace  # the activated pod's request lands first
                 and _age(deploy) >= grace
             ):
                 return self._scale(deploy, 0, zero=True)

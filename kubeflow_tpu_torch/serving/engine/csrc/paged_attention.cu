@@ -25,21 +25,44 @@
 // Llama-3-8B decode shapes of chip_smoke.py phase 3 (B=8, one 2048-token
 // slot) the bound is 18 MB of pages, 5.4 us at 3.35 TB/s.
 //
-// Design: split-K with a merge pass, two device kernels per call.
+// Design: split-K, the merge folded into the same launch through a
+// thread-block cluster: ONE device kernel per call.
 //   * Split.  Each slot's page walk is cut into chunks of pages_per_split
 //     pages, one block per (chunk, kv head [x row tile], slot), so the
 //     2048-token slot is walked by many SMs at once instead of by one
 //     block per (slot, head).  The split is chosen on the host from the
 //     shapes only (paged_attention.py _split_plan), never from seq_lens,
-//     which would cost a device->host sync per layer.  A block whose chunk
-//     starts at or past its slot's horizon exits at once.
+//     which would cost a device->host sync per layer, and it is capped at
+//     16 chunks (the largest cluster the card takes).
+//   * Cluster.  The chunks of one (slot, kv head, row tile) are the blocks
+//     of one cluster (cudaLaunchKernelEx, cluster dimension (splits, 1,
+//     1); sizes above 8 need cudaFuncAttributeNonPortableClusterSizeAllowed).
+//     Each block owns a share of the hd output columns and keeps, in its
+//     shared memory, a slot per chunk for those columns' partials.
+//   * Push.  Once its walk is done a block writes its partial (m, l, acc)
+//     in f32 straight into the owners' shared memory through distributed
+//     shared memory (map_shared_rank): m and l of every row to every block,
+//     each acc column to its owner.  m and l stay raw: in f32 -1e9 + log(l)
+//     rounds to -1e9, so an lse would lose the counts that give an unseeing
+//     row its uniform V average.  A block whose chunk starts at or past its
+//     slot's horizon visits no page and pushes nothing, but still takes
+//     part in the cluster's barriers.  Stores to another block's memory
+//     need no round trip, where loads from it would wait on one each.
+//   * Fold.  After a cluster barrier (release / acquire) every block folds
+//     its own columns from its own shared memory: out = sum exp(m_i - M)
+//     acc_i / max(sum exp(m_i - M) l_i, 1e-30) over the live chunks, zeros
+//     for a slot with none (the rule of the former merge kernel).  No
+//     partial touches device memory, and no block reads another's memory.
 //   * Loads.  A 3-stage ring of (K tile, V tile, int8 scales) in shared
 //     memory, filled with 16-byte cp.async copies (8 bf16 or 16 int8 per
 //     copy); page j+2 is in flight while page j is computed, one barrier
 //     per page.  Rows are padded by 16 bytes so the fragment loads below
-//     are free of bank conflicts.
-//   * Scores on the tensor cores, mma.sync.m16n8k16 bf16 -> f32.  The
-//     block's rows (K*group: 4 at K=1, 20 at K=5) pad one or two m16 tiles;
+//     are free of bank conflicts (an odd number of 16-byte units at hd 64,
+//     128 and 192).
+//   * Scores on the tensor cores, mma.sync.m16n8k16 bf16 -> f32, at hd 64,
+//     128 and 192 (192: the Gemma-7B width of the served pipeline model).
+//     The block's rows (K*group: 4 at K=1, 20 at K=5) pad one or two m16
+//     tiles (always one at hd 192, where two would not fit the registers);
 //     the q fragments are loaded from device memory into registers once.
 //     The unscaled q.k is multiplied in f32 by hd**-0.5 (and by k_scale[t]
 //     for int8): scaling q to bf16 first would round it off the plain
@@ -52,26 +75,33 @@
 //     lo = bf16(p - hi) (p * v_scale[t] for int8; the sum l stays f32 from
 //     the unscaled p), so the output stays within one bf16 ulp of the f32
 //     plain version.  V fragments come from ldmatrix.trans (bf16) or from
-//     4-byte loads of an hd-permuted column order (int8).
-//   * Each block writes its partial (m, l, acc) in f32, m and l raw: in f32
-//     -1e9 + log(l) rounds to -1e9, so an lse would lose the counts that
-//     give an unseeing row its uniform V average.
-//   * Merge: one thread per output element folds the live chunks'
-//     partials, out = sum exp(m_i - M) acc_i / max(sum exp(m_i - M) l_i,
-//     1e-30); a slot with no live chunk writes zeros.
+//     2-byte loads of an hd-permuted column order (int8).
 //   * Other inputs (f32 q or pool, which only the tests use, or an hd or
-//     page size outside the tensor-core instantiations) take the same split
-//     and merge with CUDA-core FMAs over f32 tiles in shared memory.
+//     page size outside the tensor-core instantiations) take the same
+//     split and cluster fold with CUDA-core FMAs over f32 tiles in shared
+//     memory.
 // Measured by chip_smoke.py phase 3 on an H100 80GB HBM3 at 700 W (bf16,
-// K=1, the shapes above): 0.020 ms of device time (split 0.016 + merge
-// 0.004), 0.03 ms on CUDA events, against SDPA's 0.05 ms over the
-// gathered cache; the first version, one block per (slot, head) walking
-// its pages in series, took 0.505-0.587 ms.
+// K=1, the shapes above; PERF.md): one kernel of 0.021-0.023 ms of device
+// time, 0.027-0.035 ms on CUDA events, against SDPA's 0.05 ms over the
+// gathered cache; the split and merge kernels it replaced took 0.020 ms of
+// device time (0.016 + 0.004) and 0.03 ms on events.  A cluster is placed
+// whole, so the card holds fewer blocks at once (45 clusters of 8, 360
+// blocks, where 396 loose ones fit), and the fold's shared memory and the
+// registers hold an SM to 3 blocks where the split kernel held 4: a grid
+// near one round of the old capacity now takes two (paged_sweep.py).  At hd 192
+// (16/16 heads) 0.045-0.049 ms of device time against SDPA's 0.107 (the
+// CUDA-core kernel before: 0.1345).  The first version, one block per
+// (slot, head) walking its pages in series, took 0.505-0.587 ms.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -79,6 +109,12 @@ constexpr float kNegInf = -1e9f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 3;
+// chunks per (slot, kv head, row tile): the largest cluster the card
+// launches (above 8 only as a non-portable size)
+constexpr int kMaxSplits = 16;
+constexpr int kPortableCluster = 8;
+// returned when no cluster of the requested size fits the card's SMs
+constexpr int kErrClusterDoesNotFit = 100000;
 
 // ------------------------------------------------------------ primitives
 
@@ -126,7 +162,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // bytes i and j of w, as signed int8 values, -> bf16x2 (exact)
-__device__ __forceinline__ uint32_t i8x2_bf16(uint32_t w, int i, int j) {
+__device__ __forceinline__ uint32_t i8x2_bf16(uint64_t w, int i, int j) {
   return pack_bf16(static_cast<float>(static_cast<int8_t>(w >> (8 * i))),
                    static_cast<float>(static_cast<int8_t>(w >> (8 * j))));
 }
@@ -143,37 +179,129 @@ __device__ __forceinline__ int pages_to_visit(int seq_len, int K, int ps, int ma
   return min(max_pages, (seq_len + K - 1 + ps - 1) / ps);
 }
 
-// Index of row r's partial of chunk s: [B, Hkv, splits, rows].
-__device__ __forceinline__ size_t part_index(int b, int h, int s, int r, int Hkv, int splits,
-                                             int rows) {
-  return ((static_cast<size_t>(b) * Hkv + h) * splits + s) * rows + r;
+// The output columns each block of a cluster of `splits` folds.
+__host__ __device__ constexpr int fold_cols(int hd, int splits) { return (hd + splits - 1) / splits; }
+
+// Floats of the fold's shared memory in each block, for `rows` query rows
+// (the block's, padded) and a cluster of `splits`: the partials the
+// cluster's chunks push for this block's columns (acc [splits][rows][cols],
+// m and l [splits][rows]), then the weights [rows][kMaxSplits] and each
+// row's denominator.
+__host__ __device__ constexpr int fold_floats(int rows, int hd, int splits) {
+  return splits * rows * fold_cols(hd, splits) + 2 * splits * rows + rows * (kMaxSplits + 1);
+}
+
+// ------------------------------------------------------------ cluster fold
+
+// The clusters' barriers, in PTX: a relaxed arrive at the start of the
+// kernel and its wait before the first write to another block's shared
+// memory (every block of the cluster has started), then a release arrive
+// and an acquire wait once the partials are pushed.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The fold's shared memory in a block (fold_floats); the *_at accessors
+// address the same place in the block that owns column c (rank c / cols).
+struct Fold {
+  float* acc;  // [splits][rows][cols]
+  float* m;    // [splits][rows]
+  float* l;    // [splits][rows]
+  float* w;    // [rows][kMaxSplits]
+  float* den;  // [rows]
+  int rows, cols;
+  __device__ Fold(float* base, int rows_, int hd, int splits) : rows(rows_), cols(fold_cols(hd, splits)) {
+    acc = base;
+    m = acc + splits * rows * cols;
+    l = m + splits * rows;
+    w = l + splits * rows;
+    den = w + rows * kMaxSplits;
+  }
+  // chunk `src`'s value of (row r, column c) in the fold of c's owner
+  __device__ float* acc_at(int owner, int src, int r, int c) const {
+    return cg::this_cluster().map_shared_rank(acc + (src * rows + r) * cols + c - owner * cols, owner);
+  }
+  __device__ float* m_at(int owner, int src, int r) const {
+    return cg::this_cluster().map_shared_rank(m + src * rows + r, owner);
+  }
+  __device__ float* l_at(int owner, int src, int r) const {
+    return cg::this_cluster().map_shared_rank(l + src * rows + r, owner);
+  }
+};
+
+// This block's share of the fold, once every live chunk has pushed its
+// partial: out = sum exp(m_i - M) acc_i / max(sum exp(m_i - M) l_i,
+// 1e-30) over the `live` chunks for the block's columns and the rows
+// [row_base, row_base + nrows); zeros for a slot with no live chunk.
+// Reads this block's shared memory only.
+template <typename QT>
+__device__ void fold_local(const Fold& f, int nrows, int live, int row_base,
+                           QT* __restrict__ out, int b, int K, int Hq, int h, int group, int hd) {
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.x * f.cols;
+  const int nc = min(hd, c0 + f.cols) - c0;
+  for (int r = tid; r < nrows; r += kThreads) {
+    float M = kNegInf;
+    for (int s = 0; s < live; ++s) M = fmaxf(M, f.m[s * f.rows + r]);
+    float den = 0.f;
+    for (int s = 0; s < live; ++s) {
+      const float w = expf(f.m[s * f.rows + r] - M);
+      f.w[r * kMaxSplits + s] = w;
+      den = fmaf(w, f.l[s * f.rows + r], den);
+    }
+    f.den[r] = den;
+  }
+  __syncthreads();
+  for (int i = tid; i < nrows * max(nc, 0); i += kThreads) {
+    const int r = i / nc, cc = i % nc;
+    float num = 0.f;
+    for (int s = 0; s < live; ++s)
+      num = fmaf(f.w[r * kMaxSplits + s], f.acc[(s * f.rows + r) * f.cols + cc], num);
+    const int row = row_base + r;
+    const int hq = h * group + row % group;
+    store(out + ((static_cast<size_t>(b) * K + row / group) * Hq + hq) * hd + c0 + cc,
+          live > 0 ? num / fmaxf(f.den[r], 1e-30f) : 0.f);
+  }
 }
 
 // ------------------------------------------------- tensor-core split kernel
 
-template <typename KT, int HD, int PS>
+template <typename KT, int HD, int PS, int MT>
 struct TcLayout {
   static constexpr bool kInt8 = sizeof(KT) == 1;
   static constexpr int kRowB = HD * static_cast<int>(sizeof(KT)) + 16;  // padded smem row
   static constexpr int kTileB = PS * kRowB;
   static constexpr int kScaleB = kInt8 ? 2 * PS * 2 : 0;  // k and v scales, bf16
   static constexpr int kStageB = 2 * kTileB + kScaleB;
-  static constexpr int kSmem = kStages * kStageB;  // + the chunk's page ids
+  static constexpr int kRingB = kStages * kStageB;  // + the fold, then the chunk's page ids
 };
 
+// The tensor-core kernel's dynamic shared memory: ring, fold, page ids.
+template <typename KT, int HD, int PS, int MT>
+__host__ __device__ constexpr size_t tc_smem_bytes(int splits, int pps) {
+  return TcLayout<KT, HD, PS, MT>::kRingB +
+         sizeof(float) * static_cast<size_t>(fold_floats(16 * MT, HD, splits)) +
+         sizeof(int) * static_cast<size_t>(pps);
+}
+
 // q bf16 [B, K, Hq, HD]; pools KT [P, Hkv, PS, HD] (bf16, or int8 with bf16
-// scales [P, Hkv, PS]).  Grid (splits, Hkv * row tiles, B); MT m16 tiles
-// of query rows per block.  Writes part_{m,l} [B, Hkv, splits, rows] and
-// part_acc [.., HD] for the chunks that hold a visited page.
+// scales [P, Hkv, PS]).  Grid (splits, Hkv * row tiles, B) in clusters of
+// (splits, 1, 1); MT m16 tiles of query rows per block.  Writes out bf16
+// [B, K, Hq, HD].
 template <typename KT, int HD, int PS, int MT>
 __global__ void __launch_bounds__(kThreads) paged_split_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k_pool,
     const KT* __restrict__ v_pool, const __nv_bfloat16* __restrict__ k_scale,
     const __nv_bfloat16* __restrict__ v_scale, const int32_t* __restrict__ page_table,
-    const int32_t* __restrict__ seq_lens, float* __restrict__ part_m,
-    float* __restrict__ part_l, float* __restrict__ part_acc, int K, int Hq, int Hkv,
-    int max_pages, int pps, int splits, float scale) {
-  using L = TcLayout<KT, HD, PS>;
+    const int32_t* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out, int K, int Hq,
+    int Hkv, int max_pages, int pps, float scale) {
+  using L = TcLayout<KT, HD, PS, MT>;
   constexpr bool kInt8 = L::kInt8;
   constexpr int kNT = PS / 8;          // 8-token n tiles of a page's scores
   constexpr int kKS = HD / 16;         // k steps of q.k
@@ -189,13 +317,19 @@ __global__ void __launch_bounds__(kThreads) paged_split_tc_kernel(
   const int group = Hq / Hkv;
   const int rows = K * group;
   const int seq_len = seq_lens[b];
+  const int visit = pages_to_visit(seq_len, K, PS, max_pages);
   const int j0 = split * pps;
-  const int np = min(j0 + pps, pages_to_visit(seq_len, K, PS, max_pages)) - j0;
-  if (np <= 0) return;  // the chunk starts past the horizon: no partial
+  // a chunk that starts at or past the horizon visits nothing and pushes
+  // nothing, but every block of the cluster takes part in its barriers
+  const int np = max(0, min(j0 + pps, visit) - j0);
 
+  const int splits = gridDim.x;
+  const int live = (visit + pps - 1) / pps;  // the chunks that hold a visited page
   extern __shared__ __align__(128) unsigned char smem[];
-  int* pid_s = reinterpret_cast<int*>(smem + L::kSmem);
+  const Fold fold(reinterpret_cast<float*>(smem + L::kRingB), 16 * MT, HD, splits);
+  int* pid_s = reinterpret_cast<int*>(fold.den + 16 * MT);
   const int tid = threadIdx.x;
+  cluster_arrive_relaxed();  // this block has started (waited on before the push)
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tig = lane % 4;
 
@@ -214,7 +348,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_tc_kernel(
 #pragma unroll
       for (int ks = 0; ks < kKS; ++ks) {
         const int col = kInt8 ? ks * 16 + tig * 4 + (i >> 1) * 2 : ks * 16 + (i >> 1) * 8 + tig * 2;
-        qf[mt][ks][i] = r < rows ? *reinterpret_cast<const uint32_t*>(qr + col) : 0u;
+        qf[mt][ks][i] = r < rows && np > 0 ? *reinterpret_cast<const uint32_t*>(qr + col) : 0u;
       }
     }
   }
@@ -385,13 +519,20 @@ __global__ void __launch_bounds__(kThreads) paged_split_tc_kernel(
       if constexpr (kInt8) {
         // this warp's hd column c of n tile j is hd warp*kWD + c*kNJ + j, so
         // thread g reads kNJ consecutive bytes of each of its 4 token rows
-        uint32_t w[4];
+        uint64_t w[4];
 #pragma unroll
         for (int tr = 0; tr < 4; ++tr) {
           const int t = kk * 16 + tig * 2 + (tr & 1) + (tr >> 1) * 8;
           const unsigned char* src = v_s + t * L::kRowB + warp * kWD + g * kNJ;
-          w[tr] = kNJ == 4 ? *reinterpret_cast<const uint32_t*>(src)
-                           : *reinterpret_cast<const uint16_t*>(src);
+          if constexpr (kNJ == 4) {
+            w[tr] = *reinterpret_cast<const uint32_t*>(src);
+          } else {
+            uint64_t x = 0;
+#pragma unroll
+            for (int k2 = 0; k2 < kNJ / 2; ++k2)
+              x |= static_cast<uint64_t>(*reinterpret_cast<const uint16_t*>(src + 2 * k2)) << (16 * k2);
+            w[tr] = x;
+          }
         }
 #pragma unroll
         for (int j = 0; j < kNJ; ++j) {
@@ -425,7 +566,11 @@ __global__ void __launch_bounds__(kThreads) paged_split_tc_kernel(
   }
   cp_async_wait<0>();
 
-  // ---- the partial: raw m and l (quad-summed), unnormalised acc
+  // ---- push this chunk's partial to the blocks that fold its columns:
+  // raw m and l (quad-summed) to every block, acc (unnormalised) to the
+  // owner of each column; a chunk past the horizon pushes nothing
+  cluster_wait();  // every block of the cluster has started
+  const int nrows = min(16 * MT, rows - row_base);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -433,38 +578,42 @@ __global__ void __launch_bounds__(kThreads) paged_split_tc_kernel(
       float l = l_r[mt][hr];
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
-      const int r = row_base + mt * 16 + g + hr * 8;
-      if (r >= rows) continue;
-      const size_t pi = part_index(b, h, split, r, Hkv, splits, rows);
+      const int lr = mt * 16 + g + hr * 8;
+      if (split >= live || lr >= nrows) continue;
       if (warp == 0 && tig == 0) {
-        part_m[pi] = m_r[mt][hr];
-        part_l[pi] = l;
+        for (int o = 0; o < splits; ++o) {
+          *fold.m_at(o, split, lr) = m_r[mt][hr];
+          *fold.l_at(o, split, lr) = l;
+        }
       }
-      float* pa = part_acc + pi * HD + warp * kWD;
 #pragma unroll
       for (int j = 0; j < kNJ; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int c = tig * 2 + e;
-          pa[kInt8 ? c * kNJ + j : j * 8 + c] = acc[mt][j][hr * 2 + e];
+          const int c = warp * kWD + (kInt8 ? (tig * 2 + e) * kNJ + j : j * 8 + tig * 2 + e);
+          *fold.acc_at(c / fold.cols, split, lr, c) = acc[mt][j][hr * 2 + e];
         }
       }
     }
   }
+  cluster_arrive();
+  cluster_wait();  // every live chunk's partial is in its columns' owner
+  fold_local(fold, nrows, live, row_base, out, b, K, Hq, h, group, HD);
 }
 
 // ------------------------------------------------- CUDA-core split kernel
 
 // Any q/pool type, any hd and page size: one block per (chunk, kv head,
 // slot), threads striding over (row, token) and (row, dim) pairs, f32
-// tiles in shared memory.  Same partials as the tensor-core kernel.
+// tiles in shared memory.  The same clusters and fold as the tensor-core
+// kernel.
 template <typename QT, typename KT>
 __global__ void __launch_bounds__(kThreads) paged_split_simt_kernel(
     const QT* __restrict__ q, const KT* __restrict__ k_pool, const KT* __restrict__ v_pool,
     const __nv_bfloat16* __restrict__ k_scale, const __nv_bfloat16* __restrict__ v_scale,
     const int32_t* __restrict__ page_table, const int32_t* __restrict__ seq_lens,
-    float* __restrict__ part_m, float* __restrict__ part_l, float* __restrict__ part_acc,
-    int K, int Hq, int Hkv, int hd, int ps, int max_pages, int pps, int splits, float scale) {
+    QT* __restrict__ out, int K, int Hq, int Hkv, int hd, int ps, int max_pages, int pps,
+    float scale) {
   const int split = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -473,9 +622,11 @@ __global__ void __launch_bounds__(kThreads) paged_split_simt_kernel(
   const int rows = K * group;
   const int kstride = hd + 1;
   const int seq_len = seq_lens[b];
+  const int visit = pages_to_visit(seq_len, K, ps, max_pages);
   const int j0 = split * pps;
-  const int j1 = min(j0 + pps, pages_to_visit(seq_len, K, ps, max_pages));
-  if (j0 >= j1) return;
+  const int j1 = min(j0 + pps, visit);  // j1 <= j0: nothing to push
+  const int splits = gridDim.x;
+  const int live = (visit + pps - 1) / pps;
 
   extern __shared__ float fsmem[];
   float* q_s = fsmem;                   // [rows, hd], pre-scaled
@@ -486,6 +637,8 @@ __global__ void __launch_bounds__(kThreads) paged_split_simt_kernel(
   float* m_s = s_s + rows * ps;         // [rows]
   float* l_s = m_s + rows;              // [rows]
   float* c_s = l_s + rows;              // [rows] this page's correction
+  const Fold fold(c_s + rows, rows, hd, splits);
+  cluster_arrive_relaxed();  // this block has started (waited on before the push)
 
   for (int i = tid; i < rows * hd; i += kThreads) {
     const int r = i / hd, d = i - r * hd;
@@ -554,52 +707,23 @@ __global__ void __launch_bounds__(kThreads) paged_split_simt_kernel(
     __syncthreads();
   }
 
-  for (int i = tid; i < rows * hd; i += kThreads) {
-    const int r = i / hd, d = i - r * hd;
-    part_acc[part_index(b, h, split, r, Hkv, splits, rows) * hd + d] = acc_s[i];
+  // push this chunk's partial to the blocks that fold its columns, then
+  // fold this block's own
+  cluster_wait();  // every block of the cluster has started
+  if (split < live) {
+    for (int i = tid; i < rows * hd; i += kThreads) {
+      const int r = i / hd, d = i - r * hd;
+      *fold.acc_at(d / fold.cols, split, r, d) = acc_s[i];
+    }
+    for (int i = tid; i < rows * splits; i += kThreads) {
+      const int r = i / splits, o = i - r * splits;
+      *fold.m_at(o, split, r) = m_s[r];
+      *fold.l_at(o, split, r) = l_s[r];
+    }
   }
-  for (int r = tid; r < rows; r += kThreads) {
-    const size_t pi = part_index(b, h, split, r, Hkv, splits, rows);
-    part_m[pi] = m_s[r];
-    part_l[pi] = l_s[r];
-  }
-}
-
-// ------------------------------------------------------------------ merge
-
-// One thread per output element (row, dim) of a (kv head, slot): out =
-// sum_i exp(m_i - M) acc_i / max(sum_i exp(m_i - M) l_i, 1e-30) over the
-// slot's live chunks, zeros when it has none.  The chunk loops are unrolled
-// so their independent loads are in flight together.
-template <typename QT>
-__global__ void __launch_bounds__(kThreads) paged_merge_kernel(
-    const float* __restrict__ part_m, const float* __restrict__ part_l,
-    const float* __restrict__ part_acc, const int32_t* __restrict__ seq_lens,
-    QT* __restrict__ out, int K, int Hq, int Hkv, int hd, int ps, int max_pages, int pps,
-    int splits) {
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int group = Hq / Hkv;
-  const int rows = K * group;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= rows * hd) return;
-  const int r = i / hd, d = i - r * hd;
-  const int live = (pages_to_visit(seq_lens[b], K, ps, max_pages) + pps - 1) / pps;
-  const size_t p0 = part_index(b, h, 0, r, Hkv, splits, rows);
-  float M = kNegInf;
-#pragma unroll 8
-  for (int s = 0; s < live; ++s) M = fmaxf(M, part_m[p0 + static_cast<size_t>(s) * rows]);
-  float num = 0.f, den = 0.f;
-#pragma unroll 8
-  for (int s = 0; s < live; ++s) {
-    const size_t pi = p0 + static_cast<size_t>(s) * rows;
-    const float w = expf(part_m[pi] - M);
-    num = fmaf(w, part_acc[pi * hd + d], num);
-    den = fmaf(w, part_l[pi], den);
-  }
-  const int hq = h * group + r % group;
-  store(out + ((static_cast<size_t>(b) * K + r / group) * Hq + hq) * hd + d,
-        live > 0 ? num / fmaxf(den, 1e-30f) : 0.f);
+  cluster_arrive();
+  cluster_wait();  // every live chunk's partial is in its columns' owner
+  fold_local(fold, rows, live, 0, out, b, K, Hq, h, group, hd);
 }
 
 // ----------------------------------------------------------------- launch
@@ -607,77 +731,157 @@ __global__ void __launch_bounds__(kThreads) paged_merge_kernel(
 struct Args {
   const void *q, *k_pool, *v_pool, *k_scale, *v_scale, *page_table, *seq_lens;
   void* out;
-  float *part_m, *part_l, *part_acc;
   int B, K, Hq, Hkv, hd, ps, max_pages, pps, splits;
   float scale;
   cudaStream_t stream;
+  int* occ;  // non-null: report the occupancy (launch_cluster) and launch nothing
 };
 
-// Raise a kernel's dynamic shared-memory limit once per size it grows to
-// (one host call per kernel instead of one per launch); `granted` is the
-// calling launcher's own record for its kernel.
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t smem, size_t& granted) {
-  if (smem <= granted) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err == cudaSuccess) granted = smem;
-  return static_cast<int>(err);
+// One kernel instantiation's launch state: the dynamic shared memory it
+// was granted, whether it may form clusters above the portable 8, and for
+// each cluster size the largest shared memory at which a cluster was
+// found to fit the card.
+struct LaunchState {
+  size_t granted = 48 * 1024;
+  bool nonportable = false;
+  size_t fits[kMaxSplits + 1] = {};
+};
+
+// Launch `kernel` over `grid` with the grid's x blocks (the chunks of one
+// slot, kv head and row tile) as one cluster.  The first launch at a
+// (cluster size, shared memory) asks cudaOccupancyMaxActiveClusters
+// whether such a cluster fits the card and returns kErrClusterDoesNotFit
+// if it does not.  With `occ` non-null it launches nothing and writes the
+// blocks one SM holds and the clusters the card holds at once (occ[0],
+// occ[1]).  Returns the first CUDA error, 0 on success.
+template <typename... KArgs, typename... Args2>
+int launch_cluster(void (*kernel)(KArgs...), LaunchState& st, dim3 grid, size_t smem,
+                   cudaStream_t stream, int* occ, Args2... args) {
+  const int splits = static_cast<int>(grid.x);
+  if (splits < 1 || splits > kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > st.granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    st.granted = smem;
+  }
+  if (splits > kPortableCluster && !st.nonportable) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    st.nonportable = true;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (occ) {
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ[0], kernel, kThreads, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&occ[1], reinterpret_cast<const void*>(kernel), &cfg);
+    return static_cast<int>(err);
+  }
+  if (st.fits[splits] < smem) {
+    int clusters = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(
+        &clusters, reinterpret_cast<const void*>(kernel), &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (clusters < 1) return kErrClusterDoesNotFit;
+    st.fits[splits] = smem;
+  }
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Query-row m16 tiles per block: two where they fit the registers.
+template <int HD>
+constexpr int tc_mt(int rows) {
+  return rows <= 16 || HD == 192 ? 1 : 2;
 }
 
 template <typename KT, int HD, int PS, int MT>
-int launch_tc(const Args& a, int rtiles) {
-  auto kernel = paged_split_tc_kernel<KT, HD, PS, MT>;
-  const size_t smem = TcLayout<KT, HD, PS>::kSmem + sizeof(int) * a.pps;
-  static size_t granted = 48 * 1024;
-  if (int err = set_smem(kernel, smem, granted)) return err;
-  kernel<<<dim3(a.splits, a.Hkv * rtiles, a.B), kThreads, smem, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const KT*>(a.k_pool),
+int launch_tc(const Args& a) {
+  static LaunchState st;
+  const int rows = a.K * (a.Hq / a.Hkv);
+  const int rtiles = (rows + 16 * MT - 1) / (16 * MT);
+  const size_t smem = tc_smem_bytes<KT, HD, PS, MT>(a.splits, a.pps);
+  return launch_cluster(
+      paged_split_tc_kernel<KT, HD, PS, MT>, st, dim3(a.splits, a.Hkv * rtiles, a.B), smem,
+      a.stream, a.occ, static_cast<const __nv_bfloat16*>(a.q), static_cast<const KT*>(a.k_pool),
       static_cast<const KT*>(a.v_pool), static_cast<const __nv_bfloat16*>(a.k_scale),
       static_cast<const __nv_bfloat16*>(a.v_scale), static_cast<const int32_t*>(a.page_table),
-      static_cast<const int32_t*>(a.seq_lens), a.part_m, a.part_l, a.part_acc, a.K, a.Hq, a.Hkv,
-      a.max_pages, a.pps, a.splits, a.scale);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const int32_t*>(a.seq_lens), static_cast<__nv_bfloat16*>(a.out), a.K, a.Hq,
+      a.Hkv, a.max_pages, a.pps, a.scale);
 }
 
 template <typename KT, int HD, int PS>
 int launch_tc_rows(const Args& a) {
-  const int rows = a.K * (a.Hq / a.Hkv);
-  if (rows <= 16) return launch_tc<KT, HD, PS, 1>(a, 1);
-  return launch_tc<KT, HD, PS, 2>(a, (rows + 31) / 32);
+  if (tc_mt<HD>(a.K * (a.Hq / a.Hkv)) == 1) return launch_tc<KT, HD, PS, 1>(a);
+  if constexpr (HD != 192) return launch_tc<KT, HD, PS, 2>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Calls f(hd, ps) with the tensor-core kernel's (hd, page size) as
+// compile-time constants; use_tc() shapes only.
+template <typename F>
+auto with_tc_shape(int hd, int ps, F f) {
+  using I64 = std::integral_constant<int, 64>;
+  using I128 = std::integral_constant<int, 128>;
+  using I192 = std::integral_constant<int, 192>;
+  using P16 = std::integral_constant<int, 16>;
+  using P32 = std::integral_constant<int, 32>;
+  if (hd == 192) return ps == 32 ? f(I192{}, P32{}) : f(I192{}, P16{});
+  if (hd == 128) return ps == 32 ? f(I128{}, P32{}) : f(I128{}, P16{});
+  return ps == 32 ? f(I64{}, P32{}) : f(I64{}, P16{});
 }
 
 template <typename KT>
 int launch_tc_shape(const Args& a) {
-  if (a.hd == 128 && a.ps == 32) return launch_tc_rows<KT, 128, 32>(a);
-  if (a.hd == 128 && a.ps == 16) return launch_tc_rows<KT, 128, 16>(a);
-  if (a.hd == 64 && a.ps == 32) return launch_tc_rows<KT, 64, 32>(a);
-  if (a.hd == 64 && a.ps == 16) return launch_tc_rows<KT, 64, 16>(a);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_tc_shape(a.hd, a.ps, [&](auto H, auto P) {
+    return launch_tc_rows<KT, decltype(H)::value, decltype(P)::value>(a);
+  });
 }
 
-size_t simt_smem(int rows, int hd, int ps) {
+// The tensor-core kernel's shared memory; use_tc() shapes only.
+template <typename KT>
+size_t tc_smem(int hd, int ps, int rows, int splits, int pps) {
+  return with_tc_shape(hd, ps, [&](auto H, auto P) -> size_t {
+    constexpr int HD = decltype(H)::value, PS = decltype(P)::value;
+    return tc_mt<HD>(rows) == 1 ? tc_smem_bytes<KT, HD, PS, 1>(splits, pps)
+                                : tc_smem_bytes<KT, HD, PS, 2>(splits, pps);
+  });
+}
+
+size_t simt_smem(int rows, int hd, int ps, int splits) {
   const size_t floats = 2 * static_cast<size_t>(rows) * hd  // q, acc
                         + static_cast<size_t>(ps) * (hd + 1)  // K tile (padded)
                         + static_cast<size_t>(ps) * hd        // V tile
                         + static_cast<size_t>(rows) * ps      // scores
-                        + 3 * static_cast<size_t>(rows);      // m, l, corr
+                        + 3 * static_cast<size_t>(rows)       // m, l, corr
+                        + fold_floats(rows, hd, splits);      // the fold
   return floats * sizeof(float);
 }
 
 template <typename QT, typename KT>
 int launch_simt(const Args& a) {
-  auto kernel = paged_split_simt_kernel<QT, KT>;
-  const size_t smem = simt_smem(a.K * (a.Hq / a.Hkv), a.hd, a.ps);
-  static size_t granted = 48 * 1024;
-  if (int err = set_smem(kernel, smem, granted)) return err;
-  kernel<<<dim3(a.splits, a.Hkv, a.B), kThreads, smem, a.stream>>>(
-      static_cast<const QT*>(a.q), static_cast<const KT*>(a.k_pool),
-      static_cast<const KT*>(a.v_pool), static_cast<const __nv_bfloat16*>(a.k_scale),
-      static_cast<const __nv_bfloat16*>(a.v_scale), static_cast<const int32_t*>(a.page_table),
-      static_cast<const int32_t*>(a.seq_lens), a.part_m, a.part_l, a.part_acc, a.K, a.Hq, a.Hkv,
-      a.hd, a.ps, a.max_pages, a.pps, a.splits, a.scale);
-  return static_cast<int>(cudaGetLastError());
+  static LaunchState st;
+  return launch_cluster(
+      paged_split_simt_kernel<QT, KT>, st, dim3(a.splits, a.Hkv, a.B),
+      simt_smem(a.K * (a.Hq / a.Hkv), a.hd, a.ps, a.splits), a.stream, a.occ, static_cast<const QT*>(a.q),
+      static_cast<const KT*>(a.k_pool), static_cast<const KT*>(a.v_pool),
+      static_cast<const __nv_bfloat16*>(a.k_scale), static_cast<const __nv_bfloat16*>(a.v_scale),
+      static_cast<const int32_t*>(a.page_table), static_cast<const int32_t*>(a.seq_lens),
+      static_cast<QT*>(a.out), a.K, a.Hq, a.Hkv, a.hd, a.ps, a.max_pages, a.pps, a.scale);
 }
 
 template <typename QT>
@@ -690,25 +894,8 @@ int launch_simt_kv(int kv_dtype, const Args& a) {
   }
 }
 
-template <typename QT>
-int launch_merge(const Args& a) {
-  const int elems = a.K * (a.Hq / a.Hkv) * a.hd;
-  paged_merge_kernel<QT><<<dim3((elems + kThreads - 1) / kThreads, a.Hkv, a.B), kThreads, 0,
-                           a.stream>>>(
-      a.part_m, a.part_l, a.part_acc, static_cast<const int32_t*>(a.seq_lens),
-      static_cast<QT*>(a.out), a.K, a.Hq, a.Hkv, a.hd, a.ps, a.max_pages, a.pps, a.splits);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The ring of the tensor-core kernel at (hd, ps); use_tc() shapes only.
-template <typename KT>
-size_t tc_smem(int hd, int ps) {
-  if (hd == 128) return ps == 32 ? TcLayout<KT, 128, 32>::kSmem : TcLayout<KT, 128, 16>::kSmem;
-  return ps == 32 ? TcLayout<KT, 64, 32>::kSmem : TcLayout<KT, 64, 16>::kSmem;
-}
-
 bool use_tc(int q_dtype, int kv_dtype, int hd, int ps) {
-  return q_dtype == 1 && (kv_dtype == 1 || kv_dtype == 2) && (hd == 64 || hd == 128) &&
+  return q_dtype == 1 && (kv_dtype == 1 || kv_dtype == 2) && (hd == 64 || hd == 128 || hd == 192) &&
          (ps == 16 || ps == 32);
 }
 
@@ -716,40 +903,57 @@ bool use_tc(int q_dtype, int kv_dtype, int hd, int ps) {
 
 extern "C" {
 
-// Dynamic shared memory of one split block.
-size_t paged_attention_smem_bytes(int q_dtype, int kv_dtype, int rows, int hd, int ps, int pps) {
-  if (!use_tc(q_dtype, kv_dtype, hd, ps)) return simt_smem(rows, hd, ps);
-  return (kv_dtype == 2 ? tc_smem<int8_t>(hd, ps) : tc_smem<__nv_bfloat16>(hd, ps)) +
-         sizeof(int) * static_cast<size_t>(pps);
+// Dynamic shared memory of one split block in a cluster of `splits`.
+size_t paged_attention_smem_bytes(int q_dtype, int kv_dtype, int rows, int hd, int ps, int pps,
+                                  int splits) {
+  if (!use_tc(q_dtype, kv_dtype, hd, ps)) return simt_smem(rows, hd, ps, splits);
+  return kv_dtype == 2 ? tc_smem<int8_t>(hd, ps, rows, splits, pps)
+                       : tc_smem<__nv_bfloat16>(hd, ps, rows, splits, pps);
 }
 
+// The most chunks one call may cut a slot's walk into (the cluster size).
+int paged_attention_max_splits() { return kMaxSplits; }
+
 // q_dtype: 0 = f32, 1 = bf16 (out has q's type).  kv_dtype: 0 = f32,
-// 1 = bf16, 2 = int8 with bf16 scales.  part_m/part_l [B, Hkv, splits,
-// K*Hq/Hkv] and part_acc [.., hd] f32 are the caller's scratch, splits =
-// ceil(max_pages / pps).  Launches the split kernel and the merge kernel
-// on `stream` and returns the first cudaGetLastError() that is not 0
-// (0 on success); never synchronises.
+// 1 = bf16, 2 = int8 with bf16 scales.  splits = ceil(max_pages / pps)
+// must be 1..16: the chunks of a slot are one cluster.  Launches ONE
+// kernel on `stream` and returns the first CUDA error (0 on success;
+// kErrClusterDoesNotFit when no such cluster fits the card); never
+// synchronises.
 int paged_attention_launch(const void* q, int q_dtype, const void* k_pool, const void* v_pool,
                            int kv_dtype, const void* k_scale, const void* v_scale,
-                           const void* page_table, const void* seq_lens, void* out,
-                           void* part_m, void* part_l, void* part_acc, int B, int K, int Hq,
-                           int Hkv, int hd, int ps, int max_pages, int pps, float scale,
+                           const void* page_table, const void* seq_lens, void* out, int B, int K,
+                           int Hq, int Hkv, int hd, int ps, int max_pages, int pps, float scale,
                            void* stream) {
   if (pps < 1 || (q_dtype != 0 && q_dtype != 1)) return static_cast<int>(cudaErrorInvalidValue);
   Args a{q, k_pool, v_pool, k_scale, v_scale, page_table, seq_lens, out,
-         static_cast<float*>(part_m), static_cast<float*>(part_l), static_cast<float*>(part_acc),
          B, K, Hq, Hkv, hd, ps, max_pages, pps, (max_pages + pps - 1) / pps, scale,
-         static_cast<cudaStream_t>(stream)};
-  int err;
+         static_cast<cudaStream_t>(stream), nullptr};
   if (use_tc(q_dtype, kv_dtype, hd, ps))
-    err = kv_dtype == 2 ? launch_tc_shape<int8_t>(a) : launch_tc_shape<__nv_bfloat16>(a);
-  else
-    err = q_dtype == 0 ? launch_simt_kv<float>(kv_dtype, a) : launch_simt_kv<__nv_bfloat16>(kv_dtype, a);
-  if (err != 0) return err;
-  return q_dtype == 0 ? launch_merge<float>(a) : launch_merge<__nv_bfloat16>(a);
+    return kv_dtype == 2 ? launch_tc_shape<int8_t>(a) : launch_tc_shape<__nv_bfloat16>(a);
+  return q_dtype == 0 ? launch_simt_kv<float>(kv_dtype, a) : launch_simt_kv<__nv_bfloat16>(kv_dtype, a);
+}
+
+// The occupancy of the kernel that paged_attention_launch would run for
+// these shapes: the blocks one SM holds (occ[0]) and the clusters of
+// ceil(max_pages / pps) blocks the card holds at once (occ[1]), from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor and
+// cudaOccupancyMaxActiveClusters.  Launches nothing.  Returns the first
+// CUDA error, 0 on success.
+int paged_attention_occupancy(int q_dtype, int kv_dtype, int B, int K, int Hq, int Hkv, int hd,
+                              int ps, int max_pages, int pps, int* occ) {
+  if (pps < 1 || (q_dtype != 0 && q_dtype != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+         B, K, Hq, Hkv, hd, ps, max_pages, pps, (max_pages + pps - 1) / pps, 1.f,
+         nullptr, occ};
+  if (use_tc(q_dtype, kv_dtype, hd, ps))
+    return kv_dtype == 2 ? launch_tc_shape<int8_t>(a) : launch_tc_shape<__nv_bfloat16>(a);
+  return q_dtype == 0 ? launch_simt_kv<float>(kv_dtype, a) : launch_simt_kv<__nv_bfloat16>(kv_dtype, a);
 }
 
 const char* paged_attention_error_string(int err) {
+  if (err == kErrClusterDoesNotFit)
+    return "no cluster of the call's split blocks fits the card (cudaOccupancyMaxActiveClusters)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -8,20 +8,25 @@ writes a full KV copy to device memory before attention reads it back).
 
 * ``paged_attention`` keeps the JAX signature and layout (``mesh=`` runs
   it once per tensor-parallel shard, sharding.py).  On CUDA tensors
-  it launches the CUDA C++ kernels in ``csrc/paged_attention.cu`` (built
+  it launches the CUDA C++ kernel in ``csrc/paged_attention.cu`` (built
   with nvcc for sm_90a at first use, bound with ctypes, launched on
-  PyTorch's current stream) and counts the call as ONE launch in
-  ``paged_attention.launches`` (and by K in ``launches_by_k``), although a
-  call is two device kernels:
-  a split kernel, where each block walks a chunk of ``pages_per_split`` of
-  one slot's pages and writes a partial ``(m, l, acc)`` in f32 to scratch
-  from ``torch.empty``, then a merge kernel that folds each slot's live
-  chunks into the output.  ``_split_plan`` picks the chunk size from the
-  shapes alone, so no call reads ``seq_lens`` back to the host.  The pools
-  and scales must be 16-byte aligned (the kernel fills its shared-memory
-  ring with 16-byte ``cp.async`` copies); the wrapper raises otherwise.  On
-  CPU tensors it runs ``paged_attention_plain``.  There is no fallback: a
-  CUDA call that cannot build or launch the kernels raises.
+  PyTorch's current stream) and counts the call as one launch in
+  ``paged_attention.launches`` (and by K in ``launches_by_k``): a call is
+  ONE device kernel.  Each block walks a chunk of ``pages_per_split`` of
+  one slot's pages; the chunks of a (slot, kv head, row tile) form one
+  thread-block cluster, keep their partial ``(m, l, acc)`` in their own
+  shared memory and fold the live ones into the output through
+  distributed shared memory, so the wrapper allocates nothing but the
+  output.  ``_split_plan`` picks the chunk size from the shapes alone, so
+  no call reads ``seq_lens`` back to the host, and keeps the chunks to at
+  most ``max_splits()`` (16, the largest cluster the card takes).  bf16
+  queries over bf16 or int8 pools at head_dim 64, 128 or 192 and page
+  size 16 or 32 run on the tensor cores, every other input on the CUDA
+  cores.  The pools and scales must be 16-byte aligned (the kernel fills
+  its shared-memory ring with 16-byte ``cp.async`` copies); the wrapper
+  raises otherwise.  On CPU tensors it runs ``paged_attention_plain``.
+  There is no fallback: a CUDA call that cannot build or launch the
+  kernel (a cluster that does not fit the card included) raises.
 * ``paged_attention_plain`` is the plain PyTorch version of the same
   function (gather the pages, dense masked softmax with the same finite
   ``NEG_INF``), the reference the kernel is held against on the card.
@@ -53,9 +58,18 @@ _MAX_SMEM = 232448
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # the card's streaming multiprocessors (H100 SXM: 132), and the waves of
-# split blocks _split_plan aims for
+# split blocks _split_plan aims for: two (four, the split-and-merge
+# kernels' target, measured slower at every phase 3 shape on the H100).
+# Neither counts the blocks an SM holds nor the clusters the card places
+# at once, and two is the best of the sweep only at some shapes
+# (paged_sweep.py on the H100: Llama-3-8B's 32/8 heads at K=1, not K=5)
 _SMS = 132
-_TARGET_WAVES = 4
+_TARGET_WAVES = 2
+# the most chunks a slot's walk is cut into: the chunks of one (slot, kv
+# head, row tile) are one thread-block cluster, and the card forms
+# clusters of at most 16 blocks (above 8 as a non-portable size); the
+# kernel's own limit is paged_attention_max_splits()
+MAX_SPLITS = 16
 
 
 def load_kernel() -> ctypes.CDLL:
@@ -64,17 +78,24 @@ def load_kernel() -> ctypes.CDLL:
     p, i32 = ctypes.c_void_p, ctypes.c_int
     lib.paged_attention_launch.restype = i32
     lib.paged_attention_launch.argtypes = (
-        [p, i32, p, p, i32, p, p, p, p, p, p, p, p] + [i32] * 8 + [ctypes.c_float, p])
+        [p, i32, p, p, i32, p, p, p, p, p] + [i32] * 8 + [ctypes.c_float, p])
     lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
-    lib.paged_attention_smem_bytes.argtypes = [i32] * 6
+    lib.paged_attention_smem_bytes.argtypes = [i32] * 7
+    lib.paged_attention_max_splits.restype = i32
+    lib.paged_attention_max_splits.argtypes = []
+    lib.paged_attention_occupancy.restype = i32
+    lib.paged_attention_occupancy.argtypes = [i32] * 10 + [ctypes.POINTER(i32)]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
     lib.paged_attention_error_string.argtypes = [i32]
+    if lib.paged_attention_max_splits() != MAX_SPLITS:
+        raise RuntimeError("paged_attention: the kernel's cluster limit "
+                           f"{lib.paged_attention_max_splits()} != MAX_SPLITS {MAX_SPLITS}")
     return lib
 
 
 def _row_tiles(rows: int) -> int:
     """Blocks per (chunk, kv head, slot) for ``rows`` query rows, as the
-    tensor-core kernel's launch (``launch_tc_rows``) tiles them: 16 rows in
+    tensor-core kernel tiles them at hd 64 and 128 (``tc_mt``): 16 rows in
     one m16 tile, else 32 in two."""
     return 1 if rows <= 16 else -(-rows // 32)
 
@@ -87,11 +108,20 @@ def _split_plan(max_pages: int, batch: int, kv_heads: int, rows: int) -> int:
     blocks over the card's SMs, counting every (chunk, kv head, row tile,
     slot); 1 when even one page per block launches fewer.  Long chunks keep
     each block's load ring full and the partials few; enough blocks keep
-    the longest slot's walk spread over the SMs."""
+    the longest slot's walk spread over the SMs.  Then at least the
+    smallest power of two that cuts ``max_pages`` into ``MAX_SPLITS``
+    chunks or fewer: the chunks of a slot are one thread-block cluster,
+    which folds their partials in shared memory, and the card forms no
+    cluster above 16 blocks.  Beyond that a chunk takes more pages (at
+    the 8/2-head shard: 16 chunks of 4 pages, not 64 of 1).  hd 192 runs
+    one m16 tile a block, so it launches more blocks than counted here and
+    the plan errs toward more chunks there."""
     blocks = batch * kv_heads * _row_tiles(rows)
     pps = 1
     while (pps * 2 <= max_pages
            and -(-max_pages // (pps * 2)) * blocks >= _TARGET_WAVES * _SMS):
+        pps *= 2
+    while -(-max_pages // pps) > MAX_SPLITS:
         pps *= 2
     return pps
 
@@ -161,9 +191,10 @@ def paged_attention(q, k_pool, v_pool, page_table, seq_lens, page_size: int,
     [B, max_pages] int32.  Returns [B, K, Hq, hd] in q's dtype.
 
     CPU tensors run the plain version; CUDA tensors launch the Hopper
-    split and merge kernels (counted as one launch in
+    kernel (one device kernel, counted as one launch in
     ``paged_attention.launches``) or raise.  ``_pages_per_split`` overrides
-    ``_split_plan`` (tests only).
+    ``_split_plan`` (tests only; it must still cut ``max_pages`` into at
+    most ``MAX_SPLITS`` chunks).
 
     ``mesh`` (a sharding.TensorMesh) is the counterpart of the JAX
     package's ``shard_map`` wrapper: q, k_pool and v_pool are then lists,
@@ -232,13 +263,13 @@ def paged_attention(q, k_pool, v_pool, page_table, seq_lens, page_size: int,
     rows = K * (Hq // Hkv)
     pps = _pages_per_split or _split_plan(MP, B, Hkv, rows)
     splits = -(-MP // pps)
-    smem = lib.paged_attention_smem_bytes(q_code, kv_code, rows, hd, ps, pps)
+    if splits > MAX_SPLITS:
+        raise ValueError(f"paged_attention: {splits} chunks of {pps} pages exceed "
+                         f"the {MAX_SPLITS} blocks of one cluster")
+    smem = lib.paged_attention_smem_bytes(q_code, kv_code, rows, hd, ps, pps, splits)
     if smem > _MAX_SMEM:
         raise ValueError(f"paged_attention: {smem} B of shared memory per "
                          f"block exceeds the card's {_MAX_SMEM} B")
-    # partials (m, l, acc) of every (slot, kv head, chunk, row), f32
-    n = B * Hkv * splits * rows
-    part = torch.empty(n * (hd + 2), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.paged_attention_launch(
@@ -246,7 +277,6 @@ def paged_attention(q, k_pool, v_pool, page_table, seq_lens, page_size: int,
             ks.data_ptr() if ks is not None else None,
             vs.data_ptr() if vs is not None else None,
             page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            part.data_ptr(), part[n:].data_ptr(), part[2 * n:].data_ptr(),
             B, K, Hq, Hkv, hd, ps, MP, pps, float(hd ** -0.5), stream)
     if err != 0:
         raise RuntimeError("paged_attention kernel launch failed: "

@@ -10,7 +10,10 @@ builders through an atomic rename:
 * ``build_cuda`` — nvcc for hand-written Hopper kernels
   (``serving/engine/csrc/*.cu``, ``ops/csrc/*.cu``), compiled for ``sm_90a`` into a shared
   library with a plain C interface.  No PyTorch headers are included, so a
-  build takes seconds, and nothing needs ``ninja``.
+  build takes seconds, and nothing needs ``ninja``.  ptxas runs verbose
+  (``-Xptxas -v``): ``build_log`` returns a build's seconds and its
+  per-kernel register, shared-memory and spill lines, kept beside the
+  ``.so``.
 
 Every ``.so`` lands in ``kubeflow_tpu_torch/_build/`` (``BUILD_DIR``), which
 git ignores.
@@ -20,10 +23,12 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
 import threading
+import time
 
 _LOCK = threading.Lock()
 _KEY_LOCKS: dict[str, threading.Lock] = {}
@@ -42,14 +47,31 @@ def _tag(src_path: str, flags: list[str]) -> str:
 
 
 def _compile(cmd: list[str], tmp: str, so_path: str, src_path: str) -> str:
+    t0 = time.perf_counter()
     try:
-        subprocess.run(cmd, check=True, capture_output=True)
+        r = subprocess.run(cmd, check=True, capture_output=True)
     except subprocess.CalledProcessError as e:
         raise RuntimeError(
             f"native build failed for {src_path}:\n{e.stderr.decode(errors='replace')}"
         ) from e
+    with open(tmp + ".log", "w") as f:
+        json.dump({"seconds": time.perf_counter() - t0,
+                   "output": (r.stdout + r.stderr).decode(errors="replace")}, f)
+    os.replace(tmp + ".log", so_path + ".log")
     os.replace(tmp, so_path)  # atomic under concurrent builders
     return so_path
+
+
+def build_log(so_path: str) -> dict:
+    """The build of ``so_path`` as it was compiled: ``seconds`` and the
+    compiler's ``output`` (for a CUDA library, ptxas's lines per kernel:
+    registers, shared memory, spill stores and loads).  Empty when the
+    library was built before logs were kept."""
+    try:
+        with open(so_path + ".log") as f:
+            return json.load(f)
+    except OSError:
+        return {}
 
 
 def build_native(src_path: str, prefix: str, extra_flags: list[str] | None = None) -> str:
@@ -81,14 +103,19 @@ def build_cuda(src_path: str, prefix: str, extra_flags: list[str] | None = None)
     """Compile a ``.cu`` file for sm_90a into ``_build/_<prefix>_<hash>.so``.
 
     Raises RuntimeError carrying nvcc's stderr when the build fails."""
-    flags = CUDA_ARCH_FLAGS + ["-std=c++17", "-O3"] + (extra_flags or [])
+    # --split-compile=0: the optimizer and ptxas work on the source's
+    # kernels in parallel, one thread per core
+    flags = (CUDA_ARCH_FLAGS + ["-std=c++17", "-O3", "--split-compile=0", "-Xptxas", "-v"]
+             + (extra_flags or []))
     os.makedirs(BUILD_DIR, exist_ok=True)
     so_path = os.path.join(BUILD_DIR, f"_{prefix}_{_tag(src_path, flags)}.so")
     if os.path.exists(so_path):
         return so_path
     tmp = so_path + f".tmp{os.getpid()}"
-    cmd = [nvcc_path(), *flags, "-shared", "-Xcompiler", "-fPIC",
-           src_path, "-o", tmp]
+    # libraries (-l...) follow the source, as the linker reads them
+    libs = [f for f in flags if f.startswith("-l")]
+    cmd = [nvcc_path(), *[f for f in flags if not f.startswith("-l")], "-shared",
+           "-Xcompiler", "-fPIC", src_path, "-o", tmp, *libs]
     return _compile(cmd, tmp, so_path, src_path)
 
 

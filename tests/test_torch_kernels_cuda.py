@@ -94,7 +94,8 @@ def _split_inputs(kind, q_dtype, K, card):
 
 
 # every pages_per_split _split_plan can return at max_pages 64: a power of two
-SPLIT_PPS = [1, 2, 4, 8, 16, 32, 64]
+# that cuts the 64 pages into at most 16 chunks (one cluster)
+SPLIT_PPS = [4, 8, 16, 32, 64]
 
 
 @pytest.mark.cuda
@@ -108,7 +109,7 @@ def test_paged_attention_kernel_every_split(card, kind, q_dtype, rtol, atol, K, 
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
     if K == 1:
-        assert torch.all(out[3] == 0)  # the idle slot: no chunk writes a partial
+        assert torch.all(out[3] == 0)  # the idle slot: no live chunk, the fold writes zeros
 
 
 @pytest.mark.cuda
@@ -140,12 +141,12 @@ def test_paged_attention_kernel_other_tiles(card, head_dim, page, kind, K):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", [1, 5])
-@pytest.mark.parametrize("head_dim", [96, 160, 192, 256])
+@pytest.mark.parametrize("head_dim", [96, 160, 256])
 def test_paged_attention_cuda_core_kernel_wide_heads(card, head_dim, K):
-    """Head dims outside the tensor-core kernel's (64, 128) take the
-    CUDA-core split kernel: hd 192 is the Gemma pipeline's served shape
-    (d_model 3072 over 16 heads, 16 kv heads, page 32), 96, 160 and 256
-    the widths beside it.  bf16 pools, the plan's own split."""
+    """Head dims outside the tensor-core kernel's (64, 128, 192) take the
+    CUDA-core split kernel: 96, 160 and 256, the widths beside the Gemma
+    pipeline's served 192 (which the tensor cores take: the test below).
+    bf16 pools, the plan's own split."""
     heads = 16
     g = torch.Generator().manual_seed(head_dim + K)
     q = torch.randn((len(SEQ_LENS), K, heads, head_dim), generator=g).to(card, torch.bfloat16)
@@ -154,13 +155,144 @@ def test_paged_attention_cuda_core_kernel_wide_heads(card, head_dim, K):
     table = torch.randint(1, P, (len(SEQ_LENS), MP), generator=g, dtype=torch.int32).to(card)
     lens = torch.tensor(SEQ_LENS, dtype=torch.int32, device=card)
     before = PA.paged_attention.launches
-    out = PA.paged_attention(q, k_pool, v_pool, table, lens, ps)
+    out, names, calls = _device_kernels(
+        lambda: PA.paged_attention(q, k_pool, v_pool, table, lens, ps))
     ref = PA.paged_attention_plain(q, k_pool, v_pool, table, lens, ps)
     torch.cuda.synchronize()
-    assert PA.paged_attention.launches == before + 1
+    assert PA.paged_attention.launches == before + calls
+    assert [n for n in names if "paged" in n] == [n for n in names if "paged_split_simt" in n]
+    assert len([n for n in names if "paged" in n]) == 1
     torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7, atol=1e-3)
     if K == 1:
         assert torch.all(out[1] == 0)  # the idle slot
+
+
+def _device_kernels(fn, tries: int = 3):
+    """(fn's result, the names of the paged and flash device kernels it
+    ran, the calls of fn made), from a torch.profiler window around one
+    call.  A window can lose device records late in a process, so a window
+    in which a kernel launch left no record is dropped and fn called again
+    in a new one, up to ``tries`` windows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    for calls in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        ev = list(prof.profiler.kineto_results.events())
+        ids = {e.correlation_id() for e in ev
+               if e.device_type() == cpu and e.name().startswith(("cudaLaunch", "cuLaunch"))}
+        recs = [e for e in ev if e.device_type() == cuda and e.correlation_id() in ids]
+        if ids <= {e.correlation_id() for e in recs}:
+            break
+    names = [e.name() for e in recs if "paged" in e.name() or "flash" in e.name()]
+    return out, names, calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [16, 32])
+@pytest.mark.parametrize("K", [1, 5])
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_paged_attention_tensor_cores_at_hd192(card, kind, K, page):
+    """hd 192 with 16/16 heads, the Gemma pipeline's served shape, on the
+    tensor-core kernel: bf16 and int8 pools, page sizes 16 and 32, K 1 and
+    5, an idle slot; one device kernel, the tensor-core one."""
+    heads, d = 16, 192
+    g = torch.Generator().manual_seed(d + K + page)
+    lens = [page * 5, 0, page + 1, 7]
+    q = torch.randn((len(lens), K, heads, d), generator=g).to(card, torch.bfloat16)
+
+    def pool():
+        x = torch.randn((P, heads, page, d), generator=g).to(torch.bfloat16)
+        if kind == "int8":
+            qv, sc = M._quantize_kv(x)
+            return {"q": qv.to(card), "s": sc.to(card)}
+        return x.to(card)
+
+    k_pool, v_pool = pool(), pool()
+    table = torch.randint(1, P, (len(lens), MP), generator=g, dtype=torch.int32).to(card)
+    seq = torch.tensor(lens, dtype=torch.int32, device=card)
+    out, names, _ = _device_kernels(
+        lambda: PA.paged_attention(q, k_pool, v_pool, table, seq, page))
+    ref = PA.paged_attention_plain(q, k_pool, v_pool, table, seq, page)
+    torch.cuda.synchronize()
+    assert len(names) == 1 and "paged_split_tc" in names[0], names
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7, atol=1e-3)
+    if K == 1:
+        assert torch.all(out[1] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", range(1, 17))
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+def test_paged_attention_every_cluster_size(card, kind, splits):
+    """One cluster of 1..16 split blocks (one page each over a table of
+    `splits` pages): a slot that fills the table, an idle slot (at K = 5
+    its row 0 sees nothing and averages V over page 0), a partial slot and
+    a one-token slot, on the tensor-core (bf16) and CUDA-core (f32) kernels."""
+    g = torch.Generator().manual_seed(splits)
+    lens = [splits * ps - 4, 0, min(splits * ps - 4, 33), 1]
+    dt = torch.bfloat16 if kind == "bf16" else torch.float32
+    rtol, atol = (2.0 ** -7, 1e-3) if kind == "bf16" else (1e-5, 1e-5)
+    k_pool, v_pool = (torch.randn((P, Hkv, ps, hd), generator=g).to(card, dt) for _ in range(2))
+    table = torch.randint(1, P, (len(lens), splits), generator=g, dtype=torch.int32).to(card)
+    seq = torch.tensor(lens, dtype=torch.int32, device=card)
+    for K in (1, 5):
+        q = torch.randn((len(lens), K, Hq, hd), generator=g).to(card, dt)
+        out = PA.paged_attention(q, k_pool, v_pool, table, seq, ps, _pages_per_split=1)
+        ref = PA.paged_attention_plain(q, k_pool, v_pool, table, seq, ps)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+        if K == 1:
+            assert torch.all(out[1] == 0)
+        else:
+            # row 0 of the idle slot: the uniform V average over page 0
+            want = v_pool[table[1, 0], :].float().mean(1)            # [Hkv, hd]
+            got = out[1, 0].float().reshape(Hkv, Hq // Hkv, hd)
+            torch.testing.assert_close(got, want[:, None].expand_as(got), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_paged_attention_is_one_device_kernel_per_call(card):
+    """A call is one cluster-launched kernel: three calls at the split
+    test's shapes give exactly three paged device records, none a merge."""
+    q, k_pool, v_pool, table, lens = _split_inputs("bf16", torch.bfloat16, 1, card)
+
+    def three():
+        return [PA.paged_attention(q, k_pool, v_pool, table, lens, ps) for _ in range(3)]
+
+    _, names, _ = _device_kernels(three)
+    assert len(names) == 3 and all("paged_split_tc" in n for n in names), names
+    assert not any("merge" in n for n in names)
+
+
+@pytest.mark.cuda
+def test_paged_attention_occupancy_reports_the_call_kernel(card):
+    """The occupancy query (the kernel a call would launch, launching
+    nothing): at the split test's shapes at least one block an SM and one
+    cluster of 16 or of 2 blocks; more chunks than a cluster holds are
+    refused as the launch refuses them."""
+    import ctypes
+
+    lib = PA.load_kernel()
+    occ = (ctypes.c_int * 2)()
+    before = PA.paged_attention.launches
+    for pps in (4, 32):
+        assert lib.paged_attention_occupancy(1, 1, len(SPLIT_LENS), 1, Hq, Hkv, hd, ps, SPLIT_MP,
+                                             pps, occ) == 0
+        assert occ[0] >= 1 and occ[1] >= 1, (pps, occ[0], occ[1])
+    assert lib.paged_attention_occupancy(1, 1, len(SPLIT_LENS), 1, Hq, Hkv, hd, ps, SPLIT_MP,
+                                         2, occ) != 0
+    assert PA.paged_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_paged_attention_rejects_more_chunks_than_a_cluster(card):
+    q, k_pool, v_pool, table, lens = _split_inputs("bf16", torch.bfloat16, 1, card)
+    with pytest.raises(ValueError, match="cluster"):
+        PA.paged_attention(q, k_pool, v_pool, table, lens, ps, _pages_per_split=2)
 
 
 @pytest.mark.cuda
@@ -204,7 +336,7 @@ def _flash_mask(kind, card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mask_kind", [None, "ragged", "left"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype,rtol,atol", FLASH_CASES, ids=["f32", "bf16"])
 def test_flash_attention_kernel_matches_plain(card, dtype, rtol, atol, D, causal, mask_kind):
     g = torch.Generator().manual_seed(D)
@@ -252,6 +384,55 @@ def test_flash_attention_kernel_partial_tiles_and_caller_blocks(card, D, block_q
             hz = (((5 // block_q) + 1) * block_q - 1) // block_k * block_k + block_k
             want = v[FH, :hz].float().mean(0)
             torch.testing.assert_close(out[FH, 5].float(), want, rtol=2.0 ** -7, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [32, 64])
+@pytest.mark.parametrize("mask_kind", [None, "ragged", "left"])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_attention_kernel_short_sequences(card, D, mask_kind, S):
+    """bf16 at S 32 (the BERT worker's shape, one partial 64-row tile and
+    one partial key tile) and S 64: the 64-row, one-consumer kernel at D 128
+    too, causal and not, with lse."""
+    g = torch.Generator().manual_seed(S + D)
+    q, k, v = (torch.randn((FB * FH, S, D), generator=g).to(card, torch.bfloat16)
+               for _ in range(3))
+    am = None if mask_kind is None else torch.ones((FB, S), device=card)
+    if mask_kind == "ragged":
+        am[0, S // 2 + 3:] = 0
+    elif mask_kind == "left":
+        am[1, :S // 4 + 1] = 0
+    mask = None if am is None else am.reshape(FB, 1, S)
+    for causal in (False, True):
+        out, lse = FA._flash_fwd(q, k, v, mask, D ** -0.5, causal, 16, 16, FH)
+        ref, ref_lse = FA.flash_attention_plain(q, k, v, mask, D ** -0.5, causal, 16, 16)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7, atol=1e-3)
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_sass_holds_hgmma_and_utmaldg(card):
+    """The built library's SASS has Hopper's warpgroup products (HGMMA) and
+    TMA tensor loads (UTMALDG) in every instantiation of the D 64 and 128
+    kernel (D 64 with one consumer warpgroup, D 128 with two): it is on
+    wgmma and TMA, not the Ampere path."""
+    import os
+    import shutil
+    import subprocess
+
+    lib = FA.load_kernel()
+    tool = next((p for p in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                                          "cuobjdump"), shutil.which("cuobjdump"))
+                 if p and os.path.exists(p)), None)
+    if tool is None:
+        pytest.skip("needs cuobjdump from the CUDA toolkit")
+    sass = subprocess.run([tool, "-sass", lib._name], capture_output=True, text=True,
+                          check=True).stdout
+    wg = [blk for blk in sass.split("Function : ")[1:] if "flash_fwd_wgmma" in blk]
+    assert len(wg) == 2, [blk.splitlines()[0] for blk in sass.split("Function : ")[1:]]
+    for blk in wg:
+        assert "HGMMA" in blk and "UTMALDG" in blk
 
 
 @pytest.mark.cuda
@@ -441,8 +622,8 @@ def test_streamed_request_matches_unary_on_card(card, spec):
 
 
 # Observability and supervision on the card: a TickProfiler capture of the
-# served loop holds both device kernels of every paged call (split + merge)
-# per layer per decode tick — no record lost at the window's edges — and a
+# served loop holds the one device kernel of every paged call per layer per
+# decode tick — no record lost at the window's edges — and a
 # loop killed mid-decode by chaos is restarted by the watchdog and serves
 # again through the kernel.
 
@@ -454,7 +635,7 @@ def _paged_kernel_records(trace_path: str) -> int:
         events = json.load(f)["traceEvents"]
     return sum(1 for e in events
                if e.get("cat") == "kernel" and e.get("ph") == "X"
-               and any(m in e.get("name", "") for m in ("paged_split", "paged_merge")))
+               and "paged_split" in e.get("name", ""))
 
 
 @pytest.mark.cuda
@@ -485,7 +666,7 @@ def test_tick_profiler_captures_every_paged_kernel_record(card, tmp_path):
     assert prof["last_error"] is None and prof["captures"] == 1
     assert d == str(tmp_path)
     assert decode_ticks == 8
-    assert _paged_kernel_records(eng._profiler.last_trace) == 2 * ENGINE_CFG.n_layers * 8
+    assert _paged_kernel_records(eng._profiler.last_trace) == ENGINE_CFG.n_layers * 8
 
 
 @pytest.mark.cuda

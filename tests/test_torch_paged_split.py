@@ -1,13 +1,19 @@
-"""The split-and-merge design of the port's paged-attention kernel, on the CPU.
+"""The split-and-fold design of the port's paged-attention kernel, on the CPU.
 
 The Hopper kernel (``kubeflow_tpu_torch/serving/engine/csrc/paged_attention.cu``)
-cuts each slot's page walk into chunks of ``pages_per_split`` pages, writes a
-raw ``(m, l, acc)`` partial per chunk and merges the live chunks in a second
-kernel.  ``split_merge`` below models those two kernels in torch, step for
-step, and is held against ``paged_attention_plain`` and against the JAX
-package's Pallas kernel in interpret mode (as tests/test_torch_paged_attention.py
-runs it).  The CUDA kernels themselves are held against the plain version on
-the card (tests/test_torch_kernels_cuda.py)."""
+cuts each slot's page walk into at most 16 chunks of ``pages_per_split``
+pages.  The chunks of one (slot, kv head, row tile) are the blocks of one
+thread-block cluster, each owning a share of the output columns: a block
+that walked a live chunk pushes its raw ``(m, l, acc)`` partial into the
+owners' shared memory (a chunk starting past the slot's horizon pushes
+nothing), and after a cluster barrier every block folds the live chunks'
+partials for its own columns.  ``split_merge`` below models that one kernel
+in torch, step for step (``split_partials`` the per-chunk partials,
+``merge`` the fold by column share), and is held against
+``paged_attention_plain`` and against the JAX package's Pallas kernel in
+interpret mode (as tests/test_torch_paged_attention.py runs it).  The CUDA
+kernel itself is held against the plain version on the card
+(tests/test_torch_kernels_cuda.py)."""
 
 import inspect
 import math
@@ -16,6 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from kubeflow_tpu.serving.engine.paged_attention import paged_attention as jax_paged_attention
 from kubeflow_tpu_torch.serving.engine import paged_attention as PA
@@ -39,10 +47,13 @@ def _inputs(K, seed=0):
 
 
 def split_partials(q, k_pool, v_pool, table, lens, page_size, pps):
-    """The split kernel: for every (slot, kv head, chunk of ``pps`` pages)
-    whose chunk starts before the slot's horizon, the raw partial ``(m, l,
-    acc)`` of its rows over the chunk's pages.  Returns {(b, chunk): (m
-    [Hkv, rows], l [Hkv, rows], acc [Hkv, rows, hd])}."""
+    """The split blocks: for every (slot, chunk of ``pps`` pages) the raw
+    partial ``(m, l, acc)`` of every kv head's rows over the chunk's pages,
+    as the chunk's block pushes it.  A chunk that starts at or past the
+    slot's horizon visits no page and pushes nothing; the model gives it
+    the empty partial (m = NEG_INF, l = 0, acc = 0), which the fold never
+    reads.  Returns {(b, chunk): (m [Hkv, rows], l [Hkv, rows], acc
+    [Hkv, rows, hd])} for every chunk."""
     Bn, K, nq, d = q.shape
     nkv = k_pool.shape[1]
     group = nq // nkv
@@ -56,8 +67,10 @@ def split_partials(q, k_pool, v_pool, table, lens, page_size, pps):
         see = int(lens[b]) + torch.arange(rows) // group       # [rows]
         for c, j0 in enumerate(range(0, max_pages, pps)):
             j1 = min(j0 + pps, n_pages)
-            if j0 >= j1:
-                continue                                    # exits: no partial
+            if j0 >= j1:                                    # an empty partial
+                parts[b, c] = (torch.full((nkv, rows), NEG_INF), torch.zeros((nkv, rows)),
+                               torch.zeros((nkv, rows, d)))
+                continue
             pages = table[b, j0:j1].long()
             k = k_pool[pages].permute(1, 0, 2, 3).reshape(nkv, -1, d)
             v = v_pool[pages].permute(1, 0, 2, 3).reshape(nkv, -1, d)
@@ -70,26 +83,48 @@ def split_partials(q, k_pool, v_pool, table, lens, page_size, pps):
     return parts
 
 
-def merge(parts, q):
-    """The merge kernel: raw m and l, zeros for a slot with no partial."""
+def live_chunks(seq_len, K, page_size, max_pages, pps):
+    """The chunks a slot's fold reads: those that start before its horizon
+    (from seq_lens alone, as every block of the cluster computes it)."""
+    n_pages = min(max_pages, -(-(seq_len + K - 1) // page_size))
+    return -(-n_pages // pps)
+
+
+def column_share(rank, splits, hd):
+    """The output columns block ``rank`` of a cluster of ``splits`` folds."""
+    per = -(-hd // splits)
+    return range(min(hd, rank * per), min(hd, (rank + 1) * per))
+
+
+def merge(parts, q, lens, page_size, max_pages, pps):
+    """The fold, as the cluster runs it: every block computes each row's
+    weights exp(m_i - M) and denominator from the live chunks' raw m and l,
+    then writes its own share of the columns, sum_i w_i acc_i / max(sum_i
+    w_i l_i, 1e-30); zeros for a slot with no live chunk."""
     Bn, K, nq, d = q.shape
+    splits = -(-max_pages // pps)
     out = torch.zeros((Bn, K, nq, d))
     for b in range(Bn):
-        mine = [parts[key] for key in sorted(parts) if key[0] == b]
-        if not mine:
+        live = live_chunks(int(lens[b]), K, page_size, max_pages, pps)
+        if live == 0:
             continue
-        M = torch.stack([m for m, _, _ in mine]).amax(0)
-        w = [torch.exp(m - M) for m, _, _ in mine]
-        num = sum(wi[..., None] * acc for wi, (_, _, acc) in zip(w, mine))
-        den = sum(wi * l for wi, (_, l, _) in zip(w, mine))
-        o = num / den.clamp(min=1e-30)[..., None]               # [Hkv, rows, hd]
+        ms = torch.stack([parts[b, c][0] for c in range(live)])   # [live, Hkv, rows]
+        M = ms.amax(0)
+        w = torch.exp(ms - M)
+        den = sum(w[c] * parts[b, c][1] for c in range(live))
+        o = torch.zeros(parts[b, 0][2].shape)                    # [Hkv, rows, hd]
+        for rank in range(splits):
+            cols = list(column_share(rank, splits, d))
+            num = sum(w[c][..., None] * parts[b, c][2][..., cols] for c in range(live))
+            o[..., cols] = num / den.clamp(min=1e-30)[..., None]
         nkv = o.shape[0]
         out[b] = o.reshape(nkv, K, nq // nkv, d).permute(1, 0, 2, 3).reshape(K, nq, d)
     return out
 
 
 def split_merge(q, k_pool, v_pool, table, lens, page_size, pps):
-    return merge(split_partials(q, k_pool, v_pool, table, lens, page_size, pps), q)
+    parts = split_partials(q, k_pool, v_pool, table, lens, page_size, pps)
+    return merge(parts, q, lens, page_size, table.shape[1], pps)
 
 
 def _torch_inputs(K):
@@ -128,13 +163,21 @@ def test_split_merge_matches_jax_kernel(K, pps):
 @pytest.mark.parametrize("pps", [1, 2, 3])
 def test_chunks_past_the_horizon_write_no_partial(pps):
     """Only chunks that start before the slot's horizon seq_len + K - 1
-    produce a partial; the merge counts the live ones from seq_lens alone."""
+    hold a partial the fold reads; every other block of the cluster pushes
+    nothing (its partial in the model is the empty one, and it still takes
+    part in the cluster's barriers), and the fold counts the live chunks
+    from seq_lens alone."""
     K = 5
     parts = split_partials(*_torch_inputs(K), ps, pps)
+    splits = -(-MP // pps)
     for b in range(B):
         n_pages = min(MP, -(-(int(SEQ_LENS[b]) + K - 1) // ps))
-        live = sorted(c for bb, c in parts if bb == b)
-        assert live == list(range(-(-n_pages // pps)))
+        live = live_chunks(int(SEQ_LENS[b]), K, ps, MP, pps)
+        assert live == -(-n_pages // pps)
+        assert sorted(c for bb, c in parts if bb == b) == list(range(splits))
+        for c in range(live, splits):
+            m, l, acc = parts[b, c]
+            assert torch.all(m == NEG_INF) and not l.any() and not acc.any()
 
 
 def test_unseeing_row_averages_v_over_every_chunk():
@@ -192,3 +235,83 @@ def test_split_plan_fills_two_waves_at_the_main_shapes(K):
     pps = PA._split_plan(64, 8, 8, rows)
     blocks = math.ceil(64 / pps) * 8 * 8 * PA._row_tiles(rows)
     assert blocks >= 2 * 132
+
+
+@pytest.mark.parametrize("splits", range(1, 17))
+def test_fold_column_shares_cover_hd_once(splits):
+    """Every output column of a cluster of 1..16 blocks is folded by exactly
+    one block, at the head dims the kernel serves."""
+    for d in (16, 64, 96, 128, 160, 192, 256):
+        cols = [c for rank in range(splits) for c in column_share(rank, splits, d)]
+        assert sorted(cols) == list(range(d))
+
+
+@pytest.mark.parametrize("pps", [1, 2])
+@pytest.mark.parametrize("K", [1, 5])
+def test_fold_of_empty_partials_changes_nothing(K, pps):
+    """Reading a dead chunk's empty partial into the fold would not move the
+    output either (its weight meets l = 0 and acc = 0), but the kernel reads
+    the live chunks only: the fold over live chunks equals the plain
+    version, and an all-idle batch folds to zeros."""
+    q, kp, vp, pt, _ = _torch_inputs(K)
+    idle = torch.zeros(B, dtype=torch.int32)
+    got = split_merge(q, kp, vp, pt, idle, ps, pps)
+    if K == 1:
+        assert torch.equal(got, torch.zeros_like(got))
+    want = PA.paged_attention_plain(q, kp, vp, pt, idle, ps)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+# The served shapes at small depth: hd 192 with 16/16 heads (the Gemma
+# pipeline's served model, d_model 3072 over 16 heads) and the main
+# Llama-3-8B shape, 32/8 heads at hd 128, page 32.
+SERVED = {"gemma_hd192": (16, 16, 192), "llama_main": (32, 8, 128)}
+SERVED_TABLE = np.array([[2, 4, 6, 1], [3, 5, 0, 0], [7, 0, 0, 0]], np.int32)
+SERVED_LENS = np.array([100, 33, 0], np.int32)
+
+
+def _served_inputs(name, K):
+    nq, nkv, d = SERVED[name]
+    rng = np.random.default_rng(d + K)
+    return (rng.standard_normal((3, K, nq, d)).astype(np.float32),
+            rng.standard_normal((8, nkv, 32, d)).astype(np.float32),
+            rng.standard_normal((8, nkv, 32, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("K", [1, 5])
+@pytest.mark.parametrize("name", sorted(SERVED))
+def test_split_fold_matches_jax_kernel_at_the_served_shapes(name, K):
+    """The cluster model at the plan's own split and at one page a chunk
+    against the JAX kernel in interpret mode: hd 192 with 16/16 heads and
+    the main shape, K 1 and 5."""
+    q, kp, vp = _served_inputs(name, K)
+    ref = np.asarray(jax_paged_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(SERVED_TABLE),
+        jnp.asarray(SERVED_LENS), 32, interpret=True), np.float32)
+    nq, nkv, _ = SERVED[name]
+    plan = PA._split_plan(SERVED_TABLE.shape[1], 3, nkv, K * nq // nkv)
+    for pps in sorted({plan, 1}):
+        got = split_merge(torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+                          torch.from_numpy(SERVED_TABLE), torch.from_numpy(SERVED_LENS), 32, pps)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=TOL, atol=TOL)
+
+
+@settings(max_examples=300, deadline=None)
+@given(max_pages=st.integers(1, 4096), batch=st.integers(1, 256),
+       kv_heads=st.integers(1, 64), rows=st.integers(1, 256))
+def test_split_plan_never_exceeds_one_cluster(max_pages, batch, kv_heads, rows):
+    """Whatever the shapes, the plan cuts max_pages into at most MAX_SPLITS
+    (16) chunks of a power-of-two page count that together cover every
+    page, so the chunks of a slot always fit one cluster."""
+    pps = PA._split_plan(max_pages, batch, kv_heads, rows)
+    splits = -(-max_pages // pps)
+    assert PA.MAX_SPLITS == 16
+    assert 1 <= splits <= PA.MAX_SPLITS
+    assert pps & (pps - 1) == 0
+    assert (splits - 1) * pps < max_pages <= splits * pps
+
+
+def test_split_plan_caps_the_tp_shard_at_one_cluster():
+    """At the 8/2-head tensor-parallel shard (8 slots, 64 pages, K = 1) the
+    uncapped plan would cut 64 chunks of one page; capped it is 16 of 4."""
+    assert PA._split_plan(64, 8, 2, 4) == 4
