@@ -231,6 +231,28 @@ or the script exits non-zero:
    the one paged kernel; both pods gone after the delete,
    no traceback.  The
    ingress's TTFT beside the pod's direct TTFT;
+6c(storm). after the profiled request, on the first pod (no new pod):
+   ``tests/test_overload.py``'s storm e2e.  The Service gets that test's
+   overload annotation (``limit`` 4, ``min_limit`` 2, ``rate`` 0,
+   ``adjust_interval_s`` 0.2, no brownout); the port's ``FleetRemediator``
+   (with an autoscaler of the phase's own that it never syncs, so the
+   proposed floor starts no second 16 GB pod) is attached to the ingress
+   with ``attach_remediator``; the storm ``storm_schedule(StormFaultConfig(
+   seed=7, ...))`` (``STORM``: 114 arrivals in 1.5 s) goes through the
+   ingress, each arrival a V2 generate on its own thread at its ``t_s``
+   with ``X-Tenant-Id``, its ``priority`` and ``deadline_s`` 60.  Gates:
+   every arrival answered 200 or 429 (Retry-After > 0, reason quota,
+   concurrency or deadline), at least one of each, every 200 with 8
+   tokens; exactly one ``capacity`` incident from ``admission_pressure``
+   whose evidence cites ``shed_total`` > 0 and whose bundle names the
+   ``prescale`` playbook; the pod's ``/metrics`` counting no engine shed
+   and no rejected request; ``GET /fleet/remediation`` on the Service's
+   port with no human action, one ``prescale`` executed and a proposed
+   floor of current + 1 for the InferenceService's Deployment.  Reported:
+   the storm's wall time, sheds by reason, the 200s' p50/p99 latency, the
+   seconds from the first 429's arrival at the client to the incident (the
+   ingress opens it at the shed, so it can be negative) and from the
+   incident to the remediation;
 7. flash kernel: ``flash_attention``'s forward kernel on the card against
    ``flash_attention_plain`` at the BERT-base shapes (B=32, H=12, S=T=512,
    d=64, bf16; blocks 128): non-causal with a ragged key mask, causal, and
@@ -241,7 +263,13 @@ or the script exits non-zero:
    torch.profiler window), the plain version and
    ``scaled_dot_product_attention`` with the same boolean mask (a yardstick
    the port never calls) beside the bound, and the time of the blockwise
-   f32 backward that the training path pairs with the kernel;
+   f32 backward that the training path pairs with the kernel.  Phases 3
+   and 7, once they pass, each write a marker bound to the sha256 of
+   their kernel's ``.cu`` source into ``_build/``
+   (``utils/chipmarker.write_marker``) and read it back with
+   ``marker_valid``, which must hold; the markers are logged as a
+   ``{"build_markers": ...}`` line after phase 7 and carried in each
+   kernel's record;
 8. train (the training main path): full-width BERT-base MLM
    (``BertConfig(attention="flash")``, random weights, seed 0) through
    ``Trainer`` at B=32, S=512, max_predictions=80 with ragged padding masks:
@@ -249,7 +277,10 @@ or the script exits non-zero:
    batch from the same weights, then 2 warm-up and 10 timed steps counting
    the kernel's launches (exactly 12 a step, the plain version never), step
    time, samples/s, tokens/s, MFU, a torch.profiler window, and 5 steps of
-   the dense path for the end-to-end comparison;
+   the dense path for the end-to-end comparison; then
+   ``Trainer.compiled_cost_analysis`` on the flash loss and on the dense
+   loss, which must count the same FLOPs within 1%, reported beside
+   ``BertConfig.train_flops(32, 512, 80)``;
 9-11. the BERT worker's auto-resume, the MNIST worker and the DARTS trial
    worker run as the port's own jobs and Katib trials in phase 22 (b), (c)
    and (e);
@@ -516,6 +547,7 @@ from kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 from kubeflow_tpu_torch.parallel.presets import get_preset
 from kubeflow_tpu_torch.train.data import synthetic_mlm_batches, to_device
 from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig, global_norm
+from kubeflow_tpu_torch.utils.chipmarker import marker_valid, source_sha, write_marker
 from kubeflow_tpu_torch.utils.native_build import BUILD_DIR, build_log
 
 # the module, not the function the package re-exports under the same name
@@ -2355,6 +2387,16 @@ SPEC_PROMPT = "ab cd " * 40
 ALL_BYTES = r"start ::= [\x00-\xff]* ;"
 BROWNOUT_PROMPT = "one two three four " * 20
 BROWNOUT_TOKENS = 64
+# Cuts of PR 23's slice, to pay for 6c(storm) and phase 8's FLOP count
+# (~3 s together on an H100 host): the fence's cost is read over 16 tokens
+# a request (32 before), the LoRA prefix run's three requests decode 8
+# tokens each (16 before); neither is a gate on the count
+FENCE_TOKENS = 16
+LORA_PREFIX_TOKENS = 8
+VARIANTS_REDUCED = {"fence_tokens": [FENCE_TOKENS, MAX_TOKENS],
+                    "lora_prefix_tokens": [LORA_PREFIX_TOKENS, 16],
+                    "why": "time: the script's phases must not grow; 6c(storm) and phase 8's "
+                           "FLOP count added ~3 s on an H100 host"}
 
 
 def write_safetensors(path: str, tensors: dict) -> None:
@@ -2608,7 +2650,7 @@ def variants_lora(params, cfg, dev, base_tokens_per_s, scratch: str) -> dict:
         with KernelWatch() as pwatch:
             for ad in ("a", "b", "a"):
                 before = srv.engine.stats["page_hits"]
-                code, body = srv.post(long_prompt, 16, adapter=ad)
+                code, body = srv.post(long_prompt, LORA_PREFIX_TOKENS, adapter=ad)
                 hits.append(srv.engine.stats["page_hits"] - before if code == 200 else None)
                 if code == 200:
                     lags.append(oracle_lag(params, cfg, dev, long_prompt, body["token_ids"],
@@ -2743,7 +2785,7 @@ def variants_constrain(params, cfg, dev, scratch: str) -> dict:
 
             def go(i, spec=spec, r=r):
                 extra = {"constrain": spec} if spec is not None and i == 3 else {}
-                r[i] = srv.post(PROMPTS[i], MAX_TOKENS, **extra)
+                r[i] = srv.post(PROMPTS[i], FENCE_TOKENS, **extra)
 
             with KernelWatch() as fw:
                 t0 = time.perf_counter()
@@ -2950,6 +2992,7 @@ def variants(params, cfg, dev, main_run: dict) -> dict:
             f"stage 9 -> {d['stage9_status']}")
     out["launches"] = sum(v.get("launches", 0) for v in (a, b, c, d))
     out["plain_calls"] = sum(v.get("plain_calls", 0) or 0 for v in (a, b, c, d))
+    out["reduced"] = VARIANTS_REDUCED
     out["ok"] = all(v.get("ok") for v in (a, b, c, d)) and out["plain_calls"] == 0
     return out
 
@@ -3227,6 +3270,8 @@ TRAIN_WARM, TRAIN_TIMED, TRAIN_PROFILED, TRAIN_DENSE = 2, 10, 3, 5
 # decode bound with depth.
 TRAIN_LOSS_RTOL = 1e-4 * (12 / 2) ** 0.5
 TRAIN_GRAD_RTOL = 5e-3 * (12 / 2) ** 0.5
+# compiled_cost_analysis: the flash step counts what the dense step counts
+COST_FLASH_DENSE_RTOL = 1e-2
 
 
 def train_batches(vocab: int, n: int, seed: int = 0) -> list:
@@ -3348,6 +3393,24 @@ def train(dev) -> dict:
         trainer.train_step(b, sync=False)
     trainer.block_until_ready()
     out["dense_step_ms"] = (time.perf_counter() - t0) / TRAIN_DENSE * 1e3
+
+    # Trainer.compiled_cost_analysis: one forward and backward counted, the
+    # flash kernel at its own products, beside the dense path's count and
+    # BertConfig.train_flops (outside the launch count above)
+    counts = {}
+    for name, fn in (("flash", loss_fn), ("dense", dense_loss)):
+        trainer.loss_fn = fn
+        t0 = time.perf_counter()
+        counts[name] = trainer.compiled_cost_analysis(batches[1]).get("flops")
+        counts[f"{name}_s"] = time.perf_counter() - t0
+    trainer.loss_fn = loss_fn
+    counts["train_flops"] = flops
+    counts["flash_vs_dense_rel"] = (abs(counts["flash"] - counts["dense"]) / counts["dense"]
+                                    if counts["flash"] and counts["dense"] else None)
+    counts["flash_vs_train_flops"] = (counts["flash"] / flops if counts["flash"] else None)
+    out["cost_analysis"] = counts
+    out["ok"] = (out["ok"] and counts["flash_vs_dense_rel"] is not None
+                 and counts["flash_vs_dense_rel"] <= COST_FLASH_DENSE_RTOL)
     return out
 
 
@@ -3901,6 +3964,17 @@ PLATFORM_TP_LAYERS = 4
 PLATFORM_TP_REDUCED = ("time: the case must add no net time to the script; at 32 layers its "
                        "profiled request beside the first one's took 12.3 s to its first "
                        "token and the phase grew by 25 s on an H100 host")
+# 6c(storm): tests/test_overload.py's storm e2e (its overload annotation
+# and its seeded storm, StormFaultConfig at seed 7: 114 arrivals in 1.5 s,
+# bursts x3, three Zipf tenants, prompts of 11-125 bytes, 8 tokens each)
+# through the port's ingress into the first pod, with the port's
+# FleetRemediator attached to the ingress
+STORM_OVERLOAD = {"limit": 4, "min_limit": 2, "rate": 0, "adjust_interval_s": 0.2,
+                  "brownout": False}
+STORM = dict(seed=7, duration_s=1.5, base_qps=40.0, burst_every_s=0.75, burst_len_s=0.25,
+             burst_x=3.0, tenants=3, prompt_len_median=32, prompt_len_max=128, max_tokens=8)
+STORM_DEADLINE_S = 60.0
+STORM_WAIT_S = 15.0  # for the incident and its remediation after the storm
 # what torch sees in a process whose CUDA_VISIBLE_DEVICES names this card
 # twice (the kubelet's map of two node cards onto it)
 REPEATED_CARDS_PY = ("import json, torch; print(json.dumps({'device_count': "
@@ -3963,6 +4037,144 @@ def repeated_cards() -> dict:
             **(json.loads(lines[-1]) if lines else {}),
             "warning": next((x.strip() for x in r.stderr.splitlines() if "Error 101" in x
                              or "cudaGetDeviceCount" in x), None)}
+
+
+def storm_post(port: int, arr) -> tuple:
+    """One storm arrival as the JAX test sends it: a V2 generate through the
+    ingress with its tenant, class and deadline; (status, headers, body,
+    client seconds, wall clock at the answer)."""
+    body = {"text_input": "a" * arr.prompt_len,
+            "parameters": {"max_tokens": arr.max_tokens, "priority": arr.priority,
+                           "deadline_s": STORM_DEADLINE_S}}
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v2/models/{PLATFORM_ISVC}/generate",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", "X-Tenant-Id": arr.tenant})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            res = r.status, dict(r.headers), json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        res = e.code, dict(e.headers), json.loads(e.read())
+    return (*res, time.perf_counter() - t0, time.time())
+
+
+def platform_storm(cluster, proxy, ingress: int, pod_port_: int) -> dict:
+    """6c(storm): the seeded storm through the ingress into the Ready
+    Llama-3-8B pod, with the overload annotation on its Service and the
+    port's FleetRemediator attached to the ingress (an autoscaler of the
+    phase's own that the phase never syncs, so the proposed floor starts
+    no second pod).  Gates: every arrival answered 200 or 429 (Retry-After
+    > 0, reason quota, concurrency or deadline), at least one of each,
+    every 200 with its 8 tokens; one capacity incident from
+    ``admission_pressure`` citing its shed total and carrying the prescale
+    remediation; the pod's engine shed and rejected nothing (its
+    ``/metrics``); ``/fleet/remediation`` on the Service's port: no human
+    action, one prescale executed, the Deployment's floor current + 1."""
+    from kubeflow_tpu_torch.serving.api import LABEL_ISVC
+    from kubeflow_tpu_torch.serving.autoscaler import ConcurrencyAutoscaler
+    from kubeflow_tpu_torch.serving.controllers import DEPLOYMENT_FOR_SERVICE_ANNOTATION
+    from kubeflow_tpu_torch.serving.engine.faults import StormFaultConfig, storm_schedule
+    from kubeflow_tpu_torch.serving.remediator import FleetRemediator
+    from kubeflow_tpu_torch.serving.router import OVERLOAD_ANNOTATION
+
+    api = cluster.api
+    (svc,) = api.list("Service", label_selector={LABEL_ISVC: PLATFORM_ISVC})
+    sname, ns = svc["metadata"]["name"], svc["metadata"].get("namespace", "default")
+    api.patch("Service", sname, {"metadata": {"annotations": {
+        OVERLOAD_ANNOTATION: json.dumps(STORM_OVERLOAD)}}}, ns)
+    deploys = json.loads(svc["metadata"]["annotations"][DEPLOYMENT_FOR_SERVICE_ANNOTATION])
+    current = {d: api.get("Deployment", d, ns)["spec"]["replicas"] for d in deploys}
+    rem = FleetRemediator(api=api, autoscaler=ConcurrencyAutoscaler(api))
+    proxy.attach_remediator(rem)
+    rem.start()
+    storm = storm_schedule(StormFaultConfig(**STORM))
+    results: list = []
+    lock = threading.Lock()
+
+    def fire(arr):
+        rec = storm_post(ingress, arr)
+        with lock:
+            results.append(rec)
+
+    try:
+        t0 = time.perf_counter()
+        threads = []
+        for arr in storm:
+            delay = t0 + arr.t_s - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            th = threading.Thread(target=fire, args=(arr,), daemon=True)
+            th.start()
+            threads.append(th)
+        for th in threads:
+            th.join(timeout=300)
+        storm_s = time.perf_counter() - t0
+        state = proxy._states.get((ns, sname))
+
+        def capacity() -> list:
+            return [i for i in (state.incidents.list() if state and state.incidents else [])
+                    if i["cause"] == "capacity"]
+
+        def remediated() -> bool:
+            incs = capacity()
+            return bool(incs) and (incs[0].get("remediation") or {}).get("playbook") is not None
+
+        wait_for(remediated, timeout=STORM_WAIT_S, step=0.05)
+        incs = capacity()
+        code, fleet = get_json(ingress, "/fleet/remediation")
+        with urllib.request.urlopen(f"http://127.0.0.1:{pod_port_}/metrics", timeout=60) as r:
+            pod_metrics = parse_metrics(r.read().decode())
+    finally:
+        rem.stop()
+    shed = [(h, b, w) for st, h, b, _, w in results if st == 429]
+    oks = [(b, dt) for st, _, b, dt, _ in results if st == 200]
+    lat = sorted(dt for _, dt in oks)
+    reasons: dict = {}
+    for _, b, _ in shed:
+        reasons[b.get("reason")] = reasons.get(b.get("reason"), 0) + 1
+    inc = incs[0] if incs else {}
+    ev = (inc.get("evidence") or {}).get("overload") or {}
+    acts = [a for a in fleet.get("actions", []) if a.get("playbook") == "prescale"]
+    floors = {d: (fleet.get("proposals") or {}).get(d, {}).get("floor") for d in deploys}
+    first_shed = min((w for _, _, w in shed), default=None)
+    out = {"arrivals": len(storm), "answered": len(results), "storm_s": storm_s,
+           "statuses": {str(c): sum(1 for r in results if r[0] == c)
+                        for c in sorted({r[0] for r in results})},
+           "shed_by_reason": reasons,
+           "ok_latency_p50_s": quantile(lat, 0.5), "ok_latency_p99_s": quantile(lat, 0.99),
+           "ok_tokens": sorted({b.get("tokens") for b, _ in oks}),
+           "capacity_incidents": len(incs), "detector": inc.get("detector"),
+           "evidence_overload": ev, "incident_remediation": inc.get("remediation"),
+           "pod_engine_shed": pod_metrics.get("engine_requests_shed"),
+           "pod_engine_rejected": pod_metrics.get("engine_requests_rejected"),
+           "fleet_remediation_status": code, "human_actions": fleet.get("human_actions"),
+           "prescale_actions": acts, "deployments": current, "proposed_floors": floors,
+           "first_shed_to_incident_s": (inc["opened_wall"] - first_shed
+                                        if inc.get("opened_wall") and first_shed else None),
+           "incident_to_remediation_s": (acts[0]["wall"] - inc["opened_wall"]
+                                         if acts and inc.get("opened_wall") else None)}
+    out["gates"] = {
+        "arrivals": len(storm) > 40 and len(results) == len(storm),
+        "statuses": {r[0] for r in results} <= {200, 429},
+        "shed_and_ok": bool(shed) and bool(oks),
+        "retry_after": all(float(h.get("Retry-After", 0)) > 0 for h, _, _ in shed),
+        "reasons": set(reasons) <= {"quota", "concurrency", "deadline"},
+        "tokens": out["ok_tokens"] == [STORM["max_tokens"]],
+        "one_capacity_incident": len(incs) == 1 and inc.get("detector") == "admission_pressure"
+        and ev.get("shed_total", 0) > 0,
+        "engine_no_shed": out["pod_engine_shed"] == 0 and out["pod_engine_rejected"] == 0,
+        "remediation": (code == 200 and fleet.get("human_actions") == 0 and len(acts) == 1
+                        and acts[0].get("outcome") == "executed"
+                        and floors == {d: n + 1 for d, n in current.items()}),
+        "bundle_playbook": (inc.get("remediation") or {}).get("playbook") == "prescale"}
+    out["ok"] = all(out["gates"].values())
+    log(f"6c(storm): {len(storm)} arrivals in {storm_s:.2f} s, statuses {out['statuses']}, "
+        f"sheds {reasons}, 200s p50/p99 {out['ok_latency_p50_s']}/{out['ok_latency_p99_s']} s; "
+        f"first shed -> incident {out['first_shed_to_incident_s']} s, incident -> "
+        f"remediation {out['incident_to_remediation_s']} s; floors {floors}; "
+        f"gates {out['gates']}")
+    return out
 
 
 def platform(cfg) -> dict:
@@ -4231,6 +4443,15 @@ def platform(cfg) -> dict:
                                         == {m: want_records for m in PLATFORM_MARKERS})
             steps["profile"] = time.perf_counter() - t0
 
+            # (3b) 6c(storm): the seeded storm through the ingress into
+            # the first pod, the remediator attached
+            if checks["ready"]:
+                out["storm"] = platform_storm(cluster, proxy, ingress, port)
+                checks["storm"] = out["storm"]["ok"]
+            else:
+                checks["storm"] = False
+            steps["storm"] = time.perf_counter() - t0
+
             # (4) a second card request while the one card is taken
             cluster.apply(inference_service(PLATFORM_ISVC + "-2", model_format="llama",
                                             storage_uri=f"file://{model_dir}"))
@@ -4346,6 +4567,7 @@ DARTS_SEED = 37
 # to ~40 in a step, and past that the two runs' rounding differences grow
 # with every step; then 5 timed steps and a profiled window of 2
 RESNET_B, RESNET_STEPS, RESNET_TIMED, RESNET_PROFILED = 64, 2, 5, 2
+RING_REPS = 3  # the ring probe's timed calls (5 before PR 23)
 # the shim's loss against one process on the same global batch
 # (tests/test_transport.py:181)
 RESNET_LOSS_GAP = 5e-2
@@ -4468,7 +4690,10 @@ def resnet_phase(dev) -> dict:
                                   kv.get("samples_per_sec_per_chip", "nan")),
                               "stdout": lines,
                               "stderr_tail": r.stderr[-1500:] if r.returncode else ""}
-    out["ring_ms_per_step"] = ring_probe(free_port(), n_params, 5)
+    out["ring_ms_per_step"] = ring_probe(free_port(), n_params, RING_REPS)
+    out["reduced"] = {"ring_reps": [RING_REPS, 5],
+                      "why": "time: 3 calls time the ring as well as 5 (232-345 ms a call); "
+                             "PR 23's 6c(storm) and phase 8 count are paid here and in 5i"}
     out["ring_mbytes"] = n_params * 4 / 1e6
     sh = out["shim"]
     out["ok"] = (all(math.isfinite(x) for x in losses)
@@ -7084,6 +7309,20 @@ def main() -> int:
         return {"ok": True, **res, "wall_s": wall, "ptxas": ptxas}
 
     bres = phase("build", build)
+    markers: dict = {}
+
+    def validated(mod, passed: bool) -> bool:
+        """After a kernel's parity phase passed: one marker bound to the sha
+        of its ``.cu`` source, written into ``_build/`` and read back."""
+        if not passed:
+            return False
+        name = os.path.splitext(os.path.basename(mod._SRC))[0]
+        path = os.path.join(BUILD_DIR, f"{name}.validated.json")
+        write_marker(path, mod._SRC, extra={"card": kind, "nvidia_smi": smi})
+        markers[name] = {"path": os.path.relpath(path, REPO),
+                         "kernel_sha": source_sha(mod._SRC),
+                         "marker_valid": marker_valid(path, mod._SRC)}
+        return markers[name]["marker_valid"]
 
     def kernels():
         rng = np.random.default_rng(0)
@@ -7103,8 +7342,9 @@ def main() -> int:
                   for n in (2, 4) for K in (1, 5)]
         for c in shards:
             c["ok"] = c["ok"] and any(TC_MARKER in n for n in c["device_kernels"])
-        return {"ok": all(c["ok"] for c in cases + hd192 + shards), "cases": cases,
-                "hd192": hd192, "tp_shards": shards}
+        ok = all(c["ok"] for c in cases + hd192 + shards)
+        return {"ok": ok and validated(PA, ok), "cases": cases, "hd192": hd192,
+                "tp_shards": shards, "marker": markers.get("paged_attention")}
 
     kres = phase("kernel", kernels)
 
@@ -7162,9 +7402,13 @@ def main() -> int:
         # process runs it, and the 4 rows each member of (a)'s gang keeps
         cases += [flash_case(f"bert_worker_b{b}", bf16, JOB_WORKER_S, False, "ones", rng, dev,
                              flush, b=b) for b in JOB_WORKER_BATCHES]
-        return {"ok": all(c["ok"] for c in cases), "cases": cases}
+        ok = all(c["ok"] for c in cases)
+        return {"ok": ok and validated(FA, ok), "cases": cases,
+                "marker": markers.get("flash_attention")}
 
     fres = phase("flash_kernel", flash_kernel)
+    # the build's sha-bound validation markers, one per kernel source
+    log(json.dumps({"build_markers": markers}))
     tres = phase("train", lambda: train(dev))
     phase("resnet", lambda: resnet_phase(dev))
     phase("decoder", lambda: decoder_phase(dev))
@@ -7221,7 +7465,9 @@ def main() -> int:
               # and its tensor-parallel pod's, PLATFORM_TP shards on the card
               "tp_pod_trace_records": (plres.get("tp") or {}).get("records"),
               # its library's build: seconds, registers and spills per kernel
-              "build": ptxas.get("paged_attention")}
+              "build": ptxas.get("paged_attention"),
+              # the sha-bound marker phase 3 wrote after it passed
+              "marker": markers.get("paged_attention")}
     fcases = fres.get("cases") or []
     fhead = next((c for c in fcases if c["case"] == "ragged"), {})  # the training path's case
     frecord = {"name": "flash_attention", "route": "cuda",
@@ -7275,7 +7521,9 @@ def main() -> int:
                    for c in fcases if c["case"].startswith("bert_worker")],
                # its library's build: seconds, registers and spills per
                # kernel, and wgmma serialisation warnings (C7514)
-               "build": ptxas.get("flash_attention")}
+               "build": ptxas.get("flash_attention"),
+               # the sha-bound marker phase 7 wrote after it passed
+               "marker": markers.get("flash_attention")}
     report["kernels"] = [record, frecord]
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -36,6 +36,8 @@ def main() -> None:
         td = tempfile.mkdtemp(prefix="explain-")
         pred_dir = os.path.join(td, "model")
         os.makedirs(pred_dir)
+        # graftlint: disable=atomic-write -- demo scaffolding into a
+        # directory this script just created; no concurrent reader
         with open(os.path.join(pred_dir, "model.py"), "w") as f:
             f.write(textwrap.dedent("""
                 W = [1.5, -2.0, 0.5, 3.0]   # a linear "credit score" model
@@ -44,6 +46,8 @@ def main() -> None:
             """))
         expl_dir = os.path.join(td, "explainer")
         os.makedirs(expl_dir)
+        # graftlint: disable=atomic-write -- demo scaffolding into a
+        # directory this script just created; no concurrent reader
         with open(os.path.join(expl_dir, "explainer.json"), "w") as f:
             json.dump({"method": "shap",
                        "background": [[0.0, 0.0, 0.0, 0.0]]}, f)

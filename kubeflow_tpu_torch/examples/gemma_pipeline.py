@@ -76,6 +76,8 @@ def finetune(
     # npz has no bfloat16: persist f32, serving/eval casts back on load
     np.savez(os.path.join(model.path, "params.npz"),
              **{k: v.detach().float().cpu().numpy() for k, v in params.items()})
+    # graftlint: disable=atomic-write -- demo scaffolding into a
+    # directory this script just created; no concurrent reader
     with open(os.path.join(model.path, "config.json"), "w") as f:
         json.dump({"vocab_size": vocab_size, "d_model": d_model, "n_layers": n_layers,
                    "n_heads": n_heads, "n_kv_heads": n_kv_heads, "d_ff": d_ff}, f)

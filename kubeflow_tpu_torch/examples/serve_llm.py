@@ -40,9 +40,13 @@ def write_model_dir(root: str, tensor_parallel: int = 1) -> str:
     decoder ``config.json`` and ``engine.json``."""
     model_dir = os.path.join(root, "model")
     os.makedirs(model_dir, exist_ok=True)
+    # graftlint: disable=atomic-write -- demo scaffolding into a
+    # directory this script just created; no concurrent reader
     with open(os.path.join(model_dir, "config.json"), "w") as f:
         json.dump({"vocab_size": 512, "d_model": 64, "n_layers": 2,
                    "n_heads": 4, "n_kv_heads": 2, "d_ff": 128}, f)
+    # graftlint: disable=atomic-write -- demo scaffolding into a
+    # directory this script just created; no concurrent reader
     with open(os.path.join(model_dir, "engine.json"), "w") as f:
         json.dump({"max_slots": 4, "num_pages": 128, "page_size": 16,
                    "max_pages_per_slot": 32, "prefill_chunk": 64,

@@ -28,12 +28,21 @@ probabilities one key block at a time from the saved log-sum-exp.
 * The backward is ``_flash_bwd`` of the JAX package ported line for line:
   plain f32 tensor code looping over key blocks of ``block_k``, as the JAX
   package leaves it to XLA.  There is no backward kernel on either side.
+* ``counting_flops()`` (``Trainer.compiled_cost_analysis``): the kernel is
+  not an aten op, so ``torch.utils.flop_counter`` cannot see it.  While a
+  count is open the op enters it at its own products, 4·BH·S·T·d forward
+  (S = QK^T, PV) and 8·BH·S·T·d backward (dP, dV, dS·K, dS^T·Q), and what
+  runs inside it (the kernel, the plain version, the backward's blockwise
+  recompute of P) is taken back out, so the figure is the dense path's
+  whichever implementation ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
+import threading
 from typing import Optional
 
 import torch
@@ -105,6 +114,55 @@ def flash_attention_plain(q, k, v, mask, scale: float, causal: bool,
     l = p.sum(-1, keepdim=True).clamp(min=1e-30)
     out = (p @ v.float()) / l
     return out.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+class _FlopTally:
+    """One open FLOP count: ``model`` the op's own products, ``inside`` what
+    the counter saw within the op (the kernel's plain version, the
+    backward's recompute), which the caller takes out of its total."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.model = 0
+        self.inside = 0
+
+    def add(self, model: int, inside: int) -> None:
+        # the backward may run on autograd's device thread
+        with self._lock:
+            self.model += model
+            self.inside += inside
+
+
+_TALLY: Optional[_FlopTally] = None
+
+
+@contextlib.contextmanager
+def counting_flops():
+    """Open a FLOP count of the op (see the module docstring); yields the
+    ``_FlopTally``.  Counts do not nest."""
+    global _TALLY
+    if _TALLY is not None:
+        raise RuntimeError("flash_attention: a FLOP count is already open")
+    _TALLY = tally = _FlopTally()
+    try:
+        yield tally
+    finally:
+        _TALLY = None
+
+
+def _tallied(n_products: int, q, k, fn):
+    """``fn()``, with the op's ``n_products`` products of BH·S·T·d (2 FLOPs
+    each) entered in the open count in place of what ran inside it."""
+    tally = _TALLY
+    if tally is None:
+        return fn()
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as inner:
+        res = fn()
+    bh, seq_q, d = q.shape
+    tally.add(2 * n_products * bh * seq_q * k.shape[1] * d, inner.get_total_flops())
+    return res
 
 
 def _flash_fwd(q, k, v, mask, scale, causal, block_q, block_k, heads):
@@ -208,7 +266,8 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask, causal, block_q, block_k, heads):
         scale = q.shape[-1] ** -0.5
-        out, lse = _flash_fwd(q, k, v, mask, scale, causal, block_q, block_k, heads)
+        out, lse = _tallied(2, q, k, lambda: _flash_fwd(q, k, v, mask, scale, causal,
+                                                        block_q, block_k, heads))
         ctx.save_for_backward(q, k, v, mask, out, lse)
         ctx.causal, ctx.block_k, ctx.heads = causal, block_k, heads
         return out
@@ -217,8 +276,8 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, mask, out, lse = ctx.saved_tensors
         scale = q.shape[-1] ** -0.5
-        dq, dk, dv = _flash_bwd(q, k, v, mask, out, lse, do, scale, ctx.causal,
-                                ctx.block_k, ctx.heads)
+        dq, dk, dv = _tallied(4, q, k, lambda: _flash_bwd(
+            q, k, v, mask, out, lse, do, scale, ctx.causal, ctx.block_k, ctx.heads))
         return dq, dk, dv, None, None, None, None, None
 
 

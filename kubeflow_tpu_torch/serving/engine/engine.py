@@ -661,7 +661,11 @@ class Engine:
         # models share chain hashes, so the puller must match the model too)
         self.fabric_fingerprinter = None
         self.fabric_model_id = None
-        self._requests: dict[int, _Pending] = {}  # guarded-by: _lock
+        # rid -> pending: written under _lock (submit, cancel and every
+        # terminal path), read lock-free on the loop thread and by the
+        # health and watchdog probes (one dict operation is atomic under
+        # the GIL), as the JAX engine reads it
+        self._requests: dict[int, _Pending] = {}
         # O(1) cancel: future -> rid, maintained at submit and at every
         # terminal path
         self._future_rid: dict[Future, int] = {}  # guarded-by: _lock
@@ -948,6 +952,10 @@ class Engine:
             elif (self._slot_req or self._requests) and age > self.ec.hang_timeout_s:
                 state = "DEGRADED"
             else:
+                # graftlint: disable=lock-discipline -- O(1) gauge, no lock:
+                # _retrying tracks requests mid-retry (maintained under _lock
+                # by _note_group_failure / _reset_failures / the terminal
+                # path) so a /metrics scrape never waits on the hot-loop lock
                 state = "DEGRADED" if self._retrying > 0 else "SERVING"
         return {"state": state, "role": self.ec.role,
                 "last_tick_age_s": round(time.monotonic() - self._last_tick_ts, 4),
@@ -2573,7 +2581,7 @@ class Engine:
             # still bound and deferred to us): resolve NOW
             self._resolve_queued_cancel(rid, pending)
 
-    def _isolated(self, phase: str, slots: list, fn, *args,
+    def _isolated(self, phase: str, slots: list, fn, *args,  # graftlint: hot-path
                   shape: Optional[dict] = None) -> bool:
         """Isolation boundary around one tick phase: an exception fails only
         ``slots``, and only after ``max_consecutive_failures`` in a row — a
@@ -3956,7 +3964,7 @@ class Engine:
         p = self._requests.get(self._slot_req.get(slot))
         return p.constrain if p is not None else None
 
-    def _grammar_row(self, c) -> np.ndarray:
+    def _grammar_row(self, c) -> np.ndarray:  # graftlint: hot-path
         """One automaton state's legal-token mask for the NEXT sampled
         token: the trie-walk token mask with the stop ids composed from
         acceptance — a stop id is legal exactly when the text so far is a
@@ -3983,7 +3991,7 @@ class Engine:
             pending.span.hint("grammar_advance", time.perf_counter() - ts)
         return row, forced
 
-    def _build_grammar_masks(self, slots: list) -> tuple:
+    def _build_grammar_masks(self, slots: list) -> tuple:  # graftlint: hot-path
         """This tick's [max_slots, V] boolean token mask from each
         constrained slot's automaton, built on the host; unconstrained rows
         stay all-True, so their sampling is the unmasked one.  MUST run
@@ -4023,7 +4031,7 @@ class Engine:
             slots = [s for s in slots if s not in gone]
         return slots, mask
 
-    def _prefill_masks(self, slots: list, only=None) -> tuple:
+    def _prefill_masks(self, slots: list, only=None) -> tuple:  # graftlint: hot-path
         """First-token grammar masks of one prefill group, in ROW order
         (``mask[i]`` gates ``slots[i]``); the prompt never advances the
         automaton, so a fresh request masks from the grammar's start state

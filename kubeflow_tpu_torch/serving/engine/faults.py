@@ -1,6 +1,6 @@
 """Deterministic chaos injection for the serving engine.
 
-Counterpart of ``kubeflow_tpu/serving/engine/faults.py``, in two scopes:
+Counterpart of ``kubeflow_tpu/serving/engine/faults.py``, in these scopes:
 
 * Dispatch scope: a frozen, seeded ``FaultConfig`` rides inside
   ``EngineConfig`` and a ``ChaosInjector`` built from it fires faults at
@@ -40,12 +40,17 @@ Counterpart of ``kubeflow_tpu/serving/engine/faults.py``, in two scopes:
   decoding registry (serving/constrain.py) and forced zero-legal-token
   masks, which must fail only the stalled slot with ConstraintStall.
 
+* Storm scope: ``StormFaultConfig`` / ``storm_schedule``, a seeded
+  open-loop traffic storm (diurnal baseline, bursts, Zipf tenants,
+  lognormal prompts) that draws the JAX package's arrival list for the
+  same config; the ingress's overload controller and the fleet remediator
+  (serving/remediator.py) must turn it into one remediated capacity
+  incident.
+
 * Fleet scope: ``FleetFaultConfig`` / ``FleetChaos``, the ingress's chaos
   hooks (``ServiceProxy.chaos``, serving/router.py): replicas killed or
   hung after an exact count of relayed tokens, slowed, or their relayed
   streams cut, on the JAX package's schedule for the same plan.
-
-The storm fault family comes with the slice that ports the remediator.
 """
 
 from __future__ import annotations
@@ -120,8 +125,9 @@ EXPECTED_INCIDENT_CAUSES = {
 }
 
 # Root cause -> the remediation playbook the self-driving fleet runs for
-# it (the JAX package's serving/remediator.py CAUSE_PLAYBOOK, kept as a
-# literal here as it is there).
+# it (serving/remediator.py CAUSE_PLAYBOOK — kept as a LITERAL here, not
+# an import: faults.py is engine-side and must not pull the serving
+# control plane; tests/test_torch_remediation.py pins the two tables equal).
 _CAUSE_PLAYBOOK = {
     "replica_death": "replace_replica",
     "prefill_interference": "split_roles",
@@ -138,8 +144,8 @@ _CAUSE_PLAYBOOK = {
 # Chaos class -> {cause, playbook}: the full expected-remediation
 # contract (README "Self-driving fleet").  A new injector class must
 # declare not just what NAMES it (EXPECTED_INCIDENT_CAUSES) but what
-# FIXES it — the fleet's remediation contract (the remediator that acts
-# on it, serving/remediator.py, is still the JAX package's only).
+# FIXES it — the fleet's remediation contract, which the remediator
+# (serving/remediator.py) acts on.
 EXPECTED_REMEDIATIONS = {
     key: {"cause": cause, "playbook": _CAUSE_PLAYBOOK[cause]}
     for key, cause in EXPECTED_INCIDENT_CAUSES.items()
@@ -778,6 +784,103 @@ class ConstrainChaos:
                 "injected_corrupt_reads": self.injected_corrupt_reads,
                 "injected_stalls": self.injected_stalls,
             }
+
+
+# --------------------------------------------------------------- storm scope
+
+
+@dataclasses.dataclass(frozen=True)
+class StormArrival:
+    """One request of a storm schedule: WHEN it arrives (seconds from
+    schedule start), WHO sends it, and its shape."""
+
+    t_s: float
+    tenant: str
+    priority: str
+    prompt_len: int
+    max_tokens: int
+
+
+@dataclasses.dataclass(frozen=True)
+class StormFaultConfig:
+    """Seeded open-loop traffic-storm plan (README "Overload control"):
+    the SAME config + seed replays the SAME arrival schedule, request by
+    request, and the JAX package's schedule for the same config.
+
+    The arrival process is a non-homogeneous Poisson: a diurnal sinusoid
+    on the baseline rate, bursts multiplying it on a fixed cadence
+    (``burst_x`` at every ``burst_every_s`` for ``burst_len_s``), drawn
+    by thinning.  Prompt lengths are lognormal (heavy-tailed — the
+    handful of giant prompts is what makes naive FIFO admission
+    collapse); tenants are Zipf-skewed (the storm hog is tenant 0);
+    priority classes draw from ``classes`` weights."""
+
+    seed: int = 0
+    duration_s: float = 4.0
+    base_qps: float = 20.0
+    # diurnal baseline: rate(t) = base * (1 + depth * sin(2*pi*t/period))
+    diurnal_period_s: float = 8.0
+    diurnal_depth: float = 0.3
+    # bursts on top: rate *= burst_x while (t mod burst_every_s) < burst_len_s
+    burst_every_s: float = 2.0
+    burst_len_s: float = 0.5
+    burst_x: float = 4.0
+    # tenants: share of tenant i is (i+1)^-skew, normalized (tenant 0 hogs)
+    tenants: int = 4
+    tenant_skew: float = 1.2
+    # heavy-tailed prompt lengths: lognormal(median, sigma), clipped
+    prompt_len_median: int = 48
+    prompt_len_sigma: float = 0.6
+    prompt_len_max: int = 512
+    max_tokens: int = 16
+    # (class, weight) draw table for per-request priority
+    classes: tuple = (("interactive", 0.5), ("batch", 0.3),
+                      ("best_effort", 0.2))
+
+
+def storm_schedule(config: StormFaultConfig) -> list:
+    """Materialize the storm's arrival schedule -> [StormArrival, ...]
+    sorted by ``t_s``.  Pure function of the config (one seeded RNG, no
+    wall clock), so two arms of a comparison — and a test re-run — drive
+    the IDENTICAL storm."""
+    c = config
+    rng = np.random.default_rng(c.seed)
+    peak = c.base_qps * (1.0 + abs(c.diurnal_depth)) * max(1.0, c.burst_x)
+
+    def rate(t: float) -> float:
+        r = c.base_qps
+        if c.diurnal_period_s > 0:
+            r *= 1.0 + c.diurnal_depth * np.sin(
+                2.0 * np.pi * t / c.diurnal_period_s)
+        if c.burst_every_s > 0 and (t % c.burst_every_s) < c.burst_len_s:
+            r *= c.burst_x
+        return max(0.0, r)
+
+    shares = np.array([(i + 1.0) ** -c.tenant_skew
+                       for i in range(max(1, c.tenants))])
+    shares /= shares.sum()
+    cls_names = [n for n, _ in c.classes]
+    cls_w = np.array([w for _, w in c.classes], dtype=float)
+    cls_w /= cls_w.sum()
+    out = []
+    t = 0.0
+    while True:
+        # Poisson thinning: draw at the peak rate, keep with p=rate(t)/peak
+        t += float(rng.exponential(1.0 / max(1e-9, peak)))
+        if t >= c.duration_s:
+            break
+        if rng.random() >= rate(t) / peak:
+            continue
+        plen = int(np.clip(rng.lognormal(np.log(c.prompt_len_median),
+                                         c.prompt_len_sigma),
+                           4, c.prompt_len_max))
+        out.append(StormArrival(
+            t_s=round(t, 4),
+            tenant=f"tenant{int(rng.choice(len(shares), p=shares))}",
+            priority=str(rng.choice(cls_names, p=cls_w)),
+            prompt_len=plen,
+            max_tokens=c.max_tokens))
+    return out
 
 
 # --------------------------------------------------------------- fleet scope

@@ -27,8 +27,9 @@ writes them (``train/checkpoint.py``).
 ``default_optimizer`` reproduces the JAX package's optax chain
 ``clip_by_global_norm(max_grad_norm)`` then ``adamw(warmup_cosine_decay)``
 exactly (see ``AdamW``), the bf16 at-rest moments of ``optimizer_dtype``
-included.  XLA's ``compiled_cost_analysis`` has no counterpart and is left
-out.
+included.  ``compiled_cost_analysis`` counts one forward and backward of
+the step with ``torch.utils.flop_counter`` (XLA's cost model has no
+counterpart), the flash kernel at its own products.
 """
 
 from __future__ import annotations
@@ -403,6 +404,38 @@ class Trainer:
         return {k: v if isinstance(v, ShardedTensor) else
                 ShardedTensor.shard(torch.as_tensor(v), self.mesh, spec)
                 for k, v in batch.items()}
+
+    def compiled_cost_analysis(self, batch: Any) -> dict:
+        """The step's FLOPs — {"flops": n} — or {} when the count is not
+        available; it never breaks training.  Counts one forward and
+        backward of ``loss_fn`` on ``batch`` with ``FlopCounterMode``
+        (matmuls, convolutions, SDPA), the flash kernel at its own products
+        (``ops.flash_attention.counting_flops``), so ``attention="flash"``
+        and ``"dense"`` count alike; a remat recompute counts again (the
+        remat tax).  The optimizer update (elementwise) is not counted.
+        Params, the optimizer state, the step counter and the RNG are left
+        as they were; the gradients are dropped."""
+        try:
+            from torch.utils.flop_counter import FlopCounterMode
+
+            from ..ops.flash_attention import counting_flops
+
+            batch = self.put_batch(batch)
+            devices = [d for d in (self.mesh.distinct_devices if self.mesh is not None
+                                   else [self.device]) if d.type == "cuda"]
+            with torch.random.fork_rng(devices=devices), counting_flops() as tally, \
+                    FlopCounterMode(display=False) as counter:
+                if self.mesh is not None:
+                    params = self._local_params()
+                    with self.mesh:
+                        loss = self.loss_fn(self.tree, batch)
+                else:
+                    params = self.params
+                    loss = self.loss_fn(self.model, batch)
+                torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+            return {"flops": float(counter.get_total_flops() - tally.inside + tally.model)}
+        except Exception:  # noqa: BLE001 — diagnostics never break training
+            return {}
 
     def train_step(self, batch: Any, sync: bool = True) -> dict:
         """One optimizer step.

@@ -14,9 +14,13 @@ builders through an atomic rename:
   (``-Xptxas -v``): ``build_log`` returns a build's seconds and its
   per-kernel register, shared-memory and spill lines, kept beside the
   ``.so``.
+* ``build_stress`` — the C++ core's sanitizer lane: ``core.cc`` with its
+  concurrent stress driver ``serving/engine/stress_main.cc`` under
+  ``-fsanitize=thread`` or ``address`` (the JAX package's ``stress-tsan``
+  and ``stress-asan`` Makefile targets, with their ``STRESS_FLAGS``).
 
-Every ``.so`` lands in ``kubeflow_tpu_torch/_build/`` (``BUILD_DIR``), which
-git ignores.
+Every ``.so`` (and each stress binary) lands in ``kubeflow_tpu_torch/_build/``
+(``BUILD_DIR``), which git ignores.
 """
 
 from __future__ import annotations
@@ -37,6 +41,10 @@ _CACHE: dict[str, ctypes.CDLL] = {}
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "_build")
 CUDA_ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# the sanitizer lane's flags, kept here alone (the JAX package keeps them in
+# its engine Makefile)
+STRESS_FLAGS = ["-O1", "-g", "-std=c++17", "-pthread"]
+_ENGINE_DIR = os.path.join(os.path.dirname(BUILD_DIR), "serving", "engine")
 
 
 def _tag(src_path: str, flags: list[str]) -> str:
@@ -117,6 +125,24 @@ def build_cuda(src_path: str, prefix: str, extra_flags: list[str] | None = None)
     cmd = [nvcc_path(), *[f for f in flags if not f.startswith("-l")], "-shared",
            "-Xcompiler", "-fPIC", src_path, "-o", tmp, *libs]
     return _compile(cmd, tmp, so_path, src_path)
+
+
+def build_stress(sanitizer: str) -> str:
+    """Compile the core and its stress driver under ``-fsanitize=<sanitizer>``
+    (``thread`` or ``address``) into ``_build/stress_{tsan,asan}_<hash>``, an
+    executable that prints ``stress OK`` when the race ends clean."""
+    short = {"thread": "tsan", "address": "asan"}.get(sanitizer)
+    if short is None:
+        raise ValueError(f"sanitizer must be 'thread' or 'address', got {sanitizer!r}")
+    srcs = [os.path.join(_ENGINE_DIR, n) for n in ("core.cc", "stress_main.cc")]
+    flags = STRESS_FLAGS + [f"-fsanitize={sanitizer}"]
+    digest = hashlib.md5(b"".join(_tag(p, flags).encode() for p in srcs)).hexdigest()[:10]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, f"stress_{short}_{digest}")
+    if os.path.exists(out):
+        return out
+    tmp = out + f".tmp{os.getpid()}"
+    return _compile(["g++", *flags, *srcs, "-o", tmp], tmp, out, srcs[1])
 
 
 def _load(key: str, build) -> ctypes.CDLL:
