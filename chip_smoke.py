@@ -303,8 +303,8 @@ or the script exits non-zero:
 14. bert_remat: phase 8's cell without remat and under each of the five
    remat policies: loss and gradient norm against no remat (1e-4
    relative), peak memory (``nothing`` below no remat), step ms, flash
-   launches per step and a profiled step of each (up to 3 windows, until
-   one keeps every device record), no plain flash call.
+   launches per step and a profiled step of each (one window a policy,
+   which keeps every device record: its idle share), no plain flash call.
 15. pipeline: BASELINE config 4 on the port's Pipelines service.  (a) A
    ``Cluster`` of one CPU node and one GPU node of ``PIPELINE_CARDS`` (3)
    cards, all mapped onto this card; KfAdm applies a KfDef of all five
@@ -332,7 +332,7 @@ or the script exits non-zero:
    ``examples.distributed_check`` on the card at world 1 (``PSUM got=1.0
    expected=1.0``, ``TRAIN-OK``); ``parallel.profiling.maybe_trace`` over a
    small card workload (a trace holding 3 step annotations and their device
-   kernels); a spawner notebook with one card: Ready on the GPU node, its
+   kernels, its stderr line counting no lost record); a spawner notebook with one card: Ready on the GPU node, its
    pod reading this card's name through torch under ``CUDA_VISIBLE_DEVICES``
    naming this card, then deleted and gone; (e) a one-step run whose task
    asks for a TPU slice (``set_tpu``): its pod Pending, never bound, the
@@ -345,7 +345,9 @@ or the script exits non-zero:
    each token within the oracle bound of ``forward_full`` on the loaded
    params, one paged launch per layer and decode step, none plain, and a
    profiler window over a request holding the tensor-core paged kernel and
-   no CUDA-core one; TTFT and tokens/s; (h) at the end the
+   no CUDA-core one; TTFT and tokens/s; then the same prompts through the
+   gather path (``paged_kernel=False``, no paged launch), each token within
+   the same bound, and both paths' largest lag printed; (h) at the end the
    card's free memory within 1 GiB of the phase's start.
 16. tp: tensor-parallel serving at Llama-3-8B width and depth over
    ``TP_SHARDS`` (2) shards on this one card (``device=["cuda:0"] * 2``),
@@ -483,9 +485,13 @@ or the script exits non-zero:
    job and each pod run's host-clock seconds.
 
 Phase 5's Llama-3-8B weights are freed before phase 5j, which runs after
-phases 6 and 16.  The last lines are the
-``{"kernels": [...]}`` record, the ``nvidia-smi`` line and
-``{"ok": true, "device": {...}}``.  Weights are random (seed 0) at full
+phases 6 and 16.  Every profiler capture (this process's windows, opened
+through the port's ``parallel.profiling.Capture``, and the engines', pods'
+and workers' captures read back) counts its launch calls and the device
+records it lost; a phase whose captures lost any fails.  The last lines
+are ``{"phase_seconds": ...}``, ``{"profiler": {"windows", "launch_calls",
+"lost_records"}}`` over the whole run, the ``{"kernels": [...]}`` record,
+the ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Weights are random (seed 0) at full
 width (and, for the phases that serve, full depth).
 """
 
@@ -544,6 +550,7 @@ from kubeflow_tpu_torch.ops.moe import MoEConfig, capacity, init_moe, moe_ffn
 from kubeflow_tpu_torch.ops.ring_attention import ring_attention
 from kubeflow_tpu_torch.ops.ulysses import ulysses_attention
 from kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+from kubeflow_tpu_torch.parallel.profiling import CAPTURE_MARK, LEAD_IN_S, Capture
 from kubeflow_tpu_torch.parallel.presets import get_preset
 from kubeflow_tpu_torch.train.data import synthetic_mlm_batches, to_device
 from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig, global_norm
@@ -647,42 +654,37 @@ def time_ms(fn, flush: torch.Tensor) -> float:
 PROFILED_CALLS = 100
 
 
-# a profiler window's lead-in: late in a process a window loses device
-# records, more as the process ages (on the H100 a window of ten ~0.3 ms
-# calls keeps none after a few minutes); windows with host time before
-# their measured part kept every record more often than windows without,
-# not always, and ``window_records`` counts what is lost
-PROFILE_LEAD_IN_S = 0.05
 MEASURED = "chip_smoke.measured"
-# host calls that put one record on the device: kernel launches, copies, fills
-LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
+# every profiler capture of the run: this process's windows, and the
+# captures of the engines, pods and workers it reads back; a phase whose
+# captures lost a device record fails
+PROFILER = {"windows": 0, "launch_calls": 0, "lost_records": 0}
+# each of this process's windows' least launch-to-record time (ms; negative:
+# stamped before the launch), against the capture's lead-in
+LEADS_MS: list = []
+
+
+def count_capture(launch_calls: int, lost_records: int) -> None:
+    PROFILER["windows"] += 1
+    PROFILER["launch_calls"] += launch_calls
+    PROFILER["lost_records"] += lost_records
 
 
 @contextlib.contextmanager
 def profile_window():
-    """A torch.profiler window whose measured part, a ``record_function``
-    span, starts ``PROFILE_LEAD_IN_S`` of host time after the window opens."""
-    with torch.profiler.profile(activities=PROFILE_ACTIVITIES, acc_events=True) as prof:
-        time.sleep(PROFILE_LEAD_IN_S)
+    """A profiler window (the port's ``parallel.profiling.Capture``) whose
+    measured part is a ``record_function`` span: after the block, its
+    ``records``, ``launch_calls`` and ``lost_records`` are those of the
+    launches made inside the span, and count in ``PROFILER``."""
+    cap = Capture(span=MEASURED, acc_events=True).start()
+    try:
         with torch.profiler.record_function(MEASURED):
-            yield prof
-
-
-def window_records(prof) -> tuple:
-    """The device records (name, start ns, end ns) of the host launch calls
-    made inside a ``profile_window``'s measured span, tied to them by
-    correlation id in kineto's own results, the number of those calls, and
-    the number of them without a record: records the window lost."""
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    ev = list(prof.profiler.kineto_results.events())
-    span = next(((e.start_ns(), e.end_ns()) for e in ev
-                 if e.device_type() == cpu and e.name() == MEASURED), None)
-    ids = {e.correlation_id() for e in ev
-           if e.device_type() == cpu and e.name().startswith(LAUNCH_CALLS)
-           and (span is None or span[0] <= e.start_ns() <= span[1])}
-    recs = [e for e in ev if e.device_type() == cuda and e.correlation_id() in ids]
-    return ([(e.name(), e.start_ns(), e.end_ns()) for e in recs], len(ids),
-            len(ids - {e.correlation_id() for e in recs}))
+            yield cap
+    finally:
+        cap.stop()
+        count_capture(cap.launch_calls, cap.lost_records)
+        if cap.lead_ms is not None:
+            LEADS_MS.append(cap.lead_ms)
 
 
 def profiled_ms(fn, flush: torch.Tensor, markers: tuple, n: int = PROFILED_CALLS) -> dict:
@@ -693,9 +695,9 @@ def profiled_ms(fn, flush: torch.Tensor, markers: tuple, n: int = PROFILED_CALLS
     duration, where the CUDA-event window of ``time_ms`` also holds the gaps
     between a call's kernels.
 
-    The window is a ``profile_window``; the mean is over the records it
-    kept, not over ``n``.  ``records`` counts them; ``total`` is None when
-    a marker kept none."""
+    The window is a ``profile_window``; ``records`` counts the records the
+    mean is over, ``lost_records`` those the window lost; ``total`` is None
+    when a marker kept none."""
     fn()
     torch.cuda.synchronize()
     with profile_window() as prof:
@@ -704,7 +706,7 @@ def profiled_ms(fn, flush: torch.Tensor, markers: tuple, n: int = PROFILED_CALLS
             fn()
         torch.cuda.synchronize()
     ns = {m: [] for m in markers}
-    for name, t0, t1 in window_records(prof)[0]:
+    for name, t0, t1 in prof.records:
         for m in markers:
             if m in name:
                 ns[m].append(t1 - t0)
@@ -712,7 +714,8 @@ def profiled_ms(fn, flush: torch.Tensor, markers: tuple, n: int = PROFILED_CALLS
     means = {m: sum(v) / len(v) / 1e6 if v else None for m, v in ns.items()}
     kept = all(v is not None for v in means.values())
     return {"total": sum(means.values()) if kept else None,
-            "records": sum(len(v) for v in ns.values()), "calls": n, **means}
+            "records": sum(len(v) for v in ns.values()), "lost_records": prof.lost_records,
+            "calls": n, **means}
 
 
 def ptxas_summary(lib, since: float) -> dict:
@@ -1831,13 +1834,19 @@ def obs_traced(params, cfg, dev, kind: str) -> dict:
             if prof["runs"] else []
         found = sum(paged_records(traces[-1]).values()) if traces else 0
         expected = cfg.n_layers * decode_ticks
+        # the capture's own count of launch calls and lost device records
+        run = prof["runs"][-1] if prof["runs"] else {}
+        count_capture(run.get("launch_calls", 0), run.get("lost_records", 0))
         ok_c = (decoding and code == 200 and done and prof["last_error"] is None
+                and run.get("lost_records") == 0
                 and prof["captures"] == 1 and decode_ticks > 0 and found == expected
                 and all(r is not None and r[0] == 200 for r in presults)
                 and pwatch.launches > 0 and pwatch.plain_calls == 0)
         out["c_profile"] = {"ok": ok_c, "armed": armed, "last_error": prof["last_error"],
                             "window": window, "decode_ticks": decode_ticks,
                             "paged_records": found, "expected_records": expected,
+                            "launch_calls": run.get("launch_calls"),
+                            "lost_records": run.get("lost_records"),
                             "trace_mb": os.path.getsize(traces[-1]) / 2**20 if traces else None,
                             "launches": pwatch.launches, "plain_calls": pwatch.plain_calls}
         log(f"5g profile: {found} paged kernel records for {decode_ticks} decode ticks "
@@ -3056,15 +3065,15 @@ ENGINE_TICKS, ENGINE_PROFILED_TICKS = 12, 6
 def profile_engine(params, cfg, dev, depth: int) -> dict:
     """The engine's own decode loop at ``pipeline_depth`` ``depth``, with the
     four served prompts decoding together: host ms per tick on the wall
-    clock over ``ENGINE_TICKS`` ticks, then a torch.profiler window of
-    ``ENGINE_PROFILED_TICKS`` ticks counting the host calls that wait on the
-    device per tick (``WAITS``; ``cudaMemcpy`` is the blocking copy, not
-    ``cudaMemcpyAsync``; the window's closing ``cudaDeviceSynchronize`` is
-    the profile's own).  The pipelined loop should wait once per tick (its
-    commit-behind's event), the sync loop at every upload and readback.
-    (The window's kernel records are not used: on the H100 the profiler has
-    dropped every kernel of one of the two engine windows in some runs,
-    never the runtime calls.)"""
+    clock over ``ENGINE_TICKS`` ticks, then the engine's own capture of
+    ``ENGINE_PROFILED_TICKS`` work ticks (``trace_n_ticks``: started and
+    stopped on the loop thread at tick boundaries, so no launch of the loop
+    races the capture's start) counting the host calls that wait on the
+    device per tick in its trace (``WAITS``; ``cudaMemcpy`` is the blocking
+    copy, not ``cudaMemcpyAsync``; the capture's own synchronizes are
+    ``cudaDeviceSynchronize``).  The pipelined loop should wait once per tick
+    (its commit-behind's event), the sync loop at every upload and readback.
+    The capture's kernel records are not used."""
     engine = Engine(params, cfg, EngineConfig(pipeline_depth=depth), device=dev)
     futs = [engine.generate_async(list(p.encode()), 40) for p in PROMPTS]
     engine.start()
@@ -3085,28 +3094,36 @@ def profile_engine(params, cfg, dev, depth: int) -> dict:
                and time.monotonic() < deadline):
             time.sleep(0.002)
         n, wall = ticks_after(ENGINE_TICKS, deadline)
-        with torch.profiler.profile(activities=PROFILE_ACTIVITIES) as prof:
-            n_prof, _ = ticks_after(ENGINE_PROFILED_TICKS, deadline)
-            torch.cuda.synchronize()
+        engine.trace_n_ticks(ENGINE_PROFILED_TICKS, tempfile.mkdtemp(prefix="engine-waits-"))
+        while engine.profiler_active and time.monotonic() < deadline:
+            time.sleep(0.005)
+        prof = engine._profiler
         results = [f.result(timeout=300) for f in futs]
     finally:
         engine.stop()
+    count_capture(prof.launch_calls, prof.lost_records)
     waits = {w: 0 for w in WAITS}
-    for e in prof.events():
-        if e.name in waits:
-            waits[e.name] += 1
+    if prof.last_trace is not None:
+        with open(prof.last_trace) as f:
+            events = json.load(f)["traceEvents"]
+        # the ticks' calls: after the capture's mark (its primer and
+        # lead-in before it)
+        mark = min((e["ts"] for e in events if e.get("name") == CAPTURE_MARK),
+                   default=-math.inf)
+        for e in events:
+            if e.get("name") in waits and e.get("ts", -math.inf) >= mark:
+                waits[e["name"]] += 1
+        shutil.rmtree(os.path.dirname(prof.last_trace), ignore_errors=True)
+    n_prof = ENGINE_PROFILED_TICKS if prof.captures == 1 else 0
     per_tick = {k: v / n_prof for k, v in waits.items()} if n_prof else {}
     return {"pipeline_depth": depth, "ticks": n, "profiled_ticks": n_prof,
             "host_ms_per_tick": wall / n * 1e3 if n else None,
-            "waits_per_tick": per_tick,
+            "waits_per_tick": per_tick, "launch_calls": prof.launch_calls,
+            "lost_records": prof.lost_records, "last_error": prof.last_error,
             # the pipelined loop never blocks on a copy or a stream
             "ok": (n > 0 and n_prof > 0 and all(r["num_tokens"] == 40 for r in results)
                    and (depth == 0 or (per_tick["cudaStreamSynchronize"] == 0
                                        and per_tick["cudaMemcpy"] == 0)))}
-
-
-PROFILE_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
-                      torch.profiler.ProfilerActivity.CUDA]
 
 
 def device_breakdown(prof, n: int, wall_ms: float, family: str, markers: tuple,
@@ -3121,11 +3138,11 @@ def device_breakdown(prof, n: int, wall_ms: float, family: str, markers: tuple,
     ``window_complete`` holds when the measured span kept a device record
     for each of its host launch calls and, given ``expected`` (the family's
     launches per step), ``n * expected`` family records; the idle share is
-    reported only then (else under ``device_idle_share_at_most``).  The
-    per-record mean is not biased by a loss.  A window that kept no device
+    reported only then (else under ``device_idle_share_at_most``; a lost
+    record also fails the window's phase).  A window that kept no device
     record at all still reports ``window_complete`` (false), its launch
     calls and its losses, so a caller reads the same keys either way."""
-    kern, calls, lost = window_records(prof)
+    kern, calls, lost = prof.records, prof.launch_calls, prof.lost_records
     if not kern:
         return {"device_time": "not measured (the profiler recorded no device events)",
                 "window_complete": False, "launch_calls": calls, "lost_records": lost}
@@ -3224,8 +3241,6 @@ def flash_case(name, dtype, S, causal, key_mask, rng, dev, flush, b: int = FB, h
 
     kernel_ms = time_ms(lambda: FA._flash_fwd(*args, h), flush)
     device = profiled_ms(lambda: FA._flash_fwd(*args, h), flush, FLASH_MARKERS)
-    # a ten-call window, for its record count only
-    short = profiled_ms(lambda: FA._flash_fwd(*args, h), flush, FLASH_MARKERS, n=10)
     plain_ms = time_ms(lambda: FA.flash_attention_plain(*args), flush)
     library_ms = time_ms(library, flush)
     # the backward the training path pairs with the kernel: the JAX
@@ -3247,7 +3262,6 @@ def flash_case(name, dtype, S, causal, key_mask, rng, dev, flush, b: int = FB, h
             "causal": causal, "key_mask": key_mask, "max_abs_err": float(err.max()),
             "max_lse_err": float(lse_err.max()), "ok": ok, "kernel_ms": kernel_ms,
             "device_ms": device["total"], "device_records": device["records"],
-            "device_records_of_10": short["records"],
             "plain_ms": plain_ms, "library_ms": library_ms,
             "kernel_over_library": kernel_ms / library_ms, "backward_ms": backward_ms,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -4410,10 +4424,15 @@ def platform(cfg) -> dict:
                     for n, (ing, model) in reqs.items()]}
             done = {n: wait_for(lambda n=n, p=p: not get_json(p, "/engine/perf")[1]["models"][
                 n]["profiler"]["active"], timeout=120, step=0.05) for n, p in ports.items()}
-            records = {}
-            for n in ports:
+            records, captured = {}, {}
+            for n, p in ports.items():
                 traces = sorted(glob.glob(os.path.join(prof_dirs[n], "*.json")))
                 records[n] = paged_records(traces[-1], PLATFORM_MARKERS) if traces else {}
+                # the pod's capture: its launch calls and lost device records
+                runs = get_json(p, "/engine/perf")[1]["models"][n]["profiler"]["runs"]
+                run = runs[-1] if runs else {}
+                captured[n] = {k: run.get(k) for k in ("launch_calls", "lost_records", "error")}
+                count_capture(run.get("launch_calls", 0), run.get("lost_records", 0))
             if checks["ready"]:
                 code, armed_body = armed[PLATFORM_ISVC]
                 traced = answers[PLATFORM_ISVC][0]
@@ -4421,9 +4440,11 @@ def platform(cfg) -> dict:
                 want = cfg.n_layers * PLATFORM_PROFILE_TICKS
                 out["profile"] = {"status": code, "armed_dir": armed_body.get("dir"),
                                   "done": done[PLATFORM_ISVC], "traced_request": traced,
-                                  "records": names, "want_records": want}
+                                  "records": names, "want_records": want,
+                                  **captured[PLATFORM_ISVC]}
                 checks["profile"] = (code == 200 and traced == 200 and done[PLATFORM_ISVC]
-                                     and names == {m: want for m in PLATFORM_MARKERS})
+                                     and names == {m: want for m in PLATFORM_MARKERS}
+                                     and captured[PLATFORM_ISVC]["lost_records"] == 0)
             checks["tp_generate"] = checks["tp_profile"] = False
             if tp_ready:
                 tp_code, tp_gen = answers[tp_name]
@@ -4435,12 +4456,13 @@ def platform(cfg) -> dict:
                                   "token_ids": tp_gen.get("token_ids"),
                                   "platform": tp_platform, "profile_armed": armed[tp_name][0],
                                   "records": records[tp_name],
-                                  "want_records_each": want_records})
+                                  "want_records_each": want_records, **captured[tp_name]})
                 checks["tp_generate"] = (tp_code == 200 and tp_gen.get("tokens") == MAX_TOKENS
                                          and str(tp_platform).endswith(f"x{PLATFORM_TP}"))
                 checks["tp_profile"] = (armed[tp_name][0] == 200 and done[tp_name]
                                         and records[tp_name]
-                                        == {m: want_records for m in PLATFORM_MARKERS})
+                                        == {m: want_records for m in PLATFORM_MARKERS}
+                                        and captured[tp_name]["lost_records"] == 0)
             steps["profile"] = time.perf_counter() - t0
 
             # (3b) 6c(storm): the seeded storm through the ingress into
@@ -4777,13 +4799,8 @@ def decoder_phase(dev) -> dict:
 # ---------------------------------------------------------------- phase 14
 
 REMAT_POLICIES = ("nothing", "dots", "save_qkv", "save_attn", "save_mlp")
+# one profiled step a policy, in one profiler window
 REMAT_STEPS, REMAT_PROFILED = 3, 1
-# profiler windows per policy, taken until one keeps every device record:
-# one, for the script's time limit (with three, on an H100 80GB HBM3 at
-# 700 W, every policy took all three and 16 of 18 windows still lost
-# records, at ~2.5-4 s of host time a window); a window that lost records
-# reports its device busy time and an idle share "at most"
-REMAT_WINDOWS = 1
 # the loss and gradient norm of a policy against no remat: remat recomputes
 # the same values in the same order on the card, so only the summation
 # order of gradients that reach one tensor along several paths changes
@@ -4851,22 +4868,18 @@ def bert_remat(dev) -> dict:
                         "launches_per_step": FA.flash_attention.launches / REMAT_STEPS,
                         "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30})
             launches += FA.flash_attention.launches
-            for window in range(1, REMAT_WINDOWS + 1):
-                FA.flash_attention.launches = 0
-                with profile_window() as prof:
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    for _ in range(REMAT_PROFILED):
-                        trainer.train_step(batches[1], sync=False)
-                    trainer.block_until_ready()
-                    prof_ms = (time.perf_counter() - t0) / REMAT_PROFILED * 1e3
-                launches += FA.flash_attention.launches
-                res["profile"] = device_breakdown(
-                    prof, REMAT_PROFILED, prof_ms, "flash_attention", FLASH_MARKERS,
-                    expected=FA.flash_attention.launches // REMAT_PROFILED)
-                res["profile"]["window"] = window
-                if res["profile"]["window_complete"]:
-                    break
+            FA.flash_attention.launches = 0
+            with profile_window() as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(REMAT_PROFILED):
+                    trainer.train_step(batches[1], sync=False)
+                trainer.block_until_ready()
+                prof_ms = (time.perf_counter() - t0) / REMAT_PROFILED * 1e3
+            launches += FA.flash_attention.launches
+            res["profile"] = device_breakdown(
+                prof, REMAT_PROFILED, prof_ms, "flash_attention", FLASH_MARKERS,
+                expected=FA.flash_attention.launches // REMAT_PROFILED)
     finally:
         FA.flash_attention_plain = plain
     pol = out["policies"]
@@ -4875,7 +4888,8 @@ def bert_remat(dev) -> dict:
                  and all(r["loss_rel"] <= REMAT_RTOL and r["grad_rel"] <= REMAT_RTOL
                          for r in pol.values())
                  and pol["nothing"]["peak_memory_gib"] < pol["none"]["peak_memory_gib"]
-                 and pol["none"]["launches_per_step"] == cfg0.num_layers)
+                 and pol["none"]["launches_per_step"] == cfg0.num_layers
+                 and all(r["profile"]["window_complete"] for r in pol.values()))
     return out
 
 
@@ -5003,20 +5017,15 @@ def npz_members(path: str) -> dict:
     return out
 
 
-def device_kernel_names(fn, tries: int = 3) -> tuple:
+def device_kernel_names(fn) -> tuple:
     """The device kernels ``fn`` runs: the names of the records of a
     ``profile_window`` around it (a template's name without its argument
-    list), from the first of up to ``tries`` windows that loses none; and
-    the records the last window lost."""
-    for _ in range(tries):
-        with profile_window() as prof:
-            fn()
-            torch.cuda.synchronize()
-        recs, _, lost = window_records(prof)
-        if not lost:
-            break
+    list), and the records the window lost."""
+    with profile_window() as prof:
+        fn()
+        torch.cuda.synchronize()
     return sorted({name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
-                   .split("::")[-1].split()[-1] for name, _, _ in recs}), lost
+                   .split("::")[-1].split()[-1] for name, _, _ in prof.records}), prof.lost_records
 
 
 def serve_deployed(model_dir: str, dev) -> dict:
@@ -5072,13 +5081,33 @@ def serve_deployed(model_dir: str, dev) -> dict:
     out["oracle_max_logit_lag"] = ([oracle_lag(params, cfg, dev, p, body["token_ids"])
                                     for p, (_, body) in zip(PROMPTS, results)]
                                    if served else None)
+    # the same prompts through the gather path (no paged kernel), each
+    # token against the same oracle
+    gather = Engine(params, cfg, EngineConfig(paged_kernel=False), device=dev)
+    gather.start()
+    try:
+        with KernelWatch() as gwatch:
+            futs = [gather.generate_async(list(p.encode()), MAX_TOKENS) for p in PROMPTS]
+            gathered = [f.result(timeout=300)["tokens"] for f in futs]
+    finally:
+        gather.stop()
+    out["gather"] = {"launches": gwatch.launches, "plain_calls": gwatch.plain_calls,
+                     "oracle_max_logit_lag": [oracle_lag(params, cfg, dev, p, t)
+                                              for p, t in zip(PROMPTS, gathered)]}
+    lags = {"paged": max(out["oracle_max_logit_lag"] or [math.inf]),
+            "gather": max(out["gather"]["oracle_max_logit_lag"]), "gate": ORACLE_TIE_EPS}
+    out["max_lag"] = lags
+    log(f"15 served at head_dim {cfg.head_dim}: max lag below forward_full's max, "
+        f"paged {lags['paged']}, gather {lags['gather']} (gate {ORACLE_TIE_EPS})")
     out["ok"] = (served and out["leaked_pages"] == 0
                  and watch.launches == cfg.n_layers * steps > 0 and watch.plain_calls == 0
-                 and max(out["oracle_max_logit_lag"]) <= ORACLE_TIE_EPS
+                 and lags["paged"] <= ORACLE_TIE_EPS and lags["gather"] <= ORACLE_TIE_EPS
+                 and gwatch.launches == 0 and gwatch.plain_calls == 0
+                 and all(len(t) == MAX_TOKENS for t in gathered)
                  and any(TC_MARKER in n for n in names)
                  and not any(SIMT_MARKERS[0] in n for n in names)
                  and not any("merge" in n for n in names))
-    del params, engine, model
+    del params, engine, model, gather
     return out
 
 
@@ -5099,8 +5128,7 @@ PROFILE_STEPS = 3
 
 
 # a training loop of a small card workload under maybe_trace, in a process
-# of its own as a worker is: a torch.profiler session late in this one
-# loses its device records (PERF.md §7)
+# of its own as a worker is
 PROFILE_WORKER = """
 import json, os, sys, torch
 from kubeflow_tpu_torch.parallel import profiling
@@ -5119,8 +5147,9 @@ def profiling_run(trace_dir: str) -> dict:
     """``parallel.profiling.maybe_trace`` around 5 steps of a small card
     workload (a 2048² matmul) in a subprocess on the card with
     ``TPU_PROFILE_DIR`` set and ``TPU_PROFILE_STEPS=3``: steps 0-2 traced,
-    3-4 not, and the Chrome trace it writes parses and holds the three step
-    annotations and the device kernels of those steps."""
+    3-4 not, the Chrome trace it writes parses and holds the three step
+    annotations and the device kernels of those steps, and its stderr line
+    counts the trace's launch calls and no lost device record."""
     env = {k: v for k, v in os.environ.items() if k != "TORCH_DEVICE"}
     env.update(PYTHONPATH=REPO, TPU_PROFILE_DIR=trace_dir, TPU_PROFILE_STEPS=str(PROFILE_STEPS))
     r = subprocess.run([sys.executable, "-c", PROFILE_WORKER, str(PROFILE_STEPS + 2)], env=env,
@@ -5129,6 +5158,11 @@ def profiling_run(trace_dir: str) -> dict:
         return {"ok": False, "exit_code": r.returncode, "stderr_tail": r.stderr[-1500:]}
     res = json.loads(r.stdout.strip().splitlines()[-1])
     flags, path = res["traced"], res["path"]
+    counts = re.search(r"maybe_trace: .*: (\d+) launch calls, (\d+) device records lost",
+                       r.stderr)
+    calls, lost = (int(counts.group(1)), int(counts.group(2))) if counts else (None, None)
+    if counts:
+        count_capture(calls, lost)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     names = [e.get("name", "") for e in events]
@@ -5136,9 +5170,9 @@ def profiling_run(trace_dir: str) -> dict:
     kernels = [e for e in events if e.get("cat") == "kernel"]
     return {"ok": (flags == [True] * PROFILE_STEPS + [False, False]
                    and steps == [f"train#step_num={i}#" for i in range(PROFILE_STEPS)]
-                   and len(kernels) >= PROFILE_STEPS),
+                   and len(kernels) >= PROFILE_STEPS and lost == 0 and calls >= PROFILE_STEPS),
             "traced": flags, "trace_bytes": os.path.getsize(path), "step_annotations": steps,
-            "device_kernels": len(kernels)}
+            "device_kernels": len(kernels), "launch_calls": calls, "lost_records": lost}
 
 
 def pipeline_phase(dev) -> dict:
@@ -5523,18 +5557,11 @@ def tp_data_plane(params, cfg, dev, scratch: str) -> dict:
     return out
 
 
-TP_WINDOWS = 3
-
-
 def tp_attention_records(engine, cfg, dev) -> dict:
     """Decode steps of a TP 2 engine's own shards and pools (the tick's
     device work) in a profiler window: its attention records must be the
     one paged kernel, once per shard and layer, and no softmax of the
-    gather path.  Up to ``TP_WINDOWS`` windows, until one
-    passes: a late window can lose a few records (§7 of PERF.md), and one
-    that lost some passes when every paged record is there and fewer
-    records were lost than the softmaxes a gather path would have added,
-    so none could hide among them."""
+    gather path, with no record lost."""
     ec = engine.ec
     lens = [len(p) + MAX_TOKENS for p in PROMPTS] + [0] * (ec.max_slots - len(PROMPTS))
     table = torch.zeros((ec.max_slots, ec.max_pages_per_slot), dtype=torch.int32)
@@ -5555,26 +5582,23 @@ def tp_attention_records(engine, cfg, dev) -> dict:
     with torch.inference_mode():
         step()
         torch.cuda.synchronize()
-        for window in range(1, TP_WINDOWS + 1):
-            with profile_window() as prof:
-                t0 = time.perf_counter()
-                for _ in range(n):
-                    step()
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) / n * 1e3
-            recs, _, lost = window_records(prof)
-            names = [name.lower() for name, _, _ in recs]
-            paged = sum(any(m in x for m in PAGED_MARKERS) for x in names)
-            softmax = sum("softmax" in x for x in names)
-            if paged == expected and softmax == 0 and lost < TP_SHARDS * cfg.n_layers * n:
-                break
-    out = {"steps": n, "windows": window, "paged_records": paged,
+        with profile_window() as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / n * 1e3
+    names = [name.lower() for name, _, _ in prof.records]
+    paged = sum(any(m in x for m in PAGED_MARKERS) for x in names)
+    softmax = sum("softmax" in x for x in names)
+    lost = prof.lost_records
+    out = {"steps": n, "paged_records": paged,
            "paged_records_expected": expected, "softmax_records": softmax,
            "lost_records": lost,
            **device_breakdown(prof, n, wall_ms, "paged_attention", PAGED_MARKERS,
                               expected=TP_SHARDS * cfg.n_layers)}
     # a gather path adds one softmax per shard and layer
-    out["ok"] = paged == expected and softmax == 0 and lost < TP_SHARDS * cfg.n_layers * n
+    out["ok"] = paged == expected and softmax == 0 and lost == 0
     return out
 
 
@@ -6760,6 +6784,9 @@ GANG_CONDITIONS = [
 RESUME_ENV = {"TRAIN_STEPS": 4, "FAIL_AT_STEP": 3}
 # (c): the MNIST worker at MnistConfig() and the JAX worker's defaults
 MNIST_ENV = {"TRAIN_STEPS": 60, "BATCH_SIZE": 64}
+# (d): the ResNet gang's timed steps after its warm-up step: 1 (phase 12's
+# RESNET_STEPS is 2), for the script's time; its gates read the last step
+JOB_RESNET_STEPS = 1
 # (e): the DARTS trial: 4 layers, 300 search steps, seed DARTS_SEED
 DARTS_SETTINGS = {"num_layers": 4, "search_steps": 300, "random_state": DARTS_SEED}
 # (f): random search over the MNIST worker's LEARNING_RATE (the BERT
@@ -6854,7 +6881,8 @@ def jobs_manifests(tmp: str) -> list:
         command=job_command("mnist_worker"), env={k: str(v) for k, v in MNIST_ENV.items()},
         resources=JOB_GPU)})
     renv = {k: str(v) for k, v in {**RESNET_ENV, "LOCAL_DEVICES": GANG_LOCAL,
-                                   "PER_CHIP_BATCH": RESNET_B // (GANG_WORLD * GANG_LOCAL)}.items()}
+                                   "PER_CHIP_BATCH": RESNET_B // (GANG_WORLD * GANG_LOCAL),
+                                   "TRAIN_STEPS": JOB_RESNET_STEPS}.items()}
     resnet = job("PyTorchJob", "resnet-ddp", {
         rtype: ReplicaSpec(command=job_command("resnet_ddp_worker"), env=renv, resources=JOB_GPU)
         for rtype in ("Master", "Worker")})
@@ -7234,6 +7262,8 @@ def jobs_phase() -> dict:
     keys = ("bert_gang", "bert_resume", "mnist", "resnet_ddp", "darts", "mnist_lr", "tpu_refused")
     out["gates"] = {k: (out.get(k) or {}).get("ok", False) for k in keys}
     out["ok"] = all(out["gates"].values())
+    out["reduced"] = {"resnet_ddp_steps": [JOB_RESNET_STEPS, RESNET_STEPS],
+                      "why": "time: pays for phase 15's gather pass"}
     ends = {k: round(v, 1) for k, v in out.get("apply_to_end_s", {}).items()}
     log(f"22 jobs: apply to end {json.dumps(ends)} s; gang runs {gang.get('run_s')} s, "
         f"restart {gang.get('restart_s')} s, resumed_from {gang.get('resumed_from')}, "
@@ -7265,13 +7295,18 @@ def main() -> int:
 
     def phase(name, fn):
         log(f"== phase {name}")
-        t0 = time.perf_counter()
+        t0, before, leads = time.perf_counter(), dict(PROFILER), len(LEADS_MS)
         try:
             res = fn()
         except Exception:  # noqa: BLE001 — report the phase and go on
             traceback.print_exc()
             res = {"ok": False, "error": traceback.format_exc(limit=3)}
         res["seconds"] = time.perf_counter() - t0
+        # the phase's profiler captures: one that lost a device record fails it
+        res["profiler"] = {k: PROFILER[k] - before[k] for k in PROFILER}
+        res["profiler"]["least_lead_ms"] = min(LEADS_MS[leads:], default=None)
+        if res["profiler"]["lost_records"]:
+            res["ok"] = False
         report["phases"][name] = res
         log(json.dumps({name: brief(res)}, default=str))
         if not res.get("ok", False):
@@ -7533,6 +7568,10 @@ def main() -> int:
     print(json.dumps({"phase_seconds": {name: round(res["seconds"], 1)
                                         for name, res in report["phases"].items()}}),
           flush=True)
+    # every profiler capture of the run, the pods' and workers' included
+    log(f"profiler: this process's windows' least launch-to-record time "
+        f"{min(LEADS_MS, default=None)} ms (lead-in {LEAD_IN_S * 1e3:.0f} ms)")
+    print(json.dumps({"profiler": PROFILER}), flush=True)
     print(json.dumps({"kernels": report["kernels"]}), flush=True)
     print(smi, flush=True)
     if failed:

@@ -1737,9 +1737,11 @@ class Engine:
 
     def _profile_complete(self, error: Optional[str], rec) -> None:
         """TickProfiler completion hook (loop thread): size the capture's
-        artifacts and apply the store's count/byte caps."""
+        artifacts, record its launch calls and lost device records, and
+        apply the store's count/byte caps."""
         if rec is not None:
-            self.profiles.complete(rec, error=error)
+            self.profiles.complete(rec, error=error, launch_calls=self._profiler.launch_calls,
+                                   lost_records=self._profiler.lost_records)
 
     @property
     def profiler_active(self) -> bool:

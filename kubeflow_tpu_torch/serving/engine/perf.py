@@ -415,7 +415,7 @@ class ProfileStore:
         # directory another engine is still capturing into
         self._token = secrets.token_hex(4)
         # run records, oldest first: {dir, managed, ticks, requested_at,
-        # nbytes (filled at completion), state}
+        # nbytes, launch_calls, lost_records (filled at completion), state}
         self.runs: list = []
 
     def new_dir(self) -> str:
@@ -445,10 +445,13 @@ class ProfileStore:
         if rec["managed"]:
             shutil.rmtree(rec["dir"], ignore_errors=True)
 
-    def complete(self, rec: dict, error: Optional[str] = None) -> None:
-        """Capture finished (engine loop thread): size the artifacts and
+    def complete(self, rec: dict, error: Optional[str] = None, launch_calls: int = 0,
+                 lost_records: int = 0) -> None:
+        """Capture finished (engine loop thread): size the artifacts, keep
+        the capture's host launch calls and the device records it lost, and
         evict past the count/byte caps, oldest managed run first."""
         rec["nbytes"] = _dir_nbytes(rec["dir"])
+        rec["launch_calls"], rec["lost_records"] = launch_calls, lost_records
         rec["state"] = "error" if error else "complete"
         if error:
             rec["error"] = error

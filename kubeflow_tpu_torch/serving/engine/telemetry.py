@@ -736,6 +736,12 @@ class TickProfiler:
     so no kernel of the tick before the window runs inside it.  ``window``
     is the (first, last) tick of the last capture.
 
+    Each capture counts the host launch calls it bracketed and the device
+    records it lost (``launch_calls``, ``lost_records``: the port's
+    ``parallel.profiling.Capture``).  A capture that lost any still writes
+    its trace, but ends with ``last_error`` saying how many, passes that
+    error to ``on_complete``, and is not counted in ``captures``.
+
     One profiler can be active per process: a capture armed while another
     (the engine's or anyone's) is recording fails to start, and the failure
     is ``last_error`` — never a silent empty trace.  State transitions are
@@ -765,6 +771,9 @@ class TickProfiler:
         self._dir: Optional[str] = None
         self._first_tick = -1
         self.window: Optional[tuple] = None
+        # the last capture's host launch calls and device records lost
+        self.launch_calls = 0
+        self.lost_records = 0
 
     def request(self, n_ticks: int, trace_dir: str, ctx=None) -> None:
         if n_ticks <= 0:
@@ -787,8 +796,11 @@ class TickProfiler:
             n, d = self._pending
             self._pending = None
             self._remaining = n
+            self.launch_calls = self.lost_records = 0
         try:
             import torch
+
+            from ...parallel.profiling import Capture
 
             # torch.profiler sets this process-wide flag while any session
             # records (its own thread-local state does not see another
@@ -798,14 +810,9 @@ class TickProfiler:
                 raise RuntimeError("another torch.profiler session is active "
                                    "in this process")
             os.makedirs(d, exist_ok=True)
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=acts)
-            if self._sync is not None:
-                self._sync()  # the previous tick's kernels stay outside
-            prof.start()
-            self._prof, self._dir, self._first_tick = prof, d, tick
+            # the sync before start keeps the previous tick's kernels outside
+            cap = Capture(sync=self._sync or (lambda: None)).start()
+            self._prof, self._dir, self._first_tick = cap, d, tick
         except Exception as e:  # noqa: BLE001 — profiling is best-effort
             self.last_error = f"{type(e).__name__}: {e}"
             with self._lock:
@@ -835,16 +842,18 @@ class TickProfiler:
 
     def _finish(self, tick: int) -> None:
         err = None
-        prof, self._prof = self._prof, None
+        cap, self._prof = self._prof, None
         try:
-            if self._sync is not None:
-                self._sync()  # the window's last kernels finish first
-            prof.stop()
+            cap.stop()  # after the sync: the window's last kernels finish first
+            self.launch_calls, self.lost_records = cap.launch_calls, cap.lost_records
             path = os.path.join(self._dir, f"trace-{os.getpid()}-{tick}.json")
-            prof.export_chrome_trace(path)
+            cap.export(path)
             self.last_trace = path
             self.window = (self._first_tick, tick)
-            self.captures += 1
+            if cap.error is None:
+                self.captures += 1
+            else:
+                err = self.last_error = cap.error
         except Exception as e:  # noqa: BLE001
             err = self.last_error = f"{type(e).__name__}: {e}"
         finally:

@@ -155,11 +155,11 @@ def test_paged_attention_cuda_core_kernel_wide_heads(card, head_dim, K):
     table = torch.randint(1, P, (len(SEQ_LENS), MP), generator=g, dtype=torch.int32).to(card)
     lens = torch.tensor(SEQ_LENS, dtype=torch.int32, device=card)
     before = PA.paged_attention.launches
-    out, names, calls = _device_kernels(
+    out, names = _device_kernels(
         lambda: PA.paged_attention(q, k_pool, v_pool, table, lens, ps))
     ref = PA.paged_attention_plain(q, k_pool, v_pool, table, lens, ps)
     torch.cuda.synchronize()
-    assert PA.paged_attention.launches == before + calls
+    assert PA.paged_attention.launches == before + 1
     assert [n for n in names if "paged" in n] == [n for n in names if "paged_split_simt" in n]
     assert len([n for n in names if "paged" in n]) == 1
     torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7, atol=1e-3)
@@ -167,28 +167,18 @@ def test_paged_attention_cuda_core_kernel_wide_heads(card, head_dim, K):
         assert torch.all(out[1] == 0)  # the idle slot
 
 
-def _device_kernels(fn, tries: int = 3):
+def _device_kernels(fn):
     """(fn's result, the names of the paged and flash device kernels it
-    ran, the calls of fn made), from a torch.profiler window around one
-    call.  A window can lose device records late in a process, so a window
-    in which a kernel launch left no record is dropped and fn called again
-    in a new one, up to ``tries`` windows."""
-    from torch.profiler import ProfilerActivity, profile
+    ran), from one profiler capture around one call (the port's
+    ``parallel.profiling.Capture``), which must keep a device record for
+    every launch it brackets."""
+    from kubeflow_tpu_torch.parallel.profiling import Capture
 
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    for calls in range(1, tries + 1):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-        ev = list(prof.profiler.kineto_results.events())
-        ids = {e.correlation_id() for e in ev
-               if e.device_type() == cpu and e.name().startswith(("cudaLaunch", "cuLaunch"))}
-        recs = [e for e in ev if e.device_type() == cuda and e.correlation_id() in ids]
-        if ids <= {e.correlation_id() for e in recs}:
-            break
-    names = [e.name() for e in recs if "paged" in e.name() or "flash" in e.name()]
-    return out, names, calls
+    cap = Capture().start()
+    out = fn()
+    cap.stop()
+    assert cap.launch_calls > 0 and cap.lost_records == 0, cap.error
+    return out, [n for n, _, _ in cap.records if "paged" in n or "flash" in n]
 
 
 @pytest.mark.cuda
@@ -214,7 +204,7 @@ def test_paged_attention_tensor_cores_at_hd192(card, kind, K, page):
     k_pool, v_pool = pool(), pool()
     table = torch.randint(1, P, (len(lens), MP), generator=g, dtype=torch.int32).to(card)
     seq = torch.tensor(lens, dtype=torch.int32, device=card)
-    out, names, _ = _device_kernels(
+    out, names = _device_kernels(
         lambda: PA.paged_attention(q, k_pool, v_pool, table, seq, page))
     ref = PA.paged_attention_plain(q, k_pool, v_pool, table, seq, page)
     torch.cuda.synchronize()
@@ -263,7 +253,7 @@ def test_paged_attention_is_one_device_kernel_per_call(card):
     def three():
         return [PA.paged_attention(q, k_pool, v_pool, table, lens, ps) for _ in range(3)]
 
-    _, names, _ = _device_kernels(three)
+    _, names = _device_kernels(three)
     assert len(names) == 3 and all("paged_split_tc" in n for n in names), names
     assert not any("merge" in n for n in names)
 
